@@ -1,0 +1,97 @@
+"""Public decode entry point of the PyTorch port.
+
+``decode(data, device="cuda")`` decodes a VarDCT still.  Its host half,
+``prepare``, is the container, header and TOC walk of
+``jxl_coder_tpu.api.decode`` (``api.py:505-542``), the host parse
+(``vardct.parse``) and the family packing (``vardct.inputs.pack``),
+carried onto the named device; then the frame reconstruction runs there
+(``vardct.frame.VarDCTFrame``).
+Streams outside the slice raise NotImplementedError naming the route
+they need; nothing falls back to the host decoder.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+from jxl_coder_tpu.api import (BasicInfo, InvalidJXLError,
+                               _check_decode_size, apply_orientation,
+                               basic_info)
+from jxl_coder_tpu.bitstream import container as _container
+from jxl_coder_tpu.bitstream.frame_header import (Encoding,
+                                                  read_frame_header,
+                                                  read_toc)
+from jxl_coder_tpu.bitstream.headers import ImageHeader, read_image_header
+from jxl_coder_tpu.bitstream.reader import BitReader, BitstreamError
+from jxl_coder_tpu.jpeg import transcode as _jpeg_tc
+
+from ._device import resolve_device
+from .vardct.frame import VarDCTFrame
+from .vardct.inputs import FrameConfig, FrameInputs, from_prepared, pack
+from .vardct.parse import parse_frame
+
+
+def _read_frame(data: bytes):
+    """Container + image header + the frame to decode -> (codestream,
+    header, frame header, toc)."""
+    if _jpeg_tc.is_constructed(data):
+        raise NotImplementedError(
+            "JPEG reconstruction container: decode it with "
+            "jxl_coder_tpu.api.decode (the port has no JPEG route)")
+    c = _container.extract_codestream(data)
+    if c.jpeg_reconstruction_data is not None:
+        raise NotImplementedError(
+            "recompressed JPEG (jbrd): decode it with jxl_coder_tpu.api."
+            "decode (the port has no JPEG route)")
+    cs = c.codestream
+    br = BitReader(cs)
+    hdr = read_image_header(br)
+    _check_decode_size(hdr)
+    if hdr.metadata.animation is not None:
+        raise NotImplementedError(
+            "animation: decode it with jxl_coder_tpu.api.decode (the "
+            "port has no animation route)")
+    fh = read_frame_header(br, hdr)
+    if fh.frame_type == 1:
+        raise NotImplementedError(
+            "LF (progressive DC) frame: not in the port's decode slice")
+    if fh.frame_type == 2:
+        raise NotImplementedError(
+            "reference-only frame (patch source): not in the port's "
+            "decode slice")
+    if fh.encoding == Encoding.MODULAR:
+        raise NotImplementedError(
+            "Modular frame: decode it with jxl_coder_tpu.api.decode (the "
+            "port has no Modular route)")
+    ng, ndc = fh.counts(hdr)
+    n = 1 if (ng == 1 and fh.passes.num_passes == 1) else (
+        2 + ndc + ng * fh.passes.num_passes)
+    toc = read_toc(br, n)
+    return cs, hdr, fh, toc
+
+
+def prepare(data: bytes, device="cuda"
+            ) -> Tuple[FrameConfig, FrameInputs, ImageHeader]:
+    """The host half of decode: bytes -> (the frame's configuration, its
+    inputs on `device`, the image header)."""
+    dev = resolve_device(device)
+    try:
+        cs, hdr, fh, toc = _read_frame(data)
+        state = parse_frame(cs, hdr, fh, toc)
+    except BitstreamError as e:
+        raise InvalidJXLError(str(e)) from e
+    cfg, inputs = from_prepared(*pack(state), dev)
+    return cfg, inputs, hdr
+
+
+def decode(data: bytes, device="cuda") -> Tuple[np.ndarray, BasicInfo]:
+    """Decode a VarDCT still to (pixels, BasicInfo); pixels are (H, W, 3)
+    uint8, or uint16 above 8 bits per sample, as jxl_coder_tpu.api.decode
+    returns them.  The device half runs on `device` ("cuda" raises when
+    no card is present)."""
+    cfg, inputs, hdr = prepare(data, device)
+    pixels = VarDCTFrame(cfg)(inputs).cpu().numpy()
+    return (apply_orientation(pixels, hdr.metadata.orientation),
+            basic_info(data))

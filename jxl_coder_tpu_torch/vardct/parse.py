@@ -1,0 +1,164 @@
+"""Host parse of one VarDCT frame into the device-path state.
+
+The parse-only branch of ``jxl_coder_tpu.vardct.dec_real.
+decode_vardct_frame`` (``dec_real.py:1630-1866``), built from the JAX
+package's readers, which are numpy and C++ and import no JAX: LF
+global, LF groups, DC planes with adaptive smoothing, HF global, and
+the pass groups (multi-pass coefficients accumulated) concatenated into
+one frame-global ``BlockArrays``.  It returns the same state dict, the
+input of ``tpu_full.prepare_exec``.
+
+Unlike the reference it never asks whether a JAX device is attached and
+applies no frame-size floor.  A frame the port's device path does not
+cover raises NotImplementedError naming the feature.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import os
+
+import numpy as np
+
+from jxl_coder_tpu.bitstream.reader import BitReader, BitstreamError
+from jxl_coder_tpu.vardct.dec_real import (BlockArrays, _is_srgb_output,
+                                           _lf_group_view,
+                                           adaptive_dc_smoothing,
+                                           compute_dc_planes, read_hf_global,
+                                           read_lf_global, read_lf_group,
+                                           read_pass_group)
+
+_LF_GROUP_BLOCKS = 256      # LF groups: 2048 px
+_GROUP_BLOCKS = 32          # AC groups: 256 px
+
+# frame-header flags (dec_real.read_lf_global)
+_NOISE, _PATCHES, _SPLINES, _DC_FRAME, _SKIP_SMOOTHING = (
+    0x1, 0x2, 0x10, 0x20, 0x80)
+
+
+def check_supported(hdr, fh) -> None:
+    """Raise NotImplementedError for a frame outside the port's slice
+    (the complement of dec_real's `_post_free` device condition)."""
+    m = hdr.metadata
+    ce = m.colour_encoding
+    unsupported = [
+        (m.extra_channels, "extra channels"),
+        (fh.flags & _DC_FRAME, "a DC frame (progressive LF)"),
+        (fh.flags & _PATCHES, "patches"),
+        (fh.flags & _SPLINES, "splines"),
+        (fh.flags & _NOISE, "noise"),
+        (fh.upsampling != 1, f"{fh.upsampling}x upsampling"),
+        (fh.do_ycbcr, "YCbCr (JPEG recompression, chroma subsampling)"),
+        (ce is not None and ce.have_gamma, "a gamma transfer function"),
+        (not _is_srgb_output(ce), "a non-sRGB output colour encoding"),
+    ]
+    for hit, feature in unsupported:
+        if hit:
+            raise NotImplementedError(
+                f"VarDCT frame with {feature}: not in the port's decode "
+                f"slice (ROADMAP, jxl_coder_tpu_torch)")
+
+
+def parse_frame(cs: bytes, hdr, fh, toc) -> dict:
+    """Entropy-decode one VarDCT frame -> the state dict of
+    decode_vardct_frame(parse_only=True)."""
+    check_supported(hdr, fh)
+    w, h = fh.coded_size(hdr)
+    xs_b, ys_b = -(-w // 8), -(-h // 8)
+    ng, ndc = fh.counts(hdr)
+    npasses = fh.passes.num_passes
+    pass_shift = list(fh.passes.shift) + [0]
+    single = len(toc.entries) == 1
+
+    if single:
+        s = toc.section(0)
+        br = BitReader(cs[s.offset:s.offset + s.size])
+
+        def section(_idx):
+            return br
+    else:
+        def section(idx):
+            s = toc.section(idx)
+            return BitReader(cs[s.offset:s.offset + s.size])
+
+    lf = read_lf_global(section(0), fh, hdr, w, h,
+                        allow_ec_failure=not single)
+
+    gx_lf = -(-xs_b // _LF_GROUP_BLOCKS)
+    lgs = []
+    for gi in range(ndc):
+        lx = (gi % gx_lf) * _LF_GROUP_BLOCKS
+        ly = (gi // gx_lf) * _LF_GROUP_BLOCKS
+        gw = min(_LF_GROUP_BLOCKS, xs_b - lx)
+        gh = min(_LF_GROUP_BLOCKS, ys_b - ly)
+        lgs.append((lx, ly, read_lf_group(section(1 + gi), lf, gw, gh,
+                                          gi, ndc)))
+
+    hf = read_hf_global(section(1 + ndc), lf, ng, npasses, ndc)
+    histo_bits = ((hf.num_histograms - 1).bit_length()
+                  if hf.num_histograms > 1 else 0)
+
+    qf_map = np.zeros((ys_b, xs_b), np.int64)
+    sharp_map = np.zeros((ys_b, xs_b), np.int64)
+    ytox_glob = np.zeros((-(-ys_b // 8), -(-xs_b // 8)), np.float64)
+    ytob_glob = np.zeros_like(ytox_glob)
+    dc_glob = {c: np.zeros((ys_b, xs_b)) for c in range(3)}
+    for lx, ly, lg in lgs:
+        gh_, gw_ = lg.qf_map.shape
+        qf_map[ly:ly + gh_, lx:lx + gw_] = lg.qf_map
+        sharp_map[ly:ly + gh_, lx:lx + gw_] = lg.sharp_map
+        th_, tw_ = lg.ytox.shape
+        ytox_glob[ly // 8:ly // 8 + th_, lx // 8:lx // 8 + tw_] = lg.ytox
+        ytob_glob[ly // 8:ly // 8 + th_, lx // 8:lx // 8 + tw_] = lg.ytob
+        dcp = compute_dc_planes(lf, lg)
+        for c in range(3):
+            dc_glob[c][ly:ly + gh_, lx:lx + gw_] = dcp[c]
+    if not fh.flags & _SKIP_SMOOTHING:
+        # the smoothing gate uses the nominal DC step (dec_real.py:1719)
+        igs0 = lf.inv_global_scale
+        steps = [lf.dcq[c] * igs0 / lf.quant_dc for c in range(3)]
+        dc_glob = adaptive_dc_smoothing(dc_glob, dict(enumerate(steps)))
+
+    gx = -(-xs_b // _GROUP_BLOCKS)
+
+    def decode_group(gi):
+        ax = (gi % gx) * _GROUP_BLOCKS
+        ay = (gi // gx) * _GROUP_BLOCKS
+        gw = min(_GROUP_BLOCKS, xs_b - ax)
+        gh = min(_GROUP_BLOCKS, ys_b - ay)
+        lx, ly, lg = lgs[(ay // _LF_GROUP_BLOCKS) * gx_lf
+                         + ax // _LF_GROUP_BLOCKS]
+        sub = _lf_group_view(lg, ax - lx, ay - ly, gw, gh)
+        dc_q = np.stack([sub.dc.channels[1].data, sub.dc.channels[0].data,
+                         sub.dc.channels[2].data])
+        blocks = None
+        for p in range(npasses):
+            br_g = section(2 + ndc + p * ng + gi)
+            histo_index = br_g.u(histo_bits) if histo_bits else 0
+            blocks_p = read_pass_group(br_g, lf, hf, sub, gw, gh, p,
+                                       histo_index, dc_q, as_arrays=True)
+            if blocks is None:
+                blocks = blocks_p
+                if pass_shift[0]:
+                    blocks.coeffs = blocks.coeffs.astype(np.int64)
+                    blocks.coeffs <<= pass_shift[0]
+            else:
+                blocks.accumulate_pass(blocks_p, pass_shift[p])
+        return ax, ay, blocks
+
+    if single or ng == 1:
+        groups = [decode_group(gi) for gi in range(ng)]
+    else:
+        # groups are independent; the native entropy loops release the
+        # GIL, so threads decode them on all cores
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=min(ng, os.cpu_count() or 4)) as ex:
+            groups = list(ex.map(decode_group, range(ng)))
+    if not groups:
+        raise BitstreamError("VarDCT frame without AC groups")
+
+    return dict(
+        lf=lf, fh=fh, qf_map=qf_map, sharp_map=sharp_map,
+        ytox_glob=ytox_glob, ytob_glob=ytob_glob, dc_glob=dc_glob,
+        bits=hdr.metadata.bit_depth.bits_per_sample, h=h, w=w,
+        blocks_glob=BlockArrays.concat(groups))
