@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's VarDCT still decode on one CUDA card.
+"""Drive the PyTorch port's VarDCT still decode and its round-1 VarDCT
+codec on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -19,7 +20,18 @@ prints no result):
      kernel's launch counter > 0;
   6. timings: the device half (wall time and device-busy time) and the
      whole decode at 4K, and each kernel's device time against its
-     twin's at the main path's shapes.
+     twin's at the main path's shapes;
+  7. the round-1 codec (jxl_coder_tpu_torch.codec): FHD, a ragged sharp
+     frame, a 16-bit frame and decoding speeds 2 and 4 encoded on the
+     card (its quantised integers against the CPU encode's), each stream
+     parsed once and its device half run on the card, counted (fused
+     kernels 5 and 6), against the port's plain path on the CPU; then
+     kernels 5 and 6 against their twins on the FHD arrays;
+  8. the real-format fused filter entry points (kernels 3 and 4) on the
+     4K synthesised planes, counted, against their twins and against
+     the three-launch chain of csrc/filters.cu;
+  9. timings at 4K: the round-1 reconstruct_srgb8 and kernels 3-6 each
+     against its twin, and kernels 3 and 4 against the chain.
 The last two lines are the card's name and power limit and
 {"ok": true, "device": {...}}; the line before them lists the kernels.
 """
@@ -31,6 +43,7 @@ import json
 import os
 import statistics
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 import sys
 import tempfile
 import time
@@ -40,8 +53,10 @@ sys.modules["jax"] = None    # the port runs without JAX; so does this script
 import numpy as np
 import torch
 
-from jxl_coder_tpu_torch import _build, api, reference
+from jxl_coder_tpu_torch import _build, api, codec, reference
 from jxl_coder_tpu_torch.vardct import color, filters, inputs, synth
+from jxl_coder_tpu_torch.vardct import fused_filters as FF
+from jxl_coder_tpu_torch.vardct import pipeline as LP
 from jxl_coder_tpu_torch.vardct.frame import VarDCTFrame
 from jxl_coder_tpu_torch.vardct.parse import parse_frame
 from port_fixtures import bench_frame, sharp_frame, synthetic_family
@@ -60,7 +75,22 @@ KERNELS = {
                 replaces="jxl_coder_tpu/vardct/filters_pallas.py:751"),
     "xyb_to_srgb": dict(fn=color.xyb_to_srgb, source="jxl_coder_tpu_torch/csrc/filters.cu",
                         replaces="jxl_coder_tpu/vardct/filters_pallas.py:751"),
+    "fused_real_filters": dict(fn=FF.fused_real_filters,
+                               source="jxl_coder_tpu_torch/csrc/fused_filters.cu",
+                               replaces="jxl_coder_tpu/vardct/filters_pallas.py:588"),
+    "fused_real_gab_epf1": dict(fn=FF.fused_real_gab_epf1,
+                                source="jxl_coder_tpu_torch/csrc/fused_filters.cu",
+                                replaces="jxl_coder_tpu/vardct/filters_pallas.py:794"),
+    "fused_gab_epf": dict(fn=FF.fused_gab_epf, source="jxl_coder_tpu_torch/csrc/fused_filters.cu",
+                          replaces="jxl_coder_tpu/vardct/filters_pallas.py:80"),
+    "fused_filters2": dict(fn=FF.fused_filters2, source="jxl_coder_tpu_torch/csrc/fused_filters.cu",
+                           replaces="jxl_coder_tpu/vardct/filters_pallas.py:190"),
 }
+# the round-1 encoder's sources: a change to any of them re-encodes
+LEGACY_ENCODER = [sys.modules[m].__file__ for m in (
+    "jxl_coder_tpu_torch.codec", "jxl_coder_tpu_torch.vardct.pipeline",
+    "jxl_coder_tpu_torch.vardct.dct", "jxl_coder_tpu_torch.vardct.xyb",
+    "jxl_coder_tpu_torch.ops.color", "jxl_coder_tpu_torch.ops.fp")]
 ERR = {k: 0.0 for k in KERNELS}
 
 
@@ -70,31 +100,46 @@ def smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def stream(img: np.ndarray, distance: float, effort: int,
-           bits16: bool = False) -> bytes:
+def cached(img: np.ndarray, params: str, sources, encode) -> bytes:
+    """encode() of img, cached in the temp directory under the image, the
+    parameters and the encoder's sources."""
     h, w, _ = img.shape
     key = hashlib.sha256(img.tobytes())
-    key.update(f"{img.shape},{distance},{effort},{bits16}".encode())
-    # the encoder's own source is part of the key
-    with open(sys.modules[reference.encode_vardct.__module__].__file__,
-              "rb") as f:
-        key.update(f.read())
+    key.update(f"{img.shape},{img.dtype},{params}".encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            key.update(f.read())
     path = os.path.join(tempfile.gettempdir(),
                         f"jxl_coder_tpu_torch_{key.hexdigest()[:16]}.jxl")
     if os.path.exists(path):
         with open(path, "rb") as f:
             return f.read()
     t0 = time.perf_counter()
-    # 8-bit input signalled at 16 bits: the 16-bit input path of the
-    # encoder needs JAX (ops.color), the 16-bit output path does not
-    data = reference.encode_vardct(img, distance=distance, effort=effort,
-                                   bit_depth=16 if bits16 else None)
-    print(f"encoded {w}x{h} d{distance} e{effort}: {len(data)} bytes in "
+    data = encode()
+    print(f"encoded {w}x{h} {params}: {len(data)} bytes in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     with open(path + ".tmp", "wb") as f:
         f.write(data)
     os.replace(path + ".tmp", path)
     return data
+
+
+def stream(img: np.ndarray, distance: float, effort: int,
+           bits16: bool = False) -> bytes:
+    # 8-bit input signalled at 16 bits: the 16-bit input path of the
+    # encoder needs JAX (ops.color), the 16-bit output path does not
+    return cached(img, f"d{distance} e{effort} bits16 {bits16}",
+                  [sys.modules[reference.encode_vardct.__module__].__file__],
+                  lambda: reference.encode_vardct(
+                      img, distance=distance, effort=effort,
+                      bit_depth=16 if bits16 else None))
+
+
+def legacy_stream(img: np.ndarray, distance: float, speed: int) -> bytes:
+    """A round-1 stream from the port's own encoder, on the card."""
+    return cached(img, f"round-1 d{distance} speed {speed}", LEGACY_ENCODER,
+                  lambda: codec.encode_vardct_still(
+                      img, distance, decoding_speed=speed, device="cuda"))
 
 
 def prepared(data: bytes, device):
@@ -125,6 +170,34 @@ def note_err(name: str, err: float, tol: float, what: str) -> None:
     if not err <= tol:
         raise AssertionError(f"{name} disagrees with its twin on {what}: "
                              f"{err} > {tol}")
+
+
+def drive(what: str, fn, expect):
+    """Run fn() with every kernel's launch count at 0; returns its result
+    and the counts of the kernels in `expect`, each of which it must
+    have launched."""
+    for spec in KERNELS.values():
+        spec["fn"].launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: KERNELS[k]["fn"].launches for k in expect}
+    print(f"{what} launches: {counts}", flush=True)
+    for k, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched by {what}")
+    return out, counts
+
+
+def note_codes(name: str, got: torch.Tensor, ref: torch.Tensor, bits16: bool,
+               what: str) -> None:
+    """uint8 within 1 code on < 0.1% of values; uint16 within U16_TOL."""
+    d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+    frac = (d > 0).float().mean().item()
+    note_err(name, d.max().item(), U16_TOL if bits16 else 1,
+             f"{what} (differing share {frac:.2g})")
+    if not bits16 and frac >= 1e-3:
+        raise AssertionError(f"{name}: u8 output differs on {frac:.3g} of "
+                             f"values ({what})")
 
 
 def check_synth(cfg, inp, label: str) -> None:
@@ -189,49 +262,252 @@ def check_filters(planes, sigma, cfg, label: str) -> None:
                                      f"pixels ({label})")
 
 
-def device_rows(fn, runs: int):
+def device_rows(fn, runs: int, tries: int = 5):
     """torch.profiler over `runs` warm calls of fn: [(device us, calls,
-    kernel name)] for the device-side events, and the CUDA-event window
-    in ms."""
+    kernel name)] for the device-side events, or None.  Late in a long
+    process the profiler drops kernel records (4 calls of 10 seen, or
+    none at all), so a profile in which some kernel's count is not a
+    multiple of `runs` is taken again, up to `tries` times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(runs):
-            fn()
-        e.record()
-        e.synchronize()
-    rows = [(ev.self_device_time_total, ev.count, ev.key)
-            for ev in prof.key_averages()
-            if str(ev.device_type).endswith("CUDA")
-            and ev.self_device_time_total > 0]
-    if not rows:
-        raise RuntimeError("the profiler saw no device time")
-    return rows, s.elapsed_time(e)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(ev.self_device_time_total, ev.count, ev.key)
+                for ev in prof.key_averages()
+                if str(ev.device_type).endswith("CUDA")
+                and ev.self_device_time_total > 0]
+        if rows and all(r[1] % runs == 0 for r in rows):
+            return rows
+        print(f"the profiler saw {sorted({r[1] for r in rows})} calls per "
+              f"kernel over {runs} runs; profiling again", flush=True)
+    return None
 
 
-def device_ms(fn, runs: int = REPS) -> float:
-    """Device milliseconds per call of fn: every kernel and copy it
-    launches, without the host time between them."""
-    rows, _ = device_rows(fn, runs)
-    return sum(r[0] for r in rows) / 1e3 / runs
+def device_ms(fn, n: int = 50) -> float:
+    """Device milliseconds per call of fn.  CUDA events around n
+    back-to-back calls time the card's own work (a few us between
+    launches included) when the host queues the calls in under 0.8 of
+    that time; otherwise (short kernels, twins of many small ops) the
+    profiler's device-busy time, and where no profile is whole either,
+    the event time as an upper bound, said so in the output."""
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    s.record()
+    for _ in range(n):
+        fn()
+    e.record()
+    queued = (time.perf_counter() - t0) * 1e3
+    e.synchronize()
+    total = s.elapsed_time(e)
+    if queued < 0.8 * total:
+        return total / n
+    rows = device_rows(fn, REPS)
+    if rows is not None:
+        return sum(r[0] for r in rows) / 1e3 / REPS
+    print(f"  (host-bound and no whole profile: {total / n:.3f} ms is an "
+          f"upper bound)", flush=True)
+    return total / n
 
 
 def profile_stage(frame, inp, runs: int = 5) -> float:
     """Device-busy ms per warm stage run (every kernel and copy, without
     the host time between them); prints the time by kernel."""
-    rows, window = device_rows(lambda: frame(inp), runs)
+    rows = device_rows(lambda: frame(inp), runs)
+    if rows is None:
+        return device_ms(lambda: frame(inp))
     busy = sum(r[0] for r in rows) / 1e3 / runs
-    print(f"profile 4k stage: device busy {busy:.3f} ms per run "
-          f"(profiled window {window / runs:.3f} ms per run)", flush=True)
+    print(f"profile 4k stage: device busy {busy:.3f} ms per run", flush=True)
     for us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"  {us / 1e3 / runs:8.3f} ms/run  {count // runs:4d} "
               f"calls/run  {key[:90]}", flush=True)
     return busy
+
+
+def check_legacy_kernels(img: torch.Tensor, inv: torch.Tensor,
+                         label: str) -> None:
+    """Kernels 5 and 6 against their twins on one frame's dequantised
+    XYB planes and per-pixel inverse sigma: the padded JAX-interface
+    entry points and the unpadded form the pipeline calls."""
+    padded, inv_p = LP.pad_rows(img, FF.PAD), LP.pad_rows(inv, FF.PAD)
+    stacked = torch.cat([padded, inv_p[None]])
+    note_err("fused_gab_epf", (FF.fused_gab_epf(stacked)
+                               - FF.fused_gab_epf_plain(stacked)).abs().max().item(),
+             FILTER_TOL, f"{label} padded")
+    note_err("fused_gab_epf", (FF.legacy_filters(img, inv, True, True, False)
+                               - FF.legacy_filters_plain(img, inv, True, True, False)
+                               ).abs().max().item(), FILTER_TOL, f"{label} unpadded")
+    note_codes("fused_filters2", FF.fused_filters2(padded, inv_p, True),
+               FF.fused_filters2_plain(padded, inv_p, True), False,
+               f"{label} padded sRGB8")
+    for gab, epf in ((True, True), (True, False), (False, True), (False, False)):
+        note_codes("fused_filters2", FF.legacy_filters(img, inv, gab, epf, True),
+                   FF.legacy_filters_plain(img, inv, gab, epf, True), False,
+                   f"{label} unpadded gab {gab} epf {epf} sRGB8")
+
+
+def legacy_codec(dev) -> dict:
+    """Phase 7: the round-1 codec through jxl_coder_tpu_torch.codec."""
+    frames = {  # label: (image, distance, decoding speed)
+        "fhd_d1.0": (bench_frame(1080, 1920), 1.0, 0),
+        "sharp_d1.0": (sharp_frame(517, 771), 1.0, 0),
+        "16bit_d1.0": (bench_frame(480, 720).astype(np.uint16) * 257, 1.0, 0),
+        "speed2_d1.0": (bench_frame(256, 384), 1.0, 2),
+        "speed4_d1.0": (bench_frame(256, 384), 1.0, 4)}
+    parsed = {}
+    for label, (img, d, speed) in frames.items():
+        # the card's quantised integers against the CPU encode's
+        card_q = codec.quantize_still(img, d, dev)
+        host_q = codec.quantize_still(img, d, "cpu")
+        for name, a, b in zip(("AC", "DC"), card_q, host_q):
+            diff = (a.cpu().long() - b.long()).abs()
+            print(f"legacy {label}: quantised {name} card vs CPU: differing "
+                  f"share {(diff > 0).double().mean().item():.3g}, max "
+                  f"{diff.max().item()}", flush=True)
+        data = legacy_stream(img, d, speed)
+        t0 = time.perf_counter()
+        cs, hdr, fh, toc = api._read_frame(data)
+        parsed[label] = (img, codec.read_vardct_still(cs, hdr, fh, toc), hdr, fh)
+        print(f"legacy {label}: {len(data)} bytes, gab {fh.restoration_filter.gab} "
+              f"epf_iters {fh.restoration_filter.epf_iters} bits "
+              f"{hdr.metadata.bit_depth.bits_per_sample}, host parse "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    outs, counts = drive(
+        "round-1 codec (codec.reconstruct_vardct_still on the card)",
+        lambda: {label: codec.reconstruct_vardct_still(fd, hdr, fh, "cuda")
+                 for label, (_img, fd, hdr, fh) in parsed.items()},
+        ("fused_gab_epf", "fused_filters2"))
+    for label, (img, fd, hdr, fh) in parsed.items():
+        ref = codec.reconstruct_vardct_still(fd, hdr, fh, "cpu")
+        got = outs[label]
+        if got.shape != img.shape or got.dtype != img.dtype or \
+                got.shape != ref.shape or got.dtype != ref.dtype:
+            raise AssertionError(f"legacy {label}: {got.shape} {got.dtype}, "
+                                 f"CPU {ref.shape} {ref.dtype}, source "
+                                 f"{img.shape} {img.dtype}")
+        d = np.abs(got.astype(np.int64) - ref.astype(np.int64))
+        frac = float((d > 0).mean())
+        src = np.abs(got.astype(np.float64) - img).mean()
+        print(f"legacy decode {label}: {got.dtype} vs the port's CPU path max "
+              f"{d.max()} code, differing share {frac:.3g}; mean |decoded - "
+              f"source| {src:.3f} codes", flush=True)
+        if got.dtype == np.uint16:
+            if d.max() > U16_TOL:
+                raise AssertionError(f"legacy {label}: outside {U16_TOL} codes")
+        elif d.max() > 1 or frac >= 1e-3:
+            raise AssertionError(f"legacy {label}: outside 1 code / 0.1%")
+    # kernels 5 and 6 against their twins on the FHD arrays
+    a = LP.inputs_from_frame_data(parsed["fhd_d1.0"][1], dev)
+    _, ny, nx, _, _ = a.ac.shape
+    fx, fb = LP.expand_cfl(a.cfl_x, a.cfl_b, ny, nx)
+    check_legacy_kernels(LP.dequant_idct(a.ac, a.dc, a.qf, fx, fb, a.distance),
+                         LP.inv_sigma_map(a.qf, a.distance), "fhd")
+    return counts
+
+
+REAL_OUTS = {"f32": (False, 8), "u8": (True, 8), "u16": (True, 16)}
+
+
+def real_fused(xyb: torch.Tensor, sigma: torch.Tensor, cfg) -> dict:
+    """Phase 8: kernels 3 and 4 through their entry points on the 4K
+    synthesised planes row-padded by 4, against their twins and the
+    three-launch chain of csrc/filters.cu."""
+    xp = LP.pad_rows(xyb, FF.PAD)
+    inv1 = filters.epf_inv(sigma, 1.0)
+
+    def run():
+        outs = {}
+        for it in (1, 2):
+            for kind, (to_srgb, bits) in REAL_OUTS.items():
+                outs["fused_real_filters", it, kind] = FF.fused_real_filters(
+                    xp, inv1, it, cfg.pass2_scale, to_srgb=to_srgb, bits=bits)
+        for kind in ("f32", "u8"):
+            outs["fused_real_gab_epf1", 1, kind] = FF.fused_real_gab_epf1(
+                xp, inv1, kind == "u8")
+        return outs
+
+    outs, counts = drive("the real-format fused filter entry points", run,
+                         ("fused_real_filters", "fused_real_gab_epf1"))
+    for (name, it, kind), got in outs.items():
+        if name == "fused_real_filters":
+            ref = FF.fused_real_filters_plain(xp, inv1, it, cfg.pass2_scale,
+                                              to_srgb=kind != "f32",
+                                              bits=REAL_OUTS[kind][1])
+        else:
+            ref = FF.fused_real_gab_epf1_plain(xp, inv1, kind == "u8")
+        what = f"4k epf_iters {it} {kind}"
+        if kind == "f32":
+            note_err(name, (got - ref).abs().max().item(), FILTER_TOL, what)
+        else:
+            note_codes(name, got, ref, kind == "u16", what)
+    gabw = (FF.DEFAULT_GW1, FF.DEFAULT_GW2) * 3
+    for it in (1, 2):
+        chain = filters.filter_chain(xyb, sigma, True, it, gabw,
+                                     cfg.pass0_scale, cfg.pass2_scale)
+        note_err("fused_real_filters",
+                 (outs["fused_real_filters", it, "f32"] - chain).abs().max().item(),
+                 FILTER_TOL, f"4k epf_iters {it} vs the filters.cu chain")
+        if it == 1:
+            inner = (outs["fused_real_gab_epf1", 1, "f32"] - chain)[:, 2:-2, 2:-2]
+            note_err("fused_real_gab_epf1", inner.abs().max().item(), FILTER_TOL,
+                     "4k vs the filters.cu chain, 2 px from the border inward")
+    return counts
+
+
+def fused_timings(dev, xyb, sigma, cfg, card: str, ms: dict) -> None:
+    """Phase 9: device ms at 4K of the round-1 reconstruct_srgb8 and of
+    kernels 3-6, each against its twin; kernels 3 and 4 also against
+    filters.cu's gaborish + EPF1 (+ EPF2) + sRGB8 launches."""
+    ac, dc, qf = codec.quantize_still(bench_frame(2160, 3840), 1.0, dev)
+    ny, nx = qf.shape
+    tiles = (-(-ny // 8), -(-nx // 8))
+    args = (ac.to(torch.int16), dc, qf,
+            torch.zeros(tiles, dtype=torch.int32, device=dev),
+            torch.full(tiles, 64, dtype=torch.int32, device=dev), 1.0)
+    print(f"legacy reconstruct_srgb8 at 4k (dequant, IDCT, kernel 6): device "
+          f"{device_ms(lambda: LP.reconstruct_srgb8(*args)):.3f} ms "
+          f"[{card}]", flush=True)
+    fx, fb = LP.expand_cfl(args[3], args[4], ny, nx)
+    img = LP.dequant_idct(args[0], dc, qf, fx, fb, 1.0)
+    inv = LP.inv_sigma_map(qf, 1.0)
+    for name, srgb in (("fused_gab_epf", False), ("fused_filters2", True)):
+        ms[name] = (device_ms(lambda: FF.legacy_filters(img, inv, True, True, srgb)),
+                    device_ms(lambda: FF.legacy_filters_plain(img, inv, True, True, srgb)))
+        print(f"kernel {name} at 4k ({'sRGB8' if srgb else 'f32'}): device "
+              f"{ms[name][0]:.3f} ms, plain twin {ms[name][1]:.3f} ms [{card}]",
+              flush=True)
+    xp = LP.pad_rows(xyb, FF.PAD)
+    inv1 = filters.epf_inv(sigma, 1.0)
+    gabw = (FF.DEFAULT_GW1, FF.DEFAULT_GW2) * 3
+    for it in (1, 2):
+        for kind in ("f32", "u8"):
+            kern = device_ms(lambda: FF.fused_real_filters(
+                xp, inv1, it, cfg.pass2_scale, to_srgb=kind == "u8"))
+            plain = device_ms(lambda: FF.fused_real_filters_plain(
+                xp, inv1, it, cfg.pass2_scale, to_srgb=kind == "u8"))
+            if it == 2 and kind == "u8":
+                ms["fused_real_filters"] = (kern, plain)
+            print(f"kernel fused_real_filters at 4k epf_iters {it} {kind}: "
+                  f"device {kern:.3f} ms, plain twin {plain:.3f} ms [{card}]",
+                  flush=True)
+        chain = device_ms(lambda: color.xyb_to_srgb(filters.filter_chain(
+            xyb, sigma, True, it, gabw, cfg.pass0_scale, cfg.pass2_scale), False))
+        print(f"filters.cu chain at 4k epf_iters {it} (gaborish, EPF1"
+              f"{', EPF2' if it == 2 else ''}, sRGB8 launches): device "
+              f"{chain:.3f} ms [{card}]", flush=True)
+    ms["fused_real_gab_epf1"] = (
+        device_ms(lambda: FF.fused_real_gab_epf1(xp, inv1, True)),
+        device_ms(lambda: FF.fused_real_gab_epf1_plain(xp, inv1, True)))
+    print(f"kernel fused_real_gab_epf1 at 4k u8: device "
+          f"{ms['fused_real_gab_epf1'][0]:.3f} ms, plain twin "
+          f"{ms['fused_real_gab_epf1'][1]:.3f} ms [{card}]", flush=True)
 
 
 def main() -> int:
@@ -245,11 +521,12 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
 
-    # 2. build
+    # 2. build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    for name in ("synth", "filters"):
-        _build.load(name)
-    print(f"build: nvcc sm_90a, both kernels in "
+    sources = ("synth", "filters", "fused_filters")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.load, sources))
+    print(f"build: nvcc sm_90a, {len(sources)} sources in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. streams
@@ -282,16 +559,11 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # 5. the main path, counted
-    for spec in KERNELS.values():
-        spec["fn"].launches = 0
-    outs = {label: api.decode(data, device="cuda")[0]
-            for label, (_h, _w, data) in streams.items()}
-    torch.cuda.synchronize()
-    launches = {k: spec["fn"].launches for k, spec in KERNELS.items()}
-    print(f"main path launches: {launches}", flush=True)
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the main path")
+    outs, launches = drive(
+        "main path (api.decode)",
+        lambda: {label: api.decode(data, device="cuda")[0]
+                 for label, (_h, _w, data) in streams.items()},
+        ("synth_family", "gaborish", "epf", "xyb_to_srgb"))
     for label, (h, w, data) in streams.items():
         t0 = time.perf_counter()
         ref = reference.decode_float64(data)
@@ -372,7 +644,7 @@ def main() -> int:
         "xyb_to_srgb": (lambda: color.xyb_to_srgb(gab, False),
                         lambda: color.xyb_to_srgb_plain(gab, False)),
     }
-    # device time per call (profiler): a wrapper's wall time is mostly
+    # device time per call (device_ms): one call's wall time is mostly
     # the host's launch work
     ms = {}
     for k, (kern, plain) in timings.items():
@@ -388,6 +660,11 @@ def main() -> int:
               f"{device_ms(lambda: filters.epf(fx, inv, p)):.3f} ms, plain twin "
               f"{device_ms(lambda: filters.epf_plain(fx, inv, p)):.3f} ms [{card}]",
               flush=True)
+
+    # 7-9. the round-1 codec, the real-format fused filters, timings
+    launches.update(legacy_codec(dev))
+    launches.update(real_fused(xyb, sigma, cfg))
+    fused_timings(dev, xyb, sigma, cfg, card, ms)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": spec["source"],

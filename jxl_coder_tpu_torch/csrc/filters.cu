@@ -30,28 +30,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-struct Planes {
-  const float* p;
-  long long plane_stride;  // elements between channels
-  int row_stride;          // elements between rows
-};
-
-// libjxl Mirror(): -1 -> 0, -2 -> 1, n -> n - 1 (numpy "symmetric"),
-// repeated for reaches wider than the plane.
-__device__ __forceinline__ int mirror(int i, int n) {
-  while ((unsigned)i >= (unsigned)n) i = i < 0 ? -i - 1 : 2 * n - 1 - i;
-  return i;
-}
-
-__device__ __forceinline__ int clampi(int i, int n) {
-  return i < 0 ? 0 : (i >= n ? n - 1 : i);
-}
-
-__device__ __forceinline__ float at(const Planes& s, int c, int y, int x) {
-  return s.p[c * s.plane_stride + (long long)y * s.row_stride + x];
-}
+using namespace jxl;
 
 struct GabParams {
   float w1[3], w2[3], norm[3];
@@ -153,26 +136,6 @@ __global__ void epf_kernel(Planes in, float* __restrict__ out, int H, int W,
   out[2 * plane + o] = a2 / wsum;
 }
 
-struct SrgbParams {
-  float m[9];          // opsin inverse, row-major
-  float cbrt_bias, bias;
-  float scale;         // 255 or 65535
-  uint32_t mul[16];    // FastLinearToSRGB exponent multipliers
-};
-
-// tpu_real.fast_linear_to_srgb_device: the exact exponent bit trick.
-__device__ __forceinline__ float fast_linear_to_srgb(float v,
-                                                     const SrgbParams& s) {
-  const uint32_t vb = __float_as_uint(v);
-  const float v025 = __uint_as_float((vb | 0x3e800000u) & 0x3effffffu);
-  const float d1 = v025 * 0.059914046f + -0.108894556f;
-  const float d2 = d1 * v025 + 0.107963754f;
-  const float pw = d2 * v025 + 0.018092343f;
-  const uint32_t e = ((vb >> 23) - 118u) & 0xfu;
-  const float mul = __uint_as_float(s.mul[e]);
-  return v < 0.0031308f ? v * 12.92f : pw * mul + -0.055f;
-}
-
 // XYB planes -> interleaved (H, W, 3) sRGB at 8 or 16 bits.
 template <typename T>
 __global__ void srgb_kernel(Planes in, T* __restrict__ out, int H, int W,
@@ -181,19 +144,8 @@ __global__ void srgb_kernel(Planes in, T* __restrict__ out, int H, int W,
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= W || y >= H) return;
   const float X = at(in, 0, y, x), Y = at(in, 1, y, x), B = at(in, 2, y, x);
-  const float gr = Y + X + s.cbrt_bias;
-  const float gg = Y - X + s.cbrt_bias;
-  const float gb = B + s.cbrt_bias;
-  const float ml = gr * gr * gr - s.bias;
-  const float mm = gg * gg * gg - s.bias;
-  const float ms = gb * gb * gb - s.bias;
   T* px = out + ((long long)y * W + x) * 3;
-  for (int c = 0; c < 3; ++c) {
-    const float v = s.m[3 * c] * ml + s.m[3 * c + 1] * mm + s.m[3 * c + 2] * ms;
-    const float srgb = fast_linear_to_srgb(v, s);
-    const float q = floorf(srgb * s.scale + 0.5f);
-    px[c] = (T)fminf(fmaxf(q, 0.0f), s.scale);
-  }
+  for (int c = 0; c < 3; ++c) px[c] = (T)xyb_to_srgb_code(X, Y, B, c, s);
 }
 
 dim3 grid2d(int H, int W, int z, dim3 block) {

@@ -47,6 +47,31 @@ def test_decode_in_a_process_without_jax(tmp_path):
     assert res.stdout.split() == ["(72,", "104,", "3)", "uint8", "104", "72"]
 
 
+def test_legacy_codec_in_a_process_without_jax(tmp_path):
+    """The round-1 codec (encode and decode) on the CPU with jax blocked;
+    its host framing comes from jxl_coder_tpu.vardct.frame."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None        # any `import jax` now fails
+        sys.path.insert(0, {str(REPO)!r})
+        import numpy as np
+        from jxl_coder_tpu_torch import api, codec
+        from port_fixtures import smooth_frame
+        img = smooth_frame(29, 43)
+        data = codec.encode_vardct_still(img, 1.0, device="cpu")
+        out = codec.decode_vardct_still(*api._read_frame(data), device="cpu")
+        assert not any(m == "jax" or m.startswith("jax.")
+                       for m, v in sys.modules.items() if v is not None)
+        d = np.abs(out.astype(int) - img.astype(int))
+        print(out.shape, out.dtype, int(d.max() < 40))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["(29,", "43,", "3)", "uint8", "1"]
+
+
 def test_package_source_imports_no_jax():
     pat = re.compile(r"^\s*(import jax|from jax)", re.M)
     files = sorted(PKG.rglob("*.py"))
