@@ -31,8 +31,19 @@ prints no result):
      4K synthesised planes, counted, against their twins and against
      the three-launch chain of csrc/filters.cu;
   9. timings at 4K: the round-1 reconstruct_srgb8 and kernels 3-6 each
-     against its twin, and kernels 3 and 4 against the chain.
-The last two lines are the card's name and power limit and
+     against its twin, and kernels 3 and 4 against the chain;
+ 10. the DCT8-only frame path (jxl_coder_tpu_torch.vardct.dct8): kernel 7
+     (detile) bit-equal to its plain version at the research probe's
+     shape (a seeded permutation subset of 140,000 tile rows) and at the
+     4K identity; DCT8Frame on a 3840x2160 effort-2 (all-DCT8) stream,
+     counted, against the port's CPU path and the float64 host decoder,
+     and on a ragged all-DCT8 frame against the CPU path; timings of
+     kernel 7 (against its plain version, one PyTorch call and its bound)
+     and of DCT8Frame's device time by stage.
+Every kernel's line carries its bound: the larger of the bytes it must
+move (each input read once, each output written once) over 3.35 TB/s
+and its f32 operations over 67 TFLOP/s (the H100 SXM's published peaks
+at 700 W).  The last two lines are the card's name and power limit and
 {"ok": true, "device": {...}}; the line before them lists the kernels.
 """
 
@@ -49,17 +60,20 @@ import tempfile
 import time
 
 sys.modules["jax"] = None    # the port runs without JAX; so does this script
+sys.modules["jxl_coder_tpu"] = None  # and without the JAX package
 
 import numpy as np
 import torch
 
 from jxl_coder_tpu_torch import _build, api, codec, reference
-from jxl_coder_tpu_torch.vardct import color, filters, inputs, synth
+from jxl_coder_tpu_torch.vardct import color, dct8, filters, inputs, synth
+from jxl_coder_tpu_torch.vardct import detile as DT
 from jxl_coder_tpu_torch.vardct import fused_filters as FF
 from jxl_coder_tpu_torch.vardct import pipeline as LP
 from jxl_coder_tpu_torch.vardct.frame import VarDCTFrame
 from jxl_coder_tpu_torch.vardct.parse import parse_frame
-from port_fixtures import bench_frame, sharp_frame, synthetic_family
+from port_fixtures import (bench_frame, dct8_arguments, sharp_frame,
+                           synthetic_family)
 
 SYNTH_TOL = 1e-4      # f32 sums in another order than the twin's matmuls
 FILTER_TOL = 1e-5     # same op order; the kernels build without FMA
@@ -85,6 +99,8 @@ KERNELS = {
                           replaces="jxl_coder_tpu/vardct/filters_pallas.py:80"),
     "fused_filters2": dict(fn=FF.fused_filters2, source="jxl_coder_tpu_torch/csrc/fused_filters.cu",
                            replaces="jxl_coder_tpu/vardct/filters_pallas.py:190"),
+    "detile": dict(fn=DT.detile, source="jxl_coder_tpu_torch/csrc/detile.cu",
+                   replaces="research/detile_probe.py:84"),
 }
 # the round-1 encoder's sources: a change to any of them re-encodes
 LEGACY_ENCODER = [sys.modules[m].__file__ for m in (
@@ -92,6 +108,42 @@ LEGACY_ENCODER = [sys.modules[m].__file__ for m in (
     "jxl_coder_tpu_torch.vardct.dct", "jxl_coder_tpu_torch.vardct.xyb",
     "jxl_coder_tpu_torch.ops.color", "jxl_coder_tpu_torch.ops.fp")]
 ERR = {k: 0.0 for k in KERNELS}
+# per kernel at the main path's shape: (bound ms, "bytes" | "operations")
+# and the time of one PyTorch call computing the same function (or None)
+BOUND = {}
+LIBRARY_MS = {k: None for k in KERNELS}
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published, 700 W
+F32_OPS_PER_S = 67e12         # f32 outside the tensor cores
+# the least f32 operations per output pixel each function needs (an FMA
+# counts 2, |x| is an operand modifier):
+#   gaborish, per channel: the horizontal pair sum (1), the 4 edge taps
+#     from it (2), the 4 corners from the pair sums above and below (1),
+#     centre x w0 + edges x w1 + corners x w2 (5): 3 x 9;
+#   EPF pass 1: two channel-weighted difference planes, horizontal and
+#     vertical neighbours (2 x 3 x (sub + FMA) = 18), the 5-tap cross sum
+#     of each (2 x 4; the offsets (0, -1) and (-1, 0) read the sums of the
+#     pixel to the left / above), 4 weights (FMA + max, 12) and the border
+#     scale (1), the weight sum (4), 4 x 3 FMAs into the numerators (24)
+#     and the normalisation (4): 71;
+#   EPF pass 2 and the round-1 EPF: as pass 1 with one-pixel SADs, so no
+#     cross sums: 63;
+#   the sRGB output 69
+OPS_PX = {"gaborish": 27, "epf1": 71, "epf2": 63, "srgb": 69}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def note_bound(name: str, moved: int, ops: float) -> None:
+    """The least time the card could take: bytes moved over the memory
+    rate or f32 operations over the f32 rate, whichever is larger."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    BOUND[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                   else (t_ops, "operations"))
+    print(f"bound {name}: {moved / 1e6:.1f} MB, {ops / 1e9:.2f} G f32 ops "
+          f"-> {BOUND[name][0]:.4f} ms ({BOUND[name][1]})", flush=True)
 
 
 def smi() -> str:
@@ -477,6 +529,11 @@ def fused_timings(dev, xyb, sigma, cfg, card: str, ms: dict) -> None:
     fx, fb = LP.expand_cfl(args[3], args[4], ny, nx)
     img = LP.dequant_idct(args[0], dc, qf, fx, fb, 1.0)
     inv = LP.inv_sigma_map(qf, 1.0)
+    lpx = img.shape[1] * img.shape[2]
+    lops = lpx * (OPS_PX["gaborish"] + OPS_PX["epf2"])
+    note_bound("fused_gab_epf", 2 * nbytes(img) + nbytes(inv), lops)
+    note_bound("fused_filters2", nbytes(img, inv) + 3 * lpx,
+               lops + lpx * OPS_PX["srgb"])
     for name, srgb in (("fused_gab_epf", False), ("fused_filters2", True)):
         ms[name] = (device_ms(lambda: FF.legacy_filters(img, inv, True, True, srgb)),
                     device_ms(lambda: FF.legacy_filters_plain(img, inv, True, True, srgb)))
@@ -486,6 +543,11 @@ def fused_timings(dev, xyb, sigma, cfg, card: str, ms: dict) -> None:
     xp = LP.pad_rows(xyb, FF.PAD)
     inv1 = filters.epf_inv(sigma, 1.0)
     gabw = (FF.DEFAULT_GW1, FF.DEFAULT_GW2) * 3
+    px = xyb.shape[1] * xyb.shape[2]
+    gab_epf1 = px * (OPS_PX["gaborish"] + OPS_PX["epf1"] + OPS_PX["srgb"])
+    note_bound("fused_real_filters", nbytes(xp, inv1) + 3 * px,
+               gab_epf1 + px * OPS_PX["epf2"])
+    note_bound("fused_real_gab_epf1", nbytes(xp, inv1) + 3 * px, gab_epf1)
     for it in (1, 2):
         for kind in ("f32", "u8"):
             kern = device_ms(lambda: FF.fused_real_filters(
@@ -510,6 +572,124 @@ def fused_timings(dev, xyb, sigma, cfg, card: str, ms: dict) -> None:
           f"{ms['fused_real_gab_epf1'][1]:.3f} ms [{card}]", flush=True)
 
 
+def within_one_code(got: np.ndarray, ref: np.ndarray, what: str) -> None:
+    """A decoded frame within 1 code on < 0.1% of values."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{what}: {got.shape} {got.dtype} vs "
+                             f"{ref.shape} {ref.dtype}")
+    d = np.abs(got.astype(np.int64) - ref.astype(np.int64))
+    frac = float((d > 0).mean())
+    print(f"{what}: max {d.max()} code, differing share {frac:.3g}",
+          flush=True)
+    if d.max() > 1 or frac >= 1e-3:
+        raise AssertionError(f"{what}: outside 1 code / 0.1%")
+
+
+def check_detile(src: torch.Tensor, ny: int, nx: int, rows, label: str) -> None:
+    """Kernel 7 bit-equal to its plain version."""
+    got = DT.detile(src, ny, nx, rows)
+    ref = DT.detile_plain(src, ny, nx, rows)
+    if got.shape != ref.shape or not torch.equal(got, ref):
+        raise AssertionError(f"detile differs from its plain version ({label})")
+    note_err("detile", (got - ref).abs().max().item(), 0.0, label)
+
+
+def dct8_phase(dev, card: str, ms: dict) -> dict:
+    """Phase 10: the DCT8-only frame path and kernel 7."""
+    # kernel 7 at the research probe's shape: 140,000 source rows, a
+    # seeded permutation subset of 270 x 480 of them
+    rng = np.random.default_rng(0)
+    ny, nx, n_src = 270, 480, 140000
+    src = torch.from_numpy(rng.standard_normal((n_src, 192))
+                           .astype(np.float32)).to(dev)
+    perm = torch.from_numpy(rng.permutation(n_src)[:ny * nx]
+                            .astype(np.int32)).to(dev)
+    check_detile(src, ny, nx, perm, "probe shape, 140000 rows, permutation")
+    print(f"kernel detile at the probe shape (permutation subset): device "
+          f"{device_ms(lambda: DT.detile(src, ny, nx, perm)):.3f} ms, plain "
+          f"{device_ms(lambda: DT.detile_plain(src, ny, nx, perm)):.3f} ms "
+          f"[{card}]", flush=True)
+    del src, perm
+
+    # the 4K all-DCT8 stream: the repo's host encoder at effort 2
+    img = bench_frame(2160, 3840)
+    data = stream(img, 1.0, 2)
+    args, (gab, epf_iters, skip) = dct8_arguments(data)
+    print(f"dct8 4k_d1.0_e2: {len(data)} bytes, gab {gab} epf_iters "
+          f"{epf_iters} skip_dc_smooth {skip}", flush=True)
+    state = dct8.to_device(*args, dev)
+    frame = dct8.DCT8Frame(gab, epf_iters, skip)
+    out, counts = drive("DCT8 path (DCT8Frame at 4K)", lambda: frame(state),
+                        ("detile", "gaborish", "epf", "xyb_to_srgb"))
+    got = out.cpu().numpy()
+    within_one_code(got, frame(dct8.to_device(*args, "cpu")).numpy(),
+                    "dct8 4k_d1.0_e2 vs the port's CPU path")
+    within_one_code(got, reference.decode_float64(data),
+                    "dct8 4k_d1.0_e2 vs the float64 host decoder")
+
+    # a ragged all-DCT8 frame (65 x 97 blocks, the image 517 x 771)
+    rdata = stream(bench_frame(517, 771), 1.0, 2)
+    rargs, rflt = dct8_arguments(rdata)
+    rframe = dct8.DCT8Frame(*rflt)
+    within_one_code(rframe(dct8.to_device(*rargs, dev)).cpu().numpy(),
+                    rframe(dct8.to_device(*rargs, "cpu")).numpy(),
+                    "dct8 ragged 517x771 (520x776 block grid) vs the "
+                    "port's CPU path")
+
+    # kernel 7 at the path's own 4K identity: the tiles the IDCT gives
+    co, dcs, qf, _sh, xf, bf, tab = (state[k] for k in dct8._TENSORS)
+    steps = dct8.dc_steps(state["igs"], state["quant_dc"], state["dcq"])
+    dcp = dct8.dc_xyb_planes(dcs, steps)
+    if not skip:
+        dcp = dct8.dc_smoothing(dcp, steps)
+    tiles = dct8.synth_tiles(co, dcp, qf, xf, bf, tab, state["igs"],
+                             state["qm_x"], state["qm_b"])
+    ys, xs = qf.shape
+    check_detile(tiles, ys, xs, None, "4k DCT8 identity")
+    note_bound("detile", 2 * nbytes(tiles), 0)
+    ms["detile"] = (device_ms(lambda: DT.detile(tiles, ys, xs)),
+                    device_ms(lambda: DT.detile_plain(tiles, ys, xs)))
+    # one PyTorch call for the same function: the permuted copy
+    LIBRARY_MS["detile"] = device_ms(lambda: tiles.view(
+        ys, xs, 3, 8, 8).permute(2, 0, 3, 1, 4).contiguous())
+    print(f"kernel detile at 4k (identity): device {ms['detile'][0]:.4f} ms, "
+          f"plain {ms['detile'][1]:.4f} ms, permute().contiguous() "
+          f"{LIBRARY_MS['detile']:.4f} ms, bound {BOUND['detile'][0]:.4f} ms "
+          f"[{card}]", flush=True)
+
+    # DCT8Frame's device time at 4K, whole and by stage
+    planes = DT.detile(tiles, ys, xs)
+    stacked = torch.randn((ys * xs, 3, 64), device=dev)
+    kron = dct8._kron_basis(dev)
+    # the stages in the path's order; their sum is the path's device-busy
+    # time (the whole frame's many small launches leave it host-bound)
+    stages = {
+        "dc planes + smoothing": lambda: dct8.dc_smoothing(
+            dct8.dc_xyb_planes(dcs, steps), steps),
+        "dequant + CfL + IDCT product + DC": lambda: dct8.synth_tiles(
+            co, dcp, qf, xf, bf, tab, state["igs"], state["qm_x"],
+            state["qm_b"]),
+        "kernel 7 (detile)": lambda: DT.detile(tiles, ys, xs),
+        "filters (gaborish, EPF)": lambda: dct8.apply_filters(
+            planes, qf, state["sharp"], state["igs"], gab, epf_iters),
+        "sRGB8 output": lambda: color.xyb_to_srgb(planes, False),
+    }
+    busy = 0.0
+    for what, fn in stages.items():
+        t = device_ms(fn)
+        busy += t
+        print(f"  dct8 4k {what}: device {t:.3f} ms [{card}]", flush=True)
+    print(f"  dct8 4k IDCT product alone: device "
+          f"{device_ms(lambda: dct8._fp32_matmul(stacked, kron)):.3f} ms "
+          f"[{card}]", flush=True)
+    mp = 8 * ys * 8 * xs / 1e6
+    whole = device_ms(lambda: frame(state))
+    print(f"stage dct8 4k (DCT8Frame, inputs resident): device busy "
+          f"{busy:.3f} ms (sum of its stages) = {mp / busy * 1e3:.1f} MP/s; "
+          f"whole frame back to back {whole:.3f} ms [{card}]", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -521,13 +701,15 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
 
-    # 2. build, one nvcc per source, all at once
+    # 2. build, one nvcc per source and g++ for the host codec, all at once
     t0 = time.perf_counter()
-    sources = ("synth", "filters", "fused_filters")
-    with ThreadPoolExecutor(len(sources)) as pool:
+    sources = ("synth", "filters", "fused_filters", "detile")
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        host = pool.submit(_build.load_host, "hostcodec")
         list(pool.map(_build.load, sources))
-    print(f"build: nvcc sm_90a, {len(sources)} sources in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+        host.result()
+    print(f"build: nvcc sm_90a, {len(sources)} sources, and g++ for the host "
+          f"codec in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. streams
     streams = {"4k_d1.0_e7": (2160, 3840, stream(bench_frame(2160, 3840), 1.0, 7)),
@@ -644,6 +826,22 @@ def main() -> int:
         "xyb_to_srgb": (lambda: color.xyb_to_srgb(gab, False),
                         lambda: color.xyb_to_srgb_plain(gab, False)),
     }
+    # bounds at these shapes: every family's inputs and the DC image in,
+    # the planes out; a separable IDCT of bh x bw is bh*bw*(bh+bw) MACs
+    # per channel (a special family's response product 64 x 64), plus
+    # dequant and CfL (4 ops per coefficient)
+    fam_in = sum(nbytes(*[t for t in (f.coef, f.bys, f.bxs, f.inv_qac, f.xf,
+                                      f.bf, f.tab, f.resp, f.resp_y_def,
+                                      f.fix_idx, f.fix_val) if t is not None])
+                 for f in inp.families)
+    fam_ops = sum(int(f.coef.shape[0]) * 3 * (
+        2 * 64 * 64 if f.special else 2 * f.bh * f.bw * (f.bh + f.bw)
+        + 4 * f.bh * f.bw) for f in inp.families)
+    note_bound("synth_family", fam_in + nbytes(inp.dc, planes), fam_ops)
+    px = h * w
+    note_bound("gaborish", 2 * nbytes(xyb), px * OPS_PX["gaborish"])
+    note_bound("epf", 2 * nbytes(xyb) + nbytes(inv1), px * OPS_PX["epf1"])
+    note_bound("xyb_to_srgb", nbytes(xyb) + 3 * px, px * OPS_PX["srgb"])
     # device time per call (device_ms): one call's wall time is mostly
     # the host's launch work
     ms = {}
@@ -666,10 +864,16 @@ def main() -> int:
     launches.update(real_fused(xyb, sigma, cfg))
     fused_timings(dev, xyb, sigma, cfg, card, ms)
 
+    # 10. the DCT8-only frame path and kernel 7 (the filter and output
+    # kernels' counts stay those of the main path, phase 5)
+    launches["detile"] = dct8_phase(dev, card, ms)["detile"]
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": spec["source"],
          "replaces": spec["replaces"], "launches": launches[k],
-         "max_abs_err": ERR[k], "ms": ms[k][0], "plain_ms": ms[k][1]}
+         "max_abs_err": ERR[k], "ms": ms[k][0], "plain_ms": ms[k][1],
+         "bound_ms": BOUND[k][0], "bound_by": BOUND[k][1],
+         "library_ms": LIBRARY_MS[k]}
         for k, spec in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

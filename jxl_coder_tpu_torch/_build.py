@@ -1,9 +1,10 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first
 use with nvcc for Hopper (sm_90a) into ``build/jxl_coder_tpu_torch/``
 beside the package, keyed by a hash of its source, then loaded with
-ctypes.  A build failure raises; nothing falls back.
+ctypes.  The host codec ``host/native/<name>.cpp`` is built the same way
+with g++ (``load_host``).  A build failure raises; nothing falls back.
 
 Every C entry point takes the CUDA stream as its last argument and
 returns ``cudaGetLastError()`` after its launch; ``launch`` turns a
@@ -21,6 +22,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+HOST_SRC = Path(__file__).resolve().parent / "host" / "native"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "jxl_coder_tpu_torch"
 
@@ -29,6 +31,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               # no FMA contraction: elementwise math rounds op by op like
               # the plain PyTorch twins (dot products use explicit fmaf)
               "-fmad=false", "-Xptxas=-v"]
+# the JAX package's host build (jxl_coder_tpu/native/__init__.py)
+HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off",
+              "-pthread"]
 
 
 def _nvcc() -> str:
@@ -50,12 +55,31 @@ def _sources(name: str):
     return [main] + sorted(CSRC.glob("*.cuh"))
 
 
-def library_path(name: str) -> Path:
+def _library_path(name: str, sources, flags) -> Path:
     h = hashlib.sha256()
-    for p in _sources(name):
+    for p in sources:
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def library_path(name: str) -> Path:
+    return _library_path(name, _sources(name), NVCC_FLAGS)
+
+
+def _compile(so: Path, cmd_without_output, src: Path) -> None:
+    """Run the compiler into a temporary file, keep its report beside the
+    library, and raise if it fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".tmp{os.getpid()}")
+    res = subprocess.run([*cmd_without_output, "-o", str(tmp), str(src)],
+                         capture_output=True, text=True)
+    so.with_suffix(".log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"{Path(cmd_without_output[0]).name} failed for "
+                           f"{src.name} (exit {res.returncode}):\n"
+                           f"{res.stderr}")
+    os.replace(tmp, so)
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,17 +87,23 @@ def load(name: str) -> ctypes.CDLL:
     """Compile (once per source hash) and load csrc/<name>.cu."""
     so = library_path(name)
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        # ptxas's register / shared-memory report, kept beside the library
-        so.with_suffix(".log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu "
-                               f"(exit {res.returncode}):\n{res.stderr}")
-        os.replace(tmp, so)
+        # the log keeps ptxas's register / shared-memory report
+        _compile(so, [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC)],
+                 CSRC / f"{name}.cu")
+    return ctypes.CDLL(str(so))
+
+
+@functools.lru_cache(maxsize=None)
+def load_host(name: str) -> ctypes.CDLL:
+    """Compile (once per source hash) and load host/native/<name>.cpp."""
+    src = HOST_SRC / f"{name}.cpp"
+    so = _library_path(name, [src], HOST_FLAGS)
+    if not so.exists():
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError("g++ not found: the host codec cannot be "
+                               "built")
+        _compile(so, [gxx, *HOST_FLAGS], src)
     return ctypes.CDLL(str(so))
 
 

@@ -2,7 +2,8 @@
 
 ``decode(data, device="cuda")`` decodes a VarDCT still.  Its host half,
 ``prepare``, is the container, header and TOC walk of
-``jxl_coder_tpu.api.decode`` (``api.py:505-542``), the host parse
+``jxl_coder_tpu.api.decode`` (``api.py:505-542``) over the port's
+own host layers (``host/``), the host parse
 (``vardct.parse``) and the family packing (``vardct.inputs.pack``),
 carried onto the named device; then the frame reconstruction runs there
 (``vardct.frame.VarDCTFrame``).
@@ -16,18 +17,15 @@ from typing import Tuple
 
 import numpy as np
 
-from jxl_coder_tpu.api import (BasicInfo, InvalidJXLError,
-                               _check_decode_size, apply_orientation,
-                               basic_info)
-from jxl_coder_tpu.bitstream import container as _container
-from jxl_coder_tpu.bitstream.frame_header import (Encoding,
-                                                  read_frame_header,
-                                                  read_toc)
-from jxl_coder_tpu.bitstream.headers import ImageHeader, read_image_header
-from jxl_coder_tpu.bitstream.reader import BitReader, BitstreamError
-from jxl_coder_tpu.jpeg import transcode as _jpeg_tc
-
 from ._device import resolve_device
+from .host.api import (BasicInfo, InvalidJXLError, _check_decode_size,
+                       apply_orientation, basic_info)
+from .host.bitstream import container as _container
+from .host.bitstream.frame_header import (Encoding, read_frame_header,
+                                          read_toc)
+from .host.bitstream.headers import ImageHeader, read_image_header
+from .host.bitstream.reader import BitReader, BitstreamError
+from .host.jpeg import transcode as _jpeg_tc
 from .vardct.frame import VarDCTFrame
 from .vardct.inputs import FrameConfig, FrameInputs, from_prepared, pack
 from .vardct.parse import parse_frame

@@ -1,9 +1,9 @@
 """The round-1 VarDCT still codec (``jxl_coder_tpu/codec.py:465-548``).
 
 ``encode_vardct_still`` and ``decode_vardct_still`` keep the JAX
-package's framing and entropy coding, imported unchanged from
-``jxl_coder_tpu.vardct.frame`` and ``jxl_coder_tpu.bitstream`` (numpy,
-no JAX); the pixel math runs on the named device
+package's framing and entropy coding, in the port's copies
+``host/vardct/frame.py`` and ``host/bitstream`` (numpy); the pixel math
+runs on the named device
 (``vardct.pipeline``).  The encoder front rounds as the JAX package
 does on the CPU, so on the CPU both write the same bytes.
 """
@@ -13,14 +13,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jxl_coder_tpu.bitstream.frame_header import Encoding, FrameHeader
-from jxl_coder_tpu.bitstream.headers import (BitDepth, ImageHeader,
-                                             ImageMetadata, SizeHeader)
-from jxl_coder_tpu.bitstream.writer import BitWriter
-from jxl_coder_tpu.codec import write_image_header
-from jxl_coder_tpu.vardct import frame as VF
-
 from ._device import resolve_device
+from .host.bitstream.frame_header import Encoding, FrameHeader
+from .host.bitstream.headers import (BitDepth, ImageHeader, ImageMetadata,
+                                     SizeHeader)
+from .host.bitstream.writer import BitWriter
+from .host.codec import write_image_header
+from .host.vardct import frame as VF
 from .ops.color import srgb_to_linear
 from .vardct import pipeline as P
 from .vardct.xyb import linear_rgb_to_xyb
@@ -89,7 +88,7 @@ def encode_vardct_still(pixels: np.ndarray, distance: float,
 
 def read_vardct_still(cs: bytes, hdr: ImageHeader, fh, toc):
     """The host half of decode_vardct_still: section framing and entropy
-    decoding -> jxl_coder_tpu.vardct.frame.VarDctFrameData (numpy)."""
+    decoding -> host.vardct.frame.VarDctFrameData (numpy)."""
     return VF.decode_vardct_frame(cs, hdr, fh, toc)
 
 

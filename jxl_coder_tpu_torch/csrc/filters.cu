@@ -14,7 +14,8 @@
 // (Mirror for gaborish and EPF passes 0/1, edge replication for pass 2)
 // stays local.  Constants (channel scales, the 2/3 border multiplier,
 // the opsin inverse, the FastLinearToSRGB tables) are passed in from
-// jxl_coder_tpu.vardct.dec_real by the Python wrappers.
+// host/vardct/dec_real.py (the port's copy of the JAX package's
+// dec_real) by the Python wrappers.
 //
 // What bounds it on the H100.  Each stage reads and writes three f32
 // planes, 24 B/px: at 4K ~200 MB, ~60 us at 3.35 TB/s, and the whole

@@ -1,0 +1,109 @@
+"""The API layer's host pieces that the port uses
+(``jxl_coder_tpu/api.py``): the decode-size ceiling, the typed errors,
+``basic_info`` and ``apply_orientation``.  The encode and decode entry
+points stay in the JAX package; the port's own are ``api.decode`` and
+``codec``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from .bitstream.reader import BitReader, BitstreamError
+from .bitstream import container as _container
+from .bitstream.headers import read_image_header, ImageHeader
+
+
+# ---- Exceptions (mirror the 6 Kotlin exception types) --------------------
+
+class InvalidJXLError(ValueError):
+    """InvalidJXLException.kt — not a JXL stream / corrupt stream."""
+
+
+class InvalidImageSizeError(ValueError):
+    """InvalidImageSizeException.kt — also enforces the reference's
+    pixels*bytes < 2^31 ceiling (interop/JxlDecoding.cpp:103-109)."""
+
+
+def _check_decode_size(hdr) -> None:
+    """Total image-size ceiling, checked BEFORE any allocation: a
+    forged header claiming e.g. 10^6 x 10^6 px must raise, not attempt
+    the buffers.  Mirrors interop/JxlDecoding.cpp:103-109
+    (w * h * 4 channels * bytes-per-sample < INT32_MAX)."""
+    m = hdr.metadata
+    w, h = hdr.size.xsize, hdr.size.ysize
+    bps = 2 if (m.bit_depth.bits_per_sample > 8
+                or m.bit_depth.float_sample) else 1
+    if w * h * 4 * bps >= (1 << 31):
+        raise InvalidImageSizeError(
+            f"image too large to decode: {w}x{h} at {bps * 8}-bit "
+            f"exceeds the 2^31-byte buffer ceiling")
+
+
+def parse_header(data: bytes) -> ImageHeader:
+    """Parse container + image header, raising InvalidJXLError on garbage."""
+    try:
+        c = _container.extract_codestream(data)
+        br = BitReader(c.codestream)
+        return read_image_header(br)
+    except BitstreamError as e:
+        raise InvalidJXLError(str(e)) from e
+
+
+@dataclasses.dataclass
+class BasicInfo:
+    """Mirror of JxlBasicInfo surface used by the reference
+    (interop/JxlDecoding.cpp:85-111)."""
+    xsize: int
+    ysize: int
+    bits_per_sample: int
+    float_samples: bool
+    alpha: bool
+    alpha_premultiplied: bool
+    orientation: int
+    have_animation: bool
+    intensity_target: float
+    uses_original_profile: bool
+
+
+def basic_info(data: bytes) -> BasicInfo:
+    hdr = parse_header(data)
+    m = hdr.metadata
+    alpha_idx = m.alpha_index
+    return BasicInfo(
+        xsize=hdr.oriented_xsize,
+        ysize=hdr.oriented_ysize,
+        bits_per_sample=m.bit_depth.bits_per_sample,
+        float_samples=m.bit_depth.float_sample,
+        alpha=alpha_idx is not None,
+        alpha_premultiplied=(alpha_idx is not None
+                             and m.extra_channels[alpha_idx].alpha_associated),
+        orientation=m.orientation,
+        have_animation=m.animation is not None,
+        intensity_target=m.tone_mapping.intensity_target,
+        uses_original_profile=not m.xyb_encoded,
+    )
+
+
+def apply_orientation(pixels, orientation: int):
+    """EXIF-style orientation 1..8 -> upright pixels (the reference
+    resolves orientation before returning bitmaps,
+    JniDecoding.cpp:95-100)."""
+    import numpy as np
+    if orientation == 1:
+        return pixels
+    if orientation == 2:
+        return pixels[:, ::-1]
+    if orientation == 3:
+        return pixels[::-1, ::-1]
+    if orientation == 4:
+        return pixels[::-1]
+    if orientation == 5:  # transpose
+        return np.swapaxes(pixels, 0, 1)
+    if orientation == 6:  # rotate 90 CW
+        return np.swapaxes(pixels, 0, 1)[:, ::-1]
+    if orientation == 7:  # anti-transpose
+        return np.swapaxes(pixels, 0, 1)[::-1, ::-1]
+    if orientation == 8:  # rotate 90 CCW
+        return np.swapaxes(pixels, 0, 1)[::-1]
+    raise InvalidJXLError(f"bad orientation {orientation}")

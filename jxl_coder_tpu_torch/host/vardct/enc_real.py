@@ -1,0 +1,803 @@
+"""Real-format VarDCT still encoder (wire-compatible with libjxl).
+
+RD varblock selection over DCT8..DCT32X32 (vectorized per candidate
+shape), content-adaptive global quant scale with a contrast-masking
+field, per-tile chroma-from-luma, gaborish-sharpened input with the
+full decode-side restoration chain signalled (gaborish + EPF +
+adaptive DC smoothing), extra_precision DC in the mid-distance band,
+AC deadzone, learned MA trees for the DC/meta streams, clustered rANS
+histograms (native C++ stream writer).  Multi-group images produce
+the full section layout: LfGlobal | LfGroup* | HfGlobal | PassGroup*.
+Effort (1-10) controls the candidate breadth (_EFFORT_CANDS).
+
+The port's copy of the host branch of ``jxl_coder_tpu/vardct/enc_real.py``
+for 8-bit sRGB stills: the JAX device front end, the patch dictionary
+and the colour, alpha, noise and animated-frame options are gone, and
+the native host codec is required (no pure-Python fallback).  Its bytes
+equal the JAX package's host encoder's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..bitstream.writer import BitWriter
+from ..bitstream.headers import ImageHeader, ImageMetadata, SizeHeader
+from ..bitstream.frame_header import (FrameHeader, Encoding,
+                                      write_frame_header, write_toc)
+from ..codec import write_image_header
+from ..entropy.coder import TokenStream
+from ..modular.image import Channel, ModularImage
+from ..modular.stream import GroupHeader, encode_modular_stream
+from ..modular.tree import Tree
+from .strategies import STRATEGIES
+from .dec_real import (DEFAULT_CTX_MAP, NONZERO_BUCKETS,
+                       ZERO_DENSITY_CTX_COUNT)
+from . import synthesis as S
+
+_BIAS = 0.0037930732552754493
+_CBRT_BIAS = float(np.cbrt(_BIAS))
+_OPSIN = np.array([[0.30, 0.622, 0.078],
+                   [0.23, 0.692, 0.078],
+                   [0.24342268924547819, 0.20476744424496821,
+                    0.5518098665095536]])
+
+NUM_CTXS = 15
+LAMBDA_MULT = 1.5
+# Decode-side restoration defaults matching libjxl e7 at d1.0: EPF one
+# iteration with uniform sharpness 4 and adaptive DC smoothing ON
+# (flags=0) — the smoothing recovers ~2.4dB in the low band on smooth
+# gradients for free.
+EPF_ITERS = 1
+EPF_SHARPNESS = 4
+DC_STEPS = (0.000244140625, 0.001953125, 0.00390625)  # x, y, b
+
+
+def srgb8_to_xyb(pix: np.ndarray):
+    f = pix.astype(np.float64) / 255.0
+    lin = np.where(f <= 0.04045, f / 12.92,
+                   ((f + 0.055) / 1.055) ** 2.4)
+    mixed = lin @ _OPSIN.T
+    g = np.cbrt(mixed + _BIAS) - _CBRT_BIAS
+    return ((g[..., 0] - g[..., 1]) / 2,
+            (g[..., 0] + g[..., 1]) / 2,
+            g[..., 2])
+
+
+def _modular_substream(channels, predictor: int = 5,
+                       learn: bool = False,
+                       max_leaves: int = 16) -> BitWriter:
+    channels = list(channels)
+    if learn:
+        from ..modular.learn import learn_tree
+        # WP costs a sequential Python pass at learn AND encode time:
+        # enable it only when the stream is small (DC images)
+        use_wp = max((c.width * c.height for c in channels
+                      if c.width and c.height), default=0) <= (1 << 14)
+        # exclude property 1 (stream id): decoders compute their own
+        # stream numbering, so splitting on it is not portable
+        tree = learn_tree(channels, max_leaves=max_leaves,
+                          props_allowed=[0] + list(range(2, 15)),
+                          use_wp=use_wp)
+    else:
+        tree = Tree.single_leaf(predictor=predictor)
+    bw = BitWriter()
+    encode_modular_stream(bw, ModularImage(channels), GroupHeader(), tree)
+    return bw
+
+
+def _gaborish_sharpen(plane: np.ndarray, w1: float = 0.115169525,
+                      w2: float = 0.061248592,
+                      iters: int = 4) -> np.ndarray:
+    """Approximate inverse of the decoder's 3x3 gaborish smoothing via a
+    Neumann series: x ~= sum (I-K)^k y.  K is near identity so four
+    terms leave a residual far below a quant step."""
+    from .dec_real import gaborish
+    out = plane.copy()
+    err = plane
+    for _ in range(iters):
+        err = err - gaborish(err, w1, w2)
+        out = out + err
+    return out
+
+
+# Nominal luma step multiplier (igs/qf) at distance 1.0.  libjxl e7
+# measures 1.488 on low-activity content (qf 6 at global scale 7340);
+# we run slightly finer (1.42) to spend the rate saved by the deadzone
+# on PSNR — photo crops land at 0.91-0.96x cjxl bytes.  The
+# contrast-masking curve is fitted to libjxl's content-adaptive global
+# scale (igs x1.27 on sparse detail, x1.6 on dense noise).
+BASE_STEP_MULT = 1.42
+AC_DEADZONE = 0.58
+MASK_COEF = 4.3
+MASK_EXP = 0.68
+# steep high-activity term: dense noise must coarsen much further than
+# the photo-texture curve (round-3 fit: dense-noise rate 1.57x -> 1.06x
+# cjxl e7 bytes at +0.4dB, corpus photo crops unchanged)
+MASK_COEF2 = 52.0
+MASK_EXP2 = 1.6
+MASK_MAX = 4.0
+
+
+def _masking_field(Y: np.ndarray, ys_b: int, xs_b: int) -> np.ndarray:
+    """Per-block contrast-masking multiplier from local activity of the
+    (sharpened) luma plane: noisy/busy blocks tolerate proportionally
+    coarser quantization (libjxl raises its global quant scale the same
+    way — measured igs 8.9 -> 14.3 on noise at fixed qf)."""
+    gy, gx = np.gradient(Y)
+    act = np.sqrt(gy * gy + gx * gx)
+    act_b = act.reshape(ys_b, 8, xs_b, 8)
+    mean_b = np.maximum(act_b.mean(axis=(1, 3)), 0.0)
+    # screen-content guard: a sparse edge on a flat block (glyph
+    # stroke) has median activity ~0 while the mean is high — masking
+    # there coarsens exactly the pixels the eye locks onto.  Gate the
+    # masking activity by the geometric mean with the MEDIAN, which
+    # leaves dense texture/noise (median ~ mean) untouched
+    med_b = np.median(act_b, axis=(1, 3))
+    blk = np.sqrt(mean_b * np.minimum(mean_b, 4.0 * med_b))
+    return np.clip(1.0 + MASK_COEF * np.power(blk, MASK_EXP)
+                   + MASK_COEF2 * np.power(blk, MASK_EXP2),
+                   1.0, MASK_MAX)
+
+
+def _estimate_cfl(coY, coX, coB, ys_b: int, xs_b: int):
+    """Per-64x64-tile chroma-from-luma factors on AC coefficients:
+    minimize |X - tx*Y| and |(B-Y) - tb_delta*Y|.  Stored as the
+    decoder's signed tags (factor = tag / 84)."""
+    ty, tx_ = -(-ys_b // 8), -(-xs_b // 8)
+    ytox = np.zeros((ty, tx_), np.int32)
+    ytob = np.zeros((ty, tx_), np.int32)
+    for t_y in range(ty):
+        for t_x in range(tx_):
+            ys = slice(t_y * 8, min((t_y + 1) * 8, ys_b))
+            xs = slice(t_x * 8, min((t_x + 1) * 8, xs_b))
+            y_ac = coY[ys, xs].reshape(-1, 64)[:, 1:].ravel()
+            den = float(y_ac @ y_ac)
+            if den < 1e-9:
+                continue
+            x_ac = coX[ys, xs].reshape(-1, 64)[:, 1:].ravel()
+            b_ac = coB[ys, xs].reshape(-1, 64)[:, 1:].ravel()
+            fx = float(x_ac @ y_ac) / den
+            fb = float(b_ac @ y_ac) / den
+            ytox[t_y, t_x] = int(np.clip(round(fx * 84.0), -128, 127))
+            ytob[t_y, t_x] = int(np.clip(round(fb * 84.0), -128, 127))
+    return ytox, ytob
+
+
+def _token_cost_vec(vals: np.ndarray, cov: int) -> np.ndarray:
+    """The token-cost rate of vals (..., size) -> rate (...)."""
+    seg = vals[..., cov:]
+    nz = seg != 0
+    any_nz = nz.any(-1)
+    last = np.where(any_nz,
+                    nz.shape[-1] - np.argmax(nz[..., ::-1], axis=-1), 0)
+    mag = np.abs(seg).astype(np.float64)
+    bits = np.where(nz, np.log2(1.0 + mag), 0.0).sum(-1)
+    cnt = nz.sum(-1)
+    return np.where(any_nz, 2.0 + 1.1 * last + bits + cnt, 2.0)
+
+
+# effort tiers (JxlEffort.kt 1-10) -> RD candidate breadth
+_EFFORT_CANDS = {
+    # sid, cy, cx — largest first
+    'full': [(5, 4, 4), (10, 4, 2), (11, 2, 4), (4, 2, 2), (6, 2, 1),
+             (7, 1, 2)],
+    'mid': [(4, 2, 2), (6, 2, 1), (7, 1, 2)],
+    'fast': [],
+}
+
+# same-size (1x1 block) alternative transforms for sharp/screen
+# content: IDENTITY, DCT2X2, DCT4X4, DCT4X8, DCT8X4.  An 8x8 DCT rings
+# on glyph edges; libjxl's encoder picks these at e7+ (the 4.5x rate /
+# +16 dB gap on the text-on-flat probe, round-5).  Restricted to
+# distance < 2 where x_qm_scale == 2 (qm == 1), matching the encoder's
+# header; evaluated per 8x8 block against DCT8 in the same greedy.
+_SPECIAL_CANDS = (1, 2, 3, 12, 13)
+
+
+_D_WEIGHTS = (8.0, 1.0, 0.35)   # X, Y, B distortion weights (XYB space)
+
+
+def _quantize_biased(ratio: np.ndarray, c: int) -> np.ndarray:
+    """Quantize coefficient/step ratios accounting for the decoder's
+    AdjustQuantBias shrinkage: pick the integer whose *reconstruction*
+    adjust(q)*step lands closest to the target."""
+    from . import synthesis as S
+    q0 = np.round(ratio)
+    best_q = q0.astype(np.int64)
+    best_e = np.abs(S.adjust_quant_bias(best_q, c) - ratio)
+    for dq in (-1, 1):
+        q = q0.astype(np.int64) + dq
+        e = np.abs(S.adjust_quant_bias(q, c) - ratio)
+        take = e < best_e
+        best_q = np.where(take, q, best_q)
+        best_e = np.where(take, e, best_e)
+    # deadzone: rate of a lone +-1 exceeds its distortion value below
+    # ~0.58 steps (measured RD-positive on photo/noise/smooth probes)
+    best_q = np.where(np.abs(ratio) < AC_DEADZONE, 0, best_q)
+    return best_q
+
+
+import functools as _functools
+
+
+@_functools.lru_cache(maxsize=None)
+def _special_mats(sid: int):
+    """(r0 (3, 64), R1 (3, 63, 64), A (3, 64, 63)) for a cov==1 special
+    transform: synthesis pixel rows (scan order, dequant folded in at
+    inv_qac=1/qm=1) and the least-squares analysis pinv."""
+    from . import synthesis as S
+    R = np.stack([S.response_matrix(sid, c) for c in range(3)])
+    Rf = R.reshape(3, 64, 64).astype(np.float64)
+    r0 = Rf[:, 0]
+    R1 = Rf[:, 1:]
+    A = np.stack([np.linalg.pinv(R1[c]) for c in range(3)])
+    return r0, R1, A
+
+
+def _special_quantize_batch(sid, blocks_pix, dcb, qfv, igs, fxv, fbv):
+    """Quantize ALL 8x8 blocks with one special transform via its
+    response matrices: blocks_pix (N, 3, 64) pixel rows, dcb (N, 3)
+    per-block DC means.  Returns (vals (N, 3, 64) int64 scan order,
+    dist (N,)) — distortion measured in PIXEL space (the responses are
+    not orthonormal, so coefficient-domain error would misrank)."""
+    from . import synthesis as S
+    r0, R1, A = _special_mats(sid)
+    n = blocks_pix.shape[0]
+    inv_qac = (igs / qfv.astype(np.float64))[:, None]
+    vals = np.zeros((n, 3, 64), np.int64)
+    t1 = blocks_pix[:, 1] - dcb[:, 1, None] * r0[1][None]
+    gY = t1 @ A[1]
+    qy = _quantize_biased(gY / inv_qac, 1)
+    vals[:, 1, 1:] = qy
+    dqY = S.adjust_quant_bias(qy, 1) * inv_qac
+    recY = dqY @ R1[1]
+    # pixel-domain error is directly comparable to the DCT8 dist
+    # (ana_basis rows have norm^2 1/64, area 64 cancels it)
+    dist = _D_WEIGHTS[1] * np.sum((recY - t1) ** 2, axis=-1)
+    for c, f in ((0, fxv), (2, fbv)):
+        tc = blocks_pix[:, c] - dcb[:, c, None] * r0[c][None]
+        sub = tc - f[:, None] * recY
+        g = sub @ A[c]
+        q = _quantize_biased(g / inv_qac, c)
+        vals[:, c, 1:] = q
+        rec = (S.adjust_quant_bias(q, c) * inv_qac) @ R1[c] \
+            + f[:, None] * recY
+        dist += _D_WEIGHTS[c] * np.sum((rec - tc) ** 2, axis=-1)
+    return vals, dist
+
+
+def _quantize_batch(coeff, strategy, qfv, igs, fxv, fbv, tabs_cache,
+                    dq_dc_blk):
+    """Quantise N blocks of one strategy: coeff (N, 3, bh, bw), qfv/fxv/fbv (N,),
+    dq_dc_blk (N, 3, cy, cx) -> (vals (N, 3, size) int64, dist (N,))."""
+    from . import synthesis as S
+    key = strategy
+    if key not in tabs_cache:
+        tabs_cache[key] = (S.scan_to_basis(strategy),
+                           [S.dequant_table(strategy, c).astype(np.float64)
+                            for c in range(3)])
+    order, tabs = tabs_cache[key]
+    st = STRATEGIES[strategy]
+    cov = st.covered
+    size = st.num_coeffs
+    n = coeff.shape[0]
+    inv_qac = igs / qfv.astype(np.float64)            # (N,)
+    idx = order[cov:]
+    area = float(cov * 64)
+    flat = coeff.reshape(n, 3, size)
+    vals = np.zeros((n, 3, size), np.int64)
+    stepY = tabs[1][idx][None, :] * inv_qac[:, None]
+    fY = flat[:, 1][:, idx]
+    qy = _quantize_biased(fY / stepY, 1)
+    vals[:, 1, cov:] = qy
+    dqY = S.adjust_quant_bias(qy, 1) * stepY
+    dist = area * _D_WEIGHTS[1] * np.sum((dqY - fY) ** 2, axis=-1)
+    for c, f in ((0, fxv), (2, fbv)):
+        tgt = flat[:, c][:, idx]
+        sub = tgt - f[:, None] * dqY
+        step = tabs[c][idx][None, :] * inv_qac[:, None]
+        q = _quantize_biased(sub / step, c)
+        vals[:, c, cov:] = q
+        rec = S.adjust_quant_bias(q, c) * step + f[:, None] * dqY
+        dist += area * _D_WEIGHTS[c] * np.sum((rec - tgt) ** 2, axis=-1)
+    if dq_dc_blk is not None:
+        # LLF reconstruction error (decoder rebuilds it from DC means)
+        cy, cx = st.cy, st.cx
+        anY, anX = S.ana_basis(cy), S.ana_basis(cx)
+        rs = np.outer(S.resample_vec(cy), S.resample_vec(cx))
+        bw_ = st.cx * 8
+        pos = [(j // st.cx) * bw_ + (j % st.cx) for j in range(cov)]
+        llf = np.einsum("ky,ncyx,lx->nckl", anY, dq_dc_blk, anX) \
+            * rs[None, None]
+        llf = llf.reshape(n, 3, cov)
+        tl = coeff.reshape(n, 3, size)[:, :, pos]
+        d2 = np.sum((llf - tl) ** 2, axis=-1)
+        for c in range(3):
+            dist += area * _D_WEIGHTS[c] * d2[:, c]
+    return vals, dist
+
+
+def _special_eligibility(pad_u8_or_f: np.ndarray, ys_b: int,
+                         xs_b: int) -> np.ndarray:
+    """Screen-content gate for the special 1x1 transforms: blocks whose
+    luma activity is a SPARSE edge on a flat base (median |grad| <<
+    mean).  On dense noise the token-cost proxy badly underestimates
+    the real cost of 60+ dense IDENTITY tokens (and they dilute the
+    shared AC histograms): unrestricted, specials doubled the
+    noisy-photo rate at LOWER psnr (round-5 probe)."""
+    p = pad_u8_or_f
+    if p.dtype == np.uint8:
+        luma = p.mean(axis=-1).astype(np.float32) / 255.0
+    elif p.dtype == np.uint16:
+        luma = p.mean(axis=-1).astype(np.float32) / 65535.0
+    else:
+        luma = p.mean(axis=-1).astype(np.float32)
+    gy, gx = np.gradient(luma)
+    act = np.sqrt(gy * gy + gx * gx)
+    ab = act.reshape(ys_b, 8, xs_b, 8)
+    mean_b = ab.mean(axis=(1, 3))
+    med_b = np.median(ab, axis=(1, 3))
+    return (mean_b > 0.008) & (med_b * 6.0 < mean_b)
+
+
+def _select_strategies(co8, X, Y, B, qf_map, igs, fx_blk, fb_blk,
+                       ys_b, xs_b, dq_dc, lam,
+                       cands=_EFFORT_CANDS['full'], specials=(),
+                       special_eligible=None):
+    """Greedy varblock rate+distortion selection, vectorized: every
+    candidate shape is quantized for ALL its aligned positions in one
+    batch, then a greedy largest-first pass picks winners from the
+    precomputed cost maps.  Returns (acs_map, values per anchor, qf per
+    anchor)."""
+    from . import synthesis as S
+    tabs_cache = {}
+
+    # DCT8 baseline for every block
+    coeff8 = np.stack([co8[c] for c in range(3)], axis=2).reshape(
+        ys_b * xs_b, 3, 8, 8)
+    dqdc8 = np.transpose(dq_dc, (1, 2, 0)).reshape(
+        ys_b * xs_b, 3, 1, 1)
+    vals8, dist8 = _quantize_batch(
+        coeff8, 0, qf_map.ravel().astype(np.float64), igs,
+        fx_blk.ravel(), fb_blk.ravel(), tabs_cache, dqdc8)
+    rate8 = _token_cost_vec(vals8, 1).sum(-1)
+    cost8 = (rate8 + lam * dist8).reshape(ys_b, xs_b)
+    vals8 = vals8.reshape(ys_b, xs_b, 3, -1)
+
+    cand_data = {}
+    planes = np.stack([X, Y, B])
+    for sid, cy, cx in cands:
+        nyc, nxc = ys_b // cy, xs_b // cx
+        if nyc == 0 or nxc == 0:
+            continue
+        h, w = cy * 8, cx * 8
+        # all aligned regions: (3, nyc, h, nxc, w) -> (N, 3, h, w)
+        reg = planes[:, :nyc * h, :nxc * w].reshape(
+            3, nyc, h, nxc, w).transpose(1, 3, 0, 2, 4).reshape(
+            nyc * nxc, 3, h, w)
+        anaH = S.ana_basis(h)
+        anaW = S.ana_basis(w)
+        coeff = np.einsum("ky,ncyx,lx->nckl", anaH, reg, anaW,
+                          optimize=True)
+        qfm = qf_map[:nyc * cy, :nxc * cx].reshape(
+            nyc, cy, nxc, cx).min(axis=(1, 3)).ravel().astype(np.float64)
+        fxa = fx_blk[:nyc * cy:cy, :nxc * cx:cx].ravel()
+        fba = fb_blk[:nyc * cy:cy, :nxc * cx:cx].ravel()
+        dqb = dq_dc[:, :nyc * cy, :nxc * cx].reshape(
+            3, nyc, cy, nxc, cx).transpose(1, 3, 0, 2, 4).reshape(
+            nyc * nxc, 3, cy, cx)
+        vals, dist = _quantize_batch(coeff, sid, qfm, igs, fxa, fba,
+                                     tabs_cache, dqb)
+        rate = _token_cost_vec(vals, cy * cx).sum(-1)
+        cand_data[sid] = (vals.reshape(nyc, nxc, 3, -1),
+                          (rate + lam * dist).reshape(nyc, nxc),
+                          qfm.reshape(nyc, nxc).astype(np.int32))
+
+    if specials:
+        blocks_pix = planes.reshape(3, ys_b, 8, xs_b, 8).transpose(
+            1, 3, 0, 2, 4).reshape(ys_b * xs_b, 3, 64)
+        dcb = np.transpose(dq_dc, (1, 2, 0)).reshape(ys_b * xs_b, 3)
+        qfr = qf_map.ravel().astype(np.float64)
+        fxr = fx_blk.ravel()
+        fbr = fb_blk.ravel()
+        if special_eligible is None:
+            special_eligible = np.ones((ys_b, xs_b), bool)
+        eligible = special_eligible.ravel()
+        for sid in specials:
+            valsS, distS = _special_quantize_batch(
+                sid, blocks_pix, dcb, qfr, igs, fxr, fbr)
+            rateS = _token_cost_vec(valsS, 1).sum(-1)
+            costS = np.where(eligible, rateS + lam * distS, 1e30)
+            cand_data[sid] = (
+                valsS.reshape(ys_b, xs_b, 3, -1),
+                costS.reshape(ys_b, xs_b),
+                qf_map.astype(np.int32))
+        cands = list(cands) + [(sid, 1, 1) for sid in specials]
+
+    return _greedy_select(cands, cand_data, cost8, vals8, qf_map,
+                          ys_b, xs_b)
+
+
+def _greedy_decide(cands, cost_data, cost8, qf_map, ys_b, xs_b):
+    """Greedy largest-first winner pass over precomputed cost grids;
+    values are NOT touched — only cost/qf grids.  cost_data: {sid:
+    (cgrid, qgrid)}.  Returns (acs_map, qf_sel).  Native C++ when
+    in native C++ (hostcodec.cpp greedy_decide_native)."""
+    from .. import native as native_mod
+    lib = native_mod.get_lib()
+    import ctypes
+    kept = [(sid, cy, cx) for (sid, cy, cx) in cands
+            if sid in cost_data]
+    cdesc = np.empty((max(len(kept), 1), 5), np.int32)
+    goffs = np.zeros(len(kept) + 1, np.int64)
+    cgrids, qgrids = [], []
+    for k, (sid, cy, cx) in enumerate(kept):
+        cgrid, qgrid = cost_data[sid]
+        nyc, nxc = cgrid.shape
+        cdesc[k] = (sid, cy, cx, nyc, nxc)
+        goffs[k + 1] = goffs[k] + nyc * nxc
+        cgrids.append(np.ascontiguousarray(cgrid, np.float64)
+                      .reshape(-1))
+        qgrids.append(np.ascontiguousarray(qgrid, np.int32)
+                      .reshape(-1))
+    cgrid_all = (np.concatenate(cgrids) if cgrids
+                 else np.zeros(1, np.float64))
+    qgrid_all = (np.concatenate(qgrids) if qgrids
+                 else np.zeros(1, np.int32))
+    cost8_c = np.ascontiguousarray(cost8, np.float64)
+    qf_c = np.ascontiguousarray(qf_map, np.int32)
+    acs_map = np.empty((ys_b, xs_b), np.int32)
+    qf_sel = np.empty((ys_b, xs_b), np.int32)
+    dp = ctypes.POINTER(ctypes.c_double)
+    ip = ctypes.POINTER(ctypes.c_int32)
+    lib.greedy_decide_native(
+        cost8_c.ctypes.data_as(dp), qf_c.ctypes.data_as(ip),
+        ys_b, xs_b,
+        np.ascontiguousarray(cdesc).ctypes.data_as(ip), len(kept),
+        cgrid_all.ctypes.data_as(dp), qgrid_all.ctypes.data_as(ip),
+        goffs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        acs_map.ctypes.data_as(ip), qf_sel.ctypes.data_as(ip))
+    return acs_map, qf_sel
+
+
+def _greedy_select(cands, cand_data, cost8, vals8, qf_map, ys_b, xs_b):
+    """Greedy winner pass + host vals_map materialization."""
+    cost_data = {sid: (c, q) for sid, (v, c, q) in cand_data.items()}
+    acs_map, qf_sel = _greedy_decide(cands, cost_data, cost8, qf_map,
+                                     ys_b, xs_b)
+    vals_map = {}
+    for by, bx in zip(*np.nonzero(acs_map >= 0)):
+        sid = int(acs_map[by, bx])
+        if sid == 0:
+            v = vals8[by, bx]
+        else:
+            cy, cx = STRATEGIES[sid].cy, STRATEGIES[sid].cx
+            v = cand_data[sid][0][by // cy, bx // cx]
+        vals_map[(int(by), int(bx))] = {c: v[c] for c in range(3)}
+    return acs_map, vals_map, qf_sel
+
+
+def _write_ac_tokens(ts, acs_map, vals_map, xs_b, ys_b):
+    """Mirror of read_pass_group's varblock walk: nonzero counts with
+    spread prediction, zero-density contexts with covered/log2cov, in
+    the native single-pass tokenizer."""
+    from .. import native as native_mod
+    _write_ac_tokens_native(native_mod.get_lib(), ts, acs_map, vals_map,
+                            xs_b, ys_b)
+
+
+def _write_ac_tokens_native(lib, ts, acs_map, vals_map, xs_b, ys_b):
+    import ctypes
+    bys, bxs = np.nonzero(acs_map >= 0)
+    ids = acs_map[bys, bxs]
+    n = len(ids)
+    anchors = np.empty((max(n, 1), 10), np.int32)
+    offs = np.zeros(n + 1, np.int64)
+    sizes = np.asarray([STRATEGIES[int(s)].num_coeffs for s in ids],
+                       np.int64)
+    np.cumsum(3 * sizes, out=offs[1:])
+    vals_flat = np.empty(max(int(offs[-1]), 1), np.int32)
+    for i in range(n):
+        s = STRATEGIES[int(ids[i])]
+        anchors[i] = (int(bxs[i]), int(bys[i]), s.covered,
+                      s.log2_covered, s.num_coeffs, s.cx, s.cy,
+                      DEFAULT_CTX_MAP[1 * 13 + s.order_bucket],
+                      DEFAULT_CTX_MAP[0 * 13 + s.order_bucket],
+                      DEFAULT_CTX_MAP[2 * 13 + s.order_bucket])
+        chans = vals_map[(int(bys[i]), int(bxs[i]))]
+        off = int(offs[i])
+        sz = int(sizes[i])
+        for c in range(3):
+            vals_flat[off + c * sz: off + (c + 1) * sz] = chans[c]
+    cap = int(3 * n + (offs[-1] - 3 * n * 0))      # nz tokens + coeffs
+    out_ctx = np.empty(max(cap, 1), np.int32)
+    out_val = np.empty(max(cap, 1), np.int32)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    m = lib.encode_ac_tokens(
+        anchors.ctypes.data_as(i32p), n,
+        offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        vals_flat.ctypes.data_as(i32p), xs_b, ys_b, NUM_CTXS,
+        out_ctx.ctypes.data_as(i32p), out_val.ctypes.data_as(i32p))
+    ts.add_arrays(out_ctx[:m], out_val[:m])
+
+
+def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
+                       decoding_speed: int = 0,
+                       effort: int = 7,
+                       bit_depth: int = None,
+                       progressive: bool = False) -> bytes:
+    """(H, W, 3) uint8 sRGB -> real-format VarDCT codestream, signalled
+    at `bit_depth` bits per sample (8 by default)."""
+    if pixels.dtype != np.uint8 or pixels.ndim != 3 or pixels.shape[2] != 3:
+        raise NotImplementedError(
+            "the port's host encoder takes (H, W, 3) uint8 sRGB pixels")
+    H, W, _ = pixels.shape
+    xs_b, ys_b = -(-W // 8), -(-H // 8)
+    pw, ph = xs_b * 8, ys_b * 8
+    if bit_depth is None:
+        bit_depth = 8
+
+    pad = np.pad(pixels, ((0, ph - H), (0, pw - W), (0, 0)), mode="edge")
+    # decoding-speed tiers drop decode-side filters (the reference's
+    # JxlDecodingSpeed semantics); gaborish costs a 3x3 conv at decode
+    use_gab = decoding_speed < 2
+
+    X, Y, B = srgb8_to_xyb(pad)
+    B = B - Y                 # CfL base factor 1.0
+    if use_gab:
+        X = _gaborish_sharpen(X)
+        Y = _gaborish_sharpen(Y)
+        B = _gaborish_sharpen(B)
+
+    # content-adaptive global scale: per-block target step
+    # s_b = BASE_STEP_MULT * distance * masking; the global scale
+    # carries the masking median and the integer qf field the rest
+    mask = _masking_field(Y, ys_b, xs_b)
+    # scale the global quant scale with distance AND masking so the
+    # integer qf field keeps its resolution around 6 (libjxl keeps
+    # qf_med 5-6 at every distance; igs carries the rest)
+    igs_target = 8.929 * distance * float(np.median(mask))
+    gs = int(np.clip(round(65536.0 / igs_target), 257, 65535))
+    igs = 65536.0 / gs
+    s_field = BASE_STEP_MULT * distance * mask
+    qf_map = np.clip(np.rint(igs / s_field), 1, 255).astype(np.int32)
+    base_qf = int(np.clip(round(igs / (BASE_STEP_MULT * distance)),
+                          1, 255))
+    # DC step stays proportional to distance only (masking must not
+    # coarsen DC: banding): quant_dc rises with the global scale
+    qdc = int(np.clip(round(igs / (0.893 * distance)), 1, 1024))
+    # extra_precision halves the DC step in the mid-distance band where
+    # DC banding dominates (libjxl writes ep=1 for 2<=d<8)
+    extra_precision = 1 if 1.5 <= distance < 6.0 else 0
+    dc_steps = [d * igs / qdc / (1 << extra_precision)
+                for d in DC_STEPS]
+
+    ANA = S.ana_basis(8)
+
+    # per-block coefficients (vectorised analysis)
+    def block_coeffs(plane):
+        b = plane.reshape(ys_b, 8, xs_b, 8).transpose(0, 2, 1, 3)
+        return np.einsum("ky,YXyx,lx->YXkl", ANA, b, ANA)
+
+    co = {0: block_coeffs(X), 1: block_coeffs(Y),
+          2: block_coeffs(B)}
+    dc_int = np.zeros((3, ys_b, xs_b), np.int64)
+    dc_int[0] = np.round(co[1][:, :, 0, 0] / dc_steps[1])
+    dc_int[1] = np.round(co[0][:, :, 0, 0] / dc_steps[0])
+    dc_int[2] = np.round(co[2][:, :, 0, 0] / dc_steps[2])
+
+    ytox, ytob = _estimate_cfl(co[1], co[0], co[2], ys_b, xs_b)
+    fx_blk = np.repeat(np.repeat(ytox, 8, 0), 8, 1)[:ys_b, :xs_b] / 84.0
+    fb_blk = np.repeat(np.repeat(ytob, 8, 0), 8, 1)[:ys_b, :xs_b] / 84.0
+    # dequantized DC means per channel (X, Y, B) for LLF distortion
+    dq_dc = np.stack([dc_int[1].astype(np.float64) * dc_steps[0],
+                      dc_int[0].astype(np.float64) * dc_steps[1],
+                      dc_int[2].astype(np.float64) * dc_steps[2]])
+    # lambda: bits per unit squared XYB error, anchored to the actual
+    # median luma quant step so rate and distortion are commensurate
+    step_ref = (igs / max(base_qf, 1)) * float(
+        np.median(S.dequant_table(0, 1)))
+    lam = LAMBDA_MULT / (step_ref * step_ref)
+    cands = _EFFORT_CANDS['full'] if effort >= 6 else (
+        _EFFORT_CANDS['mid'] if effort >= 3 else _EFFORT_CANDS['fast'])
+    specials = _SPECIAL_CANDS if (effort >= 7
+                                  and distance < 2.0) else ()
+    special_eligible = None
+    if specials:
+        special_eligible = _special_eligibility(pad, ys_b, xs_b)
+        if not special_eligible.any():
+            specials = ()
+    acs_map, vals_map, qf_map = _select_strategies(
+        co, X, Y, B, qf_map, igs, fx_blk, fb_blk, ys_b, xs_b,
+        dq_dc, lam, cands=cands, specials=specials,
+        special_eligible=special_eligible)
+
+    # ---- frame assembly
+    from ..bitstream.headers import BitDepth
+    m = ImageMetadata()
+    m.bit_depth = BitDepth(False, bit_depth, 0)
+    hdr = ImageHeader(size=SizeHeader(xsize=W, ysize=H), metadata=m)
+    xqm = 3 if distance >= 2.0 else 2
+    # progressive AC: two passes, coarse coefficients (>>1) then the
+    # refinement — decoders can show pass 0 early (the decode side has
+    # supported num_passes>1 since round 3)
+    npasses = 2 if progressive else 1
+    fh = FrameHeader(encoding=Encoding.VARDCT, flags=0,
+                     x_qm_scale=xqm, b_qm_scale=2)
+    if npasses == 2:
+        fh.passes.num_passes = 2
+        fh.passes.num_downsample = 0
+        fh.passes.shift = [1]
+    fh.restoration_filter.gab = use_gab
+    # decoding-speed tiers progressively drop decode-side filters
+    # (reference JxlDecodingSpeed semantics): ds>=1 drops EPF, ds>=2
+    # also drops gaborish (via use_gab above)
+    epf_it = EPF_ITERS if (use_gab and decoding_speed < 1) else 0
+    if epf_it and distance >= 2.0:
+        epf_it = 3
+    fh.restoration_filter.epf_iters = epf_it
+
+    gd_b = 32                     # AC group: 32x32 blocks
+    lf_b = 256                    # LF group: 256x256 blocks
+    gx = -(-xs_b // gd_b)
+    gy = -(-ys_b // gd_b)
+    ng = gx * gy
+    gx_lf = -(-xs_b // lf_b)
+    gy_lf = -(-ys_b // lf_b)
+    ndc = gx_lf * gy_lf
+
+    def lf_global_bits():
+        w_ = BitWriter()
+        w_.bool(True)
+        w_.u32(gs, (11, 1), (11, 2049), (12, 4097), (16, 8193))
+        w_.u32(qdc, 16, (5, 1), (8, 1), (16, 1))
+        w_.bool(True)
+        w_.bool(True)
+        w_.bool(False)
+        return w_
+
+    def _meta_substream(gi):
+        """AC-metadata modular substream of one LF group (ytox/ytob,
+        blockinfo, sharpness)."""
+        lx = (gi % gx_lf) * lf_b
+        ly = (gi // gx_lf) * lf_b
+        gw = min(lf_b, xs_b - lx)
+        gh = min(lf_b, ys_b - ly)
+        sub_acs = acs_map[ly:ly + gh, lx:lx + gw]
+        sub_qf = qf_map[ly:ly + gh, lx:lx + gw]
+        anchors = [(by, bx) for by in range(gh) for bx in range(gw)
+                   if sub_acs[by, bx] >= 0]
+        nb = len(anchors)
+        blockinfo = np.zeros((2, nb), np.int32)
+        blockinfo[0, :] = [int(sub_acs[a]) for a in anchors]
+        blockinfo[1, :] = [int(sub_qf[a]) - 1 for a in anchors]
+        cw, ch = -(-gw // 8), -(-gh // 8)
+        tx0, ty0 = lx // 8, ly // 8
+        sub = _modular_substream([
+            Channel(cw, ch, hshift=3, vshift=3,
+                    data=np.ascontiguousarray(
+                        ytox[ty0:ty0 + ch, tx0:tx0 + cw], np.int32)),
+            Channel(cw, ch, hshift=3, vshift=3,
+                    data=np.ascontiguousarray(
+                        ytob[ty0:ty0 + ch, tx0:tx0 + cw], np.int32)),
+            Channel(nb, 2, data=blockinfo),
+            Channel(gw, gh, data=np.full((gh, gw), EPF_SHARPNESS,
+                                         np.int32))],
+            learn=True, max_leaves=24)
+        return nb, gw, gh, sub
+
+    def lf_group_bits(gi):
+        lx = (gi % gx_lf) * lf_b
+        ly = (gi // gx_lf) * lf_b
+        gw = min(lf_b, xs_b - lx)
+        gh = min(lf_b, ys_b - ly)
+        w_ = BitWriter()
+        w_.u(extra_precision, 2)
+        w_.append_writer(_modular_substream([
+            Channel(gw, gh, data=np.ascontiguousarray(
+                dc_int[i, ly:ly + gh, lx:lx + gw], np.int32))
+            for i in range(3)], learn=True, max_leaves=24))
+        nb, gw2, gh2, meta_sub = _meta_substream(gi)
+        upper = gw2 * gh2
+        cb = (upper - 1).bit_length() if upper > 1 else 0
+        w_.u(nb - 1, cb)
+        w_.append_writer(meta_sub)
+        return w_
+
+    def hf_global_bits():
+        w_ = BitWriter()
+        w_.bool(True)
+        if ng > 1:
+            w_.u(0, (ng - 1).bit_length())  # num_histograms = 1
+        w_.u32(0, 0x5F, 0x13, 0, (13, 0))
+        return w_
+
+    if npasses == 1:
+        vals_maps = [vals_map]
+    else:
+        # split v = (v0 << 1) + v1 with v0 = round(v/2): pass 0 the
+        # coarse field, pass 1 a {-1,0,1} refinement (the decoder
+        # accumulates sum(v_p << shift_p))
+        v0m, v1m = {}, {}
+        for key, chans in vals_map.items():
+            a0, a1 = {}, {}
+            for c, v in chans.items():
+                v = np.asarray(v)
+                v0 = (v + 1) >> 1
+                a0[c] = v0
+                a1[c] = v - (v0 << 1)
+            v0m[key] = a0
+            v1m[key] = a1
+        vals_maps = [v0m, v1m]
+
+    # shared AC histograms must cover all groups: gather all tokens
+    def group_tokens(gi, ts, p_):
+        vmap = vals_maps[p_]
+        ax = (gi % gx) * gd_b
+        ay = (gi // gx) * gd_b
+        gw = min(gd_b, xs_b - ax)
+        gh = min(gd_b, ys_b - ay)
+        sub_acs = acs_map[ay:ay + gh, ax:ax + gw]
+        sub_vals = {(by, bx): vmap[(ay + by, ax + bx)]
+                    for by in range(gh) for bx in range(gw)
+                    if sub_acs[by, bx] >= 0}
+        _write_ac_tokens(ts, sub_acs, sub_vals, gw, gh)
+
+    if ng == 1 and ndc == 1 and npasses == 1:
+        lfgb = lf_group_bits(0)
+        ts = TokenStream(NUM_CTXS * (NONZERO_BUCKETS
+                                     + ZERO_DENSITY_CTX_COUNT), use_ans=True)
+        group_tokens(0, ts, 0)
+        tw = BitWriter()
+        ts.write(tw)
+        sec = lf_global_bits()
+        sec.append_writer(lfgb)
+        sec.append_writer(hf_global_bits())
+        sec.append_writer(tw)
+        sec.zero_pad_to_byte()
+        payloads = [sec.to_bytes()]
+    else:
+        # per-group token streams share one histogram set: write
+        # histograms in HfGlobal?  The AC code lives in HfGlobal and the
+        # groups carry only the symbol bits; TokenStream couples both,
+        # so emit a joint histogram over all groups' tokens, then write
+        # each group with the shared code.
+        nctx = NUM_CTXS * (NONZERO_BUCKETS + ZERO_DENSITY_CTX_COUNT)
+        lf_payloads = []
+        for gi in range(ndc):
+            b = lf_group_bits(gi)
+            b.zero_pad_to_byte()
+            lf_payloads.append(b.to_bytes())
+        hf = hf_global_bits()
+        sections = []
+        for p_ in range(npasses):
+            all_ts = [TokenStream(nctx, use_ans=True)
+                      for _ in range(ng)]
+            for gi in range(ng):
+                group_tokens(gi, all_ts[gi], p_)
+            joint = TokenStream(nctx, use_ans=True)
+            for t in all_ts:
+                joint.extend_from(t)
+            if p_ > 0:
+                # per-pass HfGlobal tail: used_orders + this pass's code
+                hf.u32(0, 0x5F, 0x13, 0, (13, 0))
+            shared = joint.write_histograms(hf)
+            for gi in range(ng):
+                gw_ = BitWriter()
+                all_ts[gi].write_symbols(gw_, shared)
+                gw_.zero_pad_to_byte()
+                sections.append(gw_.to_bytes())
+        lfg = lf_global_bits()
+        lfg.zero_pad_to_byte()
+        payloads = [lfg.to_bytes()]
+        payloads.extend(lf_payloads)
+        hf.zero_pad_to_byte()
+        payloads.append(hf.to_bytes())
+        payloads.extend(sections)
+
+    bw = BitWriter()
+    write_image_header(bw, hdr)
+    write_frame_header(bw, fh, hdr)
+    write_toc(bw, [len(p) for p in payloads])
+    return bw.to_bytes() + b"".join(payloads)

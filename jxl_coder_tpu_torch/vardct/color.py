@@ -19,10 +19,9 @@ import functools
 import numpy as np
 import torch
 
-from jxl_coder_tpu.vardct.dec_real import (_BIAS, _CBRT_BIAS, _OPSIN_INV,
-                                           _POW17TO10, _POW25TO18)
-
 from .. import _build
+from ..host.vardct.dec_real import (_BIAS, _CBRT_BIAS, _OPSIN_INV,
+                                    _POW17TO10, _POW25TO18)
 
 _M = np.asarray(_OPSIN_INV, np.float32)
 _CB = np.float32(_CBRT_BIAS)

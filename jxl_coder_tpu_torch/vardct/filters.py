@@ -9,7 +9,7 @@ it runs the plain PyTorch twins below, which mirror the jnp chain
 (``tpu_real.gaborish_device`` / ``epf_device``,
 ``tpu_full._epf2_device``) operation for operation.
 
-The constants come from ``jxl_coder_tpu.vardct.dec_real``.  Input
+The constants come from ``host/vardct/dec_real.py``.  Input
 planes may be a cropped view (row stride larger than the width);
 outputs are contiguous (3, H, W) float32.
 """
@@ -22,11 +22,10 @@ import functools
 import numpy as np
 import torch
 
-from jxl_coder_tpu.vardct.dec_real import (EPF1_INV_SCALE, EPF_CHANNEL_SCALE,
-                                           EPF_SIGMA_GATE, EPF_SIGMA_PER,
-                                           KINV_SIGMA)
-
 from .. import _build
+from ..host.vardct.dec_real import (EPF1_INV_SCALE, EPF_CHANNEL_SCALE,
+                                    EPF_SIGMA_GATE, EPF_SIGMA_PER,
+                                    KINV_SIGMA)
 
 BORDER_MUL = np.float32(2.0 / 3.0)
 _PLUS4 = ((0, 1), (0, -1), (1, 0), (-1, 0))

@@ -28,9 +28,8 @@ import functools
 import numpy as np
 import torch
 
-from jxl_coder_tpu.vardct.dec_real import EPF_CHANNEL_SCALE as REAL_CS
-
 from .. import _build
+from ..host.vardct.dec_real import EPF_CHANNEL_SCALE as REAL_CS
 from ..ops import fp
 from . import color, pipeline as P, xyb as X
 from .filters import BORDER_MUL, _border, _mirror_index

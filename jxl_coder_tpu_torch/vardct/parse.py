@@ -1,8 +1,8 @@
 """Host parse of one VarDCT frame into the device-path state.
 
 The parse-only branch of ``jxl_coder_tpu.vardct.dec_real.
-decode_vardct_frame`` (``dec_real.py:1630-1866``), built from the JAX
-package's readers, which are numpy and C++ and import no JAX: LF
+decode_vardct_frame`` (``dec_real.py:1630-1866``), built from the
+readers of the port's copy ``host/vardct/dec_real.py`` (numpy and C++): LF
 global, LF groups, DC planes with adaptive smoothing, HF global, and
 the pass groups (multi-pass coefficients accumulated) concatenated into
 one frame-global ``BlockArrays``.  It returns the same state dict, the
@@ -20,13 +20,12 @@ import os
 
 import numpy as np
 
-from jxl_coder_tpu.bitstream.reader import BitReader, BitstreamError
-from jxl_coder_tpu.vardct.dec_real import (BlockArrays, _is_srgb_output,
-                                           _lf_group_view,
-                                           adaptive_dc_smoothing,
-                                           compute_dc_planes, read_hf_global,
-                                           read_lf_global, read_lf_group,
-                                           read_pass_group)
+from ..host.bitstream.reader import BitReader, BitstreamError
+from ..host.vardct.dec_real import (BlockArrays, _is_srgb_output,
+                                    _lf_group_view, adaptive_dc_smoothing,
+                                    compute_dc_planes, read_hf_global,
+                                    read_lf_global, read_lf_group,
+                                    read_pass_group)
 
 _LF_GROUP_BLOCKS = 256      # LF groups: 2048 px
 _GROUP_BLOCKS = 32          # AC groups: 256 px

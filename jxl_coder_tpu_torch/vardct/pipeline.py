@@ -20,8 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from jxl_coder_tpu.vardct.quant import LF_STEPS, default_dequant_matrix
-
+from ..host.vardct.quant import LF_STEPS, default_dequant_matrix
 from ..ops.color import linear_to_srgb, srgb_to_linear
 from ..ops.fp import div
 from .dct import blockify, dct2d, idct2d, unblockify
@@ -251,7 +250,7 @@ class LegacyArrays(NamedTuple):
 
 
 def inputs_from_frame_data(data, device) -> LegacyArrays:
-    """jxl_coder_tpu.vardct.frame.VarDctFrameData (numpy) -> LegacyArrays
+    """host.vardct.frame.VarDctFrameData (numpy) -> LegacyArrays
     on `device`, with the int16 narrowing of codec.py:531-532."""
     ny, nx = data.qf.shape
     ac = data.ac.reshape(3, ny, nx, 8, 8)

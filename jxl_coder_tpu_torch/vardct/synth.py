@@ -22,11 +22,9 @@ import functools
 import numpy as np
 import torch
 
-from jxl_coder_tpu.vardct import synthesis as S
-from jxl_coder_tpu.vardct.tpu_full import _PAD_SENTINEL
-
 from .. import _build
-from .inputs import Family
+from ..host.vardct import synthesis as S
+from .inputs import _PAD_SENTINEL, Family
 
 _QB = np.asarray([1.0 - b for b in S.QUANT_BIAS], np.float32)
 _NUM = np.float32(S.QUANT_BIAS_NUM)

@@ -1,7 +1,8 @@
 """XYB <-> linear sRGB (``jxl_coder_tpu/vardct/xyb.py:20-60``).
 
-Constants are built from ``jxl_coder_tpu.bitstream.headers`` exactly as
-the JAX module builds them.  The 3x3 mixes sum as XLA's CPU dot does
+Constants are built from ``host/bitstream/headers.py`` (the port's copy
+of ``jxl_coder_tpu.bitstream.headers``) exactly as the JAX module builds
+them.  The 3x3 mixes sum as XLA's CPU dot does
 (``fp.contract3``) and the cube root is glibc's ``powf(x, 1/3)``, which
 is what ``jnp.cbrt`` runs on the CPU (``fp.powf``): torch has no cbrt,
 and ``torch.pow`` in float32 rounds differently.
@@ -12,8 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jxl_coder_tpu.bitstream.headers import DEFAULT_INV_OPSIN, DEFAULT_OPSIN_BIAS
-
+from ..host.bitstream.headers import DEFAULT_INV_OPSIN, DEFAULT_OPSIN_BIAS
 from ..ops.fp import contract3, powf
 
 OPSIN_ABSORBANCE = np.linalg.inv(

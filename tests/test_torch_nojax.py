@@ -1,12 +1,15 @@
-"""The port stands without JAX, and never runs a CUDA request on the CPU.
+"""The port stands without JAX and without the JAX package, and never
+runs a CUDA request on the CPU.
 
 The machine with the card has no jax installed, so jxl_coder_tpu_torch
-and the host layers it imports from jxl_coder_tpu must import and
-decode with jax unavailable.
+(with its own copies of the host layers, host/) must import, encode and
+decode with jax unavailable, and needs nothing of jxl_coder_tpu.
 """
 
+import ast
 import os
 import re
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -80,25 +83,121 @@ def test_package_source_imports_no_jax():
     assert hits == []
 
 
-@pytest.mark.parametrize("name", ["chip_smoke.py", "port_fixtures.py"])
+# a "file:line" citation of a TPU kernel (chip_smoke's "replaces")
+_CITATION = re.compile(r"(jxl_coder_tpu|research)/[\w/]+\.py:\d+")
+
+
+def _reaches_the_jax_package(path: Path):
+    """(line, what) for each place a port source imports jax or
+    jxl_coder_tpu, or names a module or a file path inside
+    jxl_coder_tpu/ in code (comments and docstrings may cite them, and
+    so may a kernel's "file:line" citation)."""
+    text = path.read_text()
+    if path.suffix != ".py":
+        # C++ / CUDA: no include or string path into the JAX package
+        return [(i + 1, ln) for i, ln in enumerate(text.splitlines())
+                if re.search(r'(#include|")[^"\n]*jxl_coder_tpu/', ln)]
+    tree = ast.parse(text)
+    docstrings = {id(n.body[0].value) for n in ast.walk(tree)
+                  if isinstance(n, (ast.Module, ast.ClassDef,
+                                    ast.FunctionDef, ast.AsyncFunctionDef))
+                  and n.body and isinstance(n.body[0], ast.Expr)
+                  and isinstance(n.body[0].value, ast.Constant)}
+    # `sys.modules["jxl_coder_tpu"] = None` blocks the package: allowed
+    blocked = {id(n.slice) for n in ast.walk(tree)
+               if isinstance(n, ast.Subscript)
+               and isinstance(n.ctx, ast.Store)
+               and ast.unparse(n.value) == "sys.modules"}
+    hits = []
+    for n in ast.walk(tree):
+        if isinstance(n, ast.Import):
+            names = [a.name for a in n.names]
+        elif isinstance(n, ast.ImportFrom):
+            names = [n.module or ""] if not n.level else []
+        elif (isinstance(n, ast.Constant) and isinstance(n.value, str)
+              and id(n) not in docstrings and id(n) not in blocked):
+            v = n.value
+            if (v == "jxl_coder_tpu" or v.startswith("jxl_coder_tpu.")
+                    or "jxl_coder_tpu/" in _CITATION.sub("", v)):
+                hits.append((n.lineno, v))
+            continue
+        else:
+            continue
+        hits += [(n.lineno, m) for m in names
+                 if re.match(r"(jax|jxl_coder_tpu)(\.|$)", m)]
+    return sorted(hits)
+
+
+PORT_SOURCES = sorted(
+    str(p.relative_to(REPO)) for p in PKG.rglob("*")
+    if p.suffix in (".py", ".cu", ".cuh", ".cpp")) + [
+        "chip_smoke.py", "port_fixtures.py"]
+
+
+@pytest.mark.parametrize("name", PORT_SOURCES)
 def test_card_script_reaches_the_jax_package_only_through_the_port(name):
-    """chip_smoke.py and its fixtures import neither jax nor
-    jxl_coder_tpu: the host codec they need comes through
-    jxl_coder_tpu_torch (api.prepare, reference)."""
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jxl_coder_tpu)(?!_torch)\b",
-                     re.M)
-    assert pat.findall((REPO / name).read_text()) == []
+    """No source of the port, nor chip_smoke.py or its fixtures, imports
+    jax or jxl_coder_tpu or opens a path beneath jxl_coder_tpu/: the host
+    codec they need is the port's own (host/, reference)."""
+    assert _reaches_the_jax_package(REPO / name) == []
 
 
-def test_float64_reference_restores_the_device_switch(monkeypatch):
-    from jxl_coder_tpu_torch import reference
-    from port_fixtures import smooth_frame
-    data = reference.encode_vardct(smooth_frame(24, 40), distance=1.0,
-                                   effort=3)
-    monkeypatch.setenv("JXL_TPU_DEVICE", "1")
-    out = reference.decode_float64(data)
-    assert out.shape == (24, 40, 3) and out.dtype == np.uint8
-    assert os.environ["JXL_TPU_DEVICE"] == "1"
+def test_the_scan_sees_imports_and_paths(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text(textwrap.dedent('''
+        """Docstring citing jxl_coder_tpu/vardct/tpu_real.py is fine."""
+        import jxl_coder_tpu.api
+        from jxl_coder_tpu.vardct import dec_real
+        import importlib
+        m = importlib.import_module("jxl_coder_tpu.codec")
+        p = os.path.join(ROOT, "jxl_coder_tpu", "vardct", "calib.npz")
+        q = open("jxl_coder_tpu/native/hostcodec.cpp")
+        ok = dict(replaces="jxl_coder_tpu/vardct/synth_pallas.py:129")
+        sys.modules["jxl_coder_tpu"] = None
+        from jxl_coder_tpu_torch import api
+        import jax.numpy
+    '''))
+    assert [ln for ln, _ in _reaches_the_jax_package(bad)] == [
+        3, 4, 6, 7, 8, 12]
+
+
+def test_port_runs_in_a_directory_without_the_jax_package(tmp_path):
+    """The port and its fixtures copied where no jxl_coder_tpu exists,
+    jax blocked: the host encoder copy writes a real-format stream,
+    api.decode reads it on the CPU, and the round-1 codec round-trips."""
+    shutil.copytree(PKG, tmp_path / "jxl_coder_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(REPO / "port_fixtures.py", tmp_path)
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None        # any `import jax` now fails
+        sys.modules["jxl_coder_tpu"] = None
+        import numpy as np
+        from jxl_coder_tpu_torch import api, codec, reference
+        from port_fixtures import smooth_frame
+        img = smooth_frame(40, 56)
+        data = reference.encode_vardct(img, distance=1.0, effort=5)
+        out, info = api.decode(data, device="cpu")
+        host = reference.decode_float64(data)
+        d8 = int(np.abs(out.astype(int) - host.astype(int)).max())
+        legacy = codec.decode_vardct_still(
+            *api._read_frame(codec.encode_vardct_still(img, 1.0,
+                                                       device="cpu")),
+            device="cpu")
+        dl = int(np.abs(legacy.astype(int) - img.astype(int)).max())
+        assert not any(m.split(".")[0] in ("jax", "jxl_coder_tpu")
+                       for m, v in sys.modules.items() if v is not None)
+        print(out.shape, info.xsize, d8 <= 1, legacy.shape, dl < 40)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.split() == ["(40,", "56,", "3)", "56", "True",
+                                  "(40,", "56,", "3)", "True"]
+    # the host codec was built beside the copy, from the copy
+    assert list((tmp_path / "build" / "jxl_coder_tpu_torch").glob(
+        "libhostcodec-*.so"))
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
