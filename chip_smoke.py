@@ -9,18 +9,25 @@ prints no result):
   2. build the CUDA kernels from jxl_coder_tpu_torch/csrc with nvcc;
   3. encode the 3840x2160 d1.0 e7 frame of bench.py, a 1920x1080 d4.0
      frame (epf_iters 3), a 517x771 frame of sharp strokes (the special
-     1-block transforms, a ragged size) and a small 16-bit frame with
-     the repo's own host encoder (jxl_coder_tpu_torch.reference), cached
-     in the temp directory by content hash;
-  4. each kernel against its plain PyTorch twin on the card, on both
-     streams' real inputs, on a ragged crop, and (synthesis) on seeded
-     families of every strategy id 0-26;
+     1-block transforms, a ragged size), a small 16-bit frame and a
+     384x256 sharp frame at distance 0.1 (an int8 DCT8 family with an
+     exception list) with the repo's own host encoder
+     (jxl_coder_tpu_torch.reference), cached in the temp directory by
+     content hash;
+  4. each kernel against its plain PyTorch twin on the card: synthesis
+     on every stream's families (the DCT8 kernel on the DCT8 family) and
+     on seeded families of every strategy id 0-26; kernel 2's tile pass
+     (and its EPF0 pass) on every stream's planes, on a ragged 4K crop,
+     and on seeded images smaller than its halo, for epf_iters 0-3,
+     per-channel gaborish weights and gaborish off, f32 / u8 / u16 out;
   5. the main path: jxl_coder_tpu_torch.api.decode(data, device="cuda")
      on every stream against the float64 host decoder, with every
-     kernel's launch counter > 0;
+     kernel's launch counter > 0, and each frame's own launches: kernel
+     2 once (plus its EPF0 pass at epf_iters 3), the DCT8 kernel once;
   6. timings: the device half (wall time and device-busy time) and the
-     whole decode at 4K, and each kernel's device time against its
-     twin's at the main path's shapes;
+     whole decode at 4K; the synthesis by family (the DCT8 kernel
+     apart) and kernel 2 at 4K, and kernel 2 and its EPF0 pass on the
+     FHD d4.0 frame's planes, each against its twin and its bound;
   7. the round-1 codec (jxl_coder_tpu_torch.codec): FHD, a ragged sharp
      frame, a 16-bit frame and decoding speeds 2 and 4 encoded on the
      card (its quantised integers against the CPU encode's), each stream
@@ -29,17 +36,17 @@ prints no result):
      kernels 5 and 6 against their twins on the FHD arrays;
   8. the real-format fused filter entry points (kernels 3 and 4) on the
      4K synthesised planes, counted, against their twins and against
-     the three-launch chain of csrc/filters.cu;
+     kernel 2;
   9. timings at 4K: the round-1 reconstruct_srgb8 and kernels 3-6 each
-     against its twin, and kernels 3 and 4 against the chain;
+     against its twin, and kernels 3 and 4 against kernel 2;
  10. the DCT8-only frame path (jxl_coder_tpu_torch.vardct.dct8): kernel 7
      (detile) bit-equal to its plain version at the research probe's
      shape (a seeded permutation subset of 140,000 tile rows) and at the
      4K identity; DCT8Frame on a 3840x2160 effort-2 (all-DCT8) stream,
-     counted, against the port's CPU path and the float64 host decoder,
-     and on a ragged all-DCT8 frame against the CPU path; timings of
-     kernel 7 (against its plain version, one PyTorch call and its bound)
-     and of DCT8Frame's device time by stage.
+     counted (kernel 2 once), against the port's CPU path and the
+     float64 host decoder, and on a ragged all-DCT8 frame against the
+     CPU path; timings of kernel 7 (against its plain version, one
+     PyTorch call and its bound) and of DCT8Frame's device time by stage.
 Every kernel's line carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its f32 operations over 67 TFLOP/s (the H100 SXM's published peaks
@@ -52,6 +59,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -66,7 +74,7 @@ import numpy as np
 import torch
 
 from jxl_coder_tpu_torch import _build, api, codec, reference
-from jxl_coder_tpu_torch.vardct import color, dct8, filters, inputs, synth
+from jxl_coder_tpu_torch.vardct import dct8, filters, inputs, synth
 from jxl_coder_tpu_torch.vardct import detile as DT
 from jxl_coder_tpu_torch.vardct import fused_filters as FF
 from jxl_coder_tpu_torch.vardct import pipeline as LP
@@ -76,19 +84,20 @@ from port_fixtures import (bench_frame, dct8_arguments, sharp_frame,
                            synthetic_family)
 
 SYNTH_TOL = 1e-4      # f32 sums in another order than the twin's matmuls
-FILTER_TOL = 1e-5     # same op order; the kernels build without FMA
+FILTER_TOL = 1e-5     # no FMA contraction; EPF SADs summed in another order
 U16_TOL = 64
 REPS = 10
 
 KERNELS = {
     "synth_family": dict(fn=synth.synth_family, source="jxl_coder_tpu_torch/csrc/synth.cu",
                          replaces="jxl_coder_tpu/vardct/synth_pallas.py:129"),
-    "gaborish": dict(fn=filters.gaborish, source="jxl_coder_tpu_torch/csrc/filters.cu",
-                     replaces="jxl_coder_tpu/vardct/filters_pallas.py:751"),
-    "epf": dict(fn=filters.epf, source="jxl_coder_tpu_torch/csrc/filters.cu",
-                replaces="jxl_coder_tpu/vardct/filters_pallas.py:751"),
-    "xyb_to_srgb": dict(fn=color.xyb_to_srgb, source="jxl_coder_tpu_torch/csrc/filters.cu",
-                        replaces="jxl_coder_tpu/vardct/filters_pallas.py:751"),
+    "synth_dct8": dict(fn=synth.synth_dct8, source="jxl_coder_tpu_torch/csrc/synth.cu",
+                       replaces="jxl_coder_tpu/vardct/synth_pallas.py:129"),
+    "restore_and_output": dict(fn=filters.restore_and_output,
+                               source="jxl_coder_tpu_torch/csrc/filters.cu",
+                               replaces="jxl_coder_tpu/vardct/filters_pallas.py:751"),
+    "epf0_pass": dict(fn=filters.epf0_pass, source="jxl_coder_tpu_torch/csrc/filters.cu",
+                      replaces="jxl_coder_tpu/vardct/filters_pallas.py:751"),
     "fused_real_filters": dict(fn=FF.fused_real_filters,
                                source="jxl_coder_tpu_torch/csrc/fused_filters.cu",
                                replaces="jxl_coder_tpu/vardct/filters_pallas.py:588"),
@@ -127,8 +136,14 @@ F32_OPS_PER_S = 67e12         # f32 outside the tensor cores
 #     and the normalisation (4): 71;
 #   EPF pass 2 and the round-1 EPF: as pass 1 with one-pixel SADs, so no
 #     cross sums: 63;
+#   EPF pass 0, the 12-offset diamond: six difference planes (1 and 2
+#     pixels along each axis, both diagonals; 6 x 3 x (sub + FMA) = 36),
+#     the cross sum of each (6 x 4; each negative offset reads the sum
+#     of the pixel it points to), 12 weights (24) and the border scale
+#     (1), the weight sum (12), 12 x 3 FMAs into the numerators (72) and
+#     the normalisation (4): 173;
 #   the sRGB output 69
-OPS_PX = {"gaborish": 27, "epf1": 71, "epf2": 63, "srgb": 69}
+OPS_PX = {"gaborish": 27, "epf0": 173, "epf1": 71, "epf2": 63, "srgb": 69}
 
 
 def nbytes(*tensors) -> int:
@@ -252,6 +267,11 @@ def note_codes(name: str, got: torch.Tensor, ref: torch.Tensor, bits16: bool,
                              f"values ({what})")
 
 
+def synth_kernel(fam) -> str:
+    """The KERNELS entry that synth_family launches for fam."""
+    return "synth_dct8" if synth.is_dct8(fam) else "synth_family"
+
+
 def check_synth(cfg, inp, label: str) -> None:
     dev = inp.dc.device
     for fam in inp.families:
@@ -259,9 +279,10 @@ def check_synth(cfg, inp, label: str) -> None:
         b = torch.zeros_like(a)
         synth.synth_family(a, fam, inp.dc, inp.qm)
         synth.synth_family_plain(b, fam, inp.dc, inp.qm)
-        note_err("synth_family", (a - b).abs().max().item(), SYNTH_TOL,
+        nf = synth.n_fixes(fam)
+        note_err(synth_kernel(fam), (a - b).abs().max().item(), SYNTH_TOL,
                  f"{label} sid {fam.sid} {str(fam.coef.dtype)[6:]}"
-                 f"{' +fixes' if fam.fix_idx is not None else ''}")
+                 f"{f' +{nf} fixes' if nf else ''}")
 
 
 def check_synth_all_strategies(dev) -> None:
@@ -278,40 +299,70 @@ def check_synth_all_strategies(dev) -> None:
             b = torch.zeros_like(a)
             synth.synth_family(a, f, dc, qm)
             synth.synth_family_plain(b, f, dc, qm)
-            ERR["synth_family"] = max(ERR["synth_family"],
-                                      (a - b).abs().max().item())
-    note_err("synth_family", ERR["synth_family"], SYNTH_TOL,
-             "seeded families, strategies 0-26 x int8/16/32")
+            k = synth_kernel(f)
+            ERR[k] = max(ERR[k], (a - b).abs().max().item())
+    for k in ("synth_dct8", "synth_family"):
+        note_err(k, ERR[k], SYNTH_TOL,
+                 "seeded families, strategies 0-26 x int8/16/32")
+
+
+FILTER_OUTS = ("f32", "u8", "u16")
+
+
+def check_restore(planes, sigma, gab, iters, gabw, p0, p2, label: str) -> None:
+    """Kernel 2's tile pass against its plain version for every output:
+    f32 within FILTER_TOL, u8 within 1 code on < 0.1%, u16 within
+    U16_TOL; the EPF0 pass alone at epf_iters 3."""
+    for out in FILTER_OUTS:
+        got = filters.restore_and_output(planes, sigma, gab, iters, gabw, p0,
+                                         p2, out)
+        ref = filters.restore_and_output_plain(planes, sigma, gab, iters,
+                                               gabw, p0, p2, out)
+        what = f"{label} gab {gab} epf_iters {iters} {out}"
+        if got.shape != ref.shape or got.dtype != ref.dtype:
+            raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} vs "
+                                 f"{tuple(ref.shape)} {ref.dtype}")
+        if out == "f32":
+            note_err("restore_and_output", (got - ref).abs().max().item(),
+                     FILTER_TOL, what)
+        else:
+            note_codes("restore_and_output", got, ref, out == "u16", what)
+    if iters == 3:
+        note_err("epf0_pass", (filters.epf0_pass(planes, sigma, gab, gabw, p0)
+                               - filters.epf0_pass_plain(planes, sigma, gab,
+                                                         gabw, p0)
+                               ).abs().max().item(), FILTER_TOL,
+                 f"{label} gab {gab}")
+
+
+NONUNIFORM_GABW = (0.12, 0.05, 0.115169525, 0.061248592, 0.09, 0.07)
 
 
 def check_filters(planes, sigma, cfg, label: str) -> None:
-    """Every filter stage and both output depths, kernel vs twin, for
-    epf_iters 1-3 on the given (3, H, W) view."""
-    g_k = filters.gaborish(planes, cfg.gabw)
-    g_p = filters.gaborish_plain(planes, cfg.gabw)
-    note_err("gaborish", (g_k - g_p).abs().max().item(), FILTER_TOL, label)
-    for iters in (1, 2, 3):
-        x_k = filters.filter_chain(planes, sigma, True, iters, cfg.gabw,
-                                   cfg.pass0_scale, cfg.pass2_scale)
-        x_p = g_p
-        if iters >= 3:
-            x_p = filters.epf_plain(x_p, filters.epf_inv(sigma, cfg.pass0_scale), 0)
-        x_p = filters.epf_plain(x_p, filters.epf_inv(sigma, 1.0), 1)
-        if iters >= 2:
-            x_p = filters.epf_plain(x_p, filters.epf_inv(sigma, cfg.pass2_scale), 2)
-        note_err("epf", (x_k - x_p).abs().max().item(), FILTER_TOL,
-                 f"{label} epf_iters {iters} f32")
-        for bits16, tol in ((False, 1), (True, U16_TOL)):
-            o_k = color.xyb_to_srgb(x_k, bits16).int()
-            o_p = color.xyb_to_srgb_plain(x_p, bits16).int()
-            d = (o_k - o_p).abs()
-            frac = (d > 0).float().mean().item()
-            note_err("xyb_to_srgb", d.max().item(), tol,
-                     f"{label} epf_iters {iters} {'u16' if bits16 else 'u8'}"
-                     f" (differing share {frac:.2g})")
-            if not bits16 and frac >= 1e-3:
-                raise AssertionError(f"u8 output differs on {frac:.3g} of "
-                                     f"pixels ({label})")
+    """Kernel 2 against its plain version for epf_iters 0-3 on the given
+    (3, H, W) view, with the stream's gaborish weights, per-channel
+    weights and gaborish off."""
+    for iters in (0, 1, 2, 3):
+        check_restore(planes, sigma, True, iters, cfg.gabw, cfg.pass0_scale,
+                      cfg.pass2_scale, label)
+    check_restore(planes, sigma, True, 2, NONUNIFORM_GABW, cfg.pass0_scale,
+                  cfg.pass2_scale, label + " per-channel gaborish")
+    check_restore(planes, sigma, False, 3, cfg.gabw, cfg.pass0_scale,
+                  cfg.pass2_scale, label)
+
+
+def check_filters_tiny(dev) -> None:
+    """Images smaller than the halo (Mirror() folds more than once) and a
+    ragged size, seeded planes and sigma with inactive blocks."""
+    rng = np.random.default_rng(7)
+    for h, w in ((3, 5), (7, 2), (1, 1), (13, 21)):
+        x = torch.from_numpy(rng.uniform(-0.05, 0.6, (3, h, w))
+                             .astype(np.float32)).to(dev)
+        sig = torch.from_numpy(rng.uniform(0.0, 2.5, (-(-h // 8), -(-w // 8)))
+                               .astype(np.float32)).to(dev)
+        for iters in (0, 1, 2, 3):
+            for gab, gabw in ((True, NONUNIFORM_GABW), (False, NONUNIFORM_GABW)):
+                check_restore(x, sig, gab, iters, gabw, 0.9, 6.5, f"{h}x{w}")
 
 
 def device_rows(fn, runs: int, tries: int = 5):
@@ -469,8 +520,8 @@ REAL_OUTS = {"f32": (False, 8), "u8": (True, 8), "u16": (True, 16)}
 
 def real_fused(xyb: torch.Tensor, sigma: torch.Tensor, cfg) -> dict:
     """Phase 8: kernels 3 and 4 through their entry points on the 4K
-    synthesised planes row-padded by 4, against their twins and the
-    three-launch chain of csrc/filters.cu."""
+    synthesised planes row-padded by 4, against their twins and kernel
+    2's tile pass (f32 output)."""
     xp = LP.pad_rows(xyb, FF.PAD)
     inv1 = filters.epf_inv(sigma, 1.0)
 
@@ -501,22 +552,23 @@ def real_fused(xyb: torch.Tensor, sigma: torch.Tensor, cfg) -> dict:
             note_codes(name, got, ref, kind == "u16", what)
     gabw = (FF.DEFAULT_GW1, FF.DEFAULT_GW2) * 3
     for it in (1, 2):
-        chain = filters.filter_chain(xyb, sigma, True, it, gabw,
-                                     cfg.pass0_scale, cfg.pass2_scale)
+        chain = filters.restore_and_output(xyb, sigma, True, it, gabw,
+                                           cfg.pass0_scale, cfg.pass2_scale,
+                                           "f32")
         note_err("fused_real_filters",
                  (outs["fused_real_filters", it, "f32"] - chain).abs().max().item(),
-                 FILTER_TOL, f"4k epf_iters {it} vs the filters.cu chain")
+                 FILTER_TOL, f"4k epf_iters {it} vs kernel 2")
         if it == 1:
             inner = (outs["fused_real_gab_epf1", 1, "f32"] - chain)[:, 2:-2, 2:-2]
             note_err("fused_real_gab_epf1", inner.abs().max().item(), FILTER_TOL,
-                     "4k vs the filters.cu chain, 2 px from the border inward")
+                     "4k vs kernel 2, 2 px from the border inward")
     return counts
 
 
 def fused_timings(dev, xyb, sigma, cfg, card: str, ms: dict) -> None:
     """Phase 9: device ms at 4K of the round-1 reconstruct_srgb8 and of
     kernels 3-6, each against its twin; kernels 3 and 4 also against
-    filters.cu's gaborish + EPF1 (+ EPF2) + sRGB8 launches."""
+    kernel 2's tile pass at the same epf_iters."""
     ac, dc, qf = codec.quantize_still(bench_frame(2160, 3840), 1.0, dev)
     ny, nx = qf.shape
     tiles = (-(-ny // 8), -(-nx // 8))
@@ -559,11 +611,10 @@ def fused_timings(dev, xyb, sigma, cfg, card: str, ms: dict) -> None:
             print(f"kernel fused_real_filters at 4k epf_iters {it} {kind}: "
                   f"device {kern:.3f} ms, plain twin {plain:.3f} ms [{card}]",
                   flush=True)
-        chain = device_ms(lambda: color.xyb_to_srgb(filters.filter_chain(
-            xyb, sigma, True, it, gabw, cfg.pass0_scale, cfg.pass2_scale), False))
-        print(f"filters.cu chain at 4k epf_iters {it} (gaborish, EPF1"
-              f"{', EPF2' if it == 2 else ''}, sRGB8 launches): device "
-              f"{chain:.3f} ms [{card}]", flush=True)
+        chain = device_ms(lambda: filters.restore_and_output(
+            xyb, sigma, True, it, gabw, cfg.pass0_scale, cfg.pass2_scale, "u8"))
+        print(f"kernel 2 (restore_and_output) at 4k epf_iters {it} u8: "
+              f"device {chain:.3f} ms [{card}]", flush=True)
     ms["fused_real_gab_epf1"] = (
         device_ms(lambda: FF.fused_real_gab_epf1(xp, inv1, True)),
         device_ms(lambda: FF.fused_real_gab_epf1_plain(xp, inv1, True)))
@@ -620,7 +671,10 @@ def dct8_phase(dev, card: str, ms: dict) -> dict:
     state = dct8.to_device(*args, dev)
     frame = dct8.DCT8Frame(gab, epf_iters, skip)
     out, counts = drive("DCT8 path (DCT8Frame at 4K)", lambda: frame(state),
-                        ("detile", "gaborish", "epf", "xyb_to_srgb"))
+                        ("detile", "restore_and_output"))
+    if counts["restore_and_output"] != 1:
+        raise AssertionError(f"DCT8Frame launched kernel 2 "
+                             f"{counts['restore_and_output']} times, not once")
     got = out.cpu().numpy()
     within_one_code(got, frame(dct8.to_device(*args, "cpu")).numpy(),
                     "dct8 4k_d1.0_e2 vs the port's CPU path")
@@ -670,9 +724,9 @@ def dct8_phase(dev, card: str, ms: dict) -> dict:
             co, dcp, qf, xf, bf, tab, state["igs"], state["qm_x"],
             state["qm_b"]),
         "kernel 7 (detile)": lambda: DT.detile(tiles, ys, xs),
-        "filters (gaborish, EPF)": lambda: dct8.apply_filters(
-            planes, qf, state["sharp"], state["igs"], gab, epf_iters),
-        "sRGB8 output": lambda: color.xyb_to_srgb(planes, False),
+        "filters + sRGB8 (kernel 2's tile pass, with the sigma map)":
+            lambda: dct8.filter_and_output(planes, qf, state["sharp"],
+                                           state["igs"], gab, epf_iters),
     }
     busy = 0.0
     for what, fn in stages.items():
@@ -688,6 +742,123 @@ def dct8_phase(dev, card: str, ms: dict) -> dict:
           f"{busy:.3f} ms (sum of its stages) = {mp / busy * 1e3:.1f} MP/s; "
           f"whole frame back to back {whole:.3f} ms [{card}]", flush=True)
     return counts
+
+
+def ptxas_report(name: str) -> None:
+    """Registers, shared memory and spills of each kernel of
+    csrc/<name>.cu, from ptxas's report in the build log, by kernel and
+    template arguments (demangled where c++filt is installed)."""
+    rows, kern, spill = [], None, ""
+    for line in _build.library_path(name).with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            kern = line.split("'")[1]
+        elif "spill stores" in line and kern:
+            spill = line.split(",")[1].strip()
+        elif "Used" in line and "registers" in line and kern:
+            rows.append((kern, line.split(":", 1)[1].strip(), spill))
+            kern = None
+    names = [r[0] for r in rows]
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    for name_, (_, used, spill) in zip(names, rows):
+        kernel = name_.replace("(anonymous namespace)::", "").split("(")[0]
+        kernel = kernel.removeprefix("void ")
+        print(f"ptxas {name}.cu {kernel}: {used}; {spill}", flush=True)
+
+
+def synthesized(cfg, inp):
+    """The frame's synthesised (3, H8, W8) planes and its sigma map."""
+    planes = torch.zeros((3, cfg.H8, cfg.W8), device=inp.dc.device)
+    for fam in inp.families:
+        synth.synth_family(planes, fam, inp.dc, inp.qm)
+    return planes, filters.sigma_map(inp.sharp, inp.qf, inp.igs)
+
+
+def chain_ops(gab: bool, epf_iters: int) -> int:
+    """The least f32 operations per pixel of the chain and the output."""
+    return (OPS_PX["gaborish"] * gab + OPS_PX["epf0"] * (epf_iters >= 3)
+            + OPS_PX["epf1"] * (epf_iters >= 1)
+            + OPS_PX["epf2"] * (epf_iters >= 2) + OPS_PX["srgb"])
+
+
+def synth_bound(name: str, fams, dc) -> None:
+    """The DC image, each family's row index (bys: padding rows are found
+    by reading it), matrices and exception list, and the coefficients and
+    per-row scalars of its live rows in; the live rows' pixels out.  A
+    separable IDCT of bh x bw is bh*bw*(bh+bw) MACs per channel (a special
+    family's response product 64 x 64), plus dequant and CfL (4 ops per
+    coefficient), per live row."""
+    moved = nbytes(dc)
+    ops = 0
+    for f in fams:
+        n = int((f.bys != inputs._PAD_SENTINEL).sum().item())
+        moved += nbytes(*[t for t in (f.bys, f.tab, f.resp, f.resp_y_def,
+                                      f.fix_idx, f.fix_val) if t is not None])
+        moved += n * sum(t[0].numel() * t.element_size() for t in (
+            f.coef, f.bxs, f.inv_qac, f.xf, f.bf))
+        moved += n * 3 * f.bh * f.bw * 4
+        ops += n * 3 * (
+            2 * 64 * 64 if f.special else 2 * f.bh * f.bw * (f.bh + f.bw)
+            + 4 * f.bh * f.bw)
+    note_bound(name, moved, ops)
+
+
+def synth_timings(cfg, inp, planes, card: str, ms: dict) -> None:
+    """Device ms of each family's synthesis at 4K (the DCT8 kernel and
+    the general kernel apart) against the plain twin, and of the whole."""
+    fams = inp.families
+    per = {}
+    for f in fams:
+        per[f.sid] = (device_ms(lambda: synth.synth_family(planes, f, inp.dc, inp.qm)),
+                      device_ms(lambda: synth.synth_family_plain(planes, f, inp.dc, inp.qm)))
+        n = int((f.bys != inputs._PAD_SENTINEL).sum().item())
+        print(f"kernel {synth_kernel(f)} at 4k, family sid {f.sid} ({n} of "
+              f"{int(f.coef.shape[0])} rows, {str(f.coef.dtype)[6:]}): device "
+              f"{per[f.sid][0]:.4f} ms, plain {per[f.sid][1]:.3f} ms [{card}]",
+              flush=True)
+    for k in ("synth_dct8", "synth_family"):
+        mine = [f for f in fams if synth_kernel(f) == k]
+        synth_bound(k, mine, inp.dc)
+        ms[k] = (sum(per[f.sid][0] for f in mine),
+                 sum(per[f.sid][1] for f in mine))
+    synth_bound("synthesis", fams, inp.dc)
+    whole = device_ms(lambda: [synth.synth_family(planes, f, inp.dc, inp.qm)
+                               for f in fams])
+    print(f"synthesis at 4k, all {len(fams)} families: device {whole:.4f} ms, "
+          f"bound {BOUND['synthesis'][0]:.4f} ms [{card}]", flush=True)
+
+
+def fhd_timings(data: bytes, dev, card: str, ms: dict) -> None:
+    """Kernel 2 at epf_iters 3 (two launches) and its EPF0 pass on the FHD
+    d4.0 stream's synthesised planes, with the bounds EPF passes 0 and 2
+    would have as launches of their own (each reading and writing three
+    f32 planes)."""
+    cfg, inp = prepared(data, dev)
+    planes, sigma = synthesized(cfg, inp)
+    xyb = planes[:, :cfg.crop_h, :cfg.crop_w]
+    px = cfg.crop_h * cfg.crop_w
+    args = (xyb, sigma, cfg.gab, cfg.epf_iters, cfg.gabw, cfg.pass0_scale,
+            cfg.pass2_scale, "u8")
+    note_bound("restore_and_output fhd", nbytes(xyb, sigma) + 3 * px,
+               px * chain_ops(cfg.gab, cfg.epf_iters))
+    t = (device_ms(lambda: filters.restore_and_output(*args)),
+         device_ms(lambda: filters.restore_and_output_plain(*args)))
+    print(f"kernel restore_and_output at fhd epf_iters {cfg.epf_iters} u8 "
+          f"(two launches): device {t[0]:.4f} ms, plain {t[1]:.3f} ms, bound "
+          f"{BOUND['restore_and_output fhd'][0]:.4f} ms [{card}]", flush=True)
+    e0 = (xyb, sigma, cfg.gab, cfg.gabw, cfg.pass0_scale)
+    note_bound("epf0_pass", 2 * nbytes(xyb) + nbytes(sigma),
+               px * (OPS_PX["gaborish"] * cfg.gab + OPS_PX["epf0"]))
+    ms["epf0_pass"] = (device_ms(lambda: filters.epf0_pass(*e0)),
+                       device_ms(lambda: filters.epf0_pass_plain(*e0)))
+    print(f"kernel epf0_pass at fhd (gaborish + EPF0, f32 out): device "
+          f"{ms['epf0_pass'][0]:.4f} ms, plain {ms['epf0_pass'][1]:.3f} ms, "
+          f"bound {BOUND['epf0_pass'][0]:.4f} ms [{card}]", flush=True)
+    for p in (0, 2):
+        note_bound(f"EPF pass {p} as a launch of its own at fhd",
+                   2 * nbytes(xyb) + nbytes(sigma), px * OPS_PX[f"epf{p}"])
 
 
 def main() -> int:
@@ -710,25 +881,37 @@ def main() -> int:
         host.result()
     print(f"build: nvcc sm_90a, {len(sources)} sources, and g++ for the host "
           f"codec in {time.perf_counter() - t0:.2f} s", flush=True)
+    for name in ("synth", "filters"):
+        ptxas_report(name)
 
     # 3. streams
     streams = {"4k_d1.0_e7": (2160, 3840, stream(bench_frame(2160, 3840), 1.0, 7)),
                "fhd_d4.0_e7": (1080, 1920, stream(bench_frame(1080, 1920), 4.0, 7)),
                "sharp_d1.0_e7": (517, 771, stream(sharp_frame(517, 771), 1.0, 7)),
                # the 16-bit output path of the same decode
-               "16bit_d1.0_e5": (480, 720, stream(bench_frame(480, 720), 1.0, 5, True))}
+               "16bit_d1.0_e5": (480, 720, stream(bench_frame(480, 720), 1.0, 5, True)),
+               # distance 0.1: the DCT8 family is int8 with an exception list
+               "sharp_d0.1_e7": (256, 384, stream(sharp_frame(256, 384), 0.1, 7))}
 
     # 4. kernel vs twin on the card
     check_synth_all_strategies(dev)
+    check_filters_tiny(dev)
+    frames = {}   # label: (epf_iters, has a DCT8 family)
     for label, (h, w, data) in streams.items():
         cfg, inp = prepared(data, dev)
         print(f"stream {label}: {w}x{h} families "
-              f"{[(f.sid, int(f.coef.shape[0]), str(f.coef.dtype)[6:]) for f in inp.families]} "
+              f"{[(f.sid, int(f.coef.shape[0]), str(f.coef.dtype)[6:], synth.n_fixes(f)) for f in inp.families]} "
               f"gab {cfg.gab} epf_iters {cfg.epf_iters} bits {cfg.bits}",
               flush=True)
-        if label.startswith("sharp") and not any(f.special
-                                                 for f in inp.families):
+        if label.startswith("sharp_d1") and not any(f.special
+                                                    for f in inp.families):
             raise AssertionError("the sharp stream has no special family")
+        if label.startswith("sharp_d0.1") and not any(
+                synth.is_dct8(f) and synth.n_fixes(f) for f in inp.families):
+            raise AssertionError("the d0.1 stream's DCT8 family has no "
+                                 "exception list")
+        frames[label] = (cfg.epf_iters, any(synth.is_dct8(f)
+                                            for f in inp.families))
         check_synth(cfg, inp, label)
         planes = torch.zeros((3, cfg.H8, cfg.W8), device=dev)
         for fam in inp.families:
@@ -740,12 +923,29 @@ def main() -> int:
                           "4k crop 2160x3833")
     torch.cuda.synchronize()
 
-    # 5. the main path, counted
-    outs, launches = drive(
-        "main path (api.decode)",
-        lambda: {label: api.decode(data, device="cuda")[0]
-                 for label, (_h, _w, data) in streams.items()},
-        ("synth_family", "gaborish", "epf", "xyb_to_srgb"))
+    # 5. the main path, counted, and each frame's own launches
+    frame_kernels = ("synth_family", "synth_dct8", "restore_and_output",
+                     "epf0_pass")
+
+    def main_path():
+        outs, per_frame = {}, {}
+        for label, (_h, _w, data) in streams.items():
+            before = {k: KERNELS[k]["fn"].launches for k in frame_kernels}
+            outs[label] = api.decode(data, device="cuda")[0]
+            per_frame[label] = {k: KERNELS[k]["fn"].launches - before[k]
+                                for k in frame_kernels}
+        return outs, per_frame
+
+    (outs, per_frame), launches = drive("main path (api.decode)", main_path,
+                                        frame_kernels)
+    for label, counts in per_frame.items():
+        iters, has_dct8 = frames[label]
+        want = {"restore_and_output": 1, "epf0_pass": int(iters >= 3),
+                "synth_dct8": int(has_dct8)}
+        print(f"frame {label} (epf_iters {iters}) launches: {counts}",
+              flush=True)
+        if any(counts[k] != n for k, n in want.items()):
+            raise AssertionError(f"{label}: launches {counts}, expected {want}")
     for label, (h, w, data) in streams.items():
         t0 = time.perf_counter()
         ref = reference.decode_float64(data)
@@ -808,56 +1008,23 @@ def main() -> int:
     print(f"end_to_end 4k decode bytes->pixels: {med(t_e2e):.1f} ms = "
           f"{mp / med(t_e2e) * 1e3:.2f} MP/s [{card}]", flush=True)
 
-    planes = torch.zeros((3, cfg.H8, cfg.W8), device=dev)
+    planes, sigma = synthesized(cfg, inp)
     xyb = planes[:, :h, :w]
-    sigma = filters.sigma_map(inp.sharp, inp.qf, inp.igs)
-    inv1 = filters.epf_inv(sigma, 1.0)
-    for fam in inp.families:
-        synth.synth_family(planes, fam, inp.dc, inp.qm)
-    gab = filters.gaborish(xyb, cfg.gabw)
-    timings = {
-        "synth_family": (
-            lambda: [synth.synth_family(planes, f, inp.dc, inp.qm) for f in inp.families],
-            lambda: [synth.synth_family_plain(planes, f, inp.dc, inp.qm) for f in inp.families]),
-        "gaborish": (lambda: filters.gaborish(xyb, cfg.gabw),
-                     lambda: filters.gaborish_plain(xyb, cfg.gabw)),
-        "epf": (lambda: filters.epf(gab, inv1, 1),
-                lambda: filters.epf_plain(gab, inv1, 1)),
-        "xyb_to_srgb": (lambda: color.xyb_to_srgb(gab, False),
-                        lambda: color.xyb_to_srgb_plain(gab, False)),
-    }
-    # bounds at these shapes: every family's inputs and the DC image in,
-    # the planes out; a separable IDCT of bh x bw is bh*bw*(bh+bw) MACs
-    # per channel (a special family's response product 64 x 64), plus
-    # dequant and CfL (4 ops per coefficient)
-    fam_in = sum(nbytes(*[t for t in (f.coef, f.bys, f.bxs, f.inv_qac, f.xf,
-                                      f.bf, f.tab, f.resp, f.resp_y_def,
-                                      f.fix_idx, f.fix_val) if t is not None])
-                 for f in inp.families)
-    fam_ops = sum(int(f.coef.shape[0]) * 3 * (
-        2 * 64 * 64 if f.special else 2 * f.bh * f.bw * (f.bh + f.bw)
-        + 4 * f.bh * f.bw) for f in inp.families)
-    note_bound("synth_family", fam_in + nbytes(inp.dc, planes), fam_ops)
-    px = h * w
-    note_bound("gaborish", 2 * nbytes(xyb), px * OPS_PX["gaborish"])
-    note_bound("epf", 2 * nbytes(xyb) + nbytes(inv1), px * OPS_PX["epf1"])
-    note_bound("xyb_to_srgb", nbytes(xyb) + 3 * px, px * OPS_PX["srgb"])
-    # device time per call (device_ms): one call's wall time is mostly
-    # the host's launch work
     ms = {}
-    for k, (kern, plain) in timings.items():
-        ms[k] = (device_ms(kern), device_ms(plain))
-        print(f"kernel {k} at 4k: device {ms[k][0]:.3f} ms, plain twin "
-              f"{ms[k][1]:.3f} ms [{card}]", flush=True)
-    fhd = prepared(streams["fhd_d4.0_e7"][2], dev)
-    fsig = filters.sigma_map(fhd[1].sharp, fhd[1].qf, fhd[1].igs)
-    fx = torch.rand((3, 1080, 1920), device=dev)
-    for p, s in ((0, fhd[0].pass0_scale), (2, fhd[0].pass2_scale)):
-        inv = filters.epf_inv(fsig, s)
-        print(f"kernel epf pass {p} at fhd: device "
-              f"{device_ms(lambda: filters.epf(fx, inv, p)):.3f} ms, plain twin "
-              f"{device_ms(lambda: filters.epf_plain(fx, inv, p)):.3f} ms [{card}]",
-              flush=True)
+    synth_timings(cfg, inp, planes, card, ms)
+    px = h * w
+    note_bound("restore_and_output", nbytes(xyb, sigma) + 3 * px,
+               px * chain_ops(cfg.gab, cfg.epf_iters))
+    chain_args = (xyb, sigma, cfg.gab, cfg.epf_iters, cfg.gabw,
+                  cfg.pass0_scale, cfg.pass2_scale, "u8")
+    ms["restore_and_output"] = (
+        device_ms(lambda: filters.restore_and_output(*chain_args)),
+        device_ms(lambda: filters.restore_and_output_plain(*chain_args)))
+    print(f"kernel restore_and_output at 4k epf_iters {cfg.epf_iters} u8 "
+          f"(one launch): device {ms['restore_and_output'][0]:.4f} ms, plain "
+          f"{ms['restore_and_output'][1]:.3f} ms, bound "
+          f"{BOUND['restore_and_output'][0]:.4f} ms [{card}]", flush=True)
+    fhd_timings(streams["fhd_d4.0_e7"][2], dev, card, ms)
 
     # 7-9. the round-1 codec, the real-format fused filters, timings
     launches.update(legacy_codec(dev))

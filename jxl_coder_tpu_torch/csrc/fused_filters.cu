@@ -336,11 +336,12 @@ __global__ void __launch_bounds__(NT)
     epf1(y, x, o);
   }
   const long long plane = (long long)H * W, px = (long long)y * W + x;
-  for (int ch = 0; ch < 3; ++ch) {
-    if constexpr (sizeof(OutT) == 4)
-      out[ch * plane + px] = o[ch];
-    else
-      out[ch * plane + px] = (OutT)xyb_to_srgb_code(o[0], o[1], o[2], ch, p.srgb);
+  if constexpr (sizeof(OutT) == 4) {
+    for (int ch = 0; ch < 3; ++ch) out[ch * plane + px] = o[ch];
+  } else {
+    float q[3];
+    xyb_to_srgb_codes(o[0], o[1], o[2], p.srgb, p.srgb.mul, q);
+    for (int ch = 0; ch < 3; ++ch) out[ch * plane + px] = (OutT)q[ch];
   }
 }
 

@@ -1,25 +1,19 @@
 """XYB -> linear sRGB -> sRGB8/16 output, the last stage of kernel 2.
 
-``xyb_to_srgb`` turns (3, H, W) XYB planes (a cropped view is fine)
-into interleaved (H, W, 3) uint8 or uint16.  On a CUDA tensor it
-launches ``jxl_xyb_to_srgb`` of ``csrc/filters.cu`` (replacing
-``_srgb_out`` inside the TPU kernel
-``jxl_coder_tpu/vardct/filters_pallas.py`` ``fused_real_filters3``);
-on a CPU tensor it runs ``xyb_to_srgb_plain``, the twin of
+``xyb_to_srgb_plain`` turns (3, H, W) XYB planes (a cropped view is
+fine) into interleaved (H, W, 3) uint8 or uint16: the twin of
 ``tpu_real.xyb_to_srgb8_device`` / ``tpu_full._xyb_to_srgb16_device``
-with the exact FastLinearToSRGB exponent trick.  Writing HWC directly
-removes the ``moveaxis`` of ``tpu_full.py:790-791``.
+with the exact FastLinearToSRGB exponent trick, and the plain version
+of the output stage of ``csrc/filters.cu``'s tile pass
+(``filters.restore_and_output``), which takes its constants from here.
+Writing HWC directly removes the ``moveaxis`` of ``tpu_full.py:790-791``.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import numpy as np
 import torch
 
-from .. import _build
 from ..host.vardct.dec_real import (_BIAS, _CBRT_BIAS, _OPSIN_INV,
                                     _POW17TO10, _POW25TO18)
 
@@ -70,33 +64,3 @@ def xyb_to_srgb_plain(xyb: torch.Tensor, bits16: bool) -> torch.Tensor:
         out.append(q.clamp(0.0, scale))
     return torch.stack(out, -1).to(torch.uint16 if bits16 else torch.uint8)
 
-
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    c = ctypes
-    return _build.bind(
-        _build.load("filters"), "jxl_xyb_to_srgb",
-        [c.c_void_p, c.c_longlong, c.c_int, c.c_void_p, c.c_int, c.c_int,
-         c.c_int, c.c_void_p, c.c_void_p])
-
-
-def xyb_to_srgb(xyb: torch.Tensor, bits16: bool) -> torch.Tensor:
-    """(3, H, W) float32 XYB -> (H, W, 3) uint8, or uint16 with bits16."""
-    if xyb.device.type == "cpu":
-        return xyb_to_srgb_plain(xyb, bits16)
-    if xyb.dtype != torch.float32 or xyb.dim() != 3 or xyb.shape[0] != 3:
-        raise ValueError("expected (3, H, W) float32 planes")
-    if xyb.stride(2) != 1:
-        xyb = xyb.contiguous()
-    _, H, W = xyb.shape
-    out = torch.empty((H, W, 3), device=xyb.device,
-                      dtype=torch.uint16 if bits16 else torch.uint8)
-    # the constants are host arrays, copied into the launch parameters
-    _build.launch(_kernel(), xyb.device, xyb.data_ptr(), xyb.stride(0),
-                  xyb.stride(1), out.data_ptr(), H, W, int(bits16),
-                  _CONSTS.ctypes.data, _MUL.ctypes.data)
-    xyb_to_srgb.launches += 1
-    return out
-
-
-xyb_to_srgb.launches = 0

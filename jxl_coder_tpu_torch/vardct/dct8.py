@@ -9,11 +9,11 @@ order, the quant field, EPF sharpness and per-block CfL factors.
 DC planes and adaptive DC smoothing (plain torch), dequant and CfL, the
 8x8 IDCT as one fp32 product with the Kronecker basis ``A (x) A``, the DC
 added in pixel space, kernel 7 (``detile``) to raster, then the filter
-kernels (``filters.filter_chain``) and the sRGB output kernel
-(``color.xyb_to_srgb``) on the whole block grid, as ``tpu_real`` filters
-it.  On CPU tensors the kernels' plain versions run; on CUDA tensors
-every kernel of the path launches.  ``DCT8Frame`` wraps it as an
-``nn.Module`` over the tensors of ``to_device``.
+chain and the sRGB output as kernel 2's tile pass
+(``filters.restore_and_output``) on the whole block grid, as
+``tpu_real`` filters it.  On CPU tensors the kernels' plain versions
+run; on CUDA tensors every kernel of the path launches.  ``DCT8Frame``
+wraps it as an ``nn.Module`` over the tensors of ``to_device``.
 """
 
 from __future__ import annotations
@@ -25,9 +25,8 @@ import torch
 from torch import nn
 
 from ..host.vardct.dec_real import DC_SMOOTH_W1, DC_SMOOTH_W2
-from .color import xyb_to_srgb
 from .detile import detile
-from .filters import filter_chain, sigma_map
+from .filters import restore_and_output, sigma_map
 
 # tpu_real.apply_filters_device: default gaborish weights; EPF pass 0
 # (epf_iters 3) with the diamond at slope 0.9, pass 2 at scale 6.5
@@ -147,16 +146,16 @@ def synth_dct8_planes(coeffs, dc, qf, xf, bf, table, igs, quant_dc, dcq,
     return synth_from_dcp(coeffs, dcp, qf, xf, bf, table, igs, qm_x, qm_b)
 
 
-def apply_filters(planes: torch.Tensor, qf, sharp, igs, gab,
-                  epf_iters) -> torch.Tensor:
+def filter_and_output(planes: torch.Tensor, qf, sharp, igs, gab,
+                      epf_iters) -> torch.Tensor:
     """Gaborish, then EPF passes 0-2 by epf_iters (0-3, True means 1),
     on the whole (3, 8*ys, 8*xs) block grid (tpu_real's jnp chain; the
-    EPF inverse-sigma map, tpu_real._epf_inv_map, is filters.epf_inv of
-    the sigma map inside filter_chain)."""
+    EPF inverse-sigma map, tpu_real._epf_inv_map, is the kernel's
+    per-block slope of the sigma map), then sRGB8 -> (8*ys, 8*xs, 3)."""
     epf_iters = int(epf_iters)
     sigma = sigma_map(sharp, qf, float(_F32(igs))) if epf_iters else None
-    return filter_chain(planes, sigma, bool(gab), epf_iters, _GABW,
-                        _PASS0_SCALE, _PASS2_SCALE)
+    return restore_and_output(planes, sigma, bool(gab), epf_iters, _GABW,
+                              _PASS0_SCALE, _PASS2_SCALE, "u8")
 
 
 def reconstruct_dct8_frame(coeffs, dc, qf, sharp, xf, bf, table,
@@ -167,8 +166,7 @@ def reconstruct_dct8_frame(coeffs, dc, qf, sharp, xf, bf, table,
     same arguments)."""
     planes = synth_dct8_planes(coeffs, dc, qf, xf, bf, table, igs,
                                quant_dc, dcq, qm_x, qm_b, skip_dc_smooth)
-    planes = apply_filters(planes, qf, sharp, igs, gab, epf_iters)
-    return xyb_to_srgb(planes, bits16=False)
+    return filter_and_output(planes, qf, sharp, igs, gab, epf_iters)
 
 
 _TENSORS = {"coeffs": np.float32, "dc": np.int32, "qf": np.int32,

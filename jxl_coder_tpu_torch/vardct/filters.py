@@ -1,17 +1,20 @@
-"""Restoration filters: gaborish and EPF passes 0-2 (kernel 2).
+"""Restoration filters and the sRGB output, one tile pass (kernel 2).
 
-``filter_chain`` runs gaborish -> EPF0 (epf_iters 3) -> EPF1 -> EPF2
-(epf_iters >= 2) on (3, H, W) XYB planes at the true image size.  On a
-CUDA tensor each stage launches a kernel of ``csrc/filters.cu`` (which
-replaces the TPU kernel ``jxl_coder_tpu/vardct/filters_pallas.py``
-``fused_real_filters3``; see the source note there); on a CPU tensor
-it runs the plain PyTorch twins below, which mirror the jnp chain
+``restore_and_output`` runs gaborish -> EPF0 (epf_iters 3) -> EPF1 ->
+EPF2 (epf_iters >= 2) -> XYB -> sRGB8/16 on (3, H, W) XYB planes at
+the true image size and returns interleaved (H, W, 3) codes (or, for
+checks, the filtered f32 planes).  On a CUDA tensor it launches
+``chain_kernel`` of ``csrc/filters.cu`` (which replaces the TPU kernel
+``jxl_coder_tpu/vardct/filters_pallas.py`` ``fused_real_filters3``; see
+the source note there): one launch at epf_iters <= 2, two at epf_iters
+3 (``epf0_pass``, then the rest).  On a CPU tensor it runs the plain
+PyTorch chain below (``filter_chain_plain`` and
+``color.xyb_to_srgb_plain``), which mirrors the jnp chain
 (``tpu_real.gaborish_device`` / ``epf_device``,
 ``tpu_full._epf2_device``) operation for operation.
 
-The constants come from ``host/vardct/dec_real.py``.  Input
-planes may be a cropped view (row stride larger than the width);
-outputs are contiguous (3, H, W) float32.
+The constants come from ``host/vardct/dec_real.py``.  Input planes may
+be a cropped view (row stride larger than the width).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from .. import _build
 from ..host.vardct.dec_real import (EPF1_INV_SCALE, EPF_CHANNEL_SCALE,
                                     EPF_SIGMA_GATE, EPF_SIGMA_PER,
                                     KINV_SIGMA)
+from . import color
 
 BORDER_MUL = np.float32(2.0 / 3.0)
 _PLUS4 = ((0, 1), (0, -1), (1, 0), (-1, 0))
@@ -44,8 +48,7 @@ def sigma_map(sharp: torch.Tensor, qf: torch.Tensor,
 def epf_inv(sigma: torch.Tensor, slope_scale: float) -> torch.Tensor:
     """Per-block EPF slope: KINV * EPF1_INV_SCALE * slope / sigma where
     sigma >= EPF_SIGMA_GATE (negative), 0 elsewhere."""
-    c = torch.full_like(sigma, float(np.float32(
-        KINV_SIGMA * EPF1_INV_SCALE * slope_scale)))
+    c = torch.full_like(sigma, float(slope_constant(slope_scale)))
     inv = c / torch.clamp_min(sigma, 1e-9)
     return torch.where(sigma >= EPF_SIGMA_GATE, inv,
                        torch.zeros_like(inv)).contiguous()
@@ -135,85 +138,149 @@ def epf_plain(x: torch.Tensor, inv: torch.Tensor, epf_pass: int
                         for c in range(3)])
 
 
-def _plane_args(x: torch.Tensor):
-    if x.dtype != torch.float32 or x.dim() != 3 or x.shape[0] != 3:
-        raise ValueError("expected (3, H, W) float32 planes")
-    if x.stride(2) != 1:
-        x = x.contiguous()
-    return x, x.stride(0), x.stride(1)
+def filter_chain_plain(x: torch.Tensor, sigma: torch.Tensor, gab: bool,
+                       epf_iters: int, gabw, pass0_scale: float,
+                       pass2_scale: float) -> torch.Tensor:
+    """gaborish -> EPF0 (epf_iters 3) -> EPF1 -> EPF2 (epf_iters >= 2)
+    on (3, H, W) planes; sigma: per-block EPF sigma (sigma_map).
+    Returns the input unchanged when every filter is off."""
+    if gab:
+        x = gaborish_plain(x, gabw)
+    if epf_iters >= 1:
+        if epf_iters >= 3:
+            x = epf_plain(x, epf_inv(sigma, pass0_scale), 0)
+        x = epf_plain(x, epf_inv(sigma, 1.0), 1)
+        if epf_iters >= 2:
+            x = epf_plain(x, epf_inv(sigma, pass2_scale), 2)
+    return x
+
+
+OUT_KINDS = {"f32": 0, "u8": 1, "u16": 2}
+
+
+def epf0_pass_plain(x: torch.Tensor, sigma: torch.Tensor, gab: bool, gabw,
+                    pass0_scale: float) -> torch.Tensor:
+    if gab:
+        x = gaborish_plain(x, gabw)
+    return epf_plain(x, epf_inv(sigma, pass0_scale), 0)
+
+
+def restore_and_output_plain(x: torch.Tensor, sigma, gab: bool,
+                             epf_iters: int, gabw, pass0_scale: float,
+                             pass2_scale: float, out: str = "u8"
+                             ) -> torch.Tensor:
+    x = filter_chain_plain(x, sigma, gab, epf_iters, gabw, pass0_scale,
+                           pass2_scale)
+    return x if out == "f32" else color.xyb_to_srgb_plain(x, out == "u16")
+
+
+def slope_constant(scale: float) -> np.float32:
+    """c of a pass's slope c / sigma, rounded once to f32 as epf_inv
+    rounds it."""
+    return np.float32(KINV_SIGMA * EPF1_INV_SCALE * scale)
+
+
+def kernel_consts(gabw, scale_a: float, scale_2: float) -> np.ndarray:
+    """The 16 floats the kernel takes: gaborish w1[3], w2[3], 1 / norm[3],
+    the channel scales, the border multiplier, the sigma gate and the
+    slope constants of pass A (EPF0 or EPF1) and of EPF2."""
+    w = [np.float32(g) for g in gabw]
+    return np.asarray(
+        w[0::2] + w[1::2]
+        + [np.float32(1.0) / np.float32(_gab_norm(gabw[2 * c], gabw[2 * c + 1]))
+           for c in range(3)]
+        + list(EPF_CHANNEL_SCALE)
+        + [BORDER_MUL, EPF_SIGMA_GATE, slope_constant(scale_a),
+           slope_constant(scale_2)], np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_consts(gabw: tuple, scale_a: float, scale_2: float) -> np.ndarray:
+    """kernel_consts, built once per frame configuration: building them
+    costs more host time than the launch itself."""
+    return kernel_consts(gabw, scale_a, scale_2)
 
 
 _c = ctypes
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.load("filters")
-    return dict(
-        gab=_build.bind(lib, "jxl_gaborish",
-                        [_c.c_void_p, _c.c_longlong, _c.c_int, _c.c_void_p,
-                         _c.c_int, _c.c_int] + [_c.c_float] * 9),
-        epf=_build.bind(lib, "jxl_epf",
-                        [_c.c_int, _c.c_void_p, _c.c_longlong, _c.c_int,
-                         _c.c_void_p, _c.c_int, _c.c_int, _c.c_void_p,
-                         _c.c_int] + [_c.c_float] * 4))
+def _kernel():
+    return _build.bind(
+        _build.load("filters"), "jxl_restore",
+        [_c.c_void_p, _c.c_longlong, _c.c_int, _c.c_int, _c.c_int,
+         _c.c_void_p, _c.c_int, _c.c_int, _c.c_void_p, _c.c_int, _c.c_int,
+         _c.c_int, _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p])
 
 
-def gaborish(x: torch.Tensor, gabw) -> torch.Tensor:
-    """3x3 gaborish with per-channel weights gabw = (x1, x2, y1, y2, b1,
-    b2), Mirror borders."""
-    if x.device.type == "cpu":
-        return gaborish_plain(x, gabw)
-    x, ps, rs = _plane_args(x)
+def _launch(x: torch.Tensor, sigma, gab: bool, pass_a: int, epf2: bool,
+            out: str, gabw, scale_a: float, scale_2: float) -> torch.Tensor:
+    """One chain_kernel launch on CUDA planes x: [gaborish] -> [pass A:
+    EPF0 or EPF1] -> [EPF2] -> out."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype != torch.float32 or x.dim() != 3 or x.shape[0] != 3:
+        raise ValueError("expected (3, H, W) float32 planes")
+    if out not in OUT_KINDS:
+        raise ValueError(f"out must be one of {tuple(OUT_KINDS)}")
+    if x.stride(2) != 1:
+        x = x.contiguous()
     _, H, W = x.shape
-    out = torch.empty((3, H, W), dtype=torch.float32, device=x.device)
-    w = [float(np.float32(g)) for g in gabw]
-    norms = [_gab_norm(gabw[2 * c], gabw[2 * c + 1]) for c in range(3)]
-    _build.launch(_lib()["gab"], x.device, x.data_ptr(), ps, rs,
-                  out.data_ptr(), H, W, *w, *norms)
-    gaborish.launches += 1
-    return out
+    sig_ptr, sig_rows, sig_cols = None, 0, 0
+    if pass_a >= 0:
+        if sigma is None or sigma.dtype != torch.float32 or \
+                sigma.device != x.device or sigma.dim() != 2 or \
+                sigma.shape[0] < (H + 7) // 8 or sigma.shape[1] < (W + 7) // 8:
+            raise ValueError(f"sigma must be float32 on {x.device}, at "
+                             f"least {((H + 7) // 8, (W + 7) // 8)} blocks")
+        sigma = sigma.contiguous()
+        sig_ptr, (sig_rows, sig_cols) = sigma.data_ptr(), sigma.shape
+    if out == "f32":
+        res = torch.empty((3, H, W), dtype=torch.float32, device=x.device)
+    else:
+        res = torch.empty((H, W, 3), device=x.device, dtype=torch.uint16
+                          if out == "u16" else torch.uint8)
+    consts = _launch_consts(tuple(gabw), scale_a, scale_2)
+    # the constants are host arrays, copied into the launch parameters
+    _build.launch(_kernel(), x.device, x.data_ptr(), x.stride(0),
+                  x.stride(1), H, W, sig_ptr, sig_rows, sig_cols,
+                  res.data_ptr(), int(gab), int(pass_a), int(epf2),
+                  OUT_KINDS[out], consts.ctypes.data, color._CONSTS.ctypes.data,
+                  color._MUL.ctypes.data)
+    return res
 
 
-def epf(x: torch.Tensor, inv: torch.Tensor, epf_pass: int) -> torch.Tensor:
-    """EPF pass 0, 1 or 2 with per-block slope `inv` (epf_inv)."""
+def epf0_pass(x: torch.Tensor, sigma: torch.Tensor, gab: bool, gabw,
+              pass0_scale: float) -> torch.Tensor:
+    """[gaborish ->] EPF pass 0 -> (3, H, W) float32: the first of the
+    two launches at epf_iters 3."""
     if x.device.type == "cpu":
-        return epf_plain(x, inv, epf_pass)
-    x, ps, rs = _plane_args(x)
-    _, H, W = x.shape
-    if epf_pass not in (0, 1, 2):
-        raise ValueError(f"EPF pass {epf_pass}: expected 0, 1 or 2")
-    if inv.dtype != torch.float32 or inv.device != x.device or \
-            inv.dim() != 2 or inv.shape[0] < (H + 7) // 8 or \
-            inv.shape[1] < (W + 7) // 8:
-        raise ValueError(f"inv must be float32 on {x.device}, at least "
-                         f"{((H + 7) // 8, (W + 7) // 8)} blocks")
-    inv = inv.contiguous()
-    out = torch.empty((3, H, W), dtype=torch.float32, device=x.device)
-    cs = [float(np.float32(s)) for s in EPF_CHANNEL_SCALE]
-    _build.launch(_lib()["epf"], x.device, int(epf_pass), x.data_ptr(), ps,
-                  rs, out.data_ptr(), H, W, inv.data_ptr(), inv.shape[1],
-                  *cs, float(BORDER_MUL))
-    epf.launches += 1
-    return out
+        return epf0_pass_plain(x, sigma, gab, gabw, pass0_scale)
+    res = _launch(x, sigma, gab, 0, False, "f32", gabw, pass0_scale, 1.0)
+    epf0_pass.launches += 1
+    return res
 
 
-gaborish.launches = 0
-epf.launches = 0
+def restore_and_output(x: torch.Tensor, sigma, gab: bool, epf_iters: int,
+                       gabw, pass0_scale: float, pass2_scale: float,
+                       out: str = "u8") -> torch.Tensor:
+    """(3, H, W) float32 XYB -> the filter chain -> (H, W, 3) uint8
+    (out "u8") or uint16 ("u16") sRGB, or the filtered (3, H, W) float32
+    planes ("f32").  sigma: the per-block EPF sigma map (sigma_map), None
+    when epf_iters is 0; gabw: (x1, x2, y1, y2, b1, b2)."""
+    if epf_iters not in (0, 1, 2, 3):
+        raise ValueError(f"epf_iters {epf_iters}: expected 0-3")
+    if x.device.type == "cpu":
+        return restore_and_output_plain(x, sigma, gab, epf_iters, gabw,
+                                        pass0_scale, pass2_scale, out)
+    if epf_iters >= 3:
+        x = epf0_pass(x, sigma, gab, gabw, pass0_scale)
+        gab = False
+    res = _launch(x, sigma, gab, 1 if epf_iters >= 1 else -1,
+                  epf_iters >= 2, out, gabw, 1.0, pass2_scale)
+    restore_and_output.launches += 1
+    return res
 
 
-def filter_chain(x: torch.Tensor, sigma: torch.Tensor, gab: bool,
-                 epf_iters: int, gabw, pass0_scale: float,
-                 pass2_scale: float) -> torch.Tensor:
-    """gaborish -> EPF0 (epf_iters 3) -> EPF1 -> EPF2 (epf_iters >= 2)
-    on (3, H, W) planes; sigma: per-block EPF sigma (sigma_map).
-    Returns the input unchanged when every filter is off."""
-    if gab:
-        x = gaborish(x, gabw)
-    if epf_iters >= 1:
-        if epf_iters >= 3:
-            x = epf(x, epf_inv(sigma, pass0_scale), 0)
-        x = epf(x, epf_inv(sigma, 1.0), 1)
-        if epf_iters >= 2:
-            x = epf(x, epf_inv(sigma, pass2_scale), 2)
-    return x
+epf0_pass.launches = 0
+restore_and_output.launches = 0

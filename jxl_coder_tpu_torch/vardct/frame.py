@@ -4,7 +4,8 @@
 ``jxl_coder_tpu.vardct.tpu_full._build_fn`` returns (and of
 ``reconstruct_state_device``): synthesis of every family straight into
 the (3, H8, W8) XYB planes, the crop to the true image size, the EPF
-sigma map, the filter chain and the sRGB output at 8 or 16 bits.
+sigma map, then the filter chain and the sRGB output at 8 or 16 bits as
+one tile pass (``filters.restore_and_output``).
 """
 
 from __future__ import annotations
@@ -12,8 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .color import xyb_to_srgb
-from .filters import filter_chain, sigma_map
+from .filters import restore_and_output, sigma_map
 from .inputs import FrameConfig, FrameInputs
 from .synth import synth_family
 
@@ -41,6 +41,6 @@ class VarDCTFrame(nn.Module):
             sigma = sigma_map(inputs.sharp, inputs.qf, inputs.igs)
         else:
             sigma = None
-        xyb = filter_chain(xyb, sigma, cfg.gab, cfg.epf_iters, cfg.gabw,
-                           cfg.pass0_scale, cfg.pass2_scale)
-        return xyb_to_srgb(xyb, bits16=cfg.bits > 8)
+        return restore_and_output(xyb, sigma, cfg.gab, cfg.epf_iters,
+                                  cfg.gabw, cfg.pass0_scale, cfg.pass2_scale,
+                                  "u16" if cfg.bits > 8 else "u8")

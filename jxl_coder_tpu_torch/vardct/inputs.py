@@ -265,7 +265,7 @@ class Family:
     resp: Optional[torch.Tensor] = None    # (3, 64, 8, 8) f32 special
     resp_y_def: Optional[torch.Tensor] = None  # (64, 8, 8) f32
     fix_idx: Optional[torch.Tensor] = None  # int8 exception list: flat
-    fix_val: Optional[torch.Tensor] = None  # index (int64), true value
+    fix_val: Optional[torch.Tensor] = None  # index (int64) sorted, true value
 
 
 @dataclasses.dataclass
@@ -303,8 +303,15 @@ def family_from_dict(fam: dict, desc: tuple, device) -> Family:
     else:
         f.tab = _t(fam["tab"], device, f32)
     if "fix_idx" in fam:
-        f.fix_idx = _t(fam["fix_idx"], device, np.int64)
-        f.fix_val = _t(fam["fix_val"], device, np.int32)
+        # the DCT8 kernel finds a row's entries by binary search: keep the
+        # real entries (a value past int8 is never 0; the bucket's (0, 0)
+        # padding adds nothing) sorted by flat index
+        val = np.asarray(fam["fix_val"])
+        real = np.nonzero(val != 0)[0]
+        idx = np.asarray(fam["fix_idx"], np.int64)[real]
+        order = np.argsort(idx, kind="stable")
+        f.fix_idx = _t(idx[order], device, np.int64)
+        f.fix_val = _t(val[real][order], device, np.int32)
     return f
 
 

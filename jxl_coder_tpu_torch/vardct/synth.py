@@ -4,14 +4,15 @@
 frame planes.  On a CUDA tensor it launches ``csrc/synth.cu`` (which
 replaces the TPU kernel ``jxl_coder_tpu/vardct/synth_pallas.py``
 ``synth_family_pallas`` and the jnp ``tpu_full._synth_family``; see the
-source note there for what bounds it); on a CPU tensor it runs
-``synth_family_plain``, the PyTorch twin with the same math and the
-same order of operations.  There is no fallback from one to the other.
-
-Both paths share the host-style preparation in torch: the int8
-exception list (``index_add_`` on the int32 view, as
-``tpu_full._with_fixes``) and the per-block LLF corner from the DC
-image (``llf_from_dc``, as ``tpu_full.py:462-482``).
+source note there for what bounds it): the DCT8 family its own kernel
+(``synth_dct8``), every other family the general one.  Both read the
+packed coefficients, the sorted int8 exception list and the DC image
+themselves: no torch operation runs before a launch.  On a CPU tensor
+it runs ``synth_family_plain``, the PyTorch twin with the same math,
+which prepares in torch what the kernels do inside: the exception list
+(``index_add_`` on the int32 view, as ``tpu_full._with_fixes``) and the
+per-block LLF corner from the DC image (``llf_from_dc``, as
+``tpu_full.py:462-482``).  There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ _NUM = np.float32(S.QUANT_BIAS_NUM)
 # 6*K floats per varblock, in a global scratch buffer beyond this
 # (DCT128X128 and the DCT256 family)
 _SMEM_BYTES = 227 * 1024
+# the DCT8 kernel's basis, a host array copied into its launch parameters
+_BASIS8 = np.ascontiguousarray(S.cos_basis(8), np.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -143,13 +146,27 @@ def synth_family_plain(planes: torch.Tensor, fam: Family, dc: torch.Tensor,
 
 
 _c = ctypes
-_ARGTYPES = ([_c.c_int, _c.c_int] + [_c.c_void_p] * 13
+_ARGTYPES = ([_c.c_int, _c.c_int] + [_c.c_void_p] * 4 + [_c.c_int] * 2
+             + [_c.c_void_p] * 5 + [_c.c_int] + [_c.c_void_p] * 9
              + [_c.c_int] * 5 + [_c.c_float] * 7)
+_DCT8_ARGTYPES = ([_c.c_int] + [_c.c_void_p] * 4 + [_c.c_int] * 2
+                  + [_c.c_void_p] * 7 + [_c.c_int, _c.c_void_p]
+                  + [_c.c_int] * 3 + [_c.c_float] * 7)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     return _build.bind(_build.load("synth"), "jxl_synth_family", _ARGTYPES)
+
+
+@functools.lru_cache(maxsize=None)
+def _dct8_kernel():
+    return _build.bind(_build.load("synth"), "jxl_synth_dct8",
+                       _DCT8_ARGTYPES)
+
+
+def is_dct8(fam: Family) -> bool:
+    return fam.sid == 0 and fam.bh == 8 and fam.bw == 8 and not fam.special
 
 
 def _check_cuda_args(planes: torch.Tensor, fam: Family,
@@ -179,44 +196,101 @@ def _check_cuda_args(planes: torch.Tensor, fam: Family,
     if tuple(fam.coef.shape[1:]) != (3, K):
         raise ValueError(f"coefficients {tuple(fam.coef.shape)}, expected "
                          f"(n, 3, {K})")
+    if dc.dim() != 3 or dc.shape[0] != 3:
+        raise ValueError("dc must be a (3, ys, xs) image")
+    mats = ([(fam.resp, 3 * 64 * 64), (fam.resp_y_def, 64 * 64)]
+            if fam.special else [(fam.tab, 3 * K)])
+    for t, size in mats:
+        if t is None or t.dtype != torch.float32 or t.device != planes.device \
+                or t.numel() != size or not t.is_contiguous():
+            raise ValueError(f"the family's matrices must be contiguous "
+                             f"float32, {size} values, on {planes.device}")
+
+
+def _ptr(t) -> int:
+    """A tensor's device address for a kernel argument (None: null)."""
+    return None if t is None else t.data_ptr()
+
+
+def n_fixes(fam: Family) -> int:
+    """The entries of the family's int8 exception list (0 without one)."""
+    return 0 if fam.fix_idx is None else int(fam.fix_idx.shape[0])
+
+
+def _fixes(fam: Family, device):
+    """The exception list the kernels read: int64 indices and int32
+    values, sorted by index (None, None without one)."""
+    if not n_fixes(fam):
+        return None, None
+    idx, val = fam.fix_idx, fam.fix_val
+    if idx.dtype != torch.int64 or val.dtype != torch.int32 or \
+            idx.device != device or val.device != device or \
+            not idx.is_contiguous() or not val.is_contiguous() or \
+            val.shape != idx.shape:
+        raise ValueError("the exception list must be contiguous int64 "
+                         f"indices and as many int32 values on {device}")
+    return idx, val
 
 
 def synth_family(planes: torch.Tensor, fam: Family, dc: torch.Tensor,
                  qm: np.ndarray) -> None:
     """Write one family's XYB pixels into planes (3, H8, W8) float32, in
-    place: the CUDA kernel for a CUDA tensor, the twin for a CPU one."""
+    place: the CUDA kernel for a CUDA tensor (the DCT8 family's own,
+    synth_dct8), the twin for a CPU one."""
     if planes.device.type == "cpu":
         synth_family_plain(planes, fam, dc, qm)
         return
     if planes.device.type != "cuda":
         raise ValueError(f"unsupported device {planes.device}")
     _check_cuda_args(planes, fam, dc)
-    coef = coefficients(fam).contiguous()
-    llf = llf_from_dc(dc, fam)
-    n = coef.shape[0]
+    if is_dct8(fam):
+        synth_dct8(planes, fam, dc, qm)
+        return
+    fix_idx, fix_val = _fixes(fam, planes.device)
     if fam.special:
-        mat = fam.resp.contiguous()
-        mat_y = fam.resp_y_def.contiguous()
-        Ah = Aw = None
+        mat, mat_y = fam.resp, fam.resp_y_def
+        anY = anX = rs = Ah = Aw = None
     else:
-        mat = _tabqm(fam, qm).contiguous()
-        mat_y = None
+        mat, mat_y = fam.tab, None
+        anY, anX, rs = _llf_mats(fam.bh // 8, fam.bw // 8, planes.device)
         Ah, Aw = _basis(fam.bh, planes.device), _basis(fam.bw, planes.device)
+    n = fam.coef.shape[0]
     scratch = None
     if not fam.special and 6 * fam.bh * fam.bw * 4 > _SMEM_BYTES:
         scratch = torch.empty(n * 6 * fam.bh * fam.bw, dtype=torch.float32,
                               device=planes.device)
-    ptr = (lambda t: None if t is None else t.data_ptr())
+    _, ys, xs = dc.shape
     H8, W8 = planes.shape[1], planes.shape[2]
     _build.launch(
         _kernel(), planes.device,
-        int(fam.special), coef.element_size(), ptr(coef), ptr(mat),
-        ptr(mat_y), ptr(llf), ptr(fam.inv_qac), ptr(fam.xf), ptr(fam.bf),
-        ptr(fam.bys), ptr(fam.bxs), ptr(Ah), ptr(Aw), ptr(planes),
-        ptr(scratch), n, fam.bh, fam.bw, H8, W8, float(_QB[0]), float(_QB[1]),
-        float(_QB[2]), float(_NUM), float(qm[0]), float(qm[1]),
-        float(qm[2]))
+        int(fam.special), fam.coef.element_size(), _ptr(fam.coef), _ptr(mat),
+        _ptr(mat_y), _ptr(dc), ys, xs, _ptr(anY), _ptr(anX), _ptr(rs),
+        _ptr(fix_idx), _ptr(fix_val), n_fixes(fam), _ptr(fam.inv_qac),
+        _ptr(fam.xf), _ptr(fam.bf), _ptr(fam.bys), _ptr(fam.bxs), _ptr(Ah),
+        _ptr(Aw), _ptr(planes), _ptr(scratch), n, fam.bh, fam.bw, H8, W8,
+        float(_QB[0]), float(_QB[1]), float(_QB[2]), float(_NUM),
+        float(qm[0]), float(qm[1]), float(qm[2]))
     synth_family.launches += 1
 
 
+def synth_dct8(planes: torch.Tensor, fam: Family, dc: torch.Tensor,
+               qm: np.ndarray) -> None:
+    """The DCT8 family's launch, from synth_family on checked CUDA
+    tensors: its own kernel (no widening, no LLF gather, no tab*qm
+    launch)."""
+    fix_idx, fix_val = _fixes(fam, planes.device)
+    _, ys, xs = dc.shape
+    H8, W8 = planes.shape[1], planes.shape[2]
+    _build.launch(
+        _dct8_kernel(), planes.device, fam.coef.element_size(),
+        _ptr(fam.coef), _ptr(fam.tab), _BASIS8.ctypes.data, _ptr(dc),
+        ys, xs, _ptr(fam.bys), _ptr(fam.bxs), _ptr(fam.inv_qac), _ptr(fam.xf),
+        _ptr(fam.bf), _ptr(fix_idx), _ptr(fix_val), n_fixes(fam),
+        _ptr(planes), fam.coef.shape[0], H8, W8, float(_QB[0]), float(_QB[1]),
+        float(_QB[2]), float(_NUM), float(qm[0]), float(qm[1]),
+        float(qm[2]))
+    synth_dct8.launches += 1
+
+
 synth_family.launches = 0
+synth_dct8.launches = 0

@@ -108,8 +108,8 @@ def test_fused_real_gab_epf1_vs_pallas(out):
 
 @pytest.mark.parametrize("h,w,epf_iters", [(40, 72, 1), (37, 61, 2)])
 def test_fused_real_filters_equals_the_three_stage_chain(h, w, epf_iters):
-    """Kernel 3 on edge-padded planes is kernel 2 (filters.cu's gaborish ->
-    EPF1 -> EPF2 chain) on the unpadded ones, at any H x W; kernel 4
+    """Kernel 3 on edge-padded planes is kernel 2's chain (gaborish ->
+    EPF1 -> EPF2, its plain version) on the unpadded ones, at any H x W; kernel 4
     differs from it only within 2 pixels of the border (edge instead of
     Mirror)."""
     x = _xyb(h, w, seed=15)[:, PAD:-PAD]
@@ -117,8 +117,9 @@ def test_fused_real_filters_equals_the_three_stage_chain(h, w, epf_iters):
     sigma = np.random.default_rng(16).uniform(
         0.0, 2.5, (-(-h // 8), -(-w // 8))).astype(np.float32)
     sig = torch.from_numpy(sigma)
-    chain = F.filter_chain(torch.from_numpy(x), sig, True, epf_iters,
-                           (FF.DEFAULT_GW1, FF.DEFAULT_GW2) * 3, 0.9, 6.5)
+    chain = F.filter_chain_plain(torch.from_numpy(x), sig, True, epf_iters,
+                                 (FF.DEFAULT_GW1, FF.DEFAULT_GW2) * 3, 0.9,
+                                 6.5)
     got = FF.fused_real_filters(torch.from_numpy(xp), F.epf_inv(sig, 1.0),
                                 epf_iters=epf_iters, pass2_scale=6.5)
     assert np.abs(got.numpy() - chain.numpy()).max() <= TOL_F32

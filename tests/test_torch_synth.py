@@ -25,7 +25,7 @@ from jxl_coder_tpu.vardct import tpu_full as TF
 from jxl_coder_tpu.vardct.strategies import STRATEGIES
 from jxl_coder_tpu_torch.vardct import inputs as I
 from jxl_coder_tpu_torch.vardct import synth as SY
-from port_fixtures import smooth_frame, synthetic_family
+from port_fixtures import sharp_frame, smooth_frame, synthetic_family
 
 TOL_F32 = 1e-5
 TOL_F64 = 1e-4
@@ -165,13 +165,24 @@ def _contrast_image():
     return np.stack([img, img, img], -1)
 
 
-@pytest.mark.parametrize("stream", ["d1.0_e7", "d0.1_e3_exceptions"])
-def test_synth_stream_families_vs_jax(stream):
+def _stream(stream):
     if stream == "d1.0_e7":
-        static, args = _stream_state(smooth_frame(192, 256), 1.0, 7)
-    else:
+        return _stream_state(smooth_frame(192, 256), 1.0, 7)
+    if stream == "d0.1_e3_exceptions":
         static, args = _stream_state(_contrast_image(), 0.1, 3)
         assert any("fix_idx" in f for f in args[0])
+        return static, args
+    # sharp strokes at d0.1: the DCT8 family itself is int8 with exceptions
+    static, args = _stream_state(sharp_frame(96, 128), 0.1, 7)
+    assert any(d[0] == 0 and "fix_idx" in f
+               for d, f in zip(static["desc"], args[0]))
+    return static, args
+
+
+@pytest.mark.parametrize("stream", ["d1.0_e7", "d0.1_e3_exceptions",
+                                    "sharp_d0.1_e7_dct8_exceptions"])
+def test_synth_stream_families_vs_jax(stream):
+    static, args = _stream(stream)
     fams, dc, _qf, _sharp, _igs, qm, _perm = args
     ys_b, xs_b = static["H8"] // 8, static["W8"] // 8
     fd = list(zip(static["desc"], fams))
@@ -195,6 +206,39 @@ def test_synth_stream_families_vs_jax(stream):
         for by, bx in zip(f["bys"][:n], f["bxs"][:n]):
             win = np.s_[:, by * 8:by * 8 + bh, bx * 8:bx * 8 + bw]
             assert np.abs(mine[win] - one[win]).max() <= TOL_F32
+
+
+@pytest.mark.parametrize("stream", ["d0.1_e3_exceptions",
+                                    "sharp_d0.1_e7_dct8_exceptions"])
+def test_exception_list_as_the_dct8_kernel_reads_it(stream):
+    """family_from_dict keeps the packed list's real entries sorted by
+    flat index, and the DCT8 kernel's lookup (a binary search for a run's
+    first row, then a walk row by row) applied to them gives the
+    coefficients the packed list gives through index_add_."""
+    static, args = _stream(stream)
+    seen = 0
+    for d, fam in zip(static["desc"], args[0]):
+        if "fix_idx" not in fam:
+            continue
+        key = "vals" if d[5] else "cmat"
+        ref = fam[key].astype(np.int64).reshape(-1)
+        np.add.at(ref, fam["fix_idx"].astype(np.int64), fam["fix_val"])
+        f = I.family_from_dict(fam, d, "cpu")
+        idx, val = f.fix_idx.numpy(), f.fix_val.numpy()
+        assert SY.n_fixes(f) == len(idx) == np.count_nonzero(fam["fix_val"])
+        assert np.all(np.diff(idx) > 0)
+        assert np.array_equal(SY.coefficients(f).reshape(-1).numpy(), ref)
+        n, K = fam[key].shape[0], 3 * fam[key].shape[2]
+        got = fam[key].astype(np.int64).reshape(-1)
+        for b0 in range(0, n, 4):                # the kernel's runs of 4 rows
+            j = int(np.searchsorted(idx, b0 * K))
+            for b in range(b0, min(b0 + 4, n)):
+                while j < len(idx) and idx[j] < (b + 1) * K:
+                    got[idx[j]] += val[j]
+                    j += 1
+        assert np.array_equal(got, ref)
+        seen += 1
+    assert seen
 
 
 @pytest.mark.parametrize("sid", range(21, 27))
