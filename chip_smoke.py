@@ -31,14 +31,20 @@ prints no result):
   7. the round-1 codec (jxl_coder_tpu_torch.codec): FHD, a ragged sharp
      frame, a 16-bit frame and decoding speeds 2 and 4 encoded on the
      card (its quantised integers against the CPU encode's), each stream
-     parsed once and its device half run on the card, counted (fused
-     kernels 5 and 6), against the port's plain path on the CPU; then
-     kernels 5 and 6 against their twins on the FHD arrays;
+     parsed once and its device half run on the card, counted: kernel 6
+     once per 8-bit frame, kernel 5 (uint16 out) once per 16-bit frame,
+     and none of the plain filter or output functions; against the
+     port's plain path on the CPU; then kernels 5 and 6 against their
+     twins on the FHD arrays, a ragged crop of them and seeded planes
+     down to 1x1 (per-block and per-pixel inverse sigma, the four
+     gaborish / EPF combinations, f32 / u8 / u16 out), and the
+     epf_iters 2 route against the CPU path;
   8. the real-format fused filter entry points (kernels 3 and 4) on the
      4K synthesised planes, counted, against their twins and against
      kernel 2;
-  9. timings at 4K: the round-1 reconstruct_srgb8 and kernels 3-6 each
-     against its twin, and kernels 3 and 4 against kernel 2;
+  9. timings at 4K: the round-1 reconstruct_srgb8 / reconstruct_u16,
+     kernels 5 and 6 on each route and kernels 3 and 4, each against its
+     twin, and kernels 3 and 4 against kernel 2;
  10. the DCT8-only frame path (jxl_coder_tpu_torch.vardct.dct8): kernel 7
      (detile) bit-equal to its plain version at the research probe's
      shape (a seeded permutation subset of 140,000 tile rows) and at the
@@ -50,12 +56,15 @@ prints no result):
 Every kernel's line carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its f32 operations over 67 TFLOP/s (the H100 SXM's published peaks
-at 700 W).  The last two lines are the card's name and power limit and
+at 700 W).  Calls the host cannot queue ahead of the card are timed by
+replaying a CUDA graph of them.  The last two lines are the card's name
+and power limit and
 {"ok": true, "device": {...}}; the line before them lists the kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -142,8 +151,14 @@ F32_OPS_PER_S = 67e12         # f32 outside the tensor cores
 #     of the pixel it points to), 12 weights (24) and the border scale
 #     (1), the weight sum (12), 12 x 3 FMAs into the numerators (72) and
 #     the normalisation (4): 173;
-#   the sRGB output 69
-OPS_PX = {"gaborish": 27, "epf0": 173, "epf1": 71, "epf2": 63, "srgb": 69}
+#   the sRGB output 69;
+#   the round-1 sRGB codes (kernels 5 and 6): the three cubes and biases
+#     (12), the opsin mix (3 x (1 + 2 FMAs) = 15), and per channel the
+#     clip (2), the code from its tables (at 16 bits the quadratic, 4,
+#     and its rounding, 1; glibc's powf in the twin is a table read in
+#     the kernel) and the clip to the code range (1): 51
+OPS_PX = {"gaborish": 27, "epf0": 173, "epf1": 71, "epf2": 63, "srgb": 69,
+          "codes": 51}
 
 
 def nbytes(*tensors) -> int:
@@ -158,7 +173,8 @@ def note_bound(name: str, moved: int, ops: float) -> None:
     BOUND[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
                    else (t_ops, "operations"))
     print(f"bound {name}: {moved / 1e6:.1f} MB, {ops / 1e9:.2f} G f32 ops "
-          f"-> {BOUND[name][0]:.4f} ms ({BOUND[name][1]})", flush=True)
+          f"-> {BOUND[name][0]:.4f} ms ({BOUND[name][1]}; bytes "
+          f"{t_bytes:.4f}, operations {t_ops:.4f})", flush=True)
 
 
 def smi() -> str:
@@ -420,6 +436,33 @@ def device_ms(fn, n: int = 50) -> float:
     return total / n
 
 
+def graph_ms(fn, n: int = 50) -> float:
+    """Device milliseconds per call of fn from replays of one CUDA graph
+    that holds n back-to-back calls (CUDA events around each replay;
+    median of 3): the card's own time, without the host's launch work
+    between the calls.  fn must be capturable: kernel launches on the
+    current stream and device allocations, no copy from the host."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        g.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / n)
+    del g
+    return statistics.median(times)
+
+
 def profile_stage(frame, inp, runs: int = 5) -> float:
     """Device-busy ms per warm stage run (every kernel and copy, without
     the host time between them); prints the time by kernel."""
@@ -434,26 +477,103 @@ def profile_stage(frame, inp, runs: int = 5) -> float:
     return busy
 
 
-def check_legacy_kernels(img: torch.Tensor, inv: torch.Tensor,
-                         label: str) -> None:
-    """Kernels 5 and 6 against their twins on one frame's dequantised
-    XYB planes and per-pixel inverse sigma: the padded JAX-interface
-    entry points and the unpadded form the pipeline calls."""
+LEGACY_OUTS = ("f32", "u8", "u16")
+# what the round-1 pipeline must not run on the card: the per-pixel
+# inverse sigma map and the plain filter and output chains
+LEGACY_PLAIN = ("inv_sigma_map", "inv_sigma_blocks", "apply_filters",
+                "xyb_to_srgb8", "xyb_to_u16")
+
+
+@contextlib.contextmanager
+def forbidden(module, names):
+    """Make module.<name> raise while the block runs."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def stop(name):
+        def ran(*_a, **_k):
+            raise AssertionError(f"{module.__name__}.{name} ran on the "
+                                 f"card's path")
+        return ran
+
+    for n in names:
+        setattr(module, n, stop(n))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(module, n, f)
+
+
+def legacy_kernel(out: str) -> str:
+    """The KERNELS entry legacy_filters counts toward for `out`."""
+    return "fused_filters2" if out == "u8" else "fused_gab_epf"
+
+
+def note_legacy(name: str, got, ref, out: str, what: str) -> None:
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(ref.shape)} {ref.dtype}")
+    if out == "f32":
+        note_err(name, (got - ref).abs().max().item(), FILTER_TOL, what)
+    else:
+        note_codes(name, got, ref, out == "u16", what)
+
+
+def check_legacy_kernels(img: torch.Tensor, qf: torch.Tensor,
+                         distance: float, label: str, qf_row: int = 0) -> None:
+    """Kernels 5 and 6 against their twins on (3, H, W) planes: the
+    pipeline's route (the per-block quant field) for the four gaborish /
+    EPF combinations and every output, then the padded JAX-interface
+    entry points with the per-pixel map."""
+    for gab, epf in ((True, True), (True, False), (False, True),
+                     (False, False)):
+        for out in LEGACY_OUTS:
+            args = (img, qf, distance, gab, epf, out, qf_row)
+            note_legacy(legacy_kernel(out), FF.legacy_filters(*args),
+                        FF.legacy_filters_plain(*args), out,
+                        f"{label} gab {gab} epf {epf} {out}, per block")
+    inv = FF.block_inv(qf, distance, *img.shape[1:], qf_row)
     padded, inv_p = LP.pad_rows(img, FF.PAD), LP.pad_rows(inv, FF.PAD)
     stacked = torch.cat([padded, inv_p[None]])
-    note_err("fused_gab_epf", (FF.fused_gab_epf(stacked)
-                               - FF.fused_gab_epf_plain(stacked)).abs().max().item(),
-             FILTER_TOL, f"{label} padded")
-    note_err("fused_gab_epf", (FF.legacy_filters(img, inv, True, True, False)
-                               - FF.legacy_filters_plain(img, inv, True, True, False)
-                               ).abs().max().item(), FILTER_TOL, f"{label} unpadded")
-    note_codes("fused_filters2", FF.fused_filters2(padded, inv_p, True),
-               FF.fused_filters2_plain(padded, inv_p, True), False,
-               f"{label} padded sRGB8")
-    for gab, epf in ((True, True), (True, False), (False, True), (False, False)):
-        note_codes("fused_filters2", FF.legacy_filters(img, inv, gab, epf, True),
-                   FF.legacy_filters_plain(img, inv, gab, epf, True), False,
-                   f"{label} unpadded gab {gab} epf {epf} sRGB8")
+    note_legacy("fused_gab_epf", FF.fused_gab_epf(stacked),
+                FF.fused_gab_epf_plain(stacked), "f32",
+                f"{label} fused_gab_epf, padded per-pixel map")
+    for to_srgb in (False, True):
+        note_legacy("fused_filters2", FF.fused_filters2(padded, inv_p, to_srgb),
+                    FF.fused_filters2_plain(padded, inv_p, to_srgb),
+                    "u8" if to_srgb else "f32",
+                    f"{label} fused_filters2 to_srgb {to_srgb}, padded "
+                    f"per-pixel map")
+
+
+def check_legacy_small(dev) -> None:
+    """Kernels 5 and 6 on seeded planes smaller than a tile and at ragged
+    sizes, on planes padded for the epf_iters >= 2 route (the field read
+    from row -2), and that route end to end against the CPU path."""
+    rng = np.random.default_rng(11)
+    for h, w in ((3, 5), (7, 2), (1, 1), (13, 21), (21, 45), (13, 30),
+                 (9, 17), (70, 131)):
+        x = torch.from_numpy(rng.uniform(-0.05, 0.6, (3, h, w))
+                             .astype(np.float32)).to(dev)
+        qf = torch.from_numpy(rng.integers(1, 40, (-(-h // 8), -(-w // 8)))
+                              .astype(np.int32)).to(dev)
+        check_legacy_kernels(x, qf, 1.25, f"{h}x{w}")
+        if h == 70:
+            check_legacy_kernels(x, qf, 1.25, f"{h}x{w} from row -2", -2)
+    img = bench_frame(64, 96)
+    ac, dc, qf = (t.cpu() for t in codec.quantize_still(img, 1.0, "cpu"))
+    cfl = (torch.zeros((1, 2), dtype=torch.int32),
+           torch.full((1, 2), 64, dtype=torch.int32))
+    cpu_args = (ac.to(torch.int16), dc, qf) + cfl + (1.0,)
+    card_args = tuple(t.to(dev) for t in cpu_args[:5]) + (1.0,)
+    for fn, out in ((LP.reconstruct_xyb, "f32"), (LP.reconstruct_srgb8, "u8"),
+                    (LP.reconstruct_u16, "u16")):
+        for gab in (True, False):
+            note_legacy(legacy_kernel(out),
+                        fn(*card_args, epf_iters=2, gab=gab).cpu(),
+                        fn(*cpu_args, epf_iters=2, gab=gab), out,
+                        f"round-1 {fn.__name__} epf_iters 2 gab {gab} vs "
+                        f"the CPU path")
 
 
 def legacy_codec(dev) -> dict:
@@ -482,11 +602,29 @@ def legacy_codec(dev) -> dict:
               f"epf_iters {fh.restoration_filter.epf_iters} bits "
               f"{hdr.metadata.bit_depth.bits_per_sample}, host parse "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-    outs, counts = drive(
-        "round-1 codec (codec.reconstruct_vardct_still on the card)",
-        lambda: {label: codec.reconstruct_vardct_still(fd, hdr, fh, "cuda")
-                 for label, (_img, fd, hdr, fh) in parsed.items()},
-        ("fused_gab_epf", "fused_filters2"))
+    kernels = ("fused_gab_epf", "fused_filters2")
+
+    def decode_all():
+        outs, per_frame = {}, {}
+        for label, (_img, fd, hdr, fh) in parsed.items():
+            before = {k: KERNELS[k]["fn"].launches for k in kernels}
+            outs[label] = codec.reconstruct_vardct_still(fd, hdr, fh, "cuda")
+            per_frame[label] = {k: KERNELS[k]["fn"].launches - before[k]
+                                for k in kernels}
+        return outs, per_frame
+
+    with forbidden(LP, LEGACY_PLAIN):
+        (outs, per_frame), counts = drive(
+            "round-1 codec (codec.reconstruct_vardct_still on the card)",
+            decode_all, kernels)
+    for label, (_img, _fd, hdr, _fh) in parsed.items():
+        bits = hdr.metadata.bit_depth.bits_per_sample
+        want = {"fused_filters2": int(bits <= 8), "fused_gab_epf": int(bits > 8)}
+        print(f"legacy frame {label} ({bits} bits) launches: "
+              f"{per_frame[label]}", flush=True)
+        if per_frame[label] != want:
+            raise AssertionError(f"legacy {label}: launches "
+                                 f"{per_frame[label]}, expected {want}")
     for label, (img, fd, hdr, fh) in parsed.items():
         ref = codec.reconstruct_vardct_still(fd, hdr, fh, "cpu")
         got = outs[label]
@@ -506,12 +644,16 @@ def legacy_codec(dev) -> dict:
                 raise AssertionError(f"legacy {label}: outside {U16_TOL} codes")
         elif d.max() > 1 or frac >= 1e-3:
             raise AssertionError(f"legacy {label}: outside 1 code / 0.1%")
-    # kernels 5 and 6 against their twins on the FHD arrays
+    # kernels 5 and 6 against their twins on the FHD arrays, whole and a
+    # ragged crop of them
     a = LP.inputs_from_frame_data(parsed["fhd_d1.0"][1], dev)
     _, ny, nx, _, _ = a.ac.shape
     fx, fb = LP.expand_cfl(a.cfl_x, a.cfl_b, ny, nx)
-    check_legacy_kernels(LP.dequant_idct(a.ac, a.dc, a.qf, fx, fb, a.distance),
-                         LP.inv_sigma_map(a.qf, a.distance), "fhd")
+    img = LP.dequant_idct(a.ac, a.dc, a.qf, fx, fb, a.distance)
+    check_legacy_kernels(img, a.qf, a.distance, "fhd")
+    check_legacy_kernels(img[:, :1075, :1917], a.qf, a.distance,
+                         "fhd crop 1075x1917")
+    check_legacy_small(dev)
     return counts
 
 
@@ -565,33 +707,66 @@ def real_fused(xyb: torch.Tensor, sigma: torch.Tensor, cfg) -> dict:
     return counts
 
 
-def fused_timings(dev, xyb, sigma, cfg, card: str, ms: dict) -> None:
-    """Phase 9: device ms at 4K of the round-1 reconstruct_srgb8 and of
-    kernels 3-6, each against its twin; kernels 3 and 4 also against
-    kernel 2's tile pass at the same epf_iters."""
+def legacy_timings(dev, card: str, ms: dict) -> None:
+    """Device ms at 4K of the round-1 reconstruct_srgb8 / reconstruct_u16
+    and of kernels 5 and 6 on each route (the pipeline's per-block quant
+    field with u8, u16 or f32 out; the JAX entry points' per-pixel map),
+    each against its twin and its bound.  The kernel calls are timed by
+    replaying a CUDA graph of 50 calls; the twins and the whole
+    reconstruction copy from the host and cannot be captured."""
     ac, dc, qf = codec.quantize_still(bench_frame(2160, 3840), 1.0, dev)
     ny, nx = qf.shape
     tiles = (-(-ny // 8), -(-nx // 8))
     args = (ac.to(torch.int16), dc, qf,
             torch.zeros(tiles, dtype=torch.int32, device=dev),
             torch.full(tiles, 64, dtype=torch.int32, device=dev), 1.0)
-    print(f"legacy reconstruct_srgb8 at 4k (dequant, IDCT, kernel 6): device "
-          f"{device_ms(lambda: LP.reconstruct_srgb8(*args)):.3f} ms "
-          f"[{card}]", flush=True)
+    for fn, k in ((LP.reconstruct_srgb8, 6), (LP.reconstruct_u16, 5)):
+        print(f"legacy {fn.__name__} at 4k (dequant, IDCT, kernel {k}): "
+              f"device {device_ms(lambda: fn(*args)):.3f} ms [{card}]",
+              flush=True)
     fx, fb = LP.expand_cfl(args[3], args[4], ny, nx)
     img = LP.dequant_idct(args[0], dc, qf, fx, fb, 1.0)
+    px = img.shape[1] * img.shape[2]
+    filt = px * (OPS_PX["gaborish"] + OPS_PX["epf2"])
+    codes = filt + px * OPS_PX["codes"]
     inv = LP.inv_sigma_map(qf, 1.0)
-    lpx = img.shape[1] * img.shape[2]
-    lops = lpx * (OPS_PX["gaborish"] + OPS_PX["epf2"])
-    note_bound("fused_gab_epf", 2 * nbytes(img) + nbytes(inv), lops)
-    note_bound("fused_filters2", nbytes(img, inv) + 3 * lpx,
-               lops + lpx * OPS_PX["srgb"])
-    for name, srgb in (("fused_gab_epf", False), ("fused_filters2", True)):
-        ms[name] = (device_ms(lambda: FF.legacy_filters(img, inv, True, True, srgb)),
-                    device_ms(lambda: FF.legacy_filters_plain(img, inv, True, True, srgb)))
-        print(f"kernel {name} at 4k ({'sRGB8' if srgb else 'f32'}): device "
-              f"{ms[name][0]:.3f} ms, plain twin {ms[name][1]:.3f} ms [{card}]",
-              flush=True)
+    padded, inv_p = LP.pad_rows(img, FF.PAD), LP.pad_rows(inv, FF.PAD)
+    stacked = torch.cat([padded, inv_p[None]])
+    routes = {  # bound name: (bytes moved, f32 ops, kernel, twin)
+        "fused_filters2": (
+            nbytes(img, qf) + 3 * px, codes,
+            lambda: FF.legacy_filters(img, qf, 1.0, True, True, "u8"),
+            lambda: FF.legacy_filters_plain(img, qf, 1.0, True, True, "u8")),
+        "fused_gab_epf": (
+            nbytes(img, qf) + 6 * px, codes,
+            lambda: FF.legacy_filters(img, qf, 1.0, True, True, "u16"),
+            lambda: FF.legacy_filters_plain(img, qf, 1.0, True, True, "u16")),
+        "fused_gab_epf f32": (
+            2 * nbytes(img) + nbytes(qf), filt,
+            lambda: FF.legacy_filters(img, qf, 1.0, True, True, "f32"),
+            lambda: FF.legacy_filters_plain(img, qf, 1.0, True, True, "f32")),
+        "fused_gab_epf(stacked)": (
+            2 * nbytes(img) + nbytes(inv), filt,
+            lambda: FF.fused_gab_epf(stacked),
+            lambda: FF.fused_gab_epf_plain(stacked)),
+        "fused_filters2(padded, to_srgb)": (
+            nbytes(img, inv) + 3 * px, codes,
+            lambda: FF.fused_filters2(padded, inv_p, True),
+            lambda: FF.fused_filters2_plain(padded, inv_p, True)),
+    }
+    for name, (moved, ops, kern, twin) in routes.items():
+        note_bound(name, moved, ops)
+        t = (graph_ms(kern), device_ms(twin))
+        if name in KERNELS:
+            ms[name] = t
+        print(f"kernel {name} at 4k: device {t[0]:.4f} ms (CUDA graph), "
+              f"plain twin {t[1]:.3f} ms, bound {BOUND[name][0]:.4f} ms "
+              f"[{card}]", flush=True)
+
+
+def fused_timings(xyb, sigma, cfg, card: str, ms: dict) -> None:
+    """Phase 9: device ms at 4K of kernels 3 and 4 against their twins
+    and against kernel 2's tile pass at the same epf_iters."""
     xp = LP.pad_rows(xyb, FF.PAD)
     inv1 = filters.epf_inv(sigma, 1.0)
     gabw = (FF.DEFAULT_GW1, FF.DEFAULT_GW2) * 3
@@ -843,18 +1018,19 @@ def fhd_timings(data: bytes, dev, card: str, ms: dict) -> None:
             cfg.pass2_scale, "u8")
     note_bound("restore_and_output fhd", nbytes(xyb, sigma) + 3 * px,
                px * chain_ops(cfg.gab, cfg.epf_iters))
-    t = (device_ms(lambda: filters.restore_and_output(*args)),
+    t = (graph_ms(lambda: filters.restore_and_output(*args)),
          device_ms(lambda: filters.restore_and_output_plain(*args)))
     print(f"kernel restore_and_output at fhd epf_iters {cfg.epf_iters} u8 "
-          f"(two launches): device {t[0]:.4f} ms, plain {t[1]:.3f} ms, bound "
+          f"(two launches): device {t[0]:.4f} ms (CUDA graph), plain "
+          f"{t[1]:.3f} ms, bound "
           f"{BOUND['restore_and_output fhd'][0]:.4f} ms [{card}]", flush=True)
     e0 = (xyb, sigma, cfg.gab, cfg.gabw, cfg.pass0_scale)
     note_bound("epf0_pass", 2 * nbytes(xyb) + nbytes(sigma),
                px * (OPS_PX["gaborish"] * cfg.gab + OPS_PX["epf0"]))
-    ms["epf0_pass"] = (device_ms(lambda: filters.epf0_pass(*e0)),
+    ms["epf0_pass"] = (graph_ms(lambda: filters.epf0_pass(*e0)),
                        device_ms(lambda: filters.epf0_pass_plain(*e0)))
     print(f"kernel epf0_pass at fhd (gaborish + EPF0, f32 out): device "
-          f"{ms['epf0_pass'][0]:.4f} ms, plain {ms['epf0_pass'][1]:.3f} ms, "
+          f"{ms['epf0_pass'][0]:.4f} ms (CUDA graph), plain {ms['epf0_pass'][1]:.3f} ms, "
           f"bound {BOUND['epf0_pass'][0]:.4f} ms [{card}]", flush=True)
     for p in (0, 2):
         note_bound(f"EPF pass {p} as a launch of its own at fhd",
@@ -881,7 +1057,7 @@ def main() -> int:
         host.result()
     print(f"build: nvcc sm_90a, {len(sources)} sources, and g++ for the host "
           f"codec in {time.perf_counter() - t0:.2f} s", flush=True)
-    for name in ("synth", "filters"):
+    for name in ("synth", "filters", "fused_filters"):
         ptxas_report(name)
 
     # 3. streams
@@ -1029,7 +1205,8 @@ def main() -> int:
     # 7-9. the round-1 codec, the real-format fused filters, timings
     launches.update(legacy_codec(dev))
     launches.update(real_fused(xyb, sigma, cfg))
-    fused_timings(dev, xyb, sigma, cfg, card, ms)
+    legacy_timings(dev, card, ms)
+    fused_timings(xyb, sigma, cfg, card, ms)
 
     # 10. the DCT8-only frame path and kernel 7 (the filter and output
     # kernels' counts stay those of the main path, phase 5)

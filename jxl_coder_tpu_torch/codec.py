@@ -3,9 +3,9 @@
 ``encode_vardct_still`` and ``decode_vardct_still`` keep the JAX
 package's framing and entropy coding, in the port's copies
 ``host/vardct/frame.py`` and ``host/bitstream`` (numpy); the pixel math
-runs on the named device
-(``vardct.pipeline``).  The encoder front rounds as the JAX package
-does on the CPU, so on the CPU both write the same bytes.
+runs on the named device (``vardct.pipeline``), the card unless the
+caller passes ``device="cpu"``.  The encoder front rounds as the JAX
+package does on the CPU, so on the CPU both write the same bytes.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from .vardct import pipeline as P
 from .vardct.xyb import linear_rgb_to_xyb
 
 
-def quantize_still(pixels: np.ndarray, distance: float, device="cpu"):
+def quantize_still(pixels: np.ndarray, distance: float, device="cuda"):
     """The encoder's device front: (H, W, 3) uint8/uint16 sRGB -> the
     quantised (AC (3, nY, nX, 8, 8), DC (3, nY, nX), qf (nY, nX)) int32
     tensors on `device`."""
@@ -46,7 +46,7 @@ def quantize_still(pixels: np.ndarray, distance: float, device="cpu"):
 
 def encode_vardct_still(pixels: np.ndarray, distance: float,
                         effort: int = 7, decoding_speed: int = 0,
-                        device="cpu") -> bytes:
+                        device="cuda") -> bytes:
     """uint8/uint16 sRGB (H, W, 3) -> bare JXL codestream (VarDCT).
     effort is accepted for the JAX signature and, as there, unused."""
     h, w, nch = pixels.shape
@@ -93,7 +93,7 @@ def read_vardct_still(cs: bytes, hdr: ImageHeader, fh, toc):
 
 
 def reconstruct_vardct_still(data, hdr: ImageHeader, fh,
-                             device="cpu") -> np.ndarray:
+                             device="cuda") -> np.ndarray:
     """The device half of decode_vardct_still: VarDctFrameData -> (H, W,
     3) uint8 sRGB, or uint16 above 8 bits per sample."""
     arrays = P.inputs_from_frame_data(data, resolve_device(device))
@@ -102,15 +102,14 @@ def reconstruct_vardct_still(data, hdr: ImageHeader, fh,
     if hdr.metadata.bit_depth.bits_per_sample <= 8:
         out = P.reconstruct_srgb8(*arrays, epf_iters=epf, gab=gab)
     else:
-        out = P.xyb_to_u16(P.reconstruct_xyb(*arrays, epf_iters=epf,
-                                             gab=gab))
+        out = P.reconstruct_u16(*arrays, epf_iters=epf, gab=gab)
     # crop the coded padding
     out = out[:, :hdr.ysize, :hdr.xsize]
     return out.permute(1, 2, 0).cpu().numpy()
 
 
 def decode_vardct_still(cs: bytes, hdr: ImageHeader, fh, toc,
-                        device="cpu") -> np.ndarray:
+                        device="cuda") -> np.ndarray:
     """(codestream, header, frame header, toc) of a round-1 stream ->
     (H, W, 3) uint8 sRGB, or uint16 above 8 bits per sample."""
     resolve_device(device)          # an unusable device fails before the parse

@@ -76,11 +76,6 @@ _EXP2_POLY = [float.fromhex(v) for v in (
 _EXP2_SHIFT = float.fromhex("0x1.8p52") / 32
 _EXP2_SHIFT_BITS = int(np.float64(_EXP2_SHIFT).view(np.int64))
 _LOG2_OFF = 0x3f330000
-# the same tables for a CUDA kernel's copy of powf (csrc/fused_filters.cu
-# PowfTables): 32 + 5 + 3 + 1 doubles, 32 + 1 int64
-POWF_F64 = np.array(_LOG2_TAB + _LOG2_POLY + _EXP2_POLY + [_EXP2_SHIFT],
-                    np.float64)
-POWF_I64 = np.array(_EXP2_TAB + [_EXP2_SHIFT_BITS], np.int64)
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,11 +5,12 @@ Entry points keep the JAX names and arguments (less ``tile``):
 
 - ``fused_gab_epf(stacked)`` (#5) and ``fused_filters2(img_padded,
   inv_padded, to_srgb)`` (#6): the round-1 codec's gaborish + one
-  plus-shaped EPF pass (+ sRGB8) on planes row-padded by ``PAD``.
-  ``legacy_filters`` is the same kernel on unpadded planes, with
-  gaborish, EPF and the sRGB8 output each switchable; the round-1
-  pipeline (``pipeline.reconstruct_xyb`` / ``reconstruct_srgb8``) calls
-  it and it counts toward #5 (float output) or #6 (sRGB8).
+  plus-shaped EPF pass (+ sRGB8) on planes row-padded by ``PAD``, with
+  a per-pixel inverse sigma map.  ``legacy_filters`` is the same tile
+  pass on unpadded planes, the route of the round-1 pipeline
+  (``pipeline.reconstruct_*``): gaborish and EPF each switchable, the
+  inverse sigma made in the kernel from the per-block quant field, and
+  f32, sRGB8 or sRGB16 out.  It counts toward #6 with u8 out, else #5.
 - ``fused_real_filters(img_padded, inv_blocks, ...)`` (#3): the
   real-format gaborish + EPF1 (+ EPF2) (+ sRGB) chain with Mirror
   borders, and ``fused_real_gab_epf1(img_padded, inv_blocks, to_srgb)``
@@ -30,12 +31,14 @@ import torch
 
 from .. import _build
 from ..host.vardct.dec_real import EPF_CHANNEL_SCALE as REAL_CS
-from ..ops import fp
 from . import color, pipeline as P, xyb as X
 from .filters import BORDER_MUL, _border, _mirror_index
 
 PAD = 4      # row padding of the JAX functions' padded planes
 DEFAULT_GW1, DEFAULT_GW2 = 0.115169525, 0.061248592
+OUTS = {"f32": torch.float32, "u8": torch.uint8, "u16": torch.uint16}
+# legacy_kernel's EPF kinds: none, a per-pixel map, the per-block field
+_EPF_NONE, _EPF_PIXEL, _EPF_BLOCK = 0, 1, 2
 
 _c = ctypes
 
@@ -43,21 +46,121 @@ _c = ctypes
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("fused_filters")
-    head = [_c.c_void_p, _c.c_longlong, _c.c_int, _c.c_int, _c.c_int,
-            _c.c_int, _c.c_void_p, _c.c_int, _c.c_void_p, _c.c_int,
-            _c.c_int, _c.c_int]
+    P_, I_ = _c.c_void_p, _c.c_int
     return dict(
         legacy=_build.bind(lib, "jxl_legacy_filters",
-                           head + [_c.c_void_p] * 3),
-        real=_build.bind(lib, "jxl_real_filters", head + [_c.c_void_p] * 3))
+                           [P_, _c.c_longlong, I_, I_, I_, I_, P_, I_, I_, I_,
+                            P_, I_, I_, I_, P_, P_, P_, P_, I_]),
+        real=_build.bind(lib, "jxl_real_filters",
+                         [P_, _c.c_longlong, I_, I_, I_, I_, P_, I_, P_, I_,
+                          I_, I_, P_, P_, P_]))
+
+
+def inv_den(distance: float) -> np.float32:
+    """float32(distance) * 4, the divisor of pipeline.inv_sigma_map (exact
+    in float32): the kernel's inverse sigma is float32(qf) / inv_den."""
+    return np.float32(distance) * np.float32(4.0)
+
+
+# The sRGB codes of linear values v in [0, 1], as legacy_kernel reads them
+# in place of the twin's arithmetic (pipeline.linear_to_codes: v * 12.92
+# up to LINEAR_END, glibc's powf above it): tables built from the twin's
+# own codes, by buckets of 2^16 float32 bit patterns (bucket = the top 16
+# bits of v less CODE_LO, 0 for smaller v, whose codes are all 0).
+# test_torch_fused_filters checks them on every float in [0, 1].
+LINEAR_END = np.float32(0.0031308)
+_HI = int(np.float32(1.0).view(np.uint32))
+# a bucket's worth below the first value whose sRGB16 code is 1
+CODE_LO = int(np.float32(0.25 / (12.92 * 65535)).view(np.uint32)) >> 16
+
+
+def _bits_to_float(u: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(u).astype(np.uint32).view(np.float32))
+
+
+def _twin_codes(bits: np.ndarray, scale: int) -> np.ndarray:
+    return P.linear_to_codes(_bits_to_float(bits), scale).numpy().astype(
+        np.int64)
+
+
+def _buckets():
+    """Each bucket's first bit pattern and its last one up to 1.0."""
+    first = np.arange(CODE_LO, (_HI >> 16) + 1, dtype=np.int64) << 16
+    return first, np.minimum(first + 0xffff, _HI)
 
 
 @functools.lru_cache(maxsize=None)
-def _legacy_consts() -> np.ndarray:
+def u8_code_table() -> np.ndarray:
+    """The sRGB8 codes, per bucket: (the code at the bucket's first
+    value, the least value, as float bits, with the next code; +inf bits
+    where the code does not move).  The code is monotone in v and moves
+    by at most one within a bucket (checked here), so code(v) = base +
+    (v >= step)."""
+    start, end = _buckets()
+    base, last = _twin_codes(start, 255), _twin_codes(end, 255)
+    if not ((last >= base) & (last <= base + 1)).all():
+        raise AssertionError("an sRGB8 code bucket spans more than one step")
+    a, b = start.copy(), end.copy()      # code(a) == base < code(b)
+    for _ in range(16):
+        mid = (a + b) // 2
+        up = _twin_codes(mid, 255) > base
+        a, b = np.where(up, a, mid), np.where(up, mid, b)
+    step = np.where(last > base, b, 0x7f800000)
+    return np.stack([base, step], 1).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def u16_code_tables() -> tuple[np.ndarray, np.ndarray]:
+    """The sRGB16 codes.  poly, per bucket: (c0, c1, c2, 0) float32, a
+    least-squares quadratic in d = v - v0 (v0 the bucket's first float)
+    of the twin's unrounded code, 65535 * linear_to_srgb(v).  In float32,
+    t = c0 + (c2 d + c1) d lies within 2^-7 of the twin's code before
+    rounding, so where t is more than 0.5 - 1/64 from its nearest integer,
+    that integer is the code (legacy_kernel's legacy_code).  thresholds
+    (65537,) float32: the least v whose code is k or more (+inf past the
+    last code), so nearer a half the code is floor(t) + (v >=
+    thresholds[floor(t) + 1])."""
+    first, end = _buckets()
+    y, a, b = (float(np.float32(c)) for c in (1 / 2.4, 1.055, 0.055))
+    v0, hi, nxt = (_bits_to_float(u).double().numpy()
+                   for u in (first, end, first + 0x10000))
+    nodes = 0.5 - 0.5 * np.cos(np.pi * (np.arange(16) + 0.5) / 16)
+    x = v0[:, None] + (hi - v0)[:, None] * nodes            # Chebyshev
+    w = (nxt - v0)[:, None]
+    s = (x - v0[:, None]) / w
+    end_lin = float(LINEAR_END)
+    g = 65535.0 * np.where(x <= end_lin, 12.92 * x, a * x ** y - b)
+    fit = np.linalg.pinv(np.stack([np.ones_like(s), s, s * s], -1)) @ g[
+        ..., None]
+    c = fit[..., 0] / np.concatenate([np.ones_like(w), w, w * w], 1)
+    poly = np.concatenate([c, np.zeros_like(w)], 1).astype(np.float32)
+
+    k = np.arange(1, _twin_codes(np.array([_HI]), 65535)[0] + 1)
+    lo_b = np.full(k.shape, CODE_LO << 16)
+    hi_b = np.full(k.shape, _HI)
+    while (hi_b - lo_b > 1).any():       # code(lo_b) < k <= code(hi_b)
+        mid = (lo_b + hi_b) // 2
+        up = _twin_codes(mid, 65535) >= k
+        lo_b, hi_b = np.where(up, lo_b, mid), np.where(up, mid, hi_b)
+    thr = np.full(65537, np.inf, np.float32)
+    thr[0] = 0.0
+    thr[k] = _bits_to_float(hi_b).numpy()
+    return poly, thr
+
+
+@functools.lru_cache(maxsize=None)
+def _code_tables(device: torch.device) -> tuple[torch.Tensor, ...]:
+    return tuple(torch.from_numpy(t).to(device)
+                 for t in (u8_code_table(),) + u16_code_tables())
+
+
+@functools.lru_cache(maxsize=64)
+def _legacy_consts(den: float) -> np.ndarray:
     return np.concatenate([
         P.gaborish_kernel().reshape(9), P.EPF_CHANNEL_SCALE,
         X.INV_OPSIN.reshape(9),
-        [X.CBRT_BIAS, X.OPSIN_BIAS, np.float32(1 / 2.4)]]).astype(np.float32)
+        [X.CBRT_BIAS, X.OPSIN_BIAS, den]]
+    ).astype(np.float32)
 
 
 def _real_taps(gw1: float, gw2: float) -> np.ndarray:
@@ -92,44 +195,62 @@ def _padded_rows(t: torch.Tensor, pad: int, halo: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Kernels 5 and 6: the round-1 codec's filters
 
-def _legacy_plain(img, inv, pad, gab, epf, to_srgb):
+def _legacy_plain(img, inv, pad, gab, epf, out):
     """pipeline.apply_filters on the slab of filter_halo() rows around
-    the image (+ pipeline.xyb_to_srgb8): the jnp chain the TPU kernels
-    reproduce."""
+    the image (+ pipeline.xyb_to_srgb8 / xyb_to_u16): the jnp chain the
+    TPU kernels reproduce.  inv: the per-pixel map, padded as img is."""
     halo = P.filter_halo(int(epf), gab)
     slab = _padded_rows(img, pad, halo)
     inv_slab = _padded_rows(inv, pad, halo) if epf else None
     xyb = P.apply_filters(slab, inv_slab, int(epf), gab)
-    return P.xyb_to_srgb8(xyb) if to_srgb else xyb
+    if out == "u8":
+        return P.xyb_to_srgb8(xyb)
+    return P.xyb_to_u16(xyb) if out == "u16" else xyb
 
 
-def _legacy_launch(img, inv, pad, gab, epf, to_srgb):
+def _check_out(out: str) -> None:
+    if out not in OUTS:
+        raise ValueError(f"out must be one of {tuple(OUTS)}")
+
+
+def _legacy_launch(img, pad, gab, epf, out, inv=None, qf_row=0,
+                   den=np.float32(0.0)):
+    """One legacy_kernel launch.  epf: _EPF_NONE, _EPF_PIXEL (inv the
+    float map, padded as img is) or _EPF_BLOCK (inv the int32 quant
+    field, den its divisor, qf_row its row offset)."""
+    _check_out(out)
     H = _rows(img, pad, "legacy filters")
     W = img.shape[2]
     if img.stride(2) != 1:
         img = img.contiguous()
-    inv_ptr, inv_stride = None, 0
-    if epf:
-        if inv is None or inv.dtype != torch.float32 or \
-                inv.device != img.device or inv.dim() != 2 or \
-                inv.shape[0] < H + 2 * pad or inv.shape[1] < W:
-            raise ValueError(f"inv must be float32 on {img.device} with at "
-                             f"least {(H + 2 * pad, W)} pixels")
+    inv_ptr, inv_stride, inv_rows = None, 0, 0
+    if epf != _EPF_NONE:
+        if epf == _EPF_PIXEL:
+            dtype, need = torch.float32, (H + 2 * pad, W)
+        else:
+            dtype, need = torch.int32, (1, -(-W // 8))
+        if inv is None or inv.dtype != dtype or inv.device != img.device \
+                or inv.dim() != 2 or inv.shape[0] < need[0] \
+                or inv.shape[1] < need[1]:
+            raise ValueError(f"inv must be {dtype} on {img.device} with at "
+                             f"least {need} rows and columns")
         if inv.stride(1) != 1:
             inv = inv.contiguous()
-        inv_ptr, inv_stride = _row0(inv, pad), inv.stride(0)
-    out = torch.empty((3, H, W), device=img.device,
-                      dtype=torch.uint8 if to_srgb else torch.float32)
+        inv_stride, inv_rows = inv.stride(0), inv.shape[0]
+        inv_ptr = _row0(inv, pad) if epf == _EPF_PIXEL else inv.data_ptr()
+    res = torch.empty((3, H, W), device=img.device, dtype=OUTS[out])
+    tables = [t.data_ptr() for t in _code_tables(img.device)] \
+        if out != "f32" else [None] * 3
     _build.launch(_lib()["legacy"], img.device, _row0(img, pad),
                   img.stride(0), img.stride(1), pad, H, W, inv_ptr,
-                  inv_stride, out.data_ptr(), int(gab), int(epf),
-                  int(to_srgb), _legacy_consts().ctypes.data,
-                  fp.POWF_F64.ctypes.data, fp.POWF_I64.ctypes.data)
-    return out
+                  inv_stride, inv_rows, qf_row, res.data_ptr(), int(gab), epf,
+                  tuple(OUTS).index(out),
+                  _legacy_consts(float(den)).ctypes.data, *tables, CODE_LO)
+    return res
 
 
 def fused_gab_epf_plain(stacked: torch.Tensor) -> torch.Tensor:
-    return _legacy_plain(stacked[:3], stacked[3], PAD, True, True, False)
+    return _legacy_plain(stacked[:3], stacked[3], PAD, True, True, "f32")
 
 
 def fused_gab_epf(stacked: torch.Tensor) -> torch.Tensor:
@@ -137,13 +258,15 @@ def fused_gab_epf(stacked: torch.Tensor) -> torch.Tensor:
     padded by PAD.  -> (3, H, W) gaborish + one EPF pass."""
     if stacked.device.type == "cpu":
         return fused_gab_epf_plain(stacked)
-    out = _legacy_launch(stacked[:3], stacked[3], PAD, True, True, False)
+    out = _legacy_launch(stacked[:3], PAD, True, _EPF_PIXEL, "f32",
+                         stacked[3])
     fused_gab_epf.launches += 1
     return out
 
 
 def fused_filters2_plain(img_padded, inv_padded, to_srgb=False):
-    return _legacy_plain(img_padded, inv_padded, PAD, True, True, to_srgb)
+    return _legacy_plain(img_padded, inv_padded, PAD, True, True,
+                         "u8" if to_srgb else "f32")
 
 
 def fused_filters2(img_padded: torch.Tensor, inv_padded: torch.Tensor,
@@ -152,28 +275,47 @@ def fused_filters2(img_padded: torch.Tensor, inv_padded: torch.Tensor,
     (3, H, W) float32, or uint8 sRGB with to_srgb."""
     if img_padded.device.type == "cpu":
         return fused_filters2_plain(img_padded, inv_padded, to_srgb)
-    out = _legacy_launch(img_padded, inv_padded, PAD, True, True, to_srgb)
+    out = _legacy_launch(img_padded, PAD, True, _EPF_PIXEL,
+                         "u8" if to_srgb else "f32", inv_padded)
     fused_filters2.launches += 1
     return out
 
 
-def legacy_filters_plain(img, inv, gab, epf, to_srgb):
-    return _legacy_plain(img, inv, 0, gab, epf, to_srgb)
+def block_inv(qf: torch.Tensor, distance: float, H: int, W: int,
+              qf_row: int = 0) -> torch.Tensor:
+    """The (H, W) inverse sigma legacy_filters reads: pixel (y, x) takes
+    pipeline.inv_sigma_map's value of block ((y + qf_row) >> 3, x >> 3),
+    the block row clamped to the quant field."""
+    rows = ((torch.arange(H, device=qf.device) + qf_row) >> 3).clamp(
+        0, qf.shape[0] - 1)
+    cols = torch.arange(W, device=qf.device) >> 3
+    return P.inv_sigma_blocks(qf, distance)[rows][:, cols]
 
 
-def legacy_filters(img: torch.Tensor, inv, gab: bool, epf: bool,
-                   to_srgb: bool) -> torch.Tensor:
+def legacy_filters_plain(img, qf, distance, gab, epf, out="u8", qf_row=0):
+    inv = block_inv(qf, distance, *img.shape[1:], qf_row) if epf else None
+    return _legacy_plain(img, inv, 0, gab, epf, out)
+
+
+def legacy_filters(img: torch.Tensor, qf, distance: float, gab: bool,
+                   epf: bool, out: str = "u8", qf_row: int = 0
+                   ) -> torch.Tensor:
     """Kernels 5 / 6 on unpadded (3, H, W) planes (a cropped view is
-    fine) with edge-replicated borders; inv: (H, W) per-pixel inverse
-    sigma (unused without epf).  -> (3, H, W) float32, or uint8 sRGB."""
+    fine) with edge-replicated borders.  qf: the (nY, nX) int32 quant
+    field (unused without epf): the EPF's inverse sigma is
+    pipeline.inv_sigma_map's qf / (distance * 4), divided in the kernel
+    per 8x8 block; qf_row: the field's pixel row of the planes' row 0
+    (-halo for planes padded by halo rows; rows clamp to the field).  ->
+    (3, H, W) float32 ("f32"), or uint8 / uint16 sRGB ("u8" / "u16")."""
     if img.device.type == "cpu":
-        return legacy_filters_plain(img, inv, gab, epf, to_srgb)
-    out = _legacy_launch(img, inv, 0, gab, epf, to_srgb)
-    if to_srgb:
+        return legacy_filters_plain(img, qf, distance, gab, epf, out, qf_row)
+    res = _legacy_launch(img, 0, gab, _EPF_BLOCK if epf else _EPF_NONE, out,
+                         qf if epf else None, qf_row, inv_den(distance))
+    if out == "u8":
         fused_filters2.launches += 1
     else:
         fused_gab_epf.launches += 1
-    return out
+    return res
 
 
 # ---------------------------------------------------------------------------

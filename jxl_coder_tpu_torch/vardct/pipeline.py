@@ -2,12 +2,15 @@
 (``jxl_coder_tpu/vardct/pipeline.py``).
 
 Decode: dequant -> chroma-from-luma -> DC merge -> 8x8 IDCT -> gaborish
--> EPF -> XYB -> sRGB8 (``reconstruct_srgb8``) or XYB planes
-(``reconstruct_xyb``, which 16-bit streams pass to ``xyb_to_u16``).  On
-a CUDA tensor the filter tail runs in the fused kernels of
-``fused_filters`` (TPU kernels 5 and 6) at any H x W; on a CPU tensor
-it runs their plain twins, which are ``apply_filters`` and
-``xyb_to_srgb8`` below, the jnp chain the TPU falls back to.
+-> EPF -> XYB -> sRGB8 (``reconstruct_srgb8``), sRGB16
+(``reconstruct_u16``: the JAX package's ``xyb_to_u16`` of
+``reconstruct_xyb``) or XYB planes (``reconstruct_xyb``).  On a CUDA
+tensor the filter tail and the output run in one launch of the fused
+kernel of ``fused_filters`` (TPU kernels 5 and 6) at any H x W, which
+makes the EPF's inverse sigma from the per-block quant field itself; on
+a CPU tensor they run its plain twin, which is ``apply_filters`` and
+``xyb_to_srgb8`` / ``xyb_to_u16`` below, the jnp chain the TPU falls
+back to.
 
 Encode: ``forward_xyb`` and ``quantize_coeffs``, summed and rounded as
 the JAX package does on the CPU (``ops.fp``), so the integers match.
@@ -123,9 +126,14 @@ def dequant_idct(ac_coeffs: torch.Tensor, dc: torch.Tensor, qf: torch.Tensor,
     return unblockify(idct2d(coeffs))
 
 
+def inv_sigma_blocks(qf: torch.Tensor, distance: float) -> torch.Tensor:
+    """Per-block EPF inverse sigma from the block quant field."""
+    return div(qf.float(), _f32(distance) * 4.0)
+
+
 def inv_sigma_map(qf: torch.Tensor, distance: float) -> torch.Tensor:
     """Per-pixel EPF inverse sigma from the block quant field."""
-    inv = div(qf.float(), _f32(distance) * 4.0)
+    inv = inv_sigma_blocks(qf, distance)
     return inv.repeat_interleave(8, 0).repeat_interleave(8, 1)
 
 
@@ -155,36 +163,37 @@ def apply_filters(img: torch.Tensor, inv_sigma_px: torch.Tensor,
     return img[:, halo:-halo, :]
 
 
-def _filters(img: torch.Tensor, inv: torch.Tensor, epf_iters: int,
-             gab: bool, to_srgb: bool) -> torch.Tensor:
-    """The filter tail through fused_filters.legacy_filters: one launch
-    for gaborish + EPF (epf_iters <= 1) and the sRGB8 output; for
+def _filters(img: torch.Tensor, qf: torch.Tensor, distance: float,
+             epf_iters: int, gab: bool, out: str) -> torch.Tensor:
+    """The filter tail and the output ("f32", "u8" or "u16") through
+    fused_filters.legacy_filters: one launch at epf_iters <= 1; for
     epf_iters >= 2 apply_filters' construction (pad once by the halo,
-    gaborish, then each EPF pass over the whole slab, crop)."""
+    gaborish, then each EPF pass over the whole slab, crop), then the
+    output."""
     from . import fused_filters as FF   # it imports this module
     if epf_iters <= 1:
-        if not (gab or epf_iters or to_srgb):
+        if not (gab or epf_iters) and out == "f32":
             return img
-        return FF.legacy_filters(img, inv, gab, epf_iters == 1, to_srgb)
+        return FF.legacy_filters(img, qf, distance, gab, epf_iters == 1, out)
     halo = filter_halo(epf_iters, gab)
-    slab, inv_slab = pad_rows(img, halo), pad_rows(inv, halo)
+    slab = pad_rows(img, halo)
     if gab:
-        slab = FF.legacy_filters(slab, inv_slab, True, False, False)
+        slab = FF.legacy_filters(slab, None, distance, True, False, "f32")
     for _ in range(epf_iters):
-        slab = FF.legacy_filters(slab, inv_slab, False, True, False)
+        slab = FF.legacy_filters(slab, qf, distance, False, True, "f32",
+                                 qf_row=-halo)
     xyb = slab[:, halo:-halo]
-    if to_srgb:
-        return FF.legacy_filters(xyb, None, False, False, True)
-    return xyb
+    if out == "f32":
+        return xyb
+    return FF.legacy_filters(xyb, None, distance, False, False, out)
 
 
 def _reconstruct(ac_coeffs, dc, qf, cfl_x, cfl_b, distance, epf_iters, gab,
-                 to_srgb):
+                 out):
     _, ny, nx, _, _ = ac_coeffs.shape
     fx, fb = expand_cfl(cfl_x, cfl_b, ny, nx)
     img = dequant_idct(ac_coeffs, dc, qf, fx, fb, distance)
-    inv = inv_sigma_map(qf, distance) if epf_iters > 0 else None
-    return _filters(img, inv, epf_iters, gab, to_srgb)
+    return _filters(img, qf, distance, epf_iters, gab, out)
 
 
 def reconstruct_xyb(ac_coeffs, dc, qf, cfl_x, cfl_b, distance: float,
@@ -192,7 +201,7 @@ def reconstruct_xyb(ac_coeffs, dc, qf, cfl_x, cfl_b, distance: float,
     """Decode an 8x8-blocked frame to (3, nY*8, nX*8) filtered XYB; see
     dequant_idct for shapes.  On CUDA: kernel 5 (fused_gab_epf)."""
     return _reconstruct(ac_coeffs, dc, qf, cfl_x, cfl_b, distance,
-                        epf_iters, gab, False)
+                        epf_iters, gab, "f32")
 
 
 def reconstruct_srgb8(ac_coeffs, dc, qf, cfl_x, cfl_b, distance: float,
@@ -200,19 +209,31 @@ def reconstruct_srgb8(ac_coeffs, dc, qf, cfl_x, cfl_b, distance: float,
     """Decode to (3, nY*8, nX*8) uint8 sRGB.  On CUDA: kernel 6
     (fused_filters2), filters and output in one launch."""
     return _reconstruct(ac_coeffs, dc, qf, cfl_x, cfl_b, distance,
-                        epf_iters, gab, True)
+                        epf_iters, gab, "u8")
+
+
+def reconstruct_u16(ac_coeffs, dc, qf, cfl_x, cfl_b, distance: float,
+                    epf_iters: int = 1, gab: bool = True) -> torch.Tensor:
+    """Decode to (3, nY*8, nX*8) uint16 sRGB, xyb_to_u16 of
+    reconstruct_xyb.  On CUDA: kernel 5 with the uint16 output, filters
+    and output in one launch."""
+    return _reconstruct(ac_coeffs, dc, qf, cfl_x, cfl_b, distance,
+                        epf_iters, gab, "u16")
+
+
+def linear_to_codes(rgb: torch.Tensor, scale: int) -> torch.Tensor:
+    """Linear sRGB -> float sRGB codes 0 .. scale: clip, linear_to_srgb,
+    round half to even, clip."""
+    srgb = linear_to_srgb(torch.clamp(rgb, 0.0, 1.0))
+    return torch.clamp(torch.round(srgb * float(scale)), 0, scale)
 
 
 def xyb_to_srgb8(xyb: torch.Tensor) -> torch.Tensor:
-    rgb = xyb_to_linear_rgb(xyb)
-    srgb = linear_to_srgb(torch.clamp(rgb, 0.0, 1.0))
-    return torch.clamp(torch.round(srgb * 255.0), 0, 255).to(torch.uint8)
+    return linear_to_codes(xyb_to_linear_rgb(xyb), 255).to(torch.uint8)
 
 
 def xyb_to_u16(xyb: torch.Tensor) -> torch.Tensor:
-    rgb = xyb_to_linear_rgb(xyb)
-    srgb = linear_to_srgb(torch.clamp(rgb, 0.0, 1.0))
-    return torch.clamp(torch.round(srgb * 65535.0), 0, 65535).to(
+    return linear_to_codes(xyb_to_linear_rgb(xyb), 65535).to(
         torch.int32).to(torch.uint16)
 
 

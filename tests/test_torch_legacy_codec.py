@@ -178,7 +178,8 @@ def test_encode_bytes_equal_jax(h, w, dtype, speed):
     img = bench_frame(h, w) if dtype == np.uint8 else \
         smooth_frame(h, w, dtype=np.uint16)
     ref = JC.encode_vardct_still(img, 1.0, decoding_speed=speed)
-    assert codec.encode_vardct_still(img, 1.0, decoding_speed=speed) == ref
+    assert codec.encode_vardct_still(img, 1.0, decoding_speed=speed,
+                                      device="cpu") == ref
 
 
 @pytest.mark.parametrize("h,w,dtype,speed,distance", [
@@ -206,3 +207,29 @@ def test_inputs_from_frame_data_narrows_like_the_jax_codec():
     data.ac = data.ac.copy()
     data.ac[0, 0, 0, 5] = 40000
     assert P.inputs_from_frame_data(data, "cpu").ac.dtype == torch.int32
+
+
+@pytest.mark.parametrize("fn", ["quantize_still", "encode_vardct_still",
+                                "reconstruct_vardct_still",
+                                "decode_vardct_still"])
+def test_codec_entry_points_default_to_the_card(fn):
+    """The port's entry points run on the card unless the caller asks for
+    the CPU."""
+    import inspect
+    assert inspect.signature(getattr(codec, fn)).parameters[
+        "device"].default == "cuda"
+
+
+def test_decode_without_a_card_raises_before_decoding(monkeypatch):
+    """With no device named and no card, decode_vardct_still raises the
+    device's RuntimeError and never decodes on the CPU."""
+    img = smooth_frame(16, 24, seed=1)
+    parts = api._read_frame(JC.encode_vardct_still(img, 1.0))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    called = []
+    for name in ("read_vardct_still", "reconstruct_vardct_still"):
+        monkeypatch.setattr(codec, name,
+                            lambda *a, _n=name, **k: called.append(_n))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        codec.decode_vardct_still(*parts)
+    assert called == []
