@@ -25,9 +25,13 @@ prints no result):
      kernel's launch counter > 0, and each frame's own launches: kernel
      2 once (plus its EPF0 pass at epf_iters 3), the DCT8 kernel once;
   6. timings: the device half (wall time and device-busy time) and the
-     whole decode at 4K; the synthesis by family (the DCT8 kernel
-     apart) and kernel 2 at 4K, and kernel 2 and its EPF0 pass on the
-     FHD d4.0 frame's planes, each against its twin and its bound;
+     whole decode at 4K, split into its layers inside the same
+     api.decode calls whose total it prints (the port's functions
+     wrapped for those calls, in turns with unwrapped calls), and the
+     host parse split by its own steps; the synthesis by family (the
+     DCT8 kernel apart) and kernel 2 at 4K, and kernel 2 and its EPF0
+     pass on the FHD d4.0 frame's planes, each against its twin and its
+     bound;
   7. the round-1 codec (jxl_coder_tpu_torch.codec): FHD, a ragged sharp
      frame, a 16-bit frame and decoding speeds 2 and 4 encoded on the
      card (its quantised integers against the CPU encode's), each stream
@@ -39,12 +43,15 @@ prints no result):
      down to 1x1 (per-block and per-pixel inverse sigma, the four
      gaborish / EPF combinations, f32 / u8 / u16 out), and the
      epf_iters 2 route against the CPU path;
-  8. the real-format fused filter entry points (kernels 3 and 4) on the
-     4K synthesised planes, counted, against their twins and against
-     kernel 2;
+  8. the real-format fused filter entry points (kernels 3 and 4,
+     instantiations of kernel 2's tile pass) on the 4K synthesised
+     planes, counted, against their twins and against kernel 2; then
+     against their twins on a ragged 4K crop and on seeded planes from
+     1x1 up, with pad rows that are not edge copies, every output, at
+     epf_iters 1 and 2;
   9. timings at 4K: the round-1 reconstruct_srgb8 / reconstruct_u16,
      kernels 5 and 6 on each route and kernels 3 and 4, each against its
-     twin, and kernels 3 and 4 against kernel 2;
+     twin, and kernel 2 at the same epf_iters beside kernels 3 and 4;
  10. the DCT8-only frame path (jxl_coder_tpu_torch.vardct.dct8): kernel 7
      (detile) bit-equal to its plain version at the research probe's
      shape (a seeded permutation subset of 140,000 tile rows) and at the
@@ -83,12 +90,13 @@ import numpy as np
 import torch
 
 from jxl_coder_tpu_torch import _build, api, codec, reference
+from jxl_coder_tpu_torch.host.vardct.dec_real import BlockArrays
 from jxl_coder_tpu_torch.vardct import dct8, filters, inputs, synth
 from jxl_coder_tpu_torch.vardct import detile as DT
 from jxl_coder_tpu_torch.vardct import fused_filters as FF
+from jxl_coder_tpu_torch.vardct import parse as PARSE
 from jxl_coder_tpu_torch.vardct import pipeline as LP
 from jxl_coder_tpu_torch.vardct.frame import VarDCTFrame
-from jxl_coder_tpu_torch.vardct.parse import parse_frame
 from port_fixtures import (bench_frame, dct8_arguments, sharp_frame,
                            synthetic_family)
 
@@ -108,10 +116,10 @@ KERNELS = {
     "epf0_pass": dict(fn=filters.epf0_pass, source="jxl_coder_tpu_torch/csrc/filters.cu",
                       replaces="jxl_coder_tpu/vardct/filters_pallas.py:751"),
     "fused_real_filters": dict(fn=FF.fused_real_filters,
-                               source="jxl_coder_tpu_torch/csrc/fused_filters.cu",
+                               source="jxl_coder_tpu_torch/csrc/filters.cu",
                                replaces="jxl_coder_tpu/vardct/filters_pallas.py:588"),
     "fused_real_gab_epf1": dict(fn=FF.fused_real_gab_epf1,
-                                source="jxl_coder_tpu_torch/csrc/fused_filters.cu",
+                                source="jxl_coder_tpu_torch/csrc/filters.cu",
                                 replaces="jxl_coder_tpu/vardct/filters_pallas.py:794"),
     "fused_gab_epf": dict(fn=FF.fused_gab_epf, source="jxl_coder_tpu_torch/csrc/fused_filters.cu",
                           replaces="jxl_coder_tpu/vardct/filters_pallas.py:80"),
@@ -658,45 +666,73 @@ def legacy_codec(dev) -> dict:
 
 
 REAL_OUTS = {"f32": (False, 8), "u8": (True, 8), "u16": (True, 16)}
+# kernel 4 is gaborish + EPF1 with f32 or sRGB8 out
+REAL_CASES = [("fused_real_filters", it, kind) for it in (1, 2)
+              for kind in REAL_OUTS] + [("fused_real_gab_epf1", 1, kind)
+                                        for kind in ("f32", "u8")]
+
+
+def real_call(name: str, it: int, kind: str, plain: bool = False):
+    """The entry point (or its twin) of kernel 3 or 4 for one case."""
+    to_srgb, bits = REAL_OUTS[kind]
+    if name == "fused_real_filters":
+        fn = FF.fused_real_filters_plain if plain else FF.fused_real_filters
+        return lambda xp, inv, p2: fn(xp, inv, it, p2, to_srgb=to_srgb,
+                                      bits=bits)
+    fn = FF.fused_real_gab_epf1_plain if plain else FF.fused_real_gab_epf1
+    return lambda xp, inv, p2: fn(xp, inv, to_srgb)
+
+
+def note_real(name: str, got, ref, kind: str, what: str) -> None:
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{name} {what}: {tuple(got.shape)} {got.dtype} "
+                             f"vs {tuple(ref.shape)} {ref.dtype}")
+    if kind == "f32":
+        note_err(name, (got - ref).abs().max().item(), FILTER_TOL, what)
+    else:
+        note_codes(name, got, ref, kind == "u16", what)
+
+
+def check_real(xp, inv, p2: float, label: str) -> None:
+    """Kernels 3 and 4 against their twins in every case."""
+    for name, it, kind in REAL_CASES:
+        note_real(name, real_call(name, it, kind)(xp, inv, p2),
+                  real_call(name, it, kind, plain=True)(xp, inv, p2), kind,
+                  f"{label} epf_iters {it} {kind}")
+
+
+def pad_not_edge(img: torch.Tensor, rng) -> torch.Tensor:
+    """(3, H, W) planes row-padded by FF.PAD rows that are not edge
+    copies: seeded noise about each plane's mean (the padded interface
+    reads them as the image's neighbours)."""
+    mean = img.mean(dim=(1, 2), keepdim=True)
+    noise = torch.from_numpy(rng.normal(0.0, 0.05, (2, 3, FF.PAD, img.shape[2]))
+                             .astype(np.float32)).to(img.device)
+    return torch.cat([mean + noise[0], img, mean + noise[1]], 1)
 
 
 def real_fused(xyb: torch.Tensor, sigma: torch.Tensor, cfg) -> dict:
     """Phase 8: kernels 3 and 4 through their entry points on the 4K
-    synthesised planes row-padded by 4, against their twins and kernel
-    2's tile pass (f32 output)."""
+    synthesised planes row-padded by 4 (edge copies), counted, against
+    their twins and kernel 2's tile pass (f32 output); then against their
+    twins on a ragged crop and seeded planes whose pad rows are not edge
+    copies."""
     xp = LP.pad_rows(xyb, FF.PAD)
     inv1 = filters.epf_inv(sigma, 1.0)
+    p2 = cfg.pass2_scale
 
     def run():
-        outs = {}
-        for it in (1, 2):
-            for kind, (to_srgb, bits) in REAL_OUTS.items():
-                outs["fused_real_filters", it, kind] = FF.fused_real_filters(
-                    xp, inv1, it, cfg.pass2_scale, to_srgb=to_srgb, bits=bits)
-        for kind in ("f32", "u8"):
-            outs["fused_real_gab_epf1", 1, kind] = FF.fused_real_gab_epf1(
-                xp, inv1, kind == "u8")
-        return outs
+        return {case: real_call(*case)(xp, inv1, p2) for case in REAL_CASES}
 
     outs, counts = drive("the real-format fused filter entry points", run,
                          ("fused_real_filters", "fused_real_gab_epf1"))
     for (name, it, kind), got in outs.items():
-        if name == "fused_real_filters":
-            ref = FF.fused_real_filters_plain(xp, inv1, it, cfg.pass2_scale,
-                                              to_srgb=kind != "f32",
-                                              bits=REAL_OUTS[kind][1])
-        else:
-            ref = FF.fused_real_gab_epf1_plain(xp, inv1, kind == "u8")
-        what = f"4k epf_iters {it} {kind}"
-        if kind == "f32":
-            note_err(name, (got - ref).abs().max().item(), FILTER_TOL, what)
-        else:
-            note_codes(name, got, ref, kind == "u16", what)
+        note_real(name, got, real_call(name, it, kind, plain=True)(xp, inv1, p2),
+                  kind, f"4k epf_iters {it} {kind}")
     gabw = (FF.DEFAULT_GW1, FF.DEFAULT_GW2) * 3
     for it in (1, 2):
         chain = filters.restore_and_output(xyb, sigma, True, it, gabw,
-                                           cfg.pass0_scale, cfg.pass2_scale,
-                                           "f32")
+                                           cfg.pass0_scale, p2, "f32")
         note_err("fused_real_filters",
                  (outs["fused_real_filters", it, "f32"] - chain).abs().max().item(),
                  FILTER_TOL, f"4k epf_iters {it} vs kernel 2")
@@ -704,6 +740,19 @@ def real_fused(xyb: torch.Tensor, sigma: torch.Tensor, cfg) -> dict:
             inner = (outs["fused_real_gab_epf1", 1, "f32"] - chain)[:, 2:-2, 2:-2]
             note_err("fused_real_gab_epf1", inner.abs().max().item(), FILTER_TOL,
                      "4k vs kernel 2, 2 px from the border inward")
+    rng = np.random.default_rng(6)
+    check_real(pad_not_edge(xyb[:, :2160, :3833], rng), inv1, p2,
+               "4k crop 2160x3833, pad rows not edge copies")
+    dev = xyb.device
+    for h, w in ((1, 1), (3, 5), (7, 2), (13, 21), (70, 131)):
+        x = torch.from_numpy(rng.uniform(-0.05, 0.6, (3, h, w))
+                             .astype(np.float32)).to(dev)
+        # 70x131: the slopes a column slice of a wider map (row stride 20)
+        nb = (-(-h // 8), -(-w // 8) + (3 if h == 70 else 0))
+        sig = torch.from_numpy(rng.uniform(0.0, 2.5, nb).astype(np.float32))
+        inv = filters.epf_inv(sig.to(dev), 1.0)[:, :-(-w // 8)]
+        check_real(pad_not_edge(x, rng), inv, 6.5,
+                   f"{h}x{w}, pad rows not edge copies")
     return counts
 
 
@@ -765,37 +814,38 @@ def legacy_timings(dev, card: str, ms: dict) -> None:
 
 
 def fused_timings(xyb, sigma, cfg, card: str, ms: dict) -> None:
-    """Phase 9: device ms at 4K of kernels 3 and 4 against their twins
-    and against kernel 2's tile pass at the same epf_iters."""
+    """Phase 9: device ms at 4K of kernels 3 and 4 by replaying a CUDA
+    graph of 50 calls, against their twins (CUDA events) and against
+    kernel 2's tile pass at the same epf_iters, timed both ways."""
     xp = LP.pad_rows(xyb, FF.PAD)
     inv1 = filters.epf_inv(sigma, 1.0)
+    p2 = cfg.pass2_scale
     gabw = (FF.DEFAULT_GW1, FF.DEFAULT_GW2) * 3
     px = xyb.shape[1] * xyb.shape[2]
     gab_epf1 = px * (OPS_PX["gaborish"] + OPS_PX["epf1"] + OPS_PX["srgb"])
     note_bound("fused_real_filters", nbytes(xp, inv1) + 3 * px,
                gab_epf1 + px * OPS_PX["epf2"])
     note_bound("fused_real_gab_epf1", nbytes(xp, inv1) + 3 * px, gab_epf1)
+    for name, it, kind in REAL_CASES:
+        if kind == "u16":
+            continue
+        call, twin = real_call(name, it, kind), real_call(name, it, kind, True)
+        t = (graph_ms(lambda: call(xp, inv1, p2)),
+             device_ms(lambda: twin(xp, inv1, p2)))
+        if kind == "u8" and (name, it) in (("fused_real_filters", 2),
+                                           ("fused_real_gab_epf1", 1)):
+            ms[name] = t
+        print(f"kernel {name} at 4k epf_iters {it} {kind}: device "
+              f"{t[0]:.4f} ms (CUDA graph), plain twin {t[1]:.3f} ms, bound "
+              f"{BOUND[name][0]:.4f} ms [{card}]", flush=True)
     for it in (1, 2):
-        for kind in ("f32", "u8"):
-            kern = device_ms(lambda: FF.fused_real_filters(
-                xp, inv1, it, cfg.pass2_scale, to_srgb=kind == "u8"))
-            plain = device_ms(lambda: FF.fused_real_filters_plain(
-                xp, inv1, it, cfg.pass2_scale, to_srgb=kind == "u8"))
-            if it == 2 and kind == "u8":
-                ms["fused_real_filters"] = (kern, plain)
-            print(f"kernel fused_real_filters at 4k epf_iters {it} {kind}: "
-                  f"device {kern:.3f} ms, plain twin {plain:.3f} ms [{card}]",
-                  flush=True)
-        chain = device_ms(lambda: filters.restore_and_output(
-            xyb, sigma, True, it, gabw, cfg.pass0_scale, cfg.pass2_scale, "u8"))
-        print(f"kernel 2 (restore_and_output) at 4k epf_iters {it} u8: "
-              f"device {chain:.3f} ms [{card}]", flush=True)
-    ms["fused_real_gab_epf1"] = (
-        device_ms(lambda: FF.fused_real_gab_epf1(xp, inv1, True)),
-        device_ms(lambda: FF.fused_real_gab_epf1_plain(xp, inv1, True)))
-    print(f"kernel fused_real_gab_epf1 at 4k u8: device "
-          f"{ms['fused_real_gab_epf1'][0]:.3f} ms, plain twin "
-          f"{ms['fused_real_gab_epf1'][1]:.3f} ms [{card}]", flush=True)
+        def chain():
+            return filters.restore_and_output(xyb, sigma, True, it, gabw,
+                                              cfg.pass0_scale, p2, "u8")
+        print(f"kernel 2 (restore_and_output) at 4k epf_iters {it} u8: device "
+              f"{graph_ms(chain):.4f} ms (CUDA graph), {device_ms(chain):.4f} ms "
+              f"(CUDA events, the method kernels 3 and 4 had) [{card}]",
+              flush=True)
 
 
 def within_one_code(got: np.ndarray, ref: np.ndarray, what: str) -> None:
@@ -1037,6 +1087,174 @@ def fhd_timings(data: bytes, dev, card: str, ms: dict) -> None:
                    2 * nbytes(xyb) + nbytes(sigma), px * OPS_PX[f"epf{p}"])
 
 
+# the layers of api.decode: layer -> the port's functions in module api
+# that make it (the device half and d2h are wrapped apart)
+DECODE_LAYERS = {"parse": ("_read_frame", "parse_frame"), "pack": ("pack",),
+                 "h2d": ("from_prepared",),
+                 "rest": ("apply_orientation", "basic_info")}
+# the host parse's own steps: step -> the functions vardct/parse.py's
+# parse_frame calls for it
+PARSE_STEPS = {"LF global": ("read_lf_global",),
+               "LF groups": ("read_lf_group",),
+               "HF global": ("read_hf_global",),
+               "DC planes + smoothing": ("compute_dc_planes",
+                                         "adaptive_dc_smoothing"),
+               "pass groups (C++)": ("read_pass_group",),
+               "BlockArrays.concat": ("concat",)}
+
+
+def timed(fn, name: str, log: list):
+    """fn, appending (name, start, end) on the host clock to log per call
+    (the pass groups' calls append from a thread pool)."""
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            log.append((name, t0, time.perf_counter()))
+    return call
+
+
+@contextlib.contextmanager
+def split_decode(log: list):
+    """Wrap the port's functions that api.decode calls, and the host
+    parse's steps, so that each call logs its span; restore them on exit.
+    The device half is VarDCTFrame(cfg)(inputs) followed by
+    torch.cuda.synchronize() in the wrapper, so that its kernels end
+    inside it; d2h is the pixels' .cpu().numpy()."""
+    saved = []
+
+    def wrap(owner, name, wrapper):
+        saved.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, wrapper)
+
+    for names in DECODE_LAYERS.values():
+        for name in names:
+            wrap(api, name, timed(getattr(api, name), name, log))
+    for names in PARSE_STEPS.values():
+        for name in names:
+            if name != "concat":
+                wrap(PARSE, name, timed(getattr(PARSE, name), name, log))
+    wrap(BlockArrays, "concat",
+         staticmethod(timed(BlockArrays.concat, "concat", log)))
+
+    class Host:
+        def __init__(self, t0, host):
+            self.t0, self.host = t0, host
+
+        def numpy(self):
+            out = self.host.numpy()
+            log.append(("d2h", self.t0, time.perf_counter()))
+            return out
+
+    class Pixels:
+        def __init__(self, px):
+            self.px = px
+
+        def cpu(self):
+            t0 = time.perf_counter()
+            return Host(t0, self.px.cpu())
+
+    class Frame:
+        def __init__(self, cfg):
+            self.cfg = cfg
+
+        def __call__(self, frame_inputs):
+            t0 = time.perf_counter()
+            px = VarDCTFrame(self.cfg)(frame_inputs)
+            torch.cuda.synchronize()
+            log.append(("device", t0, time.perf_counter()))
+            return Pixels(px)
+
+    wrap(api, "VarDCTFrame", Frame)
+    try:
+        yield
+    finally:
+        for owner, name, orig in reversed(saved):
+            setattr(owner, name, orig)
+
+
+def spent(log: list, names) -> float:
+    """Milliseconds summed over the logged calls of `names`."""
+    return sum(t1 - t0 for n, t0, t1 in log if n in names) * 1e3
+
+
+def decode_layers(data: bytes, mp: float, card: str, runs: int = 5) -> None:
+    """M1: the 4K decode split into its layers inside the same
+    api.decode calls whose total is printed, `runs` of them in turns with
+    as many unwrapped calls (split first in even pairs, unsplit first in
+    odd ones); raises if a split call's layers do not sum to within 2% of
+    its own total.  Then the host parse by its own steps, from the same
+    calls."""
+    med = statistics.median
+    split, unsplit = [], []
+    for i in range(2 * runs):
+        torch.cuda.synchronize()
+        if (i % 2 == 0) == (i // 2 % 2 == 0):
+            log = []
+            with split_decode(log):
+                t0 = time.perf_counter()
+                api.decode(data, device="cuda")
+                split.append(((time.perf_counter() - t0) * 1e3, log))
+        else:
+            t0 = time.perf_counter()
+            api.decode(data, device="cuda")
+            unsplit.append((time.perf_counter() - t0) * 1e3)
+
+    layers = {**DECODE_LAYERS, "device": ("device",), "d2h": ("d2h",)}
+    per = {k: [spent(log, names) for _, log in split]
+           for k, names in layers.items()}
+    sums = [sum(v[n] for v in per.values()) for n in range(len(split))]
+    gaps = [abs(sums[n] - total) / total for n, (total, _) in enumerate(split)]
+    for n, (total, _log) in enumerate(split):
+        if gaps[n] > 0.02:
+            raise AssertionError(f"split decode {n}: its layers sum to "
+                                 f"{sums[n]:.1f} ms, the call took "
+                                 f"{total:.1f} ms")
+    m = {k: med(v) for k, v in per.items()}
+    t_split, t_unsplit = med(t for t, _ in split), med(unsplit)
+    print(f"layers 4k (host clock, ms, median of {runs} split api.decode "
+          f"calls): parse (_read_frame + parse_frame) {m['parse']:.1f}, pack "
+          f"{m['pack']:.1f}, h2d (from_prepared) {m['h2d']:.1f}, device "
+          f"(VarDCTFrame(cfg)(inputs), then torch.cuda.synchronize() in the "
+          f"wrapper) {m['device']:.1f}, d2h (.cpu().numpy()) {m['d2h']:.1f}, "
+          f"rest (apply_orientation, basic_info) {m['rest']:.1f}; sum of the "
+          f"medians {sum(m.values()):.1f}; each call's layers summed, median "
+          f"{med(sums):.1f}, within {max(gaps):.2%} of the call's own total; "
+          f"the split calls' total {t_split:.1f}; unsplit calls "
+          f"{t_unsplit:.1f} (split - unsplit {t_split - t_unsplit:+.1f} ms: "
+          f"the wrappers' cost and the spread) [{card}]", flush=True)
+    print(f"end_to_end 4k decode bytes->pixels (the unsplit calls): "
+          f"{t_unsplit:.1f} ms = {mp / t_unsplit * 1e3:.2f} MP/s [{card}]",
+          flush=True)
+
+    # the parse by its own steps; the pass groups run on a thread pool,
+    # so their wall span (first call's start to last call's end) and
+    # their time summed over the threads apart
+    steps = {s: [spent(log, names) for _, log in split]
+             for s, names in PARSE_STEPS.items()}
+    pg = "pass groups (C++)"
+    wall, calls = [], []
+    for _, log in split:
+        spans = [(t0, t1) for n, t0, t1 in log if n == "read_pass_group"]
+        wall.append((max(t1 for _, t1 in spans) - min(t0 for t0, _ in spans))
+                    * 1e3)
+        calls.append(len(spans))
+    read_frame = [spent(log, ("_read_frame",)) for _, log in split]
+    rest = [spent(log, ("parse_frame",)) - wall[n]
+            - sum(v[n] for s, v in steps.items() if s != pg)
+            for n, (_, log) in enumerate(split)]
+    print(f"parse 4k by step (host clock, ms, median of the same {runs} "
+          f"calls): _read_frame {med(read_frame):.1f}, "
+          + ", ".join(f"{s} {med(v):.1f}" for s, v in steps.items() if s != pg
+                      and s != "BlockArrays.concat")
+          + f", {pg} {med(wall):.1f} wall ({calls[0]} calls on "
+          f"{os.cpu_count()} cores; {med(steps[pg]):.1f} summed over the "
+          f"threads), BlockArrays.concat "
+          f"{med(steps['BlockArrays.concat']):.1f}, the rest of parse_frame "
+          f"{med(rest):.1f}; then pack {m['pack']:.1f} [{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1155,34 +1373,7 @@ def main() -> int:
           f"device busy {busy_ms:.3f} ms = {mp / busy_ms * 1e3:.1f} MP/s; "
           f"wall {stage_ms:.3f} ms = {mp / stage_ms * 1e3:.1f} MP/s, card "
           f"busy {busy_ms / stage_ms:.1%} of it [{card}]", flush=True)
-    t_parse, t_prep, t_h2d, t_dev, t_d2h, t_e2e = ([] for _ in range(6))
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = parse_frame(*api._read_frame(data))
-        t1 = time.perf_counter()
-        static, args = inputs.pack(st)
-        t2 = time.perf_counter()
-        c2, i2 = inputs.from_prepared(static, args, dev)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        px = VarDCTFrame(c2)(i2)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        px.cpu().numpy()
-        t5 = time.perf_counter()
-        api.decode(data, device="cuda")
-        t6 = time.perf_counter()
-        for lst, v in ((t_parse, t1 - t0), (t_prep, t2 - t1),
-                       (t_h2d, t3 - t2), (t_dev, t4 - t3), (t_d2h, t5 - t4),
-                       (t_e2e, t6 - t5)):
-            lst.append(v * 1e3)
-    med = statistics.median
-    print(f"layers 4k (host clock, median of 5 ms): parse {med(t_parse):.1f} "
-          f"pack {med(t_prep):.1f} h2d {med(t_h2d):.1f} device "
-          f"{med(t_dev):.1f} d2h {med(t_d2h):.1f} [{card}]", flush=True)
-    print(f"end_to_end 4k decode bytes->pixels: {med(t_e2e):.1f} ms = "
-          f"{mp / med(t_e2e) * 1e3:.2f} MP/s [{card}]", flush=True)
+    decode_layers(data, mp, card)
 
     planes, sigma = synthesized(cfg, inp)
     xyb = planes[:, :h, :w]

@@ -1,6 +1,7 @@
-// Device helpers shared by filters.cu and fused_filters.cu: strided plane
-// reads, libjxl's Mirror() and edge clamping, and the exact
-// FastLinearToSRGB exponent trick of the sRGB output.
+// Helpers shared by filters.cu and fused_filters.cu: strided planes,
+// libjxl's Mirror() and edge clamping (host and device: a CPU test builds
+// them with g++), and the exact FastLinearToSRGB exponent trick of the
+// sRGB output.
 
 #pragma once
 
@@ -17,17 +18,13 @@ struct Planes {
 
 // libjxl Mirror(): -1 -> 0, -2 -> 1, n -> n - 1 (numpy "symmetric"),
 // repeated for reaches wider than the plane.
-__device__ __forceinline__ int mirror(int i, int n) {
+__host__ __device__ __forceinline__ int mirror(int i, int n) {
   while ((unsigned)i >= (unsigned)n) i = i < 0 ? -i - 1 : 2 * n - 1 - i;
   return i;
 }
 
-__device__ __forceinline__ int clampi(int i, int n) {
+__host__ __device__ __forceinline__ int clampi(int i, int n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
-}
-
-__device__ __forceinline__ float at(const Planes& s, int c, int y, int x) {
-  return s.p[c * s.plane_stride + (long long)y * s.row_stride + x];
 }
 
 struct SrgbParams {

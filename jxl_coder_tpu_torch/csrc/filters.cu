@@ -1,68 +1,83 @@
-// Restoration filters and output for the VarDCT decode, one tile pass:
-// gaborish -> EPF pass 0 -> EPF pass 1 -> EPF pass 2 -> XYB -> sRGB8/16
-// (HWC), the intermediates kept in shared memory.
+// Restoration filters and output, one tile pass: TPU kernels 2, 3 and 4.
 //
-// Replaces the TPU kernel jxl_coder_tpu/vardct/filters_pallas.py:751
-// (fused_real_filters3 -> _kernel_chain3 + _chain_math + _srgb_out) and
-// the jnp chain it falls back to (tpu_real.gaborish_device / epf_device,
-// tpu_full._epf2_device, tpu_real.xyb_to_srgb8_device and
-// tpu_full._xyb_to_srgb16_device).  Unlike the TPU kernel it has no
-// width or height gate, takes per-channel gaborish weights, and runs EPF
-// pass 0 (epf_iters 3), which the repo's own encoder emits at every
-// distance >= 2.0.
+//   Kernel 2, mode CHAIN, replaces jxl_coder_tpu/vardct/filters_pallas.py:751
+//     (fused_real_filters3 -> _kernel_chain3 + _chain_math + _srgb_out) and
+//     the jnp chain it falls back to (tpu_real.gaborish_device /
+//     epf_device, tpu_full._epf2_device, tpu_real.xyb_to_srgb8_device and
+//     tpu_full._xyb_to_srgb16_device): gaborish -> EPF pass 0 -> EPF pass 1
+//     -> EPF pass 2 -> XYB -> sRGB8/16 (HWC) on the image planes, the
+//     slopes made from the per-block sigma map.  Unlike the TPU kernel it
+//     has no width or height gate, takes per-channel gaborish weights, and
+//     runs EPF pass 0 (epf_iters 3), which the repo's own encoder emits at
+//     every distance >= 2.0.
+//   Kernels 3 and 4, modes PADDED_MIRROR and PADDED_EDGE, replace
+//     filters_pallas.py:588 fused_real_filters (_kernel_chain +
+//     _chain_math: gaborish -> EPF1 (-> EPF2) (-> sRGB8/16)) and :794
+//     fused_real_gab_epf1 (_kernel_real: gaborish -> EPF1 (-> sRGB8)): the
+//     same tile pass on the JAX functions' row-padded planes, with the
+//     caller's per-block EPF1 slope and one set of gaborish weights.
 //
-// chain_kernel<GAB, PA, EPF2, OutT>: each thread block owns a 64 x 16
-// output tile.  It loads the three input planes over the tile and its
+// chain_kernel<GAB, PA, EPF2, OutT, MODE>: each thread block owns a 64 x
+// 16 output tile.  It loads the three input planes over the tile and its
 // halo (1 pixel for gaborish, 2 for EPF1 or 3 for EPF0, 1 for EPF2) into
 // shared memory once, all copies in flight before one wait: an interior
 // tile with gaborish copies whole rows by 16-byte cp.async from the
 // aligned column x0 - 4 (the planes' rows start 32-byte aligned, the
 // halo's first column does not) and reads them at an offset; edge tiles
-// copy 4 bytes at a time from mirrored positions.  It then computes each
-// stage over a window that shrinks by that stage's reach: the gaborish
-// output, the channel-weighted difference planes of the EPF pass (2 for EPF1, 6 for
-// EPF0's diamond; a patch SAD is then a 5-tap cross sum of one plane),
-// the pass's output with the 1-pixel halo EPF2 reads, and the last
-// stage's tile.  The sRGB codes are staged as HWC bytes and leave with
-// 16-byte stores.  epf_iters <= 2 is one launch; epf_iters 3 is two, a
-// gaborish + EPF0 pass to f32 planes and then the EPF1 + EPF2 + output
-// pass (fusing EPF0 too would take a 7-pixel halo and six more planes).
+// copy 4 bytes at a time from the positions the mode's window sources
+// give.  It then computes each stage over a window that shrinks by that
+// stage's reach: the gaborish output, the channel-weighted difference
+// planes of the EPF pass (2 for EPF1, 6 for EPF0's diamond; a patch SAD
+// is then a 5-tap cross sum of one plane), the pass's output with the
+// 1-pixel halo EPF2 reads, and the last stage's tile.  The sRGB codes are
+// staged as HWC bytes and leave with 16-byte stores.  epf_iters <= 2 is
+// one launch; epf_iters 3 is two, a gaborish + EPF0 pass to f32 planes
+// and then the EPF1 + EPF2 + output pass (fusing EPF0 too would take a
+// 7-pixel halo and six more planes).
 //
-// Borders.  Gaborish, EPF0 and EPF1 read their input extended by libjxl's
-// Mirror(), EPF2 by edge replication.  A tile whose window crosses the
-// image edge loads the input at mirrored positions, computes each stage
-// over its window as an interior tile does, then overwrites every window
-// position outside the image with the stage's value at the folded
-// position (fixup); interior tiles skip both.  Images narrower than the
-// halo fold through mirror()'s loop.  The 2/3 block-border rule and the
-// per-block slopes use global coordinates.
+// Borders (the window sources below).  Kernel 2 reads the input of
+// gaborish, EPF0 and EPF1 extended by libjxl's Mirror(), EPF2's by edge
+// replication.  Kernels 3 and 4 read the caller's pad rows above and
+// below the image as data (rows past them clamp) and clamp columns; the
+// gaborish output is extended by Mirror() (kernel 3) or edge replication
+// (kernel 4), EPF2's input by edge replication.  A tile whose window
+// crosses the image edge loads the input from those sources, computes
+// each stage over its window as an interior tile does, then overwrites
+// every window position outside the image with the stage's value at the
+// folded position (fixup); interior tiles skip both.  Images narrower
+// than the halo fold through mirror()'s loop.  The 2/3 block-border rule
+// and the per-block slopes use global coordinates.
 //
-// Slopes.  The kernel reads the per-block sigma map and computes each
+// Slopes.  Kernel 2 reads the per-block sigma map and computes each
 // pass's slope itself, once per block of the tile: c / max(sigma, 1e-9)
 // where sigma >= the gate, else 0, with c = KINV * EPF1_INV_SCALE *
 // scale rounded to f32 on the host: the one division of
-// vardct/filters.py epf_inv, so the slope is bit-equal to it.
+// vardct/filters.py epf_inv, so the slope is bit-equal to it.  Kernels 3
+// and 4 take the EPF1 slope as the caller gives it (negative where
+// active); EPF2's is (slope x 2/3 on block borders) x pass2_scale, in
+// fused_filters._real_plain's order.
 //
 // What bounds it on the H100: bytes.  At 4K d1.0 e7 (epf_iters 1, u8)
 // it reads the three f32 planes (99.5 MB) and writes 24.9 MB of codes,
 // 125 MB, 0.037 ms at 3.35 TB/s; its ~170 f32 operations per pixel
-// (gaborish 27, EPF1 71, sRGB 69) are 0.021 ms at 67 TFLOP/s.  What the
-// design does about it: every intermediate stays on chip, so the planes
-// are read once and the codes written once (per-stage launches wrote and
-// re-read three f32 planes per stage); the halo (~1.5x the tile's input
-// at epf_iters 1) is read again from L2.  What holds it above the bound
-// is the work per pixel, not bytes or load instructions (the 16-byte
-// window copies gained little over 4-byte ones): ~60 shared-memory
-// accesses and ~340 instructions per output pixel (counted from the
-// code), in a 64 x 16 tile whose strips are too short to keep more
-// neighbours in registers.
+// (gaborish 27, EPF1 71, sRGB 69) are 0.021 ms at 67 TFLOP/s.  Kernels 3
+// and 4 move the same bytes plus 8 pad rows.  What the design does about
+// it: every intermediate stays on chip, so the planes are read once and
+// the codes written once (per-stage launches wrote and re-read three f32
+// planes per stage); the halo (~1.5x the tile's input at epf_iters 1) is
+// read again from L2.  What holds it above the bound is the work per
+// pixel, not bytes or load instructions (the 16-byte window copies
+// gained little over 4-byte ones): ~60 shared-memory accesses and ~340
+// instructions per output pixel (counted from the code), in a 64 x 16
+// tile whose strips are too short to keep more neighbours in registers.
 //
 // ptxas (-Xptxas=-v, sm_90a, CUDA 12.8): the main path's
-// chain_kernel<true, 1, false, uint8_t> 48 registers and 38,784 B of
-// dynamic shared memory (5 blocks per SM); with EPF2 (<true, 1, true,
+// chain_kernel<true, 1, false, uint8_t, CHAIN> 48 registers and 38,784 B
+// of dynamic shared memory (5 blocks per SM); with EPF2 (<true, 1, true,
 // *>) 54-56 registers, 45-52 KB; the EPF0 pass <*, 0, false, float> 32
 // registers, 55,824 B; without EPF (<*, -1, false, *>) 27-32 registers,
-// 13-34 KB.  No instantiation spills.
+// 13-34 KB; kernels 3 and 4 take kernel 2's registers at the same
+// geometry (48, and 54-56 with EPF2).  No instantiation spills.
 //
 // Every source builds with -fmad=false: gaborish, EPF2 and the output sum
 // in the plain chain's order; EPF0/1 sum each patch SAD per tap over the
@@ -86,10 +101,53 @@ struct ChainParams {
   float w1[3], w2[3], inv_norm[3];  // gaborish weights per channel
   float cs[3];                  // EPF_CHANNEL_SCALE
   float border_mul;             // 2/3 on block-border pixels
-  float gate;                   // EPF_SIGMA_GATE
-  float slope[2];               // c of pass A (EPF0 or EPF1) and of EPF2
+  float gate;                   // EPF_SIGMA_GATE (kernel 2)
+  float slope[2];               // c of pass A (EPF0 or EPF1) and of EPF2 (kernel 2)
+  float pass2_scale;            // EPF2's slope over EPF1's (kernels 3 and 4)
   SrgbParams srgb;
 };
+
+// The per-block map the passes' slopes come from: kernel 2's sigma, or
+// kernels 3 and 4's EPF1 slope.  Blocks outside rows x cols read as 0.
+struct Slopes {
+  const float* p;
+  int rows, cols;
+  int stride;  // floats between the map's rows
+};
+
+// Window sources: where each window position of the input comes from,
+// and where a stage's output outside the image is folded to, per mode
+// (host and device: tests/test_torch_fused_filters.py builds them with
+// g++ and holds them to the plain twins' indices).
+enum Mode { CHAIN = 0, PADDED_MIRROR = 1, PADDED_EDGE = 2 };
+
+// a stage's output at window position i of a plane n long: Mirror() or
+// edge replication
+template <bool MIRROR>
+__host__ __device__ __forceinline__ int fold(int i, int n) {
+  return MIRROR ? mirror(i, n) : clampi(i, n);
+}
+
+// the input row window row gy loads: kernel 2 the Mirror()ed image row;
+// kernels 3 and 4 the row itself where the caller's `pad` rows above and
+// below the image hold it, else the last of them
+template <int MODE>
+__host__ __device__ __forceinline__ int source_row(int gy, int n, int pad) {
+  if (MODE == CHAIN) return mirror(gy, n);
+  return gy < -pad ? -pad : (gy > n + pad - 1 ? n + pad - 1 : gy);
+}
+
+// the input column window column gx loads: Mirror()ed or clamped
+template <int MODE>
+__host__ __device__ __forceinline__ int source_col(int gx, int n) {
+  return fold<MODE == CHAIN>(gx, n);
+}
+
+// the gaborish output's border: edge replication for kernel 4, Mirror()
+// for kernels 2 and 3
+template <int MODE>
+__host__ __device__ constexpr bool gab_mirror() { return MODE != PADDED_EDGE; }
+// (end of the window sources)
 
 template <bool GAB, int PA, bool EPF2, typename OutT>
 struct Geo {
@@ -158,8 +216,7 @@ __device__ void fixup(float* B, int y0, int x0, int H, int W) {
     const int gy = y0 - R + r, gx = x0 - R + c;
     if ((unsigned)gy < (unsigned)H && (unsigned)gx < (unsigned)W) continue;
     if (gy >= H + R || gx >= W + R) continue;
-    const int sy = MIRROR ? mirror(gy, H) : clampi(gy, H);
-    const int sx = MIRROR ? mirror(gx, W) : clampi(gx, W);
+    const int sy = fold<MIRROR>(gy, H), sx = fold<MIRROR>(gx, W);
     const int j = (sy - (y0 - R)) * C + (sx - (x0 - R));
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) B[ch * P + i] = B[ch * P + j];
@@ -172,11 +229,12 @@ __host__ __device__ constexpr int strip_rows(int rows, int cols) {
   return (rows + NT / cols - 1) / (NT / cols);
 }
 
-template <bool GAB, int PA, bool EPF2, typename OutT>
+// in: the image's row 0 (kernels 3 and 4: `pad` readable rows above and
+// below it); out: (3, H, W) float32 planes or (H, W, 3) codes.
+template <bool GAB, int PA, bool EPF2, typename OutT, int MODE>
 __global__ void __launch_bounds__(NT)
-    chain_kernel(Planes in, int H, int W, const float* __restrict__ sigma,
-                 int sig_rows, int sig_cols, OutT* __restrict__ out,
-                 ChainParams p) {
+    chain_kernel(Planes in, int pad, int H, int W, Slopes sl,
+                 OutT* __restrict__ out, ChainParams p) {
   using Gm = Geo<GAB, PA, EPF2, OutT>;
   constexpr int R0 = Gm::R0, R1 = Gm::R1, R2 = Gm::R2, RA = Gm::RA;
   constexpr int C0 = Gm::cols(R0), NR0 = TH + 2 * R0;
@@ -200,15 +258,21 @@ __global__ void __launch_bounds__(NT)
   // the FastLinearToSRGB table (a lookup per channel and pixel: shared
   // memory serves the warp's 16 classes at once, constant memory would not)
   if (tid < 16) mul[tid] = p.srgb.mul[tid];
-  // slopes of the blocks the passes read (0 outside the sigma map)
+  // slopes of the blocks the passes read (0 outside the map): kernel 2
+  // pass A's and EPF2's from the sigma map, kernels 3 and 4 the caller's
+  // EPF1 slope as it is (EPF2 scales it per pixel)
   if constexpr (PA >= 0) {
-    for (int i = tid; i < 2 * NSB; i += NT) {
+    constexpr int NTAB = MODE == CHAIN ? 2 : 1;
+    for (int i = tid; i < NTAB * NSB; i += NT) {
       const int t = i / NSB, j = i - t * NSB;
       const int br = (y0 >> 3) - 1 + j / SBX, bc = (x0 >> 3) - 1 + j % SBX;
       float v = 0.0f;
-      if ((unsigned)br < (unsigned)sig_rows && (unsigned)bc < (unsigned)sig_cols) {
-        const float s = sigma[br * sig_cols + bc];
-        v = s >= p.gate ? p.slope[t] / fmaxf(s, 1e-9f) : 0.0f;
+      if ((unsigned)br < (unsigned)sl.rows && (unsigned)bc < (unsigned)sl.cols) {
+        const float s = sl.p[br * sl.stride + bc];
+        if constexpr (MODE == CHAIN)
+          v = s >= p.gate ? p.slope[t] / fmaxf(s, 1e-9f) : 0.0f;
+        else
+          v = s;
       }
       S[i] = v;
     }
@@ -241,7 +305,7 @@ __global__ void __launch_bounds__(NT)
   // the input over the window of radius R0, every copy in flight at once,
   // then one wait: with gaborish, an interior tile whose aligned rows lie
   // in the image copies them 16 bytes at a time; else 4 bytes at a time,
-  // at Mirror()ed positions on an edge tile
+  // from the window sources on an edge tile
   bool vec = false;
   if constexpr (GAB) {
     constexpr int A0 = Gm::up4(R0);
@@ -263,8 +327,8 @@ __global__ void __launch_bounds__(NT)
       const int r = i / C0, c = i - r * C0;
       int gy = y0 - R0 + r, gx = x0 - R0 + c;
       if (edge) {
-        gy = mirror(gy, H);
-        gx = mirror(gx, W);
+        gy = source_row<MODE>(gy, H, pad);
+        gx = source_col<MODE>(gx, W);
       }
       const float* src = in.p + (long long)gy * in.row_stride + gx;
       float* dst = X + r * LX + OX + c;
@@ -306,7 +370,7 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();
     if constexpr (PA >= 0) {
       if (edge) {
-        fixup<R1, true>(G, y0, x0, H, W);
+        fixup<R1, gab_mirror<MODE>()>(G, y0, x0, H, W);
         __syncthreads();
       }
     }
@@ -490,8 +554,9 @@ __global__ void __launch_bounds__(NT)
       __syncthreads();
     }
     // EPF2 down column strips of the tile: pointwise SADs against the
-    // edge-replicated EPF1 output, the 2/3 multiplier on the SAD
-    // (tpu_full._epf2_device)
+    // edge-replicated EPF1 output; kernel 2 puts the 2/3 multiplier on the
+    // SAD (tpu_full._epf2_device), kernels 3 and 4 on the slope
+    // (fused_filters._real_plain)
     constexpr int SH = strip_rows(TH, TW), NS = (TH + SH - 1) / SH;
     for (int it = tid; it < TW * NS; it += NT) {
       const int c = it % TW, r0 = (it / TW) * SH;
@@ -517,16 +582,20 @@ __global__ void __launch_bounds__(NT)
         }
         const int gy = y0 + r;
         float o[3] = {ac[0], ac[1], ac[2]};
-        const float iv = (gy < H && gx < W) ? slope(1, gy, gx) : 0.0f;
+        const float iv =
+            (gy < H && gx < W) ? slope(MODE == CHAIN ? 1 : 0, gy, gx) : 0.0f;
         if (iv < 0.0f) {
-          const float m = block_border(gy, gx) ? p.border_mul : 1.0f;
+          const bool bb = block_border(gy, gx);
+          const float m = bb ? p.border_mul : 1.0f;
+          const float iv2 = (bb ? iv * p.border_mul : iv) * p.pass2_scale;
           float wsum = 1.0f;
           auto term = [&](const float* nb) {
             float sad = 0.0f;
 #pragma unroll
             for (int ch = 0; ch < 3; ++ch)
               sad = sad + p.cs[ch] * fabsf(ac[ch] - nb[ch]);
-            const float w = fmaxf(1.0f + sad * m * iv, 0.0f);
+            const float w = MODE == CHAIN ? fmaxf(1.0f + sad * m * iv, 0.0f)
+                                          : fmaxf(1.0f + sad * iv2, 0.0f);
             wsum = wsum + w;
 #pragma unroll
             for (int ch = 0; ch < 3; ++ch) o[ch] = o[ch] + w * nb[ch];
@@ -584,68 +653,52 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <bool GAB, int PA, bool EPF2, typename OutT>
-cudaError_t run(const Planes& in, int H, int W, const float* sigma,
-                int sig_rows, int sig_cols, void* out, const ChainParams& p,
-                cudaStream_t s) {
-  auto* kern = chain_kernel<GAB, PA, EPF2, OutT>;
+template <bool GAB, int PA, bool EPF2, typename OutT, int MODE>
+cudaError_t run(const Planes& in, int pad, int H, int W, const Slopes& sl,
+                void* out, const ChainParams& p, cudaStream_t s) {
+  auto* kern = chain_kernel<GAB, PA, EPF2, OutT, MODE>;
   constexpr int bytes = Geo<GAB, PA, EPF2, OutT>::bytes();
   const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
-  kern<<<grid, NT, bytes, s>>>(in, H, W, sigma, sig_rows, sig_cols,
-                               static_cast<OutT*>(out), p);
+  kern<<<grid, NT, bytes, s>>>(in, pad, H, W, sl, static_cast<OutT*>(out), p);
   return cudaGetLastError();
 }
 
-template <bool GAB, int PA, bool EPF2>
-cudaError_t run_out(int out_kind, const Planes& in, int H, int W,
-                    const float* sigma, int sig_rows, int sig_cols, void* out,
-                    const ChainParams& p, cudaStream_t s) {
+template <bool GAB, int PA, bool EPF2, int MODE>
+cudaError_t run_out(int out_kind, const Planes& in, int pad, int H, int W,
+                    const Slopes& sl, void* out, const ChainParams& p,
+                    cudaStream_t s) {
   switch (out_kind) {
-    case 0: return run<GAB, PA, EPF2, float>(in, H, W, sigma, sig_rows, sig_cols, out, p, s);
-    case 1: return run<GAB, PA, EPF2, uint8_t>(in, H, W, sigma, sig_rows, sig_cols, out, p, s);
-    case 2: return run<GAB, PA, EPF2, uint16_t>(in, H, W, sigma, sig_rows, sig_cols, out, p, s);
+    case 0: return run<GAB, PA, EPF2, float, MODE>(in, pad, H, W, sl, out, p, s);
+    case 1: return run<GAB, PA, EPF2, uint8_t, MODE>(in, pad, H, W, sl, out, p, s);
+    case 2: return run<GAB, PA, EPF2, uint16_t, MODE>(in, pad, H, W, sl, out, p, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <bool GAB>
 cudaError_t run_gab(int pass_a, int epf2, int out_kind, const Planes& in,
-                    int H, int W, const float* sigma, int sig_rows,
-                    int sig_cols, void* out, const ChainParams& p,
-                    cudaStream_t s) {
+                    int H, int W, const Slopes& sl, void* out,
+                    const ChainParams& p, cudaStream_t s) {
   if (pass_a < 0 && !epf2)
-    return run_out<GAB, -1, false>(out_kind, in, H, W, sigma, sig_rows, sig_cols, out, p, s);
+    return run_out<GAB, -1, false, CHAIN>(out_kind, in, 0, H, W, sl, out, p, s);
   if (pass_a == 1 && !epf2)
-    return run_out<GAB, 1, false>(out_kind, in, H, W, sigma, sig_rows, sig_cols, out, p, s);
+    return run_out<GAB, 1, false, CHAIN>(out_kind, in, 0, H, W, sl, out, p, s);
   if (pass_a == 1 && epf2)
-    return run_out<GAB, 1, true>(out_kind, in, H, W, sigma, sig_rows, sig_cols, out, p, s);
+    return run_out<GAB, 1, true, CHAIN>(out_kind, in, 0, H, W, sl, out, p, s);
   // EPF0 runs as its own pass to f32 planes
   if (pass_a == 0 && !epf2 && out_kind == 0)
-    return run<GAB, 0, false, float>(in, H, W, sigma, sig_rows, sig_cols, out, p, s);
+    return run<GAB, 0, false, float, CHAIN>(in, 0, H, W, sl, out, p, s);
   return cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-// in: three planes with channel stride `plane_stride` and row stride
-// `row_stride` (a cropped view is fine), H x W.  sigma: the per-block EPF
-// sigma map, sig_rows x sig_cols, row-major (unused without EPF).
-// gab: run gaborish first; pass_a: -1 none, 0 EPF0, 1 EPF1; epf2: run
-// EPF2 after EPF1.  out_kind: 0 float32 (3, H, W), 1 uint8 or 2 uint16
-// (H, W, 3) sRGB.  consts: w1[3], w2[3], 1 / norm[3], cs[3], border_mul,
-// gate, slope c of pass A, slope c of EPF2; srgb: 9 opsin-inverse
-// floats, cbrt_bias, bias; mul: 16 uint32.
-extern "C" int jxl_restore(const float* in, long long plane_stride,
-                           int row_stride, int H, int W, const float* sigma,
-                           int sig_rows, int sig_cols, void* out, int gab,
-                           int pass_a, int epf2, int out_kind,
-                           const float* consts, const float* srgb,
-                           const uint32_t* mul, void* stream) {
-  if (H <= 0 || W <= 0) return cudaSuccess;
-  ChainParams p;
+// consts: w1[3], w2[3], 1 / norm[3], cs[3], border_mul, then the mode's
+// own (see the entry points)
+ChainParams chain_params(const float* consts, const float* srgb,
+                         const uint32_t* mul, int out_kind) {
+  ChainParams p{};
   for (int c = 0; c < 3; ++c) {
     p.w1[c] = consts[c];
     p.w2[c] = consts[3 + c];
@@ -653,18 +706,67 @@ extern "C" int jxl_restore(const float* in, long long plane_stride,
     p.cs[c] = consts[9 + c];
   }
   p.border_mul = consts[12];
-  p.gate = consts[13];
-  p.slope[0] = consts[14];
-  p.slope[1] = consts[15];
   for (int i = 0; i < 9; ++i) p.srgb.m[i] = srgb[i];
   p.srgb.cbrt_bias = srgb[9];
   p.srgb.bias = srgb[10];
   p.srgb.scale = out_kind == 2 ? 65535.0f : 255.0f;
   for (int i = 0; i < 16; ++i) p.srgb.mul[i] = mul[i];
+  return p;
+}
+
+}  // namespace
+
+// Kernel 2.  in: three planes with channel stride `plane_stride` and row
+// stride `row_stride` (a cropped view is fine), H x W.  sigma: the
+// per-block EPF sigma map, sig_rows x sig_cols, row-major (unused without
+// EPF).  gab: run gaborish first; pass_a: -1 none, 0 EPF0, 1 EPF1; epf2:
+// run EPF2 after EPF1.  out_kind: 0 float32 (3, H, W), 1 uint8 or 2
+// uint16 (H, W, 3) sRGB.  consts: w1[3], w2[3], 1 / norm[3], cs[3],
+// border_mul, gate, slope c of pass A, slope c of EPF2; srgb: 9
+// opsin-inverse floats, cbrt_bias, bias; mul: 16 uint32.
+extern "C" int jxl_restore(const float* in, long long plane_stride,
+                           int row_stride, int H, int W, const float* sigma,
+                           int sig_rows, int sig_cols, void* out, int gab,
+                           int pass_a, int epf2, int out_kind,
+                           const float* consts, const float* srgb,
+                           const uint32_t* mul, void* stream) {
+  if (H <= 0 || W <= 0) return cudaSuccess;
+  ChainParams p = chain_params(consts, srgb, mul, out_kind);
+  p.gate = consts[13];
+  p.slope[0] = consts[14];
+  p.slope[1] = consts[15];
   const Planes pl{in, plane_stride, row_stride};
+  const Slopes sl{sigma, sig_rows, sig_cols, sig_cols};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return gab ? run_gab<true>(pass_a, epf2, out_kind, pl, H, W, sigma,
-                             sig_rows, sig_cols, out, p, s)
-             : run_gab<false>(pass_a, epf2, out_kind, pl, H, W, sigma,
-                              sig_rows, sig_cols, out, p, s);
+  return gab ? run_gab<true>(pass_a, epf2, out_kind, pl, H, W, sl, out, p, s)
+             : run_gab<false>(pass_a, epf2, out_kind, pl, H, W, sl, out, p, s);
+}
+
+// Kernels 3 (mirror 1) and 4 (mirror 0): gaborish -> EPF1 (-> EPF2 with
+// epf2, kernel 3 only) -> out.  in: the image's row 0 of three planes
+// strided as above, with `pad` readable rows above and below it.  inv:
+// the per-8x8-block EPF1 slope (negative where active), at least
+// ceil(H / 8) x ceil(W / 8) blocks with row stride inv_stride.  out_kind:
+// as above (kernel 4: 0 or 1).  consts: w1[3], w2[3], 1 / norm[3] (one
+// weight pair in all three), cs[3], border_mul, pass2_scale; srgb, mul as
+// above.
+extern "C" int jxl_restore_padded(const float* in, long long plane_stride,
+                                  int row_stride, int pad, int H, int W,
+                                  const float* inv, int inv_stride, void* out,
+                                  int mirror, int epf2, int out_kind,
+                                  const float* consts, const float* srgb,
+                                  const uint32_t* mul, void* stream) {
+  if (H <= 0 || W <= 0) return cudaSuccess;
+  if (pad < 0) return cudaErrorInvalidValue;
+  ChainParams p = chain_params(consts, srgb, mul, out_kind);
+  p.pass2_scale = consts[13];
+  const Planes pl{in, plane_stride, row_stride};
+  const Slopes sl{inv, (H + 7) / 8, (W + 7) / 8, inv_stride};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mirror && epf2)
+    return run_out<true, 1, true, PADDED_MIRROR>(out_kind, pl, pad, H, W, sl, out, p, s);
+  if (mirror)
+    return run_out<true, 1, false, PADDED_MIRROR>(out_kind, pl, pad, H, W, sl, out, p, s);
+  if (epf2 || out_kind > 1) return cudaErrorInvalidValue;
+  return run_out<true, 1, false, PADDED_EDGE>(out_kind, pl, pad, H, W, sl, out, p, s);
 }

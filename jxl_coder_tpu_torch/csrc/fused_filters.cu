@@ -1,5 +1,7 @@
-// Fused restoration filters, one tile pass per frame: the TPU kernels
-// 3-6 of jxl_coder_tpu/vardct/filters_pallas.py.
+// The round-1 codec's restoration filters, one tile pass per frame: TPU
+// kernels 5 and 6 of jxl_coder_tpu/vardct/filters_pallas.py (kernels 3
+// and 4, the real-format chain, are instantiations of kernel 2's tile
+// pass in filters.cu).
 //
 //   legacy_kernel<GAB, EPF, OutT> replaces fused_gab_epf (_kernel, #5)
 //     and fused_filters2 (_kernel2, #6): the round-1 codec's gaborish
@@ -10,21 +12,14 @@
 //     CPU) bit for bit.  The EPF's inverse sigma is a per-pixel map (the
 //     JAX functions' row-padded interface) or, on the pipeline's route,
 //     the per-8x8-block quant field, divided in the kernel.
-//   real_kernel<MIRROR, EPF2, OutT> replaces fused_real_filters
-//     (_kernel_chain + _chain_math, #3; MIRROR) and fused_real_gab_epf1
-//     (_kernel_real, #4; edge borders, no EPF2): the real-format gaborish,
-//     EPF pass 1 (5-tap patch SADs summed over adjacent-difference planes,
-//     2/3 on block borders, active where inv < 0), EPF pass 2 (pointwise
-//     SADs on the edge-replicated pass-1 output) and FastLinearToSRGB.
 //
-// Borders, both kernels: the input rows a caller passes may carry `pad`
-// rows of real or replicated neighbours above and below (the JAX
-// functions' padded interface); rows beyond those are clamped, and the
-// gaborish / EPF output is extended by libjxl's Mirror() or by edge
-// replication as each TPU kernel does.  No width or height gate.
+// Borders: the input rows a caller passes may carry `pad` rows of real or
+// replicated neighbours above and below (the JAX functions' padded
+// interface); rows beyond those and columns are clamped (edge
+// replication).  No width or height gate.
 //
-// legacy_kernel, designed for the H100.  Each thread block owns a 64 x 16
-// output tile.  It stages the input window (rows y0-2 .. y0+17, columns
+// legacy_kernel is designed for the H100.  Each thread block owns a 64 x
+// 16 output tile.  It stages the input window (rows y0-2 .. y0+17, columns
 // x0-2 .. x0+65, three channels) in shared memory once: interior tiles by
 // 16-byte cp.async from the aligned column x0-4, edge tiles by clamped
 // 4-byte copies.  Gaborish is then made once per window position from
@@ -65,8 +60,6 @@
 namespace {
 
 using namespace jxl;
-
-constexpr int TX = 32, TY = 8, NT = TX * TY;  // real_kernel's tile
 
 // asynchronous copies global -> shared (cp.async): 4 bytes through L1,
 // 16 bytes (both addresses 16-byte aligned) through L2 only
@@ -413,167 +406,6 @@ cudaError_t run_legacy_out(int out_kind, const Planes& in, int pad, int H,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Kernels 3 and 4: the real-format chain, one 32 x 8 tile a block.  It
-// computes the gaborish output of the tile and a 3-pixel halo into shared
-// memory (27 cached loads a position), the difference planes of EPF1 and
-// its output (with EPF2) stay there too, so no halo row makes a round
-// trip through device memory.  At 4K it moves 12 B/px in and 12 or 3 out.
-
-struct RealParams {
-  float k[9];          // gaborish taps / (1 + 4 (w1 + w2)), row-major
-  float cs[3];         // dec_real.EPF_CHANNEL_SCALE
-  float border_mul;    // 2/3 on block-border pixels
-  float pass2_scale;   // EPF2 slope over EPF1's
-  SrgbParams srgb;
-};
-
-template <bool MIRROR>
-__device__ __forceinline__ int fold(int i, int n) {
-  return MIRROR ? mirror(i, n) : clampi(i, n);
-}
-
-// in points at the image's row 0 with rows [-pad, H + pad) readable;
-// inv: per-8x8-block EPF1 slope (negative where active, 0 where not).
-// out: (3, H, W) of OutT (float, or uint8 / uint16 sRGB codes).
-template <bool MIRROR, bool EPF2, typename OutT>
-__global__ void __launch_bounds__(NT)
-    real_kernel(Planes in, int pad, int H, int W,
-                const float* __restrict__ inv, int inv_stride,
-                OutT* __restrict__ out, RealParams p) {
-  constexpr int GH = TY + 6, GW = TX + 6;
-  // gaborish at rows y0-3 .. y0+TY+2, columns x0-3 .. x0+TX+2, folded
-  // into the image (Mirror or edge); Dh / Dv: the channel-weighted
-  // absolute differences of horizontal / vertical neighbours in G.
-  __shared__ float G[3][GH][GW];
-  __shared__ float Dh[GH][GW - 1];
-  __shared__ float Dv[GH - 1][GW];
-  // EPF1 output at rows y0-1 .. y0+TY, columns x0-1 .. x0+TX, edge
-  // replicated at the image border (EPF2 only).
-  __shared__ float E[EPF2 ? 3 : 1][TY + 2][TX + 2];
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
-  const int tid = threadIdx.y * TX + threadIdx.x;
-  const int ylo = -pad, yhi = H + pad - 1;
-  for (int i = tid; i < GH * GW; i += NT) {
-    const int r = i / GW, c = i % GW;
-    const int R = fold<MIRROR>(y0 - 3 + r, H), C = fold<MIRROR>(x0 - 3 + c, W);
-    for (int ch = 0; ch < 3; ++ch) {
-      float v = 0.0f;
-      for (int dy = 0; dy < 3; ++dy) {
-        const int sy = min(max(R + dy - 1, ylo), yhi);
-        for (int dx = 0; dx < 3; ++dx)
-          v = v + p.k[3 * dy + dx] * at(in, ch, sy, clampi(C + dx - 1, W));
-      }
-      G[ch][r][c] = v;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < GH * (GW - 1); i += NT) {
-    const int r = i / (GW - 1), c = i % (GW - 1);
-    float d = 0.0f;
-    for (int ch = 0; ch < 3; ++ch)
-      d = d + p.cs[ch] * fabsf(G[ch][r][c] - G[ch][r][c + 1]);
-    Dh[r][c] = d;
-  }
-  for (int i = tid; i < (GH - 1) * GW; i += NT) {
-    const int r = i / GW, c = i % GW;
-    float d = 0.0f;
-    for (int ch = 0; ch < 3; ++ch)
-      d = d + p.cs[ch] * fabsf(G[ch][r][c] - G[ch][r + 1][c]);
-    Dv[r][c] = d;
-  }
-  __syncthreads();
-
-  // EPF1 at image pixel (R, C), which lies in rows y0-1 .. y0+TY.
-  auto epf1 = [&](int R, int C, float o[3]) {
-    const int lr = R - (y0 - 3), lc = C - (x0 - 3);
-    const float iv = inv[(R >> 3) * inv_stride + (C >> 3)];
-    for (int ch = 0; ch < 3; ++ch) o[ch] = G[ch][lr][lc];
-    if (!(iv < 0.0f)) return;
-    const bool border = (R & 7) == 0 || (R & 7) == 7 || (C & 7) == 0 ||
-                        (C & 7) == 7;
-    const float ivb = border ? iv * p.border_mul : iv;
-    // patch taps (0,0), (0,1), (0,-1), (1,0), (-1,0)
-    const int ty[5] = {0, 0, 0, 1, -1};
-    const int tx[5] = {0, 1, -1, 0, 0};
-    float sad[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int t = 0; t < 5; ++t) {
-      sad[0] = sad[0] + Dh[lr + ty[t]][lc + tx[t]];          // ( 0,  1)
-      sad[1] = sad[1] + Dh[lr + ty[t]][lc + tx[t] - 1];      // ( 0, -1)
-      sad[2] = sad[2] + Dv[lr + ty[t]][lc + tx[t]];          // ( 1,  0)
-      sad[3] = sad[3] + Dv[lr + ty[t] - 1][lc + tx[t]];      // (-1,  0)
-    }
-    const int ndy[4] = {0, 0, 1, -1}, ndx[4] = {1, -1, 0, 0};
-    float den = 1.0f, n[3] = {o[0], o[1], o[2]};
-#pragma unroll
-    for (int d = 0; d < 4; ++d) {
-      const float w = fmaxf(1.0f + sad[d] * ivb, 0.0f);
-      den = den + w;
-      for (int ch = 0; ch < 3; ++ch)
-        n[ch] = n[ch] + w * G[ch][lr + ndy[d]][lc + ndx[d]];
-    }
-    const float inv_den = 1.0f / den;
-    for (int ch = 0; ch < 3; ++ch) o[ch] = n[ch] * inv_den;
-  };
-
-  const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
-  float o[3];
-  if constexpr (EPF2) {
-    for (int i = tid; i < (TY + 2) * (TX + 2); i += NT) {
-      const int r = i / (TX + 2), c = i % (TX + 2);
-      float e[3];
-      epf1(clampi(y0 - 1 + r, H), clampi(x0 - 1 + c, W), e);
-      for (int ch = 0; ch < 3; ++ch) E[ch][r][c] = e[ch];
-    }
-    __syncthreads();
-    if (x >= W || y >= H) return;
-    const int ly = threadIdx.y + 1, lx = threadIdx.x + 1;
-    for (int ch = 0; ch < 3; ++ch) o[ch] = E[ch][ly][lx];
-    const float iv = inv[(y >> 3) * inv_stride + (x >> 3)];
-    if (iv < 0.0f) {
-      const bool border = (y & 7) == 0 || (y & 7) == 7 || (x & 7) == 0 ||
-                          (x & 7) == 7;
-      const float inv2 = (border ? iv * p.border_mul : iv) * p.pass2_scale;
-      const int ndy[4] = {0, 0, 1, -1}, ndx[4] = {1, -1, 0, 0};
-      float den = 1.0f, n[3] = {o[0], o[1], o[2]};
-#pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        float nb[3], sad = 0.0f;
-        for (int ch = 0; ch < 3; ++ch) {
-          nb[ch] = E[ch][ly + ndy[d]][lx + ndx[d]];
-          sad = sad + p.cs[ch] * fabsf(o[ch] - nb[ch]);
-        }
-        const float w = fmaxf(1.0f + sad * inv2, 0.0f);
-        den = den + w;
-        for (int ch = 0; ch < 3; ++ch) n[ch] = n[ch] + w * nb[ch];
-      }
-      const float inv_den = 1.0f / den;
-      for (int ch = 0; ch < 3; ++ch) o[ch] = n[ch] * inv_den;
-    }
-  } else {
-    if (x >= W || y >= H) return;
-    epf1(y, x, o);
-  }
-  const long long plane = (long long)H * W, px = (long long)y * W + x;
-  if constexpr (sizeof(OutT) == 4) {
-    for (int ch = 0; ch < 3; ++ch) out[ch * plane + px] = o[ch];
-  } else {
-    float q[3];
-    xyb_to_srgb_codes(o[0], o[1], o[2], p.srgb, p.srgb.mul, q);
-    for (int ch = 0; ch < 3; ++ch) out[ch * plane + px] = (OutT)q[ch];
-  }
-}
-
-dim3 tiles(int H, int W) { return dim3((W + TX - 1) / TX, (H + TY - 1) / TY); }
-
-template <bool MIRROR, bool EPF2, typename OutT>
-void launch_real(const Planes& in, int pad, int H, int W, const float* inv,
-                 int inv_stride, void* out, const RealParams& p,
-                 cudaStream_t s) {
-  real_kernel<MIRROR, EPF2, OutT><<<tiles(H, W), dim3(TX, TY), 0, s>>>(
-      in, pad, H, W, inv, inv_stride, static_cast<OutT*>(out), p);
-}
 }  // namespace
 
 // Round-1 filters.  in: three planes with channel stride `plane_stride`
@@ -631,43 +463,4 @@ extern "C" int jxl_legacy_filters(const float* in, long long plane_stride,
     default:
       return cudaErrorInvalidValue;
   }
-}
-
-// Real-format chain.  in / pad as above; inv: per-block EPF1 slope with
-// row stride inv_stride.  mirror: 1 for fused_real_filters (Mirror
-// borders), 0 for fused_real_gab_epf1 (edge); epf2: run EPF pass 2;
-// out_kind: 0 float32, 1 uint8, 2 uint16 sRGB.  consts: k[9], cs[3],
-// border_mul, pass2_scale; srgb: 9 opsin-inverse floats, cbrt_bias, bias;
-// mul: 16 uint32.
-extern "C" int jxl_real_filters(const float* in, long long plane_stride,
-                                int row_stride, int pad, int H, int W,
-                                const float* inv, int inv_stride, void* out,
-                                int mirror, int epf2, int out_kind,
-                                const float* consts, const float* srgb,
-                                const uint32_t* mul, void* stream) {
-  if (H <= 0 || W <= 0) return cudaSuccess;
-  RealParams p;
-  for (int i = 0; i < 9; ++i) p.k[i] = consts[i];
-  for (int i = 0; i < 3; ++i) p.cs[i] = consts[9 + i];
-  p.border_mul = consts[12];
-  p.pass2_scale = consts[13];
-  for (int i = 0; i < 9; ++i) p.srgb.m[i] = srgb[i];
-  p.srgb.cbrt_bias = srgb[9];
-  p.srgb.bias = srgb[10];
-  p.srgb.scale = out_kind == 2 ? 65535.0f : 255.0f;
-  for (int i = 0; i < 16; ++i) p.srgb.mul[i] = mul[i];
-  const Planes pl{in, plane_stride, row_stride};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((mirror ? 8 : 0) | (epf2 ? 4 : 0) | out_kind) {
-    case 0: launch_real<false, false, float>(pl, pad, H, W, inv, inv_stride, out, p, s); break;
-    case 1: launch_real<false, false, uint8_t>(pl, pad, H, W, inv, inv_stride, out, p, s); break;
-    case 8: launch_real<true, false, float>(pl, pad, H, W, inv, inv_stride, out, p, s); break;
-    case 9: launch_real<true, false, uint8_t>(pl, pad, H, W, inv, inv_stride, out, p, s); break;
-    case 10: launch_real<true, false, uint16_t>(pl, pad, H, W, inv, inv_stride, out, p, s); break;
-    case 12: launch_real<true, true, float>(pl, pad, H, W, inv, inv_stride, out, p, s); break;
-    case 13: launch_real<true, true, uint8_t>(pl, pad, H, W, inv, inv_stride, out, p, s); break;
-    case 14: launch_real<true, true, uint16_t>(pl, pad, H, W, inv, inv_stride, out, p, s); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
 }

@@ -1,5 +1,7 @@
 """Fused restoration filters: TPU kernels 3-6 of
-``jxl_coder_tpu/vardct/filters_pallas.py`` as ``csrc/fused_filters.cu``.
+``jxl_coder_tpu/vardct/filters_pallas.py``, kernels 5 and 6 as
+``csrc/fused_filters.cu``, kernels 3 and 4 as instantiations of kernel
+2's tile pass in ``csrc/filters.cu``.
 
 Entry points keep the JAX names and arguments (less ``tile``):
 
@@ -14,7 +16,8 @@ Entry points keep the JAX names and arguments (less ``tile``):
 - ``fused_real_filters(img_padded, inv_blocks, ...)`` (#3): the
   real-format gaborish + EPF1 (+ EPF2) (+ sRGB) chain with Mirror
   borders, and ``fused_real_gab_epf1(img_padded, inv_blocks, to_srgb)``
-  (#4): gaborish + EPF1 with edge-replicated borders.
+  (#4): gaborish + EPF1 with edge-replicated borders.  Both read the
+  caller's pad rows as data.
 
 On a CPU tensor each runs its ``*_plain`` twin; on a CUDA tensor it
 launches its kernel and never the twin.  The kernels take any H x W;
@@ -32,7 +35,7 @@ import torch
 from .. import _build
 from ..host.vardct.dec_real import EPF_CHANNEL_SCALE as REAL_CS
 from . import color, pipeline as P, xyb as X
-from .filters import BORDER_MUL, _border, _mirror_index
+from .filters import BORDER_MUL, _border, _mirror_index, kernel_consts
 
 PAD = 4      # row padding of the JAX functions' padded planes
 DEFAULT_GW1, DEFAULT_GW2 = 0.115169525, 0.061248592
@@ -43,17 +46,21 @@ _EPF_NONE, _EPF_PIXEL, _EPF_BLOCK = 0, 1, 2
 _c = ctypes
 
 
+_P, _I = _c.c_void_p, _c.c_int
+
+
 @functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.load("fused_filters")
-    P_, I_ = _c.c_void_p, _c.c_int
-    return dict(
-        legacy=_build.bind(lib, "jxl_legacy_filters",
-                           [P_, _c.c_longlong, I_, I_, I_, I_, P_, I_, I_, I_,
-                            P_, I_, I_, I_, P_, P_, P_, P_, I_]),
-        real=_build.bind(lib, "jxl_real_filters",
-                         [P_, _c.c_longlong, I_, I_, I_, I_, P_, I_, P_, I_,
-                          I_, I_, P_, P_, P_]))
+def _legacy_kernel():
+    return _build.bind(_build.load("fused_filters"), "jxl_legacy_filters",
+                       [_P, _c.c_longlong, _I, _I, _I, _I, _P, _I, _I, _I,
+                        _P, _I, _I, _I, _P, _P, _P, _P, _I])
+
+
+@functools.lru_cache(maxsize=None)
+def _padded_kernel():
+    return _build.bind(_build.load("filters"), "jxl_restore_padded",
+                       [_P, _c.c_longlong, _I, _I, _I, _I, _P, _I, _P, _I,
+                        _I, _I, _P, _P, _P])
 
 
 def inv_den(distance: float) -> np.float32:
@@ -241,7 +248,7 @@ def _legacy_launch(img, pad, gab, epf, out, inv=None, qf_row=0,
     res = torch.empty((3, H, W), device=img.device, dtype=OUTS[out])
     tables = [t.data_ptr() for t in _code_tables(img.device)] \
         if out != "f32" else [None] * 3
-    _build.launch(_lib()["legacy"], img.device, _row0(img, pad),
+    _build.launch(_legacy_kernel(), img.device, _row0(img, pad),
                   img.stride(0), img.stride(1), pad, H, W, inv_ptr,
                   inv_stride, inv_rows, qf_row, res.data_ptr(), int(gab), epf,
                   tuple(OUTS).index(out),
@@ -394,27 +401,42 @@ def _real_plain(img, inv_blocks, mirror, epf2, k, pass2_scale, out_kind):
     return color.xyb_to_srgb_plain(out, out_kind == 2).permute(2, 0, 1)
 
 
-def _real_launch(img, inv_blocks, mirror, epf2, k, pass2_scale, out_kind):
+@functools.lru_cache(maxsize=64)
+def _padded_consts(gw1: float, gw2: float, pass2_scale: float) -> np.ndarray:
+    """jxl_restore_padded's constants: kernel 2's gaborish weights (the
+    pair in all three channels), channel scales and border multiplier,
+    then pass2_scale."""
+    head = kernel_consts((gw1, gw2) * 3, 1.0, 1.0)[:13]
+    return np.append(head, np.float32(pass2_scale)).astype(np.float32)
+
+
+def _padded_launch(img, inv_blocks, mirror, epf2, gw1, gw2, pass2_scale,
+                   out_kind):
+    """One launch of kernel 2's tile pass on row-padded planes (kernel 3
+    with mirror, kernel 4 without): its codes come as (H, W, 3) and are
+    returned as the twin's (3, H, W) view."""
     H, W = _rows(img, PAD, "real filters"), img.shape[2]
-    if img.stride(2) != 1:
-        img = img.contiguous()
     if inv_blocks.dtype != torch.float32 or inv_blocks.device != img.device \
             or inv_blocks.dim() != 2 or inv_blocks.shape[0] < (H + 7) // 8 \
             or inv_blocks.shape[1] < (W + 7) // 8:
         raise ValueError(f"inv_blocks must be float32 on {img.device}, at "
                          f"least {((H + 7) // 8, (W + 7) // 8)} blocks")
-    inv_blocks = inv_blocks.contiguous()
-    out = torch.empty((3, H, W), device=img.device, dtype=(
-        torch.float32, torch.uint8, torch.uint16)[out_kind])
-    consts = np.concatenate([k.reshape(9), np.float32(REAL_CS),
-                             [BORDER_MUL, np.float32(pass2_scale)]]
-                            ).astype(np.float32)
-    _build.launch(_lib()["real"], img.device, _row0(img, PAD), img.stride(0),
-                  img.stride(1), PAD, H, W, inv_blocks.data_ptr(),
-                  inv_blocks.stride(0), out.data_ptr(), int(mirror),
-                  int(epf2), out_kind, consts.ctypes.data,
+    if img.device.type != "cuda":
+        raise ValueError(f"unsupported device {img.device}")
+    if img.stride(2) != 1:
+        img = img.contiguous()
+    if inv_blocks.stride(1) != 1:
+        inv_blocks = inv_blocks.contiguous()
+    dtype = (torch.float32, torch.uint8, torch.uint16)[out_kind]
+    res = torch.empty((3, H, W) if out_kind == 0 else (H, W, 3),
+                      device=img.device, dtype=dtype)
+    _build.launch(_padded_kernel(), img.device, _row0(img, PAD),
+                  img.stride(0), img.stride(1), PAD, H, W,
+                  inv_blocks.data_ptr(), inv_blocks.stride(0), res.data_ptr(),
+                  int(mirror), int(epf2), out_kind,
+                  _padded_consts(gw1, gw2, pass2_scale).ctypes.data,
                   color._CONSTS.ctypes.data, color._MUL.ctypes.data)
-    return out
+    return res if out_kind == 0 else res.permute(2, 0, 1)
 
 
 def _out_kind(to_srgb: bool, bits: int) -> int:
@@ -440,9 +462,8 @@ def fused_real_filters(img_padded: torch.Tensor, inv_blocks: torch.Tensor,
     if img_padded.device.type == "cpu":
         return fused_real_filters_plain(img_padded, inv_blocks, epf_iters,
                                         pass2_scale, gw1, gw2, to_srgb, bits)
-    out = _real_launch(img_padded, inv_blocks, True, epf_iters >= 2,
-                       _real_taps(gw1, gw2), pass2_scale,
-                       _out_kind(to_srgb, bits))
+    out = _padded_launch(img_padded, inv_blocks, True, epf_iters >= 2,
+                         gw1, gw2, pass2_scale, _out_kind(to_srgb, bits))
     fused_real_filters.launches += 1
     return out
 
@@ -460,9 +481,8 @@ def fused_real_gab_epf1(img_padded: torch.Tensor, inv_blocks: torch.Tensor,
     (3, H, W) float32, or uint8 sRGB with to_srgb."""
     if img_padded.device.type == "cpu":
         return fused_real_gab_epf1_plain(img_padded, inv_blocks, to_srgb)
-    out = _real_launch(img_padded, inv_blocks, False, False,
-                       _real_taps(DEFAULT_GW1, DEFAULT_GW2), 1.0,
-                       _out_kind(to_srgb, 8))
+    out = _padded_launch(img_padded, inv_blocks, False, False, DEFAULT_GW1,
+                         DEFAULT_GW2, 1.0, _out_kind(to_srgb, 8))
     fused_real_gab_epf1.launches += 1
     return out
 

@@ -84,10 +84,15 @@ def _inv_blocks(h, w, seed):
     return F.epf_inv(torch.from_numpy(sigma), 1.0)
 
 
+# the Pallas kernels' width and a narrower one that is not a multiple of
+# 128 (interpret mode is slow on the CPU)
+REAL_SHAPES = [(32, 128), (16, 72)]
+
+
+@pytest.mark.parametrize("h,w", REAL_SHAPES)
 @pytest.mark.parametrize("epf_iters,out", [
     (1, "f32"), (1, "u8"), (2, "f32"), (2, "u8"), (2, "u16")])
-def test_fused_real_filters_vs_pallas(epf_iters, out):
-    h, w = 32, 128
+def test_fused_real_filters_vs_pallas(epf_iters, out, h, w):
     x = _xyb(h, w, seed=10 + epf_iters)
     inv = _inv_blocks(h, w, seed=11)
     kw = dict(epf_iters=epf_iters, to_srgb=out != "f32",
@@ -99,9 +104,9 @@ def test_fused_real_filters_vs_pallas(epf_iters, out):
     _compare(got.numpy(), ref, out)
 
 
+@pytest.mark.parametrize("h,w", REAL_SHAPES)
 @pytest.mark.parametrize("out", ["f32", "u8"])
-def test_fused_real_gab_epf1_vs_pallas(out):
-    h, w = 32, 128
+def test_fused_real_gab_epf1_vs_pallas(out, h, w):
     x = _xyb(h, w, seed=13)
     inv = _inv_blocks(h, w, seed=14)
     with pltpu.force_tpu_interpret_mode():
@@ -283,8 +288,11 @@ def test_fused_entry_points_check_their_inputs():
         FF._legacy_launch(torch.zeros((3, 8, 24)), 0, True, FF._EPF_NONE,
                           "u32")
     with pytest.raises(ValueError, match="inv_blocks"):
-        FF._real_launch(torch.zeros((3, 24, 16)), torch.zeros((1, 1)), True,
-                        False, FF._real_taps(0.1, 0.05), 1.0, 0)
+        FF._padded_launch(torch.zeros((3, 24, 16)), torch.zeros((1, 1)),
+                          True, False, 0.1, 0.05, 1.0, 0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        FF._padded_launch(torch.zeros((3, 24, 16)), torch.zeros((2, 2)),
+                          True, False, 0.1, 0.05, 1.0, 0)
 
 
 _CODE_SHIM = r"""
@@ -386,6 +394,99 @@ def test_kernel_codes_equal_the_twins_on_every_float(tmp_path, out):
         else:
             ref = P.linear_to_codes(v, scale).numpy()
         assert np.array_equal(got, ref.astype(np.int32)), float(v[0])
+
+
+_SOURCES_SHIM = r"""
+#define __host__
+#define __device__
+#define __forceinline__ inline
+"""
+
+_SOURCES_RUN = r"""
+template <int MODE>
+static void one(int i, int n, int pad, int* o) {
+  o[0] = source_row<MODE>(i, n, pad);
+  o[1] = source_col<MODE>(i, n);
+  o[2] = fold<gab_mirror<MODE>()>(i, n);
+}
+// window positions -r .. n + r - 1 of a plane n long: the input row and
+// column each loads, where the gaborish output there is folded from, and
+// where EPF2's input is (edge replication in every mode)
+extern "C" void sources(int mode, int n, int pad, int r, int* rows,
+                        int* cols, int* gab, int* epf2) {
+  for (int i = -r; i < n + r; ++i) {
+    int o[3];
+    if (mode == CHAIN) one<CHAIN>(i, n, pad, o);
+    else if (mode == PADDED_MIRROR) one<PADDED_MIRROR>(i, n, pad, o);
+    else one<PADDED_EDGE>(i, n, pad, o);
+    rows[i + r] = o[0];
+    cols[i + r] = o[1];
+    gab[i + r] = o[2];
+    epf2[i + r] = fold<false>(i, n);
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def window_sources(tmp_path_factory):
+    """csrc/filters.cu's window sources (with common.cuh's mirror and
+    clampi) built for the host with g++."""
+    import ctypes
+    import shutil
+    import subprocess
+    from jxl_coder_tpu_torch import _build
+    gxx = shutil.which("g++")
+    assert gxx, "g++ builds the port's host codec; it is needed here too"
+    common = (_build.CSRC / "common.cuh").read_text()
+    src = (_build.CSRC / "filters.cu").read_text()
+    body = (common[common.index("// libjxl Mirror()"):
+                   common.index("struct SrgbParams")]
+            + src[src.index("// Window sources:"):
+                  src.index("// (end of the window sources)")])
+    tmp = tmp_path_factory.mktemp("sources")
+    cpp, so = tmp / "sources.cpp", tmp / "libsources.so"
+    cpp.write_text(_SOURCES_SHIM + body + _SOURCES_RUN)
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o",
+                    str(so), str(cpp)], check=True)
+    fn = ctypes.CDLL(str(so)).sources
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+    return fn
+
+
+@pytest.mark.parametrize("mode", ["chain", "padded_mirror", "padded_edge"])
+def test_window_sources_equal_the_twins_indices(window_sources, mode):
+    """Kernels 2-4's window sources give, at every window position out to
+    the widest halo the tile pass loads (4), for planes 1 to 20 long and
+    0 to 4 pad rows: the input row and column their plain twins read
+    (kernel 2: Mirror()ed, filters._mirror_index; kernels 3 and 4: the
+    caller's pad rows by fused_filters._padded_rows, clamped past them,
+    columns clamped), the gaborish output's fold (_mirror_index for
+    kernels 2 and 3, clamped for kernel 4) and EPF2's edge-replicated
+    input."""
+    R = 4
+    code = {"chain": 0, "padded_mirror": 1, "padded_edge": 2}[mode]
+    for n in range(1, 21):
+        idx = np.arange(-R, n + R)
+        clamped = np.clip(idx, 0, n - 1)
+        mirrored = F._mirror_index(n, R, "cpu").numpy()
+        for pad in range(5):
+            got = np.zeros((4, n + 2 * R), np.int32)
+            window_sources(code, n, pad, R, *(g.ctypes.data for g in got))
+            rows, cols, gab, epf2 = got
+            if mode == "chain":
+                want_rows = want_cols = want_gab = mirrored
+            else:
+                planes = torch.arange(n + 2 * pad, dtype=torch.float32)
+                want_rows = FF._padded_rows(planes.view(1, -1, 1), pad, R)[
+                    0, :, 0].long().numpy() - pad
+                want_cols = clamped
+                want_gab = mirrored if mode == "padded_mirror" else clamped
+            what = f"{mode} n {n} pad {pad}"
+            assert np.array_equal(rows, want_rows), what
+            assert np.array_equal(cols, want_cols), what
+            assert np.array_equal(gab, want_gab), what
+            assert np.array_equal(epf2, clamped), what
 
 
 def _bits(lo, hi):

@@ -131,12 +131,12 @@ def _reaches_the_jax_package(path: Path):
 PORT_SOURCES = sorted(
     str(p.relative_to(REPO)) for p in PKG.rglob("*")
     if p.suffix in (".py", ".cu", ".cuh", ".cpp")) + [
-        "chip_smoke.py", "port_fixtures.py"]
+        "chip_smoke.py", "filters_vs_parent.py", "port_fixtures.py"]
 
 
 @pytest.mark.parametrize("name", PORT_SOURCES)
 def test_card_script_reaches_the_jax_package_only_through_the_port(name):
-    """No source of the port, nor chip_smoke.py or its fixtures, imports
+    """No source of the port, nor the card scripts or their fixtures, imports
     jax or jxl_coder_tpu or opens a path beneath jxl_coder_tpu/: the host
     codec they need is the port's own (host/, reference)."""
     assert _reaches_the_jax_package(REPO / name) == []
