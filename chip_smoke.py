@@ -9,11 +9,14 @@ prints no result):
   2. build the CUDA kernels from jxl_coder_tpu_torch/csrc with nvcc;
   3. encode the 3840x2160 d1.0 e7 frame of bench.py, a 1920x1080 d4.0
      frame (epf_iters 3), a 517x771 frame of sharp strokes (the special
-     1-block transforms, a ragged size), a small 16-bit frame and a
+     1-block transforms, a ragged size), a small 16-bit frame, a
      384x256 sharp frame at distance 0.1 (an int8 DCT8 family with an
-     exception list) with the repo's own host encoder
+     exception list), a two-pass (progressive) 320x256 frame and a
+     single-section 232x200 frame with the repo's own host encoder
      (jxl_coder_tpu_torch.reference), cached in the temp directory by
-     content hash;
+     content hash; then the AC entropy decode's kernel (entropy="device")
+     on the small streams and at 4K, its plain twin on the same tables
+     started in worker processes on the CPU (one step per token);
   4. each kernel against its plain PyTorch twin on the card: synthesis
      on every stream's families (the DCT8 kernel on the DCT8 family) and
      on seeded families of every strategy id 0-26; kernel 2's tile pass
@@ -24,11 +27,18 @@ prints no result):
      on every stream against the float64 host decoder, with every
      kernel's launch counter > 0, and each frame's own launches: kernel
      2 once (plus its EPF0 pass at epf_iters 3), the DCT8 kernel once;
+     then again with entropy="device", counted: the entropy kernel once
+     per frame, no host read_pass_group, the pixels equal to the host
+     route's; and the entropy kernel against its twin (0 coefficients
+     differ; status, final states and tokens equal);
   6. timings: the device half (wall time and device-busy time) and the
-     whole decode at 4K, split into its layers inside the same
-     api.decode calls whose total it prints (the port's functions
-     wrapped for those calls, in turns with unwrapped calls), and the
-     host parse split by its own steps; the synthesis by family (the
+     whole decode at 4K by both entropy routes, split into its layers
+     inside the same api.decode calls whose total it prints (the port's
+     functions wrapped for those calls, in turns with unwrapped calls),
+     and the parse split by its own steps (the device route's: anchors,
+     upload, kernel, status read; its family gather in pack); the entropy
+     kernel at 4K against the host route's coefficients (bit for bit),
+     its time, tokens per group and bound; the synthesis by family (the
      DCT8 kernel apart) and kernel 2 at 4K, and kernel 2 and its EPF0
      pass on the FHD d4.0 frame's planes, each against its twin and its
      bound;
@@ -71,9 +81,12 @@ and power limit and
 
 from __future__ import annotations
 
+import atexit
 import contextlib
+import functools
 import hashlib
 import json
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -90,6 +103,7 @@ import numpy as np
 import torch
 
 from jxl_coder_tpu_torch import _build, api, codec, reference
+from jxl_coder_tpu_torch.entropy import device as ENT
 from jxl_coder_tpu_torch.host.vardct.dec_real import BlockArrays
 from jxl_coder_tpu_torch.vardct import dct8, filters, inputs, synth
 from jxl_coder_tpu_torch.vardct import detile as DT
@@ -98,7 +112,7 @@ from jxl_coder_tpu_torch.vardct import parse as PARSE
 from jxl_coder_tpu_torch.vardct import pipeline as LP
 from jxl_coder_tpu_torch.vardct.frame import VarDCTFrame
 from port_fixtures import (bench_frame, dct8_arguments, sharp_frame,
-                           synthetic_family)
+                           synthetic_family, waves_frame)
 
 SYNTH_TOL = 1e-4      # f32 sums in another order than the twin's matmuls
 FILTER_TOL = 1e-5     # no FMA contraction; EPF SADs summed in another order
@@ -127,6 +141,9 @@ KERNELS = {
                            replaces="jxl_coder_tpu/vardct/filters_pallas.py:190"),
     "detile": dict(fn=DT.detile, source="jxl_coder_tpu_torch/csrc/detile.cu",
                    replaces="research/detile_probe.py:84"),
+    "decode_pass_groups": dict(fn=ENT.decode_pass_groups,
+                               source="jxl_coder_tpu_torch/csrc/entropy.cu",
+                               replaces="jxl_coder_tpu/entropy/device.py:225"),
 }
 # the round-1 encoder's sources: a change to any of them re-encodes
 LEGACY_ENCODER = [sys.modules[m].__file__ for m in (
@@ -167,6 +184,12 @@ F32_OPS_PER_S = 67e12         # f32 outside the tensor cores
 #     the kernel) and the clip to the code range (1): 51
 OPS_PX = {"gaborish": 27, "epf0": 173, "epf1": 71, "epf2": 63, "srgb": 69,
           "codes": 51}
+# the entropy decode is one serial chain per group, not a rate: its least
+# time is the longest group's tokens, each at least the dependent chain
+# of the alias entry's load from L1 (33 cycles, Hopper's L1 hit latency
+# in published microbenchmarks) and the rANS state's multiply-add
+# (4 cycles), at the card's highest SM clock
+CHAIN_CYCLES = 33 + 4
 
 
 def nbytes(*tensors) -> int:
@@ -216,14 +239,16 @@ def cached(img: np.ndarray, params: str, sources, encode) -> bytes:
 
 
 def stream(img: np.ndarray, distance: float, effort: int,
-           bits16: bool = False) -> bytes:
+           bits16: bool = False, progressive: bool = False) -> bytes:
     # 8-bit input signalled at 16 bits: the 16-bit input path of the
     # encoder needs JAX (ops.color), the 16-bit output path does not
-    return cached(img, f"d{distance} e{effort} bits16 {bits16}",
+    return cached(img, f"d{distance} e{effort} bits16 {bits16} progressive "
+                  f"{progressive}",
                   [sys.modules[reference.encode_vardct.__module__].__file__],
                   lambda: reference.encode_vardct(
                       img, distance=distance, effort=effort,
-                      bit_depth=16 if bits16 else None))
+                      bit_depth=16 if bits16 else None,
+                      progressive=progressive))
 
 
 def legacy_stream(img: np.ndarray, distance: float, speed: int) -> bytes:
@@ -1101,15 +1126,28 @@ PARSE_STEPS = {"LF global": ("read_lf_global",),
                                          "adaptive_dc_smoothing"),
                "pass groups (C++)": ("read_pass_group",),
                "BlockArrays.concat": ("concat",)}
+# the device route's own steps (entropy="device"): step -> the functions of
+# entropy/device.py that parse_frame calls for it; the kernel's wrapper
+# synchronises, so that its launch ends inside it
+ENTROPY_STEPS = {"anchors": ("build_anchors",),
+                 "upload": ("group_streams", "frame_tables"),
+                 "kernel": ("decode_pass_groups",),
+                 "status read": ("check_groups",)}
 
 
-def timed(fn, name: str, log: list):
+def timed(fn, name: str, log: list, sync: bool = False):
     """fn, appending (name, start, end) on the host clock to log per call
-    (the pass groups' calls append from a thread pool)."""
+    (the pass groups' calls append from a thread pool); with sync, the
+    call ends with torch.cuda.synchronize().  The wrapper carries fn's
+    attributes (a kernel wrapper's launch count)."""
+    @functools.wraps(fn)
     def call(*args, **kwargs):
         t0 = time.perf_counter()
         try:
-            return fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            return out
         finally:
             log.append((name, t0, time.perf_counter()))
     return call
@@ -1137,6 +1175,12 @@ def split_decode(log: list):
                 wrap(PARSE, name, timed(getattr(PARSE, name), name, log))
     wrap(BlockArrays, "concat",
          staticmethod(timed(BlockArrays.concat, "concat", log)))
+    for names in ENTROPY_STEPS.values():
+        for name in names:
+            wrap(ENT, name, timed(getattr(ENT, name), name, log,
+                                  sync=name == "decode_pass_groups"))
+    wrap(inputs, "_gather_family",
+         timed(inputs._gather_family, "_gather_family", log, sync=True))
 
     class Host:
         def __init__(self, t0, host):
@@ -1179,28 +1223,38 @@ def spent(log: list, names) -> float:
     return sum(t1 - t0 for n, t0, t1 in log if n in names) * 1e3
 
 
-def decode_layers(data: bytes, mp: float, card: str, runs: int = 5) -> None:
-    """M1: the 4K decode split into its layers inside the same
-    api.decode calls whose total is printed, `runs` of them in turns with
-    as many unwrapped calls (split first in even pairs, unsplit first in
-    odd ones); raises if a split call's layers do not sum to within 2% of
-    its own total.  Then the host parse by its own steps, from the same
-    calls."""
-    med = statistics.median
-    split, unsplit = [], []
+def decode_layers(data: bytes, mp: float, card: str, runs: int = 5) -> dict:
+    """M1, for both entropy routes: the 4K decode split into its layers
+    inside the same api.decode calls whose total is printed, `runs` of
+    them per route in turns with as many unwrapped calls (split first in
+    even pairs, unsplit first in odd ones; the routes alternate call by
+    call); raises if a split call's layers do not sum to within 2% of its
+    own total.  Then the parse by its own steps, from the same calls.
+    Returns each route's medians by layer and step (ms)."""
+    routes = ("host", "device")
+    split = {r: [] for r in routes}
+    unsplit = {r: [] for r in routes}
     for i in range(2 * runs):
-        torch.cuda.synchronize()
-        if (i % 2 == 0) == (i // 2 % 2 == 0):
-            log = []
-            with split_decode(log):
+        for r in routes:
+            torch.cuda.synchronize()
+            if (i % 2 == 0) == (i // 2 % 2 == 0):
+                log = []
+                with split_decode(log):
+                    t0 = time.perf_counter()
+                    api.decode(data, device="cuda", entropy=r)
+                    split[r].append(((time.perf_counter() - t0) * 1e3, log))
+            else:
                 t0 = time.perf_counter()
-                api.decode(data, device="cuda")
-                split.append(((time.perf_counter() - t0) * 1e3, log))
-        else:
-            t0 = time.perf_counter()
-            api.decode(data, device="cuda")
-            unsplit.append((time.perf_counter() - t0) * 1e3)
+                api.decode(data, device="cuda", entropy=r)
+                unsplit[r].append((time.perf_counter() - t0) * 1e3)
+    return {r: report_layers(r, split[r], unsplit[r], mp, card, runs)
+            for r in routes}
 
+
+def report_layers(route: str, split: list, unsplit: list, mp: float,
+                  card: str, runs: int) -> dict:
+    """One route's lines of decode_layers; its medians by name."""
+    med = statistics.median
     layers = {**DECODE_LAYERS, "device": ("device",), "d2h": ("d2h",)}
     per = {k: [spent(log, names) for _, log in split]
            for k, names in layers.items()}
@@ -1208,51 +1262,254 @@ def decode_layers(data: bytes, mp: float, card: str, runs: int = 5) -> None:
     gaps = [abs(sums[n] - total) / total for n, (total, _) in enumerate(split)]
     for n, (total, _log) in enumerate(split):
         if gaps[n] > 0.02:
-            raise AssertionError(f"split decode {n}: its layers sum to "
-                                 f"{sums[n]:.1f} ms, the call took "
+            raise AssertionError(f"split decode {n} ({route}): its layers sum "
+                                 f"to {sums[n]:.1f} ms, the call took "
                                  f"{total:.1f} ms")
     m = {k: med(v) for k, v in per.items()}
     t_split, t_unsplit = med(t for t, _ in split), med(unsplit)
-    print(f"layers 4k (host clock, ms, median of {runs} split api.decode "
-          f"calls): parse (_read_frame + parse_frame) {m['parse']:.1f}, pack "
-          f"{m['pack']:.1f}, h2d (from_prepared) {m['h2d']:.1f}, device "
-          f"(VarDCTFrame(cfg)(inputs), then torch.cuda.synchronize() in the "
-          f"wrapper) {m['device']:.1f}, d2h (.cpu().numpy()) {m['d2h']:.1f}, "
-          f"rest (apply_orientation, basic_info) {m['rest']:.1f}; sum of the "
-          f"medians {sum(m.values()):.1f}; each call's layers summed, median "
+    print(f"layers 4k entropy={route} (host clock, ms, median of {runs} split "
+          f"api.decode calls): parse (_read_frame + parse_frame) "
+          f"{m['parse']:.1f}, pack {m['pack']:.1f}, h2d (from_prepared) "
+          f"{m['h2d']:.1f}, device (VarDCTFrame(cfg)(inputs), then "
+          f"torch.cuda.synchronize() in the wrapper) {m['device']:.1f}, d2h "
+          f"(.cpu().numpy()) {m['d2h']:.1f}, rest (apply_orientation, "
+          f"basic_info) {m['rest']:.1f}; sum of the medians "
+          f"{sum(m.values()):.1f}; each call's layers summed, median "
           f"{med(sums):.1f}, within {max(gaps):.2%} of the call's own total; "
           f"the split calls' total {t_split:.1f}; unsplit calls "
           f"{t_unsplit:.1f} (split - unsplit {t_split - t_unsplit:+.1f} ms: "
           f"the wrappers' cost and the spread) [{card}]", flush=True)
-    print(f"end_to_end 4k decode bytes->pixels (the unsplit calls): "
-          f"{t_unsplit:.1f} ms = {mp / t_unsplit * 1e3:.2f} MP/s [{card}]",
-          flush=True)
+    print(f"end_to_end 4k decode entropy={route} bytes->pixels (the unsplit "
+          f"calls): {t_unsplit:.1f} ms = {mp / t_unsplit * 1e3:.2f} MP/s "
+          f"[{card}]", flush=True)
 
-    # the parse by its own steps; the pass groups run on a thread pool,
-    # so their wall span (first call's start to last call's end) and
-    # their time summed over the threads apart
+    # the parse by its own steps; the host route's pass groups run on a
+    # thread pool, so their wall span (first call's start to last call's
+    # end) and their time summed over the threads apart
     steps = {s: [spent(log, names) for _, log in split]
-             for s, names in PARSE_STEPS.items()}
+             for s, names in {**PARSE_STEPS, **ENTROPY_STEPS}.items()}
     pg = "pass groups (C++)"
     wall, calls = [], []
     for _, log in split:
         spans = [(t0, t1) for n, t0, t1 in log if n == "read_pass_group"]
         wall.append((max(t1 for _, t1 in spans) - min(t0 for t0, _ in spans))
-                    * 1e3)
+                    * 1e3 if spans else 0.0)
         calls.append(len(spans))
     read_frame = [spent(log, ("_read_frame",)) for _, log in split]
     rest = [spent(log, ("parse_frame",)) - wall[n]
             - sum(v[n] for s, v in steps.items() if s != pg)
             for n, (_, log) in enumerate(split)]
-    print(f"parse 4k by step (host clock, ms, median of the same {runs} "
-          f"calls): _read_frame {med(read_frame):.1f}, "
-          + ", ".join(f"{s} {med(v):.1f}" for s, v in steps.items() if s != pg
-                      and s != "BlockArrays.concat")
-          + f", {pg} {med(wall):.1f} wall ({calls[0]} calls on "
-          f"{os.cpu_count()} cores; {med(steps[pg]):.1f} summed over the "
-          f"threads), BlockArrays.concat "
-          f"{med(steps['BlockArrays.concat']):.1f}, the rest of parse_frame "
-          f"{med(rest):.1f}; then pack {m['pack']:.1f} [{card}]", flush=True)
+    gather = [spent(log, ("_gather_family",)) for _, log in split]
+    shown = [s for s in steps if med(steps[s]) > 0 or s in PARSE_STEPS]
+    if route == "host":
+        shown = [s for s in shown if s in PARSE_STEPS]
+    print(f"parse 4k entropy={route} by step (host clock, ms, median of the "
+          f"same {runs} calls): _read_frame {med(read_frame):.1f}, "
+          + ", ".join(f"{s} {med(steps[s]):.1f}" for s in shown
+                      if s not in (pg, "BlockArrays.concat"))
+          + (f", {pg} {med(wall):.1f} wall ({calls[0]} calls on "
+             f"{os.cpu_count()} cores; {med(steps[pg]):.1f} summed over the "
+             f"threads), BlockArrays.concat "
+             f"{med(steps['BlockArrays.concat']):.1f}" if route == "host"
+             else "")
+          + f", the rest of parse_frame {med(rest):.1f}; then pack "
+          f"{m['pack']:.1f}"
+          + (f" (of it the family gather on the card, synchronised, "
+             f"{med(gather):.1f})" if route == "device" else "")
+          + f" [{card}]", flush=True)
+    out = dict(m, total=t_unsplit, family_gather=med(gather),
+               pass_groups_wall=med(wall))
+    out.update({s: med(v) for s, v in steps.items()})
+    return out
+
+
+# ---- the device entropy decode (entropy="device") ----
+
+def entropy_run(data: bytes, dev):
+    """api.prepare(data, dev, entropy="device") with the decode's tables
+    and its output recorded -> (Tables, Decoded)."""
+    seen = {}
+    frame_tables, check_groups = ENT.frame_tables, ENT.check_groups
+
+    def tables(*args):
+        seen["tables"] = frame_tables(*args)
+        return seen["tables"]
+
+    def check(decoded):
+        seen["decoded"] = decoded
+        return check_groups(decoded)
+
+    ENT.frame_tables, ENT.check_groups = tables, check
+    try:
+        api.prepare(data, dev, entropy="device")
+    finally:
+        ENT.frame_tables, ENT.check_groups = frame_tables, check_groups
+    return seen["tables"], seen["decoded"]
+
+
+def twin_job(tables: tuple):
+    """In a worker process: the twin on the CPU -> (coefficients, status,
+    final states, tokens as numpy, seconds)."""
+    torch.set_num_threads(1)
+    t = ENT.Tables(*[torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+                     for x in tables])
+    t0 = time.perf_counter()
+    d = ENT.decode_pass_groups_plain(t)
+    return tuple(x.numpy() for x in d) + (time.perf_counter() - t0,)
+
+
+def start_twins(pool, streams: dict, dev) -> dict:
+    """The kernel on each of `streams` (label -> data), its output kept,
+    and the twin on the same tables started in `pool`."""
+    jobs = {}
+    for label, data in streams.items():
+        tables, dec = entropy_run(data, dev)
+        host = tuple(x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+                     for x in tables)
+        jobs[label] = (tuple(x.cpu().numpy() for x in dec),
+                       pool.apply_async(twin_job, (host,)))
+    return jobs
+
+
+def check_twins(jobs: dict) -> float:
+    """Kernel against twin on each stream: 0 coefficients may differ, and
+    the status bits, final rANS states and token counts must be equal.
+    Returns the twin's seconds on the 4K stream."""
+    seconds = None
+    for label, (kernel, job) in jobs.items():
+        twin = job.get()
+        differ = int((kernel[0] != twin[0]).sum())
+        same = all(np.array_equal(a, b) for a, b in zip(kernel[1:], twin[1:4]))
+        note_err("decode_pass_groups", np.abs(
+            kernel[0].astype(np.int64) - twin[0].astype(np.int64)).max(
+                initial=0), 0,
+            f"{label}: {differ} of {kernel[0].size} coefficients differ, "
+            f"status / final states / tokens {'equal' if same else 'DIFFER'}"
+            f" ({len(kernel[1])} groups, {int(kernel[3].max())} tokens in the "
+            f"longest; the twin on the CPU {twin[4]:.1f} s)")
+        if not same:
+            raise AssertionError(f"decode_pass_groups: the kernel's status, "
+                                 f"states or tokens differ from the twin's "
+                                 f"on {label}")
+        if label.startswith("4k"):
+            seconds = twin[4]
+    return seconds
+
+
+def entropy_main_path(streams: dict, outs: dict) -> int:
+    """The main path with entropy="device", counted: one kernel launch per
+    frame, no host read_pass_group, and the pixels of the host route
+    (phase 5's `outs`), exactly."""
+    reads = []
+    read = PARSE.read_pass_group
+
+    def read_pass_group(*args, **kwargs):
+        reads.append(1)
+        return read(*args, **kwargs)
+
+    def main_path():
+        got, per_frame = {}, {}
+        for label, (_h, _w, data) in streams.items():
+            before = ENT.decode_pass_groups.launches
+            got[label] = api.decode(data, device="cuda", entropy="device")[0]
+            per_frame[label] = ENT.decode_pass_groups.launches - before
+        return got, per_frame
+
+    PARSE.read_pass_group = read_pass_group
+    try:
+        (got, per_frame), counts = drive(
+            "main path (api.decode, entropy=device)", main_path,
+            ("decode_pass_groups",))
+    finally:
+        PARSE.read_pass_group = read
+    if reads:
+        raise AssertionError(f"entropy=device read {len(reads)} pass groups "
+                             f"on the host")
+    for label, n in per_frame.items():
+        d = np.abs(got[label].astype(np.int64) - outs[label].astype(np.int64))
+        print(f"decode {label} entropy=device: {n} launch of "
+              f"decode_pass_groups, no host pass group; pixels against "
+              f"entropy=host max {d.max()} code", flush=True)
+        if n != 1 or d.max() != 0:
+            raise AssertionError(f"{label}: {n} launches, pixels {d.max()} "
+                                 f"codes from the host route's")
+    return counts["decode_pass_groups"]
+
+
+def entropy_4k(data: bytes, dev, card: str, ms: dict, twin_s: float,
+               layers: dict) -> None:
+    """At 4K: the kernel's coefficients against the host route's
+    BlockArrays.concat(...).coeffs, bit for bit; its time by CUDA events
+    around 10 launches, tokens per group and its bound, beside the host
+    route's pass groups and the device route's own steps from M1's
+    calls."""
+    cs, hdr, fh, toc = api._read_frame(data)
+    host = PARSE.parse_frame(cs, hdr, fh, toc)["blocks_glob"].coeffs
+    tables, dec = entropy_run(data, dev)
+    differ = int((dec.coeffs.cpu().numpy() != host).sum())
+    print(f"kernel decode_pass_groups at 4k against the host route's "
+          f"BlockArrays.concat(...).coeffs: {differ} of {host.size} "
+          f"coefficients differ", flush=True)
+    if differ or dec.coeffs.numel() != host.size:
+        raise AssertionError("decode_pass_groups disagrees with the host "
+                             "decoder at 4K")
+    # the instantiation that reads the pass tables from global memory
+    # (tables larger than the kernel stages in shared memory)
+    big = ENT.decode_pass_groups(tables._replace(stage_words=1 << 30))
+    differ = int((big.coeffs != dec.coeffs).sum().item())
+    print(f"kernel decode_pass_groups at 4k with its tables in global memory:"
+          f" {differ} of {host.size} coefficients differ from the staged "
+          f"launch", flush=True)
+    if differ or not torch.equal(big.states, dec.states):
+        raise AssertionError("the global-table instantiation disagrees")
+    tokens = dec.tokens.cpu().numpy()
+    ENT.decode_pass_groups(tables)
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(REPS):
+        ENT.decode_pass_groups(tables)
+    e.record()
+    e.synchronize()
+    kernel_ms = s.elapsed_time(e) / REPS
+    ms["decode_pass_groups"] = (kernel_ms, twin_s * 1e3)
+    global_ms = cuda_ms(lambda: ENT.decode_pass_groups(
+        tables._replace(stage_words=1 << 30)))
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    chain_ms = int(tokens.max()) * CHAIN_CYCLES / (clock * 1e3)
+    # the codestream and the tables read once, the coefficients (and the
+    # small status vectors) written once
+    moved = nbytes(*[x for x in tables if isinstance(x, torch.Tensor)],
+                   *dec)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    BOUND["decode_pass_groups"] = ((chain_ms, "operations")
+                                   if chain_ms >= bytes_ms
+                                   else (bytes_ms, "bytes"))
+    print(f"bound decode_pass_groups at 4k: the longest group's "
+          f"{int(tokens.max())} tokens x {CHAIN_CYCLES} cycles at "
+          f"{clock:.0f} MHz = {chain_ms:.4f} ms; {moved / 1e6:.1f} MB at "
+          f"3.35 TB/s = {bytes_ms:.4f} ms", flush=True)
+    host_wall = layers["host"]["pass_groups_wall"]
+    print(f"kernel decode_pass_groups at 4k ({len(tokens)} groups, one launch"
+          f" with the output's zero fill): {kernel_ms:.3f} ms (CUDA events "
+          f"around {REPS} launches) = {kernel_ms * 1e6 / tokens.max():.1f} ns "
+          f"per token of the longest group (tables in global memory "
+          f"{global_ms:.3f} ms); tokens per group max "
+          f"{int(tokens.max())}, mean {tokens.mean():.1f}; bound "
+          f"{BOUND['decode_pass_groups'][0]:.4f} ms; plain twin (CPU, a "
+          f"worker process) {twin_s * 1e3:.1f} ms; the host route's pass "
+          f"groups in M1's calls {host_wall:.1f} ms wall; the device route's "
+          f"anchors {layers['device']['anchors']:.1f} ms, upload "
+          f"{layers['device']['upload']:.1f}, kernel + sync "
+          f"{layers['device']['kernel']:.1f}, status read "
+          f"{layers['device']['status read']:.1f}, family gather "
+          f"{layers['device']['family_gather']:.1f}; end to end host "
+          f"{layers['host']['total']:.1f} ms, device "
+          f"{layers['device']['total']:.1f} ms [{card}]", flush=True)
 
 
 def main() -> int:
@@ -1268,14 +1525,14 @@ def main() -> int:
 
     # 2. build, one nvcc per source and g++ for the host codec, all at once
     t0 = time.perf_counter()
-    sources = ("synth", "filters", "fused_filters", "detile")
+    sources = ("synth", "filters", "fused_filters", "detile", "entropy")
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host = pool.submit(_build.load_host, "hostcodec")
         list(pool.map(_build.load, sources))
         host.result()
     print(f"build: nvcc sm_90a, {len(sources)} sources, and g++ for the host "
           f"codec in {time.perf_counter() - t0:.2f} s", flush=True)
-    for name in ("synth", "filters", "fused_filters"):
+    for name in ("synth", "filters", "fused_filters", "entropy"):
         ptxas_report(name)
 
     # 3. streams
@@ -1285,7 +1542,22 @@ def main() -> int:
                # the 16-bit output path of the same decode
                "16bit_d1.0_e5": (480, 720, stream(bench_frame(480, 720), 1.0, 5, True)),
                # distance 0.1: the DCT8 family is int8 with an exception list
-               "sharp_d0.1_e7": (256, 384, stream(sharp_frame(256, 384), 0.1, 7))}
+               "sharp_d0.1_e7": (256, 384, stream(sharp_frame(256, 384), 0.1, 7)),
+               # two AC passes (progressive), and one section for the frame
+               "waves_d1.0_e7_two_passes": (256, 320, stream(
+                   waves_frame(256, 320), 1.0, 7, progressive=True)),
+               "waves_d1.0_e7_single_section": (200, 232, stream(
+                   waves_frame(200, 232), 1.0, 7))}
+
+    # the entropy kernel on the small streams and at 4K; its plain twin on
+    # the same tables in worker processes meanwhile (one step per token:
+    # tens of seconds), collected before the timings
+    pool = multiprocessing.get_context("spawn").Pool(6)
+    atexit.register(pool.terminate)
+    twins = start_twins(pool, {k: streams[k][2] for k in (
+        "sharp_d1.0_e7", "16bit_d1.0_e5", "sharp_d0.1_e7",
+        "waves_d1.0_e7_two_passes", "waves_d1.0_e7_single_section",
+        "4k_d1.0_e7")}, dev)
 
     # 4. kernel vs twin on the card
     check_synth_all_strategies(dev)
@@ -1360,6 +1632,13 @@ def main() -> int:
         elif d.max() > 1 or frac >= 1e-3:
             raise AssertionError(f"{label}: decode outside 1 code / 0.1%")
 
+    # 5b. the main path with the AC entropy decode on the card, counted;
+    # then the kernel against its twin on the small streams and at 4K
+    launches["decode_pass_groups"] = entropy_main_path(streams, outs)
+    twin_s = check_twins(twins)
+    pool.close()
+    pool.join()
+
     # 6. timings at 4K
     h, w, data = streams["4k_d1.0_e7"]
     mp = h * w / 1e6
@@ -1373,11 +1652,12 @@ def main() -> int:
           f"device busy {busy_ms:.3f} ms = {mp / busy_ms * 1e3:.1f} MP/s; "
           f"wall {stage_ms:.3f} ms = {mp / stage_ms * 1e3:.1f} MP/s, card "
           f"busy {busy_ms / stage_ms:.1%} of it [{card}]", flush=True)
-    decode_layers(data, mp, card)
+    layers = decode_layers(data, mp, card)
 
     planes, sigma = synthesized(cfg, inp)
     xyb = planes[:, :h, :w]
     ms = {}
+    entropy_4k(data, dev, card, ms, twin_s, layers)
     synth_timings(cfg, inp, planes, card, ms)
     px = h * w
     note_bound("restore_and_output", nbytes(xyb, sigma) + 3 * px,

@@ -6,7 +6,10 @@
 own host layers (``host/``), the host parse
 (``vardct.parse``) and the family packing (``vardct.inputs.pack``),
 carried onto the named device; then the frame reconstruction runs there
-(``vardct.frame.VarDCTFrame``).
+(``vardct.frame.VarDCTFrame``).  ``entropy="device"`` decodes the AC pass
+groups on the device too (``entropy/device.py``), from the codestream's
+bytes; the default, "host", decodes them with the host codec.  A group
+the device decode finds corrupt raises InvalidJXLError.
 Streams outside the slice raise NotImplementedError naming the route
 they need; nothing falls back to the host decoder.
 """
@@ -28,7 +31,7 @@ from .host.bitstream.reader import BitReader, BitstreamError
 from .host.jpeg import transcode as _jpeg_tc
 from .vardct.frame import VarDCTFrame
 from .vardct.inputs import FrameConfig, FrameInputs, from_prepared, pack
-from .vardct.parse import parse_frame
+from .vardct.parse import check_entropy, parse_frame
 
 
 def _read_frame(data: bytes):
@@ -70,26 +73,30 @@ def _read_frame(data: bytes):
     return cs, hdr, fh, toc
 
 
-def prepare(data: bytes, device="cuda"
+def prepare(data: bytes, device="cuda", entropy: str = "host"
             ) -> Tuple[FrameConfig, FrameInputs, ImageHeader]:
     """The host half of decode: bytes -> (the frame's configuration, its
-    inputs on `device`, the image header)."""
+    inputs on `device`, the image header).  entropy: "host" or "device",
+    where the AC pass groups are entropy-decoded."""
+    check_entropy(entropy)
     dev = resolve_device(device)
     try:
         cs, hdr, fh, toc = _read_frame(data)
-        state = parse_frame(cs, hdr, fh, toc)
+        state = parse_frame(cs, hdr, fh, toc, entropy=entropy, device=dev)
     except BitstreamError as e:
         raise InvalidJXLError(str(e)) from e
     cfg, inputs = from_prepared(*pack(state), dev)
     return cfg, inputs, hdr
 
 
-def decode(data: bytes, device="cuda") -> Tuple[np.ndarray, BasicInfo]:
+def decode(data: bytes, device="cuda", entropy: str = "host"
+           ) -> Tuple[np.ndarray, BasicInfo]:
     """Decode a VarDCT still to (pixels, BasicInfo); pixels are (H, W, 3)
     uint8, or uint16 above 8 bits per sample, as jxl_coder_tpu.api.decode
     returns them.  The device half runs on `device` ("cuda" raises when
-    no card is present)."""
-    cfg, inputs, hdr = prepare(data, device)
+    no card is present); entropy="device" decodes the AC pass groups
+    there too (on the CPU, with the kernel's plain twin)."""
+    cfg, inputs, hdr = prepare(data, device, entropy)
     pixels = VarDCTFrame(cfg)(inputs).cpu().numpy()
     return (apply_orientation(pixels, hdr.metadata.orientation),
             basic_info(data))

@@ -5,6 +5,8 @@ of ``jxl_coder_tpu/vardct/tpu_full.py``'s ``prepare_exec`` and the
 helpers it calls (``:102-309``): numpy and the native packer of
 ``host/native``.  ``from_prepared`` turns its output into the port's
 tensors, so the port and the reference consume identical inputs.
+When the parse decoded the coefficients on the device (entropy="device"),
+each family's coefficients are gathered there instead (``_gather_family``).
 """
 
 from __future__ import annotations
@@ -121,6 +123,23 @@ def _pack_family(ba, sel, nc, P, n_pad):
     return out, None, mx
 
 
+def _gather_family(coeffs: torch.Tensor, offs: np.ndarray, P: np.ndarray,
+                   n_pad: int) -> torch.Tensor:
+    """One family's (n_pad, 3, K) int32 rows gathered from the device
+    coefficients (out[i, c, j] = coeffs[offs[i] + c * K + P[j]], zero
+    padding rows), on their device: one index that folds the slots and
+    the permutation together.  No int8 packing: nothing crosses to the
+    device."""
+    K = len(P)
+    dev = coeffs.device
+    base = torch.from_numpy(np.ascontiguousarray(offs, np.int64)).to(dev)
+    cols = torch.from_numpy(np.arange(3, dtype=np.int64)[:, None] * K
+                            + np.asarray(P, np.int64)[None, :]).to(dev)
+    out = torch.zeros((n_pad, 3, K), dtype=torch.int32, device=dev)
+    out[:len(offs)] = coeffs[base[:, None, None] + cols[None]]
+    return out
+
+
 def prepare_families(lf, fh, blocks_global, qf_map: np.ndarray,
                      ytox_glob: np.ndarray, ytob_glob: np.ndarray):
     """Group frame-global varblocks by strategy and build the dense
@@ -129,7 +148,9 @@ def prepare_families(lf, fh, blocks_global, qf_map: np.ndarray,
 
     blocks_global: a dec_real.BlockArrays (flat arrays straight from
     the entropy decode — the fast path; everything below is vectorized
-    numpy, no per-block Python) or a legacy List[VarBlock].
+    numpy, no per-block Python) or a legacy List[VarBlock].  Its
+    coefficients may be a torch tensor (the device entropy decode): then
+    each family's coefficients are an int32 tensor on its device.
 
     perm_inv maps each destination 8x8 tile of the frame to its source
     row in the concatenation of the per-family tile outputs — computed
@@ -192,7 +213,11 @@ def prepare_families(lf, fh, blocks_global, qf_map: np.ndarray,
             B = S.scan_to_basis(sid)
             P = np.empty(K, np.int32)
             P[B] = np.arange(K, dtype=np.int32)
-        cmat, fixes, mx = _pack_family(ba, sel, nc, P, n_pad)
+        if isinstance(ba.coeffs, torch.Tensor):
+            cmat, fixes, mx = _gather_family(ba.coeffs, ba.offs[sel], P,
+                                             n_pad), None, 0
+        else:
+            cmat, fixes, mx = _pack_family(ba, sel, nc, P, n_pad)
         if mx >= 32768:
             # rare (multi-pass shifted coefficients): int32 fallback
             src = (ba.offs[sel][:, None]
@@ -280,7 +305,10 @@ class FrameInputs:
 
 def _t(a, device, dtype=None) -> torch.Tensor:
     """numpy -> contiguous tensor on `device`, cast to `dtype` if given
-    (the CUDA kernels read these through raw pointers)."""
+    (the CUDA kernels read these through raw pointers); a tensor moves
+    as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device).contiguous()
     a = np.ascontiguousarray(a if dtype is None else np.asarray(a, dtype))
     return torch.from_numpy(a).to(device)
 

@@ -8,6 +8,14 @@ the pass groups (multi-pass coefficients accumulated) concatenated into
 one frame-global ``BlockArrays``.  It returns the same state dict, the
 input of ``tpu_full.prepare_exec``.
 
+The pass groups take one of two routes (``entropy``): "host" decodes
+them with the host codec's C++ on a thread pool; "device" decodes them
+all with one launch of the device entropy decode
+(``entropy/device.py``, the counterpart of ``dec_real.py``'s
+``_entropy_device_pass_groups``), whose coefficients stay on the device
+as the ``BlockArrays``' int32 tensor.  A stream that route cannot read
+raises; it never falls back to the host route.
+
 Unlike the reference it never asks whether a JAX device is attached and
 applies no frame-size floor.  A frame the port's device path does not
 cover raises NotImplementedError naming the feature.
@@ -20,6 +28,7 @@ import os
 
 import numpy as np
 
+from ..entropy import device as ENT
 from ..host.bitstream.reader import BitReader, BitstreamError
 from ..host.vardct.dec_real import (BlockArrays, _is_srgb_output,
                                     _lf_group_view, adaptive_dc_smoothing,
@@ -58,9 +67,21 @@ def check_supported(hdr, fh) -> None:
                 f"slice (ROADMAP, jxl_coder_tpu_torch)")
 
 
-def parse_frame(cs: bytes, hdr, fh, toc) -> dict:
+ENTROPY_ROUTES = ("host", "device")
+
+
+def check_entropy(entropy: str) -> None:
+    if entropy not in ENTROPY_ROUTES:
+        raise ValueError(f"entropy={entropy!r}: use one of {ENTROPY_ROUTES}")
+
+
+def parse_frame(cs: bytes, hdr, fh, toc, entropy: str = "host",
+                device=None) -> dict:
     """Entropy-decode one VarDCT frame -> the state dict of
-    decode_vardct_frame(parse_only=True)."""
+    decode_vardct_frame(parse_only=True).  With entropy="device" the AC
+    pass groups decode on `device` (a torch.device) and the state's
+    blocks_glob.coeffs is an int32 tensor there."""
+    check_entropy(entropy)
     check_supported(hdr, fh)
     w, h = fh.coded_size(hdr)
     xs_b, ys_b = -(-w // 8), -(-h // 8)
@@ -98,6 +119,11 @@ def parse_frame(cs: bytes, hdr, fh, toc) -> dict:
                   if hf.num_histograms > 1 else 0)
 
     qf_map = np.zeros((ys_b, xs_b), np.int64)
+    on_device = entropy == "device"
+    if on_device:
+        # the device route's anchors come from frame-global block maps
+        acs_glob = np.zeros((ys_b, xs_b), np.int32)
+        dcq_glob = [np.zeros((ys_b, xs_b), np.int64) for _ in range(3)]
     sharp_map = np.zeros((ys_b, xs_b), np.int64)
     ytox_glob = np.zeros((-(-ys_b // 8), -(-xs_b // 8)), np.float64)
     ytob_glob = np.zeros_like(ytox_glob)
@@ -105,6 +131,11 @@ def parse_frame(cs: bytes, hdr, fh, toc) -> dict:
     for lx, ly, lg in lgs:
         gh_, gw_ = lg.qf_map.shape
         qf_map[ly:ly + gh_, lx:lx + gw_] = lg.qf_map
+        if on_device:
+            acs_glob[ly:ly + gh_, lx:lx + gw_] = lg.acs_map
+            for c in range(3):
+                dcq_glob[c][ly:ly + gh_, lx:lx + gw_] = \
+                    lg.dc.channels[c].data
         sharp_map[ly:ly + gh_, lx:lx + gw_] = lg.sharp_map
         th_, tw_ = lg.ytox.shape
         ytox_glob[ly // 8:ly // 8 + th_, lx // 8:lx // 8 + tw_] = lg.ytox
@@ -117,6 +148,27 @@ def parse_frame(cs: bytes, hdr, fh, toc) -> dict:
         igs0 = lf.inv_global_scale
         steps = [lf.dcq[c] * igs0 / lf.quant_dc for c in range(3)]
         dc_glob = adaptive_dc_smoothing(dc_glob, dict(enumerate(steps)))
+
+    state = dict(
+        lf=lf, fh=fh, qf_map=qf_map, sharp_map=sharp_map,
+        ytox_glob=ytox_glob, ytob_glob=ytob_glob, dc_glob=dc_glob,
+        bits=hdr.metadata.bit_depth.bits_per_sample, h=h, w=w)
+    if not ng:
+        raise BitstreamError("VarDCT frame without AC groups")
+    if on_device:
+        if single:
+            s = toc.section(0)
+            sections = [[(8 * s.offset + br.pos, 8 * (s.offset + s.size))]]
+        else:
+            sections = [[(8 * s.offset, 8 * (s.offset + s.size))
+                         for s in (toc.section(2 + ndc + p * ng + gi)
+                                   for gi in range(ng))]
+                        for p in range(npasses)]
+        sections = np.minimum(np.asarray(sections, np.int64), 8 * len(cs))
+        state["blocks_glob"] = device_pass_groups(
+            cs, sections, lf, hf, acs_glob, qf_map, dcq_glob, histo_bits,
+            pass_shift[:npasses], device)
+        return state
 
     gx = -(-xs_b // _GROUP_BLOCKS)
 
@@ -153,11 +205,25 @@ def parse_frame(cs: bytes, hdr, fh, toc) -> dict:
         with concurrent.futures.ThreadPoolExecutor(
                 max_workers=min(ng, os.cpu_count() or 4)) as ex:
             groups = list(ex.map(decode_group, range(ng)))
-    if not groups:
-        raise BitstreamError("VarDCT frame without AC groups")
+    state["blocks_glob"] = BlockArrays.concat(groups)
+    return state
 
-    return dict(
-        lf=lf, fh=fh, qf_map=qf_map, sharp_map=sharp_map,
-        ytox_glob=ytox_glob, ytob_glob=ytob_glob, dc_glob=dc_glob,
-        bits=hdr.metadata.bit_depth.bits_per_sample, h=h, w=w,
-        blocks_glob=BlockArrays.concat(groups))
+
+def device_pass_groups(cs: bytes, sections: np.ndarray, lf, hf, acs_map,
+                       qf_map, dcq, histo_bits: int, pass_shift,
+                       device) -> BlockArrays:
+    """Every AC pass group of the frame, decoded on `device` in one launch
+    (sections: (passes, groups, 2) bit ranges in cs, each from its
+    histogram index on) -> the frame's BlockArrays, whose coefficients
+    are an int32 tensor on `device`.  Raises BitstreamError naming the
+    groups whose decode failed."""
+    num_ctxs = lf.bcm.num_ctxs
+    anchors = ENT.build_anchors(acs_map, qf_map, dcq, lf.bcm)
+    streams = ENT.group_streams(cs, sections, histo_bits, hf.num_histograms,
+                                num_ctxs)
+    tables = ENT.frame_tables(cs, anchors, streams, hf, pass_shift, num_ctxs,
+                              device)
+    decoded = ENT.decode_pass_groups(tables)
+    ENT.check_groups(decoded)
+    return BlockArrays(anchors.ids, anchors.bxs, anchors.bys, anchors.ncv,
+                       anchors.offs, decoded.coeffs)

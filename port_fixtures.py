@@ -42,6 +42,19 @@ def smooth_frame(h: int, w: int, seed: int = 3,
     return img.astype(np.uint8)
 
 
+def waves_frame(h: int, w: int) -> np.ndarray:
+    """Noise-free colour waves with a band of one-pixel bars: many
+    strategy families from few AC tokens (the device entropy decode's
+    plain twin reads one token per group a step)."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([128 + 60 * np.sin(xx / 41) * np.cos(yy / 37),
+                    120 + 50 * np.cos(xx / 29 + yy / 61),
+                    110 + 40 * np.sin((xx + yy) / 47)], -1)
+    img[h // 3:h // 3 + 8, ::16] = 20
+    img[h // 3:h // 3 + 8, 1::16] = 20
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
 def sharp_frame(h: int, w: int, seed: int = 42) -> np.ndarray:
     """Dark strokes on a flat page over a ringing pattern: at d < 2 and
     effort 7 the encoder picks the special 1-block transforms
