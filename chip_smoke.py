@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's VarDCT still decode and its round-1 VarDCT
-codec on one CUDA card.
+"""Drive the PyTorch port's VarDCT still decode, its Modular still decode
+and its round-1 VarDCT codec on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -69,7 +69,22 @@ prints no result):
      counted (kernel 2 once), against the port's CPU path and the
      float64 host decoder, and on a ragged all-DCT8 frame against the
      CPU path; timings of kernel 7 (against its plain version, one
-     PyTorch call and its bound) and of DCT8Frame's device time by stage.
+     PyTorch call and its bound) and of DCT8Frame's device time by stage;
+ 11. the Modular decode (streams from the port's fixture writers, encoded
+     and decoded on the CPU route in the worker processes meanwhile: 4K
+     RCT 6 in 12 groups, a 4K palette, FHD RGBA at 16 bits, a 1024x1024
+     squeezed section, 42 groups each with its own RCT type, a small XYB
+     section): the three kernels of csrc/modular.cu (unsqueeze,
+     rct_inverse, palette_inverse) against their twins on seeded inputs
+     (lines of 1-70 steps both ways, +-2^29, all 42 RCT types, palette
+     indices out of range), 0 differences; the main path api.decode(data,
+     device="cuda") on every stream, counted, with the plain twins made
+     to raise, each transform in a stream's headers launching its kernel
+     and the XYB stream's output kernel 2 once, lossless streams equal to the
+     source and the CPU route, XYB within 1 code on < 0.1%; every kernel
+     call of those decodes against its twin; the 4K RCT decode split into
+     its layers inside the same calls (M1); each kernel at 4K by CUDA
+     graph against its twin and bound.
 Every kernel's line carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its f32 operations over 67 TFLOP/s (the H100 SXM's published peaks
@@ -104,15 +119,21 @@ import torch
 
 from jxl_coder_tpu_torch import _build, api, codec, reference
 from jxl_coder_tpu_torch.entropy import device as ENT
+from jxl_coder_tpu_torch.host.modular import transform as MT
+from jxl_coder_tpu_torch.host.modular.frame import ModularFrameDecoder
 from jxl_coder_tpu_torch.host.vardct.dec_real import BlockArrays
-from jxl_coder_tpu_torch.vardct import dct8, filters, inputs, synth
+from jxl_coder_tpu_torch.modular import device as MDEV
+from jxl_coder_tpu_torch.modular import output as MOUT
+from jxl_coder_tpu_torch.vardct import color, dct8, filters, inputs, synth
 from jxl_coder_tpu_torch.vardct import detile as DT
 from jxl_coder_tpu_torch.vardct import fused_filters as FF
 from jxl_coder_tpu_torch.vardct import parse as PARSE
 from jxl_coder_tpu_torch.vardct import pipeline as LP
 from jxl_coder_tpu_torch.vardct.frame import VarDCTFrame
-from port_fixtures import (bench_frame, dct8_arguments, sharp_frame,
-                           synthetic_family, waves_frame)
+from port_fixtures import (bench_frame, dct8_arguments, group_rct_still,
+                           modular_still, posterized_frame, sharp_frame,
+                           squeezed_still, synthetic_family, waves_frame,
+                           xyb_still)
 
 SYNTH_TOL = 1e-4      # f32 sums in another order than the twin's matmuls
 FILTER_TOL = 1e-5     # no FMA contraction; EPF SADs summed in another order
@@ -144,6 +165,13 @@ KERNELS = {
     "decode_pass_groups": dict(fn=ENT.decode_pass_groups,
                                source="jxl_coder_tpu_torch/csrc/entropy.cu",
                                replaces="jxl_coder_tpu/entropy/device.py:225"),
+    "unsqueeze": dict(fn=MDEV.unsqueeze, source="jxl_coder_tpu_torch/csrc/modular.cu",
+                      replaces="jxl_coder_tpu/modular/device.py:62"),
+    "rct_inverse": dict(fn=MDEV.rct_inverse, source="jxl_coder_tpu_torch/csrc/modular.cu",
+                        replaces="jxl_coder_tpu/modular/device.py:98"),
+    "palette_inverse": dict(fn=MDEV.palette_inverse,
+                            source="jxl_coder_tpu_torch/csrc/modular.cu",
+                            replaces="jxl_coder_tpu/modular/device.py:162"),
 }
 # the round-1 encoder's sources: a change to any of them re-encodes
 LEGACY_ENCODER = [sys.modules[m].__file__ for m in (
@@ -1153,6 +1181,26 @@ def timed(fn, name: str, log: list, sync: bool = False):
     return call
 
 
+class Pixels:
+    """A decode's pixels on the card whose .cpu().numpy() logs its span
+    as "d2h"."""
+
+    def __init__(self, px, log: list):
+        self.px, self.log = px, log
+
+    def cpu(self):
+        t0 = time.perf_counter()
+        host = self.px.cpu()
+        log = self.log
+
+        class Host:
+            def numpy(self):
+                out = host.numpy()
+                log.append(("d2h", t0, time.perf_counter()))
+                return out
+        return Host()
+
+
 @contextlib.contextmanager
 def split_decode(log: list):
     """Wrap the port's functions that api.decode calls, and the host
@@ -1182,23 +1230,6 @@ def split_decode(log: list):
     wrap(inputs, "_gather_family",
          timed(inputs._gather_family, "_gather_family", log, sync=True))
 
-    class Host:
-        def __init__(self, t0, host):
-            self.t0, self.host = t0, host
-
-        def numpy(self):
-            out = self.host.numpy()
-            log.append(("d2h", self.t0, time.perf_counter()))
-            return out
-
-    class Pixels:
-        def __init__(self, px):
-            self.px = px
-
-        def cpu(self):
-            t0 = time.perf_counter()
-            return Host(t0, self.px.cpu())
-
     class Frame:
         def __init__(self, cfg):
             self.cfg = cfg
@@ -1208,7 +1239,7 @@ def split_decode(log: list):
             px = VarDCTFrame(self.cfg)(frame_inputs)
             torch.cuda.synchronize()
             log.append(("device", t0, time.perf_counter()))
-            return Pixels(px)
+            return Pixels(px, log)
 
     wrap(api, "VarDCTFrame", Frame)
     try:
@@ -1512,6 +1543,443 @@ def entropy_4k(data: bytes, dev, card: str, ms: dict, twin_s: float,
           f"{layers['device']['total']:.1f} ms [{card}]", flush=True)
 
 
+# ---- the Modular decode (phase 11) ----
+
+MODULAR_KERNELS = ("unsqueeze", "rct_inverse", "palette_inverse")
+# what a Modular decode on the card must not run: the kernels' plain twins
+# (the inverse transforms and kernel 2's XYB -> sRGB output)
+MODULAR_TWINS = ((MDEV, ("unsqueeze_plain", "rct_inverse_plain",
+                         "palette_inverse_plain")),
+                 (filters, ("restore_and_output_plain",)),
+                 (color, ("xyb_to_srgb_plain",)))
+# the kernel that undoes each transform id (0 RCT, 1 palette, 2 squeeze)
+TRANSFORM_KERNEL = {0: "rct_inverse", 1: "palette_inverse", 2: "unsqueeze"}
+# the Modular fixture writers' sources: a change to any of them re-encodes
+MODULAR_WRITER = [sys.modules[m].__file__ for m in (
+    "port_fixtures", "jxl_coder_tpu_torch.host.codec",
+    "jxl_coder_tpu_torch.host.modular.stream",
+    "jxl_coder_tpu_torch.host.modular.transform")]
+# the unsqueeze is one serial chain per line: its least time is the
+# longest line's steps, each the least chain of dependent int32 operations
+# from one step's carry `left` to the next's.  The averages and the
+# residual are known ahead, so every term of them alone is off the chain,
+# and so is 2 * left - 2 * a +- 1 (made while the division runs):
+#   the tendency's numerator 4 * left + (6 - 3 * next - a)          1
+#   its division by 12: multiply-high, shift, the sign's correction  3
+#   the clamp to 2 * (left - a): x - (x & 1) > 2 (left - a) is
+#     x > 2 (left - a) + 1, a compare and a select                   2
+#   the clamp to the even 2 * (a - next): x + (x & 1) > it is x > it,
+#     a compare and a select                                         2
+#   the select of the monotonic branch, then of 0                    2
+#   the residual's sum diff = r + tendency                           1
+#   its half truncated: the sign bit added, the shift                2
+#   the carry a + half - diff (a three-input add)                    1
+# 14 (the rising branch's chain is as long and runs beside it), each at
+# least Hopper's 4-cycle dependent-issue latency of an integer ALU
+# instruction (published microbenchmarks), at the card's highest SM clock
+UNSQUEEZE_STEP_CYCLES = 14 * 4
+
+
+def rgba16_frame(h: int, w: int) -> np.ndarray:
+    """bench_frame at 16 bits (x257, plus a seeded offset) with an alpha
+    ramp."""
+    rgb = bench_frame(h, w).astype(np.uint16) * 257 + 11
+    alpha = (np.mgrid[0:h, 0:w][1] * 65535 // max(w - 1, 1)).astype(np.uint16)
+    return np.concatenate([rgb, alpha[..., None]], -1)
+
+
+# label: (the source image, how the port's fixture writers encode it)
+MODULAR_STREAMS = {
+    # the slice's full-size stream: 12 groups of 1024, RCT 6
+    "4k_rct": (lambda: bench_frame(2160, 3840), modular_still),
+    "4k_palette": (lambda: posterized_frame(2160, 3840),
+                   lambda img: modular_still(img, palette=True)),
+    "fhd_rgba16": (lambda: rgba16_frame(1080, 1920), modular_still),
+    # one section, the largest the writer makes
+    "1024_squeezed": (lambda: bench_frame(1024, 1024), squeezed_still),
+    # 42 groups of 256, each with its own of the 42 RCT types
+    "group_rct": (lambda: bench_frame(1536, 1792),
+                  lambda img: group_rct_still(img, 1)),
+    "xyb": (lambda: bench_frame(256, 384), xyb_still),
+}
+
+
+def modular_job(label: str):
+    """In a worker process: the stream (encoded once per machine, cached)
+    and its decode on the CPU route -> (bytes, pixels, seconds)."""
+    torch.set_num_threads(1)
+    make, write = MODULAR_STREAMS[label]
+    img = make()
+    data = cached(img, f"modular {label}", MODULAR_WRITER, lambda: write(img))
+    t0 = time.perf_counter()
+    pixels = api.decode(data, device="cpu")[0]
+    return data, pixels, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def modular_transforms_seen(seen: dict, current: list):
+    """Record, per stream (current[0]), the transform ids whose undo runs,
+    and the inputs of each undo (the channel tensors and the header)."""
+    undo = MDEV.undo_transforms
+
+    def recorded(image, header):
+        seen.setdefault(current[0], []).append(
+            ([c.data for c in image.channels], header))
+        return undo(image, header)
+
+    MDEV.undo_transforms = recorded
+    try:
+        yield
+    finally:
+        MDEV.undo_transforms = undo
+
+
+MODULAR_PLAIN = {"unsqueeze": MDEV.unsqueeze_plain,
+         "rct_inverse": MDEV.rct_inverse_plain,
+         "palette_inverse": MDEV.palette_inverse_plain}
+
+
+@contextlib.contextmanager
+def twin_checked(calls: dict):
+    """Each Modular kernel wrapper replaced by one that also runs the plain
+    twin on the same inputs and records the largest difference; these
+    launches compare and count nowhere."""
+    saved = {k: getattr(MDEV, k) for k in MODULAR_KERNELS}
+
+    def checked(k):
+        def call(*args):
+            got = saved[k](*args)
+            ref = MODULAR_PLAIN[k](*args)
+            d = ((got.long() - ref.long()).abs().max().item()
+                 if got.shape == ref.shape and got.numel() else
+                 (0 if got.shape == ref.shape else float("inf")))
+            n, worst = calls.get(k, (0, 0))
+            calls[k] = (n + 1, max(worst, d))
+            return got
+        call.launches = 0
+        return call
+
+    for k in MODULAR_KERNELS:
+        setattr(MDEV, k, checked(k))
+    try:
+        yield
+    finally:
+        for k, f in saved.items():
+            setattr(MDEV, k, f)
+
+
+def check_modular_seeded(dev) -> None:
+    """Each kernel against its twin on seeded inputs, exactly: the
+    unsqueeze on lines of length 1 to 70 both ways (odd lengths: nr < na)
+    and near +-2^29; the inverse RCT over all 42 types with int32
+    extremes; the palette with negative, in-range and over-range
+    indices."""
+    rng = np.random.default_rng(8)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    worst = 0
+    for horizontal in (True, False):
+        for n in range(1, 71):
+            lines = int(rng.integers(1, 80))
+            x = np.cumsum(rng.integers(-3000, 3000, (lines, n)), axis=1) // 4
+            avg, res = MT._squeeze_1d(x)
+            if not horizontal:
+                avg, res = avg.T, res.T
+            a, r = t(avg), t(res)
+            got = MDEV.unsqueeze(a, r, horizontal)
+            ref = MDEV.unsqueeze_plain(a, r, horizontal)
+            worst = max(worst, (got.long() - ref.long()).abs().max().item())
+            if not torch.equal(got, t(x if horizontal else x.T)):
+                raise AssertionError(f"unsqueeze does not invert the squeeze "
+                                     f"(n {n}, horizontal {horizontal})")
+    note_err("unsqueeze", worst, 0, "seeded lines 1-70 steps, both axes")
+    base = 1 << 29
+    x = (np.where(np.arange(150) % 4 < 2, base, -base)
+         + rng.integers(-1000, 1000, (37, 150)))
+    avg, res = MT._squeeze_1d(x)
+    for horizontal in (True, False):
+        a, r = (t(avg), t(res)) if horizontal else (t(avg.T), t(res.T))
+        got = MDEV.unsqueeze(a, r, horizontal)
+        note_err("unsqueeze", (got.long() - MDEV.unsqueeze_plain(
+            a, r, horizontal).long()).abs().max().item(), 0,
+            f"values near +-2^29, horizontal {horizontal}")
+        if not torch.equal(got, t(x if horizontal else x.T)):
+            raise AssertionError("unsqueeze near 2^29 is not the host's")
+    worst = 0
+    for rct_type in range(42):
+        ps = [t(rng.integers(-2**31, 2**31, (37, 53), dtype=np.int64))
+              for _ in range(3)]
+        worst = max(worst, (MDEV.rct_inverse(*ps, rct_type).long()
+                            - MDEV.rct_inverse_plain(*ps, rct_type).long()
+                            ).abs().max().item())
+    note_err("rct_inverse", worst, 0, "all 42 rct_type values, int32 range")
+    worst = 0
+    for num_c, nb in ((1, 3), (3, 40), (4, 1), (3, 256)):
+        pal = t(rng.integers(-5, 70000, (num_c, nb + 2)))
+        idx = t(rng.integers(-3, nb + 9, (61, 77)))
+        worst = max(worst, (MDEV.palette_inverse(pal, idx, num_c, nb).long()
+                            - MDEV.palette_inverse_plain(pal, idx, num_c, nb)
+                            .long()).abs().max().item())
+    note_err("palette_inverse", worst, 0,
+             "negative, in-range and over-range indices")
+
+
+# the layers of a Modular api.decode: layer -> the functions it wraps
+MODULAR_LAYERS = {
+    "container/headers/TOC": ("_read_frame",),
+    "global stream": ("read_global",),
+    "group streams (C++)": ("read_lf_group", "read_group"),
+    "h2d": ("upload",),
+    "device transforms": ("undo_transforms",),
+    "output": ("modular_pixels",),
+    "d2h": ("d2h",),
+    "rest": ("apply_orientation", "basic_info"),
+}
+
+
+@contextlib.contextmanager
+def split_modular(log: list):
+    """Wrap the functions a Modular api.decode calls so that each call
+    logs its span (the device steps synchronise in their wrappers; the
+    output's .cpu().numpy() logs d2h); restore them on exit."""
+    saved = []
+
+    def wrap(owner, name, wrapper):
+        saved.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, wrapper)
+
+    for name in ("_read_frame", "apply_orientation", "basic_info"):
+        wrap(api, name, timed(getattr(api, name), name, log))
+    for name in ("read_global", "read_lf_group", "read_group"):
+        wrap(ModularFrameDecoder, name,
+             timed(getattr(ModularFrameDecoder, name), name, log))
+    for name in ("upload", "undo_transforms"):
+        wrap(MDEV, name, timed(getattr(MDEV, name), name, log, sync=True))
+    pixels = timed(MOUT.modular_pixels, "modular_pixels", log, sync=True)
+    wrap(MOUT, "modular_pixels",
+         lambda *a, **k: Pixels(pixels(*a, **k), log))
+    try:
+        yield
+    finally:
+        for owner, name, orig in reversed(saved):
+            setattr(owner, name, orig)
+
+
+def modular_layers(data: bytes, mp: float, card: str, runs: int = 5) -> dict:
+    """M1 for the 4K Modular decode: `runs` split api.decode calls in
+    turns with as many unwrapped ones; raises if a split call's layers
+    miss its own total by more than 2%.  Returns the medians (ms)."""
+    med = statistics.median
+    split, unsplit = [], []
+    for i in range(2 * runs):
+        torch.cuda.synchronize()
+        if (i % 2 == 0) == (i // 2 % 2 == 0):
+            log = []
+            with split_modular(log):
+                t0 = time.perf_counter()
+                api.decode(data, device="cuda")
+                split.append(((time.perf_counter() - t0) * 1e3, log))
+        else:
+            t0 = time.perf_counter()
+            api.decode(data, device="cuda")
+            unsplit.append((time.perf_counter() - t0) * 1e3)
+    per = {k: [spent(log, names) for _, log in split]
+           for k, names in MODULAR_LAYERS.items()}
+    sums = [sum(v[n] for v in per.values()) for n in range(len(split))]
+    gaps = [abs(sums[n] - total) / total for n, (total, _) in enumerate(split)]
+    for n, (total, _) in enumerate(split):
+        if gaps[n] > 0.02:
+            raise AssertionError(f"split Modular decode {n}: its layers sum "
+                                 f"to {sums[n]:.1f} ms, the call took "
+                                 f"{total:.1f} ms")
+    m = {k: med(v) for k, v in per.items()}
+    t_split, t_unsplit = med(t for t, _ in split), med(unsplit)
+    print(f"layers 4k modular (host clock, ms, median of {runs} split "
+          f"api.decode calls of the 4K RCT stream): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in m.items())
+          + f"; sum of the medians {sum(m.values()):.1f}; each call's layers "
+          f"summed, median {med(sums):.1f}, within {max(gaps):.2%} of the "
+          f"call's own total; the split calls' total {t_split:.1f}; unsplit "
+          f"calls {t_unsplit:.1f} (split - unsplit {t_split - t_unsplit:+.1f}"
+          f" ms) [{card}]", flush=True)
+    print(f"end_to_end 4k modular decode bytes->pixels (the unsplit calls): "
+          f"{t_unsplit:.1f} ms = {mp / t_unsplit * 1e3:.2f} MP/s [{card}]",
+          flush=True)
+    return dict(m, total=t_unsplit)
+
+
+def once_ms(fn) -> float:
+    """Milliseconds of one warm call of fn, CUDA events (for a twin whose
+    call takes seconds)."""
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e)
+
+
+def unsqueeze_bound(lines: int, steps: int, clock_mhz: float,
+                    name: str = "unsqueeze") -> None:
+    """max(the chain: steps x UNSQUEEZE_STEP_CYCLES at the SM clock, the
+    bytes: averages, residuals and outputs once)."""
+    chain_ms = steps * UNSQUEEZE_STEP_CYCLES / (clock_mhz * 1e3)
+    bytes_ms = lines * (2 * steps + 2 * steps) * 4 / HBM_BYTES_PER_S * 1e3
+    BOUND[name] = ((chain_ms, "operations") if chain_ms >= bytes_ms
+                   else (bytes_ms, "bytes"))
+    print(f"bound {name}: {steps} steps x {UNSQUEEZE_STEP_CYCLES} cycles at "
+          f"{clock_mhz:.0f} MHz = {chain_ms:.4f} ms; {lines} lines' bytes "
+          f"{bytes_ms:.4f} ms", flush=True)
+
+
+def modular_timings(inputs: dict, dev, card: str, ms: dict) -> None:
+    """Each Modular kernel at 4K by CUDA graph against its plain twin and
+    its bound: the unsqueeze on the first horizontal and vertical squeeze
+    of a 4K plane (the twin's Python loop over the steps is host-bound: one
+    call by CUDA events), the inverse RCT and the palette gather on the
+    inputs the 4K streams gave them."""
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    plane = bench_frame(2160, 3840)[..., 1].astype(np.int64) * 37 - 4000
+    for horizontal in (True, False):
+        x = plane if horizontal else plane.T
+        avg, res = MT._squeeze_1d(x)
+        if not horizontal:
+            avg, res = avg.T, res.T
+        a, r = (torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(dev)
+                for v in (avg, res))
+        got = MDEV.unsqueeze(a, r, horizontal)
+        note_err("unsqueeze", (got.long() - MDEV.unsqueeze_plain(
+            a, r, horizontal).long()).abs().max().item(), 0,
+            f"4k plane, horizontal {horizontal}")
+        name = "unsqueeze" if horizontal else "unsqueeze vertical"
+        lines, steps = (a.shape[0], a.shape[1]) if horizontal else \
+            (a.shape[1], a.shape[0])
+        unsqueeze_bound(lines, steps, clock, name)
+        t = (graph_ms(lambda: MDEV.unsqueeze(a, r, horizontal)),
+             once_ms(lambda: MDEV.unsqueeze_plain(a, r, horizontal)))
+        if horizontal:
+            ms["unsqueeze"] = t
+        print(f"kernel unsqueeze at 4k {'horizontal' if horizontal else 'vertical'}"
+              f" ({lines} lines of {steps} steps): device {t[0]:.4f} ms (CUDA "
+              f"graph), plain twin {t[1]:.1f} ms (host-bound Python loop, CUDA "
+              f"events), bound {BOUND[name][0]:.4f} ms [{card}]", flush=True)
+    c0, c1, c2, rct_type = inputs["rct_inverse"]
+    px = c0.numel()
+    note_bound("rct_inverse", 6 * 4 * px, 0)
+    ms["rct_inverse"] = (graph_ms(lambda: MDEV.rct_inverse(c0, c1, c2, rct_type)),
+                         device_ms(lambda: MDEV.rct_inverse_plain(c0, c1, c2,
+                                                                  rct_type)))
+    pal, idx, num_c, nb = inputs["palette_inverse"]
+    note_bound("palette_inverse", nbytes(pal, idx) + num_c * 4 * idx.numel(), 0)
+    ms["palette_inverse"] = (
+        graph_ms(lambda: MDEV.palette_inverse(pal, idx, num_c, nb)),
+        device_ms(lambda: MDEV.palette_inverse_plain(pal, idx, num_c, nb)))
+    flat = idx.reshape(-1)
+    if int(idx.min()) >= 0 and int(idx.max()) < nb:
+        # every index in range: one index_select is the same function
+        LIBRARY_MS["palette_inverse"] = graph_ms(
+            lambda: torch.index_select(pal[:, :nb], 1, flat))
+    for k in ("rct_inverse", "palette_inverse"):
+        print(f"kernel {k} at 4k: device {ms[k][0]:.4f} ms (CUDA graph), plain "
+              f"twin {ms[k][1]:.4f} ms, bound {BOUND[k][0]:.4f} ms"
+              + (f", index_select {LIBRARY_MS[k]:.4f} ms"
+                 if LIBRARY_MS[k] is not None else "") + f" [{card}]",
+              flush=True)
+
+
+def modular_phase(jobs: dict, dev, card: str, ms: dict) -> dict:
+    """Phase 11: the Modular decode.  The kernels against their twins on
+    seeded inputs; the main path through api.decode(data, "cuda") on every
+    stream, counted, each transform in a stream's headers launching its
+    kernel; the pixels against the source and the CPU route; every kernel
+    call of the main path against its twin; M1 at 4K; timings."""
+    check_modular_seeded(dev)
+    streams = {}
+    for label, job in jobs.items():
+        data, cpu, seconds = job.get()
+        streams[label] = (data, cpu)
+        print(f"modular stream {label}: {len(data)} bytes; the CPU route's "
+              f"decode {seconds:.1f} s (a worker process)", flush=True)
+    seen, current = {}, [None]
+    # the transforms' kernels, and kernel 2 for the XYB output
+    path_kernels = MODULAR_KERNELS + ("restore_and_output",)
+
+    def main_path():
+        outs, per_stream = {}, {}
+        for label, (data, _cpu) in streams.items():
+            current[0] = label
+            before = {k: KERNELS[k]["fn"].launches for k in path_kernels}
+            outs[label] = api.decode(data, device="cuda")[0]
+            per_stream[label] = {k: KERNELS[k]["fn"].launches - before[k]
+                                 for k in path_kernels}
+        return outs, per_stream
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(modular_transforms_seen(seen, current))
+        for module, names in MODULAR_TWINS:
+            stack.enter_context(forbidden(module, names))
+        (outs, per_stream), counts = drive(
+            "main path (Modular api.decode)", main_path, path_kernels)
+    for label, launches in per_stream.items():
+        ids = sorted({t.id for _, header in seen.get(label, [])
+                      for t in header.transforms})
+        print(f"modular {label}: transforms {ids} (0 RCT, 1 palette, 2 "
+              f"squeeze), launches {launches}", flush=True)
+        for i in ids:
+            if launches[TRANSFORM_KERNEL[i]] <= 0:
+                raise AssertionError(f"modular {label}: transform {i} in its "
+                                     f"headers, {TRANSFORM_KERNEL[i]} launched "
+                                     f"0 times")
+        want = int(label == "xyb")
+        if launches["restore_and_output"] != want:
+            raise AssertionError(f"modular {label}: restore_and_output "
+                                 f"launched {launches['restore_and_output']} "
+                                 f"times, expected {want}")
+    for label, (data, cpu) in streams.items():
+        got = outs[label]
+        if label == "xyb":
+            within_one_code(got, cpu, f"modular {label} vs the CPU route")
+            continue
+        src = MODULAR_STREAMS[label][0]()
+        same_cpu = got.shape == cpu.shape and got.dtype == cpu.dtype and \
+            np.array_equal(got, cpu)
+        same_src = got.shape == src.shape and got.dtype == src.dtype and \
+            np.array_equal(got, src)
+        print(f"modular {label}: {got.shape} {got.dtype}, equal to the CPU "
+              f"route {same_cpu}, to the source {same_src}", flush=True)
+        if not (same_cpu and same_src):
+            raise AssertionError(f"modular {label}: lossless decode differs")
+    # every kernel call of the main path against its twin, exactly
+    calls = {}
+    with twin_checked(calls):
+        for label, (data, _cpu) in streams.items():
+            api.decode(data, device="cuda")
+    for k in MODULAR_KERNELS:
+        n, worst = calls.get(k, (0, 0))
+        note_err(k, worst, 0, f"every call of the main path's six streams "
+                              f"({n} calls)")
+    # the 4K inputs of the RCT and the palette gather, as the main path gave
+    # them (the undo's channel tensors at entry; the kernels make new ones)
+    chans, header = seen["4k_rct"][0]
+    t = header.transforms[0]
+    inputs = {"rct_inverse": (*chans[t.begin_c:t.begin_c + 3], t.rct_type)}
+    chans, header = seen["4k_palette"][0]
+    t = header.transforms[0]
+    inputs["palette_inverse"] = (chans[0], chans[t.begin_c + 1], t.num_c,
+                                 t.nb_colours)
+    layers = modular_layers(streams["4k_rct"][0], 3840 * 2160 / 1e6, card)
+    modular_timings(inputs, dev, card, ms)
+    return dict(counts, layers=layers)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1525,14 +1993,15 @@ def main() -> int:
 
     # 2. build, one nvcc per source and g++ for the host codec, all at once
     t0 = time.perf_counter()
-    sources = ("synth", "filters", "fused_filters", "detile", "entropy")
+    sources = ("synth", "filters", "fused_filters", "detile", "entropy",
+               "modular")
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host = pool.submit(_build.load_host, "hostcodec")
         list(pool.map(_build.load, sources))
         host.result()
     print(f"build: nvcc sm_90a, {len(sources)} sources, and g++ for the host "
           f"codec in {time.perf_counter() - t0:.2f} s", flush=True)
-    for name in ("synth", "filters", "fused_filters", "entropy"):
+    for name in ("synth", "filters", "fused_filters", "entropy", "modular"):
         ptxas_report(name)
 
     # 3. streams
@@ -1558,6 +2027,10 @@ def main() -> int:
         "sharp_d1.0_e7", "16bit_d1.0_e5", "sharp_d0.1_e7",
         "waves_d1.0_e7_two_passes", "waves_d1.0_e7_single_section",
         "4k_d1.0_e7")}, dev)
+    # the Modular streams, encoded and decoded on the CPU route in the same
+    # workers once the twins free them; collected in phase 11
+    modular_jobs = {label: pool.apply_async(modular_job, (label,))
+                    for label in MODULAR_STREAMS}
 
     # 4. kernel vs twin on the card
     check_synth_all_strategies(dev)
@@ -1682,6 +2155,11 @@ def main() -> int:
     # 10. the DCT8-only frame path and kernel 7 (the filter and output
     # kernels' counts stay those of the main path, phase 5)
     launches["detile"] = dct8_phase(dev, card, ms)["detile"]
+
+    # 11. the Modular decode: the host's channel decode, then the inverse
+    # transforms on the card (csrc/modular.cu) and the output
+    modular = modular_phase(modular_jobs, dev, card, ms)
+    launches.update({k: modular[k] for k in MODULAR_KERNELS})
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": spec["source"],

@@ -1,15 +1,26 @@
 """Public decode entry point of the PyTorch port.
 
-``decode(data, device="cuda")`` decodes a VarDCT still.  Its host half,
-``prepare``, is the container, header and TOC walk of
-``jxl_coder_tpu.api.decode`` (``api.py:505-542``) over the port's
-own host layers (``host/``), the host parse
+``decode(data, device="cuda")`` decodes a VarDCT or a Modular still.
+Its container, header and TOC walk is that of
+``jxl_coder_tpu.api.decode`` (``api.py:505-542``) over the port's own
+host layers (``host/``).
+
+A VarDCT frame: ``prepare``, the host half, runs the host parse
 (``vardct.parse``) and the family packing (``vardct.inputs.pack``),
 carried onto the named device; then the frame reconstruction runs there
 (``vardct.frame.VarDCTFrame``).  ``entropy="device"`` decodes the AC pass
 groups on the device too (``entropy/device.py``), from the codestream's
 bytes; the default, "host", decodes them with the host codec.  A group
 the device decode finds corrupt raises InvalidJXLError.
+
+A Modular frame (lossless, or XYB as ``cjxl -m -d`` writes it): its
+channel planes decode on the host, as in the reference
+(``host.codec.decode_modular_frame``); the inverse RCT, palette and
+squeeze run on the device (``modular/device.py``), then the output step
+(``modular/output.py``).  A delta palette raises InvalidJXLError, as the
+host does; an embedded ICC profile, upsampling and ``entropy="device"``
+raise NotImplementedError.
+
 Streams outside the slice raise NotImplementedError naming the route
 they need; nothing falls back to the host decoder.
 """
@@ -19,6 +30,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from ._device import resolve_device
 from .host.api import (BasicInfo, InvalidJXLError, _check_decode_size,
@@ -28,7 +40,9 @@ from .host.bitstream.frame_header import (Encoding, read_frame_header,
                                           read_toc)
 from .host.bitstream.headers import ImageHeader, read_image_header
 from .host.bitstream.reader import BitReader, BitstreamError
+from .host.codec import decode_modular_frame
 from .host.jpeg import transcode as _jpeg_tc
+from .modular import output as modular_output
 from .vardct.frame import VarDCTFrame
 from .vardct.inputs import FrameConfig, FrameInputs, from_prepared, pack
 from .vardct.parse import check_entropy, parse_frame
@@ -62,10 +76,6 @@ def _read_frame(data: bytes):
         raise NotImplementedError(
             "reference-only frame (patch source): not in the port's "
             "decode slice")
-    if fh.encoding == Encoding.MODULAR:
-        raise NotImplementedError(
-            "Modular frame: decode it with jxl_coder_tpu.api.decode (the "
-            "port has no Modular route)")
     ng, ndc = fh.counts(hdr)
     n = 1 if (ng == 1 and fh.passes.num_passes == 1) else (
         2 + ndc + ng * fh.passes.num_passes)
@@ -73,30 +83,74 @@ def _read_frame(data: bytes):
     return cs, hdr, fh, toc
 
 
-def prepare(data: bytes, device="cuda", entropy: str = "host"
-            ) -> Tuple[FrameConfig, FrameInputs, ImageHeader]:
-    """The host half of decode: bytes -> (the frame's configuration, its
-    inputs on `device`, the image header).  entropy: "host" or "device",
-    where the AC pass groups are entropy-decoded."""
-    check_entropy(entropy)
-    dev = resolve_device(device)
+def _frame(data: bytes):
+    """_read_frame, its BitstreamError as InvalidJXLError."""
     try:
-        cs, hdr, fh, toc = _read_frame(data)
+        return _read_frame(data)
+    except BitstreamError as e:
+        raise InvalidJXLError(str(e)) from e
+
+
+def _prepare_vardct(cs, hdr, fh, toc, dev, entropy: str):
+    try:
         state = parse_frame(cs, hdr, fh, toc, entropy=entropy, device=dev)
     except BitstreamError as e:
         raise InvalidJXLError(str(e)) from e
-    cfg, inputs = from_prepared(*pack(state), dev)
+    return from_prepared(*pack(state), dev)
+
+
+def prepare(data: bytes, device="cuda", entropy: str = "host"
+            ) -> Tuple[FrameConfig, FrameInputs, ImageHeader]:
+    """The host half of a VarDCT decode: bytes -> (the frame's
+    configuration, its inputs on `device`, the image header).  entropy:
+    "host" or "device", where the AC pass groups are entropy-decoded.  A
+    Modular frame raises NotImplementedError: decode it with ``decode``."""
+    check_entropy(entropy)
+    dev = resolve_device(device)
+    cs, hdr, fh, toc = _frame(data)
+    if fh.encoding == Encoding.MODULAR:
+        raise NotImplementedError(
+            "Modular frame: prepare is the VarDCT host half; decode it with "
+            "jxl_coder_tpu_torch.api.decode")
+    cfg, inputs = _prepare_vardct(cs, hdr, fh, toc, dev, entropy)
     return cfg, inputs, hdr
+
+
+def _decode_modular(cs, hdr, fh, toc, dev, entropy: str) -> torch.Tensor:
+    """A Modular frame -> (H, W, C) pixels on `dev`."""
+    if entropy != "host":
+        raise NotImplementedError(
+            "entropy='device' on a Modular frame: the reference decodes "
+            "Modular channels on the host (jxl_coder_tpu/modular/device.py:1-16"
+            ", after the negative result of research/entropy_batch_probe.py)")
+    if hdr.metadata.icc_profile is not None:
+        raise NotImplementedError(
+            "embedded ICC profile: the port has no ICC-to-sRGB transform "
+            "(the reference's needs PIL's littlecms)")
+    modular_output.check_supported(hdr, fh)
+    try:
+        planes, dc_quant = decode_modular_frame(cs, hdr, fh, toc, dev)
+    except BitstreamError as e:
+        raise InvalidJXLError(str(e)) from e
+    return modular_output.modular_pixels(planes, hdr, fh, dc_quant)
 
 
 def decode(data: bytes, device="cuda", entropy: str = "host"
            ) -> Tuple[np.ndarray, BasicInfo]:
-    """Decode a VarDCT still to (pixels, BasicInfo); pixels are (H, W, 3)
-    uint8, or uint16 above 8 bits per sample, as jxl_coder_tpu.api.decode
-    returns them.  The device half runs on `device` ("cuda" raises when
-    no card is present); entropy="device" decodes the AC pass groups
+    """Decode a still to (pixels, BasicInfo), as jxl_coder_tpu.api.decode
+    returns them: a VarDCT frame (H, W, 3), a Modular frame (H, W, C)
+    with C in {1, 3, 4}; uint8 at 8 bits per sample or less, uint16
+    above.  The device half runs on `device` ("cuda" raises when no card
+    is present); entropy="device" decodes a VarDCT frame's AC pass groups
     there too (on the CPU, with the kernel's plain twin)."""
-    cfg, inputs, hdr = prepare(data, device, entropy)
-    pixels = VarDCTFrame(cfg)(inputs).cpu().numpy()
-    return (apply_orientation(pixels, hdr.metadata.orientation),
+    check_entropy(entropy)
+    dev = resolve_device(device)
+    cs, hdr, fh, toc = _frame(data)
+    if fh.encoding == Encoding.MODULAR:
+        pixels = _decode_modular(cs, hdr, fh, toc, dev, entropy)
+    else:
+        cfg, inputs = _prepare_vardct(cs, hdr, fh, toc, dev, entropy)
+        pixels = VarDCTFrame(cfg)(inputs)
+    return (apply_orientation(pixels.cpu().numpy(),
+                              hdr.metadata.orientation),
             basic_info(data))

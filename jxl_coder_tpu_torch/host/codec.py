@@ -1,16 +1,30 @@
 """The codec layer's host pieces that the port uses
-(``jxl_coder_tpu/codec.py``): the image-header writer and the DC
-quantisation reader.  The port's own codec is ``jxl_coder_tpu_torch.codec``.
+(``jxl_coder_tpu/codec.py``): the image-header writer, the DC
+quantisation reader, and the Modular frame's decode (its channel planes
+on the host, its inverse transforms on the named device) and encode (a
+fixture writer for the tests and ``chip_smoke.py``, reached through
+``reference``).  The port's own VarDCT codec is
+``jxl_coder_tpu_torch.codec``.
 """
 
 from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
 
 from .bitstream.reader import BitReader, BitstreamError
 from .bitstream.writer import BitWriter
 from .bitstream.headers import (
     ImageHeader, ImageMetadata, ColourEncoding, ExtraChannelInfo,
     ExtraChannelType)
-
+from .bitstream.frame_header import (FrameHeader, write_frame_header,
+                                     write_toc)
+from .modular.image import Channel, ModularImage
+from .modular.stream import (GroupHeader, decode_modular_stream,
+                             encode_modular_stream, undo_transforms)
+from .modular.tree import Tree
+from .modular import transform as T
 
 
 # --------------------------------------------------------------------------
@@ -171,3 +185,182 @@ def read_dc_quant(br: BitReader):
             raise BitstreamError("invalid dc_quant")
         vals.append(v)
     return tuple(vals)
+
+
+# --------------------------------------------------------------------------
+# Modular frame channel layout
+
+def frame_channel_layout(hdr: ImageHeader, fh: FrameHeader) -> ModularImage:
+    w, h = fh.coded_size(hdr)
+    m = hdr.metadata
+    if m.colour_encoding.colour_space == 1 and not m.xyb_encoded:  # grey
+        ncolor = 1
+    else:
+        ncolor = 3
+    return ModularImage.for_frame(w, h, ncolor, m.extra_channels)
+
+
+# --------------------------------------------------------------------------
+# Decode
+
+def decode_modular_frame(cs: bytes, hdr: ImageHeader, fh: FrameHeader,
+                         toc, device):
+    """A Modular frame's raw channels -> (int32 planes on `device`, every
+    transform undone there, and the LfGlobal DC dequant factors).  The
+    planes' entropy decode runs on the host; ``modular/output.py`` turns
+    the planes into pixels."""
+    ng, ndc = fh.counts(hdr)
+    n_entries = len(toc.entries)
+    if n_entries == 1:
+        image = frame_channel_layout(hdr, fh)
+        sec = toc.section(0)
+        br = BitReader(cs[sec.offset:sec.offset + sec.size])
+        # LfGlobal: DC dequant factors (bundle; used by modular XYB mode)
+        dc_quant = read_dc_quant(br)
+        # GlobalModular: optional global tree + shared histograms
+        global_tree = None
+        global_code = None
+        if br.bool():  # have_global_tree
+            from .modular.tree import decode_tree
+            from .entropy.coder import EntropyCode
+            global_tree = decode_tree(br, 1 << 22)
+            global_code = EntropyCode(br, global_tree.num_leaves)
+        header = decode_modular_stream(br, image, stream_id=0,
+                                       global_tree=global_tree,
+                                       global_code=global_code)
+        undo_transforms(image, header, device)
+        return [c.data for c in image.channels], dc_quant
+    # multi-section layout: LfGlobal (dc-quant, global tree, global
+    # modular stream) | LfGroup* (shift>=3 channel rects) | HfGlobal
+    # (empty for modular frames) | PassGroup* (shift<3 channel rects)
+    from .modular.frame import ModularFrameDecoder
+    from .modular.tree import decode_tree
+    from .entropy.coder import EntropyCode
+
+    sec = toc.section(0)
+    br = BitReader(cs[sec.offset:sec.offset + sec.size])
+    dc_quant = read_dc_quant(br)
+    gtree = gcode = None
+    if br.bool():
+        gtree = decode_tree(br, 1 << 22)
+        gcode = EntropyCode(br, (len(gtree.nodes) + 1) // 2)
+    w, h = fh.coded_size(hdr)
+    mfd = ModularFrameDecoder.for_frame(hdr, fh, gtree, gcode, True, w, h)
+    mfd.read_global(br)
+    for gi in range(ndc):
+        sec = toc.section(1 + gi)
+        gbr = BitReader(cs[sec.offset:sec.offset + sec.size])
+        mfd.read_lf_group(gbr, gi, ndc)
+    for gi in range(ng):
+        sec = toc.section(2 + ndc + gi)
+        gbr = BitReader(cs[sec.offset:sec.offset + sec.size])
+        mfd.read_group(gbr, gi, ndc, ng)
+    return mfd.finalize(device), dc_quant
+
+
+# --------------------------------------------------------------------------
+# Encode
+
+def encode_modular_frame(bw: BitWriter, hdr: ImageHeader, fh: FrameHeader,
+                         planes: List[np.ndarray],
+                         use_ycocg: bool = True,
+                         tree: Optional[Tree] = None,
+                         rct_type: int = 6,
+                         palette=None) -> None:
+    """Encode a full modular frame (header + TOC + sections) into bw.
+
+    palette: optional (pal_data (nc, K) int32, idx (H, W) int32) — the
+    frame's nc colour channels collapse to one index channel plus the
+    palette meta-channel (Transform id 1, the decode-side mirror of
+    modular/transform.palette_meta_apply); use_ycocg is ignored."""
+    image = frame_channel_layout(hdr, fh)
+    header = GroupHeader()
+    if palette is not None:
+        pal_data, idx = palette
+        nc = len(image.channels)
+        assert pal_data.shape[0] == nc
+        first = image.channels[0]
+        K = pal_data.shape[1]
+        pal_ch = Channel(K, nc, hshift=-1, vshift=-1)
+        pal_ch.data = np.ascontiguousarray(pal_data, np.int32)
+        idx_ch = Channel(first.width, first.height, first.hshift,
+                         first.vshift)
+        idx_ch.data = np.ascontiguousarray(idx, np.int32)
+        image.channels = [pal_ch, idx_ch]
+        image.nb_meta_channels = 1
+        header.transforms.append(T.Transform(
+            id=1, begin_c=0, num_c=nc, nb_colours=K, nb_deltas=0,
+            d_pred=0))
+    else:
+        for chan, plane in zip(image.channels, planes):
+            assert plane.shape == (chan.height, chan.width), \
+                (plane.shape, chan.height, chan.width)
+            chan.data = plane.astype(np.int32)
+        ncolor = 3 if len(planes) >= 3 else 1
+        if use_ycocg and ncolor == 3:
+            t = T.Transform(id=0, begin_c=0, rct_type=rct_type)
+            header.transforms.append(t)
+            T.rct_forward(image, t)
+    if tree is None:
+        tree = Tree.single_leaf(predictor=5)
+
+    ng, ndc = fh.counts(hdr)
+    gd = fh.group_dim()
+    sections: List[bytes] = []
+    if ng == 1:
+        sw = BitWriter()
+        sw.bool(True)   # LfGlobal: dc_quant all_default
+        sw.bool(False)  # have_global_tree (GlobalModular prelude)
+        encode_modular_stream(sw, image, header, tree, stream_id=0)
+        sections.append(sw.to_bytes())
+    else:
+        # real multi-section layout: LfGlobal | LfGroup* (empty: no
+        # shift>=3 channels from RCT-only transforms) | HfGlobal
+        # (empty) | per-group ModularAC streams (stream id
+        # 1 + 3*ndc + 17 + g), each with a local tree.
+        sw = BitWriter()
+        sw.bool(True)   # dc_quant all_default
+        sw.bool(False)  # no frame-level global tree
+        # global stream: decode-until-break rule — stop at the first
+        # channel larger than group_dim
+        stop = len(image.channels)
+        for i, c in enumerate(image.channels):
+            if i >= image.nb_meta_channels and (c.width > gd
+                                                or c.height > gd):
+                stop = i
+                break
+        encode_modular_stream(sw, image, header, tree, stream_id=0,
+                              channel_range=(0, stop))
+        sections.append(sw.to_bytes())
+        for _ in range(ndc):
+            sections.append(b"")  # LfGroups: no shift>=3 channels
+        sections.append(b"")      # HfGlobal (empty for modular)
+        w, hgt = fh.coded_size(hdr)
+        gx = -(-w // gd)
+        for gi in range(ng):
+            x0 = (gi % gx) * gd
+            y0 = (gi // gx) * gd
+            subs = []
+            for ci in range(stop, len(image.channels)):
+                c = image.channels[ci]
+                if min(c.hshift, c.vshift) >= 3:
+                    continue
+                cx0 = x0 >> max(0, c.hshift)
+                cy0 = y0 >> max(0, c.vshift)
+                cw = min(c.width - cx0, gd >> max(0, c.hshift))
+                chh = min(c.height - cy0, gd >> max(0, c.vshift))
+                if cw <= 0 or chh <= 0:
+                    continue
+                subs.append(Channel(cw, chh, data=c.data[
+                    cy0:cy0 + chh, cx0:cx0 + cw].copy()))
+            gw = BitWriter()
+            sub_image = ModularImage(subs, 0)
+            encode_modular_stream(gw, sub_image, GroupHeader(), tree,
+                                  stream_id=1 + 3 * ndc + 17 + gi)
+            sections.append(gw.to_bytes())
+
+    write_frame_header(bw, fh, hdr)
+    write_toc(bw, [len(s) for s in sections])
+    for s in sections:
+        for byte in s:
+            bw.u(byte, 8)

@@ -1,13 +1,17 @@
-"""Modular transforms: RCT, Palette, Squeeze (§H.6): their headers and
-the channel-list meta steps a stream's decode applies before reading its
-planes.  The port decodes no Modular frame, so it keeps neither the
-inverse nor the forward pixel transforms.
+"""Modular transforms: RCT, Palette, Squeeze (§H.6): their headers, the
+channel-list meta steps a stream's decode applies before reading its
+planes, and the forward pixel transforms, which the fixture writers use
+to build streams.  The inverse pixel transforms run on the device
+(``jxl_coder_tpu_torch/modular/device.py``); the forward squeeze keeps
+the int64 SmoothTendency it needs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import List
+
+import numpy as np
 
 from ..bitstream.reader import BitReader, BitstreamError
 from ..bitstream.writer import BitWriter
@@ -82,8 +86,44 @@ class Transform:
 # --------------------------------------------------------------------------
 # RCT
 
+def _rct_forward_type(r, g, b, rct_type):
+    """Exact inverses of _rct_inverse_type (all 7 subtypes)."""
+    if rct_type == 0:
+        return r, g, b
+    if rct_type == 1:
+        return r, g, b - r
+    if rct_type == 2:
+        return r, g - r, b
+    if rct_type == 3:
+        return r, g - r, b - r
+    if rct_type == 4:
+        return r, g - ((r + b) >> 1), b
+    if rct_type == 5:
+        return r, g - ((r + b) >> 1), b - r
+    if rct_type == 6:
+        co = r - b
+        tmp = b + (co >> 1)
+        cg = g - tmp
+        y = tmp + (cg >> 1)
+        return y, co, cg
+    raise ValueError(f"bad forward RCT type {rct_type}")
+
+
 _PERMUTATIONS = [
     (0, 1, 2), (1, 2, 0), (2, 0, 1), (0, 2, 1), (1, 0, 2), (2, 1, 0)]
+
+
+def rct_forward(image: ModularImage, t: Transform) -> None:
+    b = t.begin_c
+    perm = t.rct_type // 7
+    typ = t.rct_type % 7
+    p = _PERMUTATIONS[perm]
+    comps = [image.channels[b + i].data.astype(np.int64) for i in range(3)]
+    # forward permutation: stored[i] = comp[p[i]]
+    stored = [comps[p[i]] for i in range(3)]
+    s0, s1, s2 = _rct_forward_type(stored[0], stored[1], stored[2], typ)
+    for i, s in enumerate((s0, s1, s2)):
+        image.channels[b + i].data = s.astype(np.int32)
 
 
 # --------------------------------------------------------------------------
@@ -106,8 +146,75 @@ def palette_meta_apply(image: ModularImage, t: Transform) -> None:
     image.nb_meta_channels += 1
 
 
+def palette_forward(image: ModularImage, t: Transform) -> None:
+    """Exact-palette forward (encoder chooses nb_colours matching content)."""
+    b, n = t.begin_c, t.num_c
+    chans = [image.channels[b + c].data for c in range(n)]
+    h, w = chans[0].shape
+    stacked = np.stack(chans, axis=-1).reshape(-1, n)
+    colors, inverse = np.unique(stacked, axis=0, return_inverse=True)
+    if len(colors) != t.nb_colours:
+        raise ValueError("nb_colours mismatch")
+    pal = Channel(t.nb_colours, n, hshift=-1, vshift=-1,
+                  data=colors.T.astype(np.int32).copy())
+    idx = Channel(w, h, image.channels[b].hshift, image.channels[b].vshift,
+                  inverse.reshape(h, w).astype(np.int32))
+    image.channels = ([pal] + image.channels[:b] + [idx]
+                      + image.channels[b + n:])
+    image.nb_meta_channels += 1
+
+
 # --------------------------------------------------------------------------
 # Squeeze
+
+def smooth_tendency(a: np.ndarray, b: np.ndarray, c: np.ndarray):
+    """Vectorized SmoothTendency (int arrays)."""
+    a = a.astype(np.int64)
+    b = b.astype(np.int64)
+    c = c.astype(np.int64)
+    out = np.zeros_like(a)
+
+    m1 = (a >= b) & (b >= c)
+    x = (4 * a - 3 * c - b + 6) // 12
+    x = np.where(x - (x & 1) > 2 * (a - b), 2 * (a - b) + 1, x)
+    x = np.where(x + (x & 1) > 2 * (b - c), 2 * (b - c), x)
+    out = np.where(m1, x, out)
+
+    m2 = (a <= b) & (b <= c)
+    num = 4 * a - 3 * c - b - 6
+    # C-truncating division (operand is <= 0 in this branch)
+    y = -((-num) // 12)
+    y = np.where(y + (y & 1) < 2 * (a - b), 2 * (a - b) - 1, y)
+    y = np.where(y - (y & 1) < 2 * (b - c), 2 * (b - c), y)
+    out = np.where(m2, y, out)
+    return out
+
+
+def _squeeze_1d(data: np.ndarray):
+    """Forward squeeze along last axis -> (avg, residual)."""
+    n = data.shape[-1]
+    data = data.astype(np.int64)
+    nr = n // 2
+    na = (n + 1) // 2
+    v0 = data[..., 0:2 * nr:2]
+    v1 = data[..., 1:2 * nr:2]
+    diff = v0 - v1
+    avg_pairs = (v0 + v1 + (v0 > v1)) >> 1
+    if n % 2:
+        avg = np.concatenate([avg_pairs, data[..., -1:]], axis=-1)
+    else:
+        avg = avg_pairs
+    res = np.zeros(data.shape[:-1] + (nr,), np.int64)
+    for k in range(nr):
+        a = avg[..., k]
+        next_avg = avg[..., k + 1] if k + 1 < na else a
+        if k > 0:
+            left = data[..., 2 * k - 1]
+        else:
+            left = a
+        res[..., k] = diff[..., k] - smooth_tendency(left, a, next_avg)
+    return avg, res
+
 
 def default_squeeze_params(image: ModularImage) -> list:
     """Default squeeze sequence (squeeze.cc DefaultSqueezeParameters):
@@ -179,3 +286,28 @@ def _apply_one_squeeze_meta(image: ModularImage, s: SqueezeParams) -> None:
         else:
             image.channels.append(res)
 
+
+def squeeze_forward(image: ModularImage, t: Transform) -> None:
+    if not t.squeezes:
+        t.squeezes = default_squeeze_params(image)
+    for s in t.squeezes:
+        for i in range(s.num_c):
+            c = s.begin_c + i
+            ch = image.channels[c]
+            if s.horizontal:
+                avg_d, res_d = _squeeze_1d(ch.data)
+                avg = Channel(avg_d.shape[-1], ch.height, ch.hshift + 1,
+                              ch.vshift, avg_d.astype(np.int32))
+                res = Channel(res_d.shape[-1], ch.height, ch.hshift + 1,
+                              ch.vshift, res_d.astype(np.int32))
+            else:
+                avg_d, res_d = _squeeze_1d(ch.data.T)
+                avg = Channel(ch.width, avg_d.shape[-1], ch.hshift,
+                              ch.vshift + 1, avg_d.T.astype(np.int32).copy())
+                res = Channel(ch.width, res_d.shape[-1], ch.hshift,
+                              ch.vshift + 1, res_d.T.astype(np.int32).copy())
+            image.channels[c] = avg
+            if s.in_place:
+                image.channels.insert(s.begin_c + s.num_c + i, res)
+            else:
+                image.channels.append(res)

@@ -1,8 +1,9 @@
 """The host codec the port is checked against.
 
 The port's device decode is held to a float64 host decode; streams to
-decode come from the host encoder, and the per-strategy transform
-tables of seeded test families from the calibrated tables.  All of them
+decode come from the host encoders (VarDCT, and the Modular frame writer
+``encode_modular_frame``), and the per-strategy transform tables of
+seeded test families from the calibrated tables.  All of them
 are the port's own copies of the JAX package's host layers (``host/``,
 numpy and C++).  ``api.decode`` never calls this module.
 """
@@ -13,14 +14,15 @@ import numpy as np
 
 from .api import _read_frame
 from .host.api import apply_orientation
+from .host.codec import encode_modular_frame
 from .host.vardct.dec_real import decode_vardct_frame
 from .host.vardct.enc_real import encode_vardct_real as encode_vardct
 from .host.vardct.strategies import STRATEGIES
 from .host.vardct.synthesis import dequant_table, response_matrix
 from .vardct.inputs import _PAD_SENTINEL as PAD_SENTINEL
 
-__all__ = ["encode_vardct", "decode_float64", "STRATEGIES", "dequant_table",
-           "response_matrix", "PAD_SENTINEL"]
+__all__ = ["encode_vardct", "encode_modular_frame", "decode_float64",
+           "STRATEGIES", "dequant_table", "response_matrix", "PAD_SENTINEL"]
 
 
 def decode_float64(data: bytes) -> np.ndarray:

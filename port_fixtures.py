@@ -1,6 +1,7 @@
 """Seeded inputs for checking the PyTorch port (jxl_coder_tpu_torch):
-images to encode and synthetic strategy families.  Used by
-tests/test_torch_*.py and chip_smoke.py; imports no JAX.
+images to encode, synthetic strategy families, and Modular streams
+written with the port's own host copies.  Used by tests/test_torch_*.py
+and chip_smoke.py; imports no JAX.
 """
 
 from __future__ import annotations
@@ -9,7 +10,22 @@ import numpy as np
 
 from jxl_coder_tpu_torch import api
 from jxl_coder_tpu_torch import reference as R
+from jxl_coder_tpu_torch.host.bitstream.frame_header import (
+    BlendingInfo, Encoding, FrameHeader, write_frame_header, write_toc)
+from jxl_coder_tpu_torch.host.bitstream.headers import (
+    BitDepth, ColourEncoding, ColourSpace, ExtraChannelInfo,
+    ExtraChannelType, ImageHeader, ImageMetadata, SizeHeader)
 from jxl_coder_tpu_torch.host.bitstream.reader import BitReader
+from jxl_coder_tpu_torch.host.bitstream.writer import BitWriter
+from jxl_coder_tpu_torch.host.codec import (DEFAULT_DC_QUANT,
+                                            frame_channel_layout,
+                                            write_image_header)
+from jxl_coder_tpu_torch.host.modular import transform as T
+from jxl_coder_tpu_torch.host.modular.image import ModularImage
+from jxl_coder_tpu_torch.host.modular.stream import (GroupHeader,
+                                                     encode_modular_stream)
+from jxl_coder_tpu_torch.host.modular.tree import Tree
+from jxl_coder_tpu_torch.host.vardct.enc_real import srgb8_to_xyb
 from jxl_coder_tpu_torch.host.vardct import synthesis as S
 from jxl_coder_tpu_torch.host.vardct.dec_real import (read_lf_global,
                                                       read_lf_group)
@@ -188,3 +204,173 @@ def dct8_arguments(data: bytes):
             np.float32(0.8 ** (fh.x_qm_scale - 2)),
             np.float32(0.8 ** (fh.b_qm_scale - 2)))
     return args, (bool(rf.gab), int(rf.epf_iters), bool(fh.flags & 0x80))
+
+
+# ---- Modular streams ----
+
+def posterized_frame(h: int, w: int, levels: int = 6) -> np.ndarray:
+    """bench_frame with each channel cut to `levels` values: at most
+    levels^3 colours, so the palette body applies."""
+    step = 255 // (levels - 1)
+    return (bench_frame(h, w) // step * step).astype(np.uint8)
+
+
+def modular_headers(h: int, w: int, nch: int, bits: int = 8,
+                    xyb: bool = False, group_shift: int = 3):
+    """(ImageHeader, FrameHeader) of a Modular still as
+    jxl_coder_tpu.api.encode writes them (lossless: api.py:306-327);
+    nch 4 carries alpha as an extra channel, xyb an XYB-encoded frame."""
+    m = ImageMetadata()
+    m.xyb_encoded = xyb
+    m.bit_depth = BitDepth(False, bits, 0)
+    ce = ColourEncoding()
+    if nch == 1:
+        ce.colour_space = ColourSpace.GREY
+    m.colour_encoding = ce
+    if nch == 4:
+        ec = ExtraChannelInfo(type=ExtraChannelType.ALPHA)
+        ec.bit_depth = BitDepth(False, bits, 0)
+        m.extra_channels = [ec]
+    hdr = ImageHeader(size=SizeHeader(xsize=w, ysize=h), metadata=m)
+    fh = FrameHeader()
+    fh.encoding = Encoding.MODULAR
+    fh.group_size_shift = group_shift
+    fh.x_qm_scale = 2
+    fh.ec_upsampling = [1] * len(m.extra_channels)
+    fh.ec_blending_info = [BlendingInfo() for _ in m.extra_channels]
+    fh.restoration_filter.epf_iters = 0
+    fh.restoration_filter.gab = False
+    return hdr, fh
+
+
+def _still(hdr, body) -> bytes:
+    """Image header, then body(bw) writes the frame."""
+    bw = BitWriter()
+    write_image_header(bw, hdr)
+    body(bw)
+    bw.zero_pad_to_byte()
+    return bw.to_bytes()
+
+
+def _planes(img: np.ndarray):
+    img = img if img.ndim == 3 else img[:, :, None]
+    return [img[:, :, i].astype(np.int32) for i in range(img.shape[2])]
+
+
+def modular_still(img: np.ndarray, palette: bool = False,
+                  group_shift: int = 3) -> bytes:
+    """What api.encode(..., effort=1/2) writes, with RCT 6 forced on three
+    colour channels and a single-leaf predictor-5 tree
+    (reference.encode_modular_frame); palette: the colours of np.unique
+    of the pixels as the palette body (api._try_palette_body)."""
+    planes = _planes(img)
+    bits = 16 if img.dtype == np.uint16 else 8
+    hdr, fh = modular_headers(img.shape[0], img.shape[1], len(planes), bits,
+                              group_shift=group_shift)
+    pal = None
+    if palette:
+        packed = np.stack(planes[:3], -1).reshape(-1, 3)
+        colours, inv = np.unique(packed, axis=0, return_inverse=True)
+        pal = (np.ascontiguousarray(colours.T, np.int32),
+               inv.reshape(img.shape[:2]).astype(np.int32))
+    return _still(hdr, lambda bw: R.encode_modular_frame(
+        bw, hdr, fh, planes, use_ycocg=True, palette=pal))
+
+
+def _one_section(bw, hdr, fh, image, header) -> None:
+    """A single-section frame: LfGlobal (default DC dequant, no global
+    tree) and the global stream with `header`'s transforms."""
+    sw = BitWriter()
+    sw.bool(True)
+    sw.bool(False)
+    encode_modular_stream(sw, image, header, Tree.single_leaf(predictor=5),
+                          stream_id=0)
+    sec = sw.to_bytes()
+    write_frame_header(bw, fh, hdr)
+    write_toc(bw, [len(sec)])
+    for byte in sec:
+        bw.u(byte, 8)
+
+
+def _squeezed(bw, hdr, fh, planes, rct: bool) -> None:
+    """One section whose GroupHeader carries RCT 6 (when `rct`) and the
+    default squeeze, built the way tests/test_modular.py builds one at
+    the transform level."""
+    image = frame_channel_layout(hdr, fh)
+    for chan, plane in zip(image.channels, planes):
+        chan.data = plane
+    transforms = []
+    if rct:
+        transforms.append(T.Transform(id=0, begin_c=0, rct_type=6))
+        T.rct_forward(image, transforms[-1])
+    transforms.append(T.Transform(
+        id=2, squeezes=T.default_squeeze_params(image)))
+    T.squeeze_forward(image, transforms[-1])
+    _one_section(bw, hdr, fh, image, GroupHeader(transforms=transforms))
+
+
+def squeezed_still(img: np.ndarray) -> bytes:
+    """A one-section RGB stream with RCT 6 and the default squeeze (at
+    most 1024 x 1024: one group at group_size_shift 3)."""
+    hdr, fh = modular_headers(img.shape[0], img.shape[1], 3)
+    if fh.counts(hdr)[0] != 1:
+        raise ValueError("a one-section stream holds one group")
+    return _still(hdr, lambda bw: _squeezed(bw, hdr, fh, _planes(img), True))
+
+
+def xyb_still(img: np.ndarray) -> bytes:
+    """An XYB Modular stream, one section, squeezed (as cjxl -m -d
+    writes lossy Modular): the channels (Y, X, B - Y) in units of the
+    default DC dequant factors, whose product codec.py:234-239 undoes."""
+    X, Y, B = srgb8_to_xyb(img)
+    qx, qy, qb = DEFAULT_DC_QUANT
+    cy = np.rint(Y / qy).astype(np.int32)
+    planes = [cy, np.rint(X / qx).astype(np.int32),
+              np.rint(B / qb).astype(np.int32) - cy]
+    hdr, fh = modular_headers(img.shape[0], img.shape[1], 3, xyb=True)
+    return _still(hdr, lambda bw: _squeezed(bw, hdr, fh, planes, False))
+
+
+def group_rct_still(img: np.ndarray, group_shift: int = 0) -> bytes:
+    """A multi-group RGB stream whose global stream has no transform and
+    whose group streams each carry a local RCT in their GroupHeader:
+    group g uses rct_type (6 + 5 g) mod 42, so the frame covers several
+    of the 7 x 6 types."""
+    planes = _planes(img)
+    hdr, fh = modular_headers(img.shape[0], img.shape[1], 3,
+                              group_shift=group_shift)
+    ng, ndc = fh.counts(hdr)
+    gd = fh.group_dim()
+    if ng == 1:
+        raise ValueError("a multi-group stream needs more than one group")
+    tree = Tree.single_leaf(predictor=5)
+    sections = []
+    sw = BitWriter()
+    sw.bool(True)
+    sw.bool(False)
+    encode_modular_stream(sw, ModularImage([]), GroupHeader(), tree,
+                          stream_id=0)
+    sections.append(sw.to_bytes())
+    sections += [b""] * (ndc + 1)       # LF groups and HF global: empty
+    gx = -(-img.shape[1] // gd)
+    for gi in range(ng):
+        y0, x0 = (gi // gx) * gd, (gi % gx) * gd
+        sub = ModularImage([T.Channel(min(gd, p.shape[1] - x0),
+                                      min(gd, p.shape[0] - y0),
+                                      data=p[y0:y0 + gd, x0:x0 + gd].copy())
+                            for p in planes])
+        t = T.Transform(id=0, begin_c=0, rct_type=(6 + 5 * gi) % 42)
+        T.rct_forward(sub, t)
+        gw = BitWriter()
+        encode_modular_stream(gw, sub, GroupHeader(transforms=[t]), tree,
+                              stream_id=1 + 3 * ndc + 17 + gi)
+        sections.append(gw.to_bytes())
+
+    def body(bw):
+        write_frame_header(bw, fh, hdr)
+        write_toc(bw, [len(s) for s in sections])
+        for s in sections:
+            for byte in s:
+                bw.u(byte, 8)
+
+    return _still(hdr, body)

@@ -1,6 +1,8 @@
 """The port's own host layers (jxl_coder_tpu_torch/host) vs the JAX
 package's, which they copy: the parse state, the host encoder's bytes,
-the native host codec the port builds, and the float64 host decode.
+the native host codec the port builds, the float64 host decode, and the
+Modular copies (the forward transforms, the frame decoder, the codec's
+Modular frame decode).
 All of them are integer or float64 paths with the same code, so every
 comparison is exact.
 """
@@ -26,6 +28,7 @@ from jxl_coder_tpu_torch.host import native as port_native
 from jxl_coder_tpu_torch.host.bitstream.reader import BitReader
 from jxl_coder_tpu_torch.host.vardct import dec_real as port_dec
 from jxl_coder_tpu_torch.vardct.parse import parse_frame
+import port_fixtures as F
 from port_fixtures import bench_frame, sharp_frame, smooth_frame
 
 # (image, distance, effort): all DCT8 at effort 2; a ragged two-group
@@ -173,3 +176,120 @@ def test_host_codec_build_failure_raises(monkeypatch, tmp_path):
     finally:
         _build.load_host.cache_clear()
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+# ---- the Modular host copies: forward transforms, frame decoder, codec ----
+
+def _modular_pair(rng, n=3, h=19, w=27):
+    """The same seeded channels as a JAX-package and a port ModularImage."""
+    from jxl_coder_tpu.modular.image import Channel as RC, ModularImage as RI
+    from jxl_coder_tpu_torch.host.modular.image import Channel, ModularImage
+    planes = [rng.integers(-900, 900, (h, w)).astype(np.int32)
+              for _ in range(n)]
+    return (RI([RC(w, h, data=p.copy()) for p in planes]),
+            ModularImage([Channel(w, h, data=p.copy()) for p in planes]))
+
+
+def _same_channels(a, b):
+    assert a.nb_meta_channels == b.nb_meta_channels
+    assert len(a.channels) == len(b.channels)
+    for x, y in zip(a.channels, b.channels):
+        assert (x.width, x.height, x.hshift, x.vshift) == \
+            (y.width, y.height, y.hshift, y.vshift)
+        assert x.data.dtype == y.data.dtype and np.array_equal(x.data, y.data)
+
+
+@pytest.mark.parametrize("rct_type", range(42))
+def test_rct_forward_copy_equals_the_original(rct_type):
+    from jxl_coder_tpu.modular import transform as RT
+    from jxl_coder_tpu_torch.host.modular import transform as PT
+    ref, port = _modular_pair(np.random.default_rng(rct_type))
+    RT.rct_forward(ref, RT.Transform(id=0, rct_type=rct_type))
+    PT.rct_forward(port, PT.Transform(id=0, rct_type=rct_type))
+    _same_channels(ref, port)
+
+
+@pytest.mark.parametrize("kind", ["palette", "squeeze", "squeeze_odd"])
+def test_palette_and_squeeze_forward_copies_equal_the_originals(kind):
+    from jxl_coder_tpu.modular import transform as RT
+    from jxl_coder_tpu_torch.host.modular import transform as PT
+    rng = np.random.default_rng(4)
+    ref, port = _modular_pair(rng, h=33 if kind == "squeeze_odd" else 32,
+                              w=17 if kind == "squeeze_odd" else 40)
+    if kind == "palette":
+        cols = rng.integers(0, 50, (3, 7))
+        pick = rng.integers(0, 7, (32, 40))
+        for img in (ref, port):
+            for c in range(3):
+                img.channels[c].data = cols[c][pick].astype(np.int32)
+        RT.palette_forward(ref, RT.Transform(id=1, num_c=3, nb_colours=7))
+        PT.palette_forward(port, PT.Transform(id=1, num_c=3, nb_colours=7))
+    else:
+        rt, pt = RT.Transform(id=2), PT.Transform(id=2)
+        RT.squeeze_forward(ref, rt)
+        PT.squeeze_forward(port, pt)
+        assert [dataclasses.asdict(s) for s in rt.squeezes] == \
+            [dataclasses.asdict(s) for s in pt.squeezes]
+    _same_channels(ref, port)
+
+
+MODULAR_STREAMS = {
+    # a JAX api.encode stream of two groups; the port's fixture writers:
+    # group-local RCT in six groups, a palette over four groups, a squeeze
+    "jax_two_groups": lambda: jax_api.encode(smooth_frame(21, 1030),
+                                             lossless=True, effort=2),
+    "group_rct": lambda: F.group_rct_still(bench_frame(140, 270)),
+    "palette_groups": lambda: F.modular_still(F.posterized_frame(140, 150),
+                                              palette=True, group_shift=0),
+    "squeezed": lambda: F.squeezed_still(bench_frame(40, 52)),
+}
+
+
+@pytest.mark.parametrize("key", list(MODULAR_STREAMS))
+def test_modular_frame_decode_copy_equals_the_original(monkeypatch, key):
+    """host/codec.py decode_modular_frame (channel planes on the host,
+    host/modular/frame.py's deferred group chains undone on the CPU
+    device) against jxl_coder_tpu.codec.decode_modular_frame."""
+    from jxl_coder_tpu import codec as ref_codec
+    from jxl_coder_tpu_torch.host import codec as port_codec
+    monkeypatch.delenv("JXL_TPU_MODULAR_DEVICE", raising=False)
+    data = MODULAR_STREAMS[key]()
+    ref = ref_codec.decode_modular_frame(*_jax_read_frame(data))
+    cs, hdr, fh, toc = api._read_frame(data)
+    assert [(c.width, c.height) for c in port_codec.frame_channel_layout(
+        hdr, fh).channels] == [(c.width, c.height) for c in
+                               ref_codec.frame_channel_layout(
+                                   *_jax_read_frame(data)[1:3]).channels]
+    planes, dc_quant = port_codec.decode_modular_frame(cs, hdr, fh, toc,
+                                                       "cpu")
+    assert dc_quant == port_codec.DEFAULT_DC_QUANT
+    assert len(planes) == len(ref)
+    for a, b in zip(planes, ref):
+        assert a.device.type == "cpu" and np.array_equal(a.numpy(), b)
+
+
+def test_frame_decoder_defers_the_group_chains():
+    """Until finalize, the port's frame decoder holds the group streams'
+    raw (RCT'd) planes and one recorded chain per group."""
+    from jxl_coder_tpu_torch.host.bitstream.reader import BitReader
+    from jxl_coder_tpu_torch.host.modular.frame import ModularFrameDecoder
+    img = bench_frame(140, 270)
+    cs, hdr, fh, toc = api._read_frame(F.group_rct_still(img))
+    ng, ndc = fh.counts(hdr)
+    mfd = ModularFrameDecoder.for_frame(hdr, fh, None, None, True,
+                                        *fh.coded_size(hdr))
+    sec = toc.section(0)
+    br = BitReader(cs[sec.offset:sec.offset + sec.size])
+    assert br.bool() and not br.bool()     # default DC quant, no tree
+    mfd.read_global(br)
+    for gi in range(ng):
+        sec = toc.section(2 + ndc + gi)
+        mfd.read_group(BitReader(cs[sec.offset:sec.offset + sec.size]), gi,
+                       ndc, ng)
+    assert len(mfd.chains) == ng
+    assert [c.header.transforms[0].rct_type for c in mfd.chains] == \
+        [(6 + 5 * g) % 42 for g in range(ng)]
+    raw = np.stack([c.data for c in mfd.image.channels], -1)
+    assert not np.array_equal(raw, img)
+    out = np.stack([p.numpy() for p in mfd.finalize("cpu")], -1)
+    assert np.array_equal(out, img)
