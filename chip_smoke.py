@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's VarDCT still decode, its Modular still decode
-and its round-1 VarDCT codec on one CUDA card.
+"""Drive the PyTorch port's VarDCT still decode (with its post stages and
+extra channels), its Modular still decode and its round-1 VarDCT codec
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -84,7 +85,26 @@ prints no result):
      source and the CPU route, XYB within 1 code on < 0.1%; every kernel
      call of those decodes against its twin; the 4K RCT decode split into
      its layers inside the same calls (M1); each kernel at 4K by CUDA
-     graph against its twin and bound.
+     graph against its twin and bound;
+ 12. the VarDCT post stages (streams from the port's host encoder and
+     Modular fixture writer, encoded and held to the float64 host decoder
+     in the worker processes meanwhile: 3840x2160 16-bit with lossy
+     alpha, photon noise at ISO 3200 and PQ with BT.2100 primaries; 4K
+     coded at 1920x1080 with 2x upsampling; 720x480 HLG (BT.2100), gamma
+     1/2.2 and BT.709; 4x and 8x upsampled frames; a 1024x1024 RGBA
+     Modular frame with 2x upsampling): the three kernels of
+     csrc/post.cu (add_noise, upsample, encode_output) against their
+     twins on seeded planes from 1x1 up (every output spec, 8 and 16
+     bits); the main path api.decode(data, device="cuda") on every
+     stream, counted, the plain twins made to raise: A5 once per noisy
+     frame, A6 once per upsampled frame (and per upsampled extra
+     channel), A7 once per VarDCT frame, kernel 2 once with f32 out; each
+     decode within 2 codes of the float64 host decoder (PQ: mean < 0.5,
+     99.9th percentile <= 8, max <= 64), extra channels equal, the
+     Modular frame equal to the CPU route; the kernels against their
+     twins on the main path's 4K planes; the 4K post stream and the
+     upsampled 4K stream split into their layers inside the same calls
+     (M1); each kernel at 4K by CUDA graph against its twin and bound.
 Every kernel's line carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its f32 operations over 67 TFLOP/s (the H100 SXM's published peaks
@@ -99,6 +119,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import functools
+import gc
 import hashlib
 import json
 import multiprocessing
@@ -109,6 +130,7 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 import sys
 import tempfile
+import threading
 import time
 
 sys.modules["jax"] = None    # the port runs without JAX; so does this script
@@ -124,7 +146,8 @@ from jxl_coder_tpu_torch.host.modular.frame import ModularFrameDecoder
 from jxl_coder_tpu_torch.host.vardct.dec_real import BlockArrays
 from jxl_coder_tpu_torch.modular import device as MDEV
 from jxl_coder_tpu_torch.modular import output as MOUT
-from jxl_coder_tpu_torch.vardct import color, dct8, filters, inputs, synth
+from jxl_coder_tpu_torch.vardct import (color, dct8, filters, inputs, post,
+                                        synth)
 from jxl_coder_tpu_torch.vardct import detile as DT
 from jxl_coder_tpu_torch.vardct import fused_filters as FF
 from jxl_coder_tpu_torch.vardct import parse as PARSE
@@ -132,8 +155,8 @@ from jxl_coder_tpu_torch.vardct import pipeline as LP
 from jxl_coder_tpu_torch.vardct.frame import VarDCTFrame
 from port_fixtures import (bench_frame, dct8_arguments, group_rct_still,
                            modular_still, posterized_frame, sharp_frame,
-                           squeezed_still, synthetic_family, waves_frame,
-                           xyb_still)
+                           squeezed_still, synthetic_family,
+                           upsampled_modular_still, waves_frame, xyb_still)
 
 SYNTH_TOL = 1e-4      # f32 sums in another order than the twin's matmuls
 FILTER_TOL = 1e-5     # no FMA contraction; EPF SADs summed in another order
@@ -172,6 +195,13 @@ KERNELS = {
     "palette_inverse": dict(fn=MDEV.palette_inverse,
                             source="jxl_coder_tpu_torch/csrc/modular.cu",
                             replaces="jxl_coder_tpu/modular/device.py:162"),
+    "add_noise": dict(fn=post.add_noise, source="jxl_coder_tpu_torch/csrc/post.cu",
+                      replaces="jxl_coder_tpu/vardct/tpu_full.py:606"),
+    "upsample": dict(fn=post.upsample, source="jxl_coder_tpu_torch/csrc/post.cu",
+                     replaces="jxl_coder_tpu/vardct/tpu_full.py:632"),
+    "encode_output": dict(fn=post.encode_output,
+                          source="jxl_coder_tpu_torch/csrc/post.cu",
+                          replaces="jxl_coder_tpu/vardct/tpu_full.py:676"),
 }
 # the round-1 encoder's sources: a change to any of them re-encodes
 LEGACY_ENCODER = [sys.modules[m].__file__ for m in (
@@ -1249,6 +1279,19 @@ def split_decode(log: list):
             setattr(owner, name, orig)
 
 
+@contextlib.contextmanager
+def no_gc():
+    """The cyclic garbage collector off for one timed call (as timeit runs
+    its calls), after a collection, so that a collection triggered by
+    earlier allocations does not land inside one call's layers."""
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+
+
 def spent(log: list, names) -> float:
     """Milliseconds summed over the logged calls of `names`."""
     return sum(t1 - t0 for n, t0, t1 in log if n in names) * 1e3
@@ -1260,8 +1303,9 @@ def decode_layers(data: bytes, mp: float, card: str, runs: int = 5) -> dict:
     them per route in turns with as many unwrapped calls (split first in
     even pairs, unsplit first in odd ones; the routes alternate call by
     call); raises if a split call's layers do not sum to within 2% of its
-    own total.  Then the parse by its own steps, from the same calls.
-    Returns each route's medians by layer and step (ms)."""
+    own total.  Then the parse by its own steps, from the same calls.  The
+    garbage collector is off during each timed call (no_gc).  Returns each
+    route's medians by layer and step (ms)."""
     routes = ("host", "device")
     split = {r: [] for r in routes}
     unsplit = {r: [] for r in routes}
@@ -1270,14 +1314,15 @@ def decode_layers(data: bytes, mp: float, card: str, runs: int = 5) -> dict:
             torch.cuda.synchronize()
             if (i % 2 == 0) == (i // 2 % 2 == 0):
                 log = []
-                with split_decode(log):
+                with split_decode(log), no_gc():
                     t0 = time.perf_counter()
                     api.decode(data, device="cuda", entropy=r)
                     split[r].append(((time.perf_counter() - t0) * 1e3, log))
             else:
-                t0 = time.perf_counter()
-                api.decode(data, device="cuda", entropy=r)
-                unsplit[r].append((time.perf_counter() - t0) * 1e3)
+                with no_gc():
+                    t0 = time.perf_counter()
+                    api.decode(data, device="cuda", entropy=r)
+                    unsplit[r].append((time.perf_counter() - t0) * 1e3)
     return {r: report_layers(r, split[r], unsplit[r], mp, card, runs)
             for r in routes}
 
@@ -1777,14 +1822,15 @@ def modular_layers(data: bytes, mp: float, card: str, runs: int = 5) -> dict:
         torch.cuda.synchronize()
         if (i % 2 == 0) == (i // 2 % 2 == 0):
             log = []
-            with split_modular(log):
+            with split_modular(log), no_gc():
                 t0 = time.perf_counter()
                 api.decode(data, device="cuda")
                 split.append(((time.perf_counter() - t0) * 1e3, log))
         else:
-            t0 = time.perf_counter()
-            api.decode(data, device="cuda")
-            unsplit.append((time.perf_counter() - t0) * 1e3)
+            with no_gc():
+                t0 = time.perf_counter()
+                api.decode(data, device="cuda")
+                unsplit.append((time.perf_counter() - t0) * 1e3)
     per = {k: [spent(log, names) for _, log in split]
            for k, names in MODULAR_LAYERS.items()}
     sums = [sum(v[n] for v in per.values()) for n in range(len(split))]
@@ -1980,6 +2026,581 @@ def modular_phase(jobs: dict, dev, card: str, ms: dict) -> dict:
     return dict(counts, layers=layers)
 
 
+# ---- the VarDCT post stages (phase 12) ----
+
+POST_KERNELS = ("add_noise", "upsample", "encode_output")
+# what a post-stage decode on the card must not run: the kernels' plain
+# twins and the plain output functions
+POST_TWINS = ((post, ("add_noise_plain", "upsample_plain",
+                      "encode_output_plain")),
+              (filters, ("restore_and_output_plain",)),
+              (color, ("xyb_to_srgb_plain",)),
+              (MDEV, ("unsqueeze_plain", "rct_inverse_plain",
+                      "palette_inverse_plain")))
+# the host encoder's sources: a change to any of them re-encodes
+POST_WRITER = [sys.modules[m].__file__ for m in (
+    "port_fixtures", "jxl_coder_tpu_torch.host.vardct.enc_real",
+    "jxl_coder_tpu_torch.host.ops.color", "jxl_coder_tpu_torch.host.codec",
+    "jxl_coder_tpu_torch.host.modular.stream")]
+# least f32 operations per pixel (an FMA counts 2):
+#   noise: the three 5x5 box sums as running sums (4 a plane), centre
+#     minus the sum / 25 (2 a plane), the two strengths' index, fraction
+#     and interpolation (6 each), red and green (3 each), X / Y / B (2 each;
+#     the sum red + green shared, 1): 12 + 6 + 12 + 6 + 7 = 43;
+#   upsampling, per output sample: 25 FMAs (50) and the clamp (2), the
+#     window's min and max (48 a source sample) shared by n^2 outputs;
+#   the output encoding (PQ, BT.2100 gamut), per pixel: the cubes and
+#     biases (9), the opsin and gamut mixes (2 x 15), per channel |v|, the
+#     scale, two powf (each log2, exp2 and a multiply: 3 on the special
+#     function units), the rational (4), the sign (1) and the code (4):
+#     39 + 3 x 17 = 90
+POST_OPS = {"add_noise": 43, "upsample": 52, "encode_output": 90}
+# PQ codes: mean, 99.9th percentile, and the share of values beyond 64
+# codes.  Near black PQ is steep enough that a float32 difference of ~1e-5
+# in an XYB value moves a 16-bit code by a hundred or more, and no float32
+# decode keeps a max of 64 codes there against the float64 one: the JAX
+# package's own device route differs from its host decode by up to 1,153
+# codes on a 960x540 cut of the 4K post stream (6 values of 1.5 million
+# beyond 64).  The max is printed; the share beyond 64 codes is bounded.
+PQ_LIMITS = (0.5, 8, 64)
+PQ_OVER_SHARE = 1e-5
+
+
+def _colour(trc: int = 13, prim: int = 1, gamma: float = None):
+    from jxl_coder_tpu_torch.host.bitstream.headers import ColourEncoding
+    ce = ColourEncoding()
+    ce.transfer_function, ce.primaries = trc, prim
+    if gamma is not None:
+        ce.have_gamma, ce.gamma = True, int(round(gamma * 1e7))
+    return ce
+
+
+def rgba8_frame(h: int, w: int) -> np.ndarray:
+    alpha = (np.mgrid[0:h, 0:w][0] * 255 // max(h - 1, 1)).astype(np.uint8)
+    return np.concatenate([bench_frame(h, w), alpha[..., None]], -1)
+
+
+# label: (the source image at its full size, the stream's options)
+POST_STREAMS = {
+    # the slice's full-size stream: lossy alpha, photon noise (ISO 3200)
+    # and 16-bit PQ with BT.2100 primaries
+    "4k_rgba16_noise_pq": (lambda: rgba16_frame(2160, 3840),
+                           dict(noise=3200, colour=(16, 9), it=4000.0)),
+    # coded at 1920x1080, decoded at 3840x2160
+    "4k_from_fhd_up2": (lambda: bench_frame(2160, 3840), dict(up=2)),
+    "hlg_2100": (lambda: bench_frame(480, 720), dict(colour=(18, 9),
+                                                     it=1000.0)),
+    "gamma_2.2": (lambda: bench_frame(480, 720), dict(gamma=1 / 2.2)),
+    "bt709": (lambda: bench_frame(480, 720), dict(colour=(1, 1), it=255.0)),
+    "up4": (lambda: bench_frame(964, 1284), dict(up=4)),
+    "up8": (lambda: bench_frame(964, 1284), dict(up=8)),
+    "modular_rgba_up2": (lambda: rgba8_frame(1024, 1024), dict(modular=2)),
+}
+
+
+def write_post(img: np.ndarray, opts: dict) -> bytes:
+    """The stream of one POST_STREAMS entry, by the port's host encoder
+    (VarDCT, effort 7, distance 1) or its Modular fixture writer."""
+    from jxl_coder_tpu_torch.host.bitstream.frame_header import FrameHeader
+    from jxl_coder_tpu_torch.host.bitstream.headers import (
+        BitDepth, ImageHeader, ImageMetadata, SizeHeader)
+    if "modular" in opts:
+        return upsampled_modular_still(img, opts["modular"])
+    kw = dict(distance=1.0, effort=7)
+    if img.shape[2] == 4:
+        img, kw["alpha"] = img[..., :3], img[..., 3]
+    if "noise" in opts:
+        kw["noise_lut"] = reference.photon_noise_lut(opts["noise"])
+    if "colour" in opts:
+        kw["colour"] = _colour(*opts["colour"])
+        kw["intensity_target"] = opts["it"]
+    if "gamma" in opts:
+        kw["colour"] = _colour(gamma=opts["gamma"])
+    if "up" in opts:
+        n = opts["up"]
+        m = ImageMetadata()
+        m.bit_depth = BitDepth(False, 8, 0)
+        kw["hdr"] = ImageHeader(size=SizeHeader(xsize=img.shape[1],
+                                                ysize=img.shape[0]),
+                                metadata=m)
+        kw["fh"] = FrameHeader(upsampling=n)
+        img = np.ascontiguousarray(img[::n, ::n])
+    return reference.encode_vardct(img, **kw)
+
+
+def post_job(label: str):
+    """In a worker process: the stream (encoded once per machine, cached)
+    and its reference: the float64 host decoder, or for the Modular
+    stream the CPU route -> (bytes, pixels, seconds)."""
+    torch.set_num_threads(1)
+    make, opts = POST_STREAMS[label]
+    img = make()
+    data = cached(img, f"post {label} {sorted(opts.items())}", POST_WRITER,
+                  lambda: write_post(img, opts))
+    t0 = time.perf_counter()
+    ref = (api.decode(data, device="cpu")[0] if "modular" in opts
+           else reference.decode_float64(data))
+    return data, ref, time.perf_counter() - t0
+
+
+def expected_launches(opts: dict) -> dict:
+    if "modular" in opts:     # colour and alpha, each upsampled
+        return dict(add_noise=0, upsample=2, encode_output=0,
+                    restore_and_output=0)
+    return dict(add_noise=int("noise" in opts), upsample=int("up" in opts),
+                encode_output=1, restore_and_output=1)
+
+
+def pq_codes(got: np.ndarray, ref: np.ndarray) -> tuple:
+    """(mean, 99.9th percentile, max, share of values beyond PQ_LIMITS'
+    64 codes) of the code differences."""
+    d = np.abs(got.astype(np.int64) - ref.astype(np.int64))
+    return (float(d.mean()), float(np.percentile(d, 99.9)), int(d.max()),
+            float((d > PQ_LIMITS[2]).mean()))
+
+
+def pq_within(codes: tuple) -> bool:
+    mean, p999, _mx, over = codes
+    return (mean < PQ_LIMITS[0] and p999 <= PQ_LIMITS[1]
+            and over <= PQ_OVER_SHARE)
+
+
+def pq_what(codes: tuple) -> str:
+    mean, p999, mx, over = codes
+    return (f"mean {mean:.4g}, 99.9th percentile {p999:g}, max {mx}, share "
+            f"beyond {PQ_LIMITS[2]} codes {over:.3g}")
+
+
+def check_post_decode(label: str, got: np.ndarray, ref: np.ndarray,
+                      opts: dict) -> None:
+    """The colour within 2 codes of the reference (PQ: pq_within), extra
+    channels equal."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"post {label}: {got.shape} {got.dtype} vs "
+                             f"{ref.shape} {ref.dtype}")
+    ec_equal = np.array_equal(got[..., 3:], ref[..., 3:])
+    if "modular" in opts:
+        same = np.array_equal(got, ref)
+        print(f"decode post {label}: {got.shape} {got.dtype}, equal to the "
+              f"CPU route {same}", flush=True)
+        if not same:
+            raise AssertionError(f"post {label}: differs from the CPU route")
+        return
+    col = (got[..., :3], ref[..., :3])
+    if opts.get("colour", (0,))[0] == 16:
+        codes = pq_codes(*col)
+        ok, what = pq_within(codes), pq_what(codes)
+        d = np.abs(col[0].astype(np.int64) - col[1].astype(np.int64))
+        worst = np.argsort(d, axis=None)[-5:][::-1]
+        what += "; the largest at (code, reference code) " + ", ".join(
+            f"({col[0].flat[i]}, {col[1].flat[i]})" for i in worst)
+    else:
+        d = np.abs(col[0].astype(np.int64) - col[1].astype(np.int64))
+        ok = d.max() <= 2
+        what = f"max {d.max()}, differing share {float((d > 0).mean()):.3g}"
+    print(f"decode post {label}: {got.shape} {got.dtype} vs the float64 host "
+          f"decoder: {what}; extra channels equal {ec_equal}", flush=True)
+    if not (ok and ec_equal):
+        raise AssertionError(f"post {label}: outside its limits ({what}, "
+                             f"extra channels equal {ec_equal})")
+
+
+@contextlib.contextmanager
+def kernel2_outs(outs: list):
+    """Record the `out` of each restore_and_output call VarDCTFrame
+    makes."""
+    from jxl_coder_tpu_torch.vardct import frame as FRAME
+    orig = FRAME.restore_and_output
+
+    def recorded(*args, **kwargs):
+        outs.append(args[7] if len(args) > 7 else kwargs.get("out", "u8"))
+        return orig(*args, **kwargs)
+
+    FRAME.restore_and_output = recorded
+    try:
+        yield
+    finally:
+        FRAME.restore_and_output = orig
+
+
+def note_post(name: str, got: torch.Tensor, ref: torch.Tensor,
+              what: str, pq: bool = False) -> None:
+    """f32 planes within 1e-6; codes within 2, or PQ's limits."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{name} {what}: {tuple(got.shape)} "
+                             f"{got.dtype} vs {tuple(ref.shape)} {ref.dtype}")
+    if got.dtype == torch.float32:
+        note_err(name, (got - ref).abs().max().item(), 1e-6, what)
+        return
+    d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+    if pq:
+        codes = pq_codes(got.cpu().numpy(), ref.cpu().numpy())
+        ERR[name] = max(ERR[name], float(codes[2]))
+        print(f"parity {name:12s} {what}: {pq_what(codes)}", flush=True)
+        if not pq_within(codes):
+            raise AssertionError(f"{name} {what}: PQ codes outside limits")
+    else:
+        note_err(name, d.max().item(), 2, what)
+
+
+POST_SPECS = {"srgb": ("srgb",), "gamma": ("gamma", 1 / 2.2),
+              "pq_2100": ("enc", 16, "2020", 4000.0),
+              "hlg_2100": ("enc", 18, "2020", 1000.0),
+              "srgb_2020": ("enc", 13, "2020", 255.0),
+              "bt709": ("enc", 1, None, 255.0),
+              "linear": ("enc", 8, None, 255.0),
+              "dci": ("enc", 17, None, 255.0)}
+
+
+def post_spec(key: str) -> tuple:
+    """A POST_SPECS entry in encode_output's form (the gamut matrix and
+    luma weights from the port's host colour copy)."""
+    from jxl_coder_tpu_torch.host.ops import color as HC
+    spec = POST_SPECS[key]
+    if spec[0] != "enc":
+        return spec
+    prim = HC.PRIMARIES["bt2020" if spec[2] else "srgb"]
+    gm = None
+    if spec[2]:
+        gm = tuple((HC.gamut_xyz_to_rgb(prim, HC.ILLUMINANT_D65)
+                    @ HC.gamut_rgb_to_xyz(HC.PRIMARIES["srgb"],
+                                          HC.ILLUMINANT_D65))
+                   .astype(np.float32).reshape(-1).tolist())
+    luma = tuple(HC.gamut_rgb_to_xyz(prim, HC.ILLUMINANT_D65)[1]
+                 .astype(np.float32).tolist())
+    return ("enc", spec[1], gm, spec[3], luma)
+
+
+def seeded_xyb(h: int, w: int, rng, bright: float = 0.85) -> torch.Tensor:
+    y = rng.uniform(0.0, bright, (h, w))
+    return torch.from_numpy(np.stack([rng.normal(0.0, 0.012, (h, w)), y,
+                                      y + rng.normal(0.0, 0.04, (h, w))])
+                            .astype(np.float32))
+
+
+def check_post_seeded(dev) -> None:
+    """Each post kernel against its twin on seeded planes from 1x1 up
+    (planes smaller than the 2-pixel mirrored halo included): noise and
+    upsampling (n 2, 4, 8) f32 within 1e-6, the output encoding's codes
+    for every spec at 8 and 16 bits."""
+    rng = np.random.default_rng(12)
+    for h, w in ((1, 1), (1, 5), (2, 3), (4, 4), (5, 2), (3, 7), (17, 33),
+                 (70, 131)):
+        x = seeded_xyb(h, w, rng).to(dev)
+        rnd = torch.from_numpy(rng.random((3, h, w)).astype(np.float32)
+                               - 0.5).to(dev)
+        lut = torch.tensor(reference.photon_noise_lut(3200),
+                           dtype=torch.float32, device=dev)
+        note_post("add_noise", post.add_noise(x.clone(), rnd, lut),
+                  post.add_noise_plain(x.clone(), rnd, lut), f"seeded {h}x{w}")
+        for n in (2, 4, 8):
+            ker = post.kernels_for(n, device=dev)
+            note_post("upsample", post.upsample(x, ker),
+                      post.upsample_plain(x, ker), f"seeded {h}x{w} n {n}")
+        hx = seeded_xyb(h, w, rng, 1.6).to(dev)
+        for key in POST_SPECS:
+            spec = post_spec(key)
+            for bits in (8, 16):
+                src = hx if spec[0] == "enc" else x
+                note_post("encode_output", post.encode_output(src, spec, bits),
+                          post.encode_output_plain(src, spec, bits),
+                          f"seeded {h}x{w} {key} {bits}-bit",
+                          pq=key.startswith("pq"))
+
+
+# the layers of a post-stage api.decode: layer -> the functions it wraps;
+# each layer's time is its spans on the main thread less the spans nested
+# in them (the EC group streams of a frame of several groups run inside
+# the pass groups' threads, within the parse: summed apart)
+POST_LAYERS = {
+    "parse": ("_read_frame", "parse_frame"),
+    "EC channel decode": ("read_global", "read_group"),
+    "pack": ("pack",),
+    "EC h2d + transforms": ("undo_frame",),
+    "h2d": ("from_prepared",),
+    "synthesis + kernel 2": ("reconstruct",),
+    "noise-plane build": ("noise_random",),
+    "A5 noise": ("add_noise",),
+    "A6 upsampling": ("upsample",),
+    "A7 output": ("encode_output",),
+    "EC output": ("extra_channels",),
+    "frame rest (launch work, EC stack)": ("frame",),
+    "d2h": ("d2h",),
+    "rest": ("apply_orientation", "basic_info", "PostConfig.of"),
+}
+
+
+def exclusive_ms(log: list) -> tuple:
+    """(name -> ms of the main thread's spans less their nested spans,
+    name -> ms summed over the spans of other threads)."""
+    main = threading.get_ident()
+    own, other = {}, {}
+    spans = sorted((t0, -t1, n) for n, t0, t1, tid in log if tid == main)
+    stack = []
+    for t0, neg_t1, n in spans:
+        t1 = -neg_t1
+        while stack and stack[-1][1] <= t0:
+            stack.pop()
+        if stack:
+            own[stack[-1][0]] = own.get(stack[-1][0], 0.0) - (t1 - t0)
+        own[n] = own.get(n, 0.0) + (t1 - t0)
+        stack.append((n, t1))
+    for n, t0, t1, tid in log:
+        if tid != main:
+            other[n] = other.get(n, 0.0) + (t1 - t0)
+    return ({k: v * 1e3 for k, v in own.items()},
+            {k: v * 1e3 for k, v in other.items()})
+
+
+def tspan(fn, name: str, log: list, sync: bool = False):
+    """fn, logging (name, start, end, thread) per call; with sync, the call
+    ends with torch.cuda.synchronize()."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            return out
+        finally:
+            log.append((name, t0, time.perf_counter(),
+                        threading.get_ident()))
+    return call
+
+
+@contextlib.contextmanager
+def split_post(log: list):
+    """Wrap the functions a post-stage api.decode calls (the device steps
+    synchronise in their wrappers); restore them on exit."""
+    from jxl_coder_tpu_torch.host.modular.frame import ModularFrameDecoder
+    from jxl_coder_tpu_torch.vardct import frame as FRAME
+    saved = []
+
+    def wrap(owner, name, wrapper):
+        saved.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, wrapper)
+
+    for name in ("_read_frame", "parse_frame", "pack", "from_prepared",
+                 "apply_orientation", "basic_info"):
+        wrap(api, name, tspan(getattr(api, name), name, log))
+    wrap(api, "PostConfig", type("PostConfig", (), {"of": staticmethod(
+        tspan(api.PostConfig.of, "PostConfig.of", log))}))
+    for name in ("read_global", "read_group"):
+        wrap(ModularFrameDecoder, name,
+             tspan(getattr(ModularFrameDecoder, name), name, log))
+    wrap(MDEV, "undo_frame", tspan(MDEV.undo_frame, "undo_frame", log,
+                                   sync=True))
+    wrap(post, "noise_random", tspan(post.noise_random, "noise_random", log,
+                                     sync=True))
+    for name in POST_KERNELS + ("extra_channels",):
+        wrap(post, name, tspan(getattr(post, name), name, log, sync=True))
+    wrap(FRAME, "extra_channels", post.extra_channels)
+    wrap(FRAME.VarDCTFrame, "reconstruct",
+         tspan(FRAME.VarDCTFrame.reconstruct, "reconstruct", log, sync=True))
+    real = FRAME.VarDCTFrame
+
+    class Frame:
+        def __init__(self, cfg):
+            self.frame = real(cfg)
+
+        def __call__(self, frame_inputs):
+            px = tspan(self.frame, "frame", log, sync=True)(frame_inputs)
+            return PixelsT(px, log)
+
+    wrap(api, "VarDCTFrame", Frame)
+    try:
+        yield
+    finally:
+        for owner, name, orig in reversed(saved):
+            setattr(owner, name, orig)
+
+
+class PixelsT(Pixels):
+    def cpu(self):
+        t0 = time.perf_counter()
+        host = self.px.cpu()
+        log = self.log
+
+        class Host:
+            def numpy(self):
+                out = host.numpy()
+                log.append(("d2h", t0, time.perf_counter(),
+                            threading.get_ident()))
+                return out
+        return Host()
+
+
+def post_layers(label: str, data: bytes, mp: float, card: str,
+                runs: int = 5) -> dict:
+    """M1 for a post-stage decode: `runs` split api.decode calls in turns
+    with as many unwrapped ones; the noise planes' cache emptied before the
+    first split call, so that it times their first build; raises if a
+    split call's layers miss its own total by more than 2%."""
+    med = statistics.median
+    split, unsplit = [], []
+    post._NOISE_RND.clear()
+    for i in range(2 * runs):
+        torch.cuda.synchronize()
+        if (i % 2 == 0) == (i // 2 % 2 == 0):
+            log = []
+            with split_post(log), no_gc():
+                t0 = time.perf_counter()
+                api.decode(data, device="cuda")
+                split.append(((time.perf_counter() - t0) * 1e3, log))
+        else:
+            with no_gc():
+                t0 = time.perf_counter()
+                api.decode(data, device="cuda")
+                unsplit.append((time.perf_counter() - t0) * 1e3)
+    per, threads = {k: [] for k in POST_LAYERS}, []
+    for total, log in split:
+        own, other = exclusive_ms(log)
+        for k, names in POST_LAYERS.items():
+            per[k].append(sum(own.get(n, 0.0) for n in names))
+        threads.append(other.get("read_group", 0.0))
+    sums = [sum(v[n] for v in per.values()) for n in range(len(split))]
+    gaps = [abs(sums[n] - total) / total for n, (total, _) in enumerate(split)]
+    for n, (total, _) in enumerate(split):
+        if gaps[n] > 0.02:
+            raise AssertionError(f"split post decode {label} {n}: its layers "
+                                 f"sum to {sums[n]:.1f} ms, the call took "
+                                 f"{total:.1f} ms")
+    m = {k: med(v) for k, v in per.items()}
+    first_build = per["noise-plane build"][0]
+    t_split, t_unsplit = med(t for t, _ in split), med(unsplit)
+    print(f"layers post {label} (host clock, ms, median of {runs} split "
+          f"api.decode calls): " + ", ".join(f"{k} {v:.3f}"
+                                            for k, v in m.items())
+          + f"; the noise planes' first build {first_build:.1f}; the EC group"
+          f" streams inside the pass groups' threads {med(threads):.1f} "
+          f"summed over threads; each call's layers summed, median "
+          f"{med(sums):.1f}, within {max(gaps):.2%} of the call's own total; "
+          f"the split calls' total {t_split:.1f}; unsplit calls "
+          f"{t_unsplit:.1f} [{card}]", flush=True)
+    print(f"end_to_end post {label} decode bytes->pixels (the unsplit calls):"
+          f" {t_unsplit:.1f} ms = {mp / t_unsplit * 1e3:.2f} MP/s [{card}]",
+          flush=True)
+    return dict(m, total=t_unsplit, first_build=first_build)
+
+
+def post_timings(inputs: dict, card: str, ms: dict) -> None:
+    """Each post kernel at 4K by CUDA graph against its twin (CUDA events)
+    and its bound, on the inputs the main path gave it."""
+    xyb, rnd, lut = inputs["add_noise"]
+    px = xyb[0].numel()
+    note_bound("add_noise", 2 * nbytes(xyb) + nbytes(rnd),
+               px * POST_OPS["add_noise"])
+    ms["add_noise"] = (graph_ms(lambda: post.add_noise(xyb, rnd, lut)),
+                       device_ms(lambda: post.add_noise_plain(xyb.clone(), rnd,
+                                                             lut)))
+    planes, ker = inputs["upsample"]
+    n = ker.shape[0]
+    out_px = planes.numel() * n * n
+    note_bound("upsample", nbytes(planes) + 4 * out_px,
+               out_px * POST_OPS["upsample"])
+    ms["upsample"] = (graph_ms(lambda: post.upsample(planes, ker)),
+                      device_ms(lambda: post.upsample_plain(planes, ker)))
+    src, spec, bits = inputs["encode_output"]
+    px = src[0].numel()
+    note_bound("encode_output", 12 * px + 3 * px * (2 if bits > 8 else 1),
+               px * POST_OPS["encode_output"])
+    ms["encode_output"] = (
+        graph_ms(lambda: post.encode_output(src, spec, bits)),
+        device_ms(lambda: post.encode_output_plain(src, spec, bits)))
+    shapes = {"add_noise": tuple(xyb.shape), "upsample":
+              f"{tuple(planes.shape)} x{n}", "encode_output":
+              f"{tuple(src.shape)} {spec[:2]} {bits}-bit"}
+    for k in POST_KERNELS:
+        print(f"kernel {k} at 4k {shapes[k]}: device {ms[k][0]:.4f} ms (CUDA "
+              f"graph), plain twin {ms[k][1]:.4f} ms, bound "
+              f"{BOUND[k][0]:.4f} ms ({BOUND[k][1]}), no PyTorch call computes"
+              f" it [{card}]", flush=True)
+
+
+def post_phase(jobs: dict, dev, card: str, ms: dict) -> dict:
+    """Phase 12: the VarDCT post stages.  The kernels against their twins on
+    seeded planes; the main path through api.decode(data, "cuda") on every
+    stream, counted, the twins made to raise; each decode against its
+    reference; the kernels against their twins on the main path's 4K
+    inputs; M1 for the 4K post stream and the 2x-upsampled 4K stream;
+    timings."""
+    t_phase = time.perf_counter()
+    check_post_seeded(dev)
+    streams = {}
+    for label, job in jobs.items():
+        data, ref, seconds = job.get()
+        streams[label] = (data, ref)
+        print(f"post stream {label}: {len(data)} bytes; its reference decode "
+              f"{seconds:.1f} s (a worker process)", flush=True)
+    path_kernels = POST_KERNELS + ("restore_and_output",)
+    outs2 = []
+
+    def main_path():
+        got, per_stream = {}, {}
+        for label, (data, _ref) in streams.items():
+            before = {k: KERNELS[k]["fn"].launches for k in path_kernels}
+            del outs2[:]
+            got[label] = api.decode(data, device="cuda")[0]
+            per_stream[label] = ({k: KERNELS[k]["fn"].launches - before[k]
+                                  for k in path_kernels}, list(outs2))
+        return got, per_stream
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(kernel2_outs(outs2))
+        for module, names in POST_TWINS:
+            stack.enter_context(forbidden(module, names))
+        (got, per_stream), counts = drive(
+            "main path (post-stage api.decode)", main_path, POST_KERNELS)
+    for label, (launches, k2_outs) in per_stream.items():
+        opts = POST_STREAMS[label][1]
+        want = expected_launches(opts)
+        print(f"post {label}: launches {launches}, kernel 2 out "
+              f"{k2_outs}", flush=True)
+        if launches != want or (want["restore_and_output"] and
+                                k2_outs != ["f32"]):
+            raise AssertionError(f"post {label}: launches {launches} (kernel "
+                                 f"2 out {k2_outs}), expected {want}, f32")
+    for label, (data, ref) in streams.items():
+        check_post_decode(label, got[label], ref, POST_STREAMS[label][1])
+    # each kernel against its twin on the main path's 4K inputs
+    cfg, inp = prepared(streams["4k_rgba16_noise_pq"][0], dev)
+    xyb = VarDCTFrame(cfg).reconstruct(inp, "f32")
+    rnd = post.noise_random(cfg.crop_w, cfg.crop_h, dev)
+    lut = torch.tensor(cfg.post.noise_lut, dtype=torch.float32, device=dev)
+    note_post("add_noise", post.add_noise(xyb.clone(), rnd, lut),
+              post.add_noise_plain(xyb.clone(), rnd, lut),
+              "4k rgba16 noise pq stream")
+    noised = post.add_noise(xyb.clone(), rnd, lut)
+    spec = cfg.post.out
+    note_post("encode_output", post.encode_output(noised, spec, 16),
+              post.encode_output_plain(noised, spec, 16),
+              "4k rgba16 noise pq stream", pq=True)
+    for key in ("srgb", "gamma", "hlg_2100", "bt709"):
+        for bits in (8, 16):
+            note_post("encode_output", post.encode_output(
+                noised, post_spec(key), bits), post.encode_output_plain(
+                noised, post_spec(key), bits), f"4k planes {key} {bits}-bit")
+    ucfg, uinp = prepared(streams["4k_from_fhd_up2"][0], dev)
+    planes = VarDCTFrame(ucfg).reconstruct(uinp, "f32")
+    ker = post.kernels_for(2, ucfg.post.up_weights, dev)
+    note_post("upsample", post.upsample(planes, ker),
+              post.upsample_plain(planes, ker), "fhd planes of the up2 stream")
+    for n in (4, 8):
+        k = post.kernels_for(n, device=dev)
+        small = planes[:, :540, :960]
+        note_post("upsample", post.upsample(small, k),
+                  post.upsample_plain(small, k), f"540x960 planes n {n}")
+    layers = {label: post_layers(label, streams[label][0], 3840 * 2160 / 1e6,
+                                 card)
+              for label in ("4k_rgba16_noise_pq", "4k_from_fhd_up2")}
+    post_timings({"add_noise": (xyb, rnd, lut), "upsample": (planes, ker),
+                  "encode_output": (noised, spec, 16)}, card, ms)
+    print(f"phase 12 (post stages) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return dict(counts, layers=layers)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1987,6 +2608,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = smi()
     print(f"card: {card}", flush=True)
+    start = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        print(f"phase {name} done at {time.perf_counter() - start:.1f} s",
+              flush=True)
+
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
@@ -1994,17 +2621,25 @@ def main() -> int:
     # 2. build, one nvcc per source and g++ for the host codec, all at once
     t0 = time.perf_counter()
     sources = ("synth", "filters", "fused_filters", "detile", "entropy",
-               "modular")
+               "modular", "post")
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host = pool.submit(_build.load_host, "hostcodec")
         list(pool.map(_build.load, sources))
         host.result()
     print(f"build: nvcc sm_90a, {len(sources)} sources, and g++ for the host "
           f"codec in {time.perf_counter() - t0:.2f} s", flush=True)
-    for name in ("synth", "filters", "fused_filters", "entropy", "modular"):
+    for name in ("synth", "filters", "fused_filters", "entropy", "modular",
+                 "post"):
         ptxas_report(name)
 
-    # 3. streams
+    phase_done("2 (build)")
+
+    # 3. streams; the post-stage streams (phase 12) and their references
+    # start at once in worker processes, the 4K one first (the longest)
+    pool = multiprocessing.get_context("spawn").Pool(6)
+    atexit.register(pool.terminate)
+    post_jobs = {label: pool.apply_async(post_job, (label,))
+                 for label in POST_STREAMS}
     streams = {"4k_d1.0_e7": (2160, 3840, stream(bench_frame(2160, 3840), 1.0, 7)),
                "fhd_d4.0_e7": (1080, 1920, stream(bench_frame(1080, 1920), 4.0, 7)),
                "sharp_d1.0_e7": (517, 771, stream(sharp_frame(517, 771), 1.0, 7)),
@@ -2021,8 +2656,6 @@ def main() -> int:
     # the entropy kernel on the small streams and at 4K; its plain twin on
     # the same tables in worker processes meanwhile (one step per token:
     # tens of seconds), collected before the timings
-    pool = multiprocessing.get_context("spawn").Pool(6)
-    atexit.register(pool.terminate)
     twins = start_twins(pool, {k: streams[k][2] for k in (
         "sharp_d1.0_e7", "16bit_d1.0_e5", "sharp_d0.1_e7",
         "waves_d1.0_e7_two_passes", "waves_d1.0_e7_single_section",
@@ -2031,6 +2664,8 @@ def main() -> int:
     # workers once the twins free them; collected in phase 11
     modular_jobs = {label: pool.apply_async(modular_job, (label,))
                     for label in MODULAR_STREAMS}
+
+    phase_done("3 (streams)")
 
     # 4. kernel vs twin on the card
     check_synth_all_strategies(dev)
@@ -2061,6 +2696,8 @@ def main() -> int:
             check_filters(planes[:, :2160, :3833], sigma, cfg,
                           "4k crop 2160x3833")
     torch.cuda.synchronize()
+
+    phase_done("4 (kernels against twins)")
 
     # 5. the main path, counted, and each frame's own launches
     frame_kernels = ("synth_family", "synth_dct8", "restore_and_output",
@@ -2105,12 +2742,16 @@ def main() -> int:
         elif d.max() > 1 or frac >= 1e-3:
             raise AssertionError(f"{label}: decode outside 1 code / 0.1%")
 
+    phase_done("5 (the main path)")
+
     # 5b. the main path with the AC entropy decode on the card, counted;
     # then the kernel against its twin on the small streams and at 4K
     launches["decode_pass_groups"] = entropy_main_path(streams, outs)
     twin_s = check_twins(twins)
     pool.close()
     pool.join()
+
+    phase_done("5b (the device entropy route; the workers joined)")
 
     # 6. timings at 4K
     h, w, data = streams["4k_d1.0_e7"]
@@ -2146,20 +2787,34 @@ def main() -> int:
           f"{BOUND['restore_and_output'][0]:.4f} ms [{card}]", flush=True)
     fhd_timings(streams["fhd_d4.0_e7"][2], dev, card, ms)
 
+    phase_done("6 (timings at 4K)")
+
     # 7-9. the round-1 codec, the real-format fused filters, timings
     launches.update(legacy_codec(dev))
     launches.update(real_fused(xyb, sigma, cfg))
     legacy_timings(dev, card, ms)
     fused_timings(xyb, sigma, cfg, card, ms)
 
+    phase_done("7-9 (round-1 codec, fused filters)")
+
     # 10. the DCT8-only frame path and kernel 7 (the filter and output
     # kernels' counts stay those of the main path, phase 5)
     launches["detile"] = dct8_phase(dev, card, ms)["detile"]
+
+    phase_done("10 (the DCT8 path)")
 
     # 11. the Modular decode: the host's channel decode, then the inverse
     # transforms on the card (csrc/modular.cu) and the output
     modular = modular_phase(modular_jobs, dev, card, ms)
     launches.update({k: modular[k] for k in MODULAR_KERNELS})
+
+    phase_done("11 (the Modular decode)")
+
+    # 12. the VarDCT post stages: noise, upsampling and the output encodings
+    # (csrc/post.cu), and the extra channels
+    post_counts = post_phase(post_jobs, dev, card, ms)
+    launches.update({k: post_counts[k] for k in POST_KERNELS})
+    phase_done("12 (the post stages)")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": spec["source"],

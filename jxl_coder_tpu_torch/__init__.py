@@ -14,8 +14,16 @@ the tests use.  Entry points:
 ``jxl_coder_tpu_torch.vardct.dct8.DCT8Frame`` and
 ``jxl_coder_tpu_torch.codec.encode_vardct_still`` /
 ``decode_vardct_still``.
+
+The host layers import without torch; the device packages (and the
+entry points) import ``_device``, which pins full float32.
 """
 
-from ._device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from ._device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -7,22 +7,29 @@ host layers (``host/``).
 
 A VarDCT frame: ``prepare``, the host half, runs the host parse
 (``vardct.parse``) and the family packing (``vardct.inputs.pack``),
-carried onto the named device; then the frame reconstruction runs there
-(``vardct.frame.VarDCTFrame``).  ``entropy="device"`` decodes the AC pass
-groups on the device too (``entropy/device.py``), from the codestream's
-bytes; the default, "host", decodes them with the host codec.  A group
-the device decode finds corrupt raises InvalidJXLError.
+carried onto the named device with the frame's post stages
+(``vardct.post.PostConfig``) and its extra channels' planes; then the
+frame reconstruction runs there (``vardct.frame.VarDCTFrame``): synthesis,
+the filters, then noise, 2x/4x/8x upsampling and the output encoding
+(sRGB, a gamma, PQ, HLG or another signalled transfer function, a
+non-sRGB gamut), and the extra channels (alpha) after the colour.
+``entropy="device"`` decodes the AC pass groups on the device too
+(``entropy/device.py``), from the codestream's bytes; the default,
+"host", decodes them with the host codec.  A group the device decode
+finds corrupt raises InvalidJXLError.
 
 A Modular frame (lossless, or XYB as ``cjxl -m -d`` writes it): its
 channel planes decode on the host, as in the reference
 (``host.codec.decode_modular_frame``); the inverse RCT, palette and
 squeeze run on the device (``modular/device.py``), then the output step
-(``modular/output.py``).  A delta palette raises InvalidJXLError, as the
-host does; an embedded ICC profile, upsampling and ``entropy="device"``
-raise NotImplementedError.
+with its upsampling (``modular/output.py``).  A delta palette raises
+InvalidJXLError, as the host does.
 
-Streams outside the slice raise NotImplementedError naming the route
-they need; nothing falls back to the host decoder.
+What raises NotImplementedError: a VarDCT frame with patches, splines,
+a DC (progressive LF) frame or YCbCr; ``entropy="device"`` on a VarDCT
+frame with extra channels or on a Modular frame; an embedded ICC
+profile; animations, reference-only and LF frames, and the JPEG routes.
+Nothing falls back to the host decoder.
 """
 
 from __future__ import annotations
@@ -42,10 +49,12 @@ from .host.bitstream.headers import ImageHeader, read_image_header
 from .host.bitstream.reader import BitReader, BitstreamError
 from .host.codec import decode_modular_frame
 from .host.jpeg import transcode as _jpeg_tc
+from .modular import device as MDEV
 from .modular import output as modular_output
 from .vardct.frame import VarDCTFrame
 from .vardct.inputs import FrameConfig, FrameInputs, from_prepared, pack
 from .vardct.parse import check_entropy, parse_frame
+from .vardct.post import PostConfig
 
 
 def _read_frame(data: bytes):
@@ -71,11 +80,13 @@ def _read_frame(data: bytes):
     fh = read_frame_header(br, hdr)
     if fh.frame_type == 1:
         raise NotImplementedError(
-            "LF (progressive DC) frame: not in the port's decode slice")
+            "LF (progressive DC) frame: not in the port's decode slice "
+            "(ROADMAP queue 1: with reference-only frames, patches and "
+            "splines)")
     if fh.frame_type == 2:
         raise NotImplementedError(
             "reference-only frame (patch source): not in the port's "
-            "decode slice")
+            "decode slice (ROADMAP queue 1: with patches and splines)")
     ng, ndc = fh.counts(hdr)
     n = 1 if (ng == 1 and fh.passes.num_passes == 1) else (
         2 + ndc + ng * fh.passes.num_passes)
@@ -94,9 +105,13 @@ def _frame(data: bytes):
 def _prepare_vardct(cs, hdr, fh, toc, dev, entropy: str):
     try:
         state = parse_frame(cs, hdr, fh, toc, entropy=entropy, device=dev)
+        lf = state["lf"]
+        ec = (MDEV.undo_frame(lf.mfd.planes(), dev) if lf.mfd is not None
+              else None)
     except BitstreamError as e:
         raise InvalidJXLError(str(e)) from e
-    return from_prepared(*pack(state), dev)
+    post = PostConfig.of(lf, fh, hdr, state["h"], state["w"])
+    return from_prepared(*pack(state), dev, post, ec)
 
 
 def prepare(data: bytes, device="cuda", entropy: str = "host"
@@ -127,9 +142,9 @@ def _decode_modular(cs, hdr, fh, toc, dev, entropy: str) -> torch.Tensor:
         raise NotImplementedError(
             "embedded ICC profile: the port has no ICC-to-sRGB transform "
             "(the reference's needs PIL's littlecms)")
-    modular_output.check_supported(hdr, fh)
     try:
-        planes, dc_quant = decode_modular_frame(cs, hdr, fh, toc, dev)
+        raw, dc_quant = decode_modular_frame(cs, hdr, fh, toc)
+        planes = MDEV.undo_frame(raw, dev)
     except BitstreamError as e:
         raise InvalidJXLError(str(e)) from e
     return modular_output.modular_pixels(planes, hdr, fh, dc_quant)
@@ -138,11 +153,12 @@ def _decode_modular(cs, hdr, fh, toc, dev, entropy: str) -> torch.Tensor:
 def decode(data: bytes, device="cuda", entropy: str = "host"
            ) -> Tuple[np.ndarray, BasicInfo]:
     """Decode a still to (pixels, BasicInfo), as jxl_coder_tpu.api.decode
-    returns them: a VarDCT frame (H, W, 3), a Modular frame (H, W, C)
-    with C in {1, 3, 4}; uint8 at 8 bits per sample or less, uint16
-    above.  The device half runs on `device` ("cuda" raises when no card
-    is present); entropy="device" decodes a VarDCT frame's AC pass groups
-    there too (on the CPU, with the kernel's plain twin)."""
+    returns them: a VarDCT frame (H, W, 3 + its extra channels), a
+    Modular frame (H, W, C) with C in {1, 3, 4}; uint8 at 8 bits per
+    sample or less, uint16 above.  The device half runs on `device`
+    ("cuda" raises when no card is present); entropy="device" decodes a
+    VarDCT frame's AC pass groups there too (on the CPU, with the
+    kernel's plain twin)."""
     check_entropy(entropy)
     dev = resolve_device(device)
     cs, hdr, fh, toc = _frame(data)

@@ -1,10 +1,10 @@
 """The codec layer's host pieces that the port uses
 (``jxl_coder_tpu/codec.py``): the image-header writer, the DC
 quantisation reader, and the Modular frame's decode (its channel planes
-on the host, its inverse transforms on the named device) and encode (a
-fixture writer for the tests and ``chip_smoke.py``, reached through
-``reference``).  The port's own VarDCT codec is
-``jxl_coder_tpu_torch.codec``.
+on the host; the device layer, ``modular/device.py``, undoes its
+transforms) and encode (a fixture writer for the tests and
+``chip_smoke.py``, reached through ``reference``).  The port's own
+VarDCT codec is ``jxl_coder_tpu_torch.codec``.
 """
 
 from __future__ import annotations
@@ -21,8 +21,9 @@ from .bitstream.headers import (
 from .bitstream.frame_header import (FrameHeader, write_frame_header,
                                      write_toc)
 from .modular.image import Channel, ModularImage
+from .modular.frame import ModularPlanes
 from .modular.stream import (GroupHeader, decode_modular_stream,
-                             encode_modular_stream, undo_transforms)
+                             encode_modular_stream)
 from .modular.tree import Tree
 from .modular import transform as T
 
@@ -204,11 +205,11 @@ def frame_channel_layout(hdr: ImageHeader, fh: FrameHeader) -> ModularImage:
 # Decode
 
 def decode_modular_frame(cs: bytes, hdr: ImageHeader, fh: FrameHeader,
-                         toc, device):
-    """A Modular frame's raw channels -> (int32 planes on `device`, every
-    transform undone there, and the LfGlobal DC dequant factors).  The
-    planes' entropy decode runs on the host; ``modular/output.py`` turns
-    the planes into pixels."""
+                         toc):
+    """A Modular frame's channels, entropy-decoded on the host ->
+    (ModularPlanes: the raw planes, the frame's stream header and the
+    group streams' chains, every transform still to undo; the LfGlobal DC
+    dequant factors)."""
     ng, ndc = fh.counts(hdr)
     n_entries = len(toc.entries)
     if n_entries == 1:
@@ -228,8 +229,7 @@ def decode_modular_frame(cs: bytes, hdr: ImageHeader, fh: FrameHeader,
         header = decode_modular_stream(br, image, stream_id=0,
                                        global_tree=global_tree,
                                        global_code=global_code)
-        undo_transforms(image, header, device)
-        return [c.data for c in image.channels], dc_quant
+        return ModularPlanes(image, header, []), dc_quant
     # multi-section layout: LfGlobal (dc-quant, global tree, global
     # modular stream) | LfGroup* (shift>=3 channel rects) | HfGlobal
     # (empty for modular frames) | PassGroup* (shift<3 channel rects)
@@ -255,7 +255,7 @@ def decode_modular_frame(cs: bytes, hdr: ImageHeader, fh: FrameHeader,
         sec = toc.section(2 + ndc + gi)
         gbr = BitReader(cs[sec.offset:sec.offset + sec.size])
         mfd.read_group(gbr, gi, ndc, ng)
-    return mfd.finalize(device), dc_quant
+    return mfd.planes(), dc_quant
 
 
 # --------------------------------------------------------------------------

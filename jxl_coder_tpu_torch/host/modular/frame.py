@@ -9,24 +9,29 @@ rectangle-by-rectangle by the per-group ModularAC streams
 
 The channel planes decode on the host into numpy, as in the original.
 The transforms do not: a group stream's local chain (e.g. a per-group
-RCT) is recorded with the rectangles it covers, and ``finalize`` uploads
-the frame's planes once, undoes each recorded chain on device views of
-them, then the frame's own chain.  Deferring the group chains gives the
-original's result, because a group stream predicts only from its own
-raw channels and no later stream reads an earlier group's pixels.
+RCT) is recorded with the rectangles it covers, and ``planes`` hands
+over the raw planes, the frame's stream header and those chains
+(``ModularPlanes``); the device layer (``modular/device.py``
+``undo_frame``) uploads the planes once, undoes each recorded chain on
+views of them, then the frame's own chain.  Deferring the group chains
+gives the original's result, because a group stream predicts only from
+its own raw channels and no later stream reads an earlier group's
+pixels.  ``undo_on_host`` undoes them in int64 numpy instead, as the
+original does: the float64 host decoder's route (a VarDCT frame's extra
+channels).  This module is numpy only.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
-import torch
+import numpy as np
 
 from ..bitstream.reader import BitReader, BitstreamError
+from . import transform as T
 from .image import Channel, ModularImage
 from .stream import GroupHeader, decode_modular_stream
-from ...modular import device as MDEV
 
 NUM_QUANT_TABLES = 17
 
@@ -41,6 +46,15 @@ class _GroupChain:
     views: List[Channel]
     channels: List[Channel]
     header: GroupHeader
+
+
+class ModularPlanes(NamedTuple):
+    """A Modular image as the host decoded it: its raw channel planes
+    (numpy, every transform still to undo), the frame's stream header
+    and the group streams' recorded chains."""
+    image: ModularImage
+    header: GroupHeader
+    chains: List[_GroupChain]
 
 
 @dataclasses.dataclass
@@ -156,31 +170,33 @@ class ModularFrameDecoder:
                + num_groups * pass_index + group_index)
         self._decode_group_streams(br, views, sid)
 
-    def finalize(self, device) -> List[torch.Tensor]:
-        """The frame's planes on `device`, every transform undone there:
-        each group's local chain on views of the uploaded planes, then the
-        frame's chain."""
-        MDEV.upload(self.image, device)
-        for chain in self.chains:
-            self._undo_group(chain, device)
-        MDEV.undo_transforms(self.image, self.header)
-        return [c.data for c in self.image.channels]
+    def planes(self) -> ModularPlanes:
+        """The raw planes, the frame's header and the group chains."""
+        return ModularPlanes(self.image, self.header, self.chains)
 
-    def _undo_group(self, chain: _GroupChain, device) -> None:
-        parents = self.image.channels
-        on_device = {id(v): parents[ci].data[y0:y0 + rh, x0:x0 + rw]
-                     for v, (ci, y0, x0, rh, rw) in zip(chain.views,
-                                                        chain.rects)}
-        sub = ModularImage([Channel(c.width, c.height, c.hshift, c.vshift,
-                                    on_device.get(id(c), c.data))
-                            for c in chain.channels], nb_meta_channels=0)
-        MDEV.upload(sub, device)
-        MDEV.undo_transforms(sub, chain.header)
+
+def _undo_numpy(image: ModularImage, header: GroupHeader) -> None:
+    for t in reversed(header.transforms):
+        {0: T.rct_inverse, 1: T.palette_inverse,
+         2: T.squeeze_inverse}.get(t.id, _bad_transform)(image, t)
+
+
+def _bad_transform(_image, t) -> None:
+    raise BitstreamError(f"invalid transform id {t.id}")
+
+
+def undo_on_host(planes: ModularPlanes) -> List[np.ndarray]:
+    """The int64 numpy inverse transforms: each group stream's chain on
+    its rectangles of the frame's planes, then the frame's chain -> the
+    channels' int32 planes (the original's finalize)."""
+    parents = planes.image.channels
+    for chain in planes.chains:
+        sub = ModularImage(list(chain.channels), nb_meta_channels=0)
+        _undo_numpy(sub, chain.header)
         if len(sub.channels) != len(chain.rects):
             raise BitstreamError(
                 "group-local transform changed channel count")
         for (ci, y0, x0, rh, rw), ch in zip(chain.rects, sub.channels):
-            if ch.data.shape != (rh, rw):
-                raise BitstreamError("group-local transform changed a "
-                                     "channel's size")
             parents[ci].data[y0:y0 + rh, x0:x0 + rw] = ch.data
+    _undo_numpy(planes.image, planes.header)
+    return [c.data for c in planes.image.channels]

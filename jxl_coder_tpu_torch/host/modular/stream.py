@@ -21,7 +21,6 @@ from .predict import WPParams, WPState, neighbors, predict, \
     properties_for_pixel
 from .tree import Tree, decode_tree, encode_tree
 from . import transform as T
-from ...modular import device as MDEV
 
 
 @dataclasses.dataclass
@@ -56,17 +55,6 @@ def apply_meta_transforms(image: ModularImage, header: GroupHeader) -> None:
             T.palette_meta_apply(image, t)
         elif t.id == 2:
             T.squeeze_meta_apply(image, t)
-
-
-def undo_transforms(image: ModularImage, header: GroupHeader,
-                    device) -> None:
-    """Undo the stream's transforms on `device`: the image's planes go
-    there as int32 tensors and stay there, and the inverse RCT, palette
-    and squeeze run as the port's device module's kernels (on a CPU
-    device, their plain twins).  No size or switch sends them to a host
-    loop."""
-    MDEV.upload(image, device)
-    MDEV.undo_transforms(image, header)
 
 
 # --------------------------------------------------------------------------

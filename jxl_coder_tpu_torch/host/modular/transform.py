@@ -1,9 +1,12 @@
 """Modular transforms: RCT, Palette, Squeeze (§H.6): their headers, the
 channel-list meta steps a stream's decode applies before reading its
-planes, and the forward pixel transforms, which the fixture writers use
-to build streams.  The inverse pixel transforms run on the device
-(``jxl_coder_tpu_torch/modular/device.py``); the forward squeeze keeps
-the int64 SmoothTendency it needs.
+planes, the forward pixel transforms, which the fixture writers use to
+build streams, and the inverse pixel transforms in int64 numpy.  The
+decode's inverses run on the device
+(``jxl_coder_tpu_torch/modular/device.py``); the numpy inverses here are
+the int64 oracle the device kernels are held to, and the float64 host
+decoder's (``host/vardct/dec_real.py``, a VarDCT frame's extra
+channels).
 """
 
 from __future__ import annotations
@@ -86,6 +89,32 @@ class Transform:
 # --------------------------------------------------------------------------
 # RCT
 
+def _rct_inverse_type(a, b, c, rct_type):
+    """Inverse of the 7 RCT variants on int64 arrays (a,b,c = ch0,1,2)."""
+    if rct_type == 0:
+        return a, b, c
+    if rct_type == 1:
+        return a, b, c + a
+    if rct_type == 2:
+        return a, b + a, c
+    if rct_type == 3:
+        return a, b + a, c + a
+    if rct_type == 4:
+        return a, b + ((a + c) >> 1), c
+    if rct_type == 5:
+        # third += first happens BEFORE second uses it (rct.cc InvRCT)
+        c2 = c + a
+        return a, b + ((a + c2) >> 1), c2
+    if rct_type == 6:  # YCoCg
+        y, co, cg = a, b, c
+        tmp = y - (cg >> 1)
+        g = cg + tmp
+        bb = tmp - (co >> 1)
+        r = bb + co
+        return r, g, bb
+    raise BitstreamError("bad RCT type")
+
+
 def _rct_forward_type(r, g, b, rct_type):
     """Exact inverses of _rct_inverse_type (all 7 subtypes)."""
     if rct_type == 0:
@@ -111,6 +140,29 @@ def _rct_forward_type(r, g, b, rct_type):
 
 _PERMUTATIONS = [
     (0, 1, 2), (1, 2, 0), (2, 0, 1), (0, 2, 1), (1, 0, 2), (2, 1, 0)]
+
+
+def rct_inverse(image: ModularImage, t: Transform) -> None:
+    b = t.begin_c
+    if b < 0 or b + 3 > len(image.channels):
+        from ..bitstream.reader import BitstreamError
+        raise BitstreamError(
+            f"RCT channel range [{b}, {b + 3}) outside the "
+            f"{len(image.channels)}-channel image")
+    perm = t.rct_type // 7
+    typ = t.rct_type % 7
+    c0 = image.channels[b].data.astype(np.int64)
+    c1 = image.channels[b + 1].data.astype(np.int64)
+    c2 = image.channels[b + 2].data.astype(np.int64)
+    o0, o1, o2 = _rct_inverse_type(c0, c1, c2, typ)
+    outs = [o0, o1, o2]
+    p = _PERMUTATIONS[perm]
+    # inverse permutation: stored channel i holds component p[i]
+    result = [None, None, None]
+    for i in range(3):
+        result[p[i]] = outs[i]
+    for i in range(3):
+        image.channels[b + i].data = result[i].astype(np.int32)
 
 
 def rct_forward(image: ModularImage, t: Transform) -> None:
@@ -144,6 +196,38 @@ def palette_meta_apply(image: ModularImage, t: Transform) -> None:
     image.channels = ([pal] + image.channels[:b] + [idx]
                       + image.channels[b + n:])
     image.nb_meta_channels += 1
+
+
+def palette_inverse(image: ModularImage, t: Transform) -> None:
+    b, n = t.begin_c, t.num_c
+    pal = image.channels[0].data  # (n, nb_colours+nb_deltas)
+    idx_chan = image.channels[b + 1]
+    idx = idx_chan.data
+    if t.nb_deltas:
+        raise BitstreamError("palette deltas not yet supported")
+    outs = []
+    nb = t.nb_colours
+    for c in range(n):
+        out = np.zeros_like(idx)
+        within = (idx >= 0) & (idx < nb)
+        out[within] = pal[c][np.clip(idx, 0, nb - 1)][within]
+        # implicit palette for idx >= nb_colours (spec-defined synthetic
+        # entries); out-of-range handled as grey ramp — TODO conformance
+        over = idx >= nb
+        if over.any():
+            out[over] = (idx[over] - nb)
+        neg = idx < 0
+        if neg.any():
+            out[neg] = 0
+        outs.append(out)
+    new_channels = image.channels[1:b + 1]
+    for c in range(n):
+        new_channels.append(Channel(idx_chan.width, idx_chan.height,
+                                    idx_chan.hshift, idx_chan.vshift,
+                                    outs[c].astype(np.int32)))
+    new_channels.extend(image.channels[b + 2:])
+    image.channels = new_channels
+    image.nb_meta_channels -= 1
 
 
 def palette_forward(image: ModularImage, t: Transform) -> None:
@@ -187,6 +271,38 @@ def smooth_tendency(a: np.ndarray, b: np.ndarray, c: np.ndarray):
     y = np.where(y + (y & 1) < 2 * (a - b), 2 * (a - b) - 1, y)
     y = np.where(y - (y & 1) < 2 * (b - c), 2 * (b - c), y)
     out = np.where(m2, y, out)
+    return out
+
+
+def _unsqueeze_1d(avg: np.ndarray, res: np.ndarray, out_len: int):
+    """Inverse squeeze along the last axis.  avg/res: (..., na)/(..., nr)."""
+    na = avg.shape[-1]
+    nr = res.shape[-1]
+    avg = avg.astype(np.int64)
+    res = res.astype(np.int64)
+    out = np.zeros(avg.shape[:-1] + (out_len,), np.int64)
+    left = None
+    for k in range(na):
+        a = avg[..., k]
+        if k + 1 < na:
+            next_avg = avg[..., k + 1]
+        else:
+            next_avg = a
+        if k > 0:
+            left = out[..., 2 * k - 1]
+        else:
+            left = a
+        if k < nr:
+            diff = res[..., k] + smooth_tendency(left, a, next_avg)
+        else:
+            # odd width: last output sample equals avg directly
+            out[..., 2 * k] = a
+            continue
+        half = np.sign(diff) * (np.abs(diff) >> 1)  # trunc toward zero
+        first = a + half
+        out[..., 2 * k] = first
+        if 2 * k + 1 < out_len:
+            out[..., 2 * k + 1] = first - diff
     return out
 
 
@@ -285,6 +401,33 @@ def _apply_one_squeeze_meta(image: ModularImage, s: SqueezeParams) -> None:
             image.channels.insert(s.begin_c + s.num_c + i, res)
         else:
             image.channels.append(res)
+
+
+def squeeze_inverse(image: ModularImage, t: Transform) -> None:
+    for s in reversed(t.squeezes):
+        # non-in-place residuals form a contiguous tail block; fix its
+        # base BEFORE deleting (deletions above base don't move base+i)
+        base = len(image.channels) - s.num_c
+        for i in reversed(range(s.num_c)):
+            c = s.begin_c + i
+            if s.in_place:
+                res_idx = s.begin_c + s.num_c + i
+            else:
+                res_idx = base + i
+            avg = image.channels[c]
+            res = image.channels[res_idx]
+            if s.horizontal:
+                out_len = avg.width + res.width
+                out = _unsqueeze_1d(avg.data, res.data, out_len)
+                ch = Channel(out_len, avg.height, avg.hshift - 1, avg.vshift,
+                             out.astype(np.int32))
+            else:
+                out_len = avg.height + res.height
+                out = _unsqueeze_1d(avg.data.T, res.data.T, out_len).T
+                ch = Channel(avg.width, out_len, avg.hshift, avg.vshift - 1,
+                             out.astype(np.int32))
+            image.channels[c] = ch
+            del image.channels[res_idx]
 
 
 def squeeze_forward(image: ModularImage, t: Transform) -> None:

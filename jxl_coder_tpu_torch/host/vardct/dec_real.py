@@ -3,11 +3,14 @@
 The port's copy of ``jxl_coder_tpu/vardct/dec_real.py``: the readers,
 ``BlockArrays``, the DC planes and their adaptive smoothing, and the
 float64 host reconstruction (``decode_vardct_frame``), which the port
-holds its device decode against.  The JAX device routes are gone, and so
-are the features the port's decode does not cover (patches, splines,
-noise, upsampling, extra channels, DC frames, YCbCr and non-sRGB
-output): those raise NotImplementedError.  The native host codec is
-required; nothing falls back to pure Python.
+holds its device decode against, with its post stages: noise, 2x/4x/8x
+upsampling, the gamma, PQ, HLG or other signalled output encoding, and
+the extra channels.  The JAX device routes are gone, and so are the
+features the port's decode does not cover (patches, splines, DC frames,
+YCbCr): those raise NotImplementedError.  An extra channel whose stream
+fails to decode raises; the original substitutes an opaque plane
+(fault R6 of ROADMAP.md).  The native host codec is required; nothing
+falls back to pure Python.
 
 Layer map (cf. reference dec_frame.cc / dec_group.cc call stacks):
   LfGlobal  : dc-dequant factors, quantizer, block context map,
@@ -145,6 +148,7 @@ class LfGlobal:
     gtree: Optional[object] = None
     gcode: Optional[EntropyCode] = None
     mfd: Optional[object] = None
+    noise_lut: Optional[list] = None
 
     @property
     def inv_global_scale(self):
@@ -152,28 +156,32 @@ class LfGlobal:
 
 
 def read_lf_global(br: BitReader, fh, hdr=None, frame_w=None,
-                   frame_h=None, allow_ec_failure=False) -> LfGlobal:
+                   frame_h=None) -> LfGlobal:
+    """LfGlobal; with `hdr` given and extra channels signalled, also their
+    global Modular stream (lf.mfd, a ModularFrameDecoder whose group
+    streams follow each pass group's AC tokens).  A failing extra-channel
+    stream raises (the original substitutes opaque planes, R6)."""
     # allowed: kNoise (0x1), kPatches (0x2), kSplines (0x10),
     # kUseDcFrame (0x20), kSkipSmoothing (0x80)
     if fh.flags & ~0xB3:
         raise BitstreamError(
             "frame flags %#x not supported" % fh.flags)
-    for flag, feature in ((0x2, "patches"), (0x10, "splines"),
-                          (0x1, "noise")):
+    for flag, feature in ((0x2, "patches"), (0x10, "splines")):
         if fh.flags & flag:
             raise NotImplementedError(
                 f"VarDCT frame with {feature}: not in the port's host "
                 f"layers")
-    if hdr is not None and hdr.metadata.extra_channels:
-        raise NotImplementedError(
-            "VarDCT frame with extra channels: not in the port's host "
-            "layers")
+    noise_lut = None
+    if fh.flags & 0x1:
+        from .noise import read_noise_lut
+        noise_lut = read_noise_lut(br)
     from ..codec import read_dc_quant
     dcq = read_dc_quant(br)
     gs = br.u32((11, 1), (11, 2049), (12, 4097), (16, 8193))
     qdc = br.u32(16, (5, 1), (8, 1), (16, 1))
     bcm = BlockCtxMap.read(br)
-    lf = LfGlobal(dcq=dcq, global_scale=gs, quant_dc=qdc, bcm=bcm)
+    lf = LfGlobal(dcq=dcq, global_scale=gs, quant_dc=qdc, bcm=bcm,
+                  noise_lut=noise_lut)
     if not br.bool():
         lf.cfl_color_factor = br.u32(84, 256, (8, 2), (16, 258))
         lf.cfl_base_x = br.f16()
@@ -183,6 +191,14 @@ def read_lf_global(br: BitReader, fh, hdr=None, frame_w=None,
     if br.bool():
         lf.gtree = decode_tree(br, 1 << 22)
         lf.gcode = EntropyCode(br, (len(lf.gtree.nodes) + 1) // 2)
+    # the global Modular stream: the extra channels (a VarDCT frame's
+    # Modular image carries no colour channels)
+    if hdr is not None and hdr.metadata.extra_channels:
+        from ..modular.frame import ModularFrameDecoder
+        lf.mfd = ModularFrameDecoder.for_frame(
+            hdr, fh, lf.gtree, lf.gcode, False, frame_w, frame_h,
+            fh.frame_width or hdr.xsize, fh.frame_height or hdr.ysize)
+        lf.mfd.read_global(br)
     return lf
 
 
@@ -788,6 +804,83 @@ def _native_xyb_to_srgb(X, Y, B, bits):
     return out
 
 
+def _xyb_planes_to_linear32(X, Y, B):
+    """XYB planes -> (H, W, 3) unclamped linear sRGB in float32 (the
+    original's numpy steps)."""
+    X = X.astype(np.float32)
+    Y = Y.astype(np.float32)
+    B = B.astype(np.float32)
+    g_r = Y + X + np.float32(_CBRT_BIAS)
+    g_g = Y - X + np.float32(_CBRT_BIAS)
+    g_b = B + np.float32(_CBRT_BIAS)
+    mixed = np.stack([g_r * g_r * g_r - np.float32(_BIAS),
+                      g_g * g_g * g_g - np.float32(_BIAS),
+                      g_b * g_b * g_b - np.float32(_BIAS)], axis=-1)
+    return mixed @ _OPSIN_INV.T.astype(np.float32)
+
+
+def _quantize(enc, bits):
+    maxv = (1 << bits) - 1
+    out = np.clip(np.floor(enc * maxv + 0.5), 0, maxv)
+    return out.astype(np.uint8 if bits <= 8 else np.uint16)
+
+
+def xyb_planes_to_gamma(X, Y, B, gamma, bits):
+    """XYB -> linear RGB -> pure power TRC (ColourEncoding.have_gamma
+    streams; gamma is the ENCODE exponent, e.g. 1/2.2)."""
+    lin = _xyb_planes_to_linear32(X, Y, B)
+    enc = np.power(np.maximum(lin, 0.0), np.float32(gamma))
+    return _quantize(enc, bits)
+
+
+def xyb_planes_to_encoding(X, Y, B, ce, bits, intensity_target):
+    """XYB -> output in the stream's signalled colour encoding
+    (non-sRGB TRC and/or primaries): unclamped linear sRGB -> gamut
+    matrix to the signalled primaries -> signalled transfer function.
+    The original computes from the gamut step on with jax.numpy in
+    float32; this copy with numpy in float32 (``host/ops/color.py``).
+
+    The original's notes (conventions pinned against libjxl 0.7 output):
+      - linear 1.0 == 255 nits (kDefaultIntensityTarget), independent
+        of the signalled intensity_target;
+      - PQ encodes absolute nits / 10000, sign-mirrored for
+        out-of-gamut negatives;
+      - HLG: display-relative (peak = intensity_target) with the
+        BT.2100 inverse OOTF, gamma = 1.2 * 1.111^log2(Lw/1000), OOTF
+        luminance taken in the *target* primaries.
+    Near black PQ is steep enough that +-1e-3 linear noise moves codes
+    by tens; parity tests bound the mean and the 99.9th percentile.
+    """
+    from ..ops import color as C
+    lin = _xyb_planes_to_linear32(X, Y, B)   # linear sRGB, 1 = SDR
+    prim = C.primaries_xy(ce)
+    wp = C.white_xy(ce)
+    if prim != C.PRIMARIES["srgb"] or wp != C.ILLUMINANT_D65:
+        m = (C.gamut_xyz_to_rgb(prim, wp)
+             @ C.gamut_rgb_to_xyz(C.PRIMARIES["srgb"],
+                                  C.ILLUMINANT_D65)).astype(np.float32)
+        lin = lin @ m.T
+    trc = ce.transfer_function
+    it = float(intensity_target) if intensity_target else 255.0
+    v = lin.astype(np.float32)
+    sign = np.sign(v)
+    if trc == 16:    # PQ
+        enc = sign * C.linear_to_pq(np.abs(v) * np.float32(255.0 / 10000.0))
+    elif trc == 18:  # HLG with inverse OOTF
+        disp = v * np.float32(255.0 / it)
+        gam = 1.2 * 1.111 ** np.log2(it / 1000.0)
+        luma = C.gamut_rgb_to_xyz(prim, wp)[1].astype(np.float32)
+        yd = np.einsum("...c,c->...", disp, luma)
+        f = np.where(yd > np.float32(1e-9),
+                     C.powf(np.abs(yd), (1.0 - gam) / gam), np.float32(0.0))
+        scene = disp * f[..., None]
+        enc = np.sign(scene) * C.linear_to_hlg(
+            np.minimum(np.abs(scene), np.float32(1.0)))
+    else:
+        enc = sign * C.LINEAR_TO_TRC.get(trc, C.linear_to_srgb)(np.abs(v))
+    return _quantize(np.asarray(enc, np.float32), bits)
+
+
 def _is_srgb_output(ce) -> bool:
     """True when the signalled encoding is the default sRGB output the
     fast paths emit (sRGB TRC or unknown, sRGB primaries, D65)."""
@@ -1060,7 +1153,8 @@ def _apply_filters(X, Y, B, rf, sigma):
 
 def decode_vardct_frame(cs: bytes, hdr, fh, toc) -> np.ndarray:
     """Real-format VarDCT still decode on the host, in float64 ->
-    (H, W, 3) uint8 sRGB, or uint16 above 8 bits per sample.
+    (H, W, 3 + extra channels) uint8, or uint16 above 8 bits per sample,
+    in the signalled output encoding (sRGB by default).
 
     Handles multi-pass (progressive AC) streams: per-group coefficient
     values accumulate as sum(v_pass << pass_shift).
@@ -1080,15 +1174,11 @@ def decode_vardct_frame(cs: bytes, hdr, fh, toc) -> np.ndarray:
         raise NotImplementedError(
             "VarDCT frame with a DC frame (progressive LF): not in the "
             "port's host layers")
-    if fh.upsampling != 1 or fh.do_ycbcr:
+    if fh.do_ycbcr:
         raise NotImplementedError(
-            "VarDCT frame with upsampling or YCbCr: not in the port's "
-            "host layers")
-    ce = hdr.metadata.colour_encoding
-    if not _is_srgb_output(ce):
-        raise NotImplementedError(
-            "VarDCT frame with a non-sRGB output colour encoding: not in "
-            "the port's host layers")
+            "VarDCT frame with YCbCr: not in the port's host layers")
+    if fh.upsampling not in (1, 2, 4, 8):
+        raise BitstreamError(f"upsampling {fh.upsampling}")
 
     def section(idx):
         if single:
@@ -1103,8 +1193,7 @@ def decode_vardct_frame(cs: bytes, hdr, fh, toc) -> np.ndarray:
     else:
         brs = section
 
-    lf = read_lf_global(brs(0), fh, hdr, w, h,
-                        allow_ec_failure=not single)
+    lf = read_lf_global(brs(0), fh, hdr, w, h)
 
     # LF groups: 2048x2048 px tiles (256x256 blocks)
     lf_gd_b = 256
@@ -1177,6 +1266,9 @@ def decode_vardct_frame(cs: bytes, hdr, fh, toc) -> np.ndarray:
             else:
                 # anchors/offsets are identical across passes
                 blocks.accumulate_pass(blocks_p, pass_shift[p])
+            if lf.mfd is not None:
+                # the extra channels' group stream follows the AC tokens
+                lf.mfd.read_group(br_g, gi, ndc, ng, pass_index=p)
         dc_view = {c: dc_glob[c][ay:ay + gh, ax:ax + gw]
                    for c in range(3)}
         gX, gY, gB = reconstruct_group(lf, sub, blocks.to_varblocks(),
@@ -1216,11 +1308,67 @@ def decode_vardct_frame(cs: bytes, hdr, fh, toc) -> np.ndarray:
         X[:h, :w], Y[:h, :w], B[:h, :w] = Xc, Yc, Bc
     else:
         X, Y, B = _apply_filters(X, Y, B, rf, lf_sigma)
+    if lf.noise_lut is not None:
+        from .noise import add_noise
+        Xc, Yc, Bc = (np.ascontiguousarray(p[:h, :w], np.float32)
+                      for p in (X, Y, B))
+        add_noise(Xc, Yc, Bc, lf.noise_lut)
+        X = np.zeros_like(X); Y = np.zeros_like(Y); B = np.zeros_like(B)
+        X[:h, :w], Y[:h, :w], B[:h, :w] = Xc, Yc, Bc
+    m = hdr.metadata
+    # final frame size after upsampling (the coded frame is 1/upsampling
+    # of the signalled size; the Upsampler stage scales XYB back up)
     full_w = fh.frame_width or hdr.xsize
     full_h = fh.frame_height or hdr.ysize
-    if hdr.metadata.bit_depth.bits_per_sample > 8:
-        return xyb_planes_to_srgb16(X, Y, B)[:full_h, :full_w]
-    return xyb_planes_to_srgb8(X, Y, B)[:full_h, :full_w]
+    if fh.upsampling > 1:
+        from ..ops.upsample import upsample_plane
+        weights = upsample_weights(m, fh.upsampling)
+        X = upsample_plane(X[:h, :w], fh.upsampling, weights)
+        Y = upsample_plane(Y[:h, :w], fh.upsampling, weights)
+        B = upsample_plane(B[:h, :w], fh.upsampling, weights)
+    bits = m.bit_depth.bits_per_sample
+    ce = m.colour_encoding
+    if ce is not None and ce.have_gamma:
+        # a pure power TRC (e.g. 1/2.2): encode the linear output with it
+        rgb = xyb_planes_to_gamma(X, Y, B, ce.gamma / 1e7,
+                                  bits)[:full_h, :full_w]
+    elif not _is_srgb_output(ce):
+        rgb = xyb_planes_to_encoding(
+            X, Y, B, ce, bits,
+            m.tone_mapping.intensity_target)[:full_h, :full_w]
+    elif bits > 8:
+        rgb = xyb_planes_to_srgb16(X, Y, B)[:full_h, :full_w]
+    else:
+        rgb = xyb_planes_to_srgb8(X, Y, B)[:full_h, :full_w]
+    if not m.extra_channels:
+        return rgb
+    from ..modular.frame import undo_on_host
+    from ..ops.upsample import upsample_plane
+    ecs = undo_on_host(lf.mfd.planes())
+    out_max = 65535 if rgb.dtype == np.uint16 else 255
+    planes = []
+    for i, ec in enumerate(m.extra_channels):
+        ebits = ec.bit_depth.bits_per_sample
+        ec_up = fh.ec_upsampling[i] if i < len(fh.ec_upsampling) else 1
+        ec_up <<= ec.dim_shift
+        p = ecs[i]
+        if ec_up > 1:
+            p = np.rint(upsample_plane(
+                p.astype(np.float32), ec_up)).astype(np.int64)
+        p = np.clip(p, 0, (1 << ebits) - 1)
+        # rescale EC to the output depth
+        if (1 << ebits) - 1 != out_max:
+            p = p.astype(np.int64) * out_max // ((1 << ebits) - 1)
+        planes.append(p[:full_h, :full_w].astype(rgb.dtype))
+    return np.concatenate([rgb] + [p[..., None] for p in planes], axis=2)
+
+
+def upsample_weights(metadata, n: int):
+    """The signalled weights of an n-times upsampler (None: the
+    defaults)."""
+    uw = metadata.transform_data
+    return {2: uw.up2_weights, 4: uw.up4_weights,
+            8: uw.up8_weights}.get(n)
 
 
 def _lf_group_view(lg: LfGroup, ox: int, oy: int, gw: int,

@@ -10,11 +10,14 @@ histograms (native C++ stream writer).  Multi-group images produce
 the full section layout: LfGlobal | LfGroup* | HfGlobal | PassGroup*.
 Effort (1-10) controls the candidate breadth (_EFFORT_CANDS).
 
-The port's copy of the host branch of ``jxl_coder_tpu/vardct/enc_real.py``
-for 8-bit sRGB stills: the JAX device front end, the patch dictionary
-and the colour, alpha, noise and animated-frame options are gone, and
-the native host codec is required (no pure-Python fallback).  Its bytes
-equal the JAX package's host encoder's.
+The port's copy of the host branch of ``jxl_coder_tpu/vardct/enc_real.py``:
+8- and 16-bit and float input, a signalled colour encoding (``colour``,
+``intensity_target``), a lossless alpha plane, the noise lut, and a
+caller's frame and image headers (``fh``, ``hdr``: an upsampled frame is
+coded at its reduced size).  The JAX device front end, the patch
+dictionary and the animated-frame entry point are gone, and the native
+host codec is required (no pure-Python fallback).  Its bytes equal the
+JAX package's host encoder's.
 """
 
 from __future__ import annotations
@@ -59,6 +62,49 @@ def srgb8_to_xyb(pix: np.ndarray):
                    ((f + 0.055) / 1.055) ** 2.4)
     mixed = lin @ _OPSIN.T
     g = np.cbrt(mixed + _BIAS) - _CBRT_BIAS
+    return ((g[..., 0] - g[..., 1]) / 2,
+            (g[..., 0] + g[..., 1]) / 2,
+            g[..., 2])
+
+
+def encoded_to_xyb(f: np.ndarray, ce=None, intensity_target=255.0):
+    """(H, W, 3) float in [0, 1] in the signalled colour encoding ->
+    XYB planes (linear 1.0 == SDR white == 255 nits, the convention the
+    decoder's xyb_planes_to_encoding inverts)."""
+    from ..ops import color as C
+    f = f.astype(np.float64)
+    if ce is None:
+        trc = 13       # sRGB
+        prim = wp = None
+    else:
+        trc = ce.transfer_function
+        prim, wp = C.primaries_xy(ce), C.white_xy(ce)
+    if trc == 16:      # PQ: absolute nits over 255-nit SDR white
+        lin = np.asarray(C.pq_to_linear(f)) * (10000.0 / 255.0)
+    elif trc == 18:    # HLG: display-relative + BT.2100 OOTF
+        it = float(intensity_target or 1000.0)
+        scene = np.asarray(C.hlg_to_linear(f))
+        gam = 1.2 * 1.111 ** np.log2(it / 1000.0)
+        luma = C.gamut_rgb_to_xyz(prim, wp)[1]
+        ys = np.einsum("...c,c->...", scene, luma)
+        disp = scene * np.where(ys > 1e-9, ys ** (gam - 1.0),
+                                0.0)[..., None]
+        lin = disp * (it / 255.0)
+    elif ce is not None and ce.have_gamma:
+        lin = f ** (1e7 / ce.gamma)
+    else:
+        if trc in C.TRC_TO_LINEAR:
+            lin = np.asarray(C.TRC_TO_LINEAR[trc](f))
+        else:
+            lin = np.where(f <= 0.04045, f / 12.92,
+                           ((f + 0.055) / 1.055) ** 2.4)
+    if prim is not None and (prim != C.PRIMARIES["srgb"]
+                             or wp != C.ILLUMINANT_D65):
+        m = (C.gamut_xyz_to_rgb(C.PRIMARIES["srgb"], C.ILLUMINANT_D65)
+             @ C.gamut_rgb_to_xyz(prim, wp))
+        lin = lin @ m.T
+    mixed = lin @ _OPSIN.T
+    g = np.cbrt(np.maximum(mixed + _BIAS, 0.0)) - _CBRT_BIAS
     return ((g[..., 0] - g[..., 1]) / 2,
             (g[..., 0] + g[..., 1]) / 2,
             g[..., 2])
@@ -524,26 +570,45 @@ def _write_ac_tokens_native(lib, ts, acs_map, vals_map, xs_b, ys_b):
 
 def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
                        decoding_speed: int = 0,
-                       effort: int = 7,
+                       effort: int = 7, fh=None, hdr=None,
+                       alpha=None, colour=None,
                        bit_depth: int = None,
-                       progressive: bool = False) -> bytes:
-    """(H, W, 3) uint8 sRGB -> real-format VarDCT codestream, signalled
-    at `bit_depth` bits per sample (8 by default)."""
-    if pixels.dtype != np.uint8 or pixels.ndim != 3 or pixels.shape[2] != 3:
-        raise NotImplementedError(
-            "the port's host encoder takes (H, W, 3) uint8 sRGB pixels")
+                       intensity_target: float = None,
+                       progressive: bool = False,
+                       noise_lut=None) -> bytes:
+    """(H, W, 3) colour -> real-format VarDCT codestream.
+
+    pixels: uint8, uint16 or float [0, 1] in the colour encoding given
+    by `colour` (None = sRGB); full input precision reaches the XYB
+    front-end.  alpha: optional (H, W) int plane, encoded losslessly as
+    an ALPHA extra channel.  noise_lut: 8 knots in [0, 1] (kNoise).
+    fh / hdr: the frame and image headers to write (caller-owned fh
+    fields such as the upsampling factor are kept, the encoder's own set
+    here); `pixels` is then the coded frame, of the header's size
+    divided by the upsampling."""
+    if pixels.ndim != 3 or pixels.shape[2] != 3:
+        raise ValueError("the host encoder takes (H, W, 3) pixels")
     H, W, _ = pixels.shape
     xs_b, ys_b = -(-W // 8), -(-H // 8)
     pw, ph = xs_b * 8, ys_b * 8
     if bit_depth is None:
-        bit_depth = 8
+        bit_depth = 16 if pixels.dtype == np.uint16 else 8
 
     pad = np.pad(pixels, ((0, ph - H), (0, pw - W), (0, 0)), mode="edge")
     # decoding-speed tiers drop decode-side filters (the reference's
     # JxlDecodingSpeed semantics); gaborish costs a 3x3 conv at decode
     use_gab = decoding_speed < 2
 
-    X, Y, B = srgb8_to_xyb(pad)
+    if pad.dtype == np.uint8 and colour is None:
+        X, Y, B = srgb8_to_xyb(pad)
+    else:
+        if pad.dtype == np.uint8:
+            f = pad.astype(np.float64) / 255.0
+        elif pad.dtype == np.uint16:
+            f = pad.astype(np.float64) / 65535.0
+        else:
+            f = pad.astype(np.float64)
+        X, Y, B = encoded_to_xyb(f, colour, intensity_target or 255.0)
     B = B - Y                 # CfL base factor 1.0
     if use_gab:
         X = _gaborish_sharpen(X)
@@ -614,17 +679,42 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
         special_eligible=special_eligible)
 
     # ---- frame assembly
-    from ..bitstream.headers import BitDepth
-    m = ImageMetadata()
-    m.bit_depth = BitDepth(False, bit_depth, 0)
-    hdr = ImageHeader(size=SizeHeader(xsize=W, ysize=H), metadata=m)
+    if hdr is None:
+        from ..bitstream.headers import (BitDepth, ExtraChannelInfo,
+                                         ExtraChannelType)
+        m = ImageMetadata()
+        m.bit_depth = BitDepth(False, bit_depth, 0)
+        if colour is not None:
+            m.colour_encoding = colour
+        if intensity_target:
+            m.tone_mapping.intensity_target = float(intensity_target)
+        if alpha is not None:
+            ec = ExtraChannelInfo(type=ExtraChannelType.ALPHA)
+            ec.bit_depth = BitDepth(False, bit_depth, 0)
+            m.extra_channels = [ec]
+        hdr = ImageHeader(size=SizeHeader(xsize=W, ysize=H), metadata=m)
     xqm = 3 if distance >= 2.0 else 2
     # progressive AC: two passes, coarse coefficients (>>1) then the
     # refinement — decoders can show pass 0 early (the decode side has
     # supported num_passes>1 since round 3)
-    npasses = 2 if progressive else 1
-    fh = FrameHeader(encoding=Encoding.VARDCT, flags=0,
-                     x_qm_scale=xqm, b_qm_scale=2)
+    npasses = 2 if (progressive and alpha is None) else 1
+    pflags = 0
+    if noise_lut is not None:
+        # kNoise: the decoder synthesizes film-grain style noise from
+        # the 8-knot intensity lut; values quantize to 10-bit fixed point
+        noise_lut = [min(1023, max(0, int(round(float(v) * 1024.0))))
+                     for v in noise_lut]
+        if len(noise_lut) != 8:
+            raise ValueError("noise lut needs 8 knots")
+        pflags |= 0x1
+    if fh is None:
+        fh = FrameHeader(encoding=Encoding.VARDCT, flags=pflags,
+                         x_qm_scale=xqm, b_qm_scale=2)
+    else:
+        fh.encoding = Encoding.VARDCT
+        fh.flags = pflags
+        fh.x_qm_scale = xqm
+        fh.b_qm_scale = 2
     if npasses == 2:
         fh.passes.num_passes = 2
         fh.passes.num_downsample = 0
@@ -638,6 +728,12 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
         epf_it = 3
     fh.restoration_filter.epf_iters = epf_it
 
+    if hdr.metadata.extra_channels:
+        fh.ec_upsampling = [1] * len(hdr.metadata.extra_channels)
+        from ..bitstream.frame_header import BlendingInfo
+        fh.ec_blending_info = [BlendingInfo()
+                               for _ in hdr.metadata.extra_channels]
+
     gd_b = 32                     # AC group: 32x32 blocks
     lf_b = 256                    # LF group: 256x256 blocks
     gx = -(-xs_b // gd_b)
@@ -646,15 +742,57 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
     gx_lf = -(-xs_b // lf_b)
     gy_lf = -(-ys_b // lf_b)
     ndc = gx_lf * gy_lf
+    group_dim = 256
+
+    # alpha extra channel: lossless modular plane, split global /
+    # per-group exactly as ModularFrameDecoder expects (frame.py:64-146)
+    ec_global_in_stream = alpha is not None and W <= group_dim \
+        and H <= group_dim
+
+    def ec_global_bits():
+        w_ = BitWriter()
+        if alpha is None:
+            return w_
+        chan = Channel(W, H, data=np.ascontiguousarray(alpha, np.int32))
+        rng_ = (0, 1) if ec_global_in_stream else (0, 0)
+        encode_modular_stream(w_, ModularImage([chan]), GroupHeader(),
+                              Tree.single_leaf(predictor=5), stream_id=0,
+                              channel_range=rng_)
+        return w_
+
+    def ec_group_bits(gi):
+        w_ = BitWriter()
+        if alpha is None or ec_global_in_stream:
+            return w_
+        ax = (gi % gx) * group_dim
+        ay = (gi // gx) * group_dim
+        rw = min(group_dim, W - ax)
+        rh = min(group_dim, H - ay)
+        if rw <= 0 or rh <= 0:
+            return w_
+        sub = Channel(rw, rh, data=np.ascontiguousarray(
+            alpha[ay:ay + rh, ax:ax + rw], np.int32))
+        sid = 1 + 3 * ndc + 17 + gi
+        encode_modular_stream(w_, ModularImage([sub], nb_meta_channels=0),
+                              GroupHeader(), Tree.single_leaf(predictor=5),
+                              stream_id=sid)
+        return w_
 
     def lf_global_bits():
         w_ = BitWriter()
+        if noise_lut is not None:
+            # NoiseParameters precede DcQuant (read_lf_global ordering:
+            # patches -> splines -> noise -> dc_quant)
+            for v_ in noise_lut:
+                w_.u(v_, 10)
         w_.bool(True)
         w_.u32(gs, (11, 1), (11, 2049), (12, 4097), (16, 8193))
         w_.u32(qdc, 16, (5, 1), (8, 1), (16, 1))
         w_.bool(True)
         w_.bool(True)
         w_.bool(False)
+        if alpha is not None:
+            w_.append_writer(ec_global_bits())
         return w_
 
     def _meta_substream(gi):
@@ -755,6 +893,7 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
         sec.append_writer(lfgb)
         sec.append_writer(hf_global_bits())
         sec.append_writer(tw)
+        sec.append_writer(ec_group_bits(0))
         sec.zero_pad_to_byte()
         payloads = [sec.to_bytes()]
     else:
@@ -786,6 +925,7 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
             for gi in range(ng):
                 gw_ = BitWriter()
                 all_ts[gi].write_symbols(gw_, shared)
+                gw_.append_writer(ec_group_bits(gi))
                 gw_.zero_pad_to_byte()
                 sections.append(gw_.to_bytes())
         lfg = lf_global_bits()

@@ -1,7 +1,11 @@
 """The Modular inverse transforms on the device: RCT, palette and squeeze
 over int32 channel planes.
 
-``undo_transforms(image, header)`` is the counterpart of
+``undo_frame(planes, device)`` takes a frame's raw planes as the host
+decoded them (``host/modular/frame.py`` ``ModularPlanes``), uploads them
+once, undoes each group stream's recorded chain on views of them, then
+the frame's own chain.  ``undo_transforms(image, header)`` is the
+counterpart of
 ``jxl_coder_tpu/modular/device.py`` ``undo_transforms_device`` (``:124``):
 the same channel-list bookkeeping (a palette drops the meta channel and
 fans its index plane out to ``num_c`` planes; a squeeze rewrites widths,
@@ -29,10 +33,12 @@ import torch
 
 from .. import _build
 from ..host.bitstream.reader import BitstreamError
+from ..host.modular.frame import ModularPlanes
 from ..host.modular.image import Channel, ModularImage
 from ..host.modular.transform import _PERMUTATIONS
 
-__all__ = ["upload", "undo_transforms", "unsqueeze", "unsqueeze_plain",
+__all__ = ["upload", "undo_transforms", "undo_frame", "unsqueeze",
+           "unsqueeze_plain",
            "rct_inverse", "rct_inverse_plain", "palette_inverse",
            "palette_inverse_plain"]
 
@@ -325,3 +331,34 @@ def undo_transforms(image: ModularImage, header) -> None:
             _undo_squeeze(chans, t)
         else:
             raise BitstreamError(f"invalid transform id {t.id}")
+
+
+def _undo_group(parents, chain, device) -> None:
+    """A group stream's own chain, undone on views of the frame's planes
+    (parents, on `device`), written back into them."""
+    on_device = {id(v): parents[ci].data[y0:y0 + rh, x0:x0 + rw]
+                 for v, (ci, y0, x0, rh, rw) in zip(chain.views,
+                                                    chain.rects)}
+    sub = ModularImage([Channel(c.width, c.height, c.hshift, c.vshift,
+                                on_device.get(id(c), c.data))
+                        for c in chain.channels], nb_meta_channels=0)
+    upload(sub, device)
+    undo_transforms(sub, chain.header)
+    if len(sub.channels) != len(chain.rects):
+        raise BitstreamError("group-local transform changed channel count")
+    for (ci, y0, x0, rh, rw), ch in zip(chain.rects, sub.channels):
+        if ch.data.shape != (rh, rw):
+            raise BitstreamError("group-local transform changed a "
+                                 "channel's size")
+        parents[ci].data[y0:y0 + rh, x0:x0 + rw] = ch.data
+
+
+def undo_frame(planes: ModularPlanes, device) -> list:
+    """The frame's planes on `device`, every transform undone there: each
+    group's local chain on views of the uploaded planes, then the frame's
+    chain -> the channels' int32 tensors."""
+    upload(planes.image, device)
+    for chain in planes.chains:
+        _undo_group(planes.image.channels, chain, device)
+    undo_transforms(planes.image, planes.header)
+    return [c.data for c in planes.image.channels]

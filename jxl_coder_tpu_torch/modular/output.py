@@ -12,11 +12,14 @@ The counterpart of ``jxl_coder_tpu/codec.py`` ``_finalize_modular_planes``
   ``color.xyb_to_srgb_plain`` on a CPU one; within 1 code on under 0.1%
   of pixels of the JAX package's host conversion,
   ``dec_real.xyb_planes_to_srgb8``).
+- upsampling: the coded frame is 1/upsampling of the signalled size;
+  the planes scale back up through the upsampling kernel
+  (``vardct/post.py`` ``upsample``, A6: one launch for the colour
+  planes), in XYB space for an XYB frame, in channel space with ``rint``
+  otherwise; each extra channel by its own ``ec_upsampling <<
+  dim_shift``, with the default kernels, as the reference.
 The rest is plain PyTorch: the JAX package does this step on the host;
-it is no Pallas kernel.  Frame upsampling and extra-channel upsampling
-raise in
-``check_supported``, which the caller runs before the channel decode
-(``api.decode`` does): the port has no upsampler yet.
+it is no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -26,39 +29,25 @@ from typing import List
 import numpy as np
 import torch
 
-from ..vardct import filters
+from ..host.vardct.dec_real import upsample_weights
+from ..vardct import filters, post
 
 # gaborish weights for restore_and_output; unused with gaborish off
 _NO_GABORISH = (0.0,) * 6
 
 
-def check_supported(hdr, fh) -> None:
-    """Raise NotImplementedError for a frame whose output needs an
-    upsampler (frame upsampling, or an extra channel's ec_upsampling <<
-    dim_shift above 1)."""
-    todo = ("the port has no upsampler yet (ROADMAP.md queue 1 item 5, "
-            "post stages)")
-    if fh.upsampling > 1:
-        raise NotImplementedError(f"Modular frame upsampling "
-                                  f"{fh.upsampling}x: {todo}")
-    for i, ec in enumerate(hdr.metadata.extra_channels):
-        up = fh.ec_upsampling[i] if i < len(fh.ec_upsampling) else 1
-        if up << ec.dim_shift > 1:
-            raise NotImplementedError(
-                f"extra channel {i} upsampled {up << ec.dim_shift}x: {todo}")
-
-
 def modular_pixels(planes: List[torch.Tensor], hdr, fh,
                    dc_quant) -> torch.Tensor:
     """(H, W, C) pixels, C the colour channels plus the extra channels,
-    uint8 at 8 bits or less per sample and uint16 above, for a frame that
-    passed ``check_supported``."""
+    uint8 at 8 bits or less per sample and uint16 above."""
     m = hdr.metadata
     ncolor = 1 if (m.colour_encoding.colour_space == 1
                    and not m.xyb_encoded) else 3
     bits = m.bit_depth.bits_per_sample
     full_w = fh.frame_width or hdr.xsize
     full_h = fh.frame_height or hdr.ysize
+    up = fh.upsampling
+    weights = upsample_weights(m, up) if up > 1 else None
     if len(planes) < ncolor:
         arrs = list(planes)
     else:
@@ -67,14 +56,25 @@ def modular_pixels(planes: List[torch.Tensor], hdr, fh,
             xyb = torch.stack([cx * float(np.float32(dc_quant[0])),
                                cy * float(np.float32(dc_quant[1])),
                                (cy + cb) * float(np.float32(dc_quant[2]))])
+            if up > 1:
+                xyb = post.upsample(xyb, post.kernels_for(up, weights,
+                                                          xyb.device))
             rgb = filters.restore_and_output(
                 xyb[:, :full_h, :full_w], None, False, 0, _NO_GABORISH, 1.0,
                 1.0, "u16" if bits > 8 else "u8")
             colour = [rgb[..., c].to(torch.int32) for c in range(3)]
         else:
-            colour = [p[:full_h, :full_w] for p in planes[:ncolor]]
-        ecs = [p[:full_h, :full_w]
-               for p in planes[ncolor:ncolor + len(m.extra_channels)]]
+            colour = [p[:full_h, :full_w]
+                      for p in post.upsample_ints(planes[:ncolor], up,
+                                                  weights)]
+        ecs = []
+        for i, ec in enumerate(m.extra_channels):
+            if ncolor + i >= len(planes):
+                break
+            ec_up = (fh.ec_upsampling[i] if i < len(fh.ec_upsampling)
+                     else 1) << ec.dim_shift
+            p = post.upsample_ints([planes[ncolor + i]], ec_up)[0]
+            ecs.append(p[:full_h, :full_w])
         arrs = colour + ecs
     maxval = (1 << bits) - 1
     out = torch.stack([p.clamp(0, maxval) for p in arrs], -1)

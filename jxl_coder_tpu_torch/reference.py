@@ -1,14 +1,18 @@
 """The host codec the port is checked against.
 
 The port's device decode is held to a float64 host decode; streams to
-decode come from the host encoders (VarDCT, and the Modular frame writer
-``encode_modular_frame``), and the per-strategy transform tables of
+decode come from the host encoders (VarDCT, with alpha, colour
+encodings, 16-bit input, noise and upsampled frames, and the Modular
+frame writer ``encode_modular_frame``), and the per-strategy transform
+tables of
 seeded test families from the calibrated tables.  All of them
 are the port's own copies of the JAX package's host layers (``host/``,
 numpy and C++).  ``api.decode`` never calls this module.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -22,7 +26,16 @@ from .host.vardct.synthesis import dequant_table, response_matrix
 from .vardct.inputs import _PAD_SENTINEL as PAD_SENTINEL
 
 __all__ = ["encode_vardct", "encode_modular_frame", "decode_float64",
-           "STRATEGIES", "dequant_table", "response_matrix", "PAD_SENTINEL"]
+           "photon_noise_lut", "STRATEGIES", "dequant_table",
+           "response_matrix", "PAD_SENTINEL"]
+
+
+def photon_noise_lut(iso: float) -> list:
+    """The 8-knot noise lut that jxl_coder_tpu.api.encode writes for
+    photon_noise_iso (api.py:264-275): strength grows with the ISO and
+    falls with the intensity.  Pass it as encode_vardct's noise_lut."""
+    a = 0.12 * math.sqrt(iso / 3200.0)
+    return [min(1.0, a * (1.0 - 0.8 * (k / 7.0))) for k in range(8)]
 
 
 def decode_float64(data: bytes) -> np.ndarray:

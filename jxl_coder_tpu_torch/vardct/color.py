@@ -46,7 +46,9 @@ def fast_linear_to_srgb(v: torch.Tensor) -> torch.Tensor:
                        pw * mul.view(torch.float32) + _f(-0.055))
 
 
-def xyb_to_srgb_plain(xyb: torch.Tensor, bits16: bool) -> torch.Tensor:
+def xyb_to_linear_plain(xyb: torch.Tensor):
+    """tpu_full._xyb_to_linear_device: (3, H, W) XYB -> the three linear
+    sRGB planes, unclamped."""
     X, Y, B = xyb[0], xyb[1], xyb[2]
     cb, bias = float(_CB), float(_BIAS32)
     g_r = Y + X + cb
@@ -55,12 +57,14 @@ def xyb_to_srgb_plain(xyb: torch.Tensor, bits16: bool) -> torch.Tensor:
     ml = g_r * g_r * g_r - bias
     mm = g_g * g_g * g_g - bias
     ms = g_b * g_b * g_b - bias
+    return [float(_M[c, 0]) * ml + float(_M[c, 1]) * mm
+            + float(_M[c, 2]) * ms for c in range(3)]
+
+
+def xyb_to_srgb_plain(xyb: torch.Tensor, bits16: bool) -> torch.Tensor:
     scale = 65535.0 if bits16 else 255.0
     out = []
-    for c in range(3):
-        lin = (float(_M[c, 0]) * ml + float(_M[c, 1]) * mm
-               + float(_M[c, 2]) * ms)
+    for lin in xyb_to_linear_plain(xyb):
         q = torch.floor(fast_linear_to_srgb(lin) * scale + 0.5)
         out.append(q.clamp(0.0, scale))
     return torch.stack(out, -1).to(torch.uint16 if bits16 else torch.uint8)
-

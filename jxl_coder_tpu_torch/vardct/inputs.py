@@ -270,6 +270,7 @@ class FrameConfig:
     pass2_scale: float
     crop_h: int                 # true image size
     crop_w: int
+    post: Optional[object] = None   # post.PostConfig: the post stages
 
 
 @dataclasses.dataclass
@@ -301,6 +302,7 @@ class FrameInputs:
     sharp: torch.Tensor         # (ys_b, xs_b) int32 EPF sharpness
     igs: float                  # inverse global scale (an f32 value)
     qm: np.ndarray              # (3,) f32 X/Y/B dequant multipliers
+    ec: Optional[List[torch.Tensor]] = None  # extra channels, int32
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -372,10 +374,11 @@ def pack(state: dict) -> Tuple[dict, tuple]:
     return static, args
 
 
-def from_prepared(static: dict, args: tuple,
-                  device: torch.device) -> Tuple[FrameConfig, FrameInputs]:
-    """(static, args) from pack -> (FrameConfig,
-    FrameInputs on `device`)."""
+def from_prepared(static: dict, args: tuple, device: torch.device,
+                  post=None, ec=None) -> Tuple[FrameConfig, FrameInputs]:
+    """(static, args) from pack -> (FrameConfig, FrameInputs on `device`);
+    post: the frame's post.PostConfig, ec: its extra channels' planes
+    (already on `device`)."""
     fams, dc, qf, sharp, igs, qm, _perm_inv = args
     cfg = FrameConfig(
         H8=int(static["H8"]), W8=int(static["W8"]),
@@ -384,11 +387,12 @@ def from_prepared(static: dict, args: tuple,
         gabw=tuple(float(g) for g in static["gabw_t"]),
         pass0_scale=float(static["pass0_scale"]),
         pass2_scale=float(static["pass2_scale"]),
-        crop_h=int(static["crop_h"]), crop_w=int(static["crop_w"]))
+        crop_h=int(static["crop_h"]), crop_w=int(static["crop_w"]),
+        post=post)
     families = [family_from_dict(fam, d, device)
                 for fam, d in zip(fams, static["desc"])]
     inputs = FrameInputs(
         families=families, dc=_t(dc, device, np.float32),
         qf=_t(qf, device, np.int32), sharp=_t(sharp, device, np.int32),
-        igs=float(np.float32(igs)), qm=np.asarray(qm, np.float32))
+        igs=float(np.float32(igs)), qm=np.asarray(qm, np.float32), ec=ec)
     return cfg, inputs

@@ -16,9 +16,17 @@ all with one launch of the device entropy decode
 as the ``BlockArrays``' int32 tensor.  A stream that route cannot read
 raises; it never falls back to the host route.
 
+A frame's extra channels are a Modular image (``lf.mfd``): its global
+stream is read with LF global, each pass group's EC stream right after
+the group's AC tokens (the host route only: with entropy="device" their
+start is known only after the host has read the tokens, so such a frame
+raises NotImplementedError, as the reference's device entropy route
+declines it); ``state["lf"].mfd`` holds their raw planes.
+
 Unlike the reference it never asks whether a JAX device is attached and
 applies no frame-size floor.  A frame the port's device path does not
-cover raises NotImplementedError naming the feature.
+cover (a DC frame, patches, splines, YCbCr) raises NotImplementedError
+naming the feature.
 """
 
 from __future__ import annotations
@@ -30,8 +38,8 @@ import numpy as np
 
 from ..entropy import device as ENT
 from ..host.bitstream.reader import BitReader, BitstreamError
-from ..host.vardct.dec_real import (BlockArrays, _is_srgb_output,
-                                    _lf_group_view, adaptive_dc_smoothing,
+from ..host.vardct.dec_real import (BlockArrays, _lf_group_view,
+                                    adaptive_dc_smoothing,
                                     compute_dc_planes, read_hf_global,
                                     read_lf_global, read_lf_group,
                                     read_pass_group)
@@ -40,31 +48,29 @@ _LF_GROUP_BLOCKS = 256      # LF groups: 2048 px
 _GROUP_BLOCKS = 32          # AC groups: 256 px
 
 # frame-header flags (dec_real.read_lf_global)
-_NOISE, _PATCHES, _SPLINES, _DC_FRAME, _SKIP_SMOOTHING = (
-    0x1, 0x2, 0x10, 0x20, 0x80)
+_PATCHES, _SPLINES, _DC_FRAME, _SKIP_SMOOTHING = 0x2, 0x10, 0x20, 0x80
 
 
-def check_supported(hdr, fh) -> None:
-    """Raise NotImplementedError for a frame outside the port's slice
-    (the complement of dec_real's `_post_free` device condition)."""
-    m = hdr.metadata
-    ce = m.colour_encoding
+def check_supported(hdr, fh, entropy: str = "host") -> None:
+    """Raise NotImplementedError for a frame outside the port's slice."""
     unsupported = [
-        (m.extra_channels, "extra channels"),
         (fh.flags & _DC_FRAME, "a DC frame (progressive LF)"),
         (fh.flags & _PATCHES, "patches"),
         (fh.flags & _SPLINES, "splines"),
-        (fh.flags & _NOISE, "noise"),
-        (fh.upsampling != 1, f"{fh.upsampling}x upsampling"),
         (fh.do_ycbcr, "YCbCr (JPEG recompression, chroma subsampling)"),
-        (ce is not None and ce.have_gamma, "a gamma transfer function"),
-        (not _is_srgb_output(ce), "a non-sRGB output colour encoding"),
     ]
     for hit, feature in unsupported:
         if hit:
             raise NotImplementedError(
                 f"VarDCT frame with {feature}: not in the port's decode "
                 f"slice (ROADMAP, jxl_coder_tpu_torch)")
+    if entropy == "device" and hdr.metadata.extra_channels:
+        raise NotImplementedError(
+            "entropy='device' on a VarDCT frame with extra channels: each "
+            "pass group's extra-channel stream follows its AC tokens, so "
+            "its start is known only after the host has read them (the "
+            "reference's device entropy route declines such frames too); "
+            "decode it with entropy='host'")
 
 
 ENTROPY_ROUTES = ("host", "device")
@@ -82,7 +88,7 @@ def parse_frame(cs: bytes, hdr, fh, toc, entropy: str = "host",
     pass groups decode on `device` (a torch.device) and the state's
     blocks_glob.coeffs is an int32 tensor there."""
     check_entropy(entropy)
-    check_supported(hdr, fh)
+    check_supported(hdr, fh, entropy)
     w, h = fh.coded_size(hdr)
     xs_b, ys_b = -(-w // 8), -(-h // 8)
     ng, ndc = fh.counts(hdr)
@@ -101,8 +107,7 @@ def parse_frame(cs: bytes, hdr, fh, toc, entropy: str = "host",
             s = toc.section(idx)
             return BitReader(cs[s.offset:s.offset + s.size])
 
-    lf = read_lf_global(section(0), fh, hdr, w, h,
-                        allow_ec_failure=not single)
+    lf = read_lf_global(section(0), fh, hdr, w, h)
 
     gx_lf = -(-xs_b // _LF_GROUP_BLOCKS)
     lgs = []
@@ -195,6 +200,9 @@ def parse_frame(cs: bytes, hdr, fh, toc, entropy: str = "host",
                     blocks.coeffs <<= pass_shift[0]
             else:
                 blocks.accumulate_pass(blocks_p, pass_shift[p])
+            if lf.mfd is not None:
+                # the extra channels' group stream follows the AC tokens
+                lf.mfd.read_group(br_g, gi, ndc, ng, pass_index=p)
         return ax, ay, blocks
 
     if single or ng == 1:

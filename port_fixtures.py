@@ -277,6 +277,21 @@ def modular_still(img: np.ndarray, palette: bool = False,
         bw, hdr, fh, planes, use_ycocg=True, palette=pal))
 
 
+def upsampled_modular_still(img: np.ndarray, n: int) -> bytes:
+    """A Modular frame coded at 1/n of img's size (every n-th pixel) and
+    signalled at its full size with n-times upsampling, the extra channel
+    (alpha) too (ec_upsampling n); RCT 6 as modular_still."""
+    h, w = img.shape[:2]
+    coded = img[::n, ::n]
+    planes = _planes(coded)
+    bits = 16 if img.dtype == np.uint16 else 8
+    hdr, fh = modular_headers(h, w, len(planes), bits)
+    fh.upsampling = n
+    fh.ec_upsampling = [n] * len(fh.ec_upsampling)
+    return _still(hdr, lambda bw: R.encode_modular_frame(
+        bw, hdr, fh, planes, use_ycocg=True))
+
+
 def _one_section(bw, hdr, fh, image, header) -> None:
     """A single-section frame: LfGlobal (default DC dequant, no global
     tree) and the global stream with `header`'s transforms."""

@@ -84,7 +84,11 @@ def test_decode_outside_the_slice_raises():
     # host half still refuses one
     with pytest.raises(NotImplementedError, match="Modular"):
         api.prepare(ref_api.encode(img, lossless=True), device="cpu")
+    # a noisy frame decodes since the post stages (tests/test_torch_post*);
+    # its extra channels on the device entropy route still raise
     noisy = encode_vardct_real(img, distance=1.0, effort=3,
-                               noise_lut=[0.1] * 8)
-    with pytest.raises(NotImplementedError, match="noise"):
-        api.decode(noisy, device="cpu")
+                               noise_lut=[0.1] * 8,
+                               alpha=np.full((64, 64), 255))
+    assert api.decode(noisy, device="cpu")[0].shape == (64, 64, 4)
+    with pytest.raises(NotImplementedError, match="extra channels"):
+        api.decode(noisy, device="cpu", entropy="device")

@@ -5,7 +5,8 @@
   against the JAX package's int64 host oracle
   (``jxl_coder_tpu/modular/transform.py``), exactly, R1's range
   included, where the JAX device path's int32 SmoothTendency wraps.
-- ``undo_transforms(..., device="cpu")`` against the host chain.
+- ``undo_transforms`` on planes uploaded to the CPU against the host
+  chain.
 - ``api.decode(data, device="cpu")`` against ``jxl_coder_tpu.api.decode``
   bit for bit on the JAX package's lossless streams and on the port's
   fixture streams (squeezed, group-local RCT; XYB within 1 code on
@@ -34,7 +35,7 @@ from jxl_coder_tpu_torch import api, reference
 from jxl_coder_tpu_torch.host.bitstream.writer import BitWriter
 from jxl_coder_tpu_torch.host.modular import transform as PT
 from jxl_coder_tpu_torch.host.modular.image import Channel, ModularImage
-from jxl_coder_tpu_torch.host.modular.stream import GroupHeader, undo_transforms
+from jxl_coder_tpu_torch.host.modular.stream import GroupHeader
 from jxl_coder_tpu_torch.modular import device as MDEV
 import port_fixtures as F
 
@@ -182,8 +183,9 @@ def _port_transforms(transforms):
 def _check_chain(chans, nb_meta, transforms):
     ref, port = _both_images(chans, nb_meta)
     _host_chain(ref, copy.deepcopy(transforms))
-    undo_transforms(port, GroupHeader(transforms=_port_transforms(transforms)),
-                    "cpu")
+    MDEV.upload(port, "cpu")
+    MDEV.undo_transforms(port,
+                         GroupHeader(transforms=_port_transforms(transforms)))
     assert port.nb_meta_channels == ref.nb_meta_channels
     assert len(port.channels) == len(ref.channels)
     for a, b in zip(port.channels, ref.channels):
@@ -359,13 +361,19 @@ def test_modular_outside_the_slice_raises():
 
 
 def test_modular_upsampling_raises():
+    """Frame upsampling raised until the post stages' upsampler (A6);
+    the frame now decodes as the JAX package decodes it, and only an
+    embedded ICC profile or entropy="device" still raises."""
     hdr, fh = F.modular_headers(16, 24, 3)
     fh.upsampling = 2
     planes = [p[::2, ::2].copy() for p in F._planes(_rgb(16, 24))]
     data = F._still(hdr, lambda bw: reference.encode_modular_frame(
         bw, hdr, fh, planes))
-    with pytest.raises(NotImplementedError, match="upsampl"):
-        api.decode(data, device="cpu")
+    got = api.decode(data, device="cpu")[0]
+    assert got.shape == (16, 24, 3)
+    assert np.array_equal(got, ref_api.decode(data)[0])
+    with pytest.raises(NotImplementedError, match="entropy"):
+        api.decode(data, device="cpu", entropy="device")
 
 
 def test_delta_palette_raises_invalid_jxl():

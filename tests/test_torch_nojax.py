@@ -223,3 +223,47 @@ def test_cuda_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.decode(b"\xff\x0a", device="cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+HOST = PKG / "host"
+HOST_MODULES = sorted(
+    ".".join(p.relative_to(REPO).with_suffix("").parts)
+    for p in HOST.rglob("*.py") if p.name != "__init__.py")
+
+
+def test_host_layer_imports_no_torch_and_no_device_layer(tmp_path):
+    """L1: every module under host/ imports with torch blocked, and none
+    of them names the device layers (modular, vardct, entropy) of the
+    port: the host layer is numpy and C++."""
+    assert HOST_MODULES
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.modules["torch"] = None      # any `import torch` now fails
+        sys.modules["jax"] = None
+        sys.path.insert(0, {str(REPO)!r})
+        for name in {HOST_MODULES!r}:
+            importlib.import_module(name)
+        loaded = sorted(m for m, v in sys.modules.items()
+                        if v is not None and m.startswith(
+                            ("jxl_coder_tpu_torch.modular",
+                             "jxl_coder_tpu_torch.vardct",
+                             "jxl_coder_tpu_torch.entropy")))
+        print(len({HOST_MODULES!r}), loaded)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.split() == [str(len(HOST_MODULES)), "[]"]
+    device = re.compile(r"(^|\.)(modular|vardct|entropy)(\.|$)")
+    for path in HOST.rglob("*.py"):
+        for n in ast.walk(ast.parse(path.read_text())):
+            if isinstance(n, ast.ImportFrom) and n.level >= 2 and \
+                    n.level == len(path.relative_to(PKG).parts):
+                # a relative import that climbs out of host/
+                assert not device.search(n.module or ""), (path, n.module)
+            if isinstance(n, ast.ImportFrom) and not n.level:
+                assert not (n.module or "").startswith((
+                    "jxl_coder_tpu_torch.modular",
+                    "jxl_coder_tpu_torch.vardct",
+                    "jxl_coder_tpu_torch.entropy")), (path, n.module)

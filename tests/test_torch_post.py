@@ -1,0 +1,322 @@
+"""The VarDCT post stages of the PyTorch port on the CPU: each kernel's
+plain twin (vardct/post.py: noise A5, upsampling A6, the output encoding
+A7) against the JAX package's device function (tpu_full.py:606-725), the
+Modular output's upsampling against jxl_coder_tpu.codec.
+_finalize_modular_planes, and the frames the port still declines.
+
+Tolerances: the f32 twins within 1e-6 absolute (sums and products in
+another order than XLA's fused ones); the codes within 2, except PQ,
+whose slope near black moves codes by tens for a last-bit difference
+(the JAX package's own bound, tests/test_device_post.py:89-112): mean
+< 0.5, 99.9th percentile <= 8, max <= 64.  The Modular output is exact
+for integer channels and within 1 code on < 0.1% of pixels for XYB.
+Streams decoded end to end are in test_torch_post_decode.py.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jxl_coder_tpu import codec as ref_codec
+from jxl_coder_tpu.bitstream import container as jax_container
+from jxl_coder_tpu.bitstream.frame_header import read_frame_header as jax_rfh
+from jxl_coder_tpu.bitstream.headers import read_image_header as jax_rih
+from jxl_coder_tpu.bitstream.reader import BitReader as JaxBitReader
+from jxl_coder_tpu.vardct import tpu_full as TF
+from jxl_coder_tpu.vardct.noise import NOISE_K0
+from jxl_coder_tpu_torch import api, reference
+from jxl_coder_tpu_torch.host.bitstream.frame_header import write_frame_header
+from jxl_coder_tpu_torch.host.bitstream.writer import BitWriter
+from jxl_coder_tpu_torch.host.codec import write_image_header
+from jxl_coder_tpu_torch.host.ops.upsample import _kernels as up_kernels
+from jxl_coder_tpu_torch.modular import output as MOUT
+from jxl_coder_tpu_torch.vardct import post
+import port_fixtures as F
+
+SIZES = [(1, 1), (2, 3), (4, 4), (5, 2), (3, 7), (17, 33), (40, 64)]
+LUMA709 = (0.2126, 0.7152, 0.0722)
+LUMA2020 = (0.2627, 0.678, 0.0593)
+
+
+def _xyb(h, w, seed, hdr=False):
+    """Seeded XYB planes in the range decoded frames reach (brighter
+    than SDR white for the HDR specs)."""
+    rng = np.random.default_rng(seed)
+    top = 1.6 if hdr else 0.85
+    y = rng.uniform(0.0, top, (h, w))
+    return np.stack([rng.normal(0.0, 0.012, (h, w)), y,
+                     y + rng.normal(0.0, 0.04, (h, w))]).astype(np.float32)
+
+
+def _codes_within(got, ref, pq: bool):
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    d = np.abs(got.astype(np.int64) - ref.astype(np.int64))
+    if pq:
+        assert d.mean() < 0.5 and np.percentile(d, 99.9) <= 8 and \
+            d.max() <= 64, (d.mean(), d.max())
+    else:
+        assert d.max() <= 2, d.max()
+
+
+# ---- A5: noise ----
+
+@jax.jit
+def _jax_noise(xyb, rnd, lut):
+    """fn_post's noise stage (tpu_full.py:841-855)."""
+    X, Y, B = xyb[0], xyb[1], xyb[2]
+    conv_r, conv_g, conv_cor = (TF._conv_subbox_device(rnd[c])
+                                for c in range(3))
+    sr = TF._noise_strength_device(lut, (Y + X) * 0.5)
+    sg = TF._noise_strength_device(lut, (Y - X) * 0.5)
+    red = sr * (conv_cor + conv_r / jnp.float32(128.0))
+    green = sg * (conv_cor + conv_g / jnp.float32(128.0))
+    k0 = jnp.float32(NOISE_K0)
+    return jnp.stack([X + k0 * (red - green), Y + k0 * (red + green),
+                      B + k0 * (red + green)])
+
+
+@pytest.mark.parametrize("h,w", SIZES)
+def test_noise_twin_equals_the_jax_noise_stage(h, w):
+    xyb = _xyb(h, w, 1)
+    rnd = post.noise_random(w, h, "cpu").numpy()
+    lut = np.asarray(reference.photon_noise_lut(3200), np.float32)
+    got = post.add_noise(torch.from_numpy(xyb.copy()),
+                         torch.from_numpy(rnd), torch.from_numpy(lut))
+    ref = np.asarray(_jax_noise(xyb, rnd, lut))
+    assert np.abs(got.numpy() - ref).max() <= 1e-6
+
+
+def test_noise_random_planes_are_the_host_copy_and_cached():
+    a = post.noise_random(70, 45, "cpu")
+    assert post.noise_random(70, 45, "cpu") is a
+    from jxl_coder_tpu.vardct.noise import noise_planes
+    assert np.array_equal(a.numpy(), noise_planes(70, 45))
+
+
+# ---- A6: upsampling ----
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("h,w", SIZES[:5] + [(17, 33)])
+def test_upsample_twin_equals_the_jax_upsampler(n, h, w):
+    planes = _xyb(h, w, 2)
+    ker = np.asarray(up_kernels(n), np.float32)
+    got = post.upsample(torch.from_numpy(planes), torch.from_numpy(ker))
+    fn = jax.jit(TF._upsample_plane_device)
+    ref = np.stack([np.asarray(fn(p, ker)) for p in planes])
+    assert got.shape == (3, n * h, n * w)
+    assert np.abs(got.numpy() - ref).max() <= 1e-6
+
+
+def test_upsample_with_signalled_weights():
+    """Custom up2 weights (CustomTransformData) build other kernels."""
+    w = tuple(np.linspace(-0.05, 0.6, 15))
+    ker = np.asarray(up_kernels(2, w), np.float32)
+    planes = _xyb(9, 14, 3)
+    got = post.upsample(torch.from_numpy(planes), torch.from_numpy(ker))
+    ref = np.stack([np.asarray(TF._upsample_plane_device(p, ker))
+                    for p in planes])
+    assert np.abs(got.numpy() - ref).max() <= 1e-6
+
+
+# ---- A7: the output encoding ----
+
+SPECS = {
+    "srgb": ("srgb",),
+    "gamma": ("gamma", 1 / 2.2),
+    "pq_srgb": ("enc", 16, None, 1000.0, LUMA709),
+    "pq_2100": ("enc", 16, "2020", 4000.0, LUMA2020),
+    "hlg_srgb": ("enc", 18, None, 1000.0, LUMA709),
+    "hlg_2100": ("enc", 18, "2020", 1000.0, LUMA2020),
+    "srgb_2020": ("enc", 13, "2020", 255.0, LUMA2020),
+    "bt709": ("enc", 1, None, 255.0, LUMA709),
+    "linear": ("enc", 8, None, 255.0, LUMA709),
+    "dci": ("enc", 17, None, 255.0, LUMA709),
+}
+
+
+def _spec(key):
+    spec = SPECS[key]
+    if spec[0] == "enc" and spec[2] == "2020":
+        from jxl_coder_tpu_torch.host.ops import color as HC
+        gm = (HC.gamut_xyz_to_rgb(HC.PRIMARIES["bt2020"], HC.ILLUMINANT_D65)
+              @ HC.gamut_rgb_to_xyz(HC.PRIMARIES["srgb"], HC.ILLUMINANT_D65))
+        spec = spec[:2] + (tuple(gm.astype(np.float32).reshape(-1).tolist()),
+                           ) + spec[3:]
+    return spec
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("key", list(SPECS))
+def test_encode_output_twin_equals_the_jax_output_stage(key, bits):
+    spec = _spec(key)
+    xyb = np.concatenate([_xyb(h, w, 4, hdr=spec[0] == "enc").reshape(3, -1)
+                          for h, w in SIZES], 1)[:, None, :]
+    got = post.encode_output(torch.from_numpy(xyb), spec, bits)
+    ref = np.asarray(TF._encode_output_device(*map(jnp.asarray, xyb), spec,
+                                              bits))
+    _codes_within(got.numpy(), ref, spec[:2] == ("enc", 16))
+
+
+def test_encode_output_srgb_is_kernel_2s_output_step():
+    """The "srgb" spec's codes are those of restore_and_output with every
+    filter off (kernel 2's output step)."""
+    from jxl_coder_tpu_torch.vardct import filters
+    xyb = torch.from_numpy(_xyb(19, 23, 5))
+    for bits, out in ((8, "u8"), (16, "u16")):
+        a = post.encode_output(xyb, ("srgb",), bits)
+        b = filters.restore_and_output(xyb, None, False, 0, (0.0,) * 6, 1.0,
+                                       1.0, out)
+        assert torch.equal(a, b)
+
+
+def test_encode_output_takes_a_cropped_view():
+    xyb = torch.from_numpy(_xyb(20, 30, 6))
+    spec = _spec("hlg_2100")
+    a = post.encode_output(xyb[:, 3:17, 2:25], spec, 16)
+    b = post.encode_output(xyb[:, 3:17, 2:25].contiguous(), spec, 16)
+    assert torch.equal(a, b)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    x = torch.zeros((3, 4, 5))
+    with pytest.raises(ValueError):
+        post.encode_output(x.double(), ("srgb",), 8)
+    with pytest.raises(ValueError):
+        post.encode_output(x, ("ycbcr",), 8)
+    with pytest.raises(ValueError):
+        post.upsample(x, torch.zeros((3, 3, 5, 5)))
+    with pytest.raises(ValueError):
+        post.add_noise(x, torch.zeros((3, 4, 4)), torch.zeros(8))
+
+
+# ---- the Modular output's upsampling ----
+
+def _jax_headers(data):
+    cs = jax_container.extract_codestream(data).codestream
+    br = JaxBitReader(cs)
+    hdr = jax_rih(br)
+    return hdr, jax_rfh(br, hdr)
+
+
+def _finalize_both(n, nch, xyb=False, ec_up=None, bits=8, seed=7):
+    """Seeded coded planes through the port's modular_pixels and the JAX
+    package's _finalize_modular_planes (then its clip and stack,
+    api.py:558-561), headers from a written stream."""
+    h, w = 45, 61
+    hdr, fh = F.modular_headers(h, w, nch, bits, xyb=xyb)
+    fh.upsampling = n
+    fh.ec_upsampling = [ec_up or n] * len(fh.ec_upsampling)
+    bw = BitWriter()
+    write_image_header(bw, hdr)
+    write_frame_header(bw, fh, hdr)
+    bw.zero_pad_to_byte()
+    data = bw.to_bytes()
+    jhdr, jfh = _jax_headers(data)
+    cw, ch = fh.coded_size(hdr)
+    rng = np.random.default_rng(seed)
+    if xyb:
+        y = rng.integers(100, 1600, (ch, cw))
+        planes = [y, rng.integers(-120, 120, (ch, cw)),
+                  rng.integers(-200, 200, (ch, cw))]
+    else:
+        planes = [rng.integers(0, 1 << bits, (ch, cw)) for _ in range(3)]
+    for _ in range(nch - 3):
+        e = ec_up or n
+        planes.append(rng.integers(0, 1 << bits, (-(-h // e), -(-w // e))))
+    planes = [p.astype(np.int32) for p in planes]
+    dcq = (1.0 / 4096, 1.0 / 512, 1.0 / 256)
+    got = MOUT.modular_pixels([torch.from_numpy(p) for p in planes], hdr, fh,
+                              dcq).numpy()
+    ref = ref_codec._finalize_modular_planes(planes, jhdr, jfh, dcq)
+    maxval = (1 << bits) - 1
+    ref = np.stack([np.clip(p, 0, maxval) for p in ref], -1).astype(
+        np.uint8 if bits <= 8 else np.uint16)
+    return got, ref
+
+
+@pytest.mark.parametrize("n,nch,bits,ec_up", [
+    (2, 3, 8, None), (4, 4, 8, None), (8, 3, 8, None), (2, 4, 16, None),
+    (2, 4, 8, 1), (1, 4, 8, 2)])
+def test_modular_upsampling_equals_the_jax_finalize(n, nch, bits, ec_up):
+    """Integer channels: equal at 8 bits.  At 16 bits the upsampled
+    float32 values are ~256x larger, so the last bit of the 25-term sum,
+    which numpy's einsum (BLAS) takes in another order, decides rint on
+    about 0.1% of them: there within 1 code."""
+    got, ref = _finalize_both(n, nch, bits=bits, ec_up=ec_up)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    d = np.abs(got.astype(np.int64) - ref.astype(np.int64))
+    if bits == 8:
+        assert d.max() == 0
+    else:
+        assert d.max() <= 1 and (d > 0).mean() < 5e-3
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_modular_xyb_upsampling_within_one_code(n):
+    got, ref = _finalize_both(n, 3, xyb=True)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    d = np.abs(got.astype(int) - ref.astype(int))
+    assert d.max() <= 1 and (d > 0).mean() < 1e-3
+
+
+def test_upsampled_modular_stream_decodes_as_the_jax_package():
+    from jxl_coder_tpu import api as ref_api
+    rgba = np.concatenate([F.bench_frame(38, 51), (np.arange(38 * 51).reshape(
+        38, 51) % 251).astype(np.uint8)[..., None]], -1)
+    data = F.upsampled_modular_still(rgba, 2)
+    got, info = api.decode(data, device="cpu")
+    ref, _ = ref_api.decode(data)
+    assert got.shape == (38, 51, 4) and np.array_equal(got, ref)
+
+
+# ---- what still raises ----
+
+def _rewritten(data, **changes):
+    """The stream with its frame header's fields changed (the sections
+    stay; the decode must refuse the frame before it reads them).  A
+    YCbCr frame is signalled only where the image is not XYB-encoded."""
+    cs, hdr, fh, toc = api._read_frame(data)
+    for k, v in changes.items():
+        setattr(fh, k, v)
+    if fh.do_ycbcr:
+        hdr.metadata.xyb_encoded = False
+    bw = BitWriter()
+    write_image_header(bw, hdr)
+    write_frame_header(bw, fh, hdr)
+    from jxl_coder_tpu_torch.host.bitstream.frame_header import write_toc
+    write_toc(bw, [toc.section(i).size for i in range(len(toc.entries))])
+    head = bw.to_bytes()
+    body = cs[toc.section(0).offset:]
+    return head + body
+
+
+@pytest.mark.parametrize("feature,changes", [
+    ("patches", dict(flags=0x2)), ("splines", dict(flags=0x10)),
+    ("a DC frame", dict(flags=0x20)), ("YCbCr", dict(do_ycbcr=True))])
+def test_frames_outside_the_slice_raise(feature, changes):
+    data = reference.encode_vardct(F.smooth_frame(40, 48), distance=1.0,
+                                   effort=5)
+    bad = _rewritten(data, **changes)
+    with pytest.raises(NotImplementedError, match=feature):
+        api.decode(bad, device="cpu")
+
+
+def test_device_entropy_with_extra_channels_raises():
+    img = F.smooth_frame(40, 48)
+    data = reference.encode_vardct(img, distance=1.0, effort=5,
+                                   alpha=np.full((40, 48), 200))
+    assert api.decode(data, device="cpu")[0].shape == (40, 48, 4)
+    with pytest.raises(NotImplementedError, match="extra channels"):
+        api.decode(data, device="cpu", entropy="device")
+
+
+def test_post_config_of_a_plain_frame_is_empty():
+    data = reference.encode_vardct(F.smooth_frame(40, 48), distance=1.0,
+                                   effort=5)
+    cfg, _inputs, _hdr = api.prepare(data, "cpu")
+    assert cfg.post.colour_empty and cfg.post.ec == ()
+    assert dataclasses.replace(cfg.post) == cfg.post
