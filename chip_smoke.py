@@ -104,7 +104,19 @@ prints no result):
      Modular frame equal to the CPU route; the kernels against their
      twins on the main path's 4K planes; the 4K post stream and the
      upsampled 4K stream split into their layers inside the same calls
-     (M1); each kernel at 4K by CUDA graph against its twin and bound.
+     (M1); each kernel at 4K by CUDA graph against its twin and bound;
+ 13. api.decode_batch (the host halves on a worker pool, the uploads,
+     device halves and downloads on their own CUDA streams): 8 copies of
+     the 4K d1.0 e7 stream on each entropy route, and a mixed batch of
+     the 4K d1.0 e7, 4K RGBA16 noise + PQ, 4K-from-FHD 2x and 4K Modular
+     RCT streams with the FHD d4.0 and 720x480 16-bit ones (host route):
+     each once, counted, the plain twins made to raise; then each batch
+     timed (the median of 3 calls) against N sequential api.decode calls
+     on the same bytes and route, in turns, every output equal to
+     api.decode's (0 codes), with the host halves' time alone and in the
+     batch, the CPU used, the peak device memory and the card's busy
+     share of a profiled batch call; then the worker count (2, 4, the
+     host's cores) and the files in flight (1-3) swept.
 Every kernel's line carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its f32 operations over 67 TFLOP/s (the H100 SXM's published peaks
@@ -140,6 +152,7 @@ import numpy as np
 import torch
 
 from jxl_coder_tpu_torch import _build, api, codec, reference
+from jxl_coder_tpu_torch import batch as BATCH
 from jxl_coder_tpu_torch.entropy import device as ENT
 from jxl_coder_tpu_torch.host.modular import transform as MT
 from jxl_coder_tpu_torch.host.modular.frame import ModularFrameDecoder
@@ -2023,7 +2036,8 @@ def modular_phase(jobs: dict, dev, card: str, ms: dict) -> dict:
                                  t.nb_colours)
     layers = modular_layers(streams["4k_rct"][0], 3840 * 2160 / 1e6, card)
     modular_timings(inputs, dev, card, ms)
-    return dict(counts, layers=layers)
+    return dict(counts, layers=layers,
+                streams={label: data for label, (data, _) in streams.items()})
 
 
 # ---- the VarDCT post stages (phase 12) ----
@@ -2598,7 +2612,245 @@ def post_phase(jobs: dict, dev, card: str, ms: dict) -> dict:
                   "encode_output": (noised, spec, 16)}, card, ms)
     print(f"phase 12 (post stages) took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return dict(counts, layers=layers)
+    return dict(counts, layers=layers,
+                streams={label: data for label, (data, _) in streams.items()})
+
+
+# ---- api.decode_batch (phase 13) ----
+
+# the kernels a batch of the phase's streams runs, each at least once
+BATCH_KERNELS = ("synth_family", "synth_dct8", "restore_and_output",
+                 "epf0_pass", "decode_pass_groups", "rct_inverse",
+                 "add_noise", "upsample", "encode_output")
+# what a batch on the card must not run: the kernels' plain twins
+BATCH_TWINS = POST_TWINS + ((ENT, ("decode_pass_groups_plain",)),
+                            (synth, ("synth_family_plain",)))
+
+
+@contextlib.contextmanager
+def batch_spans(log: list):
+    """Log, per call, (name, start, end, thread CPU seconds) of the host
+    halves (api.host_half, on the workers or inside api.decode), the
+    device halves (api.device_half: the uploads and the launches, queued
+    on the main thread) and the main thread's own steps of a batch: a
+    file's upload, device half and download queued (_Card.push) and the
+    finished files' wait, copy out and orientation (_Card.done)."""
+    saved = [(api, "host_half", api.host_half),
+             (api, "device_half", api.device_half),
+             (BATCH._Card, "push", BATCH._Card.push),
+             (BATCH._Card, "done", BATCH._Card.done)]
+
+    def spanned(fn, name):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            t0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                log.append((name, t0, time.perf_counter(),
+                            time.thread_time() - c0))
+        return call
+
+    for owner, name, fn in saved:
+        setattr(owner, name, spanned(fn, name))
+    try:
+        yield
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def device_busy(fn) -> tuple:
+    """(the card's busy share of one call of fn, wall ms, device events
+    seen): the union of the device's kernel, copy and memset intervals
+    that torch.profiler records, over the call's wall time.  None for the
+    share when the profiler saw no device event."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return (busy / 1e3 / wall if spans else None), wall, len(spans)
+
+
+def timed_batch(datas, entropy: str, workers: int = None,
+                in_flight: int = None) -> tuple:
+    """(outputs, ms) of one batch call, the garbage collector off; with no
+    settings the entry point (api.decode_batch), else the pipeline at the
+    settings given (the sweep)."""
+    torch.cuda.synchronize()
+    with no_gc():
+        t0 = time.perf_counter()
+        if workers is None:
+            outs = api.decode_batch(datas, "cuda", entropy)
+        else:
+            outs = BATCH.run(datas, torch.device("cuda"), entropy, workers,
+                             in_flight)
+        return outs, (time.perf_counter() - t0) * 1e3
+
+
+def timed_sequence(datas, entropy: str) -> tuple:
+    """(outputs, ms) of one api.decode call per file, in turn; the garbage
+    collector off during each call, each call's time summed."""
+    outs, total = [], 0.0
+    for data in datas:
+        torch.cuda.synchronize()
+        with no_gc():
+            t0 = time.perf_counter()
+            outs.append(api.decode(data, "cuda", entropy)[0])
+            total += (time.perf_counter() - t0) * 1e3
+    return outs, total
+
+
+def batch_timing(label: str, datas: list, entropy: str, card: str) -> None:
+    """3 batch calls against 3 runs of N sequential api.decode calls, in
+    turns (S B B S S B); the outputs of every call equal, code for code,
+    to the first sequential run's (api.decode's).  Then the host halves
+    alone and in the batch, the CPU used, the peak device memory and the
+    card's busy share (one profiled batch call)."""
+    med = statistics.median
+    seq, bat, seq_logs, bat_logs, cpu, peaks = [], [], [], [], [], []
+    ref = None
+    for kind in "SBBSSB":
+        log = []
+        c0 = time.process_time()
+        with batch_spans(log):
+            if kind == "S":
+                outs, t = timed_sequence(datas, entropy)
+                seq.append(t)
+                seq_logs.append(log)
+                ref = ref if ref is not None else outs
+            else:
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                outs, t = timed_batch(datas, entropy)
+                peaks.append(torch.cuda.max_memory_allocated() - base)
+                bat.append(t)
+                bat_logs.append(log)
+                cpu.append((time.process_time() - c0) * 1e3)
+        for k, (o, r) in enumerate(zip(outs, ref)):
+            if o.shape != r.shape or o.dtype != r.dtype or \
+                    not np.array_equal(o, r):
+                raise AssertionError(f"batch {label}: file {k} differs from "
+                                     f"api.decode's output")
+    mp = sum(r.shape[0] * r.shape[1] for r in ref) / 1e6
+    t_seq, t_bat = med(seq), med(bat)
+    n, peak = len(datas), max(peaks)
+    def total(logs, name, cpu=False):
+        """The median over the calls of a span's time summed over the
+        files (ms): wall, or its thread's CPU."""
+        return med(sum((c if cpu else t1 - t0) for n, t0, t1, c in log
+                       if n == name) * 1e3 for log in logs)
+
+    host_alone, host_in = total(seq_logs, "host_half"), total(bat_logs,
+                                                             "host_half")
+    host_cpu_alone = total(seq_logs, "host_half", True)
+    host_cpu_in = total(bat_logs, "host_half", True)
+    dev_alone, dev_in = total(seq_logs, "device_half"), total(bat_logs,
+                                                            "device_half")
+    dev_cpu_alone = total(seq_logs, "device_half", True)
+    dev_cpu_in = total(bat_logs, "device_half", True)
+    push, finish = total(bat_logs, "push"), total(bat_logs, "done")
+    busy, wall, events = device_busy(lambda: api.decode_batch(
+        datas, "cuda", entropy))
+    busy_s = "not measured (no device events)" if busy is None else \
+        f"{busy:.2%}"
+    print(f"batch {label} ({n} files, {mp:.2f} MP, entropy={entropy}, "
+          f"{BATCH.WORKERS} workers, {BATCH.IN_FLIGHT} in flight): batch "
+          f"{t_bat:.1f} ms = {mp / t_bat * 1e3:.2f} MP/s (calls "
+          f"{', '.join(f'{t:.1f}' for t in bat)}); sequential api.decode "
+          f"{t_seq:.1f} ms = {mp / t_seq * 1e3:.2f} MP/s (runs "
+          f"{', '.join(f'{t:.1f}' for t in seq)}); batch / sequential "
+          f"MP/s {t_seq / t_bat:.3f}x; outputs equal to api.decode's (0 "
+          f"codes) [{card}]", flush=True)
+    print(f"batch {label} split: host halves alone (inside the sequential "
+          f"calls) {host_alone:.1f} ms summed over the files, their thread "
+          f"CPU {host_cpu_alone:.1f} ms; in the batch {host_in:.1f} ms summed"
+          f" over the files on the workers (overlap: {host_in / t_bat:.2f} "
+          f"host halves at a time), their thread CPU {host_cpu_in:.1f} ms; "
+          f"the process's CPU {med(cpu):.1f} ms over the batch's "
+          f"{t_bat:.1f} ms wall ({med(cpu) / t_bat:.2f} cores); device "
+          f"halves (uploads and launches queued) alone {dev_alone:.1f} ms, "
+          f"thread CPU {dev_cpu_alone:.1f} ms; in the batch {dev_in:.1f} ms, "
+          f"thread CPU {dev_cpu_in:.1f} ms; the main thread queued the "
+          f"files' upload, device half and download in {push:.1f} ms and "
+          f"finished them (wait, copy out, orientation) in {finish:.1f} ms; "
+          f"peak device memory over what the process held "
+          f"before {peak / 2**20:.1f} MiB; the card busy {busy_s} of one "
+          f"profiled batch call ({wall:.1f} ms, {events} device events) "
+          f"[{card}]", flush=True)
+
+
+def batch_phase(vardct: dict, modular: dict, posted: dict,
+                card: str) -> None:
+    """Phase 13: api.decode_batch.  The batches once, counted, the twins
+    made to raise, each output equal to api.decode's; then each batch
+    timed against sequential api.decode calls; then the pipeline's worker
+    count and files in flight swept."""
+    t_phase = time.perf_counter()
+    k4 = vardct["4k_d1.0_e7"][2]
+    batches = {
+        "8x 4k d1.0 e7 host": ([k4] * 8, "host"),
+        "8x 4k d1.0 e7 device": ([k4] * 8, "device"),
+        "mixed host": ([k4, posted["4k_rgba16_noise_pq"],
+                        posted["4k_from_fhd_up2"], modular["4k_rct"],
+                        vardct["fhd_d4.0_e7"][2],
+                        vardct["16bit_d1.0_e5"][2]], "host")}
+
+    def main_path():
+        return {label: api.decode_batch(datas, "cuda", entropy)
+                for label, (datas, entropy) in batches.items()}
+
+    with contextlib.ExitStack() as stack:
+        for module, names in BATCH_TWINS:
+            stack.enter_context(forbidden(module, names))
+        _, counts = drive("main path (api.decode_batch)", main_path,
+                          BATCH_KERNELS)
+    if counts["decode_pass_groups"] != 8:
+        raise AssertionError(f"the device-route batch launched the entropy "
+                             f"kernel {counts['decode_pass_groups']} times "
+                             f"for 8 files")
+    for label, (datas, entropy) in batches.items():
+        batch_timing(label, datas, entropy, card)
+    # the worker count and the files in flight
+    sweep = {"8x 4k d1.0 e7 host": batches["8x 4k d1.0 e7 host"],
+             "8x 4k d1.0 e7 device": batches["8x 4k d1.0 e7 device"],
+             "8x 4k modular rct": ([modular["4k_rct"]] * 8, "host")}
+    for label, (datas, entropy) in sweep.items():
+        times = {}
+        for workers in sorted({2, 4, os.cpu_count() or 8}):
+            times[workers] = timed_batch(datas, entropy, workers,
+                                         BATCH.IN_FLIGHT)[1]
+        seq = ("" if label in batches else f"; sequential api.decode "
+               f"{timed_sequence(datas, entropy)[1]:.1f}")
+        print(f"batch sweep {label}: workers -> ms at {BATCH.IN_FLIGHT} in "
+              f"flight: " + ", ".join(f"{w}: {t:.1f}" for w, t in
+                                      times.items()) + f"{seq} [{card}]",
+              flush=True)
+    for label in ("8x 4k d1.0 e7 device", "mixed host"):
+        datas, entropy = batches[label]
+        times = {k: timed_batch(datas, entropy, BATCH.WORKERS, k)[1]
+                 for k in (1, 2, 3)}
+        print(f"batch sweep {label}: files in flight -> ms at "
+              f"{BATCH.WORKERS} workers (1: each download drained before "
+              f"the next upload): " + ", ".join(f"{k}: {t:.1f}" for k, t in
+                                               times.items()) + f" [{card}]",
+              flush=True)
+    print(f"phase 13 (decode_batch) took {time.perf_counter() - t_phase:.1f}"
+          f" s", flush=True)
 
 
 def main() -> int:
@@ -2815,6 +3067,11 @@ def main() -> int:
     post_counts = post_phase(post_jobs, dev, card, ms)
     launches.update({k: post_counts[k] for k in POST_KERNELS})
     phase_done("12 (the post stages)")
+
+    # 13. api.decode_batch: the host halves on a worker pool, overlapped
+    # with the card's uploads, device halves and downloads
+    batch_phase(streams, modular["streams"], post_counts["streams"], card)
+    phase_done("13 (decode_batch)")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": spec["source"],

@@ -5,6 +5,10 @@ use with nvcc for Hopper (sm_90a) into ``build/jxl_coder_tpu_torch/``
 beside the package, keyed by a hash of its source, then loaded with
 ctypes.  The host codec ``host/native/<name>.cpp`` is built the same way
 with g++ (``load_host``).  A build failure raises; nothing falls back.
+Threads that need one library at once build it once: the first builds
+under that library's lock, the others wait and load its result; a second
+process building the same library writes its own temporary file, and the
+last ``os.replace`` wins with identical bytes.
 
 Every C entry point takes the CUDA stream as its last argument and
 returns ``cudaGetLastError()`` after its launch; ``launch`` turns a
@@ -19,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -67,11 +72,21 @@ def library_path(name: str) -> Path:
     return _library_path(name, _sources(name), NVCC_FLAGS)
 
 
+# one lock per library path: a build runs once however many threads ask
+_LOCKS = {}
+_LOCKS_GUARD = threading.Lock()
+
+
+def _lock(so: Path) -> threading.Lock:
+    with _LOCKS_GUARD:
+        return _LOCKS.setdefault(so, threading.Lock())
+
+
 def _compile(so: Path, cmd_without_output, src: Path) -> None:
-    """Run the compiler into a temporary file, keep its report beside the
-    library, and raise if it fails."""
+    """Run the compiler into a temporary file of this process and thread,
+    keep its report beside the library, and raise if it fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".tmp{os.getpid()}")
+    tmp = so.with_suffix(f".tmp{os.getpid()}-{threading.get_ident()}")
     res = subprocess.run([*cmd_without_output, "-o", str(tmp), str(src)],
                          capture_output=True, text=True)
     so.with_suffix(".log").write_text(res.stdout + res.stderr)
@@ -86,10 +101,11 @@ def _compile(so: Path, cmd_without_output, src: Path) -> None:
 def load(name: str) -> ctypes.CDLL:
     """Compile (once per source hash) and load csrc/<name>.cu."""
     so = library_path(name)
-    if not so.exists():
-        # the log keeps ptxas's register / shared-memory report
-        _compile(so, [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC)],
-                 CSRC / f"{name}.cu")
+    with _lock(so):
+        if not so.exists():
+            # the log keeps ptxas's register / shared-memory report
+            _compile(so, [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC)],
+                     CSRC / f"{name}.cu")
     return ctypes.CDLL(str(so))
 
 
@@ -98,12 +114,13 @@ def load_host(name: str) -> ctypes.CDLL:
     """Compile (once per source hash) and load host/native/<name>.cpp."""
     src = HOST_SRC / f"{name}.cpp"
     so = _library_path(name, [src], HOST_FLAGS)
-    if not so.exists():
-        gxx = shutil.which("g++")
-        if gxx is None:
-            raise RuntimeError("g++ not found: the host codec cannot be "
-                               "built")
-        _compile(so, [gxx, *HOST_FLAGS], src)
+    with _lock(so):
+        if not so.exists():
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError("g++ not found: the host codec cannot be "
+                                   "built")
+            _compile(so, [gxx, *HOST_FLAGS], src)
     return ctypes.CDLL(str(so))
 
 

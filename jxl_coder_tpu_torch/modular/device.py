@@ -263,13 +263,17 @@ palette_inverse.launches = 0
 # --------------------------------------------------------------------------
 # The chain
 
-def upload(image: ModularImage, device) -> None:
+def upload(image: ModularImage, device, put=None) -> None:
     """Every channel's numpy plane (a view is fine) to an int32 tensor on
-    `device`; channels already there stay."""
+    `device`, by put(contiguous array) when given (as
+    vardct.inputs.from_prepared), else by a plain copy; channels already
+    there stay."""
     for ch in image.channels:
         if not isinstance(ch.data, torch.Tensor):
             ch.alloc()
-            ch.data = torch.from_numpy(np.asarray(ch.data, np.int32)).to(device)
+            a = np.asarray(ch.data, np.int32)
+            ch.data = (put(np.ascontiguousarray(a)) if put is not None
+                       else torch.from_numpy(a).to(device))
 
 
 def _undo_palette(chans, t) -> None:
@@ -333,7 +337,7 @@ def undo_transforms(image: ModularImage, header) -> None:
             raise BitstreamError(f"invalid transform id {t.id}")
 
 
-def _undo_group(parents, chain, device) -> None:
+def _undo_group(parents, chain, device, put=None) -> None:
     """A group stream's own chain, undone on views of the frame's planes
     (parents, on `device`), written back into them."""
     on_device = {id(v): parents[ci].data[y0:y0 + rh, x0:x0 + rw]
@@ -342,7 +346,7 @@ def _undo_group(parents, chain, device) -> None:
     sub = ModularImage([Channel(c.width, c.height, c.hshift, c.vshift,
                                 on_device.get(id(c), c.data))
                         for c in chain.channels], nb_meta_channels=0)
-    upload(sub, device)
+    upload(sub, device, put)
     undo_transforms(sub, chain.header)
     if len(sub.channels) != len(chain.rects):
         raise BitstreamError("group-local transform changed channel count")
@@ -353,12 +357,12 @@ def _undo_group(parents, chain, device) -> None:
         parents[ci].data[y0:y0 + rh, x0:x0 + rw] = ch.data
 
 
-def undo_frame(planes: ModularPlanes, device) -> list:
-    """The frame's planes on `device`, every transform undone there: each
-    group's local chain on views of the uploaded planes, then the frame's
-    chain -> the channels' int32 tensors."""
-    upload(planes.image, device)
+def undo_frame(planes: ModularPlanes, device, put=None) -> list:
+    """The frame's planes on `device` (put: as in upload), every transform
+    undone there: each group's local chain on views of the uploaded
+    planes, then the frame's chain -> the channels' int32 tensors."""
+    upload(planes.image, device, put)
     for chain in planes.chains:
-        _undo_group(planes.image.channels, chain, device)
+        _undo_group(planes.image.channels, chain, device, put)
     undo_transforms(planes.image, planes.header)
     return [c.data for c in planes.image.channels]

@@ -305,33 +305,37 @@ class FrameInputs:
     ec: Optional[List[torch.Tensor]] = None  # extra channels, int32
 
 
-def _t(a, device, dtype=None) -> torch.Tensor:
+def _t(a, device, dtype=None, put=None) -> torch.Tensor:
     """numpy -> contiguous tensor on `device`, cast to `dtype` if given
-    (the CUDA kernels read these through raw pointers); a tensor moves
-    as it is."""
+    (the CUDA kernels read these through raw pointers), by put(array)
+    when given, else by a plain copy; a tensor moves as it is."""
     if isinstance(a, torch.Tensor):
         return a.to(device).contiguous()
     a = np.ascontiguousarray(a if dtype is None else np.asarray(a, dtype))
-    return torch.from_numpy(a).to(device)
+    return put(a) if put is not None else torch.from_numpy(a).to(device)
 
 
-def family_from_dict(fam: dict, desc: tuple, device) -> Family:
+def family_from_dict(fam: dict, desc: tuple, device, put=None) -> Family:
     """One tpu_full.prepare_families family (numpy dict + its descriptor
-    (sid, n_pad, bh, bw, cov, special)) -> Family on `device`."""
+    (sid, n_pad, bh, bw, cov, special)) -> Family on `device` (put: how a
+    numpy array gets there, as in from_prepared)."""
     sid, _n_pad, bh, bw, _cov, special = desc
     f32 = np.float32
+
+    def t(a, dtype=None):
+        return _t(a, device, dtype, put)
+
     f = Family(
         sid=int(sid), bh=int(bh), bw=int(bw), special=bool(special),
-        coef=_t(fam["vals"] if special else fam["cmat"], device),
-        bys=_t(fam["bys"], device, np.int32),
-        bxs=_t(fam["bxs"], device, np.int32),
-        inv_qac=_t(fam["inv_qac"], device, f32),
-        xf=_t(fam["xf"], device, f32), bf=_t(fam["bf"], device, f32))
+        coef=t(fam["vals"] if special else fam["cmat"]),
+        bys=t(fam["bys"], np.int32), bxs=t(fam["bxs"], np.int32),
+        inv_qac=t(fam["inv_qac"], f32), xf=t(fam["xf"], f32),
+        bf=t(fam["bf"], f32))
     if special:
-        f.resp = _t(fam["resp"], device, f32)
-        f.resp_y_def = _t(fam["resp_y_def"], device, f32)
+        f.resp = t(fam["resp"], f32)
+        f.resp_y_def = t(fam["resp_y_def"], f32)
     else:
-        f.tab = _t(fam["tab"], device, f32)
+        f.tab = t(fam["tab"], f32)
     if "fix_idx" in fam:
         # the DCT8 kernel finds a row's entries by binary search: keep the
         # real entries (a value past int8 is never 0; the bucket's (0, 0)
@@ -340,8 +344,8 @@ def family_from_dict(fam: dict, desc: tuple, device) -> Family:
         real = np.nonzero(val != 0)[0]
         idx = np.asarray(fam["fix_idx"], np.int64)[real]
         order = np.argsort(idx, kind="stable")
-        f.fix_idx = _t(idx[order], device, np.int64)
-        f.fix_val = _t(val[real][order], device, np.int32)
+        f.fix_idx = t(idx[order], np.int64)
+        f.fix_val = t(val[real][order], np.int32)
     return f
 
 
@@ -375,10 +379,13 @@ def pack(state: dict) -> Tuple[dict, tuple]:
 
 
 def from_prepared(static: dict, args: tuple, device: torch.device,
-                  post=None, ec=None) -> Tuple[FrameConfig, FrameInputs]:
+                  post=None, ec=None, put=None
+                  ) -> Tuple[FrameConfig, FrameInputs]:
     """(static, args) from pack -> (FrameConfig, FrameInputs on `device`);
     post: the frame's post.PostConfig, ec: its extra channels' planes
-    (already on `device`)."""
+    (already on `device`); put(array) -> tensor: how each contiguous
+    numpy array gets to `device` (default: a plain copy on the current
+    stream; decode_batch stages it through pinned memory)."""
     fams, dc, qf, sharp, igs, qm, _perm_inv = args
     cfg = FrameConfig(
         H8=int(static["H8"]), W8=int(static["W8"]),
@@ -389,10 +396,11 @@ def from_prepared(static: dict, args: tuple, device: torch.device,
         pass2_scale=float(static["pass2_scale"]),
         crop_h=int(static["crop_h"]), crop_w=int(static["crop_w"]),
         post=post)
-    families = [family_from_dict(fam, d, device)
+    families = [family_from_dict(fam, d, device, put)
                 for fam, d in zip(fams, static["desc"])]
     inputs = FrameInputs(
-        families=families, dc=_t(dc, device, np.float32),
-        qf=_t(qf, device, np.int32), sharp=_t(sharp, device, np.int32),
+        families=families, dc=_t(dc, device, np.float32, put),
+        qf=_t(qf, device, np.int32, put),
+        sharp=_t(sharp, device, np.int32, put),
         igs=float(np.float32(igs)), qm=np.asarray(qm, np.float32), ec=ec)
     return cfg, inputs

@@ -39,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -122,20 +123,37 @@ class PostConfig:
 # The noise random planes, cached on the device
 
 _NOISE_RND = {}
+_NOISE_LOCK = threading.Lock()
 
 
 def noise_random(w: int, h: int, device) -> torch.Tensor:
     """(3, h, w) f32 random planes of a still's noise (host/vardct/noise.py
     noise_planes, a constant table per size: the visible frame index of a
     still is 1), built once and kept on `device` (up to four sizes), as
-    dec_real._noise_rnd_device keeps them."""
-    key = (w, h, str(torch.device(device)))
-    rnd = _NOISE_RND.get(key)
-    if rnd is None:
-        if len(_NOISE_RND) >= 4:
-            _NOISE_RND.pop(next(iter(_NOISE_RND)))
-        rnd = torch.from_numpy(noise_planes(w, h)).to(device)
-        _NOISE_RND[key] = rnd
+    dec_real._noise_rnd_device keeps them.  Threads that ask for a new
+    size at once build it once.  On a CUDA device the upload runs on the
+    first caller's stream; a caller on another stream waits for it there
+    (and the planes' memory is kept for that stream's work)."""
+    dev = torch.device(device)
+    key = (w, h, str(dev))
+    with _NOISE_LOCK:
+        entry = _NOISE_RND.get(key)
+        if entry is None:
+            if len(_NOISE_RND) >= 4:
+                _NOISE_RND.pop(next(iter(_NOISE_RND)))
+            rnd = torch.from_numpy(noise_planes(w, h)).to(dev)
+            uploaded = None
+            if dev.type == "cuda":
+                stream = torch.cuda.current_stream(dev)
+                uploaded = (stream, stream.record_event())
+            entry = _NOISE_RND[key] = (rnd, uploaded)
+    rnd, uploaded = entry
+    if uploaded is not None:
+        stream, done = uploaded
+        current = torch.cuda.current_stream(dev)
+        if current != stream:
+            current.wait_event(done)
+            rnd.record_stream(current)
     return rnd
 
 

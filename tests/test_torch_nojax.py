@@ -50,6 +50,36 @@ def test_decode_in_a_process_without_jax(tmp_path):
     assert res.stdout.split() == ["(72,", "104,", "3)", "uint8", "104", "72"]
 
 
+def test_decode_batch_in_a_process_without_jax(tmp_path):
+    """api.decode_batch on the CPU with jax blocked, on a VarDCT and a
+    Modular stream: each output equals decode's, and no jax is loaded."""
+    from jxl_coder_tpu.vardct.enc_real import encode_vardct_real
+    from port_fixtures import bench_frame, modular_still, smooth_frame
+    streams = [tmp_path / "vardct.jxl", tmp_path / "modular.jxl"]
+    streams[0].write_bytes(encode_vardct_real(smooth_frame(40, 56),
+                                              distance=1.0, effort=5))
+    streams[1].write_bytes(modular_still(bench_frame(24, 32)))
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None        # any `import jax` now fails
+        sys.path.insert(0, {str(REPO)!r})
+        import numpy as np
+        from jxl_coder_tpu_torch import api
+        datas = [open(p, "rb").read() for p in {[str(p) for p in streams]!r}]
+        outs = api.decode_batch(datas, device="cpu")
+        same = [np.array_equal(o, api.decode(d, device="cpu")[0])
+                for o, d in zip(outs, datas)]
+        assert not any(m == "jax" or m.startswith("jax.")
+                       for m, v in sys.modules.items() if v is not None)
+        print([o.shape for o in outs], same)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "[(40, 56, 3), (24, 32, 3)] [True, True]"
+
+
 def test_legacy_codec_in_a_process_without_jax(tmp_path):
     """The round-1 codec (encode and decode) on the CPU with jax blocked;
     its host framing comes from jxl_coder_tpu.vardct.frame."""
