@@ -1,6 +1,6 @@
-"""Drive the PyTorch port's VarDCT still decode (with its post stages and
-extra channels), its Modular still decode and its round-1 VarDCT codec
-on one CUDA card.
+"""Drive the PyTorch port's VarDCT still decode (with its post stages,
+extra channels, patches, splines, reference-only and LF frames), its
+Modular still decode and its round-1 VarDCT codec on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -116,11 +116,33 @@ prints no result):
      api.decode's (0 codes), with the host halves' time alone and in the
      batch, the CPU used, the peak device memory and the card's busy
      share of a profiled batch call; then the worker count (2, 4, the
-     host's cores) and the files in flight (1-3) swept.
+     host's cores) and the files in flight (1-3) swept;
+ 14. patches, splines, reference-only and LF frames (streams written and
+     held to the float64 host decoder in the worker processes during
+     phases 3-5: the 3840x2160 text of port_fixtures.text_frame at d1.0
+     e7, which the host encoder writes as a Modular reference-only atlas
+     frame and a VarDCT frame with patches; the 4K d1.0 e7 stream with 64
+     seeded splines spliced into its LfGlobal; the same stream rewritten
+     as a Modular LF frame and the VarDCT frame with kUseDcFrame; a
+     VarDCT reference-only frame that patches read in every blend mode; a
+     patched 512x384 frame with alpha): api.decode(data, device="cuda")
+     on every stream and both entropy routes (the alpha frame: the host
+     route, the device route raising), counted, every plain twin made to
+     raise: the patch kernel A8 once per patched frame, the spline kernel
+     A9 once per spline frame, kernel 2 with f32 out before them, A7 once,
+     no Modular transform; each decode within 1 code on < 0.1% of the
+     float64 host decoder, the routes equal; A8 (bit for bit) and A9
+     (within 1e-6) against their twins on every stream's main-path planes;
+     the three 4K streams split into their layers inside the same calls
+     (M1); A8 and A9 at 4K by CUDA graph against twin, bound and the JAX
+     route's dense x * mul + add; a mixed decode_batch of the three 4K
+     streams, the 4K d1.0 e7 frame and the 4K Modular RCT still, equal to
+     api.decode.
 Every kernel's line carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
-and its f32 operations over 67 TFLOP/s (the H100 SXM's published peaks
-at 700 W).  Calls the host cannot queue ahead of the card are timed by
+and its operations over their type's rate: 67 TFLOP/s for f32, 34 for
+fp64 (the spline kernel's sums) (the H100 SXM's published peaks at
+700 W).  Calls the host cannot queue ahead of the card are timed by
 replaying a CUDA graph of them.  The last two lines are the card's name
 and power limit and
 {"ok": true, "device": {...}}; the line before them lists the kernels.
@@ -133,6 +155,7 @@ import contextlib
 import functools
 import gc
 import hashlib
+import importlib
 import json
 import multiprocessing
 import os
@@ -162,14 +185,18 @@ from jxl_coder_tpu_torch.modular import output as MOUT
 from jxl_coder_tpu_torch.vardct import (color, dct8, filters, inputs, post,
                                         synth)
 from jxl_coder_tpu_torch.vardct import detile as DT
+from jxl_coder_tpu_torch.vardct import overlay as OV
 from jxl_coder_tpu_torch.vardct import fused_filters as FF
 from jxl_coder_tpu_torch.vardct import parse as PARSE
 from jxl_coder_tpu_torch.vardct import pipeline as LP
 from jxl_coder_tpu_torch.vardct.frame import VarDCTFrame
 from port_fixtures import (bench_frame, dct8_arguments, group_rct_still,
-                           modular_still, posterized_frame, sharp_frame,
-                           squeezed_still, synthetic_family,
-                           upsampled_modular_still, waves_frame, xyb_still)
+                           modular_still, patched_alpha_still,
+                           posterized_frame, seeded_splines, sharp_frame,
+                           squeezed_still, synthetic_family, text_frame,
+                           upsampled_modular_still, vardct_reference_still,
+                           waves_frame, with_lf_frame, with_splines,
+                           xyb_still)
 
 SYNTH_TOL = 1e-4      # f32 sums in another order than the twin's matmuls
 FILTER_TOL = 1e-5     # no FMA contraction; EPF SADs summed in another order
@@ -215,6 +242,12 @@ KERNELS = {
     "encode_output": dict(fn=post.encode_output,
                           source="jxl_coder_tpu_torch/csrc/post.cu",
                           replaces="jxl_coder_tpu/vardct/tpu_full.py:676"),
+    "overlay_patches": dict(fn=OV.overlay_patches,
+                            source="jxl_coder_tpu_torch/csrc/overlay.cu",
+                            replaces="jxl_coder_tpu/vardct/tpu_full.py:835"),
+    "draw_splines": dict(fn=OV.draw_splines,
+                         source="jxl_coder_tpu_torch/csrc/overlay.cu",
+                         replaces="jxl_coder_tpu/vardct/tpu_full.py:835"),
 }
 # the round-1 encoder's sources: a change to any of them re-encodes
 LEGACY_ENCODER = [sys.modules[m].__file__ for m in (
@@ -267,14 +300,16 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def note_bound(name: str, moved: int, ops: float) -> None:
+def note_bound(name: str, moved: int, ops: float,
+               rate: float = F32_OPS_PER_S, kind: str = "f32") -> None:
     """The least time the card could take: bytes moved over the memory
-    rate or f32 operations over the f32 rate, whichever is larger."""
+    rate or operations over their type's rate (f32 unless said),
+    whichever is larger."""
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     BOUND[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
                    else (t_ops, "operations"))
-    print(f"bound {name}: {moved / 1e6:.1f} MB, {ops / 1e9:.2f} G f32 ops "
+    print(f"bound {name}: {moved / 1e6:.1f} MB, {ops / 1e9:.2f} G {kind} ops "
           f"-> {BOUND[name][0]:.4f} ms ({BOUND[name][1]}; bytes "
           f"{t_bytes:.4f}, operations {t_ops:.4f})", flush=True)
 
@@ -1185,7 +1220,7 @@ def fhd_timings(data: bytes, dev, card: str, ms: dict) -> None:
 
 # the layers of api.decode: layer -> the port's functions in module api
 # that make it (the device half and d2h are wrapped apart)
-DECODE_LAYERS = {"parse": ("_read_frame", "parse_frame"), "pack": ("pack",),
+DECODE_LAYERS = {"parse": ("_read_frames", "parse_frame"), "pack": ("pack",),
                  "h2d": ("from_prepared",),
                  "rest": ("apply_orientation", "basic_info")}
 # the host parse's own steps: step -> the functions vardct/parse.py's
@@ -1357,7 +1392,7 @@ def report_layers(route: str, split: list, unsplit: list, mp: float,
     m = {k: med(v) for k, v in per.items()}
     t_split, t_unsplit = med(t for t, _ in split), med(unsplit)
     print(f"layers 4k entropy={route} (host clock, ms, median of {runs} split "
-          f"api.decode calls): parse (_read_frame + parse_frame) "
+          f"api.decode calls): parse (_read_frames + parse_frame) "
           f"{m['parse']:.1f}, pack {m['pack']:.1f}, h2d (from_prepared) "
           f"{m['h2d']:.1f}, device (VarDCTFrame(cfg)(inputs), then "
           f"torch.cuda.synchronize() in the wrapper) {m['device']:.1f}, d2h "
@@ -1384,7 +1419,7 @@ def report_layers(route: str, split: list, unsplit: list, mp: float,
         wall.append((max(t1 for _, t1 in spans) - min(t0 for t0, _ in spans))
                     * 1e3 if spans else 0.0)
         calls.append(len(spans))
-    read_frame = [spent(log, ("_read_frame",)) for _, log in split]
+    read_frame = [spent(log, ("_read_frames",)) for _, log in split]
     rest = [spent(log, ("parse_frame",)) - wall[n]
             - sum(v[n] for s, v in steps.items() if s != pg)
             for n, (_, log) in enumerate(split)]
@@ -1393,7 +1428,7 @@ def report_layers(route: str, split: list, unsplit: list, mp: float,
     if route == "host":
         shown = [s for s in shown if s in PARSE_STEPS]
     print(f"parse 4k entropy={route} by step (host clock, ms, median of the "
-          f"same {runs} calls): _read_frame {med(read_frame):.1f}, "
+          f"same {runs} calls): _read_frames {med(read_frame):.1f}, "
           + ", ".join(f"{s} {med(steps[s]):.1f}" for s in shown
                       if s not in (pg, "BlockArrays.concat"))
           + (f", {pg} {med(wall):.1f} wall ({calls[0]} calls on "
@@ -1786,7 +1821,7 @@ def check_modular_seeded(dev) -> None:
 
 # the layers of a Modular api.decode: layer -> the functions it wraps
 MODULAR_LAYERS = {
-    "container/headers/TOC": ("_read_frame",),
+    "container/headers/TOC": ("_read_frames",),
     "global stream": ("read_global",),
     "group streams (C++)": ("read_lf_group", "read_group"),
     "h2d": ("upload",),
@@ -1808,7 +1843,7 @@ def split_modular(log: list):
         saved.append((owner, name, owner.__dict__[name]))
         setattr(owner, name, wrapper)
 
-    for name in ("_read_frame", "apply_orientation", "basic_info"):
+    for name in ("_read_frames", "apply_orientation", "basic_info"):
         wrap(api, name, timed(getattr(api, name), name, log))
     for name in ("read_global", "read_lf_group", "read_group"):
         wrap(ModularFrameDecoder, name,
@@ -2327,7 +2362,7 @@ def check_post_seeded(dev) -> None:
 # in them (the EC group streams of a frame of several groups run inside
 # the pass groups' threads, within the parse: summed apart)
 POST_LAYERS = {
-    "parse": ("_read_frame", "parse_frame"),
+    "parse": ("_read_frames", "parse_frame"),
     "EC channel decode": ("read_global", "read_group"),
     "pack": ("pack",),
     "EC h2d + transforms": ("undo_frame",),
@@ -2395,7 +2430,7 @@ def split_post(log: list):
         saved.append((owner, name, owner.__dict__[name]))
         setattr(owner, name, wrapper)
 
-    for name in ("_read_frame", "parse_frame", "pack", "from_prepared",
+    for name in ("_read_frames", "parse_frame", "pack", "from_prepared",
                  "apply_orientation", "basic_info"):
         wrap(api, name, tspan(getattr(api, name), name, log))
     wrap(api, "PostConfig", type("PostConfig", (), {"of": staticmethod(
@@ -2853,6 +2888,431 @@ def batch_phase(vardct: dict, modular: dict, posted: dict,
           f" s", flush=True)
 
 
+# ---- patches, splines, reference-only and LF frames (phase 14) ----
+
+OVERLAY_KERNELS = ("overlay_patches", "draw_splines")
+# what a decode of these streams on the card must not run: every plain
+# twin of its path
+OVERLAY_TWINS = POST_TWINS + (
+    (OV, ("overlay_patches_plain", "draw_splines_plain",
+          "spline_sums_plain")),
+    (ENT, ("decode_pass_groups_plain",)))
+# the writers' sources: a change to any of them re-encodes
+OVERLAY_WRITER = POST_WRITER + [importlib.import_module(m).__file__ for m in (
+    "jxl_coder_tpu_torch.host.vardct.enc_patches",
+    "jxl_coder_tpu_torch.host.vardct.splines")]
+F64_OPS_PER_S = 34e12         # fp64 outside the tensor cores, H100 SXM
+# the least fp64 operations of the spline sums: per (point, pixel) pair of
+# a blob's box, the product ey * ex, its scale, three colour products and
+# three sums (8); per (point, column) and (point, row) of the box, one erf
+# difference: two erfs, each the argument ((i +- 0.5) - c) * inv (3), |x|
+# and the sign's product (1), tt = 1 / (1 + a |x|) (3), the polynomial's
+# five products and four sums (9), -|x| * |x| (1), exp (counted as 1), the
+# products by tt and exp and 1 - (3): 21; and the difference (1): 43
+SPLINE_OPS = {"pair": 8, "erf_diff": 43}
+
+
+def text_alpha(h: int, w: int) -> np.ndarray:
+    return (np.mgrid[0:h, 0:w][1] * 255 // max(w - 1, 1)).astype(np.uint8)
+
+
+def overlay_data(label: str) -> bytes:
+    """The stream of one OVERLAY_STREAMS entry (encodes cached)."""
+    if label == "4k_text":
+        # the bytes of reference.encode_vardct(img, distance=1.0, effort=7)
+        # (tests/test_torch_patches.py holds them equal at 192x256), without
+        # the frame it encodes beside the detector and drops on a hit
+        from jxl_coder_tpu_torch.host.vardct import enc_patches, enc_real
+        img = text_frame(2160, 3840)
+        return cached(img, "text d1.0 e7 (patches)", OVERLAY_WRITER,
+                      lambda: enc_real._encode_with_patches(
+                          img, enc_patches.detect(img), distance=1.0,
+                          effort=7))
+    k4 = stream(bench_frame(2160, 3840), 1.0, 7)
+    if label == "4k_splines":
+        return with_splines(k4, seeded_splines(2160, 3840, 64))
+    if label == "4k_lf":
+        return with_lf_frame(k4)
+    if label == "vardct_reference":
+        return vardct_reference_still(bench_frame(256, 384))
+    img = text_frame(384, 512)
+    return cached(img, "patched alpha", OVERLAY_WRITER,
+                  lambda: patched_alpha_still(img, text_alpha(384, 512)))
+
+
+# label: per route, the launches of its decode (kernel 2's outs in order)
+OVERLAY_STREAMS = {
+    "4k_text": dict(overlay_patches=1, draw_splines=0, encode_output=1,
+                    k2=["f32"]),
+    "4k_splines": dict(overlay_patches=0, draw_splines=1, encode_output=1,
+                       k2=["f32"]),
+    "4k_lf": dict(overlay_patches=0, draw_splines=0, encode_output=0,
+                  k2=["u8"]),
+    # the reference frame's own kernel 2 pass, then the frame's
+    "vardct_reference": dict(overlay_patches=1, draw_splines=0,
+                             encode_output=1, k2=["f32", "f32"]),
+    "patched_alpha": dict(overlay_patches=1, draw_splines=0,
+                          encode_output=1, k2=["f32"]),
+}
+
+
+def overlay_job(label: str):
+    """In a worker process: the stream and its float64 host decode ->
+    (bytes, pixels, seconds to write, seconds to decode)."""
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    data = overlay_data(label)
+    t1 = time.perf_counter()
+    ref = reference.decode_float64(data)
+    return data, ref, t1 - t0, time.perf_counter() - t1
+
+
+def routes_of(label: str) -> tuple:
+    # a frame with extra channels: the host route (the device route raises)
+    return ("host",) if label == "patched_alpha" else ("host", "device")
+
+
+OVERLAY_LAYERS = {
+    "walk + LF/ref frames' host decode": ("_read_frames", "before host"),
+    "main parse": ("parse_frame",),
+    "overlay lists (PostConfig.of)": ("PostConfig.of",),
+    "pack": ("pack",),
+    "h2d": ("from_prepared",),
+    "LF/ref frames' device work": ("_device_before",),
+    "synthesis + kernel 2": ("reconstruct",),
+    "A8 patches": ("overlay_patches",),
+    "A9 splines": ("draw_splines",),
+    "rest of post (A5-A7)": ("add_noise", "upsample", "encode_output"),
+    "d2h": ("d2h",),
+    "rest (host_half, device_half, frame, orientation, info)": (
+        "host_half", "main host", "device_half", "frame",
+        "apply_orientation", "basic_info"),
+}
+
+
+@contextlib.contextmanager
+def split_overlay(log: list):
+    """Wrap the functions an api.decode of these streams calls (the device
+    steps synchronise in their wrappers); restore them on exit."""
+    from jxl_coder_tpu_torch.vardct import frame as FRAME
+    saved = []
+
+    def wrap(owner, name, wrapper):
+        saved.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, wrapper)
+
+    for name in ("_read_frames", "parse_frame", "pack", "from_prepared",
+                 "apply_orientation", "basic_info", "host_half"):
+        wrap(api, name, tspan(getattr(api, name), name, log))
+    wrap(api, "device_half", tspan(api.device_half, "device_half", log,
+                                   sync=True))
+    wrap(api, "_device_before", tspan(api._device_before, "_device_before",
+                                      log, sync=True))
+    host_one = api._host_one
+
+    def named_host_one(*args, xyb=False, **kwargs):
+        return tspan(host_one, "before host" if xyb else "main host",
+                     log)(*args, xyb=xyb, **kwargs)
+    wrap(api, "_host_one", named_host_one)
+    wrap(api, "PostConfig", type("PostConfig", (), {"of": staticmethod(
+        tspan(api.PostConfig.of, "PostConfig.of", log))}))
+    for name in ("add_noise", "upsample", "encode_output"):
+        wrap(post, name, tspan(getattr(post, name), name, log, sync=True))
+    for name in OVERLAY_KERNELS:
+        wrap(OV, name, tspan(getattr(OV, name), name, log, sync=True))
+    wrap(FRAME.VarDCTFrame, "reconstruct",
+         tspan(FRAME.VarDCTFrame.reconstruct, "reconstruct", log, sync=True))
+    real = FRAME.VarDCTFrame
+
+    class Frame:
+        def __init__(self, cfg):
+            self.frame = real(cfg)
+
+        def xyb(self, frame_inputs):
+            return self.frame.xyb(frame_inputs)
+
+        def __call__(self, frame_inputs):
+            px = tspan(self.frame, "frame", log, sync=True)(frame_inputs)
+            return PixelsT(px, log)
+
+    wrap(api, "VarDCTFrame", Frame)
+    try:
+        yield
+    finally:
+        for owner, name, orig in reversed(saved):
+            setattr(owner, name, orig)
+
+
+def overlay_layers(label: str, data: bytes, card: str, runs: int = 3
+                   ) -> dict:
+    """M1 for one 4K stream (host entropy route): `runs` split api.decode
+    calls in turns with as many unwrapped ones; raises if a split call's
+    layers miss its own total by more than 2%."""
+    med = statistics.median
+    split, unsplit = [], []
+    for i in range(2 * runs):
+        torch.cuda.synchronize()
+        if (i % 2 == 0) == (i // 2 % 2 == 0):
+            log = []
+            with split_overlay(log), no_gc():
+                t0 = time.perf_counter()
+                api.decode(data, device="cuda")
+                split.append(((time.perf_counter() - t0) * 1e3, log))
+        else:
+            with no_gc():
+                t0 = time.perf_counter()
+                api.decode(data, device="cuda")
+                unsplit.append((time.perf_counter() - t0) * 1e3)
+    per = {k: [] for k in OVERLAY_LAYERS}
+    for total, log in split:
+        own, _other = exclusive_ms(log)
+        for k, names in OVERLAY_LAYERS.items():
+            per[k].append(sum(own.get(n, 0.0) for n in names))
+    sums = [sum(v[n] for v in per.values()) for n in range(len(split))]
+    gaps = [abs(sums[n] - total) / total for n, (total, _) in enumerate(split)]
+    for n, (total, _) in enumerate(split):
+        if gaps[n] > 0.02:
+            raise AssertionError(f"split decode {label} {n}: its layers sum "
+                                 f"to {sums[n]:.1f} ms, the call took "
+                                 f"{total:.1f} ms")
+    m = {k: med(v) for k, v in per.items()}
+    t_unsplit = med(unsplit)
+    print(f"layers {label} (host clock, ms, median of {runs} split "
+          f"api.decode calls, host route): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in m.items())
+          + f"; each call's layers summed, median {med(sums):.1f}, within "
+          f"{max(gaps):.2%} of the call's own total; the split calls' total "
+          f"{med(t for t, _ in split):.1f}; unsplit calls {t_unsplit:.1f} "
+          f"[{card}]", flush=True)
+    print(f"end_to_end {label} decode bytes->pixels (the unsplit calls): "
+          f"{t_unsplit:.1f} ms = {3840 * 2160 / 1e6 / t_unsplit * 1e3:.2f} "
+          f"MP/s [{card}]", flush=True)
+    return dict(m, total=t_unsplit)
+
+
+def lf_global_of(data: bytes):
+    """The frame to decode's LfGlobal, read again on the host (its patch
+    dictionary and splines)."""
+    from jxl_coder_tpu_torch.host.bitstream.reader import BitReader
+    from jxl_coder_tpu_torch.host.vardct.dec_real import read_lf_global
+    cs, hdr, fh, toc = api._read_frame(data)
+    s = toc.section(0)
+    w, h = fh.coded_size(hdr)
+    return read_lf_global(BitReader(cs[s.offset:s.offset + s.size]), fh,
+                          hdr, w, h), h, w
+
+
+def overlay_inputs(data: bytes, dev):
+    """The main path's inputs of A8 / A9 for a stream: the frame's filtered
+    planes (kernel 2's f32 out), its overlay lists and reference planes on
+    the card."""
+    cfg, inp = prepared(data, dev)
+    xyb = VarDCTFrame(cfg).reconstruct(inp, "f32").contiguous()
+    return cfg, inp, xyb
+
+
+def check_overlay_kernels(label: str, data: bytes, dev) -> tuple:
+    """A8 and A9 against their twins on a stream's main-path inputs: A8
+    bit for bit (one f32 operation a blend, in the same order), A9 within
+    1e-6 (fp64 sums in the same order; CUDA's exp and torch's may differ in
+    the last bit)."""
+    cfg, inp, xyb = overlay_inputs(data, dev)
+    ov = inp.overlay
+    if ov.patches is not None:
+        a = OV.overlay_patches(xyb.clone(), inp.refs, ov.patches,
+                               *ov.patch_tiles)
+        b = OV.overlay_patches_plain(xyb.clone(), inp.refs, ov.patches)
+        note_err("overlay_patches", (a - b).abs().max().item(), 0.0,
+                 f"{label} planes ({ov.patches.shape[0]} patches, "
+                 f"{(a != xyb).sum().item()} values changed, "
+                 f"{ov.patch_tiles[0].numel()} tiles)")
+    if ov.points is not None:
+        a = OV.draw_splines(xyb.clone(), ov.points, ov.boxes,
+                            *ov.point_tiles)
+        b = OV.draw_splines_plain(xyb.clone(), ov.points, ov.boxes)
+        note_err("draw_splines", (a - b).abs().max().item(), 1e-6,
+                 f"{label} planes ({ov.points.shape[0]} points, "
+                 f"{(a != b).sum().item()} values not bit-equal, "
+                 f"{(a != xyb).sum().item()} changed, "
+                 f"{ov.point_tiles[0].numel()} tiles)")
+    return cfg, inp, xyb
+
+
+def overlay_timings(streams: dict, dev, card: str, ms: dict) -> None:
+    """A8 on the 4K text's planes and A9 on the 4K splines' by CUDA graph,
+    against the twin (one call, events), the bound, and the JAX route's
+    equivalent as one PyTorch expression: dense (3, H, W) mul / add planes
+    built on the host (patches_to_affine; Splines.render cast to f32 into
+    add), uploaded, then x * mul + add (the upload timed apart)."""
+    from jxl_coder_tpu_torch.host.vardct.patches import patches_to_affine
+    for name, label in (("overlay_patches", "4k_text"),
+                        ("draw_splines", "4k_splines")):
+        data = streams[label][0]
+        cfg, inp, xyb = overlay_inputs(data, dev)
+        ov = inp.overlay
+        lf, h, w = lf_global_of(data)
+        host = cfg.post.overlay
+        if name == "overlay_patches":
+            drawn = host.drawn
+            area = int((drawn[:, 2].astype(np.int64) * drawn[:, 3]).sum())
+            note_bound(name, area * 3 * 12, 0)
+            kernel = lambda: OV.overlay_patches(xyb, inp.refs, ov.patches,
+                                                *ov.patch_tiles)
+            twin = lambda: OV.overlay_patches_plain(xyb.clone(), inp.refs,
+                                                    ov.patches)
+            refs = {s: list(r.cpu().numpy()) for s, r in inp.refs.items()}
+            mul, add = patches_to_affine(lf.patches, h, w, refs)
+            what = f"{len(drawn)} patches, {area} patch pixels"
+        else:
+            b = host.boxes.astype(np.int64)
+            cols, rows = b[:, 1] - b[:, 0] + 1, b[:, 3] - b[:, 2] + 1
+            pairs = int((cols * rows).sum())
+            mask = np.zeros((h, w), bool)
+            for x0, x1, y0, y1 in b.tolist():
+                mask[y0:y1 + 1, x0:x1 + 1] = True
+            touched = int(mask.sum())
+            ops = pairs * SPLINE_OPS["pair"] + int(
+                (cols + rows).sum()) * SPLINE_OPS["erf_diff"]
+            note_bound(name, touched * 3 * 8 + len(b) * (56 + 16), ops,
+                       F64_OPS_PER_S, "fp64")
+            kernel = lambda: OV.draw_splines(xyb, ov.points, ov.boxes,
+                                             *ov.point_tiles)
+            twin = lambda: OV.draw_splines_plain(xyb.clone(), ov.points,
+                                                 ov.boxes)
+            cf = 1.0 / lf.cfl_color_factor
+            planes = [np.zeros((h, w)) for _ in range(3)]
+            lf.splines.render(planes,
+                              base_cx=lf.cfl_base_x + lf.cfl_ytox_dc * cf,
+                              base_cb=lf.cfl_base_b + lf.cfl_ytob_dc * cf)
+            mul = np.ones((3, h, w), np.float32)
+            add = np.stack(planes).astype(np.float32)
+            what = (f"{len(b)} points, {pairs} point-pixel pairs, {touched} "
+                    f"pixels touched")
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        dmul = torch.from_numpy(mul).to(dev)
+        dadd = torch.from_numpy(add).to(dev)
+        t1.record()
+        t1.synchronize()
+        h2d = t0.elapsed_time(t1)
+        LIBRARY_MS[name] = graph_ms(lambda: xyb * dmul + dadd)
+        ms[name] = (graph_ms(kernel), once_ms(twin))
+        print(f"kernel {name} at 4k on the {label} stream ({what}): device "
+              f"{ms[name][0]:.4f} ms (CUDA graph), plain twin "
+              f"{ms[name][1]:.1f} ms, bound {BOUND[name][0]:.4f} ms "
+              f"({BOUND[name][1]}); the JAX route's dense x * mul + add "
+              f"{LIBRARY_MS[name]:.4f} ms (CUDA graph) after uploading its "
+              f"{(mul.nbytes + add.nbytes) / 1e6:.1f} MB of planes in "
+              f"{h2d:.2f} ms [{card}]", flush=True)
+
+
+def overlay_phase(jobs: dict, vardct: dict, modular: dict, dev, card: str,
+                  ms: dict) -> dict:
+    """Phase 14: patches, splines, reference-only and LF frames.  The main
+    path through api.decode(data, "cuda") on every stream and entropy
+    route, counted, the twins made to raise, each decode against the
+    float64 host decoder; A8 and A9 against their twins on the main path's
+    planes; M1 for the three 4K streams; timings; a mixed decode_batch."""
+    t_phase = time.perf_counter()
+    streams = {}
+    for label, job in jobs.items():
+        data, ref, t_write, t_ref = job.get()
+        streams[label] = (data, ref)
+        print(f"overlay stream {label}: {len(data)} bytes, frames "
+              f"{[(fh.frame_type, fh.encoding, fh.flags) for fh, _ in api._read_frames(data)[2]]}"
+              f"; written in {t_write:.1f} s, its float64 host decode "
+              f"{t_ref:.1f} s (a worker process)", flush=True)
+    host = api.host_half(streams["4k_text"][0], dev)
+    atlas = host.before[0].host.planes.image.channels[0]
+    print(f"4k text: {host.post.overlay.patches.shape[0]} patches of "
+          f"{len(np.unique(host.post.overlay.patches[:, 5:7], axis=0))} "
+          f"atlas rectangles; the reference frame {atlas.width}x"
+          f"{atlas.height}; {len(streams['4k_text'][0])} bytes", flush=True)
+    path = OVERLAY_KERNELS + ("encode_output", "restore_and_output")
+    outs2 = []
+
+    def main_path():
+        got, per = {}, {}
+        for label, (data, _ref) in streams.items():
+            for entropy in routes_of(label):
+                before = {k: KERNELS[k]["fn"].launches
+                          for k in path + MODULAR_KERNELS}
+                del outs2[:]
+                got[label, entropy] = api.decode(data, device="cuda",
+                                                 entropy=entropy)[0]
+                per[label, entropy] = (
+                    {k: KERNELS[k]["fn"].launches - before[k]
+                     for k in path + MODULAR_KERNELS}, list(outs2))
+        return got, per
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(kernel2_outs(outs2))
+        for module, names in OVERLAY_TWINS:
+            stack.enter_context(forbidden(module, names))
+        (got, per), counts = drive("main path (patches, splines, LF and "
+                                   "reference frames)", main_path, path)
+    for (label, entropy), (launches, k2) in per.items():
+        want = OVERLAY_STREAMS[label]
+        print(f"overlay {label} {entropy}: launches {launches}, kernel 2 out "
+              f"{k2}", flush=True)
+        bad = [k for k in OVERLAY_KERNELS + ("encode_output",)
+               if launches[k] != want[k]]
+        if bad or k2 != want["k2"] or \
+                launches["restore_and_output"] != len(want["k2"]) or \
+                any(launches[k] for k in MODULAR_KERNELS):
+            raise AssertionError(f"overlay {label} {entropy}: launches "
+                                 f"{launches}, kernel 2 {k2}; expected "
+                                 f"{want} and no Modular transform")
+    try:
+        api.decode(streams["patched_alpha"][0], device="cuda",
+                   entropy="device")
+        raise AssertionError("patched_alpha: entropy='device' decoded a "
+                             "frame with extra channels")
+    except NotImplementedError:
+        pass
+    for label, (data, ref) in streams.items():
+        routes = routes_of(label)
+        for entropy in routes:
+            out = got[label, entropy]
+            within_one_code(out[..., :3], ref[..., :3],
+                            f"decode {label} {entropy} vs the float64 host "
+                            f"decoder")
+            if not np.array_equal(out[..., 3:], ref[..., 3:]):
+                raise AssertionError(f"{label}: extra channels differ")
+        if len(routes) == 2 and not np.array_equal(got[label, "host"],
+                                                   got[label, "device"]):
+            raise AssertionError(f"{label}: the entropy routes differ")
+    for label, (data, _ref) in streams.items():
+        if label != "4k_lf":
+            check_overlay_kernels(label, data, dev)
+    layers = {label: overlay_layers(label, streams[label][0], card)
+              for label in ("4k_text", "4k_splines", "4k_lf")}
+    overlay_timings(streams, dev, card, ms)
+    # decode_batch: the three 4K streams with the 4K d1.0 e7 frame and the
+    # 4K Modular RCT still
+    datas = [streams[k][0] for k in ("4k_text", "4k_splines", "4k_lf")] + [
+        vardct["4k_d1.0_e7"][2], modular["4k_rct"]]
+    with contextlib.ExitStack() as stack:
+        for module, names in OVERLAY_TWINS:
+            stack.enter_context(forbidden(module, names))
+        t0 = time.perf_counter()
+        outs = api.decode_batch(datas, "cuda")
+        t_batch = (time.perf_counter() - t0) * 1e3
+    singles = [got[k, "host"] for k in ("4k_text", "4k_splines", "4k_lf")] + [
+        api.decode(d, device="cuda")[0] for d in datas[3:]]
+    for i, (a, b) in enumerate(zip(outs, singles)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"decode_batch datas[{i}] differs from "
+                                 f"decode")
+    print(f"batch 4k text + splines + LF + d1.0 e7 + Modular RCT (host "
+          f"route): one call {t_batch:.1f} ms, every output equal to "
+          f"api.decode's [{card}]", flush=True)
+    print(f"phase 14 (patches, splines, LF and reference frames) took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(counts, layers=layers)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2873,7 +3333,7 @@ def main() -> int:
     # 2. build, one nvcc per source and g++ for the host codec, all at once
     t0 = time.perf_counter()
     sources = ("synth", "filters", "fused_filters", "detile", "entropy",
-               "modular", "post")
+               "modular", "post", "overlay")
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host = pool.submit(_build.load_host, "hostcodec")
         list(pool.map(_build.load, sources))
@@ -2881,7 +3341,7 @@ def main() -> int:
     print(f"build: nvcc sm_90a, {len(sources)} sources, and g++ for the host "
           f"codec in {time.perf_counter() - t0:.2f} s", flush=True)
     for name in ("synth", "filters", "fused_filters", "entropy", "modular",
-                 "post"):
+                 "post", "overlay"):
         ptxas_report(name)
 
     phase_done("2 (build)")
@@ -2890,6 +3350,8 @@ def main() -> int:
     # start at once in worker processes, the 4K one first (the longest)
     pool = multiprocessing.get_context("spawn").Pool(6)
     atexit.register(pool.terminate)
+    # phase 14's 4K text (the longest encode) first
+    overlay_jobs = {"4k_text": pool.apply_async(overlay_job, ("4k_text",))}
     post_jobs = {label: pool.apply_async(post_job, (label,))
                  for label in POST_STREAMS}
     streams = {"4k_d1.0_e7": (2160, 3840, stream(bench_frame(2160, 3840), 1.0, 7)),
@@ -2904,6 +3366,12 @@ def main() -> int:
                    waves_frame(256, 320), 1.0, 7, progressive=True)),
                "waves_d1.0_e7_single_section": (200, 232, stream(
                    waves_frame(200, 232), 1.0, 7))}
+
+    # the phase 14 streams (patches, splines, LF and reference frames) and
+    # their float64 host decodes, the 4K d1.0 e7 stream cached above
+    overlay_jobs.update({label: pool.apply_async(overlay_job, (label,))
+                         for label in OVERLAY_STREAMS if label not in
+                         overlay_jobs})
 
     # the entropy kernel on the small streams and at 4K; its plain twin on
     # the same tables in worker processes meanwhile (one step per token:
@@ -3072,6 +3540,13 @@ def main() -> int:
     # with the card's uploads, device halves and downloads
     batch_phase(streams, modular["streams"], post_counts["streams"], card)
     phase_done("13 (decode_batch)")
+
+    # 14. patches, splines, reference-only and LF frames: the frame walk and
+    # the overlay kernels (csrc/overlay.cu)
+    overlay = overlay_phase(overlay_jobs, streams, modular["streams"], dev,
+                            card, ms)
+    launches.update({k: overlay[k] for k in OVERLAY_KERNELS})
+    phase_done("14 (patches, splines, LF and reference frames)")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": spec["source"],

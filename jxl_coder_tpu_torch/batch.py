@@ -5,8 +5,9 @@ which parses files on a thread pool while the device reconstructs earlier
 frames and their pixels come back.  Here:
 
 - a worker pool runs each file's host half (``api.host_half``: the
-  container, headers and TOC, then a VarDCT frame's parse and family
-  packing or a Modular frame's channel decode), at most
+  container, headers and TOCs, then a VarDCT frame's parse and family
+  packing or a Modular frame's channel decode, its LF and reference
+  frames' first, in the same worker), at most
   ``WORKERS + IN_FLIGHT`` files ahead of the card.  On entropy="device"
   the parse launches the entropy kernel and reads its status, so each
   worker thread runs under a CUDA stream of its own (a thread's current
@@ -18,7 +19,8 @@ frames and their pixels come back.  Here:
   half's arrays (each staged in the file's pinned buffer and copied with
   ``non_blocking`` on a copy stream that the compute stream waits for),
   and runs the device half (``api.device_half``, the same code as
-  ``decode``); then a second copy stream downloads the pixels into a
+  ``decode``: the LF and reference frames' device work first, then the
+  frame's); then a second copy stream downloads the pixels into a
   pinned buffer, so that file i's download overlaps file i+1's upload and
   compute.  At most IN_FLIGHT files are on the card at once: before
   file i is uploaded, file i - IN_FLIGHT's download is waited for, copied
@@ -147,10 +149,13 @@ def run(datas: List[bytes], dev: torch.device, entropy: str, workers: int,
 
 def _host_half(data: bytes, dev: torch.device, entropy: str):
     """api.host_half, then a noisy frame's random planes (built once per
-    size, here rather than on the main thread)."""
+    size, here rather than on the main thread), the LF and reference
+    frames' before it too."""
     h = api.host_half(data, dev, entropy)
-    if isinstance(h, api.VarDCTHost) and h.post.noise_lut is not None:
-        post.noise_random(h.post.w, h.post.h, dev)
+    for part in (h,) + tuple(b.host for b in h.before):
+        if isinstance(part, api.VarDCTHost) and \
+                part.post.noise_lut is not None:
+            post.noise_random(part.post.w, part.post.h, dev)
     return h
 
 

@@ -258,6 +258,18 @@ def decode_modular_frame(cs: bytes, hdr: ImageHeader, fh: FrameHeader,
     return mfd.planes(), dc_quant
 
 
+def modular_planes_to_xyb(planes, dc_quant):
+    """(Y, X, B-Y) integer channels -> {0: X, 1: Y, 2: B} float32 planes
+    (the representation LF and reference frames hand to the next frame;
+    the original's _modular_planes_to_xyb_dc)."""
+    cy = planes[0].astype(np.float32)
+    cx = planes[1].astype(np.float32)
+    cb = planes[2].astype(np.float32)
+    return {0: cx * np.float32(dc_quant[0]),
+            1: cy * np.float32(dc_quant[1]),
+            2: (cy + cb) * np.float32(dc_quant[2])}
+
+
 # --------------------------------------------------------------------------
 # Encode
 

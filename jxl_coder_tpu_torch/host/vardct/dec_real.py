@@ -3,11 +3,14 @@
 The port's copy of ``jxl_coder_tpu/vardct/dec_real.py``: the readers,
 ``BlockArrays``, the DC planes and their adaptive smoothing, and the
 float64 host reconstruction (``decode_vardct_frame``), which the port
-holds its device decode against, with its post stages: noise, 2x/4x/8x
+holds its device decode against, with its post stages: patches (from
+the reference frames decoded before it), splines, noise, 2x/4x/8x
 upsampling, the gamma, PQ, HLG or other signalled output encoding, and
-the extra channels.  The JAX device routes are gone, and so are the
-features the port's decode does not cover (patches, splines, DC frames,
-YCbCr): those raise NotImplementedError.  An extra channel whose stream
+the extra channels; a frame may take its DC from an LF frame
+(``dc_frame``), and an LF or reference frame returns its XYB planes
+(``return_xyb``).  The JAX device routes are gone, and so is YCbCr, which
+the port's decode does not cover: it raises NotImplementedError.  An
+extra channel whose stream
 fails to decode raises; the original substitutes an opaque plane
 (fault R6 of ROADMAP.md).  The native host codec is required; nothing
 falls back to pure Python.
@@ -149,6 +152,8 @@ class LfGlobal:
     gcode: Optional[EntropyCode] = None
     mfd: Optional[object] = None
     noise_lut: Optional[list] = None
+    patches: Optional[object] = None    # patches.PatchDictionary
+    splines: Optional[object] = None    # splines.Splines
 
     @property
     def inv_global_scale(self):
@@ -166,11 +171,19 @@ def read_lf_global(br: BitReader, fh, hdr=None, frame_w=None,
     if fh.flags & ~0xB3:
         raise BitstreamError(
             "frame flags %#x not supported" % fh.flags)
-    for flag, feature in ((0x2, "patches"), (0x10, "splines")):
-        if fh.flags & flag:
-            raise NotImplementedError(
-                f"VarDCT frame with {feature}: not in the port's host "
-                f"layers")
+    patches = None
+    if fh.flags & 0x2:
+        from .patches import PatchDictionary
+        w_full = fh.frame_width or (hdr.xsize if hdr else 0)
+        h_full = fh.frame_height or (hdr.ysize if hdr else 0)
+        n_ec = len(hdr.metadata.extra_channels) if hdr else 0
+        patches = PatchDictionary.read(br, w_full, h_full, n_ec)
+    splines = None
+    if fh.flags & 0x10:
+        from .splines import Splines
+        w_full = (fh.frame_width or (hdr.xsize if hdr else 0)) or 1
+        h_full = (fh.frame_height or (hdr.ysize if hdr else 0)) or 1
+        splines = Splines.read(br, w_full * h_full)
     noise_lut = None
     if fh.flags & 0x1:
         from .noise import read_noise_lut
@@ -181,7 +194,7 @@ def read_lf_global(br: BitReader, fh, hdr=None, frame_w=None,
     qdc = br.u32(16, (5, 1), (8, 1), (16, 1))
     bcm = BlockCtxMap.read(br)
     lf = LfGlobal(dcq=dcq, global_scale=gs, quant_dc=qdc, bcm=bcm,
-                  noise_lut=noise_lut)
+                  noise_lut=noise_lut, patches=patches, splines=splines)
     if not br.bool():
         lf.cfl_color_factor = br.u32(84, 256, (8, 2), (16, 258))
         lf.cfl_base_x = br.f16()
@@ -819,6 +832,31 @@ def _xyb_planes_to_linear32(X, Y, B):
     return mixed @ _OPSIN_INV.T.astype(np.float32)
 
 
+def linear_to_srgb_f32(v):
+    """FastLinearToSRGB (float32 bit-exact): cubic approximation of the
+    power curve on [0.25, 0.5) recombined with a 16-entry exponent
+    table of 2**(5/12) powers."""
+    v = np.ascontiguousarray(v, np.float32)
+    vb = v.view(np.uint32)
+    v025 = ((vb | np.uint32(0x3e800000))
+            & np.uint32(0x3effffff)).view(np.float32)
+    d1 = v025 * np.float32(0.059914046) + np.float32(-0.108894556)
+    d2 = d1 * v025 + np.float32(0.107963754)
+    pw = d2 * v025 + np.float32(0.018092343)
+    exp = ((vb >> np.uint32(23)) - np.uint32(118)) & np.uint32(0xf)
+    mul = ((_POW25TO18[exp] << np.uint32(18))
+           | (_POW17TO10[exp] << np.uint32(10))
+           | np.uint32(0x40000000)).view(np.float32)
+    return np.where(v < np.float32(0.0031308),
+                    v * np.float32(12.92),
+                    pw * mul + np.float32(-0.055))
+
+
+def xyb_planes_to_srgb(X, Y, B):
+    """XYB -> sRGB-encoded float32 (unclipped, sign-preserving)."""
+    return linear_to_srgb_f32(_xyb_planes_to_linear32(X, Y, B))
+
+
 def _quantize(enc, bits):
     maxv = (1 << bits) - 1
     out = np.clip(np.floor(enc * maxv + 0.5), 0, maxv)
@@ -1151,10 +1189,38 @@ def _apply_filters(X, Y, B, rf, sigma):
     return _native_filter_chain(X, Y, B, rf, sigma)
 
 
-def decode_vardct_frame(cs: bytes, hdr, fh, toc) -> np.ndarray:
+def dc_from_frame(dc_frame, xs_b: int, ys_b: int) -> dict:
+    """The DC planes {0: X, 1: Y, 2: B} of a frame with kUseDcFrame from
+    its LF frame's planes: the block grid may be one sample wider or
+    taller than the LF frame (ceil rounding), so the edge is replicated."""
+    dc_glob = {c: np.zeros((ys_b, xs_b)) for c in range(3)}
+    for c in range(3):
+        src = dc_frame[c]
+        dc_glob[c][:src.shape[0], :src.shape[1]] = src[:ys_b, :xs_b]
+        if src.shape[1] < xs_b:
+            dc_glob[c][:, src.shape[1]:] = \
+                dc_glob[c][:, src.shape[1] - 1:src.shape[1]]
+        if src.shape[0] < ys_b:
+            dc_glob[c][src.shape[0]:, :] = \
+                dc_glob[c][src.shape[0] - 1:src.shape[0], :]
+    return dc_glob
+
+
+def decode_vardct_frame(cs: bytes, hdr, fh, toc, dc_frame=None,
+                        ref_frames=None,
+                        return_xyb: bool = False) -> np.ndarray:
     """Real-format VarDCT still decode on the host, in float64 ->
     (H, W, 3 + extra channels) uint8, or uint16 above 8 bits per sample,
     in the signalled output encoding (sRGB by default).
+
+    dc_frame: {0: X, 1: Y, 2: B} planes of the LF frame decoded before
+    it, the frame's DC when fh.flags & kUseDcFrame (no DC smoothing then).
+    ref_frames: {slot: [X, Y, B]} planes of the reference frames decoded
+    before it, the sources of its patches.  return_xyb: the XYB planes
+    {0: X, 1: Y, 2: B} at the coded size after the filters, patches,
+    splines and noise, with no upsampling and no colour transform (an LF
+    frame's output is the next frame's DC; a reference frame's, a patch
+    source).
 
     Handles multi-pass (progressive AC) streams: per-group coefficient
     values accumulate as sum(v_pass << pass_shift).
@@ -1170,10 +1236,10 @@ def decode_vardct_frame(cs: bytes, hdr, fh, toc) -> np.ndarray:
     # per-pass coefficient shifts: shift[i] for all but the last pass
     pass_shift = list(fh.passes.shift) + [0]
     single = len(toc.entries) == 1
-    if fh.flags & 0x20:
-        raise NotImplementedError(
-            "VarDCT frame with a DC frame (progressive LF): not in the "
-            "port's host layers")
+    use_dc_frame = bool(fh.flags & 0x20)
+    if use_dc_frame and dc_frame is None:
+        raise BitstreamError(
+            "frame uses a DC frame but none was decoded before it")
     if fh.do_ycbcr:
         raise NotImplementedError(
             "VarDCT frame with YCbCr: not in the port's host layers")
@@ -1205,7 +1271,8 @@ def decode_vardct_frame(cs: bytes, hdr, fh, toc) -> np.ndarray:
         gw = min(lf_gd_b, xs_b - lx)
         gh = min(lf_gd_b, ys_b - ly)
         lgs.append((lx, ly, read_lf_group(brs(1 + gi), lf, gw, gh,
-                                          gi, ndc)))
+                                          gi, ndc,
+                                          use_dc_frame=use_dc_frame)))
 
     hf = read_hf_global(brs(1 + ndc), lf, ng, npasses, ndc)
     histo_bits = (hf.num_histograms - 1).bit_length() \
@@ -1226,10 +1293,13 @@ def decode_vardct_frame(cs: bytes, hdr, fh, toc) -> np.ndarray:
         gh_, gw_ = lg.qf_map.shape
         qf_map[ly:ly + gh_, lx:lx + gw_] = lg.qf_map
         sharp_map[ly:ly + gh_, lx:lx + gw_] = lg.sharp_map
-        dcp = compute_dc_planes(lf, lg)
-        for c in range(3):
-            dc_glob[c][ly:ly + gh_, lx:lx + gw_] = dcp[c]
-    if not (fh.flags & 0x80):
+        if not use_dc_frame:
+            dcp = compute_dc_planes(lf, lg)
+            for c in range(3):
+                dc_glob[c][ly:ly + gh_, lx:lx + gw_] = dcp[c]
+    if use_dc_frame:
+        dc_glob = dc_from_frame(dc_frame, xs_b, ys_b)
+    elif not (fh.flags & 0x80):
         # smoothing gap steps use the NOMINAL dc step — extra_precision
         # does not shrink the gate (pinned by ep=0/1/2 crafted probes)
         igs0 = lf.inv_global_scale
@@ -1308,6 +1378,24 @@ def decode_vardct_frame(cs: bytes, hdr, fh, toc) -> np.ndarray:
         X[:h, :w], Y[:h, :w], B[:h, :w] = Xc, Yc, Bc
     else:
         X, Y, B = _apply_filters(X, Y, B, rf, lf_sigma)
+    if lf.patches is not None:
+        if ref_frames is None:
+            raise BitstreamError(
+                "frame uses patches but no reference frames were decoded")
+        planes = [np.ascontiguousarray(p[:h, :w], np.float64)
+                  for p in (X, Y, B)]
+        lf.patches.apply(planes, ref_frames)
+        for dstp, srcp in zip((X, Y, B), planes):
+            dstp[:h, :w] = srcp
+    if lf.splines is not None:
+        cf = 1.0 / lf.cfl_color_factor
+        planes = [np.ascontiguousarray(p[:h, :w], np.float64)
+                  for p in (X, Y, B)]
+        lf.splines.render(planes,
+                          base_cx=lf.cfl_base_x + lf.cfl_ytox_dc * cf,
+                          base_cb=lf.cfl_base_b + lf.cfl_ytob_dc * cf)
+        for dstp, srcp in zip((X, Y, B), planes):
+            dstp[:h, :w] = srcp
     if lf.noise_lut is not None:
         from .noise import add_noise
         Xc, Yc, Bc = (np.ascontiguousarray(p[:h, :w], np.float32)
@@ -1315,6 +1403,8 @@ def decode_vardct_frame(cs: bytes, hdr, fh, toc) -> np.ndarray:
         add_noise(Xc, Yc, Bc, lf.noise_lut)
         X = np.zeros_like(X); Y = np.zeros_like(Y); B = np.zeros_like(B)
         X[:h, :w], Y[:h, :w], B[:h, :w] = Xc, Yc, Bc
+    if return_xyb:
+        return {0: X[:h, :w], 1: Y[:h, :w], 2: B[:h, :w]}
     m = hdr.metadata
     # final frame size after upsampling (the coded frame is 1/upsampling
     # of the signalled size; the Upsampler stage scales XYB back up)

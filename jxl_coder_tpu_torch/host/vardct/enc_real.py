@@ -14,10 +14,12 @@ The port's copy of the host branch of ``jxl_coder_tpu/vardct/enc_real.py``:
 8- and 16-bit and float input, a signalled colour encoding (``colour``,
 ``intensity_target``), a lossless alpha plane, the noise lut, and a
 caller's frame and image headers (``fh``, ``hdr``: an upsampled frame is
-coded at its reduced size).  The JAX device front end, the patch
-dictionary and the animated-frame entry point are gone, and the native
-host codec is required (no pure-Python fallback).  Its bytes equal the
-JAX package's host encoder's.
+coded at its reduced size; ``into_bw``: one frame into a caller's
+stream), a patch dictionary (``patch_dict_bw``), and the effort-7 patch
+path (``enc_patches.detect``, then ``_encode_with_patches``: a Modular
+reference-only atlas frame and the main frame).  The JAX device front end
+is gone, and the native host codec is required (no pure-Python
+fallback).  Its bytes equal the JAX package's host encoder's.
 """
 
 from __future__ import annotations
@@ -571,9 +573,11 @@ def _write_ac_tokens_native(lib, ts, acs_map, vals_map, xs_b, ys_b):
 def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
                        decoding_speed: int = 0,
                        effort: int = 7, fh=None, hdr=None,
-                       alpha=None, colour=None,
+                       into_bw=None, alpha=None, colour=None,
                        bit_depth: int = None,
                        intensity_target: float = None,
+                       patch_dict_bw=None,
+                       try_patches: bool = True,
                        progressive: bool = False,
                        noise_lut=None) -> bytes:
     """(H, W, 3) colour -> real-format VarDCT codestream.
@@ -585,7 +589,15 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
     fh / hdr: the frame and image headers to write (caller-owned fh
     fields such as the upsampling factor are kept, the encoder's own set
     here); `pixels` is then the coded frame, of the header's size
-    divided by the upsampling."""
+    divided by the upsampling.  With into_bw given too, ONE frame (header,
+    TOC and sections) is written into that stream and b"" returned.
+    patch_dict_bw: a serialized patch dictionary, written at the head of
+    LfGlobal with flag kPatches.  At effort 7 and up, on 8-bit RGB at
+    distance 0.5 and up, with no caller headers, alpha or colour
+    encoding, the patch detector runs in a thread meanwhile; when it finds
+    repeated glyphs the stream becomes two frames (_encode_with_patches).
+    As in the original, that path drops a requested noise_lut (fault R5 of
+    ROADMAP.md)."""
     if pixels.ndim != 3 or pixels.shape[2] != 3:
         raise ValueError("the host encoder takes (H, W, 3) pixels")
     H, W, _ = pixels.shape
@@ -598,6 +610,28 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
     # decoding-speed tiers drop decode-side filters (the reference's
     # JxlDecodingSpeed semantics); gaborish costs a 3x3 conv at decode
     use_gab = decoding_speed < 2
+
+    # encoder-side patches (libjxl e7+ behaviour): repeated glyph
+    # content moves to a hidden reference frame; the main frame codes the
+    # rest and the dictionary adds the glyphs back.  The detector runs in
+    # a worker thread (its numpy work releases the GIL) while the frame
+    # below is encoded; on a hit that encode is discarded.
+    _patch_box = None
+    if (try_patches and fh is None and hdr is None and into_bw is None
+            and alpha is None and colour is None and effort >= 7
+            and distance >= 0.5 and pixels.dtype == np.uint8):
+        from . import enc_patches as EPAT
+        import threading as _threading
+        _patch_box = {"plan": None}
+
+        def _detect_bg():
+            try:
+                _patch_box["plan"] = EPAT.detect(pixels)
+            except Exception:
+                _patch_box["plan"] = None
+        _pt = _threading.Thread(target=_detect_bg, daemon=True)
+        _pt.start()
+        _patch_box["thread"] = _pt
 
     if pad.dtype == np.uint8 and colour is None:
         X, Y, B = srgb8_to_xyb(pad)
@@ -698,7 +732,7 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
     # refinement — decoders can show pass 0 early (the decode side has
     # supported num_passes>1 since round 3)
     npasses = 2 if (progressive and alpha is None) else 1
-    pflags = 0
+    pflags = 0x2 if patch_dict_bw is not None else 0
     if noise_lut is not None:
         # kNoise: the decoder synthesizes film-grain style noise from
         # the 8-knot intensity lut; values quantize to 10-bit fixed point
@@ -780,6 +814,10 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
 
     def lf_global_bits():
         w_ = BitWriter()
+        if patch_dict_bw is not None:
+            # patch dictionary precedes DcQuant when flags & kPatches
+            # (read_lf_global ordering)
+            w_.append_writer(patch_dict_bw)
         if noise_lut is not None:
             # NoiseParameters precede DcQuant (read_lf_global ordering:
             # patches -> splines -> noise -> dc_quant)
@@ -936,8 +974,76 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
         payloads.append(hf.to_bytes())
         payloads.extend(sections)
 
+    if into_bw is not None:
+        write_frame_header(into_bw, fh, hdr)
+        write_toc(into_bw, [len(p) for p in payloads])
+        for p in payloads:
+            into_bw.append_bits(p, len(p) * 8)
+        return b""
+    if _patch_box is not None:
+        _patch_box["thread"].join()
+        plan = _patch_box["plan"]
+        if plan is not None:
+            return _encode_with_patches(
+                pixels, plan, distance=distance, effort=effort,
+                decoding_speed=decoding_speed,
+                intensity_target=intensity_target)
     bw = BitWriter()
     write_image_header(bw, hdr)
     write_frame_header(bw, fh, hdr)
     write_toc(bw, [len(p) for p in payloads])
     return bw.to_bytes() + b"".join(payloads)
+
+
+def _encode_with_patches(pixels, plan, distance: float, effort: int,
+                         decoding_speed: int = 0,
+                         intensity_target: float = None) -> bytes:
+    """Two-frame stream: a hidden kReferenceOnly atlas frame carrying
+    the distinct glyph patches (saved before the colour transform, so
+    its XYB is what the dictionary adds), then the main frame with the
+    glyphs' deltas taken out and flags kPatches + the dictionary at the
+    head of LfGlobal."""
+    from ..bitstream.headers import BitDepth
+    from ..bitstream.frame_header import FrameType, RestorationFilter
+    from ..codec import DEFAULT_DC_QUANT, encode_modular_frame
+    from . import enc_patches as EPAT
+
+    H, W, _ = pixels.shape
+    m = ImageMetadata()
+    m.bit_depth = BitDepth(False, 8, 0)
+    if intensity_target:
+        m.tone_mapping.intensity_target = float(intensity_target)
+    hdr = ImageHeader(size=SizeHeader(xsize=W, ysize=H), metadata=m)
+
+    bw = BitWriter()
+    write_image_header(bw, hdr)
+
+    ah, aw = plan.atlas.shape[1:]
+    fh_ref = FrameHeader(frame_type=FrameType.REFERENCE_ONLY,
+                         encoding=Encoding.MODULAR, is_last=False,
+                         save_as_reference=1,
+                         save_before_color_transform=True,
+                         have_crop=True, frame_width=aw,
+                         frame_height=ah,
+                         # no decode-side filters on the atlas: they
+                         # would smear the glyph deltas
+                         restoration_filter=RestorationFilter(
+                             gab=False, epf_iters=0))
+    # the atlas rides a Modular lossy-XYB reference frame: quantized
+    # (Y, X, B-Y) channels against the default DC dequant, holding XYB
+    # deltas that the main frame's dictionary adds (BLEND_ADD)
+    Xa, Ya, Ba = plan.atlas
+    q0, q1, q2 = DEFAULT_DC_QUANT
+    cy_p = np.rint(Ya / q1).astype(np.int32)
+    cx_p = np.rint(Xa / q0).astype(np.int32)
+    cb_p = (np.rint(Ba / q2) - cy_p).astype(np.int32)
+    encode_modular_frame(bw, hdr, fh_ref, [cy_p, cx_p, cb_p],
+                         use_ycocg=False)
+
+    pd_bw = EPAT.serialize_dictionary(plan, num_extra=0)
+    fh_main = FrameHeader(is_last=True)
+    encode_vardct_real(plan.filled, distance=distance, effort=effort,
+                       decoding_speed=decoding_speed, fh=fh_main,
+                       hdr=hdr, into_bw=bw, patch_dict_bw=pd_bw,
+                       try_patches=False)
+    return bw.to_bytes()

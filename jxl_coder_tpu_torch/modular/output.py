@@ -36,6 +36,16 @@ from ..vardct import filters, post
 _NO_GABORISH = (0.0,) * 6
 
 
+def xyb_planes(planes: List[torch.Tensor], dc_quant) -> torch.Tensor:
+    """(Y, X, B - Y) integer channels times the LfGlobal DC dequant
+    factors -> (3, h, w) f32 XYB planes (``codec.py:272-280``): an XYB
+    frame's colour, and an LF or reference frame's output."""
+    cy, cx, cb = (p.to(torch.float32) for p in planes[:3])
+    return torch.stack([cx * float(np.float32(dc_quant[0])),
+                        cy * float(np.float32(dc_quant[1])),
+                        (cy + cb) * float(np.float32(dc_quant[2]))])
+
+
 def modular_pixels(planes: List[torch.Tensor], hdr, fh,
                    dc_quant) -> torch.Tensor:
     """(H, W, C) pixels, C the colour channels plus the extra channels,
@@ -52,10 +62,7 @@ def modular_pixels(planes: List[torch.Tensor], hdr, fh,
         arrs = list(planes)
     else:
         if m.xyb_encoded:
-            cy, cx, cb = (p.to(torch.float32) for p in planes[:3])
-            xyb = torch.stack([cx * float(np.float32(dc_quant[0])),
-                               cy * float(np.float32(dc_quant[1])),
-                               (cy + cb) * float(np.float32(dc_quant[2]))])
+            xyb = xyb_planes(planes, dc_quant)
             if up > 1:
                 xyb = post.upsample(xyb, post.kernels_for(up, weights,
                                                           xyb.device))

@@ -16,9 +16,12 @@ import math
 
 import numpy as np
 
-from .api import _read_frame
+from .api import _read_frames
 from .host.api import apply_orientation
-from .host.codec import encode_modular_frame
+from .host.bitstream.frame_header import Encoding, FrameType
+from .host.codec import (decode_modular_frame, encode_modular_frame,
+                         modular_planes_to_xyb)
+from .host.modular.frame import undo_on_host
 from .host.vardct.dec_real import decode_vardct_frame
 from .host.vardct.enc_real import encode_vardct_real as encode_vardct
 from .host.vardct.strategies import STRATEGIES
@@ -38,10 +41,32 @@ def photon_noise_lut(iso: float) -> list:
     return [min(1.0, a * (1.0 - 0.8 * (k / 7.0))) for k in range(8)]
 
 
+def _xyb_frame(cs, hdr, fh, toc, dc_frames) -> dict:
+    """An LF or reference frame's {0: X, 1: Y, 2: B} planes on the host
+    (jxl_coder_tpu/api.py:774-800)."""
+    if fh.encoding == Encoding.MODULAR:
+        raw, dc_quant = decode_modular_frame(cs, hdr, fh, toc)
+        return modular_planes_to_xyb(undo_on_host(raw), dc_quant)
+    return decode_vardct_frame(cs, hdr, fh, toc,
+                               dc_frame=dc_frames.get(fh.lf_level + 1),
+                               return_xyb=True)
+
+
 def decode_float64(data: bytes) -> np.ndarray:
-    """Pixels of a one-frame VarDCT still from the float64 host
-    reconstruction (what ``jxl_coder_tpu.api.decode`` returns on its host
-    path, ``api.py:505-542``)."""
-    cs, hdr, fh, toc = _read_frame(data)
-    out = decode_vardct_frame(cs, hdr, fh, toc)
+    """Pixels of a VarDCT still from the float64 host reconstruction
+    (what ``jxl_coder_tpu.api.decode`` returns on its host path,
+    ``api.py:505-548``), after the LF and reference-only frames before it,
+    decoded on the host to their XYB planes."""
+    cs, hdr, frames = _read_frames(data)
+    dc_frames, refs = {}, {}
+    for fh, toc in frames[:-1]:
+        planes = _xyb_frame(cs, hdr, fh, toc, dc_frames)
+        if fh.frame_type == FrameType.LF_FRAME:
+            dc_frames[fh.lf_level] = planes
+        else:
+            refs[fh.save_as_reference] = [planes[0], planes[1], planes[2]]
+    fh, toc = frames[-1]
+    out = decode_vardct_frame(cs, hdr, fh, toc,
+                              dc_frame=dc_frames.get(fh.lf_level + 1),
+                              ref_frames=refs or None)
     return apply_orientation(out, hdr.metadata.orientation)

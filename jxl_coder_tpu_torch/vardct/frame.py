@@ -6,10 +6,12 @@
 the (3, H8, W8) XYB planes, the crop to the true image size, the EPF
 sigma map, then the filter chain and the sRGB output at 8 or 16 bits as
 one tile pass (``filters.restore_and_output``).  A frame with post
-stages (noise, upsampling, another output encoding) takes the filtered
-XYB planes from that pass instead ("f32" out) and hands them to
-``post.PostStages``; a frame's extra channels are stacked after its
-colour (``post.extra_channels``).
+stages (the patch and spline overlay, noise, upsampling, another output
+encoding) takes the filtered XYB planes from that pass instead ("f32"
+out) and hands them to ``post.PostStages``; a frame's extra channels are
+stacked after its colour (``post.extra_channels``).  An LF or reference
+frame's output is its XYB planes (``VarDCTFrame.xyb``: kernel 2's "f32"
+out, then its own overlay and noise; no upsampling, no output step).
 """
 
 from __future__ import annotations
@@ -46,7 +48,17 @@ class VarDCTFrame(nn.Module):
         if self.post is None:
             return self.reconstruct(inputs, "u16" if self.config.bits > 8
                                     else "u8")
-        return self.post(self.reconstruct(inputs, "f32"))
+        return self.post(self.reconstruct(inputs, "f32"), inputs.overlay,
+                         inputs.refs)
+
+    def xyb(self, inputs: FrameInputs) -> torch.Tensor:
+        """An LF or reference frame's output: the filtered (3, h, w) f32
+        XYB planes after its overlay and noise."""
+        xyb = self.reconstruct(inputs, "f32")
+        post = self.config.post
+        if post is None or (post.overlay is None and post.noise_lut is None):
+            return xyb
+        return PostStages(post).xyb(xyb, inputs.overlay, inputs.refs)
 
     def reconstruct(self, inputs: FrameInputs, out: str) -> torch.Tensor:
         """Synthesis, then kernel 2's pass: the filtered (3, h, w) f32

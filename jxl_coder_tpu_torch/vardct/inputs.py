@@ -303,6 +303,8 @@ class FrameInputs:
     igs: float                  # inverse global scale (an f32 value)
     qm: np.ndarray              # (3,) f32 X/Y/B dequant multipliers
     ec: Optional[List[torch.Tensor]] = None  # extra channels, int32
+    overlay: Optional[object] = None    # overlay.OverlayInputs
+    refs: Optional[dict] = None  # slot -> (3, h, w) f32 reference planes
 
 
 def _t(a, device, dtype=None, put=None) -> torch.Tensor:
@@ -364,8 +366,11 @@ def pack(state: dict) -> Tuple[dict, tuple]:
         gabw = tuple(float(g) for g in rf.gab_weights)
     else:
         gabw = (0.115169525, 0.061248592) * 3
-    dc = np.stack([state["dc_glob"][c] for c in range(3)]).astype(
-        np.float32)
+    # a frame with a DC frame takes its DC from that frame's planes, on
+    # the device (api._vardct_inputs)
+    dc = (None if state["dc_glob"] is None else
+          np.stack([state["dc_glob"][c] for c in range(3)]).astype(
+              np.float32))
     static = dict(desc=desc, H8=ys_b * 8, W8=xs_b * 8,
                   bits=int(state["bits"]), gab=bool(rf.gab),
                   epf_iters=int(rf.epf_iters), gabw_t=gabw,
@@ -382,10 +387,12 @@ def from_prepared(static: dict, args: tuple, device: torch.device,
                   post=None, ec=None, put=None
                   ) -> Tuple[FrameConfig, FrameInputs]:
     """(static, args) from pack -> (FrameConfig, FrameInputs on `device`);
-    post: the frame's post.PostConfig, ec: its extra channels' planes
-    (already on `device`); put(array) -> tensor: how each contiguous
-    numpy array gets to `device` (default: a plain copy on the current
-    stream; decode_batch stages it through pinned memory)."""
+    post: the frame's post.PostConfig (its overlay's lists go to `device`
+    too), ec: its extra channels' planes (already on `device`);
+    put(array) -> tensor: how each contiguous numpy array gets to
+    `device` (default: a plain copy on the current stream; decode_batch
+    stages it through pinned memory).  A frame with a DC frame has no dc
+    here: the caller sets inputs.dc."""
     fams, dc, qf, sharp, igs, qm, _perm_inv = args
     cfg = FrameConfig(
         H8=int(static["H8"]), W8=int(static["W8"]),
@@ -398,9 +405,13 @@ def from_prepared(static: dict, args: tuple, device: torch.device,
         post=post)
     families = [family_from_dict(fam, d, device, put)
                 for fam, d in zip(fams, static["desc"])]
+    overlay = (post.overlay.to(device, put)
+               if post is not None and post.overlay is not None else None)
     inputs = FrameInputs(
-        families=families, dc=_t(dc, device, np.float32, put),
+        families=families,
+        dc=None if dc is None else _t(dc, device, np.float32, put),
         qf=_t(qf, device, np.int32, put),
         sharp=_t(sharp, device, np.int32, put),
-        igs=float(np.float32(igs)), qm=np.asarray(qm, np.float32), ec=ec)
+        igs=float(np.float32(igs)), qm=np.asarray(qm, np.float32), ec=ec,
+        overlay=overlay)
     return cfg, inputs

@@ -23,10 +23,15 @@ start is known only after the host has read the tokens, so such a frame
 raises NotImplementedError, as the reference's device entropy route
 declines it); ``state["lf"].mfd`` holds their raw planes.
 
+A frame with a DC frame (kUseDcFrame) reads its LF groups without their
+DC (its quantized DC channels are zeros, which both routes' block
+contexts read, as the host does) and leaves ``dc_glob`` None: its DC is
+the LF frame's planes, on the device, with no smoothing.  Its patch
+dictionary and splines come with LF global (``state["lf"]``).
+
 Unlike the reference it never asks whether a JAX device is attached and
-applies no frame-size floor.  A frame the port's device path does not
-cover (a DC frame, patches, splines, YCbCr) raises NotImplementedError
-naming the feature.
+applies no frame-size floor.  A YCbCr frame, which the port's device path
+does not cover, raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,22 +53,16 @@ _LF_GROUP_BLOCKS = 256      # LF groups: 2048 px
 _GROUP_BLOCKS = 32          # AC groups: 256 px
 
 # frame-header flags (dec_real.read_lf_global)
-_PATCHES, _SPLINES, _DC_FRAME, _SKIP_SMOOTHING = 0x2, 0x10, 0x20, 0x80
+DC_FRAME, _SKIP_SMOOTHING = 0x20, 0x80
 
 
 def check_supported(hdr, fh, entropy: str = "host") -> None:
     """Raise NotImplementedError for a frame outside the port's slice."""
-    unsupported = [
-        (fh.flags & _DC_FRAME, "a DC frame (progressive LF)"),
-        (fh.flags & _PATCHES, "patches"),
-        (fh.flags & _SPLINES, "splines"),
-        (fh.do_ycbcr, "YCbCr (JPEG recompression, chroma subsampling)"),
-    ]
-    for hit, feature in unsupported:
-        if hit:
-            raise NotImplementedError(
-                f"VarDCT frame with {feature}: not in the port's decode "
-                f"slice (ROADMAP, jxl_coder_tpu_torch)")
+    if fh.do_ycbcr:
+        raise NotImplementedError(
+            "VarDCT frame with YCbCr (JPEG recompression, chroma "
+            "subsampling): not in the port's decode slice (ROADMAP queue 1: "
+            "the JPEG routes)")
     if entropy == "device" and hdr.metadata.extra_channels:
         raise NotImplementedError(
             "entropy='device' on a VarDCT frame with extra channels: each "
@@ -108,6 +107,7 @@ def parse_frame(cs: bytes, hdr, fh, toc, entropy: str = "host",
             return BitReader(cs[s.offset:s.offset + s.size])
 
     lf = read_lf_global(section(0), fh, hdr, w, h)
+    use_dc_frame = bool(fh.flags & DC_FRAME)
 
     gx_lf = -(-xs_b // _LF_GROUP_BLOCKS)
     lgs = []
@@ -117,7 +117,8 @@ def parse_frame(cs: bytes, hdr, fh, toc, entropy: str = "host",
         gw = min(_LF_GROUP_BLOCKS, xs_b - lx)
         gh = min(_LF_GROUP_BLOCKS, ys_b - ly)
         lgs.append((lx, ly, read_lf_group(section(1 + gi), lf, gw, gh,
-                                          gi, ndc)))
+                                          gi, ndc,
+                                          use_dc_frame=use_dc_frame)))
 
     hf = read_hf_global(section(1 + ndc), lf, ng, npasses, ndc)
     histo_bits = ((hf.num_histograms - 1).bit_length()
@@ -132,7 +133,8 @@ def parse_frame(cs: bytes, hdr, fh, toc, entropy: str = "host",
     sharp_map = np.zeros((ys_b, xs_b), np.int64)
     ytox_glob = np.zeros((-(-ys_b // 8), -(-xs_b // 8)), np.float64)
     ytob_glob = np.zeros_like(ytox_glob)
-    dc_glob = {c: np.zeros((ys_b, xs_b)) for c in range(3)}
+    dc_glob = (None if use_dc_frame else
+               {c: np.zeros((ys_b, xs_b)) for c in range(3)})
     for lx, ly, lg in lgs:
         gh_, gw_ = lg.qf_map.shape
         qf_map[ly:ly + gh_, lx:lx + gw_] = lg.qf_map
@@ -145,10 +147,11 @@ def parse_frame(cs: bytes, hdr, fh, toc, entropy: str = "host",
         th_, tw_ = lg.ytox.shape
         ytox_glob[ly // 8:ly // 8 + th_, lx // 8:lx // 8 + tw_] = lg.ytox
         ytob_glob[ly // 8:ly // 8 + th_, lx // 8:lx // 8 + tw_] = lg.ytob
-        dcp = compute_dc_planes(lf, lg)
-        for c in range(3):
-            dc_glob[c][ly:ly + gh_, lx:lx + gw_] = dcp[c]
-    if not fh.flags & _SKIP_SMOOTHING:
+        if dc_glob is not None:
+            dcp = compute_dc_planes(lf, lg)
+            for c in range(3):
+                dc_glob[c][ly:ly + gh_, lx:lx + gw_] = dcp[c]
+    if dc_glob is not None and not fh.flags & _SKIP_SMOOTHING:
         # the smoothing gate uses the nominal DC step (dec_real.py:1719)
         igs0 = lf.inv_global_scale
         steps = [lf.dcq[c] * igs0 / lf.quant_dc for c in range(3)]

@@ -1,14 +1,18 @@
-"""The VarDCT post stages on the device: noise, upsampling and the output
-encoding, then a frame's extra channels.
+"""The VarDCT post stages on the device: the patch and spline overlay,
+noise, upsampling and the output encoding, then a frame's extra channels.
 
 ``PostConfig.of`` is the counterpart of ``dec_real._device_post_config``
-(``jxl_coder_tpu/vardct/dec_real.py:1063-1125``): the frame's noise lut,
-its upsampling factor and (n, n, 5, 5) kernels, and its output spec,
-``("srgb",)``, ``("gamma", g)`` or ``("enc", trc, gamut, intensity_target,
-luma)``.  ``PostStages`` is the tail of ``fn_post``
-(``jxl_coder_tpu/vardct/tpu_full.py:829-878``), in its order: noise, then
+(``jxl_coder_tpu/vardct/dec_real.py:1063-1125``): the frame's overlay
+(its patches and spline points with their tile lists,
+``overlay.Overlay``), its noise lut, its upsampling factor and (n, n, 5, 5)
+kernels, and its output spec, ``("srgb",)``, ``("gamma", g)`` or
+``("enc", trc, gamut, intensity_target, luma)``.  ``PostStages`` is the
+tail of ``fn_post`` (``jxl_coder_tpu/vardct/tpu_full.py:829-878``), in its
+order: the overlay (``overlay.py``'s kernels A8 and A9), noise, then
 upsampling, then the output encoding, on the filtered XYB planes at the
-true image size; ``extra_channels`` is the counterpart of the host's
+true image size (``PostStages.xyb``, the overlay and the noise, is an LF
+or reference frame's output); ``extra_channels`` is the counterpart of
+the host's
 extra-channel stack (``dec_real.py:2006-2040``), on the device.
 
 Three kernels of ``csrc/post.cu``, each with its plain PyTorch twin here
@@ -53,6 +57,7 @@ from ..host.vardct.dec_real import _is_srgb_output, upsample_weights
 from ..host.vardct.noise import NOISE_K0, noise_planes
 from ..ops import fp
 from . import color
+from . import overlay as OV
 from .filters import _mirror_index
 
 __all__ = ["PostConfig", "PostStages", "noise_random", "add_noise",
@@ -76,17 +81,20 @@ class PostConfig:
     up_weights: Optional[tuple] = None   # signalled weights (None: default)
     out: tuple = ("srgb",)
     ec: Tuple[Tuple[int, int], ...] = ()   # per extra channel: bits, factor
+    # the patches and splines (host arrays; not part of the comparison)
+    overlay: Optional[OV.Overlay] = dataclasses.field(default=None,
+                                                      compare=False)
 
     @property
     def colour_empty(self) -> bool:
         """No colour stage: kernel 2 writes the codes itself."""
-        return self.noise_lut is None and self.ups == 1 and \
-            self.out == ("srgb",)
+        return self.overlay is None and self.noise_lut is None and \
+            self.ups == 1 and self.out == ("srgb",)
 
     @staticmethod
     def of(lf, fh, hdr, h: int, w: int) -> "PostConfig":
-        """The frame's post stages (dec_real._device_post_config without
-        the overlay, which the port does not decode)."""
+        """The frame's post stages (dec_real._device_post_config): the
+        overlay's lists are built here, on the host."""
         m = hdr.metadata
         noise = (tuple(float(_F(v)) for v in lf.noise_lut)
                  if lf.noise_lut is not None else None)
@@ -116,7 +124,7 @@ class PostConfig:
                           full_w=fh.frame_width or hdr.xsize,
                           bits=m.bit_depth.bits_per_sample, noise_lut=noise,
                           ups=ups, up_weights=upsample_weights(m, ups),
-                          out=out, ec=ec)
+                          out=out, ec=ec, overlay=OV.Overlay.of(lf, h, w))
 
 
 # --------------------------------------------------------------------------
@@ -451,20 +459,34 @@ encode_output.launches = 0
 # The stages
 
 class PostStages(nn.Module):
-    """noise -> upsampling -> output encoding on the filtered (3, h, w)
-    f32 XYB planes of one frame geometry -> (full_h, full_w, 3) codes."""
+    """overlay -> noise -> upsampling -> output encoding on the filtered
+    (3, h, w) f32 XYB planes of one frame geometry -> (full_h, full_w, 3)
+    codes."""
 
     def __init__(self, config: PostConfig):
         super().__init__()
         self.config = config
 
-    def forward(self, xyb: torch.Tensor) -> torch.Tensor:
+    def xyb(self, xyb: torch.Tensor, overlay=None, refs=None
+            ) -> torch.Tensor:
+        """The overlay (overlay.OverlayInputs, the config's lists on the
+        planes' device; refs: slot -> the reference frames' planes) and the
+        noise, in place on contiguous planes -> the XYB planes."""
         cfg = self.config
         dev = xyb.device
+        if cfg.overlay is not None:
+            xyb = OV.apply(xyb.contiguous(), overlay, refs)
         if cfg.noise_lut is not None:
             xyb = add_noise(xyb.contiguous(), noise_random(cfg.w, cfg.h, dev),
                             torch.tensor(cfg.noise_lut, dtype=torch.float32,
                                          device=dev))
+        return xyb
+
+    def forward(self, xyb: torch.Tensor, overlay=None,
+                refs=None) -> torch.Tensor:
+        cfg = self.config
+        dev = xyb.device
+        xyb = self.xyb(xyb, overlay, refs)
         if cfg.ups > 1:
             xyb = upsample(xyb, kernels_for(cfg.ups, cfg.up_weights, dev))
         return encode_output(xyb[:, :cfg.full_h, :cfg.full_w], cfg.out,

@@ -21,7 +21,7 @@ from jxl_coder_tpu_torch.host.codec import (DEFAULT_DC_QUANT,
                                             frame_channel_layout,
                                             write_image_header)
 from jxl_coder_tpu_torch.host.modular import transform as T
-from jxl_coder_tpu_torch.host.modular.image import ModularImage
+from jxl_coder_tpu_torch.host.modular.image import Channel, ModularImage
 from jxl_coder_tpu_torch.host.modular.stream import (GroupHeader,
                                                      encode_modular_stream)
 from jxl_coder_tpu_torch.host.modular.tree import Tree
@@ -389,3 +389,295 @@ def group_rct_still(img: np.ndarray, group_shift: int = 0) -> bytes:
                 bw.u(byte, 8)
 
     return _still(hdr, body)
+
+
+# ---- Patches, splines, reference-only and LF frames ----
+
+def text_frame(h: int, w: int) -> np.ndarray:
+    """Text on light panels over a smooth background, the pattern of
+    tests/test_enc_patches.py's _text_image(flat=False) repeated on a
+    256 x 192 cell across the frame (at 192x256 it is that image): two
+    11x9 glyphs alternating on a 16 x 14 pitch, which the host encoder's
+    effort-7 patch detector turns into a reference-only atlas frame and a
+    patch dictionary."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.clip(np.stack([
+        140 + 40 * np.sin(yy / 90), 150 + 30 * np.cos(xx / 120),
+        130 + 20 * np.sin((xx + yy) / 150)], -1), 0, 255).astype(np.uint8)
+    glyph = np.zeros((11, 9), bool)
+    glyph[1:10, 2:4] = True
+    glyph[1:3, 2:8] = True
+    glyph[5:7, 2:7] = True
+    g2 = np.zeros((11, 9), bool)
+    g2[1:10, 4:6] = True
+    g2[8:10, 2:8] = True
+    for cy in range(0, h, 192):
+        for cx in range(0, w, 256):
+            img[cy + 20:min(cy + 120, h), cx + 16:min(cx + 240, w)] = 245
+            for k, gy in enumerate(range(cy + 24, cy + 110, 16)):
+                for gx in range(20, 230, 14):
+                    if gy + 11 > h or cx + gx + 9 > w:
+                        continue
+                    reg = img[gy:gy + 11, cx + gx:cx + gx + 9]
+                    reg[glyph if (gx // 14 + k) % 2 else g2] = 25
+    return img
+
+
+def _copy_bits(bw: BitWriter, data: bytes, start: int, end: int) -> None:
+    """Bits [start, end) of data appended to bw, bit for bit."""
+    br = BitReader(data)
+    br.pos = start
+    while br.pos < end:
+        n = min(32, end - br.pos)
+        bw.u(br.u(n), n)
+
+
+def _sections(cs: bytes, toc) -> list:
+    return [cs[s.offset:s.offset + s.size]
+            for s in (toc.section(i) for i in range(len(toc.entries)))]
+
+
+def _frame_bytes(bw: BitWriter, hdr, fh, sections) -> None:
+    """A frame (header, TOC, the sections' bytes) written into bw."""
+    write_frame_header(bw, fh, hdr)
+    write_toc(bw, [len(s) for s in sections])
+    for s in sections:
+        bw.append_bits(s, len(s) * 8)
+
+
+def _one_frame(data: bytes):
+    cs, hdr, frames = api._read_frames(data)
+    if len(frames) != 1:
+        raise ValueError("a one-frame stream is expected")
+    return (cs, hdr) + frames[0]
+
+
+def seeded_splines(h: int, w: int, n: int, seed: int = 5):
+    """n splines of 3-5 control points across an (h, w) frame, with
+    seeded colour and sigma DCT coefficients (a few low frequencies)."""
+    from jxl_coder_tpu_torch.host.vardct.splines import (QuantizedSpline,
+                                                         Splines)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        k = int(rng.integers(3, 6))
+        start = rng.uniform((0, 0), (w, h))
+        steps = rng.normal(0, min(h, w) / 12, (k - 1, 2))
+        pts = np.rint(np.clip(np.cumsum(np.vstack([start, steps]), 0),
+                              0, (w - 1, h - 1)))
+        color = np.zeros((3, 32), np.int64)
+        color[:, :4] = rng.integers(-40, 41, (3, 4))
+        sigma = np.zeros(32, np.int64)
+        sigma[0] = rng.integers(4, 12)
+        sigma[1:3] = rng.integers(-2, 3, 2)
+        out.append(QuantizedSpline(points=pts.astype(np.float64),
+                                   color_dct=color, sigma_dct=sigma))
+    return Splines(quantization_adjustment=int(rng.integers(-2, 3)),
+                   splines=out)
+
+
+def with_splines(data: bytes, splines) -> bytes:
+    """A one-frame VarDCT stream with splines added: flag kSplines set,
+    Splines.write's bits at the head of LfGlobal and the old section after
+    them bit for bit (a frame of one section: the whole of it), the frame
+    header and the TOC written again."""
+    cs, hdr, fh, toc = _one_frame(data)
+    if fh.flags & 0x12:
+        raise ValueError("the frame already has patches or splines")
+    secs = _sections(cs, toc)
+    head = BitWriter()
+    splines.write(head)
+    _copy_bits(head, secs[0], 0, 8 * len(secs[0]))
+    head.zero_pad_to_byte()
+    fh.flags |= 0x10
+    bw = BitWriter()
+    write_image_header(bw, hdr)
+    _frame_bytes(bw, hdr, fh, [head.to_bytes()] + secs[1:])
+    return bw.to_bytes()
+
+
+def with_lf_frame(data: bytes) -> bytes:
+    """A one-frame VarDCT stream rewritten with its DC in an LF frame: a
+    Modular LF frame (lf_level 1) of the frame's DC planes quantized under
+    DEFAULT_DC_QUANT, with (Y, X, B-Y) channels as _encode_with_patches
+    writes its atlas, then the VarDCT frame with kUseDcFrame, each LF
+    group cut, bit for bit, to its AC-metadata stream (its extra
+    precision and DC stream dropped)."""
+    from jxl_coder_tpu_torch.host.bitstream.frame_header import (
+        FrameType, RestorationFilter)
+    from jxl_coder_tpu_torch.host.modular.stream import decode_modular_stream
+    from jxl_coder_tpu_torch.host.vardct.dec_real import compute_dc_planes
+    cs, hdr, fh, toc = _one_frame(data)
+    if fh.flags & 0x20 or hdr.metadata.extra_channels:
+        raise ValueError("a frame without a DC frame or extra channels is "
+                         "expected")
+    w, h = fh.coded_size(hdr)
+    xs_b, ys_b = -(-w // 8), -(-h // 8)
+    _ng, ndc = fh.counts(hdr)
+    single = len(toc.entries) == 1
+    secs = _sections(cs, toc)
+    br0 = BitReader(secs[0])
+    lf = read_lf_global(br0, fh, hdr, w, h)
+    dc = np.zeros((3, ys_b, xs_b))
+    cuts = []          # per LF group: (section, DC start bit, DC end bit)
+    gx = -(-xs_b // 256)
+    for gi in range(ndc):
+        lx, ly = (gi % gx) * 256, (gi // gx) * 256
+        gw, gh = min(256, xs_b - lx), min(256, ys_b - ly)
+        br = br0 if single else BitReader(secs[1 + gi])
+        start = br.pos
+        probe = BitReader(br.data)
+        probe.pos = start
+        lg = read_lf_group(br, lf, gw, gh, gi, ndc)
+        probe.u(2)
+        decode_modular_stream(probe, ModularImage(
+            [Channel(gw, gh) for _ in range(3)]), stream_id=1 + gi,
+            global_tree=lf.gtree, global_code=lf.gcode)
+        cuts.append((0 if single else 1 + gi, start, probe.pos))
+        dcp = compute_dc_planes(lf, lg)
+        for c in range(3):
+            dc[c, ly:ly + gh, lx:lx + gw] = dcp[c]
+    q0, q1, q2 = DEFAULT_DC_QUANT
+    cy = np.rint(dc[1] / q1).astype(np.int32)
+    cx = np.rint(dc[0] / q0).astype(np.int32)
+    cb = (np.rint(dc[2] / q2) - cy).astype(np.int32)
+    fh_lf = FrameHeader(frame_type=FrameType.LF_FRAME,
+                        encoding=Encoding.MODULAR, lf_level=1, is_last=False,
+                        restoration_filter=RestorationFilter(gab=False,
+                                                             epf_iters=0))
+    bw = BitWriter()
+    write_image_header(bw, hdr)
+    R.encode_modular_frame(bw, hdr, fh_lf, [cy, cx, cb], use_ycocg=False)
+    new = list(secs)
+    for idx, a, b in cuts:
+        # a section of its own: from the DC's end on; one section for the
+        # frame: LF global and what follows the DC stay around the cut
+        cut = BitWriter()
+        _copy_bits(cut, secs[idx], 0, a if single else 0)
+        _copy_bits(cut, secs[idx], b, 8 * len(secs[idx]))
+        cut.zero_pad_to_byte()
+        new[idx] = cut.to_bytes()
+    fh.flags |= 0x20
+    _frame_bytes(bw, hdr, fh, new)
+    return bw.to_bytes()
+
+
+def patch_dictionary(patches, num_extra: int = 0) -> BitWriter:
+    """The wire form of a patch dictionary (PatchDictionary.read's
+    mirror): patches [(slot, (x0, y0, w, h), [(x, y), ...], mode, clamp)],
+    each placement blended by `mode` in every channel set."""
+    from jxl_coder_tpu_torch.host.bitstream.reader import pack_signed
+    from jxl_coder_tpu_torch.host.entropy.coder import TokenStream
+    from jxl_coder_tpu_torch.host.vardct import patches as P
+    ts = TokenStream(P.NUM_PATCH_CONTEXTS, use_ans=True)
+    ts.add(P.CTX_NUM_REF_PATCH, len(patches))
+    for slot, (x0, y0, pw, ph), places, mode, clamp in patches:
+        ts.add(P.CTX_REFERENCE_FRAME, slot)
+        ts.add(P.CTX_PATCH_REFERENCE_POSITION, x0)
+        ts.add(P.CTX_PATCH_REFERENCE_POSITION, y0)
+        ts.add(P.CTX_PATCH_SIZE, pw - 1)
+        ts.add(P.CTX_PATCH_SIZE, ph - 1)
+        ts.add(P.CTX_PATCH_COUNT, len(places) - 1)
+        for i, (x, y) in enumerate(places):
+            if i == 0:
+                ts.add(P.CTX_PATCH_POSITION, x)
+                ts.add(P.CTX_PATCH_POSITION, y)
+            else:
+                ts.add(P.CTX_PATCH_OFFSET, pack_signed(x - places[i - 1][0]))
+                ts.add(P.CTX_PATCH_OFFSET, pack_signed(y - places[i - 1][1]))
+            for _j in range(num_extra + 1):
+                ts.add(P.CTX_PATCH_BLEND_MODE, mode)
+                if P._uses_alpha(mode) and num_extra > 1:
+                    ts.add(P.CTX_PATCH_ALPHA_CHANNEL, 0)
+                if P._uses_clamp(mode):
+                    ts.add(P.CTX_PATCH_CLAMP, int(clamp))
+    bw = BitWriter()
+    ts.write(bw)
+    return bw
+
+
+def _image_header(h: int, w: int, alpha: bool = False) -> ImageHeader:
+    m = ImageMetadata()
+    m.bit_depth = BitDepth(False, 8, 0)
+    if alpha:
+        ec = ExtraChannelInfo(type=ExtraChannelType.ALPHA)
+        ec.bit_depth = BitDepth(False, 8, 0)
+        m.extra_channels = [ec]
+    return ImageHeader(size=SizeHeader(xsize=w, ysize=h), metadata=m)
+
+
+def vardct_reference_still(img: np.ndarray) -> bytes:
+    """Two VarDCT frames by the host encoder: a reference-only frame
+    (slot 2, saved before the colour transform) of img's top-left quarter,
+    then img with patches from it in every blend the decode path tells
+    apart: REPLACE, ADD, MUL with and without clamp, and BLEND_ABOVE and
+    ALPHA_ADD_BELOW (REPLACE and ADD without extra-channel planes), some
+    overlapping, one placement on the frame's last pixels."""
+    from jxl_coder_tpu_torch.host.bitstream.frame_header import FrameType
+    from jxl_coder_tpu_torch.host.vardct import patches as P
+    h, w = img.shape[:2]
+    rh, rw = h // 2, w // 2
+    hdr = _image_header(h, w)
+    bw = BitWriter()
+    write_image_header(bw, hdr)
+    R.encode_vardct(np.ascontiguousarray(img[:rh, :rw]), distance=1.0,
+                    effort=5, fh=FrameHeader(
+                        frame_type=FrameType.REFERENCE_ONLY, is_last=False,
+                        save_as_reference=2, save_before_color_transform=True,
+                        have_crop=True, frame_width=rw, frame_height=rh),
+                    hdr=hdr, into_bw=bw)
+    pd = patch_dictionary([
+        (2, (0, 0, 20, 12), [(3, 5), (w - 20, h - 12)], P.BLEND_REPLACE,
+         False),
+        (2, (5, 4, 16, 16), [(10, 9), (40, 20)], P.BLEND_ADD, False),
+        (2, (1, 2, 24, 9), [(12, 14)], P.BLEND_MUL, True),
+        (2, (rw - 9, rh - 7, 9, 7), [(30, 30), (31, 31)], P.BLEND_MUL,
+         False),
+        (2, (2, 3, 11, 13), [(50, 2)], P.BLEND_BLEND_ABOVE, True),
+        (2, (7, 1, 13, 6), [(20, 40)], P.BLEND_ALPHA_ADD_BELOW, False)])
+    R.encode_vardct(img, distance=1.0, effort=5, fh=FrameHeader(is_last=True),
+                    hdr=hdr, into_bw=bw, patch_dict_bw=pd)
+    bw.zero_pad_to_byte()
+    return bw.to_bytes()
+
+
+def patched_alpha_still(img: np.ndarray, alpha: np.ndarray) -> bytes:
+    """_encode_with_patches' two frames for an image with alpha, which
+    its effort-7 gate declines: enc_patches.detect's Modular atlas frame
+    (with an opaque alpha channel), then img and its lossless alpha with
+    the dictionary, each placement's extra channel blended too (which the
+    decode path ignores, as the reference's)."""
+    from jxl_coder_tpu_torch.host.bitstream.frame_header import (
+        FrameType, RestorationFilter)
+    from jxl_coder_tpu_torch.host.vardct import enc_patches as EPAT
+    h, w = img.shape[:2]
+    plan = EPAT.detect(img)
+    if plan is None:
+        raise ValueError("the image has no repeated glyphs")
+    hdr = _image_header(h, w, alpha=True)
+    bw = BitWriter()
+    write_image_header(bw, hdr)
+    ah, aw = plan.atlas.shape[1:]
+    fh_ref = FrameHeader(frame_type=FrameType.REFERENCE_ONLY,
+                         encoding=Encoding.MODULAR, is_last=False,
+                         save_as_reference=1,
+                         save_before_color_transform=True, have_crop=True,
+                         frame_width=aw, frame_height=ah,
+                         restoration_filter=RestorationFilter(gab=False,
+                                                              epf_iters=0))
+    fh_ref.ec_blending_info = [BlendingInfo()]
+    fh_ref.ec_upsampling = [1]
+    Xa, Ya, Ba = plan.atlas
+    q0, q1, q2 = DEFAULT_DC_QUANT
+    cy = np.rint(Ya / q1).astype(np.int32)
+    cx = np.rint(Xa / q0).astype(np.int32)
+    cb = (np.rint(Ba / q2) - cy).astype(np.int32)
+    R.encode_modular_frame(bw, hdr, fh_ref,
+                           [cy, cx, cb, np.full((ah, aw), 255, np.int32)],
+                           use_ycocg=False)
+    R.encode_vardct(plan.filled, distance=1.0, effort=7,
+                    fh=FrameHeader(is_last=True), hdr=hdr, into_bw=bw,
+                    alpha=alpha, patch_dict_bw=EPAT.serialize_dictionary(
+                        plan, num_extra=1))
+    bw.zero_pad_to_byte()
+    return bw.to_bytes()

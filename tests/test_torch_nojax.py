@@ -231,6 +231,47 @@ def test_port_runs_in_a_directory_without_the_jax_package(tmp_path):
         "libhostcodec-*.so"))
 
 
+def test_patched_and_lf_streams_without_the_jax_package(tmp_path):
+    """The same copy, jax and jxl_coder_tpu blocked: the host encoder's
+    effort-7 patch path (host/vardct/enc_patches.py, the atlas frame, the
+    dictionary) writes text as two frames, port_fixtures splices splines
+    and an LF frame into a stream, and api.decode / decode_batch read all
+    three on the CPU within one code of the float64 host decoder
+    (host/vardct/patches.py, splines.py, the frame walk)."""
+    shutil.copytree(PKG, tmp_path / "jxl_coder_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(REPO / "port_fixtures.py", tmp_path)
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None        # any `import jax` now fails
+        sys.modules["jxl_coder_tpu"] = None
+        import numpy as np
+        from jxl_coder_tpu_torch import api, reference
+        import port_fixtures as F
+        text = reference.encode_vardct(F.text_frame(192, 256), distance=1.0,
+                                       effort=7)
+        base = reference.encode_vardct(F.bench_frame(40, 64), distance=1.0,
+                                       effort=7)
+        datas = [text, F.with_splines(base, F.seeded_splines(40, 64, 2)),
+                 F.with_lf_frame(base)]
+        outs = api.decode_batch(datas, device="cpu")
+        worst = []
+        for out, data in zip(outs, datas):
+            assert np.array_equal(out, api.decode(data, device="cpu")[0])
+            host = reference.decode_float64(data)
+            worst.append(int(np.abs(out.astype(int) - host.astype(int)).max()))
+        assert not any(m.split(".")[0] in ("jax", "jxl_coder_tpu")
+                       for m, v in sys.modules.items() if v is not None)
+        print(len(api._read_frames(text)[2]), worst)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    frames, worst = res.stdout.split(maxsplit=1)
+    assert frames == "2" and max(eval(worst)) <= 1, res.stdout
+
+
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     """A kernel that cannot be built raises; nothing falls back."""
     from jxl_coder_tpu_torch import _build
