@@ -1,6 +1,7 @@
 """Drive the PyTorch port's VarDCT still decode (with its post stages,
 extra channels, patches, splines, reference-only and LF frames), its
-Modular still decode and its round-1 VarDCT codec on one CUDA card.
+Modular still decode, its sampled decode and pixel ops and its round-1
+VarDCT codec on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -115,7 +116,7 @@ prints no result):
      on the same bytes and route, in turns, every output equal to
      api.decode's (0 codes), with the host halves' time alone and in the
      batch, the CPU used, the peak device memory and the card's busy
-     share of a profiled batch call; then the worker count (2, 4, the
+     share of a profiled batch call; then the worker count (2 and the
      host's cores) and the files in flight (1-3) swept;
  14. patches, splines, reference-only and LF frames (streams written and
      held to the float64 host decoder in the worker processes during
@@ -137,7 +138,23 @@ prints no result):
      (M1); A8 and A9 at 4K by CUDA graph against twin, bound and the JAX
      route's dense x * mul + add; a mixed decode_batch of the three 4K
      streams, the 4K d1.0 e7 frame and the 4K Modular RCT still, equal to
-     api.decode.
+     api.decode;
+ 15. the sampled decode (jxl_coder_tpu_torch.api.decode_sampled) on the 4K
+     d1.0 e7 frame, the 4K RGBA16 noise + PQ stream of phase 12, the 4K
+     text of phase 14 and the 4K Modular RCT still, at 480x270 (the
+     thumbnail: the DC image, or a full decode and the 8x box S2), 960x540
+     (the quarter route: the down pool S1 before the output encoding, where
+     the still is eligible), 1920x1080 FIT and 1000x1000 FILL (a full
+     decode and the banded resample S3), in every colour config (the
+     reformat S4, with the HDR -> SDR tone map for an SDR format of the PQ
+     stream): counted, every plain twin made to raise, each call's launches
+     held to its route (no synthesis and no pass group on the thumbnail
+     route); every S1-S4 call of those decodes against its twin (S2 and the
+     packers equal, S1 and S3 within 1 code); the thumbnails against the
+     float64 host thumbnail; decode_sampled split into its layers inside
+     the same calls (M1) beside api.decode on the same bytes; S1-S4 at
+     their 4K shapes by CUDA graph against twin, bound and, for S3, the
+     dense float32 matmul pair.
 Every kernel's line carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its operations over their type's rate: 67 TFLOP/s for f32, 34 for
@@ -182,6 +199,10 @@ from jxl_coder_tpu_torch.host.modular.frame import ModularFrameDecoder
 from jxl_coder_tpu_torch.host.vardct.dec_real import BlockArrays
 from jxl_coder_tpu_torch.modular import device as MDEV
 from jxl_coder_tpu_torch.modular import output as MOUT
+from jxl_coder_tpu_torch.ops import pack as PACK
+from jxl_coder_tpu_torch.ops import resize as RESIZE
+from jxl_coder_tpu_torch.ops import sample as SAMPLE
+from jxl_coder_tpu_torch.ops import tone as TONE
 from jxl_coder_tpu_torch.vardct import (color, dct8, filters, inputs, post,
                                         synth)
 from jxl_coder_tpu_torch.vardct import detile as DT
@@ -248,6 +269,16 @@ KERNELS = {
     "draw_splines": dict(fn=OV.draw_splines,
                          source="jxl_coder_tpu_torch/csrc/overlay.cu",
                          replaces="jxl_coder_tpu/vardct/tpu_full.py:835"),
+    "encode_output_down": dict(fn=post.encode_output_down,
+                               source="jxl_coder_tpu_torch/csrc/post.cu",
+                               replaces="jxl_coder_tpu/vardct/tpu_full.py:862"),
+    "box_codes": dict(fn=SAMPLE.box_codes, source="jxl_coder_tpu_torch/csrc/sample.cu",
+                      replaces="jxl_coder_tpu/api.py:1062"),
+    "rescale_image": dict(fn=RESIZE.rescale_image,
+                          source="jxl_coder_tpu_torch/csrc/sample.cu",
+                          replaces="jxl_coder_tpu/ops/resize.py:108"),
+    "convert": dict(fn=PACK.convert, source="jxl_coder_tpu_torch/csrc/pixel_ops.cu",
+                    replaces="jxl_coder_tpu/ops/pack.py:62"),
 }
 # the round-1 encoder's sources: a change to any of them re-encodes
 LEGACY_ENCODER = [sys.modules[m].__file__ for m in (
@@ -2866,7 +2897,8 @@ def batch_phase(vardct: dict, modular: dict, posted: dict,
              "8x 4k modular rct": ([modular["4k_rct"]] * 8, "host")}
     for label, (datas, entropy) in sweep.items():
         times = {}
-        for workers in sorted({2, 4, os.cpu_count() or 8}):
+        # 2 workers and the host's cores (4 workers measured between them)
+        for workers in sorted({2, os.cpu_count() or 8}):
             times[workers] = timed_batch(datas, entropy, workers,
                                          BATCH.IN_FLIGHT)[1]
         seq = ("" if label in batches else f"; sequential api.decode "
@@ -3310,6 +3342,444 @@ def overlay_phase(jobs: dict, vardct: dict, modular: dict, dev, card: str,
           f"api.decode's [{card}]", flush=True)
     print(f"phase 14 (patches, splines, LF and reference frames) took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(counts, layers=layers,
+                streams={label: data for label, (data, _) in streams.items()})
+
+
+# ---- the sampled decode (phase 15) ----
+
+SAMPLED_KERNELS = ("encode_output_down", "box_codes", "rescale_image",
+                   "convert")
+# what a sampled decode on the card must not run: every plain twin of its
+# path
+SAMPLED_TWINS = OVERLAY_TWINS + (
+    (post, ("encode_output_down_plain", "pool_plain")),
+    (SAMPLE, ("box_codes_plain",)),
+    (RESIZE, ("rescale_image_plain", "resize_plane_stack_plain")),
+    (PACK, ("convert_plain", "unpack_plain")),
+    (TONE, ("sdr_codes_plain",)))
+FIT, FILL = int(api.ScaleMode.FIT), int(api.ScaleMode.FILL)
+# target: (width, height, scale mode) of decode_sampled on the 4K streams
+SAMPLED_TARGETS = {"thumbnail 480x270": (480, 270, FIT),
+                   "quarter 960x540": (960, 540, FIT),
+                   "fhd 1920x1080 FIT": (1920, 1080, FIT),
+                   "1000x1000 FILL": (1000, 1000, FILL)}
+SAMPLED_CONFIGS = tuple(int(c) for c in api.PreferredColorConfig)
+# the kernels whose launches each sampled call is held to
+SAMPLED_WATCH = SAMPLED_KERNELS + ("restore_and_output", "encode_output",
+                                   "synth_family", "synth_dct8",
+                                   "rct_inverse")
+# least operations per output value: S1 (down 4) the 16-term sums of three
+# planes and their means (3 x 17) and the sRGB output (69); S2 the 64-term
+# sum and the rounding (4); S4 the division (1 a channel), the packing's
+# multiply, round and clamp (4 a channel); S3 counts its bands' taps
+SAMPLED_OPS = {"encode_output_down": 3 * 17 + 69, "box_codes": 68,
+               "convert": 5 * 4}
+
+
+def sampled_expect(label: str, target: str) -> tuple:
+    """(route, the launches each call of it makes): the thumbnail of a
+    VarDCT frame its DC (kernel 2's output step, or A7 for PQ; no
+    synthesis, no pass group), of the Modular still a full decode and S2;
+    the quarter route S1 for the one eligible stream (the others decode
+    whole); a target other than the decoded size S3; S4 always."""
+    vardct, pq = label != "4k_rct", label == "4k_rgba16_noise_pq"
+    if target.startswith("thumbnail"):
+        route = "thumbnail" if vardct else "full + S2"
+    elif target.startswith("quarter") and label == "4k_d1.0_e7":
+        route = "quarter"
+    else:
+        route = "full"
+    want = dict(encode_output_down=int(route == "quarter"),
+                box_codes=int(route == "full + S2"),
+                rescale_image=int(route == "full"), convert=1)
+    if route == "thumbnail":
+        want.update(synth_family=0, synth_dct8=0, rct_inverse=0,
+                    restore_and_output=int(not pq), encode_output=int(pq),
+                    read_pass_group=0)
+    elif route == "quarter":
+        want.update(restore_and_output=1, encode_output=0)
+    return route, want
+
+
+@contextlib.contextmanager
+def recorded(calls: dict, current: list):
+    """Record the first call of each of S1-S4 per (stream, target) (S4:
+    per colour config too) on the sampled path: its arguments and output."""
+    saved = []
+
+    def wrap(owner, name, key_len):
+        orig = getattr(owner, name)
+
+        @functools.wraps(orig)
+        def call(*args, **kwargs):
+            before = call.launches
+            out = orig(*args, **kwargs)
+            # a wrapper that replaces the kernel's own module name takes
+            # the count orig adds through that name: hand it back
+            orig.launches += call.launches - before
+            calls.setdefault((name,) + tuple(current[:key_len]),
+                             (args, kwargs, out))
+            return out
+        saved.append((owner, name, orig))
+        setattr(owner, name, call)
+
+    wrap(post, "encode_output_down", 2)
+    wrap(api, "box_codes", 2)
+    wrap(api, "rescale_image", 2)
+    wrap(PACK, "convert", 3)
+    try:
+        yield
+    finally:
+        for owner, name, orig in reversed(saved):
+            setattr(owner, name, orig)
+
+
+@contextlib.contextmanager
+def counted(owner, name: str, count: list):
+    """owner.name, counting its calls in count[0]."""
+    orig = getattr(owner, name)
+
+    def call(*args, **kwargs):
+        count[0] += 1
+        return orig(*args, **kwargs)
+    setattr(owner, name, call)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def packed_fields(t: torch.Tensor) -> torch.Tensor:
+    """A packed output's fields as float64 codes (F16: the values x 2048)."""
+    if t.dtype in (torch.uint16, torch.uint32):
+        v = t.to(torch.int64)
+        if t.dtype == torch.uint16:
+            return torch.stack([(v >> 11) & 31, (v >> 5) & 63, v & 31],
+                               -1).double()
+        return torch.stack([v & 1023, (v >> 10) & 1023, (v >> 20) & 1023,
+                            (v >> 30) & 3], -1).double()
+    if t.dtype == torch.float16:
+        return t.double() * 2048
+    return t.double()
+
+
+def check_sampled_kernels(calls: dict) -> None:
+    """Each kernel's main-path calls against its twin on the same inputs:
+    S1 and S3 within 1 code (S3 on an image with unassociated alpha: its
+    colour times alpha, within 1 code and the float32 difference of the
+    two sums times maxv, 1.02), S2 equal, S4 equal (within 1 field code
+    where it tone-maps: the transfer functions' powf and expf are CUDA's
+    in the kernel and glibc's in the twin)."""
+    twins = {"encode_output_down": post.encode_output_down_plain,
+             "box_codes": SAMPLE.box_codes_plain,
+             "rescale_image": RESIZE.rescale_image_plain,
+             "convert": PACK.convert_plain}
+    worst = {}
+    for key, (args, kwargs, out) in calls.items():
+        name = key[0]
+        ref = twins[name](*args, **kwargs)
+        if ref.shape != out.shape or ref.dtype != out.dtype:
+            raise AssertionError(f"{key}: {tuple(out.shape)} {out.dtype} vs "
+                                 f"the twin's {tuple(ref.shape)} {ref.dtype}")
+        fields = packed_fields if name == "convert" else torch.Tensor.double
+        diff = (fields(out) - fields(ref)).abs()
+        tone = name == "convert" and len(args) > 2 and args[2] is not None
+        premultiplied = (args[5] if len(args) > 5
+                         else kwargs.get("premultiplied", False))
+        alpha = (name == "rescale_image" and out.shape[-1] in (2, 4)
+                 and not premultiplied)
+        if alpha:
+            # unassociated alpha: the colour is divided by the filtered
+            # alpha, which multiplies the two sums' float32 difference by
+            # 1 / alpha; held as colour x alpha (the premultiplied colour
+            # the filter computes), alpha itself as it is
+            a = ref[..., -1:].double() / RESIZE._DTYPES[ref.dtype][1]
+            diff = torch.cat([diff[..., :-1] * a, diff[..., -1:]], -1)
+        d = diff.max().item()
+        group = key[:3] + (tone,)
+        what = (f"{tuple(args[0].shape)} {args[0].dtype}"
+                + (" (tone map)" if tone else "")
+                + (" (colour x alpha)" if alpha else ""))
+        worst[group] = max(worst.get(group, (0.0, what)), (d, what))
+    for (name, label, target, tone), (d, what) in worst.items():
+        # colour x alpha: 1 code, and the float32 difference times maxv
+        tol = {"box_codes": 0, "convert": 1 if tone else 0}.get(
+            name, 1.02 if "alpha" in what else 1)
+        note_err(name, d, tol, f"the sampled path's {label} {target} {what}"
+                 + (" (every colour config)" if name == "convert" else ""))
+
+
+def check_thumbnails(streams: dict, calls: dict) -> None:
+    """The thumbnail route's codes (S4's input) against the float64 host
+    thumbnail (reference.thumbnail_float64, the JAX package's host
+    computation): within 1 code on < 0.1%; PQ by its mean and 99.9th
+    percentile (PQ_LIMITS), its max and share beyond 64 codes printed: the
+    DC image's near-black values move a float32 conversion by up to ~100
+    codes as the full frame's do (PQ_LIMITS' note), and the thumbnail holds
+    64x fewer values, so a handful of them (1 of 43,740 at 720x1296 on the
+    CPU) is above PQ_OVER_SHARE there."""
+    thumbnail = next(iter(SAMPLED_TARGETS))
+    for label, data in streams.items():
+        key = ("convert", label, thumbnail, SAMPLED_CONFIGS[0])
+        if label == "4k_rct":
+            continue
+        codes = calls[key][0][0].cpu().numpy()
+        ref = reference.thumbnail_float64(data)
+        what = f"thumbnail {label} vs the float64 host thumbnail"
+        if label == "4k_rgba16_noise_pq":
+            c = pq_codes(codes, ref)
+            print(f"{what}: {pq_what(c)}", flush=True)
+            if codes.shape != ref.shape or not (
+                    c[0] < PQ_LIMITS[0] and c[1] <= PQ_LIMITS[1]):
+                raise AssertionError(f"{what}: outside the PQ limits")
+        else:
+            within_one_code(codes, ref, what)
+
+
+SAMPLED_LAYERS = {
+    "host half (parse, pack)": ("host_half", "_dc_host",
+                                "_quarter_eligible"),
+    "device half (h2d, kernels; synchronised)": ("device_half",
+                                                 "_dc_device"),
+    "S2 box": ("box_codes",),
+    "S3 rescale": ("rescale_image",),
+    "S4 reformat": ("reformat",),
+    "d2h": ("d2h",),
+    "rest (headers, orientation)": ("basic_info", "parse_header", "orient"),
+}
+
+
+@contextlib.contextmanager
+def split_sampled(log: list):
+    """Wrap the functions api.decode_sampled calls (the device steps
+    synchronise in their wrappers; S4's output's .cpu().numpy() logs
+    d2h); restore them on exit."""
+    saved = []
+
+    def wrap(owner, name, wrapper):
+        saved.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, wrapper)
+
+    device = ("device_half", "_dc_device", "box_codes", "rescale_image")
+    for names in SAMPLED_LAYERS.values():
+        for name in names:
+            if name not in ("d2h", "reformat"):
+                wrap(api, name, tspan(getattr(api, name), name, log,
+                                      sync=name in device))
+    reformat = tspan(PACK.reformat, "reformat", log, sync=True)
+    wrap(api, "PACK", type("Pack", (), {"reformat": staticmethod(
+        lambda *a, **k: PixelsT(reformat(*a, **k), log))}))
+    try:
+        yield
+    finally:
+        for owner, name, orig in reversed(saved):
+            setattr(owner, name, orig)
+
+
+def sampled_layers(label: str, data: bytes, card: str, runs: int,
+                   targets) -> dict:
+    """M1 for decode_sampled at `targets` (RGBA_8888): `runs` split calls
+    in turns with as many unwrapped ones and as many api.decode calls on
+    the same bytes; raises if a split call's layers miss its own total by
+    more than 2%.  Returns the medians (ms) by target."""
+    med = statistics.median
+    out = {}
+    for target in targets:
+        w, h, mode = SAMPLED_TARGETS[target]
+        split, unsplit, full = [], [], []
+
+        def sampled():
+            return api.decode_sampled(data, w, h, 2, mode, device="cuda")
+
+        sampled()   # warm: the split calls time no first call's work
+        for i in range(3 * runs):
+            torch.cuda.synchronize()
+            turn = i % 3 if i // 3 % 2 == 0 else 2 - i % 3
+            with no_gc():
+                t0 = time.perf_counter()
+                if turn == 0:
+                    log = []
+                    with split_sampled(log):
+                        t0 = time.perf_counter()
+                        sampled()
+                        split.append(((time.perf_counter() - t0) * 1e3, log))
+                elif turn == 1:
+                    sampled()
+                    unsplit.append((time.perf_counter() - t0) * 1e3)
+                else:
+                    api.decode(data, device="cuda")
+                    full.append((time.perf_counter() - t0) * 1e3)
+        per = {k: [] for k in SAMPLED_LAYERS}
+        for total, log in split:
+            own, _other = exclusive_ms(log)
+            for k, names in SAMPLED_LAYERS.items():
+                per[k].append(sum(own.get(n, 0.0) for n in names))
+        sums = [sum(v[n] for v in per.values()) for n in range(len(split))]
+        gaps = [abs(sums[n] - t) / t for n, (t, _) in enumerate(split)]
+        if max(gaps) > 0.02:
+            raise AssertionError(f"split sampled decode {label} {target}: its "
+                                 f"layers miss the call's total by "
+                                 f"{max(gaps):.2%}")
+        m = {k: med(v) for k, v in per.items()}
+        t_s, t_u, t_d = med(t for t, _ in split), med(unsplit), med(full)
+        print(f"layers sampled {label} {target} (host clock, ms, median of "
+              f"{runs} split decode_sampled calls, RGBA_8888): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in m.items())
+              + f"; each call's layers summed within {max(gaps):.2%} of its "
+              f"total; split calls {t_s:.1f}; unsplit decode_sampled "
+              f"{t_u:.1f}; api.decode on the same bytes {t_d:.1f} "
+              f"(sampled / decode {t_u / t_d:.3f}) [{card}]", flush=True)
+        out[target] = dict(m, total=t_u, decode=t_d)
+    return out
+
+
+def sampled_timings(calls: dict, card: str, ms: dict) -> None:
+    """S1-S4 at the main path's 4K shapes by CUDA graph against their twins
+    (CUDA events) and bounds; S3 beside the dense float32 matrix pair."""
+    thumb, quarter, fhd, _fill = SAMPLED_TARGETS
+    args, kw, out = calls["encode_output_down", "4k_d1.0_e7", quarter]
+    xyb = args[0]
+    note_bound("encode_output_down", nbytes(xyb, out),
+               out.numel() // 3 * SAMPLED_OPS["encode_output_down"])
+    ms["encode_output_down"] = (
+        graph_ms(lambda: post.encode_output_down(*args, **kw)),
+        device_ms(lambda: post.encode_output_down_plain(*args, **kw)))
+    shapes = {"encode_output_down": f"{tuple(xyb.shape)} f32 -> "
+              f"{tuple(out.shape)} {out.dtype}"}
+    args, kw, out = calls["box_codes", "4k_rct", thumb]
+    note_bound("box_codes", nbytes(args[0], out),
+               out.numel() * SAMPLED_OPS["box_codes"])
+    ms["box_codes"] = (graph_ms(lambda: SAMPLE.box_codes(*args, **kw)),
+                       device_ms(lambda: SAMPLE.box_codes_plain(*args, **kw)))
+    shapes["box_codes"] = (f"{tuple(args[0].shape)} -> {tuple(out.shape)} "
+                           f"{out.dtype}")
+    args, kw, out = calls["rescale_image", "4k_d1.0_e7", fhd]
+    img = args[0]
+    h, w, c = img.shape
+    pl, fid = RESIZE.HR.plan(h, w, *args[1:4]), args[4]
+    bv = RESIZE.HR.band(h, pl.oh, fid, pl.y0, pl.ch)
+    bh = RESIZE.HR.band(w, pl.ow, fid, pl.x0, pl.cw)
+    taps = 2 * c * (int(bv.length.sum()) * w + int(bh.length.sum()) * pl.ch)
+    note_bound("rescale_image", nbytes(img, out), taps)
+    # the kernel's two launches on the bands the wrapper uploads first
+    bnd = RESIZE.bands(h, w, pl, fid, img.device)
+    ms["rescale_image"] = (
+        graph_ms(lambda: RESIZE.resample(img, pl, bnd)),
+        device_ms(lambda: RESIZE.rescale_image_plain(*args, **kw)))
+    # the library yardstick: the reference's two dense float32 products
+    planes = (img.permute(2, 0, 1).float() / 255.0).contiguous()
+    wy = torch.from_numpy(RESIZE.HR.resample_matrix(h, pl.oh, fid)).to(
+        img.device)
+    wx = torch.from_numpy(RESIZE.HR.resample_matrix(w, pl.ow, fid)).to(
+        img.device)
+    LIBRARY_MS["rescale_image"] = graph_ms(
+        lambda: torch.matmul(torch.matmul(wy, planes), wx.T), n=10)
+    shapes["rescale_image"] = (f"{tuple(img.shape)} {img.dtype} -> "
+                               f"{tuple(out.shape)} Mitchell")
+    rgba = torch.cat([img, img[..., :1]], -1)
+    t_rgba = graph_ms(lambda: RESIZE.resample(rgba, pl, bnd))
+    planes4 = (rgba.permute(2, 0, 1).float() / 255.0).contiguous()
+    t_dense4 = graph_ms(lambda: torch.matmul(torch.matmul(wy, planes4),
+                                             wx.T), n=10)
+    print(f"kernel rescale_image at 4k RGBA8 -> {pl.cw}x{pl.ch}: device "
+          f"{t_rgba:.4f} ms (CUDA graph); the dense float32 matmul pair "
+          f"{t_dense4:.4f} ms (TF32 off, "
+          f"{2 * 4 * pl.oh * w * (h + pl.ow) / 1e9:.1f} GFLOP) [{card}]",
+          flush=True)
+    args, kw, out = calls["convert", "4k_d1.0_e7", fhd, 2]
+    px = args[0].numel() // args[0].shape[-1]
+    note_bound("convert", nbytes(args[0], out),
+               px * 4 * SAMPLED_OPS["convert"] // 4)
+    ms["convert"] = (graph_ms(lambda: PACK.convert(*args, **kw)),
+                     device_ms(lambda: PACK.convert_plain(*args, **kw)))
+    shapes["convert"] = (f"{tuple(args[0].shape)} {args[0].dtype} -> "
+                         f"{tuple(out.shape)} {out.dtype}")
+    targs, tkw, tout = calls["convert", "4k_rgba16_noise_pq", fhd, 2]
+    t_tone = graph_ms(lambda: PACK.convert(*targs, **tkw))
+    t_tone_plain = device_ms(lambda: PACK.convert_plain(*targs, **tkw))
+    print(f"kernel convert with the PQ tone map, {tuple(targs[0].shape)} "
+          f"{targs[0].dtype} -> {tuple(tout.shape)} {tout.dtype}: device "
+          f"{t_tone:.4f} ms (CUDA graph), plain twin {t_tone_plain:.4f} ms "
+          f"[{card}]", flush=True)
+    for k in SAMPLED_KERNELS:
+        lib = LIBRARY_MS[k]
+        print(f"kernel {k} at {shapes[k]}: device {ms[k][0]:.4f} ms (CUDA "
+              f"graph), plain twin {ms[k][1]:.4f} ms, bound "
+              f"{BOUND[k][0]:.4f} ms ({BOUND[k][1]}), "
+              + (f"the dense float32 matmul pair {lib:.4f} ms" if lib
+                 else "no PyTorch call computes it") + f" [{card}]",
+              flush=True)
+
+
+def sampled_phase(streams: dict, card: str, ms: dict) -> dict:
+    """Phase 15: the sampled decode.  decode_sampled on the four 4K streams
+    at each target in each colour config, counted, the twins made to
+    raise, each call's launches held to its route; every kernel call of
+    those decodes against its twin; the thumbnail route's codes against
+    the float64 host thumbnail; M1 for decode_sampled beside api.decode;
+    the kernels' timings."""
+    t_phase = time.perf_counter()
+    current, calls, ac = [], {}, [0]
+    watch = SAMPLED_WATCH
+
+    def main_path():
+        got, per = {}, {}
+        for label, data in streams.items():
+            for target, (w, h, mode) in SAMPLED_TARGETS.items():
+                for config in SAMPLED_CONFIGS:
+                    current[:] = [label, target, config]
+                    before = {k: KERNELS[k]["fn"].launches for k in watch}
+                    n_ac = ac[0]
+                    got[label, target, config] = api.decode_sampled(
+                        data, w, h, config, mode, device="cuda")[0]
+                    per[label, target, config] = dict(
+                        {k: KERNELS[k]["fn"].launches - before[k]
+                         for k in watch}, read_pass_group=ac[0] - n_ac)
+        return got, per
+
+    with contextlib.ExitStack() as stack:
+        for module, names in SAMPLED_TWINS:
+            stack.enter_context(forbidden(module, names))
+        stack.enter_context(recorded(calls, current))
+        stack.enter_context(counted(PARSE, "read_pass_group", ac))
+        t0 = time.perf_counter()
+        (got, per), counts = drive("main path (decode_sampled)", main_path,
+                                   SAMPLED_KERNELS)
+        t_main = time.perf_counter() - t0
+    bits = {label: api.basic_info(data).bits_per_sample
+            for label, data in streams.items()}
+    for (label, target, config), launches in per.items():
+        route, want = sampled_expect(label, target)
+        out = got[label, target, config]
+        if config == SAMPLED_CONFIGS[0]:
+            print(f"sampled {label} {target}: route {route}, launches "
+                  f"{launches}, {out.shape} {out.dtype}", flush=True)
+        if any(launches[k] != n for k, n in want.items()):
+            raise AssertionError(f"sampled {label} {target} config {config}: "
+                                 f"launches {launches}, expected {want}")
+        w, h, mode = SAMPLED_TARGETS[target]
+        packed = PACK.fmt_of(config, bits[label]) in (PACK.RGB565,
+                                                       PACK.RGBA1010102)
+        if (mode == FILL and out.shape[:2] != (h, w)) or \
+                packed != (out.ndim == 2):
+            raise AssertionError(f"sampled {label} {target} config {config}: "
+                                 f"{out.shape} {out.dtype}")
+    print(f"main path: {len(per)} decode_sampled calls in {t_main:.1f} s",
+          flush=True)
+    check_sampled_kernels(calls)
+    check_thumbnails(streams, calls)
+    # every target of the 4K d1.0 e7 frame and the PQ stream; the
+    # thumbnail alone of the text and the Modular still (their other
+    # targets are full decodes, as the PQ stream's)
+    thumb = next(iter(SAMPLED_TARGETS))
+    layers = {label: sampled_layers(
+        label, streams[label], card, 2 if label == "4k_d1.0_e7" else 1,
+        list(SAMPLED_TARGETS) if label in ("4k_d1.0_e7", "4k_rgba16_noise_pq")
+        else [thumb]) for label in streams}
+    sampled_timings(calls, card, ms)
+    print(f"phase 15 (the sampled decode) took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return dict(counts, layers=layers)
 
 
@@ -3333,7 +3803,7 @@ def main() -> int:
     # 2. build, one nvcc per source and g++ for the host codec, all at once
     t0 = time.perf_counter()
     sources = ("synth", "filters", "fused_filters", "detile", "entropy",
-               "modular", "post", "overlay")
+               "modular", "post", "overlay", "sample", "pixel_ops")
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host = pool.submit(_build.load_host, "hostcodec")
         list(pool.map(_build.load, sources))
@@ -3341,7 +3811,7 @@ def main() -> int:
     print(f"build: nvcc sm_90a, {len(sources)} sources, and g++ for the host "
           f"codec in {time.perf_counter() - t0:.2f} s", flush=True)
     for name in ("synth", "filters", "fused_filters", "entropy", "modular",
-                 "post", "overlay"):
+                 "post", "overlay", "sample", "pixel_ops"):
         ptxas_report(name)
 
     phase_done("2 (build)")
@@ -3547,6 +4017,16 @@ def main() -> int:
                             card, ms)
     launches.update({k: overlay[k] for k in OVERLAY_KERNELS})
     phase_done("14 (patches, splines, LF and reference frames)")
+
+    # 15. the sampled decode: the thumbnail, the quarter-scale route and the
+    # pixel ops (csrc/post.cu's down pool, csrc/sample.cu, csrc/pixel_ops.cu)
+    sampled = sampled_phase({
+        "4k_d1.0_e7": streams["4k_d1.0_e7"][2],
+        "4k_rgba16_noise_pq": post_counts["streams"]["4k_rgba16_noise_pq"],
+        "4k_text": overlay["streams"]["4k_text"],
+        "4k_rct": modular["streams"]["4k_rct"]}, card, ms)
+    launches.update({k: sampled[k] for k in SAMPLED_KERNELS})
+    phase_done("15 (the sampled decode)")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": spec["source"],

@@ -1,5 +1,6 @@
-"""PyTorch + CUDA port of jxl_coder_tpu's VarDCT still decode, its
-DCT8-only frame path and its round-1 VarDCT codec.
+"""PyTorch + CUDA port of jxl_coder_tpu's VarDCT and Modular still
+decode, its sampled decode and pixel ops, its DCT8-only frame path and
+its round-1 VarDCT codec.
 
 The port needs nothing of ``jxl_coder_tpu``.  Its host layers
 (container, headers, entropy coding, the native host codec, the host
@@ -7,10 +8,11 @@ encoder and float64 decoder, the round-1 framing) are its own copies
 under ``host/``; the family packing is ``vardct/inputs.py``.  The
 device work (synthesis, the gaborish/EPF filters, the XYB -> sRGB
 output, the detile of 8x8 tiles, the round-1 encoder front and
-reconstruction) runs in PyTorch and in hand-written CUDA kernels for
-Hopper (``csrc/``), each with a plain PyTorch twin that the CPU path and
-the tests use.  Entry points:
-``jxl_coder_tpu_torch.api.decode(data, device="cuda")``,
+reconstruction, the resampling, tone mapping and pixel packing) runs in
+PyTorch and in hand-written CUDA kernels for Hopper (``csrc/``), each
+with a plain PyTorch twin that the CPU path and the tests use.  Entry
+points: ``jxl_coder_tpu_torch.api.decode(data, device="cuda")``,
+``decode_batch``, ``decode_sampled``, ``decode_thumbnail``,
 ``jxl_coder_tpu_torch.vardct.dct8.DCT8Frame`` and
 ``jxl_coder_tpu_torch.codec.encode_vardct_still`` /
 ``decode_vardct_still``.

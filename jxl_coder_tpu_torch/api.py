@@ -3,8 +3,11 @@
 ``decode(data, device="cuda")`` decodes a VarDCT or a Modular still;
 ``decode_batch(datas, device="cuda")`` decodes many, the host half of
 each on a worker pool while the card reconstructs earlier ones
-(``batch.py``).  Each decode is ``host_half`` (bytes -> numpy arrays)
-then ``device_half`` (those arrays -> pixels on the device).
+(``batch.py``); ``decode_sampled(data, width, height, ...)`` decodes at a
+target size and pixel format, ``decode_thumbnail`` at 1/8 and
+``_decode_downsampled`` at 1/4 (the sampled decode, below).  Each decode
+is ``host_half`` (bytes -> numpy arrays) then ``device_half`` (those
+arrays -> pixels on the device).
 Its container, header and frame walk is that of
 ``jxl_coder_tpu.api.decode`` (``api.py:505-548``) over the port's own
 host layers (``host/``): LF frames (progressive DC, any lf_level) and
@@ -38,23 +41,49 @@ squeeze run on the device (``modular/device.py``), then the output step
 with its upsampling (``modular/output.py``).  A delta palette raises
 InvalidJXLError, as the host does.
 
+The sampled decode (``jxl_coder_tpu/api.py:1043-1214``), on the device
+from the decode to one download at the end:
+- ``decode_thumbnail``: a VarDCT frame without upsampling decodes its DC
+  image only (``vardct.parse.parse_frame(dc_only=True)``: no HF global, no
+  pass group; with a DC frame the LF frame's planes), then the output
+  encoding (kernel 2's output step for sRGB, A7 otherwise): the colour at
+  ceil(size / 8), patches, splines, noise and extra channels left out, as
+  the reference does.  Any other frame decodes whole, then S2
+  (``ops/sample.py``) averages its codes over 8 x 8 cells.
+- ``_decode_downsampled(data, 4)``: an eligible still (one regular
+  VarDCT frame that is the last, no animation, extra channels, ICC
+  profile or orientation) decodes whole with the post stages' ``down``
+  pool before the output encoding (S1, ``vardct/post.py``); any other
+  returns None, decided from the headers.
+- ``decode_sampled``: the reference's routing (a target within 1/8 of
+  the size takes the thumbnail, within 1/4 the quarter route, else a full
+  decode), then, on the card, the rescale (S3, ``ops/resize.py``), the
+  HDR -> SDR tone map for an SDR format, grey to RGB, an opaque alpha and
+  the packing (S4, ``ops/pack.py`` with ``ops/tone.py``), then one
+  download.  Orientation applies to the device tensor before the rescale.
+
 A frame whose DC frame or patch sources were not decoded before it raises
 InvalidJXLError.  What raises NotImplementedError: a VarDCT frame with
 YCbCr; ``entropy="device"`` on a VarDCT frame with extra channels or on a
-Modular frame to decode; an embedded ICC profile; animations and the JPEG
-routes.  Nothing falls back to the host decoder.
+Modular frame to decode; an embedded ICC profile where the reference
+applies it (a Modular frame: the reference converts it to sRGB with
+littlecms, which the card's machine lacks, and the port has no colour
+management of its own yet); animations and the JPEG routes.  Nothing
+falls back to the host decoder.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ._device import resolve_device
-from .host.api import (BasicInfo, InvalidJXLError, _check_decode_size,
-                       apply_orientation, basic_info)
+from .host.api import (BasicInfo, InvalidJXLError, PreferredColorConfig,
+                       ResizeFilter, ScaleMode, _check_decode_size,
+                       apply_orientation, basic_info, parse_header)
 from .host.bitstream import container as _container
 from .host.bitstream.frame_header import (Encoding, FrameType,
                                           read_frame_header, read_toc)
@@ -63,12 +92,17 @@ from .host.bitstream.reader import BitReader, BitstreamError
 from .host.codec import decode_modular_frame
 from .host.jpeg import transcode as _jpeg_tc
 from .host.modular.frame import ModularPlanes
+from .host.ops.color import is_hdr_encoding
 from .modular import device as MDEV
 from .modular import output as modular_output
+from .ops import pack as PACK
+from .ops import tone as TONE
+from .ops.resize import rescale_image
+from .ops.sample import box_codes
 from .vardct.frame import VarDCTFrame
 from .vardct.inputs import FrameConfig, FrameInputs, from_prepared, pack
 from .vardct.parse import DC_FRAME, check_entropy, parse_frame
-from .vardct.post import PostConfig
+from .vardct.post import PostConfig, encode_output, output_spec
 
 
 def _read_frames(data: bytes):
@@ -175,8 +209,9 @@ def _host_modular(cs, hdr, fh, toc, entropy: str,
             ", after the negative result of research/entropy_batch_probe.py)")
     if hdr.metadata.icc_profile is not None and not xyb:
         raise NotImplementedError(
-            "embedded ICC profile: the port has no ICC-to-sRGB transform "
-            "(the reference's needs PIL's littlecms)")
+            "embedded ICC profile: the reference converts a Modular still's "
+            "pixels to sRGB with littlecms (PIL), which the card's machine "
+            "lacks, and the port has no colour management of its own yet")
     try:
         raw, dc_quant = decode_modular_frame(cs, hdr, fh, toc)
     except BitstreamError as e:
@@ -363,3 +398,193 @@ def decode_batch(datas: Sequence[bytes], device="cuda",
     to another route."""
     from .batch import decode_batch as run
     return run(datas, device, entropy)
+
+
+# ---- the sampled decode (jxl_coder_tpu/api.py:1043-1214) ----------------
+
+def orient(pixels: torch.Tensor, orientation: int) -> torch.Tensor:
+    """apply_orientation of an (H, W, C) tensor (flips copy, transposes
+    are views)."""
+    if orientation not in range(1, 9):
+        raise InvalidJXLError(f"bad orientation {orientation}")
+    if orientation >= 5:
+        pixels = pixels.transpose(0, 1)
+    flips = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1),
+             8: (0,)}.get(orientation)
+    if not flips:
+        return pixels
+    if pixels.dtype == torch.uint16:
+        # flip has no uint16 kernel on CUDA; the bits move as int16
+        return pixels.view(torch.int16).flip(flips).view(torch.uint16)
+    return pixels.flip(flips)
+
+
+def _pixels(data: bytes, dev, entropy: str) -> torch.Tensor:
+    """A full decode's oriented pixels, on `dev`."""
+    host = host_half(data, dev, entropy)
+    return orient(device_half(host, dev), host.hdr.metadata.orientation)
+
+
+class DCHost(NamedTuple):
+    """A VarDCT frame's DC image, the thumbnail's host half: the (3, ys_b,
+    xs_b) f32 XYB DC planes (smoothed; None when the frame takes its DC
+    from an LF frame) and the host halves of the LF frames before it."""
+    hdr: ImageHeader
+    fh: object
+    dc: Optional[np.ndarray]
+    before: tuple
+
+
+def _dc_host(data: bytes, dev, entropy: str) -> Optional[DCHost]:
+    """The DC image of the frame to decode, or None for a Modular or an
+    upsampled frame (decode_thumbnail decodes those whole)."""
+    try:
+        cs, hdr, frames = _read_frames(data)
+        fh, toc = frames[-1]
+        if fh.encoding == Encoding.MODULAR or fh.upsampling != 1:
+            return None
+        before, levels = [], set()
+        for bfh, btoc in frames[:-1]:
+            if bfh.frame_type == FrameType.LF_FRAME:
+                h = _host_one(cs, hdr, bfh, btoc, dev, entropy, xyb=True)
+                _check_before(h, levels, None)
+                levels.add(bfh.lf_level)
+                before.append(Before(True, bfh.lf_level, h))
+        if fh.flags & DC_FRAME and fh.lf_level + 1 not in levels:
+            raise InvalidJXLError(
+                "frame uses a DC frame but none was decoded before it")
+        state = parse_frame(cs, hdr, fh, toc, dc_only=True)
+    except BitstreamError as e:
+        raise InvalidJXLError(str(e)) from e
+    dc = state["dc_glob"]
+    if dc is not None:
+        dc = np.stack([dc[c] for c in range(3)]).astype(np.float32)
+    return DCHost(hdr, fh, dc, tuple(before))
+
+
+def _dc_device(host: DCHost, dev) -> torch.Tensor:
+    """The DC image's codes in the output encoding, oriented, on `dev`."""
+    m = host.hdr.metadata
+    if host.dc is None:
+        dc_frames, _ = _device_before(host, dev)
+        w, h = host.fh.coded_size(host.hdr)
+        xyb = dc_from_frame(dc_frames[host.fh.lf_level + 1], -(-h // 8),
+                            -(-w // 8))
+    else:
+        xyb = torch.from_numpy(host.dc).to(dev)
+    bits = m.bit_depth.bits_per_sample
+    spec = output_spec(m)
+    rgb = (modular_output.srgb_codes(xyb, bits) if spec == ("srgb",)
+           else encode_output(xyb, spec, bits))
+    return orient(rgb, m.orientation)
+
+
+def _thumbnail(data: bytes, dev, entropy: str) -> torch.Tensor:
+    host = _dc_host(data, dev, entropy)
+    if host is not None:
+        return _dc_device(host, dev)
+    return box_codes(_pixels(data, dev, entropy))
+
+
+def decode_thumbnail(data: bytes, device="cuda", entropy: str = "host"
+                     ) -> Tuple[np.ndarray, BasicInfo]:
+    """A 1/8-scale preview -> (pixels at ceil(size / 8), BasicInfo), as
+    jxl_coder_tpu.api.decode_thumbnail returns it: a VarDCT frame's DC
+    image in the output encoding, (h, w, 3) (no AC decode, no filter, no
+    overlay, noise or extra channel); a Modular or upsampled frame decoded
+    whole, then each 8 x 8 cell of its codes averaged (all channels)."""
+    check_entropy(entropy)
+    dev = resolve_device(device)
+    pixels = _thumbnail(data, dev, entropy)
+    return pixels.cpu().numpy(), basic_info(data)
+
+
+def _quarter_eligible(data: bytes) -> bool:
+    """_decode_downsampled's test, from the headers
+    (jxl_coder_tpu/api.py:1125-1142)."""
+    m = parse_header(data).metadata
+    if (m.animation is not None or m.extra_channels
+            or m.icc_profile is not None or m.orientation != 1):
+        return False
+    try:
+        _cs, _hdr, frames = _read_frames(data)
+    except BitstreamError as e:
+        raise InvalidJXLError(str(e)) from e
+    fh = frames[0][0]
+    return (len(frames) == 1 and fh.frame_type == FrameType.REGULAR
+            and fh.encoding != Encoding.MODULAR and fh.is_last)
+
+
+def _downsampled(data: bytes, factor: int, dev,
+                 entropy: str) -> Optional[torch.Tensor]:
+    if not _quarter_eligible(data):
+        return None
+    host = host_half(data, dev, entropy)
+    host = host._replace(post=dataclasses.replace(host.post, down=factor))
+    return device_half(host, dev)
+
+
+def _decode_downsampled(data: bytes, factor: int, device="cuda",
+                        entropy: str = "host"
+                        ) -> Optional[Tuple[np.ndarray, BasicInfo]]:
+    """A 1/factor-scale decode -> (pixels at ceil(size / factor),
+    BasicInfo), or None when the still is not eligible (animation,
+    extra channels, an ICC profile, an orientation, a Modular frame, or
+    more than one frame), decided from its headers: the whole VarDCT
+    frame on the device, each factor x factor cell of its XYB planes
+    averaged before the output encoding (S1).  A corrupt stream raises
+    InvalidJXLError."""
+    check_entropy(entropy)
+    dev = resolve_device(device)
+    if factor < 1:
+        raise ValueError(f"factor={factor}: expected >= 1")
+    pixels = _downsampled(data, factor, dev, entropy)
+    if pixels is None:
+        return None
+    return pixels.cpu().numpy(), basic_info(data)
+
+
+def decode_sampled(data: bytes, width: int, height: int,
+                   preferred_color_config: int = PreferredColorConfig.DEFAULT,
+                   scale_mode: int = ScaleMode.FIT,
+                   resize_filter: int = ResizeFilter.MITCHELL,
+                   device="cuda", entropy: str = "host"):
+    """Decode at a target size and pixel format -> (array, BasicInfo), as
+    jxl_coder_tpu.api.decode_sampled returns them: RGBA8888 uint8 (H, W,
+    4), RGBA_F16 float16 (H, W, 4), RGB_565 uint16 (H, W), RGBA_1010102
+    uint32 (H, W).  A target within ceil(size / 8) takes the thumbnail,
+    within ceil(size / 4) the quarter-scale decode when eligible, else the
+    full decode; then the rescale to the target (scale_mode, resize_filter;
+    skipped at the decoded size), the HDR -> SDR tone map when the format
+    is SDR (8888, 565, HARDWARE, or DEFAULT at 8 bits) and the stream is
+    PQ, HLG or wide-gamut, grey to RGB, an opaque alpha and the packing,
+    all on `device`, then one download."""
+    check_entropy(entropy)
+    dev = resolve_device(device)
+    info = basic_info(data)
+    if (0 < width <= -(-info.xsize // 8)
+            and 0 < height <= -(-info.ysize // 8)):
+        pixels = _thumbnail(data, dev, entropy)
+    else:
+        pixels = None
+        if (0 < width <= -(-info.xsize // 4)
+                and 0 < height <= -(-info.ysize // 4)):
+            pixels = _downsampled(data, 4, dev, entropy)
+        if pixels is None:
+            pixels = _pixels(data, dev, entropy)
+    if width > 0 and height > 0 and \
+            (width, height) != (pixels.shape[1], pixels.shape[0]):
+        pixels = rescale_image(pixels, width, height, scale_mode,
+                               resize_filter, info.alpha_premultiplied)
+    ce = parse_header(data).metadata.colour_encoding
+    sdr_target = preferred_color_config in (
+        PreferredColorConfig.RGBA_8888, PreferredColorConfig.RGB_565,
+        PreferredColorConfig.HARDWARE) or (
+        preferred_color_config == PreferredColorConfig.DEFAULT
+        and info.bits_per_sample <= 8)
+    tone = (TONE.params(ce, info.intensity_target)
+            if sdr_target and pixels.shape[-1] >= 3 and is_hdr_encoding(ce)
+            else None)
+    out = PACK.reformat(pixels, preferred_color_config, info.bits_per_sample,
+                        tone)
+    return out.cpu().numpy(), info

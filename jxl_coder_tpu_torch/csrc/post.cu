@@ -1,6 +1,7 @@
 // The VarDCT post stages: noise (A5), upsampling (A6) and the output
-// encoding (A7), each a kernel with a plain C entry point
-// (vardct/post.py binds them; their plain twins are there too).
+// encoding (A7, with the quarter-scale decode's `down` pool, S1, as a
+// variant), each a kernel with a plain C entry point (vardct/post.py binds
+// them; their plain twins are there too).
 //
 // They replace jnp passes of the JAX package's device path (fn_post in
 // jxl_coder_tpu/vardct/tpu_full.py), not Pallas kernels:
@@ -21,13 +22,23 @@
 //      so the three colour planes (or the extra channels) take one launch.
 //      Bound by bytes at every N (4 + 4 N^2 B against ~52 N^2 operations
 //      a source pixel).
-//   A7 encode_output_kernel<OutT>: _encode_output_device (:676) with
+//   A7 encode_output_kernel<OutT, false>: _encode_output_device (:676) with
 //      _xyb_to_linear_device (:649) and _quantize_device (:669).  A pixel
 //      a thread: XYB -> linear -> [3x3 gamut] -> sRGB (xyb_to_srgb_codes of
 //      common.cuh, kernel 2's own output step), gamma, PQ, HLG with the
 //      inverse OOTF, or a named transfer function -> floor(v * max + 0.5)
 //      clipped.  Its byte bound is 12 B in and 3 or 6 B out a pixel; the
 //      PQ and HLG cases' powf / logf calls make it issue-bound in practice.
+//   S1 encode_output_kernel<OutT, true>: the `down` stage of fn_post
+//      (tpu_full.py:862-876) read by A7.  Each output pixel first averages
+//      its down x down cell of the XYB planes (rows and columns past the
+//      edge repeat the last one, as the reference's edge padding), summed
+//      row by row, then encodes the means as A7 does.  The quarter-scale
+//      decode's planes are read once and 1/16 of the codes written: bound
+//      by bytes (12 B read a source pixel).  The pool needs no shared
+//      memory: a thread's 4 x 4 cell is 4 rows of 16 contiguous bytes a
+//      plane, and a warp's cells are neighbours.  down 1 is the plain A7
+//      instantiation, unchanged.
 // Full-precision powf / logf / expf / sqrtf (no --use_fast_math), and
 // -fmad=false, so each operation rounds once, in the twins' order.
 
@@ -203,17 +214,41 @@ __device__ __forceinline__ float linear_to_trc(float v, int trc,
   }
 }
 
-template <typename OutT>
+// H, W: the planes' size; without POOL the output's too, with POOL the
+// output is (ceil(H / down), ceil(W / down)).
+template <typename OutT, bool POOL>
 __global__ void __launch_bounds__(TW * TH)
     encode_output_kernel(const float* __restrict__ in, long long plane,
                          long long row, OutT* __restrict__ out, int H, int W,
-                         OutParams p) {
+                         int down, OutParams p) {
   const int x = blockIdx.x * TW + threadIdx.x;
   const int y = blockIdx.y * TH + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const long long o = (long long)y * row + x;
-  const float X = in[o], Y = in[plane + o], B = in[2 * plane + o];
-  OutT* dst = out + ((long long)y * W + x) * 3;
+  const int Wo = POOL ? (W + down - 1) / down : W;
+  const int Ho = POOL ? (H + down - 1) / down : H;
+  if (x >= Wo || y >= Ho) return;
+  float X, Y, B;
+  if (POOL) {
+    float sx = 0.0f, sy = 0.0f, sb = 0.0f;
+    for (int dy = 0; dy < down; ++dy) {
+      const long long r = (long long)min(y * down + dy, H - 1) * row;
+      for (int dx = 0; dx < down; ++dx) {
+        const long long o = r + min(x * down + dx, W - 1);
+        sx = sx + in[o];
+        sy = sy + in[plane + o];
+        sb = sb + in[2 * plane + o];
+      }
+    }
+    const float n = (float)(down * down);
+    X = sx / n;
+    Y = sy / n;
+    B = sb / n;
+  } else {
+    const long long o = (long long)y * row + x;
+    X = in[o];
+    Y = in[plane + o];
+    B = in[2 * plane + o];
+  }
+  OutT* dst = out + ((long long)y * Wo + x) * 3;
   float q[3];
   if (p.kind == 0) {
     xyb_to_srgb_codes(X, Y, B, p.srgb, p.srgb.mul, q);
@@ -309,18 +344,33 @@ extern "C" int jxl_upsample(const float* in, long long in_plane,
   }
 }
 
-// in: (3, H, W) XYB with the given plane and row strides; out: (H, W, 3)
-// uint8 (bits <= 8) or uint16; kind 0 sRGB, 1 gamma, 2 the signalled
-// encoding with transfer function trc; prm: N_PRM floats; srgb: the opsin
-// inverse (9), the cube-root bias and the bias; mul: the 16 FastLinearToSRGB
-// multipliers.
+template <typename OutT>
+void launch_encode_output(const float* in, long long plane, long long row,
+                          void* out, int H, int W, int down,
+                          const OutParams& p, cudaStream_t s) {
+  const int Ho = (H + down - 1) / down, Wo = (W + down - 1) / down;
+  const dim3 grid(cdiv(Wo, TW), cdiv(Ho, TH));
+  if (down == 1)
+    encode_output_kernel<OutT, false><<<grid, dim3(TW, TH), 0, s>>>(
+        in, plane, row, static_cast<OutT*>(out), H, W, 1, p);
+  else
+    encode_output_kernel<OutT, true><<<grid, dim3(TW, TH), 0, s>>>(
+        in, plane, row, static_cast<OutT*>(out), H, W, down, p);
+}
+
+// in: (3, H, W) XYB with the given plane and row strides; out: (ceil(H /
+// down), ceil(W / down), 3) uint8 (bits <= 8) or uint16, each pixel the
+// encoding of its down x down cell's mean (down 1: of the pixel); kind 0
+// sRGB, 1 gamma, 2 the signalled encoding with transfer function trc; prm:
+// N_PRM floats; srgb: the opsin inverse (9), the cube-root bias and the
+// bias; mul: the 16 FastLinearToSRGB multipliers.
 extern "C" int jxl_encode_output(const float* in, long long plane,
                                  long long row, void* out, int H, int W,
-                                 int kind, int trc, int bits, const float* prm,
-                                 const float* srgb, const uint32_t* mul,
-                                 void* stream) {
+                                 int down, int kind, int trc, int bits,
+                                 const float* prm, const float* srgb,
+                                 const uint32_t* mul, void* stream) {
   if (H <= 0 || W <= 0) return cudaSuccess;
-  if (kind < 0 || kind > 2 || bits < 1 || bits > 16)
+  if (kind < 0 || kind > 2 || bits < 1 || bits > 16 || down < 1)
     return cudaErrorInvalidValue;
   OutParams p;
   p.kind = kind;
@@ -332,13 +382,10 @@ extern "C" int jxl_encode_output(const float* in, long long plane,
   p.srgb.bias = srgb[10];
   p.srgb.scale = p.maxv;
   for (int i = 0; i < 16; ++i) p.srgb.mul[i] = mul[i];
-  const dim3 grid(cdiv(W, TW), cdiv(H, TH));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bits <= 8)
-    encode_output_kernel<uint8_t><<<grid, dim3(TW, TH), 0, s>>>(
-        in, plane, row, static_cast<uint8_t*>(out), H, W, p);
+    launch_encode_output<uint8_t>(in, plane, row, out, H, W, down, p, s);
   else
-    encode_output_kernel<uint16_t><<<grid, dim3(TW, TH), 0, s>>>(
-        in, plane, row, static_cast<uint16_t*>(out), H, W, p);
+    launch_encode_output<uint16_t>(in, plane, row, out, H, W, down, p, s);
   return cudaGetLastError();
 }

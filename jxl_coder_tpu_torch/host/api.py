@@ -1,17 +1,52 @@
 """The API layer's host pieces that the port uses
-(``jxl_coder_tpu/api.py``): the decode-size ceiling, the typed errors,
-``basic_info`` and ``apply_orientation``.  The encode and decode entry
-points stay in the JAX package; the port's own are ``api.decode`` and
+(``jxl_coder_tpu/api.py``): the option enums of the sampled decode, the
+decode-size ceiling, the typed errors, ``basic_info`` and
+``apply_orientation``.  The encode entry points stay in the JAX package;
+the port's decode entry points are in ``api.py``, its round-1 codec in
 ``codec``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
 
 from .bitstream.reader import BitReader, BitstreamError
 from .bitstream import container as _container
 from .bitstream.headers import read_image_header, ImageHeader
+
+
+# ---- Option enums of the sampled decode (jxl_coder_tpu/api.py:66-97) ----
+
+class PreferredColorConfig(enum.IntEnum):
+    """PreferredColorConfig.kt"""
+    DEFAULT = 1
+    RGBA_8888 = 2
+    RGBA_F16 = 3
+    RGB_565 = 4
+    RGBA_1010102 = 5
+    HARDWARE = 6
+
+
+class ScaleMode(enum.IntEnum):
+    """ScaleMode.kt"""
+    FIT = 1
+    FILL = 2
+    RESIZE = 3
+
+
+class ResizeFilter(enum.IntEnum):
+    """JxlResizeFilter.kt — 10 resampling kernels."""
+    BILINEAR = 1
+    NEAREST = 2
+    CUBIC = 3
+    MITCHELL = 4
+    LANCZOS = 5
+    CATMULL_ROM = 6
+    HERMITE = 7
+    BSPLINE = 8
+    HANN = 9
+    BICUBIC = 10
 
 
 # ---- Exceptions (mirror the 6 Kotlin exception types) --------------------

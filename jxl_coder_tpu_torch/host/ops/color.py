@@ -1,9 +1,11 @@
 """Transfer functions and gamut matrices, in numpy
-(``jxl_coder_tpu/ops/color.py:19-242``).
+(``jxl_coder_tpu/ops/color.py:19-242,343-352``).
 
 The port's copy of the JAX module's numpy-expressible part: the transfer
-function pairs (``:19-157``), ``TRC_TO_LINEAR`` / ``LINEAR_TO_TRC``, and
-the primaries, white points and gamut matrices (``:160-242``).  The JAX
+function pairs (``:19-157``), ``TRC_TO_LINEAR`` / ``LINEAR_TO_TRC``, the
+primaries, white points and gamut matrices (``:160-242``), the 3x3
+conversion and luma rows and ``is_hdr_encoding``.  The tone map and
+``hdr_to_sdr`` run on the device (``ops/tone.py``).  The JAX
 module computes the transfer functions with ``jax.numpy`` in float32, so
 each function here casts its input to float32 and computes in float32
 with float32 constants, as ``jnp`` does with JAX's default 32-bit
@@ -278,6 +280,19 @@ def gamut_xyz_to_rgb(primaries, white) -> np.ndarray:
     return np.linalg.inv(gamut_rgb_to_xyz(primaries, white))
 
 
+def conversion_matrix(src: str, dst: str,
+                      white=ILLUMINANT_D65) -> np.ndarray:
+    """3x3 src-RGB -> dst-RGB (no adaptation when whites equal)."""
+    a = gamut_rgb_to_xyz(PRIMARIES[src], white)
+    b = gamut_xyz_to_rgb(PRIMARIES[dst], white)
+    return (b @ a).astype(np.float32)
+
+
+def luma_coeffs(primaries, white=ILLUMINANT_D65) -> np.ndarray:
+    """Y row of RGB -> XYZ: the luma weights."""
+    return gamut_rgb_to_xyz(primaries, white)[1].astype(np.float32)
+
+
 # Wire-value maps (bitstream/headers.py Primaries / WhitePoint enums)
 WIRE_PRIMARIES = {1: "srgb", 9: "bt2020", 11: "display_p3"}
 WIRE_WHITE = {1: ILLUMINANT_D65, 10: ILLUMINANT_E, 11: ILLUMINANT_DCI}
@@ -295,3 +310,20 @@ def white_xy(ce):
     if ce.white_point == 2 and ce.white is not None:  # CUSTOM
         return ce.white.as_float()
     return WIRE_WHITE.get(ce.white_point, ILLUMINANT_D65)
+
+
+def to_srgb_matrix(ce) -> np.ndarray:
+    """3x3 f32 from the stream's primaries and white to sRGB / D65
+    (hdr_to_sdr's gamut step)."""
+    src = gamut_rgb_to_xyz(primaries_xy(ce), white_xy(ce))
+    dst = gamut_xyz_to_rgb(PRIMARIES["srgb"], ILLUMINANT_D65)
+    return (dst @ src).astype(np.float32)
+
+
+def is_hdr_encoding(ce) -> bool:
+    """True when the signalled colour encoding needs the SDR fallback
+    for 8-bit outputs (PQ/HLG transfer or wide-gamut primaries)."""
+    if ce is None or ce.want_icc:
+        return False
+    return (ce.transfer_function in (16, 18)
+            or ce.primaries not in (1,))

@@ -46,6 +46,13 @@ def xyb_planes(planes: List[torch.Tensor], dc_quant) -> torch.Tensor:
                         (cy + cb) * float(np.float32(dc_quant[2]))])
 
 
+def srgb_codes(xyb: torch.Tensor, bits: int) -> torch.Tensor:
+    """(3, H, W) f32 XYB planes -> (H, W, 3) sRGB codes, uint8 at `bits`
+    <= 8, else uint16: kernel 2's output step with every filter off."""
+    return filters.restore_and_output(xyb, None, False, 0, _NO_GABORISH,
+                                      1.0, 1.0, "u16" if bits > 8 else "u8")
+
+
 def modular_pixels(planes: List[torch.Tensor], hdr, fh,
                    dc_quant) -> torch.Tensor:
     """(H, W, C) pixels, C the colour channels plus the extra channels,
@@ -66,9 +73,7 @@ def modular_pixels(planes: List[torch.Tensor], hdr, fh,
             if up > 1:
                 xyb = post.upsample(xyb, post.kernels_for(up, weights,
                                                           xyb.device))
-            rgb = filters.restore_and_output(
-                xyb[:, :full_h, :full_w], None, False, 0, _NO_GABORISH, 1.0,
-                1.0, "u16" if bits > 8 else "u8")
+            rgb = srgb_codes(xyb[:, :full_h, :full_w], bits)
             colour = [rgb[..., c].to(torch.int32) for c in range(3)]
         else:
             colour = [p[:full_h, :full_w]

@@ -22,14 +22,17 @@ from .host.bitstream.frame_header import Encoding, FrameType
 from .host.codec import (decode_modular_frame, encode_modular_frame,
                          modular_planes_to_xyb)
 from .host.modular.frame import undo_on_host
-from .host.vardct.dec_real import decode_vardct_frame
+from .host.vardct.dec_real import (_is_srgb_output, dc_from_frame,
+                                   decode_vardct_frame, xyb_planes_to_encoding,
+                                   xyb_planes_to_gamma, xyb_planes_to_srgb8,
+                                   xyb_planes_to_srgb16)
 from .host.vardct.enc_real import encode_vardct_real as encode_vardct
 from .host.vardct.strategies import STRATEGIES
 from .host.vardct.synthesis import dequant_table, response_matrix
 from .vardct.inputs import _PAD_SENTINEL as PAD_SENTINEL
 
 __all__ = ["encode_vardct", "encode_modular_frame", "decode_float64",
-           "photon_noise_lut", "STRATEGIES", "dequant_table",
+           "thumbnail_float64", "photon_noise_lut", "STRATEGIES", "dequant_table",
            "response_matrix", "PAD_SENTINEL"]
 
 
@@ -70,3 +73,39 @@ def decode_float64(data: bytes) -> np.ndarray:
                               dc_frame=dc_frames.get(fh.lf_level + 1),
                               ref_frames=refs or None)
     return apply_orientation(out, hdr.metadata.orientation)
+
+
+def thumbnail_float64(data: bytes) -> np.ndarray:
+    """The 1/8-scale preview of a VarDCT still without upsampling, on the
+    host in float64, as jxl_coder_tpu.api.decode_thumbnail computes it
+    (``vardct/dec_real.py:1727-1747``): the frame's smoothed DC image (or
+    its LF frame's planes, edge-replicated) through the host's output
+    encodings, orientation applied."""
+    from .vardct.parse import parse_frame
+    cs, hdr, frames = _read_frames(data)
+    dc_frames = {}
+    for fh, toc in frames[:-1]:
+        if fh.frame_type == FrameType.LF_FRAME:
+            dc_frames[fh.lf_level] = _xyb_frame(cs, hdr, fh, toc, dc_frames)
+    fh, toc = frames[-1]
+    if fh.encoding == Encoding.MODULAR or fh.upsampling != 1:
+        raise ValueError("thumbnail_float64: a VarDCT frame without "
+                         "upsampling only")
+    w, h = fh.coded_size(hdr)
+    th, tw = -(-h // 8), -(-w // 8)
+    dc = parse_frame(cs, hdr, fh, toc, dc_only=True)["dc_glob"]
+    if dc is None:
+        dc = dc_from_frame(dc_frames[fh.lf_level + 1], tw, th)
+    X, Y, B = (dc[c][:th, :tw] for c in range(3))
+    m = hdr.metadata
+    bits, ce = m.bit_depth.bits_per_sample, m.colour_encoding
+    if ce is not None and ce.have_gamma:
+        out = xyb_planes_to_gamma(X, Y, B, ce.gamma / 1e7, bits)
+    elif not _is_srgb_output(ce):
+        out = xyb_planes_to_encoding(X, Y, B, ce, bits,
+                                     m.tone_mapping.intensity_target)
+    elif bits > 8:
+        out = xyb_planes_to_srgb16(X, Y, B)
+    else:
+        out = xyb_planes_to_srgb8(X, Y, B)
+    return apply_orientation(out, m.orientation)

@@ -23,6 +23,11 @@ start is known only after the host has read the tokens, so such a frame
 raises NotImplementedError, as the reference's device entropy route
 declines it); ``state["lf"].mfd`` holds their raw planes.
 
+``dc_only`` stops after the LF groups and the DC smoothing (the
+``dc_only`` branch of ``dec_real.py:1727-1747``, the thumbnail's): no HF
+global and no pass group is read, on either route, and the state has no
+``blocks_glob``.
+
 A frame with a DC frame (kUseDcFrame) reads its LF groups without their
 DC (its quantized DC channels are zeros, which both routes' block
 contexts read, as the host does) and leaves ``dc_glob`` None: its DC is
@@ -81,13 +86,14 @@ def check_entropy(entropy: str) -> None:
 
 
 def parse_frame(cs: bytes, hdr, fh, toc, entropy: str = "host",
-                device=None) -> dict:
+                device=None, dc_only: bool = False) -> dict:
     """Entropy-decode one VarDCT frame -> the state dict of
     decode_vardct_frame(parse_only=True).  With entropy="device" the AC
     pass groups decode on `device` (a torch.device) and the state's
-    blocks_glob.coeffs is an int32 tensor there."""
+    blocks_glob.coeffs is an int32 tensor there.  dc_only: the state up
+    to the (smoothed) DC planes, no AC read (the route is then moot)."""
     check_entropy(entropy)
-    check_supported(hdr, fh, entropy)
+    check_supported(hdr, fh, "host" if dc_only else entropy)
     w, h = fh.coded_size(hdr)
     xs_b, ys_b = -(-w // 8), -(-h // 8)
     ng, ndc = fh.counts(hdr)
@@ -119,10 +125,6 @@ def parse_frame(cs: bytes, hdr, fh, toc, entropy: str = "host",
         lgs.append((lx, ly, read_lf_group(section(1 + gi), lf, gw, gh,
                                           gi, ndc,
                                           use_dc_frame=use_dc_frame)))
-
-    hf = read_hf_global(section(1 + ndc), lf, ng, npasses, ndc)
-    histo_bits = ((hf.num_histograms - 1).bit_length()
-                  if hf.num_histograms > 1 else 0)
 
     qf_map = np.zeros((ys_b, xs_b), np.int64)
     on_device = entropy == "device"
@@ -161,8 +163,13 @@ def parse_frame(cs: bytes, hdr, fh, toc, entropy: str = "host",
         lf=lf, fh=fh, qf_map=qf_map, sharp_map=sharp_map,
         ytox_glob=ytox_glob, ytob_glob=ytob_glob, dc_glob=dc_glob,
         bits=hdr.metadata.bit_depth.bits_per_sample, h=h, w=w)
+    if dc_only:
+        return state
     if not ng:
         raise BitstreamError("VarDCT frame without AC groups")
+    hf = read_hf_global(section(1 + ndc), lf, ng, npasses, ndc)
+    histo_bits = ((hf.num_histograms - 1).bit_length()
+                  if hf.num_histograms > 1 else 0)
     if on_device:
         if single:
             s = toc.section(0)

@@ -15,7 +15,7 @@ or reference frame's output); ``extra_channels`` is the counterpart of
 the host's
 extra-channel stack (``dec_real.py:2006-2040``), on the device.
 
-Three kernels of ``csrc/post.cu``, each with its plain PyTorch twin here
+Four kernels of ``csrc/post.cu``, each with its plain PyTorch twin here
 (the twins run on a CPU tensor, the kernels on a CUDA one, and a CUDA
 tensor never takes a twin):
 - ``add_noise`` (A5; ``tpu_full._conv_subbox_device`` ``:606``,
@@ -28,7 +28,11 @@ tensor never takes a twin):
   ``_xyb_to_linear_device`` ``:649`` and ``_quantize_device`` ``:669``):
   XYB -> linear -> [3x3 gamut] -> sRGB, gamma, PQ, HLG with the inverse
   OOTF or a named TRC -> codes.  Its "srgb" case is kernel 2's output
-  step, so its codes equal kernel 2's.
+  step, so its codes equal kernel 2's;
+- ``encode_output_down`` (S1; the ``down`` stage of ``fn_post``,
+  ``tpu_full.py:862-876``, then A7): A7's kernel with each down x down
+  cell of the planes averaged first (edge-padded), so a quarter-scale
+  decode writes 1/16 of the codes.
 Each wrapper counts its launches in ``.launches``.
 
 The f32 twins keep the kernels' operation order (sums in order, one
@@ -60,10 +64,11 @@ from . import color
 from . import overlay as OV
 from .filters import _mirror_index
 
-__all__ = ["PostConfig", "PostStages", "noise_random", "add_noise",
-           "add_noise_plain", "upsample", "upsample_plain", "kernels_for",
-           "upsample_ints", "encode_output", "encode_output_plain",
-           "extra_channels"]
+__all__ = ["PostConfig", "PostStages", "output_spec", "noise_random",
+           "add_noise", "add_noise_plain", "upsample", "upsample_plain",
+           "kernels_for", "upsample_ints", "encode_output",
+           "encode_output_plain", "encode_output_down",
+           "encode_output_down_plain", "pool_plain", "extra_channels"]
 
 _F = np.float32
 
@@ -81,6 +86,7 @@ class PostConfig:
     up_weights: Optional[tuple] = None   # signalled weights (None: default)
     out: tuple = ("srgb",)
     ec: Tuple[Tuple[int, int], ...] = ()   # per extra channel: bits, factor
+    down: int = 1               # the box average before the output encoding
     # the patches and splines (host arrays; not part of the comparison)
     overlay: Optional[OV.Overlay] = dataclasses.field(default=None,
                                                       compare=False)
@@ -89,7 +95,7 @@ class PostConfig:
     def colour_empty(self) -> bool:
         """No colour stage: kernel 2 writes the codes itself."""
         return self.overlay is None and self.noise_lut is None and \
-            self.ups == 1 and self.out == ("srgb",)
+            self.ups == 1 and self.out == ("srgb",) and self.down == 1
 
     @staticmethod
     def of(lf, fh, hdr, h: int, w: int) -> "PostConfig":
@@ -99,23 +105,6 @@ class PostConfig:
         noise = (tuple(float(_F(v)) for v in lf.noise_lut)
                  if lf.noise_lut is not None else None)
         ups = int(fh.upsampling)
-        ce = m.colour_encoding
-        if ce is not None and ce.have_gamma:
-            out = ("gamma", float(ce.gamma / 1e7))
-        elif not _is_srgb_output(ce):
-            prim, wp = HC.primaries_xy(ce), HC.white_xy(ce)
-            gm = None
-            if prim != HC.PRIMARIES["srgb"] or wp != HC.ILLUMINANT_D65:
-                gm = tuple((HC.gamut_xyz_to_rgb(prim, wp)
-                            @ HC.gamut_rgb_to_xyz(HC.PRIMARIES["srgb"],
-                                                  HC.ILLUMINANT_D65))
-                           .astype(np.float32).reshape(-1).tolist())
-            luma = tuple(HC.gamut_rgb_to_xyz(prim, wp)[1]
-                         .astype(np.float32).tolist())
-            it = float(m.tone_mapping.intensity_target or 255.0)
-            out = ("enc", int(ce.transfer_function), gm, it, luma)
-        else:
-            out = ("srgb",)
         ec = tuple((e.bit_depth.bits_per_sample,
                     (fh.ec_upsampling[i] if i < len(fh.ec_upsampling)
                      else 1) << e.dim_shift)
@@ -124,7 +113,29 @@ class PostConfig:
                           full_w=fh.frame_width or hdr.xsize,
                           bits=m.bit_depth.bits_per_sample, noise_lut=noise,
                           ups=ups, up_weights=upsample_weights(m, ups),
-                          out=out, ec=ec, overlay=OV.Overlay.of(lf, h, w))
+                          out=output_spec(m), ec=ec,
+                          overlay=OV.Overlay.of(lf, h, w))
+
+
+def output_spec(m) -> tuple:
+    """The output encoding of image metadata m: ("srgb",), ("gamma", g)
+    or ("enc", trc, gamut matrix or None, intensity_target, luma)."""
+    ce = m.colour_encoding
+    if ce is not None and ce.have_gamma:
+        return ("gamma", float(ce.gamma / 1e7))
+    if _is_srgb_output(ce):
+        return ("srgb",)
+    prim, wp = HC.primaries_xy(ce), HC.white_xy(ce)
+    gm = None
+    if prim != HC.PRIMARIES["srgb"] or wp != HC.ILLUMINANT_D65:
+        gm = tuple((HC.gamut_xyz_to_rgb(prim, wp)
+                    @ HC.gamut_rgb_to_xyz(HC.PRIMARIES["srgb"],
+                                          HC.ILLUMINANT_D65))
+                   .astype(np.float32).reshape(-1).tolist())
+    luma = tuple(HC.gamut_rgb_to_xyz(prim, wp)[1]
+                 .astype(np.float32).tolist())
+    it = float(m.tone_mapping.intensity_target or 255.0)
+    return ("enc", int(ce.transfer_function), gm, it, luma)
 
 
 # --------------------------------------------------------------------------
@@ -178,7 +189,7 @@ def _kernels():
     return (_build.bind(lib, "jxl_add_noise", [p, ll, p, p, i, i]),
             _build.bind(lib, "jxl_upsample", [p, ll, ll, p, p, i, i, i, i]),
             _build.bind(lib, "jxl_encode_output",
-                        [p, ll, ll, p, i, i, i, i, i, p, p, p]))
+                        [p, ll, ll, p, i, i, i, i, i, i, p, p, p]))
 
 
 def _check_planes(x: torch.Tensor, what: str, c: int = 3) -> None:
@@ -365,6 +376,22 @@ def _linear_to_trc(v: torch.Tensor, trc: int) -> torch.Tensor:
                        _F(1.055) * _pow(v, 1 / 2.4) - _F(0.055))
 
 
+def pool_plain(xyb: torch.Tensor, down: int) -> torch.Tensor:
+    """(C, H, W) f32 -> (C, ceil(H / down), ceil(W / down)): the mean of
+    each down x down cell, the last row and column repeated past the
+    edge, summed row by row as S1 sums."""
+    c, h, w = xyb.shape
+    ho, wo = -(-h // down), -(-w // down)
+    iy = torch.clamp(torch.arange(ho * down, device=xyb.device), max=h - 1)
+    ix = torch.clamp(torch.arange(wo * down, device=xyb.device), max=w - 1)
+    pad = xyb[:, iy][:, :, ix]
+    s = torch.zeros((c, ho, wo), dtype=torch.float32, device=xyb.device)
+    for dy in range(down):
+        for dx in range(down):
+            s = s + pad[:, dy::down, dx::down]
+    return fp.div(s, float(down * down))
+
+
 def encode_output_plain(xyb: torch.Tensor, spec: tuple,
                         bits: int) -> torch.Tensor:
     """The twin of encode_output (its "srgb" case gives
@@ -426,19 +453,12 @@ def _output_params(spec: tuple) -> np.ndarray:
     return prm
 
 
-def encode_output(xyb: torch.Tensor, spec: tuple, bits: int) -> torch.Tensor:
-    """(3, H, W) f32 XYB planes (a cropped view is fine) -> (H, W, 3)
-    codes in the output encoding `spec`, uint8 at `bits` <= 8, else
-    uint16, clip(floor(v * (2^bits - 1) + 0.5))."""
-    _check_planes(xyb, "xyb")
-    if spec[0] not in KIND:
-        raise ValueError(f"output spec {spec!r}")
-    if xyb.device.type == "cpu":
-        return encode_output_plain(xyb, spec, bits)
+def _launch_output(xyb: torch.Tensor, spec: tuple, bits: int,
+                   down: int) -> torch.Tensor:
     if xyb.stride(2) != 1:
         xyb = xyb.contiguous()
     _, H, W = xyb.shape
-    out = torch.empty((H, W, 3), device=xyb.device,
+    out = torch.empty((-(-H // down), -(-W // down), 3), device=xyb.device,
                       dtype=torch.uint8 if bits <= 8 else torch.uint16)
     if H and W:
         trc = spec[1] if spec[0] == "enc" else 0
@@ -446,8 +466,26 @@ def encode_output(xyb: torch.Tensor, spec: tuple, bits: int) -> torch.Tensor:
         # the constants are host arrays, copied into the launch parameters
         _build.launch(_kernels()[2], xyb.device, xyb.data_ptr(),
                       xyb.stride(0), xyb.stride(1), out.data_ptr(), H, W,
-                      KIND[spec[0]], trc, bits, prm.ctypes.data,
+                      down, KIND[spec[0]], trc, bits, prm.ctypes.data,
                       color._CONSTS.ctypes.data, color._MUL.ctypes.data)
+    return out
+
+
+def _check_spec(xyb: torch.Tensor, spec: tuple) -> None:
+    _check_planes(xyb, "xyb")
+    if spec[0] not in KIND:
+        raise ValueError(f"output spec {spec!r}")
+
+
+def encode_output(xyb: torch.Tensor, spec: tuple, bits: int) -> torch.Tensor:
+    """(3, H, W) f32 XYB planes (a cropped view is fine) -> (H, W, 3)
+    codes in the output encoding `spec`, uint8 at `bits` <= 8, else
+    uint16, clip(floor(v * (2^bits - 1) + 0.5))."""
+    _check_spec(xyb, spec)
+    if xyb.device.type == "cpu":
+        return encode_output_plain(xyb, spec, bits)
+    out = _launch_output(xyb, spec, bits, 1)
+    if out.numel():
         encode_output.launches += 1
     return out
 
@@ -455,13 +493,40 @@ def encode_output(xyb: torch.Tensor, spec: tuple, bits: int) -> torch.Tensor:
 encode_output.launches = 0
 
 
+def encode_output_down_plain(xyb: torch.Tensor, spec: tuple, bits: int,
+                             down: int) -> torch.Tensor:
+    """The twin of encode_output_down."""
+    return encode_output_plain(pool_plain(xyb, down), spec, bits)
+
+
+def encode_output_down(xyb: torch.Tensor, spec: tuple, bits: int,
+                       down: int) -> torch.Tensor:
+    """S1: (3, H, W) f32 XYB planes -> (ceil(H / down), ceil(W / down), 3)
+    codes, each the output encoding of a down x down cell's mean (the
+    last row and column repeated past the edge), as encode_output."""
+    _check_spec(xyb, spec)
+    if down < 2:
+        raise ValueError(f"down={down}: expected >= 2 (encode_output "
+                         f"encodes each pixel)")
+    if xyb.device.type == "cpu":
+        return encode_output_down_plain(xyb, spec, bits, down)
+    out = _launch_output(xyb, spec, bits, down)
+    if out.numel():
+        encode_output_down.launches += 1
+    return out
+
+
+encode_output_down.launches = 0
+
+
 # --------------------------------------------------------------------------
 # The stages
 
 class PostStages(nn.Module):
-    """overlay -> noise -> upsampling -> output encoding on the filtered
-    (3, h, w) f32 XYB planes of one frame geometry -> (full_h, full_w, 3)
-    codes."""
+    """overlay -> noise -> upsampling -> [down pool] -> output encoding on
+    the filtered (3, h, w) f32 XYB planes of one frame geometry ->
+    (full_h, full_w, 3) codes, or (ceil(full_h / down), ceil(full_w /
+    down), 3) with the pool."""
 
     def __init__(self, config: PostConfig):
         super().__init__()
@@ -489,6 +554,12 @@ class PostStages(nn.Module):
         xyb = self.xyb(xyb, overlay, refs)
         if cfg.ups > 1:
             xyb = upsample(xyb, kernels_for(cfg.ups, cfg.up_weights, dev))
+        d = cfg.down
+        if d > 1:
+            # the reference pools the planes as the stages leave them (an
+            # upsampled frame's may pass the output size), then crops
+            out = encode_output_down(xyb, cfg.out, cfg.bits, d)
+            return out[:-(-cfg.full_h // d), :-(-cfg.full_w // d)]
         return encode_output(xyb[:, :cfg.full_h, :cfg.full_w], cfg.out,
                              cfg.bits)
 

@@ -272,6 +272,48 @@ def test_patched_and_lf_streams_without_the_jax_package(tmp_path):
     assert frames == "2" and max(eval(worst)) <= 1, res.stdout
 
 
+def test_sampled_decode_without_the_jax_package(tmp_path):
+    """The same copy, jax and jxl_coder_tpu blocked: decode_thumbnail (the
+    DC image), _decode_downsampled (the down pool) and decode_sampled (the
+    rescale, the PQ tone map and the packers) on the CPU, the thumbnail
+    equal to the float64 host thumbnail."""
+    shutil.copytree(PKG, tmp_path / "jxl_coder_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(REPO / "port_fixtures.py", tmp_path)
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None        # any `import jax` now fails
+        sys.modules["jxl_coder_tpu"] = None
+        import numpy as np
+        from jxl_coder_tpu_torch import api, reference
+        from jxl_coder_tpu_torch.host.bitstream.headers import ColourEncoding
+        import port_fixtures as F
+        data = reference.encode_vardct(F.smooth_frame(72, 100), distance=1.0,
+                                       effort=5)
+        ce = ColourEncoding()
+        ce.transfer_function, ce.primaries = 16, 9
+        pq = reference.encode_vardct(F.smooth_frame(72, 100, dtype=np.uint16),
+                                     distance=1.0, effort=5, colour=ce,
+                                     intensity_target=1000.0, bit_depth=16)
+        thumb, _ = api.decode_thumbnail(data, device="cpu")
+        same = np.array_equal(thumb, reference.thumbnail_float64(data))
+        quarter, _ = api._decode_downsampled(data, 4, device="cpu")
+        shapes = [api.decode_sampled(d, w, h, c, device="cpu")[0].shape
+                  for d in (data, pq) for w, h, c in
+                  ((13, 9, 2), (25, 18, 4), (60, 40, 5))]
+        assert not any(m.split(".")[0] in ("jax", "jxl_coder_tpu")
+                       for m, v in sys.modules.items() if v is not None)
+        print(thumb.shape, same, quarter.shape, shapes)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == (
+        "(9, 13, 3) True (18, 25, 3) [(9, 13, 4), (18, 25), (40, 56), "
+        "(9, 13, 4), (18, 25), (40, 56)]"), res.stdout
+
+
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     """A kernel that cannot be built raises; nothing falls back."""
     from jxl_coder_tpu_torch import _build
