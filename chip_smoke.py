@@ -1,7 +1,8 @@
 """Drive the PyTorch port's VarDCT still decode (with its post stages,
 extra channels, patches, splines, reference-only and LF frames), its
-Modular still decode, its sampled decode and pixel ops and its round-1
-VarDCT codec on one CUDA card.
+Modular still decode, its sampled decode and pixel ops, its animated,
+progressive and truncated decode and its round-1 VarDCT codec on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -154,12 +155,36 @@ prints no result):
      float64 host thumbnail; decode_sampled split into its layers inside
      the same calls (M1) beside api.decode on the same bytes; S1-S4 at
      their 4K shapes by CUDA graph against twin, bound and, for S3, the
-     dense float32 matmul pair.
+     dense float32 matmul pair;
+ 16. animation, progressive and truncated decode (streams written in the
+     worker processes during phases 3-5 by port_fixtures: 12 FHD lossy
+     frames, AnimatedEncoder's defaults, one frame a job; an FHD lossless
+     RGB + alpha + depth sprite animation, a full background, a
+     reference-only frame, eight cropped 320x240 sprites in every blend
+     mode and a whole-canvas BLEND frame; 8 round-1 frames cut to 256x384;
+     the 4K d1.0 e7 frame with two passes and its prefixes cut after pass
+     0 and after HF global, with their float64 oracles): counted, every
+     plain twin made to raise, decode_frames, get_frame in order and at
+     (0, 3, 2, 7, last) and api.decode on both animations,
+     decode_frames_batch on the round-1 one, decode_preview on both
+     entropy routes and decode of both cuts, each call's launches held to
+     its route (A10 once per composed frame, by the cursor's walk; the
+     batched kernel 6 once per batch; the DC render without synthesis or
+     pass group); the animations against reference.frames_float64 (the
+     lossy frames within 1 code on < 0.1%, the sprites equal), get_frame
+     against decode_frames; every A10 call against its twin, the batch
+     against single launches, its twin and the codec's per-frame decode;
+     the preview and cuts against their float64 oracles; get_frame split
+     into its layers (M1: two split passes in turns with two unsplit ones,
+     each split pass's layers within 2% of its total); decode_frames'
+     frames per second; the 4K
+     preview and cuts beside decode in turns; A10 and the batched kernel 6
+     by CUDA graph against twin and bound.
 Every kernel's line carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its operations over their type's rate: 67 TFLOP/s for f32, 34 for
-fp64 (the spline kernel's sums) (the H100 SXM's published peaks at
-700 W).  Calls the host cannot queue ahead of the card are timed by
+fp64 (the spline kernel's sums, the composition) (the H100 SXM's
+published peaks at 700 W).  Calls the host cannot queue ahead of the card are timed by
 replaying a CUDA graph of them.  The last two lines are the card's name
 and power limit and
 {"ok": true, "device": {...}}; the line before them lists the kernels.
@@ -191,7 +216,7 @@ sys.modules["jxl_coder_tpu"] = None  # and without the JAX package
 import numpy as np
 import torch
 
-from jxl_coder_tpu_torch import _build, api, codec, reference
+from jxl_coder_tpu_torch import _build, animation, api, codec, reference
 from jxl_coder_tpu_torch import batch as BATCH
 from jxl_coder_tpu_torch.entropy import device as ENT
 from jxl_coder_tpu_torch.host.modular import transform as MT
@@ -199,6 +224,7 @@ from jxl_coder_tpu_torch.host.modular.frame import ModularFrameDecoder
 from jxl_coder_tpu_torch.host.vardct.dec_real import BlockArrays
 from jxl_coder_tpu_torch.modular import device as MDEV
 from jxl_coder_tpu_torch.modular import output as MOUT
+from jxl_coder_tpu_torch.ops import compose as COMPOSE
 from jxl_coder_tpu_torch.ops import pack as PACK
 from jxl_coder_tpu_torch.ops import resize as RESIZE
 from jxl_coder_tpu_torch.ops import sample as SAMPLE
@@ -211,9 +237,11 @@ from jxl_coder_tpu_torch.vardct import fused_filters as FF
 from jxl_coder_tpu_torch.vardct import parse as PARSE
 from jxl_coder_tpu_torch.vardct import pipeline as LP
 from jxl_coder_tpu_torch.vardct.frame import VarDCTFrame
-from port_fixtures import (bench_frame, dct8_arguments, group_rct_still,
-                           modular_still, patched_alpha_still,
-                           posterized_frame, seeded_splines, sharp_frame,
+from port_fixtures import (animation_frame, animation_header, bench_frame,
+                           dct8_arguments, group_rct_still, header_bytes,
+                           legacy_animation, modular_still,
+                           patched_alpha_still, posterized_frame,
+                           seeded_splines, sharp_frame, sprite_animation,
                            squeezed_still, synthetic_family, text_frame,
                            upsampled_modular_still, vardct_reference_still,
                            waves_frame, with_lf_frame, with_splines,
@@ -279,6 +307,11 @@ KERNELS = {
                           replaces="jxl_coder_tpu/ops/resize.py:108"),
     "convert": dict(fn=PACK.convert, source="jxl_coder_tpu_torch/csrc/pixel_ops.cu",
                     replaces="jxl_coder_tpu/ops/pack.py:62"),
+    "compose": dict(fn=COMPOSE.compose, source="jxl_coder_tpu_torch/csrc/compose.cu",
+                    replaces="jxl_coder_tpu/api.py:821"),
+    "legacy_filters_batch": dict(fn=FF.legacy_filters_batch,
+                                 source="jxl_coder_tpu_torch/csrc/fused_filters.cu",
+                                 replaces="jxl_coder_tpu/vardct/filters_pallas.py:190"),
 }
 # the round-1 encoder's sources: a change to any of them re-encodes
 LEGACY_ENCODER = [sys.modules[m].__file__ for m in (
@@ -551,7 +584,7 @@ def check_filters_tiny(dev) -> None:
                 check_restore(x, sig, gab, iters, gabw, 0.9, 6.5, f"{h}x{w}")
 
 
-def device_rows(fn, runs: int, tries: int = 5):
+def device_rows(fn, runs: int, tries: int = 2):
     """torch.profiler over `runs` warm calls of fn: [(device us, calls,
     kernel name)] for the device-side events, or None.  Late in a long
     process the profiler drops kernel records (4 calls of 10 seen, or
@@ -3783,6 +3816,473 @@ def sampled_phase(streams: dict, card: str, ms: dict) -> dict:
     return dict(counts, layers=layers)
 
 
+# ---- phase 16: animation, progressive and truncated decode ---------------
+
+ANIM_KERNELS = ("compose", "legacy_filters_batch")
+# what the phase's card path must not run: every plain twin of its path
+ANIM_TWINS = SAMPLED_TWINS + (
+    (COMPOSE, ("compose_plain",)),
+    (FF, ("legacy_filters_batch_plain", "legacy_filters_plain")),
+    (LP, LEGACY_PLAIN))
+ANIM_WATCH = ANIM_KERNELS + ("synth_family", "synth_dct8",
+                             "restore_and_output", "rescale_image")
+# the FHD lossy animation: AnimatedEncoder's defaults (quality 90, effort
+# 7), a seeded frame moving 24 px a frame
+ANIM_FRAMES, ANIM_H, ANIM_W = 12, 1080, 1920
+SPRITE_H, SPRITE_W = 240, 320
+# the round-1 animation, cut to 256x384: its pure-Python entropy coding
+# takes ~20 s for one FHD parse (ROADMAP 2B item 9)
+ROUND1_FRAMES, ROUND1_H, ROUND1_W = 8, 256, 384
+# least fp64 operations per composed value (the BLEND of a colour channel:
+# the alpha's division, 1 - fa, two products, the sum, the division by
+# the coverage, the rounding and the clip)
+COMPOSE_OPS = 12
+
+
+def anim_frame_job(k: int) -> bytes:
+    """Frame k of the FHD lossy animation, alone (animated_stream's bytes
+    are the header's and the frames' one after another)."""
+    hdr = animation_header(ANIM_H, ANIM_W, 3, 8, lossless=False)
+    img = np.roll(bench_frame(ANIM_H, ANIM_W), 24 * k, axis=1)
+    return animation_frame(hdr, img, 100, k == ANIM_FRAMES - 1,
+                           lossless=False, quality=90)
+
+
+def sprite_job() -> bytes:
+    return sprite_animation(ANIM_H, ANIM_W, SPRITE_H, SPRITE_W)
+
+
+def round1_job() -> bytes:
+    return legacy_animation([np.roll(bench_frame(ROUND1_H, ROUND1_W),
+                                     16 * k, axis=1)
+                             for k in range(ROUND1_FRAMES)])
+
+
+def progressive_job():
+    """The 4K d1.0 e7 frame with two passes, its prefixes cut after pass
+    0's last group and after HF global, and their float64 oracles."""
+    data = reference.encode_vardct(bench_frame(2160, 3840), distance=1.0,
+                                   effort=7, progressive=True)
+    cs, hdr, fh, toc = api._first_frame(data)
+    ng, ndc = fh.counts(hdr)
+
+    def end(i):
+        return toc.section(i).offset + toc.section(i).size
+
+    cuts = {"pass0": data[:max(end(2 + ndc + gi) for gi in range(ng))],
+            "hf": data[:max(end(i) for i in range(2 + ndc))]}
+    return data, cuts, {"preview": reference.preview_float64(data, 1),
+                        "hf": reference.dc_upsampled_float64(cuts["hf"])}
+
+
+def start_anim_jobs(pool) -> dict:
+    return {"frames": [pool.apply_async(anim_frame_job, (k,))
+                       for k in range(ANIM_FRAMES)],
+            "sprites": pool.apply_async(sprite_job),
+            "round1": pool.apply_async(round1_job),
+            "progressive": pool.apply_async(progressive_job)}
+
+
+def frame_rules(data: bytes) -> tuple:
+    """Per frame of the index: (get_frame decodes it alone, A10 composes
+    it, it is shown), by the reference's rules (animation.py:120-121,
+    api.py:1013-1016 and 1029-1033)."""
+    img = animation.AnimatedImage(data, "cpu")
+    hdr, m = img.image_header, img.image_header.metadata
+    rules = []
+    for e in img.frames:
+        fh = e.header
+        regular = fh.frame_type in (0, 3)
+        alone = regular and fh.blending_info.mode == 0 and not fh.have_crop
+        fw, fhh = fh.frame_width or hdr.xsize, fh.frame_height or hdr.ysize
+        composes = regular and (fh.have_crop or fh.blending_info.mode != 0
+                                or fw < hdr.xsize or fhh < hdr.ysize) and \
+            COMPOSE.window((hdr.ysize, hdr.xsize), (fhh, fw), fh.x0,
+                           fh.y0) is not None
+        shown = regular and (fh.duration > 0 or m.animation is None
+                             or fh.is_last)
+        rules.append((alone, composes, shown))
+    return rules
+
+
+def cursor_composes(rules, order) -> int:
+    """A10 launches of get_frame over `order` on a fresh AnimatedImage:
+    the resumable cursor's walk (animation._compose_to)."""
+    nxt, last, n = None, -1, 0
+    for i in order:
+        if rules[i][0] or (nxt is not None and last == i):
+            continue
+        if nxt is None or nxt > i:
+            nxt = 0
+        n += sum(rules[j][1] for j in range(nxt, i + 1))
+        nxt, last = i + 1, i
+    return n
+
+
+@contextlib.contextmanager
+def recorded_anim(calls: dict, current: list):
+    """Record A10's calls (the canvas before and after, the frame, the
+    window, the blending) while current names a stream, and the batched
+    kernel's calls with the round-1 frames the host read for them."""
+    saved = []
+
+    def wrap(owner, name, record):
+        orig = getattr(owner, name)
+
+        @functools.wraps(orig)
+        def call(*args, **kwargs):
+            before = call.launches if hasattr(call, "launches") else 0
+            pre = args[0].clone() if name == "compose" and current else None
+            out = orig(*args, **kwargs)
+            if hasattr(orig, "launches"):
+                orig.launches += call.launches - before
+            if current:
+                record(args, kwargs, out, pre)
+            return out
+        saved.append((owner, name, orig))
+        setattr(owner, name, call)
+
+    wrap(COMPOSE, "compose", lambda a, k, o, pre: calls["compose"].append(
+        (current[0], pre, a[1], a[2], a[3], a[0].clone())))
+    wrap(FF, "legacy_filters_batch",
+         lambda a, k, o, pre: calls["batch"].append((a, k, o)))
+    wrap(codec, "read_vardct_still",
+         lambda a, k, o, pre: calls["read"].append((a, o)))
+    try:
+        yield
+    finally:
+        for owner, name, orig in reversed(saved):
+            setattr(owner, name, orig)
+
+
+ANIM_LAYERS = {
+    "host half (parse, Modular channels)": ("_host_one",),
+    "device half (h2d, kernels; synchronised)": ("_frame_device", "_xyb"),
+    "compose (A10, the canvas copy)": ("_compose_frame", "_canvas"),
+    "d2h": ("_to_host",),
+}
+
+
+@contextlib.contextmanager
+def split_anim(log: list):
+    """Wrap the functions get_frame calls (the device steps synchronise in
+    their wrappers); restore them on exit."""
+    saved = []
+    device = ("_frame_device", "_xyb", "_compose_frame", "_canvas")
+    for names in ANIM_LAYERS.values():
+        for name in names:
+            owner = animation if name == "_to_host" else api
+            saved.append((owner, name, owner.__dict__[name]))
+            setattr(owner, name, tspan(getattr(owner, name), name, log,
+                                       sync=name in device))
+    try:
+        yield
+    finally:
+        for owner, name, orig in reversed(saved):
+            setattr(owner, name, orig)
+
+
+def anim_layers(label: str, data: bytes, order, card: str,
+                runs: int = 2) -> dict:
+    """M1 for get_frame over `order`, each pass on a fresh AnimatedImage:
+    `runs` split passes in turns with as many unsplit ones (split first in
+    even pairs); raises if a split pass's layers do not sum to within 2%
+    of its own total.  -> ms per frame by layer (medians of the split
+    passes) and the unsplit passes' median total."""
+    med = statistics.median
+    split, unsplit = [], []
+    for i in range(2 * runs):
+        img = animation.AnimatedImage(data, "cuda")
+        log = []
+        torch.cuda.synchronize()
+        is_split = (i % 2 == 0) == (i // 2 % 2 == 0)
+        with no_gc(), split_anim(log) if is_split else \
+                contextlib.nullcontext():
+            t0 = time.perf_counter()
+            for k in order:
+                img.get_frame(k)
+            total = (time.perf_counter() - t0) * 1e3
+        if is_split:
+            own, _other = exclusive_ms(log)
+            split.append((total, {k: sum(own.get(n, 0.0) for n in names)
+                                  for k, names in ANIM_LAYERS.items()}))
+        else:
+            unsplit.append(total)
+    gaps = [abs(sum(per.values()) - total) / total for total, per in split]
+    if max(gaps) > 0.02:
+        raise AssertionError(f"get_frame {label}: a split pass's layers sum "
+                             f"to {max(gaps):.2%} off its own total")
+    n = len(order)
+    per = {k: med(p[k] for _, p in split) / n for k in ANIM_LAYERS}
+    t_split, t_unsplit = med(t for t, _ in split) / n, med(unsplit) / n
+    print(f"layers get_frame {label} {n} frames {list(order)[:6]}... (host "
+          f"clock, ms per frame, median of {runs} split passes): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in per.items())
+          + f"; each pass's layers summed within {max(gaps):.2%} of its own "
+          f"total; split passes {t_split:.2f}, unsplit passes {t_unsplit:.2f}"
+          f" (split - unsplit {t_split - t_unsplit:+.2f}: the wrappers' cost "
+          f"and the spread) [{card}]", flush=True)
+    return dict(per, split=t_split, total=t_unsplit)
+
+
+def anim_timings(calls: dict, streams: dict, prog, cuts, card: str,
+                 ms: dict) -> dict:
+    """decode_frames' frames per second at FHD; the 4K preview and
+    truncated decodes against decode in the same turns; A10 and the
+    batched kernel 6 by CUDA graph against twin and bound."""
+    med = statistics.median
+    times = {}
+    for label, data in streams.items():
+        n = len(api.decode_frames(data, device="cuda")[0])
+        t = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            api.decode_frames(data, device="cuda")
+            t.append(time.perf_counter() - t0)
+        times[label] = n / med(t)
+        print(f"decode_frames {label}: {n} shown frames, "
+              f"{times[label]:.2f} frames/s ({med(t) * 1e3:.1f} ms a call, "
+              f"median of 2) [{card}]", flush=True)
+    runs = {"decode": lambda: api.decode(prog, device="cuda"),
+            "decode_preview(passes=1)": lambda: api.decode_preview(
+                prog, 1, device="cuda"),
+            "decode of the cut after pass 0": lambda: api.decode(
+                cuts["pass0"], device="cuda"),
+            "decode of the cut after HF global": lambda: api.decode(
+                cuts["hf"], device="cuda")}
+    t = {k: [] for k in runs}
+    for turn in range(2):
+        for k in (list(runs) if turn % 2 == 0 else list(runs)[::-1]):
+            torch.cuda.synchronize()
+            with no_gc():
+                t0 = time.perf_counter()
+                runs[k]()
+                t[k].append((time.perf_counter() - t0) * 1e3)
+    print("4k progressive (host clock, ms, median of 2 in turns): "
+          + ", ".join(f"{k} {med(v):.1f}" for k, v in t.items())
+          + f" [{card}]", flush=True)
+    times["4k"] = {k: med(v) for k, v in t.items()}
+    # A10 at its largest main-path call: the whole-canvas BLEND frame
+    _label, pre, src, win, params, _post = max(
+        calls["compose"], key=lambda c: c[3].cw * c[3].ch)
+    canvas = pre.clone()
+    nch = src.shape[2]
+    vals = win.cw * win.ch * nch
+    note_bound("compose", 3 * vals * src.element_size(),
+               vals * COMPOSE_OPS, F64_OPS_PER_S, "fp64")
+    ms["compose"] = (
+        graph_ms(lambda: COMPOSE.compose(canvas, src, win, params)),
+        device_ms(lambda: COMPOSE.compose_plain(canvas, src, win, params)))
+    print(f"kernel compose (A10) at {win.cw}x{win.ch}x{nch} {src.dtype}: "
+          f"device {ms['compose'][0]:.4f} ms (CUDA graph), plain twin "
+          f"{ms['compose'][1]:.4f} ms, bound {BOUND['compose'][0]:.4f} ms "
+          f"({BOUND['compose'][1]}), no PyTorch call computes it [{card}]",
+          flush=True)
+    args, kw, out = calls["batch"][0]
+    imgs, qfs = args[0], args[1]
+    px = imgs.shape[0] * imgs.shape[2] * imgs.shape[3]
+    note_bound("legacy_filters_batch", nbytes(imgs, qfs, out),
+               px * (OPS_PX["gaborish"] + OPS_PX["epf2"] + OPS_PX["codes"]))
+    ms["legacy_filters_batch"] = (
+        graph_ms(lambda: FF.legacy_filters_batch(*args, **kw)),
+        device_ms(lambda: FF.legacy_filters_batch_plain(*args, **kw)))
+    singles = graph_ms(lambda: [FF.legacy_filters(imgs[k], qfs[k],
+                                                  *args[2:], "u8")
+                                for k in range(imgs.shape[0])], n=10)
+    print(f"kernel legacy_filters_batch (kernel 6, {imgs.shape[0]} frames "
+          f"of {imgs.shape[2]}x{imgs.shape[3]}): device "
+          f"{ms['legacy_filters_batch'][0]:.4f} ms (CUDA graph), "
+          f"{imgs.shape[0]} single launches {singles:.4f} ms, plain twin "
+          f"{ms['legacy_filters_batch'][1]:.4f} ms, bound "
+          f"{BOUND['legacy_filters_batch'][0]:.4f} ms "
+          f"({BOUND['legacy_filters_batch'][1]}) [{card}]", flush=True)
+    return times
+
+
+def anim_phase(jobs: dict, card: str, ms: dict) -> dict:
+    """Phase 16: the animated, progressive and truncated decode.  Counted
+    with every plain twin made to raise: decode_frames, get_frame in order
+    and at (0, 3, 2, 7, last) and api.decode on the FHD lossy and sprite
+    animations, decode_frames_batch on the round-1 animation,
+    decode_preview on both entropy routes and the two cuts of the 4K
+    progressive still; each call's launches held to its route; the
+    outputs against the float64 oracles; A10's and the batched kernel's
+    calls against their twins; M1 for get_frame; timings."""
+    t_phase = time.perf_counter()
+    hdr = animation_header(ANIM_H, ANIM_W, 3, 8, lossless=False)
+    streams = {"fhd_lossy_12": header_bytes(hdr) + b"".join(
+        j.get() for j in jobs["frames"]), "fhd_sprites": jobs["sprites"].get()}
+    round1 = jobs["round1"].get()
+    prog, cuts, oracles = jobs["progressive"].get()
+    rules = {k: frame_rules(d) for k, d in streams.items()}
+    # the animations' float64 oracles on host threads while the card runs
+    host = ThreadPoolExecutor(2)
+    refs = {k: host.submit(reference.frames_float64, d)
+            for k, d in streams.items()}
+    calls = {"compose": [], "batch": [], "read": []}
+    current, ac, watch = [], [0], ANIM_WATCH
+    order = {k: [0, 3, 2, 7, len(r) - 1] for k, r in rules.items()}
+    dev = api.resolve_device("cuda")
+
+    def main_path():
+        got, per = {}, {}
+
+        def run(key, fn):
+            before = {k: KERNELS[k]["fn"].launches for k in watch}
+            n_ac = ac[0]
+            got[key] = fn()
+            per[key] = dict({k: KERNELS[k]["fn"].launches - before[k]
+                             for k in watch}, read_pass_group=ac[0] - n_ac)
+
+        for label, data in streams.items():
+            current[:] = [label]
+            run((label, "decode_frames"),
+                lambda: api.decode_frames(data, device="cuda"))
+            current[:] = []
+            img = animation.AnimatedImage(data, "cuda")
+            run((label, "get_frame in order"),
+                lambda: [img.get_frame(i) for i in range(img.frames_count)])
+            img = animation.AnimatedImage(data, "cuda")
+            run((label, "get_frame at random"),
+                lambda: [img.get_frame(i) for i in order[label]])
+            run((label, "decode"), lambda: api.decode(data, device="cuda"))
+        current[:] = ["round1"]
+        rimg = animation.AnimatedImage(round1, "cuda")
+        run(("round1", "decode_frames_batch"),
+            lambda: animation.decode_frames_batch(rimg))
+        current[:] = []
+        for ent in ("host", "device"):
+            run(("4k", f"preview {ent}"), lambda: api.decode_preview(
+                prog, 1, device="cuda", entropy=ent))
+        run(("4k", "cut after pass 0"),
+            lambda: api.decode(cuts["pass0"], device="cuda"))
+        run(("4k", "cut after HF global"),
+            lambda: api.decode(cuts["hf"], device="cuda"))
+        run(("4k", "DC render"),
+            lambda: api._decode_partial(cuts["hf"], dev, "host"))
+        return got, per, rimg
+
+    with contextlib.ExitStack() as stack:
+        for module, names in ANIM_TWINS:
+            stack.enter_context(forbidden(module, names))
+        stack.enter_context(recorded_anim(calls, current))
+        stack.enter_context(counted(PARSE, "read_pass_group", ac))
+        t0 = time.perf_counter()
+        (got, per, rimg), counts = drive(
+            "main path (animation, preview, truncated)", main_path,
+            ANIM_KERNELS)
+        t_main = time.perf_counter() - t0
+    print(f"main path: {len(per)} calls in {t_main:.1f} s", flush=True)
+    # each call's launches
+    for key, launches in per.items():
+        label, what = key
+        want = {}
+        if label in streams:
+            r = rules[label]
+            n = len(r)
+            want["compose"] = {
+                "decode_frames": sum(c for _, c, _ in r),
+                "get_frame in order": cursor_composes(r, range(n)),
+                "get_frame at random": cursor_composes(r, order[label]),
+                "decode": cursor_composes(r, [n - 1])}[what]
+            want["legacy_filters_batch"] = 0
+        elif label == "round1":
+            want = {"legacy_filters_batch": 1, "compose": 0}
+        else:
+            want = {"compose": 0, "legacy_filters_batch": 0}
+            if what == "DC render":
+                want.update(synth_family=0, synth_dct8=0, read_pass_group=0,
+                            restore_and_output=1, rescale_image=1)
+        print(f"{label} {what}: launches {launches}", flush=True)
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"{label} {what}: launches {launches}, "
+                                 f"expected {want}")
+    # the animations against the float64 oracles; get_frame against
+    # decode_frames
+    for label in streams:
+        frames, durations, _info = got[label, "decode_frames"]
+        ref_frames, ref_durations = refs[label].result()
+        if durations != ref_durations or len(frames) != len(ref_frames):
+            raise AssertionError(f"{label}: durations {durations} vs the "
+                                 f"oracle's {ref_durations}")
+        for k, (a, b) in enumerate(zip(frames, ref_frames)):
+            if label == "fhd_lossy_12":
+                within_one_code(a, b, f"{label} frame {k} vs the float64 "
+                                      f"host decoder")
+            elif not np.array_equal(a, b):
+                raise AssertionError(f"{label} frame {k} differs from the "
+                                     f"host frames composed by A10's twin")
+        shown = [i for i, (_a, _c, s) in enumerate(rules[label]) if s]
+        in_order = got[label, "get_frame in order"]
+        for k, i in enumerate(shown):
+            if not np.array_equal(in_order[i], frames[k]):
+                raise AssertionError(f"{label}: get_frame({i}) differs "
+                                     f"from decode_frames' frame {k}")
+        for i, a in zip(order[label], got[label, "get_frame at random"]):
+            if not np.array_equal(a, in_order[i]):
+                raise AssertionError(f"{label}: get_frame({i}) at random "
+                                     f"differs from in order")
+        if not np.array_equal(got[label, "decode"][0], frames[-1]):
+            raise AssertionError(f"{label}: decode is not the last frame")
+        print(f"animation {label}: {len(frames)} shown frames equal to the "
+              f"oracle{' within 1 code' if label == 'fhd_lossy_12' else ''}"
+              f"; get_frame in order and at {order[label]} equal to "
+              f"decode_frames; decode is the last frame", flush=True)
+    host.shutdown()
+    # A10 against its twin on every composed frame
+    worst = 0
+    for label, pre, src, win, params, post_ in calls["compose"]:
+        twin = pre.clone()
+        COMPOSE.compose_plain(twin, src, win, params)
+        worst = max(worst, (twin.int() - post_.int()).abs().max().item())
+    note_err("compose", worst, 0, f"{len(calls['compose'])} composed frames "
+             f"of decode_frames")
+    # the batched kernel 6 against N single launches and its twin; the
+    # batch against the round-1 codec's decode of each frame
+    (args, kw, out), = calls["batch"]
+    imgs, qfs = args[0], args[1]
+    singles = torch.stack([FF.legacy_filters(imgs[k], qfs[k], *args[2:],
+                                             "u8")
+                           for k in range(imgs.shape[0])])
+    if not torch.equal(out, singles):
+        raise AssertionError("batched kernel 6 differs from single launches")
+    twin = FF.legacy_filters_batch_plain(*args, **kw)
+    note_err("legacy_filters_batch",
+             (twin.int() - out.int()).abs().max().item(), 0,
+             f"{imgs.shape[0]} frames of {imgs.shape[2]}x{imgs.shape[3]}, "
+             f"equal to {imgs.shape[0]} single launches")
+    batch = got["round1", "decode_frames_batch"]
+    for k, ((rargs, data), e) in enumerate(zip(calls["read"], rimg.frames)):
+        one = codec.reconstruct_vardct_still(data, rimg.image_header,
+                                             e.header, dev)
+        if not np.array_equal(batch[k], one):
+            raise AssertionError(f"round-1 frame {k}: the batch differs "
+                                 f"from the codec's decode")
+    print(f"decode_frames_batch: {batch.shape} equal to the round-1 codec's "
+          f"per-frame decodes", flush=True)
+    # the progressive still
+    a, b = got["4k", "preview host"][0], got["4k", "preview device"][0]
+    if not np.array_equal(a, b):
+        raise AssertionError("decode_preview: the entropy routes differ")
+    within_one_code(a, oracles["preview"], "4k decode_preview(passes=1) vs "
+                                           "the float64 host preview")
+    within_one_code(got["4k", "cut after pass 0"][0], oracles["preview"],
+                    "4k cut after pass 0 vs the float64 host preview")
+    within_one_code(got["4k", "cut after HF global"][0], oracles["hf"],
+                    "4k cut after HF global vs the float64 DC upsample")
+    if not np.array_equal(got["4k", "DC render"][0],
+                          got["4k", "cut after HF global"][0]):
+        raise AssertionError("the DC render differs from decode's")
+    layers = {label: {which: anim_layers(label, data, o, card)
+                      for which, o in (("in order", range(len(rules[label]))),
+                                       ("at random", order[label]))}
+              for label, data in streams.items()}
+    times = anim_timings(calls, streams, prog, cuts, card, ms)
+    print(f"phase 16 (animation, progressive and truncated) took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(counts, layers=layers, times=times)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3803,7 +4303,7 @@ def main() -> int:
     # 2. build, one nvcc per source and g++ for the host codec, all at once
     t0 = time.perf_counter()
     sources = ("synth", "filters", "fused_filters", "detile", "entropy",
-               "modular", "post", "overlay", "sample", "pixel_ops")
+               "modular", "post", "overlay", "sample", "pixel_ops", "compose")
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host = pool.submit(_build.load_host, "hostcodec")
         list(pool.map(_build.load, sources))
@@ -3811,7 +4311,7 @@ def main() -> int:
     print(f"build: nvcc sm_90a, {len(sources)} sources, and g++ for the host "
           f"codec in {time.perf_counter() - t0:.2f} s", flush=True)
     for name in ("synth", "filters", "fused_filters", "entropy", "modular",
-                 "post", "overlay", "sample", "pixel_ops"):
+                 "post", "overlay", "sample", "pixel_ops", "compose"):
         ptxas_report(name)
 
     phase_done("2 (build)")
@@ -3854,6 +4354,8 @@ def main() -> int:
     # workers once the twins free them; collected in phase 11
     modular_jobs = {label: pool.apply_async(modular_job, (label,))
                     for label in MODULAR_STREAMS}
+    # phase 16's streams and the progressive still's oracles
+    anim_jobs = start_anim_jobs(pool)
 
     phase_done("3 (streams)")
 
@@ -4027,6 +4529,12 @@ def main() -> int:
         "4k_rct": modular["streams"]["4k_rct"]}, card, ms)
     launches.update({k: sampled[k] for k in SAMPLED_KERNELS})
     phase_done("15 (the sampled decode)")
+
+    # 16. animation (the frame composition, csrc/compose.cu; the round-1
+    # batch, kernel 6 with a frame axis), progressive and truncated decode
+    anim = anim_phase(anim_jobs, card, ms)
+    launches.update({k: anim[k] for k in ANIM_KERNELS})
+    phase_done("16 (animation, progressive and truncated)")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": spec["source"],

@@ -1,6 +1,7 @@
 """Public decode entry points of the PyTorch port.
 
-``decode(data, device="cuda")`` decodes a VarDCT or a Modular still;
+``decode(data, device="cuda")`` decodes a VarDCT or a Modular still (or
+an animation's last frame, or what arrived of a stream cut short);
 ``decode_batch(datas, device="cuda")`` decodes many, the host half of
 each on a worker pool while the card reconstructs earlier ones
 (``batch.py``); ``decode_sampled(data, width, height, ...)`` decodes at a
@@ -62,14 +63,32 @@ from the decode to one download at the end:
   the packing (S4, ``ops/pack.py`` with ``ops/tone.py``), then one
   download.  Orientation applies to the device tensor before the rescale.
 
+Animations, progressive and truncated streams
+(``jxl_coder_tpu/api.py:512-521,573-678,804-1041``):
+- ``decode`` of an animated stream returns its last composed frame
+  (``animation.AnimatedImage``); ``decode_frames`` returns every shown
+  frame, each cropped or blended frame composed on the device onto a copy
+  of its blending source's slot (A10, ``ops/compose.py``: the five blend
+  modes, clamp, associated alpha, each extra channel's own blending), the
+  slots, LF planes and reference frames' XYB planes kept on the device,
+  one download per shown frame; ``decode_thumbnail`` / ``decode_sampled``
+  decode it whole (then S2 / S3); ``decode_batch`` decodes it on a worker.
+- ``decode_preview(data, passes)`` decodes the first `passes` AC passes of
+  a multi-pass VarDCT still (``parse_frame(max_passes=...)``); any other
+  stream decodes whole.
+- A stream cut short (``toc.end_offset`` past its bytes, LF global, LF
+  groups and HF global whole) renders what arrived (``_decode_partial``):
+  the AC passes that arrived whole, or the DC image resized to the frame
+  on the device (S3, Catmull-Rom); anything else raises InvalidJXLError.
+
 A frame whose DC frame or patch sources were not decoded before it raises
 InvalidJXLError.  What raises NotImplementedError: a VarDCT frame with
 YCbCr; ``entropy="device"`` on a VarDCT frame with extra channels or on a
 Modular frame to decode; an embedded ICC profile where the reference
 applies it (a Modular frame: the reference converts it to sRGB with
 littlecms, which the card's machine lacks, and the port has no colour
-management of its own yet); animations and the JPEG routes.  Nothing
-falls back to the host decoder.
+management of its own yet); the JPEG routes.  Nothing falls back to the
+host decoder.
 """
 
 from __future__ import annotations
@@ -85,7 +104,7 @@ from .host.api import (BasicInfo, InvalidJXLError, PreferredColorConfig,
                        ResizeFilter, ScaleMode, _check_decode_size,
                        apply_orientation, basic_info, parse_header)
 from .host.bitstream import container as _container
-from .host.bitstream.frame_header import (Encoding, FrameType,
+from .host.bitstream.frame_header import (BlendMode, Encoding, FrameType,
                                           read_frame_header, read_toc)
 from .host.bitstream.headers import ImageHeader, read_image_header
 from .host.bitstream.reader import BitReader, BitstreamError
@@ -95,6 +114,7 @@ from .host.modular.frame import ModularPlanes
 from .host.ops.color import is_hdr_encoding
 from .modular import device as MDEV
 from .modular import output as modular_output
+from .ops import compose as COMPOSE
 from .ops import pack as PACK
 from .ops import tone as TONE
 from .ops.resize import rescale_image
@@ -123,22 +143,43 @@ def _read_frames(data: bytes):
     br = BitReader(cs)
     hdr = read_image_header(br)
     _check_decode_size(hdr)
-    if hdr.metadata.animation is not None:
-        raise NotImplementedError(
-            "animation: decode it with jxl_coder_tpu.api.decode (the "
-            "port has no animation route)")
     frames = []
     while True:
         fh = read_frame_header(br, hdr)
-        ng, ndc = fh.counts(hdr)
-        n = 1 if (ng == 1 and fh.passes.num_passes == 1) else (
-            2 + ndc + ng * fh.passes.num_passes)
-        toc = read_toc(br, n)
+        toc = read_toc(br, _toc_count(hdr, fh))
         frames.append((fh, toc))
         if fh.frame_type not in (FrameType.LF_FRAME,
                                  FrameType.REFERENCE_ONLY):
             return cs, hdr, frames
         br.pos = toc.end_offset * 8
+
+
+def _toc_count(hdr, fh) -> int:
+    """The frame's TOC entries: one for a single-group, single-pass frame,
+    else LF global, the LF groups, HF global and the pass groups."""
+    ng, ndc = fh.counts(hdr)
+    if ng == 1 and fh.passes.num_passes == 1:
+        return 1
+    return 2 + ndc + ng * fh.passes.num_passes
+
+
+def _first_frame(data: bytes):
+    """Container + image header + the first frame's header and TOC ->
+    (codestream, header, frame header, toc); raises BitstreamError."""
+    cs = _container.extract_codestream(data).codestream
+    br = BitReader(cs)
+    hdr = read_image_header(br)
+    _check_decode_size(hdr)
+    fh = read_frame_header(br, hdr)
+    return cs, hdr, fh, read_toc(br, _toc_count(hdr, fh))
+
+
+def _animated(data: bytes) -> bool:
+    """Whether the stream signals an animation, whose frames compose (a
+    JPEG reconstruction container is not one)."""
+    if _jpeg_tc.is_constructed(data):
+        return False
+    return parse_header(data).metadata.animation is not None
 
 
 def _read_frame(data: bytes):
@@ -186,9 +227,11 @@ class Before(NamedTuple):
     host: object
 
 
-def _host_vardct(cs, hdr, fh, toc, dev, entropy: str) -> VarDCTHost:
+def _host_vardct(cs, hdr, fh, toc, dev, entropy: str,
+                 max_passes: int = None) -> VarDCTHost:
     try:
-        state = parse_frame(cs, hdr, fh, toc, entropy=entropy, device=dev)
+        state = parse_frame(cs, hdr, fh, toc, entropy=entropy, device=dev,
+                            max_passes=max_passes)
     except BitstreamError as e:
         raise InvalidJXLError(str(e)) from e
     lf = state["lf"]
@@ -257,6 +300,10 @@ def host_half(data: bytes, dev: torch.device, entropy: str = "host"):
         cs, hdr, frames = _read_frames(data)
     except BitstreamError as e:
         raise InvalidJXLError(str(e)) from e
+    if hdr.metadata.animation is not None:
+        raise NotImplementedError(
+            "host_half decodes a still: an animation's frames compose "
+            "(decode, decode_frames or animation.AnimatedImage)")
     before, lf_levels, ref_sizes = [], set(), {}
     for fh, toc in frames[:-1]:
         h = _host_one(cs, hdr, fh, toc, dev, entropy, xyb=True)
@@ -338,6 +385,15 @@ def device_half(host, dev: torch.device, put=None) -> torch.Tensor:
     Modular inverse transforms and output, on the current stream.  A
     Modular frame reads no LF or reference frame (as the reference)."""
     dc_frames, refs = _device_before(host, dev, put)
+    return _frame_device(host, dev, dc_frames, refs, put)
+
+
+def _frame_device(host, dev, dc_frames: dict, refs: dict, put=None
+                  ) -> torch.Tensor:
+    """A frame's pixels from its host half, its DC from dc_frames (lf_level
+    -> XYB planes on `dev`) and its patches from refs (slot -> XYB planes),
+    at the frame's own size (frame_width x frame_height, its upsampling
+    applied), on the current stream."""
     if isinstance(host, ModularHost):
         try:
             planes = MDEV.undo_frame(host.planes, dev, put)
@@ -377,10 +433,21 @@ def decode(data: bytes, device="cuda", entropy: str = "host"
     sample or less, uint16 above.  The device half runs on `device`
     ("cuda" raises when no card is present); entropy="device" decodes a
     VarDCT frame's AC pass groups there too (on the CPU, with the
-    kernel's plain twin)."""
+    kernel's plain twin).  An animation decodes to its last composed
+    frame; a stream cut short renders what arrived (_decode_partial) or
+    raises InvalidJXLError."""
     check_entropy(entropy)
     dev = resolve_device(device)
-    host = host_half(data, dev, entropy)
+    if _animated(data):
+        from .animation import AnimatedImage
+        img = AnimatedImage(data, dev, entropy)
+        last = img.get_frame(img.frames_count - 1)
+        return (apply_orientation(last, img.image_header.metadata.orientation),
+                basic_info(data))
+    try:
+        host = host_half(data, dev, entropy)
+    except InvalidJXLError as e:
+        return _partial_or_raise(data, dev, entropy, e)
     pixels = device_half(host, dev)
     return (apply_orientation(pixels.cpu().numpy(),
                               host.hdr.metadata.orientation),
@@ -398,6 +465,226 @@ def decode_batch(datas: Sequence[bytes], device="cuda",
     to another route."""
     from .batch import decode_batch as run
     return run(datas, device, entropy)
+
+
+# ---- animation, progressive and truncated decode -------------------------
+# (jxl_coder_tpu/api.py:573-678,804-1041)
+
+def _frame_xyb(cs, hdr, fh, toc, dev, entropy: str, dc_frames: dict
+               ) -> torch.Tensor:
+    """An LF frame's or a reference frame's (3, h, w) XYB planes on `dev`
+    (the reference's _decode_lf_frame / _decode_reference_frame), its DC
+    from the LF frames decoded before it."""
+    host = _host_one(cs, hdr, fh, toc, dev, entropy, xyb=True)
+    _check_before(host, set(dc_frames), None)
+    return _xyb(host, dev, None, dc_frames)
+
+
+def _decode_one_frame(cs, hdr, fh, toc, dev, entropy: str,
+                      dc_frames: dict, refs: dict) -> torch.Tensor:
+    """One frame's codes, (h, w, C) on `dev` at the frame's own size, not
+    oriented (``jxl_coder_tpu/api.py:804-818``): its host half, checked
+    against the LF frames (lf_level -> planes) and the reference frames
+    (slot -> planes) decoded before it, then its device half."""
+    host = _host_one(cs, hdr, fh, toc, dev, entropy)
+    _check_before(host, set(dc_frames),
+                  {k: tuple(v.shape[1:]) for k, v in refs.items()}
+                  if refs else None)
+    return _frame_device(host, dev, dc_frames, refs)
+
+
+def _canvas(base: Optional[torch.Tensor], pix: torch.Tensor, hdr
+            ) -> torch.Tensor:
+    """The canvas a cropped or blended frame composes onto: a copy of its
+    blending source's slot, or zeros of the image's size."""
+    if base is None:
+        return torch.zeros((hdr.ysize, hdr.xsize, pix.shape[2]),
+                           dtype=pix.dtype, device=pix.device)
+    return base.clone(memory_format=torch.contiguous_format)
+
+
+def _compose_frame(canvas: torch.Tensor, pix: torch.Tensor, fh, m) -> None:
+    """Blend the frame's pixels onto the canvas in place
+    (``jxl_coder_tpu/api.py:821-961``): its window clipped on the host,
+    then one launch of A10 (``ops/compose.py``)."""
+    win = COMPOSE.window(canvas.shape[:2], pix.shape[:2], fh.x0, fh.y0)
+    if win is not None:
+        COMPOSE.compose(canvas, pix, win,
+                        COMPOSE.blend_params(fh, m, pix.shape[2]))
+
+
+def _full_frame(fh, pix: torch.Tensor, hdr) -> bool:
+    """The composition walk's test of a frame that replaces the whole
+    canvas (``api.py:1013-1016``, ``animation.py:172-174``)."""
+    return (not fh.have_crop and pix.shape[0] >= hdr.ysize
+            and pix.shape[1] >= hdr.xsize
+            and fh.blending_info.mode == BlendMode.REPLACE)
+
+
+@dataclasses.dataclass
+class _Slots:
+    """The composition walk's state, on the device: the saved slots (slot
+    -> (H, W, C) codes), the LF frames' planes (lf_level -> XYB) and the
+    reference frames' XYB planes (slot -> planes)."""
+    ref_slots: dict = dataclasses.field(default_factory=dict)
+    dc: dict = dataclasses.field(default_factory=dict)
+    ref_xyb: dict = dataclasses.field(default_factory=dict)
+
+
+def _compose_step(cs, hdr, fh, toc, dev, entropy: str, st: _Slots
+                  ) -> Optional[torch.Tensor]:
+    """One frame of the composition walk, decode_frames' and the
+    AnimatedImage cursor's (``api.py:990-1028``, ``animation.py:155-187``):
+    an LF frame's planes go to st.dc and a patch source's to st.ref_xyb
+    (-> None); a reference-only frame's codes go to its slot as they are
+    (-> them); any other frame is composed onto its canvas, a copy of its
+    blending source's slot (A10), which is saved to its slot unless the
+    frame is the last (-> the canvas)."""
+    if fh.frame_type == FrameType.LF_FRAME:
+        st.dc[fh.lf_level] = _frame_xyb(cs, hdr, fh, toc, dev, entropy, st.dc)
+        return None
+    ref_only = fh.frame_type == FrameType.REFERENCE_ONLY
+    if ref_only and fh.save_before_color_transform:
+        st.ref_xyb[fh.save_as_reference] = _frame_xyb(cs, hdr, fh, toc, dev,
+                                                      entropy, st.dc)
+        return None
+    pix = _decode_one_frame(cs, hdr, fh, toc, dev, entropy, st.dc,
+                            st.ref_xyb)
+    if ref_only:
+        st.ref_slots[fh.save_as_reference] = pix
+        return pix
+    if _full_frame(fh, pix, hdr):
+        canvas = pix[:hdr.ysize, :hdr.xsize]
+    else:
+        canvas = _canvas(st.ref_slots.get(fh.blending_info.source), pix, hdr)
+        _compose_frame(canvas, pix, fh, hdr.metadata)
+    if not fh.is_last:
+        st.ref_slots[fh.save_as_reference] = canvas
+    return canvas
+
+
+def decode_frames(data: bytes, device="cuda", entropy: str = "host"):
+    """Every shown frame of a (possibly animated) stream -> (frames,
+    durations, BasicInfo), as jxl_coder_tpu.api.decode_frames returns
+    them: (H, W, C) arrays in display order, oriented, each cropped or
+    blended frame composed on the card over its blending source's slot
+    (A10) and saved back to its save_as_reference slot; durations in
+    animation ticks.  A frame is shown when it is regular (or
+    skip-progressive) and has a duration, or is the last, or the stream
+    has no animation.  The slots, LF planes and reference frames' XYB
+    planes stay on `device`; each shown frame is downloaded once."""
+    check_entropy(entropy)
+    dev = resolve_device(device)
+    try:
+        cs = _container.extract_codestream(data).codestream
+        br = BitReader(cs)
+        hdr = read_image_header(br)
+        _check_decode_size(hdr)
+        m = hdr.metadata
+        frames, durations, st = [], [], _Slots()
+        while True:
+            fh = read_frame_header(br, hdr)
+            toc = read_toc(br, _toc_count(hdr, fh))
+            canvas = _compose_step(cs, hdr, fh, toc, dev, entropy, st)
+            if fh.frame_type in (FrameType.REGULAR,
+                                 FrameType.SKIP_PROGRESSIVE) and (
+                    fh.duration > 0 or m.animation is None or fh.is_last):
+                frames.append(apply_orientation(canvas.cpu().numpy(),
+                                                m.orientation))
+                durations.append(fh.duration)
+            if fh.is_last:
+                break
+            br.pos = toc.end_offset * 8
+        return frames, durations, basic_info(data)
+    except BitstreamError as e:
+        raise InvalidJXLError(str(e)) from e
+
+
+def _partial_or_raise(data: bytes, dev, entropy: str, err: Exception):
+    """_decode_partial's render of a stream cut short, else err as
+    InvalidJXLError."""
+    part = _decode_partial(data, dev, entropy)
+    if part is not None:
+        return part
+    if isinstance(err, InvalidJXLError):
+        raise err
+    raise InvalidJXLError(str(err)) from err
+
+
+def _decode_partial(data: bytes, dev, entropy: str):
+    """A byte-truncated still rendered from what arrived
+    (``jxl_coder_tpu/api.py:573-641``) -> (pixels, BasicInfo), or None
+    when the stream is not a clean prefix truncation of a regular VarDCT
+    frame (the first frame, no animation, a multi-section TOC), or its LF
+    global, LF groups or HF global did not arrive whole.  The AC passes
+    that arrived whole decode with max_passes; with none, the DC image's
+    codes (the thumbnail's host and device halves: no HF global, no pass
+    group) are resized on the card to the frame's size (S3, RESIZE,
+    Catmull-Rom).  A stream the headers or these sections reject returns
+    None, so the caller raises its InvalidJXLError."""
+    try:
+        cs, hdr, fh, toc = _first_frame(data)
+        if (hdr.metadata.animation is not None
+                or fh.encoding != Encoding.VARDCT
+                or fh.frame_type != FrameType.REGULAR
+                or len(toc.entries) == 1 or toc.end_offset <= len(cs)):
+            return None
+        ng, ndc = fh.counts(hdr)
+
+        def whole(idx: int) -> bool:
+            s = toc.section(idx)
+            return s.offset + s.size <= len(cs)
+
+        if not all(whole(i) for i in range(2 + ndc)):
+            return None
+        complete = 0
+        for p in range(fh.passes.num_passes):
+            if not all(whole(2 + ndc + p * ng + gi) for gi in range(ng)):
+                break
+            complete = p + 1
+        if complete:
+            host = _host_vardct(cs, hdr, fh, toc, dev, entropy,
+                                max_passes=complete)
+            _check_before(host, set(), None)
+            pixels = device_half(host, dev)
+        else:
+            dc = _dc_codes(_dc_host(data, dev, entropy, upsampled=True), dev)
+            pixels = rescale_image(dc, fh.frame_width or hdr.xsize,
+                                   fh.frame_height or hdr.ysize,
+                                   int(ScaleMode.RESIZE),
+                                   int(ResizeFilter.CATMULL_ROM))
+    except (BitstreamError, InvalidJXLError):
+        return None
+    return (apply_orientation(pixels.cpu().numpy(),
+                              hdr.metadata.orientation), basic_info(data))
+
+
+def decode_preview(data: bytes, passes: int = 1, device="cuda",
+                   entropy: str = "host") -> Tuple[np.ndarray, BasicInfo]:
+    """A progressive preview -> (pixels, BasicInfo) at full size, as
+    jxl_coder_tpu.api.decode_preview returns it: only the first `passes`
+    AC passes of a multi-pass VarDCT still (the first frame, regular, a
+    multi-section TOC) decode; any other stream decodes whole (decode).
+    A stream cut short renders what arrived (_decode_partial)."""
+    check_entropy(entropy)
+    dev = resolve_device(device)
+    try:
+        cs, hdr, fh, toc = _first_frame(data)
+    except BitstreamError as e:
+        return _partial_or_raise(data, dev, entropy, e)
+    if (hdr.metadata.animation is not None or fh.encoding != Encoding.VARDCT
+            or fh.frame_type != FrameType.REGULAR
+            or fh.passes.num_passes <= passes or len(toc.entries) == 1):
+        return decode(data, dev, entropy)
+    try:
+        host = _host_vardct(cs, hdr, fh, toc, dev, entropy,
+                            max_passes=passes)
+        _check_before(host, set(), None)
+    except InvalidJXLError as e:
+        return _partial_or_raise(data, dev, entropy, e)
+    pixels = device_half(host, dev)
+    return (apply_orientation(pixels.cpu().numpy(),
+                              hdr.metadata.orientation), basic_info(data))
 
 
 # ---- the sampled decode (jxl_coder_tpu/api.py:1043-1214) ----------------
@@ -420,7 +707,13 @@ def orient(pixels: torch.Tensor, orientation: int) -> torch.Tensor:
 
 
 def _pixels(data: bytes, dev, entropy: str) -> torch.Tensor:
-    """A full decode's oriented pixels, on `dev`."""
+    """A full decode's oriented pixels, on `dev` (an animation's: its last
+    composed frame)."""
+    if _animated(data):
+        from .animation import AnimatedImage
+        img = AnimatedImage(data, dev, entropy)
+        return orient(img.frame_tensor(img.frames_count - 1),
+                      img.image_header.metadata.orientation)
     host = host_half(data, dev, entropy)
     return orient(device_half(host, dev), host.hdr.metadata.orientation)
 
@@ -435,13 +728,16 @@ class DCHost(NamedTuple):
     before: tuple
 
 
-def _dc_host(data: bytes, dev, entropy: str) -> Optional[DCHost]:
-    """The DC image of the frame to decode, or None for a Modular or an
-    upsampled frame (decode_thumbnail decodes those whole)."""
+def _dc_host(data: bytes, dev, entropy: str,
+             upsampled: bool = False) -> Optional[DCHost]:
+    """The DC image of the frame to decode, or None for a Modular or (unless
+    `upsampled`) an upsampled frame (decode_thumbnail decodes those
+    whole)."""
     try:
         cs, hdr, frames = _read_frames(data)
         fh, toc = frames[-1]
-        if fh.encoding == Encoding.MODULAR or fh.upsampling != 1:
+        if fh.encoding == Encoding.MODULAR or (fh.upsampling != 1
+                                               and not upsampled):
             return None
         before, levels = [], set()
         for bfh, btoc in frames[:-1]:
@@ -464,6 +760,11 @@ def _dc_host(data: bytes, dev, entropy: str) -> Optional[DCHost]:
 
 def _dc_device(host: DCHost, dev) -> torch.Tensor:
     """The DC image's codes in the output encoding, oriented, on `dev`."""
+    return orient(_dc_codes(host, dev), host.hdr.metadata.orientation)
+
+
+def _dc_codes(host: DCHost, dev) -> torch.Tensor:
+    """The DC image's codes in the output encoding, on `dev`."""
     m = host.hdr.metadata
     if host.dc is None:
         dc_frames, _ = _device_before(host, dev)
@@ -474,12 +775,13 @@ def _dc_device(host: DCHost, dev) -> torch.Tensor:
         xyb = torch.from_numpy(host.dc).to(dev)
     bits = m.bit_depth.bits_per_sample
     spec = output_spec(m)
-    rgb = (modular_output.srgb_codes(xyb, bits) if spec == ("srgb",)
-           else encode_output(xyb, spec, bits))
-    return orient(rgb, m.orientation)
+    return (modular_output.srgb_codes(xyb, bits) if spec == ("srgb",)
+            else encode_output(xyb, spec, bits))
 
 
 def _thumbnail(data: bytes, dev, entropy: str) -> torch.Tensor:
+    if _animated(data):
+        return box_codes(_pixels(data, dev, entropy))
     host = _dc_host(data, dev, entropy)
     if host is not None:
         return _dc_device(host, dev)

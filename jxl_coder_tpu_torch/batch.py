@@ -29,8 +29,10 @@ frames and their pixels come back.  Here:
   stream that reads them (``Tensor.record_stream``), so that the caching
   allocator does not hand their memory out early.
 
-On the CPU the same workers and order run without streams or pinned
-buffers.  Every file's pixels equal ``api.decode(data, device,
+An animation (whose frames compose) decodes whole on its worker, under
+the worker's stream (``api.decode``), and its pixels take the host half's
+place.  On the CPU the same workers and order run without streams or
+pinned buffers.  Every file's pixels equal ``api.decode(data, device,
 entropy)[0]``: the same host and device code runs on the same bytes.
 
 A file that ``decode`` raises on ends the call with the same exception,
@@ -108,7 +110,9 @@ def run(datas: List[bytes], dev: torch.device, entropy: str, workers: int,
 
     def host(i: int):
         """File i's host half on a worker; on the card, under the worker's
-        own stream, with an event after its work there."""
+        own stream, with an event after its work there.  An animation
+        (whose frames compose) decodes whole on the worker: its pixels,
+        downloaded, take the host half's place."""
         if card is None:
             return _host_half(datas[i], dev, entropy), None
         if not hasattr(streams, "stream"):
@@ -131,6 +135,9 @@ def run(datas: List[bytes], dev: torch.device, entropy: str, workers: int,
                     results[j] = pixels
             with _naming(i):
                 h, ready = ahead.popleft().result()
+                if isinstance(h, np.ndarray):
+                    results[i] = h
+                    continue
                 orientation = h.hdr.metadata.orientation
                 if card is None:
                     results[i] = apply_orientation(
@@ -150,7 +157,9 @@ def run(datas: List[bytes], dev: torch.device, entropy: str, workers: int,
 def _host_half(data: bytes, dev: torch.device, entropy: str):
     """api.host_half, then a noisy frame's random planes (built once per
     size, here rather than on the main thread), the LF and reference
-    frames' before it too."""
+    frames' before it too; an animation's decoded pixels (api.decode)."""
+    if api._animated(data):
+        return api.decode(data, dev, entropy)[0]
     h = api.host_half(data, dev, entropy)
     for part in (h,) + tuple(b.host for b in h.before):
         if isinstance(part, api.VarDCTHost) and \

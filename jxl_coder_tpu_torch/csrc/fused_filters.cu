@@ -49,6 +49,12 @@
 // pair's SAD once.  A persistent grid that loads the next window while
 // it filters this one was slower (more registers, with spills).
 //
+// Frames: a launch may filter N frames of one size at once (the round-1
+// branch of decode_frames_batch, jxl_coder_tpu/animation.py:416-425, a
+// jax.vmap of kernel 6's chain): blockIdx.z is the frame, and each frame's
+// input planes, quant field and output sit at their own strides.  A frame
+// filters exactly as a launch of it alone would.
+//
 // Every kernel builds with -fmad=false and sums in the twins' order
 // (explicit fmaf only where XLA fuses: the 3x3 opsin mix).
 
@@ -172,17 +178,23 @@ enum { EPF_NONE = 0, EPF_PIXEL = 1, EPF_BLOCK = 2 };
 // inv: EPF_PIXEL, the float map (row stride inv_stride, rows like in's);
 // EPF_BLOCK, qf (qf_rows rows of row stride inv_stride), pixel row y
 // reading block row (y + qf_row) >> 3 clamped to the field.  out: (3, H,
-// W) float32 planes, or uint8 / uint16 sRGB codes.
+// W) float32 planes, or uint8 / uint16 sRGB codes.  Frame blockIdx.z's
+// in, inv and out lie frame_in, frame_inv_bytes and frame_out further on.
 template <bool GAB, int EPF, typename OutT>
 __global__ void __launch_bounds__(LNT, 4)
     legacy_kernel(Planes in, int pad, int H, int W,
                   const void* __restrict__ inv, int inv_stride, int qf_rows,
-                  int qf_row, OutT* __restrict__ out, LegacyParams p) {
+                  int qf_row, OutT* __restrict__ out, LegacyParams p,
+                  long long frame_in, long long frame_inv_bytes,
+                  long long frame_out) {
   // X: the input window, column x0-4+k at k; G: the gaborish output at
   // rows y0-1 .. y0+LTH, same columns
   __shared__ __align__(16) float X[3 * PXP];
   __shared__ __align__(16) float G[GAB ? 3 * PGP : 4];
   constexpr bool CODES = sizeof(OutT) < 4;
+  in.p += blockIdx.z * frame_in;
+  inv = static_cast<const char*>(inv) + blockIdx.z * frame_inv_bytes;
+  out += blockIdx.z * frame_out;
   const int tid = threadIdx.x;
   const int x0 = blockIdx.x * LTW, y0 = blockIdx.y * LTH;
   const int ylo = -pad, yhi = H + pad - 1;
@@ -381,15 +393,22 @@ __global__ void __launch_bounds__(LNT, 4)
   }
 }
 
+// the frame count and each frame's strides (in: floats, inv: bytes, out:
+// elements)
+struct Frames {
+  int n;
+  long long in, inv_bytes, out;
+};
+
 template <bool GAB, int EPF, typename OutT>
 cudaError_t run_legacy(const Planes& in, int pad, int H, int W,
                        const void* inv, int inv_stride, int qf_rows,
                        int qf_row, void* out, const LegacyParams& p,
-                       cudaStream_t s) {
-  const dim3 grid((W + LTW - 1) / LTW, (H + LTH - 1) / LTH);
+                       const Frames& f, cudaStream_t s) {
+  const dim3 grid((W + LTW - 1) / LTW, (H + LTH - 1) / LTH, f.n);
   legacy_kernel<GAB, EPF, OutT><<<grid, LNT, 0, s>>>(
       in, pad, H, W, inv, inv_stride, qf_rows, qf_row,
-      static_cast<OutT*>(out), p);
+      static_cast<OutT*>(out), p, f.in, f.inv_bytes, f.out);
   return cudaGetLastError();
 }
 
@@ -397,11 +416,12 @@ template <bool GAB, int EPF>
 cudaError_t run_legacy_out(int out_kind, const Planes& in, int pad, int H,
                            int W, const void* inv, int inv_stride,
                            int qf_rows, int qf_row, void* out,
-                           const LegacyParams& p, cudaStream_t s) {
+                           const LegacyParams& p, const Frames& f,
+                           cudaStream_t s) {
   switch (out_kind) {
-    case 0: return run_legacy<GAB, EPF, float>(in, pad, H, W, inv, inv_stride, qf_rows, qf_row, out, p, s);
-    case 1: return run_legacy<GAB, EPF, uint8_t>(in, pad, H, W, inv, inv_stride, qf_rows, qf_row, out, p, s);
-    case 2: return run_legacy<GAB, EPF, uint16_t>(in, pad, H, W, inv, inv_stride, qf_rows, qf_row, out, p, s);
+    case 0: return run_legacy<GAB, EPF, float>(in, pad, H, W, inv, inv_stride, qf_rows, qf_row, out, p, f, s);
+    case 1: return run_legacy<GAB, EPF, uint8_t>(in, pad, H, W, inv, inv_stride, qf_rows, qf_row, out, p, f, s);
+    case 2: return run_legacy<GAB, EPF, uint16_t>(in, pad, H, W, inv, inv_stride, qf_rows, qf_row, out, p, f, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -419,6 +439,9 @@ cudaError_t run_legacy_out(int out_kind, const Planes& in, int pad, int H,
 // k[9], cs[3], m[9], cbrt_bias, opsin_bias, inv_den; u8codes,
 // u16poly, u16thr: the code tables on the device (LegacyParams), needed
 // for out_kind 1 / 2; code_lo: the top 16 bits of their bucket 0.
+// frames: how many frames of this size to filter in the launch; frame i's
+// in, inv and out lie i * frame_in floats, i * frame_inv_bytes bytes and
+// i * frame_out elements further on (frames 1 and 0 strides: one frame).
 extern "C" int jxl_legacy_filters(const float* in, long long plane_stride,
                                   int row_stride, int pad, int H, int W,
                                   const void* inv, int inv_stride,
@@ -426,8 +449,12 @@ extern "C" int jxl_legacy_filters(const float* in, long long plane_stride,
                                   int gab, int epf, int out_kind,
                                   const float* consts, const void* u8codes,
                                   const void* u16poly, const void* u16thr,
-                                  int code_lo, void* stream) {
-  if (H <= 0 || W <= 0) return cudaSuccess;
+                                  int code_lo, int frames, long long frame_in,
+                                  long long frame_inv_bytes,
+                                  long long frame_out, void* stream) {
+  if (H <= 0 || W <= 0 || frames <= 0) return cudaSuccess;
+  if (frames > 65535) return cudaErrorInvalidValue;
+  const Frames f{frames, frame_in, frame_inv_bytes, frame_out};
   if ((out_kind == 1 && u8codes == nullptr) ||
       (out_kind == 2 && (u16poly == nullptr || u16thr == nullptr)))
     return cudaErrorInvalidValue;
@@ -452,14 +479,14 @@ extern "C" int jxl_legacy_filters(const float* in, long long plane_stride,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (epf) {
     case EPF_NONE:
-      return gab ? run_legacy_out<true, EPF_NONE>(out_kind, pl, pad, H, W, inv, inv_stride, qf_rows, qf_row, out, p, s)
-                 : run_legacy_out<false, EPF_NONE>(out_kind, pl, pad, H, W, inv, inv_stride, qf_rows, qf_row, out, p, s);
+      return gab ? run_legacy_out<true, EPF_NONE>(out_kind, pl, pad, H, W, inv, inv_stride, qf_rows, qf_row, out, p, f, s)
+                 : run_legacy_out<false, EPF_NONE>(out_kind, pl, pad, H, W, inv, inv_stride, qf_rows, qf_row, out, p, f, s);
     case EPF_BLOCK:
-      return gab ? run_legacy_out<true, EPF_BLOCK>(out_kind, pl, pad, H, W, inv, inv_stride, qf_rows, qf_row, out, p, s)
-                 : run_legacy_out<false, EPF_BLOCK>(out_kind, pl, pad, H, W, inv, inv_stride, qf_rows, qf_row, out, p, s);
+      return gab ? run_legacy_out<true, EPF_BLOCK>(out_kind, pl, pad, H, W, inv, inv_stride, qf_rows, qf_row, out, p, f, s)
+                 : run_legacy_out<false, EPF_BLOCK>(out_kind, pl, pad, H, W, inv, inv_stride, qf_rows, qf_row, out, p, f, s);
     case EPF_PIXEL:
       if (!gab || out_kind > 1) return cudaErrorInvalidValue;
-      return run_legacy_out<true, EPF_PIXEL>(out_kind, pl, pad, H, W, inv, inv_stride, qf_rows, qf_row, out, p, s);
+      return run_legacy_out<true, EPF_PIXEL>(out_kind, pl, pad, H, W, inv, inv_stride, qf_rows, qf_row, out, p, f, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1208,7 +1208,8 @@ def dc_from_frame(dc_frame, xs_b: int, ys_b: int) -> dict:
 
 def decode_vardct_frame(cs: bytes, hdr, fh, toc, dc_frame=None,
                         ref_frames=None,
-                        return_xyb: bool = False) -> np.ndarray:
+                        return_xyb: bool = False,
+                        max_passes: int = None) -> np.ndarray:
     """Real-format VarDCT still decode on the host, in float64 ->
     (H, W, 3 + extra channels) uint8, or uint16 above 8 bits per sample,
     in the signalled output encoding (sRGB by default).
@@ -1223,7 +1224,10 @@ def decode_vardct_frame(cs: bytes, hdr, fh, toc, dc_frame=None,
     source).
 
     Handles multi-pass (progressive AC) streams: per-group coefficient
-    values accumulate as sum(v_pass << pass_shift).
+    values accumulate as sum(v_pass << pass_shift).  max_passes: decode
+    only the first max_passes AC passes (the progressive preview and the
+    truncated-stream render); the coefficients keep their shifted scale.
+    A single-section TOC ignores it.
 
     Section layout (multi-entry TOC): LfGlobal | LfGroup[0..ndc) |
     HfGlobal | PassGroup[pass][0..ng); single-entry TOC concatenates
@@ -1236,6 +1240,9 @@ def decode_vardct_frame(cs: bytes, hdr, fh, toc, dc_frame=None,
     # per-pass coefficient shifts: shift[i] for all but the last pass
     pass_shift = list(fh.passes.shift) + [0]
     single = len(toc.entries) == 1
+    if (max_passes is not None and 0 < max_passes < npasses
+            and not single):
+        npasses = max_passes
     use_dc_frame = bool(fh.flags & 0x20)
     if use_dc_frame and dc_frame is None:
         raise BitstreamError(

@@ -208,6 +208,23 @@ def encode_vardct_frame(bw: BitWriter, hdr: ImageHeader, fh: FrameHeader,
             bw.u(byte, 8)
 
 
+def is_legacy_vardct_payload(hdr: ImageHeader, fh: FrameHeader,
+                             toc) -> bool:
+    """Detect the round-1 private VarDCT payload (encode_vardct_frame
+    above) from the TOC alone, without decoding: its LfGlobal section is
+    the fixed 2-byte F16 distance and its HfGlobal section is empty
+    (histograms ride per pass group) — a combination no real-format
+    stream produces (a real LfGlobal/HfGlobal always carries quantizer +
+    context data).  Single-entry payloads (tiny one-group frames) are
+    ambiguous and report False; callers route those through the
+    real-format parser, which is the product default."""
+    _, _, ng, ndc = section_layout(hdr, fh)
+    if len(toc.entries) != 2 + ndc + ng:
+        return False
+    return (toc.section(0).size == 2
+            and toc.section(1 + ndc).size == 0)
+
+
 def decode_vardct_frame(cs: bytes, hdr: ImageHeader, fh: FrameHeader,
                         toc) -> VarDctFrameData:
     w, h, ng, ndc = section_layout(hdr, fh)

@@ -13,6 +13,9 @@ Entry points keep the JAX names and arguments (less ``tile``):
   (``pipeline.reconstruct_*``): gaborish and EPF each switchable, the
   inverse sigma made in the kernel from the per-block quant field, and
   f32, sRGB8 or sRGB16 out.  It counts toward #6 with u8 out, else #5.
+  ``legacy_filters_batch`` is one launch of it over N frames of one size
+  (a frame axis on the grid), the round-1 branch of
+  ``animation.decode_frames_batch``; it counts its own launches.
 - ``fused_real_filters(img_padded, inv_blocks, ...)`` (#3): the
   real-format gaborish + EPF1 (+ EPF2) (+ sRGB) chain with Mirror
   borders, and ``fused_real_gab_epf1(img_padded, inv_blocks, to_srgb)``
@@ -51,9 +54,10 @@ _P, _I = _c.c_void_p, _c.c_int
 
 @functools.lru_cache(maxsize=None)
 def _legacy_kernel():
+    _L = _c.c_longlong
     return _build.bind(_build.load("fused_filters"), "jxl_legacy_filters",
-                       [_P, _c.c_longlong, _I, _I, _I, _I, _P, _I, _I, _I,
-                        _P, _I, _I, _I, _P, _P, _P, _P, _I])
+                       [_P, _L, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I,
+                        _I, _P, _P, _P, _P, _I, _I, _L, _L, _L])
 
 
 @functools.lru_cache(maxsize=None)
@@ -252,7 +256,8 @@ def _legacy_launch(img, pad, gab, epf, out, inv=None, qf_row=0,
                   img.stride(0), img.stride(1), pad, H, W, inv_ptr,
                   inv_stride, inv_rows, qf_row, res.data_ptr(), int(gab), epf,
                   tuple(OUTS).index(out),
-                  _legacy_consts(float(den)).ctypes.data, *tables, CODE_LO)
+                  _legacy_consts(float(den)).ctypes.data, *tables, CODE_LO,
+                  1, 0, 0, 0)
     return res
 
 
@@ -322,6 +327,52 @@ def legacy_filters(img: torch.Tensor, qf, distance: float, gab: bool,
         fused_filters2.launches += 1
     else:
         fused_gab_epf.launches += 1
+    return res
+
+
+def legacy_filters_batch_plain(imgs, qfs, distance, gab, epf):
+    return torch.stack([legacy_filters_plain(img, qf, distance, gab, epf, "u8")
+                        for img, qf in zip(imgs, qfs)])
+
+
+def legacy_filters_batch(imgs: torch.Tensor, qfs: torch.Tensor,
+                         distance: float, gab: bool, epf: bool
+                         ) -> torch.Tensor:
+    """legacy_filters(..., "u8") over N frames of one size in one launch
+    (kernel 6 with a frame axis): imgs (N, 3, H, W) float32, qfs (N, nY,
+    nX) int32, every frame filtered with the one distance.  -> (N, 3, H,
+    W) uint8 sRGB codes, each frame equal to legacy_filters of it alone."""
+    if imgs.dim() != 4 or qfs.dim() != 3 or imgs.shape[0] != qfs.shape[0]:
+        raise ValueError(f"imgs (N, 3, H, W) and qfs (N, nY, nX): got "
+                         f"{tuple(imgs.shape)} and {tuple(qfs.shape)}")
+    if imgs.device.type == "cpu":
+        return legacy_filters_batch_plain(imgs, qfs, distance, gab, epf)
+    n, _, H, W = imgs.shape
+    _rows(imgs[0], 0, "legacy filters")
+    if n == 0:
+        return torch.empty((0, 3, H, W), device=imgs.device,
+                           dtype=torch.uint8)
+    imgs = imgs.contiguous()
+    inv_ptr, inv_stride, inv_rows, inv_frame = None, 0, 0, 0
+    if epf:
+        if (qfs.dtype != torch.int32 or qfs.device != imgs.device
+                or qfs.shape[2] < -(-W // 8)):
+            raise ValueError(f"qfs must be int32 on {imgs.device} with at "
+                             f"least {-(-W // 8)} columns")
+        qfs = qfs.contiguous()
+        inv_ptr, inv_stride, inv_rows = (qfs.data_ptr(), qfs.shape[2],
+                                         qfs.shape[1])
+        inv_frame = qfs.stride(0) * qfs.element_size()
+    res = torch.empty((n, 3, H, W), device=imgs.device, dtype=torch.uint8)
+    tables = [t.data_ptr() for t in _code_tables(imgs.device)]
+    _build.launch(_legacy_kernel(), imgs.device, imgs.data_ptr(),
+                  imgs.stride(1), imgs.stride(2), 0, H, W, inv_ptr,
+                  inv_stride, inv_rows, 0, res.data_ptr(), int(gab),
+                  _EPF_BLOCK if epf else _EPF_NONE, tuple(OUTS).index("u8"),
+                  _legacy_consts(float(inv_den(distance))).ctypes.data,
+                  *tables, CODE_LO, n, imgs.stride(0), inv_frame,
+                  res.stride(0))
+    legacy_filters_batch.launches += 1
     return res
 
 
@@ -491,3 +542,4 @@ fused_gab_epf.launches = 0
 fused_filters2.launches = 0
 fused_real_filters.launches = 0
 fused_real_gab_epf1.launches = 0
+legacy_filters_batch.launches = 0

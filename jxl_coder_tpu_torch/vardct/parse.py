@@ -86,12 +86,16 @@ def check_entropy(entropy: str) -> None:
 
 
 def parse_frame(cs: bytes, hdr, fh, toc, entropy: str = "host",
-                device=None, dc_only: bool = False) -> dict:
+                device=None, dc_only: bool = False,
+                max_passes: int = None) -> dict:
     """Entropy-decode one VarDCT frame -> the state dict of
     decode_vardct_frame(parse_only=True).  With entropy="device" the AC
     pass groups decode on `device` (a torch.device) and the state's
     blocks_glob.coeffs is an int32 tensor there.  dc_only: the state up
-    to the (smoothed) DC planes, no AC read (the route is then moot)."""
+    to the (smoothed) DC planes, no AC read (the route is then moot).
+    max_passes: read only the first max_passes AC passes (the reference's
+    ``dec_real.py:1637-1641``; the coefficients keep their shifted scale;
+    a single-section TOC ignores it), so a stream cut after them parses."""
     check_entropy(entropy)
     check_supported(hdr, fh, "host" if dc_only else entropy)
     w, h = fh.coded_size(hdr)
@@ -100,6 +104,9 @@ def parse_frame(cs: bytes, hdr, fh, toc, entropy: str = "host",
     npasses = fh.passes.num_passes
     pass_shift = list(fh.passes.shift) + [0]
     single = len(toc.entries) == 1
+    if (max_passes is not None and 0 < max_passes < npasses
+            and not single):
+        npasses = max_passes
 
     if single:
         s = toc.section(0)

@@ -11,9 +11,10 @@ import numpy as np
 from jxl_coder_tpu_torch import api
 from jxl_coder_tpu_torch import reference as R
 from jxl_coder_tpu_torch.host.bitstream.frame_header import (
-    BlendingInfo, Encoding, FrameHeader, write_frame_header, write_toc)
+    BlendingInfo, Encoding, FrameHeader, FrameType, write_frame_header,
+    write_toc)
 from jxl_coder_tpu_torch.host.bitstream.headers import (
-    BitDepth, ColourEncoding, ColourSpace, ExtraChannelInfo,
+    AnimationHeader, BitDepth, ColourEncoding, ColourSpace, ExtraChannelInfo,
     ExtraChannelType, ImageHeader, ImageMetadata, SizeHeader)
 from jxl_coder_tpu_torch.host.bitstream.reader import BitReader
 from jxl_coder_tpu_torch.host.bitstream.writer import BitWriter
@@ -679,5 +680,232 @@ def patched_alpha_still(img: np.ndarray, alpha: np.ndarray) -> bytes:
                     fh=FrameHeader(is_last=True), hdr=hdr, into_bw=bw,
                     alpha=alpha, patch_dict_bw=EPAT.serialize_dictionary(
                         plan, num_extra=1))
+    bw.zero_pad_to_byte()
+    return bw.to_bytes()
+
+
+# ---- animations (jxl_coder_tpu/animation.py:206-309) ----------------------
+
+def quality_to_distance(quality: int) -> float:
+    """The reference's quality -> distance curve
+    (jxl_coder_tpu/vardct/quant.py:48-56)."""
+    if quality == 0:
+        return 1.0
+    if quality >= 30:
+        return max(0.0, min(15.0, 0.1 + (100 - quality) * 0.09))
+    return max(0.0, min(25.0, 6.24 + 2.5 ** ((30.0 - quality) / 5.0) / 6.25))
+
+
+def animation_header(h: int, w: int, nch: int, bits: int = 8,
+                     lossless: bool = True, num_loops: int = 0,
+                     extra=(ExtraChannelType.ALPHA,)) -> ImageHeader:
+    """AnimatedEncoder.encode's image header for frames of (h, w, nch) at
+    `bits`: ticks of 1 ms, grey for 1 channel, the channels past three as
+    extra channels of the types in `extra` (alpha for 4 channels) at the
+    colour's depth."""
+    m = ImageMetadata()
+    m.bit_depth = BitDepth(False, bits, 0)
+    m.animation = AnimationHeader(tps_numerator=1000, tps_denominator=1,
+                                  num_loops=num_loops)
+    if lossless:
+        m.xyb_encoded = False
+        ce = ColourEncoding()
+        if nch == 1:
+            ce.colour_space = ColourSpace.GREY
+        m.colour_encoding = ce
+    m.extra_channels = []
+    for t in extra[:max(0, nch - 3)]:
+        ec = ExtraChannelInfo(type=t)
+        ec.bit_depth = BitDepth(False, bits, 0)
+        m.extra_channels.append(ec)
+    return ImageHeader(size=SizeHeader(xsize=w, ysize=h), metadata=m)
+
+
+def _animation_frame(hdr: ImageHeader) -> FrameHeader:
+    n_ec = len(hdr.metadata.extra_channels)
+    fh = FrameHeader()
+    fh.ec_upsampling = [1] * n_ec
+    fh.ec_blending_info = [BlendingInfo() for _ in range(n_ec)]
+    return fh
+
+
+def _lossless_frame(bw, hdr, fh, pixels: np.ndarray) -> None:
+    """AnimatedEncoder's lossless frame: Modular, groups of 1024 (shift
+    3), no filters, RCT on three colour channels."""
+    fh.encoding = Encoding.MODULAR
+    fh.group_size_shift = 3
+    fh.restoration_filter.epf_iters = 0
+    fh.restoration_filter.gab = False
+    R.encode_modular_frame(bw, hdr, fh, _planes(pixels),
+                           use_ycocg=pixels.shape[2] >= 3)
+
+
+def animation_frame(hdr: ImageHeader, pixels: np.ndarray, duration: int,
+                    is_last: bool, lossless: bool = True,
+                    quality: int = 90) -> bytes:
+    """One frame as AnimatedEncoder.encode writes it, alone: a frame starts
+    and ends on a byte, so the stream is the image header's bytes and its
+    frames' bytes one after another (animated_stream)."""
+    pixels = pixels if pixels.ndim == 3 else pixels[:, :, None]
+    bw = BitWriter()
+    fh = _animation_frame(hdr)
+    fh.duration = int(duration)
+    fh.is_last = is_last
+    if lossless:
+        _lossless_frame(bw, hdr, fh, pixels)
+    else:
+        fh.encoding = Encoding.VARDCT
+        fh.restoration_filter.epf_iters = 1
+        alpha = (pixels[:, :, 3].astype(np.int64) if pixels.shape[2] == 4
+                 else None)
+        colour = pixels[:, :, :3]
+        if colour.dtype == np.uint16:
+            colour = (colour >> 8).astype(np.uint8)
+        R.encode_vardct(colour, distance=quality_to_distance(quality), fh=fh,
+                        hdr=hdr, into_bw=bw, alpha=alpha)
+    bw.zero_pad_to_byte()
+    return bw.to_bytes()
+
+
+def header_bytes(hdr: ImageHeader) -> bytes:
+    bw = BitWriter()
+    write_image_header(bw, hdr)
+    bw.zero_pad_to_byte()
+    return bw.to_bytes()
+
+
+def animated_stream(frames, lossless: bool = True, quality: int = 90,
+                    effort: int = 7, num_loops: int = 0,
+                    durations=None) -> bytes:
+    """What jxl_coder_tpu.animation.AnimatedEncoder(w, h, num_loops,
+    lossless, quality, effort).encode() writes after add_frame(frame,
+    duration) for each frame (durations in ms, 100 each by default):
+    Modular frames at group_size_shift 3 when lossless, real-format VarDCT
+    frames (epf_iters 1, the distance of `quality`; 16-bit colour coded
+    from its top 8 bits) when lossy, a fourth channel as an alpha extra
+    channel coded losslessly.  effort is unused, as there."""
+    frames = [f if f.ndim == 3 else f[:, :, None] for f in frames]
+    h, w, nch = frames[0].shape
+    bits = 16 if frames[0].dtype == np.uint16 else 8
+    hdr = animation_header(h, w, nch, bits, lossless, num_loops)
+    durations = [100] * len(frames) if durations is None else durations
+    return header_bytes(hdr) + b"".join(
+        animation_frame(hdr, f, d, k == len(frames) - 1, lossless, quality)
+        for k, (f, d) in enumerate(zip(frames, durations)))
+
+
+# sprite_animation's frames after the background and the reference frame:
+# (colour (mode, clamp), the alpha's (mode, alpha channel, clamp), the depth
+# channel's, where the sprite lands, its blending source slot, the slot it
+# is saved to, its duration in ms).  Modes: 0 REPLACE, 1 ADD, 2 BLEND,
+# 3 ALPHA_WEIGHTED_ADD, 4 MUL; places: "left" (x0 < 0), "top right" (past
+# the right edge, y0 < 0), "bottom" (past the bottom edge), "middle",
+# "outside" (nothing lands), "full" (no crop: the whole canvas blended).
+SPRITE_FRAMES = (
+    ((2, False), (2, 0, False), (2, 0, False), "left", 1, 1, 100),
+    ((2, True), (0, 0, False), (3, 0, False), "top right", 1, 1, 0),
+    ((1, False), (1, 0, False), (4, 0, True), "middle", 2, 3, 100),
+    ((4, False), (4, 0, False), (1, 0, False), "bottom", 1, 1, 100),
+    ((4, True), (2, 0, True), (0, 0, False), "middle", 3, 1, 100),
+    ((3, False), (3, 0, False), (2, 0, True), "top right", 1, 2, 100),
+    ((3, True), (4, 0, True), (3, 0, True), "outside", 1, 1, 100),
+    ((2, False), (2, 0, False), (4, 0, False), "bottom", 2, 1, 100),
+    ((2, False), (2, 0, True), (2, 0, False), "full", 1, 0, 100),
+)
+
+
+def _sprite_place(place: str, h: int, w: int, sh: int, sw: int):
+    return {"left": (-sw // 3, h // 4), "top right": (w - sw // 2, -sh // 3),
+            "bottom": (w // 3, h - sh // 2), "middle": (w // 2 - sw // 3,
+                                                         h // 3),
+            "outside": (-sw - 3, h // 2)}[place]
+
+
+def sprite_animation(h: int, w: int, sh: int, sw: int, seed: int = 0
+                     ) -> bytes:
+    """A lossless 8-bit animation of RGB, alpha and a depth channel: a
+    full-canvas background saved to slot 1, a reference-only frame (slot
+    2, stored as pixels), then SPRITE_FRAMES: eight cropped sh x sw
+    sprites, every blend mode of the colour with and without clamp, the
+    extra channels' modes of jxl_coder_tpu's
+    test_compose_frame_ec_blend_modes (a non-alpha channel blended,
+    weighted-added and multiplied through the alpha), offsets before, past
+    and outside the canvas, sources from three slots, a frame of zero
+    duration; last, a whole-canvas frame blended over slot 1.  Seeded
+    values, alpha with runs of 0 and 255."""
+    rng = np.random.default_rng(seed)
+    nch = 5
+    hdr = animation_header(h, w, nch, extra=(ExtraChannelType.ALPHA,
+                                             ExtraChannelType.DEPTH))
+
+    def image(ih: int, iw: int) -> np.ndarray:
+        px = rng.integers(0, 256, (ih, iw, nch)).astype(np.uint8)
+        y, x = np.mgrid[0:ih, 0:iw]
+        px[..., 0] = ((x * 7 + y * 3) % 256).astype(np.uint8)
+        a = px[..., 3]
+        a[(x // 5 + y // 3) % 4 == 0] = 0
+        a[(x // 4 + y // 5) % 5 == 1] = 255
+        return px
+
+    bw = BitWriter()
+    write_image_header(bw, hdr)
+    fh = _animation_frame(hdr)
+    fh.duration, fh.is_last, fh.save_as_reference = 100, False, 1
+    _lossless_frame(bw, hdr, fh, image(h, w))
+    fh = _animation_frame(hdr)
+    fh.frame_type = FrameType.REFERENCE_ONLY
+    fh.is_last, fh.save_as_reference = False, 2
+    _lossless_frame(bw, hdr, fh, image(h, w))
+    for k, (colour, alpha, depth, place, src, slot, dur) in enumerate(
+            SPRITE_FRAMES):
+        fh = _animation_frame(hdr)
+        if place != "full":
+            fh.have_crop = True
+            fh.x0, fh.y0 = _sprite_place(place, h, w, sh, sw)
+            fh.frame_width, fh.frame_height = sw, sh
+        fh.blending_info = BlendingInfo(mode=colour[0], alpha_channel=0,
+                                        clamp=colour[1], source=src)
+        fh.ec_blending_info = [BlendingInfo(mode=m, alpha_channel=a,
+                                            clamp=c, source=src)
+                               for m, a, c in (alpha, depth)]
+        fh.duration = dur
+        fh.is_last = k == len(SPRITE_FRAMES) - 1
+        fh.save_as_reference = 0 if fh.is_last else slot
+        _lossless_frame(bw, hdr, fh, image(*((h, w) if place == "full"
+                                             else (sh, sw))))
+    bw.zero_pad_to_byte()
+    return bw.to_bytes()
+
+
+def legacy_animation(frames, durations=None, distance: float = 1.0,
+                     speed: int = 0) -> bytes:
+    """Round-1 payload frames (host.vardct.frame.encode_vardct_frame, as
+    jxl_coder_tpu_torch.codec.encode_vardct_still writes one, quantised on
+    the CPU) under an animation header: 8-bit RGB, ticks of 1 ms."""
+    from jxl_coder_tpu_torch.codec import quantize_still
+    from jxl_coder_tpu_torch.host.vardct import frame as VF
+    h, w, _ = frames[0].shape
+    hdr = ImageHeader(size=SizeHeader(xsize=w, ysize=h),
+                      metadata=ImageMetadata())
+    hdr.metadata.animation = AnimationHeader(tps_numerator=1000,
+                                             tps_denominator=1)
+    durations = [100] * len(frames) if durations is None else durations
+    bw = BitWriter()
+    write_image_header(bw, hdr)
+    for idx, (pixels, dur) in enumerate(zip(frames, durations)):
+        fh = FrameHeader()
+        fh.encoding = Encoding.VARDCT
+        fh.x_qm_scale = 2
+        fh.restoration_filter.epf_iters = 0 if speed >= 2 else 1
+        fh.restoration_filter.gab = speed < 4
+        fh.duration = int(dur)
+        fh.is_last = idx == len(frames) - 1
+        ac, dc, qf = (t.numpy() for t in quantize_still(pixels, distance,
+                                                        "cpu"))
+        ny, nx = qf.shape
+        ty, tx = -(-ny // 8), -(-nx // 8)
+        VF.encode_vardct_frame(bw, hdr, fh, VF.VarDctFrameData(
+            ac=ac, dc=dc, qf=qf, cfl_x=np.zeros((ty, tx), np.int32),
+            cfl_b=np.full((ty, tx), 64, np.int32), distance=float(distance)))
     bw.zero_pad_to_byte()
     return bw.to_bytes()

@@ -164,14 +164,16 @@ def test_one_file_and_none():
 
 @pytest.mark.parametrize("kind,index,exc", [
     ("truncated", 2, InvalidJXLError),
-    ("animation", 1, NotImplementedError),
+    ("animation", 1, InvalidJXLError),
     ("device route on a Modular frame", 1, NotImplementedError),
 ])
 def test_a_file_outside_the_slice_raises_with_its_index(kind, index, exc):
     """The same type as decode raises, "datas[i]" at the head of its
-    message; the workers are joined before it leaves."""
+    message; the workers are joined before it leaves.  An animation
+    decodes on a worker (its frames compose): one cut short raises there."""
+    animation = _animation(32, 40)
     bad = {"truncated": _data("vardct8")[:len(_data("vardct8")) // 2],
-           "animation": _animation(32, 40),
+           "animation": animation[:len(animation) // 2],
            "device route on a Modular frame": _data("modular_rct")}[kind]
     entropy = "device" if kind.startswith("device") else "host"
     with pytest.raises(exc):

@@ -314,6 +314,63 @@ def test_sampled_decode_without_the_jax_package(tmp_path):
         "(9, 13, 4), (18, 25), (40, 56)]"), res.stdout
 
 
+def test_animation_and_truncation_without_the_jax_package(tmp_path):
+    """The same copy, jax and jxl_coder_tpu blocked: port_fixtures writes a
+    sprite animation, a lossy animation and a round-1 one; decode_frames,
+    AnimatedImage.get_frame, api.decode and decode_frames_batch read them
+    on the CPU (the sprites equal to the host frames composed by A10's
+    twin); decode_preview and a stream cut after HF global match their
+    float64 oracles."""
+    shutil.copytree(PKG, tmp_path / "jxl_coder_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(REPO / "port_fixtures.py", tmp_path)
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None        # any `import jax` now fails
+        sys.modules["jxl_coder_tpu"] = None
+        import numpy as np
+        from jxl_coder_tpu_torch import animation, api, reference
+        import port_fixtures as F
+        sprites = F.sprite_animation(32, 40, 12, 14)
+        frames, durations, _ = api.decode_frames(sprites, device="cpu")
+        ref, ref_durations = reference.frames_float64(sprites)
+        equal = durations == ref_durations and all(
+            np.array_equal(a, b) for a, b in zip(frames, ref))
+        img = animation.AnimatedImage(sprites, "cpu")
+        last = api.decode(sprites, device="cpu")[0]
+        random = all(np.array_equal(img.get_frame(i), frames[k]) for k, i in
+                     ((3, 5), (0, 0), (len(frames) - 1, img.frames_count - 1)))
+        lossy = F.animated_stream([F.bench_frame(24, 32)] * 2, False)
+        batch = animation.decode_frames_batch(animation.AnimatedImage(
+            lossy, "cpu"))
+        legacy = F.legacy_animation([F.bench_frame(24, 264)] * 2)
+        batch1 = animation.decode_frames_batch(animation.AnimatedImage(
+            legacy, "cpu"))
+        prog = reference.encode_vardct(F.waves_frame(40, 56), distance=1.0,
+                                       effort=5, progressive=True)
+        prev = api.decode_preview(prog, device="cpu")[0]
+        d_prev = np.abs(prev.astype(int)
+                        - reference.preview_float64(prog, 1)).max()
+        cs, hdr, fh, toc = api._first_frame(prog)
+        s = toc.section(1 + fh.counts(hdr)[1])
+        cut = prog[:s.offset + s.size]
+        dc = api.decode(cut, device="cpu")[0]
+        d_dc = np.abs(dc.astype(int)
+                      - reference.dc_upsampled_float64(cut)).max()
+        assert not any(m.split(".")[0] in ("jax", "jxl_coder_tpu")
+                       for m, v in sys.modules.items() if v is not None)
+        print(equal, random, np.array_equal(last, frames[-1]), batch.shape,
+              batch1.shape, d_prev <= 1, dc.shape, d_dc <= 1)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == (
+        "True True True (2, 24, 32, 3) (2, 24, 264, 3) True (40, 56, 3) "
+        "True"), res.stdout
+
+
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     """A kernel that cannot be built raises; nothing falls back."""
     from jxl_coder_tpu_torch import _build
