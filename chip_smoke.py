@@ -1,8 +1,8 @@
 """Drive the PyTorch port's VarDCT still decode (with its post stages,
 extra channels, patches, splines, reference-only and LF frames), its
 Modular still decode, its sampled decode and pixel ops, its animated,
-progressive and truncated decode and its round-1 VarDCT codec on one
-CUDA card.
+progressive and truncated decode, its JPEG recompression routes and its
+round-1 VarDCT codec on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -18,8 +18,9 @@ prints no result):
      single-section 232x200 frame with the repo's own host encoder
      (jxl_coder_tpu_torch.reference), cached in the temp directory by
      content hash; then the AC entropy decode's kernel (entropy="device")
-     on the small streams and at 4K, its plain twin on the same tables
-     started in worker processes on the CPU (one step per token);
+     on the five small streams, its plain twin on the same tables started
+     in worker processes on the CPU (one step per token; not at 4K, where
+     it took ~112 s: phase 6 holds the 4K kernel to the host route);
   4. each kernel against its plain PyTorch twin on the card: synthesis
      on every stream's families (the DCT8 kernel on the DCT8 family) and
      on seeded families of every strategy id 0-26; kernel 2's tile pass
@@ -45,14 +46,14 @@ prints no result):
      DCT8 kernel apart) and kernel 2 at 4K, and kernel 2 and its EPF0
      pass on the FHD d4.0 frame's planes, each against its twin and its
      bound;
-  7. the round-1 codec (jxl_coder_tpu_torch.codec): FHD, a ragged sharp
+  7. the round-1 codec (jxl_coder_tpu_torch.codec): 960x540, a ragged sharp
      frame, a 16-bit frame and decoding speeds 2 and 4 encoded on the
      card (its quantised integers against the CPU encode's), each stream
      parsed once and its device half run on the card, counted: kernel 6
      once per 8-bit frame, kernel 5 (uint16 out) once per 16-bit frame,
      and none of the plain filter or output functions; against the
      port's plain path on the CPU; then kernels 5 and 6 against their
-     twins on the FHD arrays, a ragged crop of them and seeded planes
+     twins on the 960x540 arrays, a ragged crop of them and seeded planes
      down to 1x1 (per-block and per-pixel inverse sigma, the four
      gaborish / EPF combinations, f32 / u8 / u16 out), and the
      epf_iters 2 route against the CPU path;
@@ -113,12 +114,12 @@ prints no result):
      the 4K d1.0 e7, 4K RGBA16 noise + PQ, 4K-from-FHD 2x and 4K Modular
      RCT streams with the FHD d4.0 and 720x480 16-bit ones (host route):
      each once, counted, the plain twins made to raise; then each batch
-     timed (the median of 3 calls) against N sequential api.decode calls
+     timed (the median of 2 calls) against N sequential api.decode calls
      on the same bytes and route, in turns, every output equal to
      api.decode's (0 codes), with the host halves' time alone and in the
      batch, the CPU used, the peak device memory and the card's busy
-     share of a profiled batch call; then the worker count (2 and the
-     host's cores) and the files in flight (1-3) swept;
+     share of a profiled batch call, at the pipeline's own worker count
+     and files in flight (no longer swept);
  14. patches, splines, reference-only and LF frames (streams written and
      held to the float64 host decoder in the worker processes during
      phases 3-5: the 3840x2160 text of port_fixtures.text_frame at d1.0
@@ -146,9 +147,10 @@ prints no result):
      thumbnail: the DC image, or a full decode and the 8x box S2), 960x540
      (the quarter route: the down pool S1 before the output encoding, where
      the still is eligible), 1920x1080 FIT and 1000x1000 FILL (a full
-     decode and the banded resample S3), in every colour config (the
-     reformat S4, with the HDR -> SDR tone map for an SDR format of the PQ
-     stream): counted, every plain twin made to raise, each call's launches
+     decode and the banded resample S3), in every colour config at the
+     thumbnail and in RGBA_8888 at the other targets (the reformat S4,
+     with the HDR -> SDR tone map for an SDR format of the PQ stream):
+     counted, every plain twin made to raise, each call's launches
      held to its route (no synthesis and no pass group on the thumbnail
      route); every S1-S4 call of those decodes against its twin (S2 and the
      packers equal, S1 and S3 within 1 code); the thumbnails against the
@@ -174,12 +176,29 @@ prints no result):
      lossy frames within 1 code on < 0.1%, the sprites equal), get_frame
      against decode_frames; every A10 call against its twin, the batch
      against single launches, its twin and the codec's per-frame decode;
-     the preview and cuts against their float64 oracles; get_frame split
-     into its layers (M1: two split passes in turns with two unsplit ones,
+     the preview and cuts against their float64 oracles; get_frame in
+     order split into its layers (M1: two split passes in turns with two
+     unsplit ones,
      each split pass's layers within 2% of its total); decode_frames'
      frames per second; the 4K
      preview and cuts beside decode in turns; A10 and the batched kernel 6
-     by CUDA graph against twin and bound.
+     by CUDA graph against twin and bound;
+ 17. the JPEG routes (JPEGs written by port_fixtures.baseline_jpeg in the
+     worker processes during phases 3-5, each recompressed by the port's
+     api.construct or the round-1 container's writer, reconstructed byte
+     for byte and given its float64 oracle there: 4K 4:2:0 and 4:4:4, FHD
+     4:2:2 and 4:2:0, a ragged 4:2:0, grey, restart markers, a round-1
+     container): J1, J2 (csrc/jpeg.cu) and A7 "ycbcr" against their
+     twins on seeded inputs; api.decode on every stream, counted, the
+     twins made to raise (J1 and J2 once a route-2 / route-3 frame and no
+     synthesis; the DCT8 kernel, kernel 2 and A7 "ycbcr" once a 4:4:4 or
+     grey frame), each within 1 code on < 0.1% of its oracle; the kernels
+     against their twins on the main path's inputs; a mixed decode_batch
+     equal to api.decode; decode_thumbnail and decode_sampled at 960x540
+     on both 4K streams; the 4K 4:4:4 and FHD 4:2:0 decodes split into
+     their layers (M1; 4K 4:2:0's host read takes ~10 s a call); J1, J2
+     and A7 "ycbcr" at 4K by CUDA graph against twin, bound and, for J1,
+     the fp32 matmul pair.
 Every kernel's line carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its operations over their type's rate: 67 TFLOP/s for f32, 34 for
@@ -219,6 +238,9 @@ import torch
 from jxl_coder_tpu_torch import _build, animation, api, codec, reference
 from jxl_coder_tpu_torch import batch as BATCH
 from jxl_coder_tpu_torch.entropy import device as ENT
+from jxl_coder_tpu_torch.jpeg import pixels as JPX
+from jxl_coder_tpu_torch.host.jpeg import transcode as JTC
+from jxl_coder_tpu_torch.host.jpeg.parser import ZIGZAG
 from jxl_coder_tpu_torch.host.modular import transform as MT
 from jxl_coder_tpu_torch.host.modular.frame import ModularFrameDecoder
 from jxl_coder_tpu_torch.host.vardct.dec_real import BlockArrays
@@ -232,13 +254,14 @@ from jxl_coder_tpu_torch.ops import tone as TONE
 from jxl_coder_tpu_torch.vardct import (color, dct8, filters, inputs, post,
                                         synth)
 from jxl_coder_tpu_torch.vardct import detile as DT
+from jxl_coder_tpu_torch.vardct.dct import dct_matrix
 from jxl_coder_tpu_torch.vardct import overlay as OV
 from jxl_coder_tpu_torch.vardct import fused_filters as FF
 from jxl_coder_tpu_torch.vardct import parse as PARSE
 from jxl_coder_tpu_torch.vardct import pipeline as LP
 from jxl_coder_tpu_torch.vardct.frame import VarDCTFrame
-from port_fixtures import (animation_frame, animation_header, bench_frame,
-                           dct8_arguments, group_rct_still, header_bytes,
+from port_fixtures import (animation_frame, animation_header, baseline_jpeg,
+                           bench_frame, dct8_arguments, group_rct_still, header_bytes,
                            legacy_animation, modular_still,
                            patched_alpha_still, posterized_frame,
                            seeded_splines, sharp_frame, sprite_animation,
@@ -312,6 +335,15 @@ KERNELS = {
     "legacy_filters_batch": dict(fn=FF.legacy_filters_batch,
                                  source="jxl_coder_tpu_torch/csrc/fused_filters.cu",
                                  replaces="jxl_coder_tpu/vardct/filters_pallas.py:190"),
+    "jpeg_idct": dict(fn=JPX.jpeg_idct, source="jxl_coder_tpu_torch/csrc/jpeg.cu",
+                      replaces="jxl_coder_tpu/jpeg/wire.py:748"),
+    "ycbcr_to_rgb": dict(fn=JPX.ycbcr_to_rgb,
+                         source="jxl_coder_tpu_torch/csrc/jpeg.cu",
+                         replaces="jxl_coder_tpu/jpeg/wire.py:749"),
+    # A7's "ycbcr" case: its launches are encode_output's on the JPEG path
+    "encode_output_ycbcr": dict(fn=post.encode_output,
+                                source="jxl_coder_tpu_torch/csrc/post.cu",
+                                replaces="jxl_coder_tpu/vardct/tpu_full.py:685"),
 }
 # the round-1 encoder's sources: a change to any of them re-encodes
 LEGACY_ENCODER = [sys.modules[m].__file__ for m in (
@@ -782,7 +814,9 @@ def check_legacy_small(dev) -> None:
 def legacy_codec(dev) -> dict:
     """Phase 7: the round-1 codec through jxl_coder_tpu_torch.codec."""
     frames = {  # label: (image, distance, decoding speed)
-        "fhd_d1.0": (bench_frame(1080, 1920), 1.0, 0),
+        # 960x540: round-1's pure-Python entropy coding took 16 s to write
+        # and 20 s to parse an FHD frame; kernels 5 and 6 are timed at 4K
+        "qhd_d1.0": (bench_frame(540, 960), 1.0, 0),
         "sharp_d1.0": (sharp_frame(517, 771), 1.0, 0),
         "16bit_d1.0": (bench_frame(480, 720).astype(np.uint16) * 257, 1.0, 0),
         "speed2_d1.0": (bench_frame(256, 384), 1.0, 2),
@@ -847,15 +881,15 @@ def legacy_codec(dev) -> dict:
                 raise AssertionError(f"legacy {label}: outside {U16_TOL} codes")
         elif d.max() > 1 or frac >= 1e-3:
             raise AssertionError(f"legacy {label}: outside 1 code / 0.1%")
-    # kernels 5 and 6 against their twins on the FHD arrays, whole and a
-    # ragged crop of them
-    a = LP.inputs_from_frame_data(parsed["fhd_d1.0"][1], dev)
+    # kernels 5 and 6 against their twins on the 960x540 arrays, whole and
+    # a ragged crop of them
+    a = LP.inputs_from_frame_data(parsed["qhd_d1.0"][1], dev)
     _, ny, nx, _, _ = a.ac.shape
     fx, fb = LP.expand_cfl(a.cfl_x, a.cfl_b, ny, nx)
     img = LP.dequant_idct(a.ac, a.dc, a.qf, fx, fb, a.distance)
-    check_legacy_kernels(img, a.qf, a.distance, "fhd")
-    check_legacy_kernels(img[:, :1075, :1917], a.qf, a.distance,
-                         "fhd crop 1075x1917")
+    check_legacy_kernels(img, a.qf, a.distance, "960x540")
+    check_legacy_kernels(img[:, :535, :957], a.qf, a.distance,
+                         "crop 535x957")
     check_legacy_small(dev)
     return counts
 
@@ -1409,7 +1443,7 @@ def spent(log: list, names) -> float:
     return sum(t1 - t0 for n, t0, t1 in log if n in names) * 1e3
 
 
-def decode_layers(data: bytes, mp: float, card: str, runs: int = 5) -> dict:
+def decode_layers(data: bytes, mp: float, card: str, runs: int = 3) -> dict:
     """M1, for both entropy routes: the 4K decode split into its layers
     inside the same api.decode calls whose total is printed, `runs` of
     them per route in turns with as many unwrapped calls (split first in
@@ -1562,8 +1596,8 @@ def start_twins(pool, streams: dict, dev) -> dict:
 def check_twins(jobs: dict) -> float:
     """Kernel against twin on each stream: 0 coefficients may differ, and
     the status bits, final rANS states and token counts must be equal.
-    Returns the twin's seconds on the 4K stream."""
-    seconds = None
+    Returns the twin's seconds by stream."""
+    seconds = {}
     for label, (kernel, job) in jobs.items():
         twin = job.get()
         differ = int((kernel[0] != twin[0]).sum())
@@ -1579,8 +1613,7 @@ def check_twins(jobs: dict) -> float:
             raise AssertionError(f"decode_pass_groups: the kernel's status, "
                                  f"states or tokens differ from the twin's "
                                  f"on {label}")
-        if label.startswith("4k"):
-            seconds = twin[4]
+        seconds[label] = twin[4]
     return seconds
 
 
@@ -1624,7 +1657,7 @@ def entropy_main_path(streams: dict, outs: dict) -> int:
     return counts["decode_pass_groups"]
 
 
-def entropy_4k(data: bytes, dev, card: str, ms: dict, twin_s: float,
+def entropy_4k(data: bytes, dev, card: str, ms: dict, twin: tuple,
                layers: dict) -> None:
     """At 4K: the kernel's coefficients against the host route's
     BlockArrays.concat(...).coeffs, bit for bit; its time by CUDA events
@@ -1661,6 +1694,11 @@ def entropy_4k(data: bytes, dev, card: str, ms: dict, twin_s: float,
     e.record()
     e.synchronize()
     kernel_ms = s.elapsed_time(e) / REPS
+    # the twin runs on a smaller stream (twin: its label, bytes, seconds):
+    # the kernel is timed there too
+    twin_label, twin_data, twin_s = twin
+    small_tables, _ = entropy_run(twin_data, dev)
+    small_ms = cuda_ms(lambda: ENT.decode_pass_groups(small_tables))
     ms["decode_pass_groups"] = (kernel_ms, twin_s * 1e3)
     global_ms = cuda_ms(lambda: ENT.decode_pass_groups(
         tables._replace(stage_words=1 << 30)))
@@ -1689,7 +1727,8 @@ def entropy_4k(data: bytes, dev, card: str, ms: dict, twin_s: float,
           f"{global_ms:.3f} ms); tokens per group max "
           f"{int(tokens.max())}, mean {tokens.mean():.1f}; bound "
           f"{BOUND['decode_pass_groups'][0]:.4f} ms; plain twin (CPU, a "
-          f"worker process) {twin_s * 1e3:.1f} ms; the host route's pass "
+          f"worker process) on {twin_label} {twin_s * 1e3:.1f} ms, the kernel"
+          f" there {small_ms:.3f} ms; the host route's pass "
           f"groups in M1's calls {host_wall:.1f} ms wall; the device route's "
           f"anchors {layers['device']['anchors']:.1f} ms, upload "
           f"{layers['device']['upload']:.1f}, kernel + sync "
@@ -2785,19 +2824,13 @@ def device_busy(fn) -> tuple:
     return (busy / 1e3 / wall if spans else None), wall, len(spans)
 
 
-def timed_batch(datas, entropy: str, workers: int = None,
-                in_flight: int = None) -> tuple:
-    """(outputs, ms) of one batch call, the garbage collector off; with no
-    settings the entry point (api.decode_batch), else the pipeline at the
-    settings given (the sweep)."""
+def timed_batch(datas, entropy: str) -> tuple:
+    """(outputs, ms) of one api.decode_batch call, the garbage collector
+    off."""
     torch.cuda.synchronize()
     with no_gc():
         t0 = time.perf_counter()
-        if workers is None:
-            outs = api.decode_batch(datas, "cuda", entropy)
-        else:
-            outs = BATCH.run(datas, torch.device("cuda"), entropy, workers,
-                             in_flight)
+        outs = api.decode_batch(datas, "cuda", entropy)
         return outs, (time.perf_counter() - t0) * 1e3
 
 
@@ -2815,15 +2848,15 @@ def timed_sequence(datas, entropy: str) -> tuple:
 
 
 def batch_timing(label: str, datas: list, entropy: str, card: str) -> None:
-    """3 batch calls against 3 runs of N sequential api.decode calls, in
-    turns (S B B S S B); the outputs of every call equal, code for code,
+    """2 batch calls against 2 runs of N sequential api.decode calls, in
+    turns (S B B S); the outputs of every call equal, code for code,
     to the first sequential run's (api.decode's).  Then the host halves
     alone and in the batch, the CPU used, the peak device memory and the
     card's busy share (one profiled batch call)."""
     med = statistics.median
     seq, bat, seq_logs, bat_logs, cpu, peaks = [], [], [], [], [], []
     ref = None
-    for kind in "SBBSSB":
+    for kind in "SBBS":
         log = []
         c0 = time.process_time()
         with batch_spans(log):
@@ -2897,8 +2930,9 @@ def batch_phase(vardct: dict, modular: dict, posted: dict,
                 card: str) -> None:
     """Phase 13: api.decode_batch.  The batches once, counted, the twins
     made to raise, each output equal to api.decode's; then each batch
-    timed against sequential api.decode calls; then the pipeline's worker
-    count and files in flight swept."""
+    timed against sequential api.decode calls, at the pipeline's own
+    worker count and files in flight (batch.WORKERS, IN_FLIGHT; their
+    sweeps are no longer run, PERF.md §4)."""
     t_phase = time.perf_counter()
     k4 = vardct["4k_d1.0_e7"][2]
     batches = {
@@ -2924,31 +2958,6 @@ def batch_phase(vardct: dict, modular: dict, posted: dict,
                              f"for 8 files")
     for label, (datas, entropy) in batches.items():
         batch_timing(label, datas, entropy, card)
-    # the worker count and the files in flight
-    sweep = {"8x 4k d1.0 e7 host": batches["8x 4k d1.0 e7 host"],
-             "8x 4k d1.0 e7 device": batches["8x 4k d1.0 e7 device"],
-             "8x 4k modular rct": ([modular["4k_rct"]] * 8, "host")}
-    for label, (datas, entropy) in sweep.items():
-        times = {}
-        # 2 workers and the host's cores (4 workers measured between them)
-        for workers in sorted({2, os.cpu_count() or 8}):
-            times[workers] = timed_batch(datas, entropy, workers,
-                                         BATCH.IN_FLIGHT)[1]
-        seq = ("" if label in batches else f"; sequential api.decode "
-               f"{timed_sequence(datas, entropy)[1]:.1f}")
-        print(f"batch sweep {label}: workers -> ms at {BATCH.IN_FLIGHT} in "
-              f"flight: " + ", ".join(f"{w}: {t:.1f}" for w, t in
-                                      times.items()) + f"{seq} [{card}]",
-              flush=True)
-    for label in ("8x 4k d1.0 e7 device", "mixed host"):
-        datas, entropy = batches[label]
-        times = {k: timed_batch(datas, entropy, BATCH.WORKERS, k)[1]
-                 for k in (1, 2, 3)}
-        print(f"batch sweep {label}: files in flight -> ms at "
-              f"{BATCH.WORKERS} workers (1: each download drained before "
-              f"the next upload): " + ", ".join(f"{k}: {t:.1f}" for k, t in
-                                               times.items()) + f" [{card}]",
-              flush=True)
     print(f"phase 13 (decode_batch) took {time.perf_counter() - t_phase:.1f}"
           f" s", flush=True)
 
@@ -3398,6 +3407,15 @@ SAMPLED_TARGETS = {"thumbnail 480x270": (480, 270, FIT),
                    "fhd 1920x1080 FIT": (1920, 1080, FIT),
                    "1000x1000 FILL": (1000, 1000, FILL)}
 SAMPLED_CONFIGS = tuple(int(c) for c in api.PreferredColorConfig)
+RGBA_8888 = int(api.PreferredColorConfig.RGBA_8888)
+
+
+def sampled_configs(target: str) -> tuple:
+    """Every colour config at the thumbnail (S4 in each of its modes, on
+    the DC image's codes); RGBA_8888 at the other targets, whose calls
+    are full or quarter decodes (every config there took ~35 s)."""
+    return (SAMPLED_CONFIGS if target == next(iter(SAMPLED_TARGETS))
+            else (RGBA_8888,))
 # the kernels whose launches each sampled call is held to
 SAMPLED_WATCH = SAMPLED_KERNELS + ("restore_and_output", "encode_output",
                                    "synth_family", "synth_dct8",
@@ -3760,7 +3778,7 @@ def sampled_phase(streams: dict, card: str, ms: dict) -> dict:
         got, per = {}, {}
         for label, data in streams.items():
             for target, (w, h, mode) in SAMPLED_TARGETS.items():
-                for config in SAMPLED_CONFIGS:
+                for config in sampled_configs(target):
                     current[:] = [label, target, config]
                     before = {k: KERNELS[k]["fn"].launches for k in watch}
                     n_ac = ac[0]
@@ -3785,7 +3803,7 @@ def sampled_phase(streams: dict, card: str, ms: dict) -> dict:
     for (label, target, config), launches in per.items():
         route, want = sampled_expect(label, target)
         out = got[label, target, config]
-        if config == SAMPLED_CONFIGS[0]:
+        if config == sampled_configs(target)[0]:
             print(f"sampled {label} {target}: route {route}, launches "
                   f"{launches}, {out.shape} {out.dtype}", flush=True)
         if any(launches[k] != n for k, n in want.items()):
@@ -3876,11 +3894,13 @@ def progressive_job():
 
 
 def start_anim_jobs(pool) -> dict:
-    return {"frames": [pool.apply_async(anim_frame_job, (k,))
-                       for k in range(ANIM_FRAMES)],
+    """Phase 16's jobs, the longest (the 4K two-pass still) first."""
+    progressive = pool.apply_async(progressive_job)
+    return {"progressive": progressive,
             "sprites": pool.apply_async(sprite_job),
             "round1": pool.apply_async(round1_job),
-            "progressive": pool.apply_async(progressive_job)}
+            "frames": [pool.apply_async(anim_frame_job, (k,))
+                       for k in range(ANIM_FRAMES)]}
 
 
 def frame_rules(data: bytes) -> tuple:
@@ -4273,14 +4293,460 @@ def anim_phase(jobs: dict, card: str, ms: dict) -> dict:
     if not np.array_equal(got["4k", "DC render"][0],
                           got["4k", "cut after HF global"][0]):
         raise AssertionError("the DC render differs from decode's")
-    layers = {label: {which: anim_layers(label, data, o, card)
-                      for which, o in (("in order", range(len(rules[label]))),
-                                       ("at random", order[label]))}
+    # M1 in order (get_frame at random is held to decode_frames above)
+    layers = {label: {"in order": anim_layers(label, data,
+                                              range(len(rules[label])), card)}
               for label, data in streams.items()}
     times = anim_timings(calls, streams, prog, cuts, card, ms)
     print(f"phase 16 (animation, progressive and truncated) took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return dict(counts, layers=layers, times=times)
+
+
+# ---- phase 17: the JPEG routes ----------------------------------------------
+
+JPEG_KERNELS = ("jpeg_idct", "ycbcr_to_rgb", "encode_output_ycbcr")
+# label: (height, width, port_fixtures.baseline_jpeg's options, route): route
+# 1 a 4:4:4 or grey recompressed JPEG (a VarDCT frame), 2 a subsampled one
+# (J1, J2), 3 the round-1 container (host.jpeg.transcode.construct; J1, J2)
+JPEG_STREAMS = {
+    "4k_420": (2160, 3840, dict(quality=90, subsampling=2), 2),
+    "4k_444": (2160, 3840, dict(quality=90, subsampling=0), 1),
+    "fhd_422": (1080, 1920, dict(quality=90, subsampling=1), 2),
+    "fhd_420": (1080, 1920, dict(quality=90, subsampling=2), 2),
+    "ragged_420": (667, 1001, dict(quality=85, subsampling=2), 2),
+    "grey": (480, 720, dict(quality=90, grey=True), 1),
+    "restart_420": (480, 640, dict(quality=80, subsampling=2, restart=8), 2),
+    "round1_420": (480, 640, dict(quality=90, subsampling=2), 3),
+}
+# what a JPEG decode on the card must not run: the kernels' plain twins
+JPEG_TWINS = SAMPLED_TWINS + (
+    (JPX, ("jpeg_idct_plain", "ycbcr_to_rgb_plain")),
+    (synth, ("synth_family_plain",)))
+# M1's layers of a JPEG api.decode: layer -> the functions it wraps (the
+# device steps synchronise in their wrappers)
+JPEG_LAYERS = {
+    "host read": ("host_half",),
+    "upload": ("upload", "from_prepared"),
+    "J1": ("jpeg_idct",),
+    "J2": ("ycbcr_to_rgb",),
+    "device half (rest)": ("device_half",),
+    "d2h": ("d2h",),
+    "rest": ("jpeg_info", "basic_info", "apply_orientation"),
+}
+
+
+def jpeg_job(label: str) -> dict:
+    """In a worker process: the JPEG (port_fixtures.baseline_jpeg on
+    bench_frame), its recompression by the port (api.construct, or the
+    round-1 container's writer), the round trip through reconstruct_jpeg,
+    and the float64 oracle of its decode (the host decoder on route 1,
+    reference.jpeg_pixels_float64 on routes 2 and 3) and of a 4:4:4
+    stream's thumbnail."""
+    torch.set_num_threads(1)
+    h, w, opts, route = JPEG_STREAMS[label]
+    t0 = time.perf_counter()
+    jpeg = baseline_jpeg(bench_frame(h, w), **opts)
+    t1 = time.perf_counter()
+    data = (JTC.construct(jpeg) if route == 3 else api.construct(jpeg))
+    t2 = time.perf_counter()
+    back = api.reconstruct_jpeg(data)
+    t3 = time.perf_counter()
+    ref = (reference.decode_float64(data) if route == 1
+           else reference.jpeg_pixels_float64(data))
+    t4 = time.perf_counter()
+    thumb = reference.thumbnail_float64(data) if route == 1 else None
+    return dict(jpeg=jpeg, data=data, same=back == jpeg, ref=ref, thumb=thumb,
+                s=(t1 - t0, t2 - t1, t3 - t2, time.perf_counter() - t3))
+
+
+def start_jpeg_jobs(pool) -> dict:
+    return {label: pool.apply_async(jpeg_job, (label,))
+            for label in JPEG_STREAMS}
+
+
+def jpeg_seeded(dev) -> None:
+    """J1, J2 and A7's "ycbcr" case against their twins on seeded inputs:
+    block grids from 1x1 to ragged, one to four components; every shift
+    pair of the triangle mode and nearest factors to 4, grey, from 1x1
+    up; the YCbCr output at 8 and 16 bits, and pooled (S1)."""
+    rng = np.random.default_rng(17)
+    for grids in ([(1, 1)], [(3, 5), (2, 3), (2, 3)],
+                  [(7, 2), (7, 1), (4, 1), (9, 9)], [(1, 9), (1, 5), (1, 5)]):
+        coeffs = []
+        for bh, bw in grids:
+            c = rng.integers(-80, 80, (bh, bw, 64))
+            c[:, :, 0] = rng.integers(-1024, 1024, (bh, bw))
+            coeffs.append(c)
+        coef = torch.from_numpy(np.concatenate(
+            [c.reshape(-1) for c in coeffs]).astype(np.int16)).to(dev)
+        quant = torch.from_numpy(rng.integers(1, 256, (len(grids), 64))
+                                 .astype(np.float32)).to(dev)
+        got = JPX.jpeg_idct(coef, grids, quant)
+        ref = JPX.jpeg_idct_plain(coef, grids, quant)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        note_err("jpeg_idct", err, 0, f"seeded grids {grids}")
+    worst, n = 0, 0
+    for triangle, rounded in ((True, True), (False, False)):
+        sets = ([[(1, 1)] * 3, [(1, 1), (2, 2), (2, 2)],
+                 [(1, 1), (1, 2), (1, 2)], [(1, 1), (2, 1), (2, 1)],
+                 [(2, 2), (1, 1), (1, 1)], [(1, 1)]]
+                + ([] if triangle else [[(1, 1), (1, 4), (1, 4)],
+                                        [(2, 2)] * 3]))
+        for factors in sets:
+            for h, w in ((1, 1), (2, 3), (9, 13), (67, 101)):
+                planes = [torch.from_numpy(
+                    (rng.random((-(-h // fy), -(-w // fx))) * 320 - 30)
+                    .astype(np.float32)).to(dev) for fy, fx in factors]
+                got = JPX.ycbcr_to_rgb(planes, factors, h, w, triangle,
+                                       rounded)
+                ref = JPX.ycbcr_to_rgb_plain(planes, factors, h, w, triangle,
+                                             rounded)
+                worst = max(worst, int((got.int() - ref.int()).abs().max()))
+                n += 1
+    note_err("ycbcr_to_rgb", worst, 0, f"{n} seeded cases (triangle + 0.5 "
+             f"and nearest, every shift pair, grey, 1x1 to 67x101)")
+    xyb = torch.from_numpy(((rng.random((3, 67, 101)) - 0.5) * [[[0.9]],
+                                                                [[1.1]],
+                                                                [[0.9]]])
+                           .astype(np.float32)).to(dev)
+    worst = 0
+    for bits in (8, 16):
+        got = post.encode_output(xyb, ("ycbcr",), bits)
+        ref = post.encode_output_plain(xyb, ("ycbcr",), bits)
+        worst = max(worst, int((got.int() - ref.int()).abs().max()))
+        got = post.encode_output_down(xyb, ("ycbcr",), bits, 4)
+        ref = post.encode_output_down_plain(xyb, ("ycbcr",), bits, 4)
+        worst = max(worst, int((got.int() - ref.int()).abs().max()))
+    note_err("encode_output_ycbcr", worst, 0, "seeded 67x101 planes, 8 and "
+             "16 bits, and pooled by 4 (S1)")
+
+
+@contextlib.contextmanager
+def jpeg_recorded(calls: dict, current: list):
+    """Record each J1, J2 and A7 call of the JPEG main path per stream
+    (current[0]): its arguments, A7's spec and planes cloned (its input is
+    freed after the call)."""
+    saved = []
+
+    def wrap(owner, name, keep):
+        orig = getattr(owner, name)
+
+        @functools.wraps(orig)
+        def call(*args, **kwargs):
+            before = call.launches
+            out = orig(*args, **kwargs)
+            # the count orig adds through its module's name: hand it back
+            orig.launches += call.launches - before
+            calls.setdefault((name, current[0]), []).append(
+                (keep(args), out))
+            return out
+        saved.append((owner, name, orig))
+        setattr(owner, name, call)
+
+    wrap(JPX, "jpeg_idct", lambda a: a)
+    wrap(JPX, "ycbcr_to_rgb", lambda a: a)
+    wrap(post, "encode_output", lambda a: (a[0].clone(), a[1], a[2]))
+    try:
+        yield
+    finally:
+        for owner, name, orig in reversed(saved):
+            setattr(owner, name, orig)
+
+
+@contextlib.contextmanager
+def split_jpeg(log: list):
+    """Wrap the functions of JPEG_LAYERS for one api.decode call (the
+    device steps synchronised); the device half's pixels log their d2h."""
+    saved = []
+    sync = {"upload", "from_prepared", "jpeg_idct", "ycbcr_to_rgb"}
+    for names in JPEG_LAYERS.values():
+        for name in names:
+            if name in ("d2h", "device_half"):
+                continue
+            owner = JPX if name in ("upload", "jpeg_idct",
+                                    "ycbcr_to_rgb") else api
+            saved.append((owner, name, owner.__dict__[name]))
+            setattr(owner, name, tspan(getattr(owner, name), name, log,
+                                       sync=name in sync))
+    device_half = api.device_half
+
+    def device(*args, **kwargs):
+        t0 = time.perf_counter()
+        px = device_half(*args, **kwargs)
+        torch.cuda.synchronize()
+        log.append(("device_half", t0, time.perf_counter(),
+                    threading.get_ident()))
+        return PixelsT(px, log)
+    saved.append((api, "device_half", device_half))
+    api.device_half = device
+    try:
+        yield
+    finally:
+        for owner, name, orig in reversed(saved):
+            setattr(owner, name, orig)
+
+
+def jpeg_layers(label: str, data: bytes, card: str, runs: int = 2) -> dict:
+    """M1 for api.decode of one JPEG stream: `runs` split calls in turns
+    with as many unwrapped ones; raises if a split call's layers do not
+    sum to within 2% of its own total.  -> ms by layer (medians) and the
+    unsplit calls' median."""
+    med = statistics.median
+    split, unsplit = [], []
+    for i in range(2 * runs):
+        log = []
+        torch.cuda.synchronize()
+        is_split = (i % 2 == 0) == (i // 2 % 2 == 0)
+        with no_gc(), split_jpeg(log) if is_split else \
+                contextlib.nullcontext():
+            t0 = time.perf_counter()
+            api.decode(data, device="cuda")
+            total = (time.perf_counter() - t0) * 1e3
+        if is_split:
+            own, _other = exclusive_ms(log)
+            split.append((total, {k: sum(own.get(n, 0.0) for n in names)
+                                  for k, names in JPEG_LAYERS.items()}))
+        else:
+            unsplit.append(total)
+    gaps = [abs(sum(per.values()) - total) / total for total, per in split]
+    if max(gaps) > 0.02:
+        raise AssertionError(f"decode {label}: a split call's layers sum to "
+                             f"{max(gaps):.2%} off its own total")
+    per = {k: med(p[k] for _, p in split) for k in JPEG_LAYERS}
+    h, w = JPEG_STREAMS[label][:2]
+    t_unsplit = med(unsplit)
+    print(f"layers jpeg {label} {w}x{h} (host clock, ms, median of {runs} "
+          f"split api.decode calls): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in per.items())
+          + f"; each call's layers summed within {max(gaps):.2%} of its own "
+          f"total; split calls {med(t for t, _ in split):.1f}, unsplit calls "
+          f"{t_unsplit:.1f} = {h * w / 1e3 / t_unsplit:.2f} MP/s [{card}]",
+          flush=True)
+    return dict(per, total=t_unsplit)
+
+
+def jpeg_timings(calls: dict, card: str, ms: dict) -> None:
+    """J1 and J2 on the 4K 4:2:0 stream's main-path inputs and A7 "ycbcr"
+    on the 4K 4:4:4 stream's, each by CUDA graph against its twin, its
+    bound and, for J1, the fp32 matmul pair (TF32 off) on the same
+    dequantised blocks."""
+    (coef, grids, quant), planes = calls["jpeg_idct", "4k_420"][0]
+    nsamp = sum(bh * bw * 64 for bh, bw in grids)
+    # each coefficient read (int16) and each sample written (f32) once; 16
+    # multiply-adds a sample (8 per pass)
+    note_bound("jpeg_idct", nbytes(coef) + 4 * nsamp, 32 * nsamp)
+    ms["jpeg_idct"] = (graph_ms(lambda: JPX.jpeg_idct(coef, grids, quant)),
+                       device_ms(lambda: JPX.jpeg_idct_plain(coef, grids,
+                                                             quant)))
+    m8 = torch.from_numpy(dct_matrix(8)).to(coef.device)
+    zz = torch.from_numpy(np.asarray(ZIGZAG, np.int64)).to(coef.device)
+    blocks, off = [], 0
+    for c, (bh, bw) in enumerate(grids):
+        deq = coef[off:off + bh * bw * 64].view(bh, bw, 64).float() * \
+            quant[c]
+        off += bh * bw * 64
+        b = torch.empty_like(deq)
+        b[:, :, zz] = deq
+        blocks.append(b.view(bh, bw, 8, 8))
+    mt = m8.t().contiguous()
+    LIBRARY_MS["jpeg_idct"] = graph_ms(
+        lambda: [torch.matmul(torch.matmul(mt, b), m8) for b in blocks])
+    print(f"kernel jpeg_idct at 4k 4:2:0 ({nsamp / 1e6:.1f} M samples, 3 "
+          f"components, one launch): {ms['jpeg_idct'][0]:.4f} ms (CUDA "
+          f"graph), plain twin {ms['jpeg_idct'][1]:.3f} ms, bound "
+          f"{BOUND['jpeg_idct'][0]:.4f} ms, the fp32 matmul pair (TF32 off) "
+          f"{LIBRARY_MS['jpeg_idct']:.4f} ms [{card}]", flush=True)
+
+    (planes, factors, h, w, tri, rnd), out = calls["ycbcr_to_rgb",
+                                                   "4k_420"][0]
+    # per pixel: two chroma samples of up to 3 operations an upsampled
+    # axis, the offsets, 4 products and 4 sums, 3 x (+0.5, 2 clamps): ~30
+    note_bound("ycbcr_to_rgb", nbytes(*planes) + nbytes(out), 30 * h * w)
+    ms["ycbcr_to_rgb"] = (
+        graph_ms(lambda: JPX.ycbcr_to_rgb(planes, factors, h, w, tri, rnd)),
+        device_ms(lambda: JPX.ycbcr_to_rgb_plain(planes, factors, h, w, tri,
+                                                 rnd)))
+    print(f"kernel ycbcr_to_rgb at 4k 4:2:0 (triangle, +0.5): "
+          f"{ms['ycbcr_to_rgb'][0]:.4f} ms (CUDA graph), plain twin "
+          f"{ms['ycbcr_to_rgb'][1]:.3f} ms, bound "
+          f"{BOUND['ycbcr_to_rgb'][0]:.4f} ms [{card}]", flush=True)
+
+    (xyb, spec, bits), out = calls["encode_output", "4k_444"][0]
+    # per pixel: the Y offset, 4 products and 4 sums, 3 x (scale, +0.5,
+    # floor, 2 clamps): 24
+    note_bound("encode_output_ycbcr", nbytes(xyb) + nbytes(out),
+               xyb[0].numel() * 24)
+    ms["encode_output_ycbcr"] = (
+        graph_ms(lambda: post.encode_output(xyb, spec, bits)),
+        device_ms(lambda: post.encode_output_plain(xyb, spec, bits)))
+    print(f"kernel encode_output (ycbcr) at 4k 4:4:4: "
+          f"{ms['encode_output_ycbcr'][0]:.4f} ms (CUDA graph), plain twin "
+          f"{ms['encode_output_ycbcr'][1]:.3f} ms, bound "
+          f"{BOUND['encode_output_ycbcr'][0]:.4f} ms [{card}]", flush=True)
+
+
+def jpeg_phase(jobs: dict, still: bytes, card: str, ms: dict) -> dict:
+    """Phase 17: the JPEG routes.  The streams' round trips; J1, J2 and A7
+    "ycbcr" against their twins on seeded inputs; api.decode on every
+    stream, counted, the twins made to raise, each frame's launches held
+    to its route and its pixels to the float64 oracle; the kernels
+    against their twins on the main path's 4K inputs; M1 for the 4K 4:4:4
+    and the FHD 4:2:0 decode; decode_batch, decode_thumbnail and
+    decode_sampled; the kernels' timings."""
+    t_phase = time.perf_counter()
+    streams = {}
+    for label, job in jobs.items():
+        r = job.get()
+        h, w, _opts, route = JPEG_STREAMS[label]
+        print(f"jpeg {label} {w}x{h} route {route}: {len(r['jpeg'])} B JPEG "
+              f"-> {len(r['data'])} B JXL; reconstruct_jpeg byte for byte "
+              f"{'equal' if r['same'] else 'DIFFERENT'} (worker: JPEG "
+              f"{r['s'][0]:.1f} s, construct {r['s'][1]:.1f} s, reconstruct "
+              f"{r['s'][2]:.1f} s, float64 oracle {r['s'][3]:.1f} s)",
+              flush=True)
+        if not r["same"]:
+            raise AssertionError(f"jpeg {label}: construct -> "
+                                 f"reconstruct_jpeg is not the JPEG")
+        streams[label] = r
+    dev = torch.device("cuda")
+    jpeg_seeded(dev)
+
+    current, calls = [None], {}
+    watch = JPEG_KERNELS[:2] + ("synth_family", "synth_dct8",
+                                "restore_and_output", "encode_output")
+
+    def main_path():
+        outs, per = {}, {}
+        for label, r in streams.items():
+            current[0] = label
+            before = {k: KERNELS[k]["fn"].launches for k in watch}
+            outs[label] = api.decode(r["data"], device="cuda")[0]
+            per[label] = {k: KERNELS[k]["fn"].launches - before[k]
+                          for k in watch}
+        return outs, per
+
+    with contextlib.ExitStack() as stack:
+        for module, names in JPEG_TWINS:
+            stack.enter_context(forbidden(module, names))
+        stack.enter_context(jpeg_recorded(calls, current))
+        t0 = time.perf_counter()
+        (outs, per), counts = drive("main path (api.decode, JPEG routes)",
+                                    main_path, JPEG_KERNELS)
+        t_main = time.perf_counter() - t0
+    specs = {spec for (name, _l), v in calls.items()
+             if name == "encode_output" for (_x, spec, _b), _o in v}
+    if specs != {("ycbcr",)}:
+        raise AssertionError(f"the JPEG main path ran A7 with {specs}")
+    for label, launches in per.items():
+        route = JPEG_STREAMS[label][3]
+        want = ({"jpeg_idct": 0, "ycbcr_to_rgb": 0, "synth_dct8": 1,
+                 "synth_family": 0, "restore_and_output": 1,
+                 "encode_output": 1} if route == 1 else
+                {"jpeg_idct": 1, "ycbcr_to_rgb": 1, "synth_dct8": 0,
+                 "synth_family": 0, "restore_and_output": 0,
+                 "encode_output": 0})
+        print(f"frame jpeg {label} (route {route}) launches: {launches}",
+              flush=True)
+        if launches != want:
+            raise AssertionError(f"jpeg {label}: launches {launches}, "
+                                 f"expected {want}")
+        within_one_code(outs[label], streams[label]["ref"],
+                        f"decode jpeg {label} vs its float64 oracle")
+    print(f"main path: {len(per)} JPEG decodes in {t_main:.1f} s", flush=True)
+
+    # the kernels against their twins on the main path's inputs
+    for label in ("4k_420", "round1_420", "ragged_420"):
+        (coef, grids, quant), got = calls["jpeg_idct", label][0]
+        ref = JPX.jpeg_idct_plain(coef, grids, quant)
+        note_err("jpeg_idct", max(float((a - b).abs().max())
+                                  for a, b in zip(got, ref)), 0,
+                 f"the main path's {label} input")
+        (planes, factors, h, w, tri, rnd), got = calls["ycbcr_to_rgb",
+                                                      label][0]
+        ref = JPX.ycbcr_to_rgb_plain(planes, factors, h, w, tri, rnd)
+        note_err("ycbcr_to_rgb", int((got.int() - ref.int()).abs().max()), 0,
+                 f"the main path's {label} input")
+    for label in ("4k_444", "grey"):
+        (xyb, spec, bits), got = calls["encode_output", label][0]
+        ref = post.encode_output_plain(xyb, spec, bits)
+        note_err("encode_output_ycbcr",
+                 int((got.int() - ref.int()).abs().max()), 0,
+                 f"the main path's {label} planes")
+
+    # the other entry points: a mixed batch, the thumbnail, decode_sampled
+    batch = ["4k_444", "fhd_422", "ragged_420", "grey", "restart_420",
+             "round1_420"]
+    rgba = int(api.PreferredColorConfig.RGBA_8888)
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for module, names in JPEG_TWINS:
+            stack.enter_context(forbidden(module, names))
+        got = api.decode_batch([streams[k]["data"] for k in batch] + [still],
+                               "cuda")
+        t_batch = time.perf_counter() - t0
+        still_px = api.decode(still, "cuda")[0]
+        other = {}
+        for label in ("4k_444", "4k_420"):
+            t0 = time.perf_counter()
+            thumb = api.decode_thumbnail(streams[label]["data"], "cuda")[0]
+            t1 = time.perf_counter()
+            sampled = api.decode_sampled(streams[label]["data"], 960, 540,
+                                         rgba, device="cuda")[0]
+            other[label] = (thumb, sampled, t1 - t0, time.perf_counter() - t1)
+    for label, out in zip(batch, got):
+        if not np.array_equal(out, outs[label]):
+            raise AssertionError(f"decode_batch: {label} differs from "
+                                 f"api.decode's output")
+    if not np.array_equal(got[-1], still_px):
+        raise AssertionError("decode_batch: the still differs")
+    print(f"decode_batch of {batch} and the FHD d4.0 still: each equal to "
+          f"api.decode's ({t_batch:.1f} s)", flush=True)
+    for label, (thumb, sampled, t_thumb, t_sampled) in other.items():
+        print(f"jpeg {label}: decode_thumbnail {thumb.shape} in "
+              f"{t_thumb:.1f} s, decode_sampled 960x540 RGBA_8888 "
+              f"{sampled.shape} in {t_sampled:.1f} s", flush=True)
+        if sampled.shape != (540, 960, 4) or (sampled[:, :, 3] != 255).any():
+            raise AssertionError(f"sampled jpeg {label}: {sampled.shape}, "
+                                 f"alpha not opaque")
+        px = torch.from_numpy(outs[label])
+        if label == "4k_444":
+            # the DC image through A7 "ycbcr"; the quarter route, S1's pool
+            within_one_code(thumb, streams[label]["thumb"],
+                            f"thumbnail jpeg {label} (the DC image, A7 ycbcr)"
+                            f" vs the float64 host thumbnail")
+            ref = streams[label]["ref"].astype(np.float64).reshape(
+                540, 4, 960, 4, 3).mean(axis=(1, 3))
+            d = np.abs(sampled[:, :, :3].astype(np.float64) - ref)
+            print(f"sampled jpeg {label} (S1 ycbcr) against the 4x4 box of "
+                  f"the float64 oracle's pixels: max {d.max():.2f}, share "
+                  f"beyond 2 codes {(d > 2).mean():.3g}", flush=True)
+            if (d > 2).mean() >= 1e-3:
+                raise AssertionError(f"sampled jpeg {label}: beyond 2 codes "
+                                     f"of the box on 0.1% of values")
+        else:
+            # R12's route: a full decode, then S2; the quarter route is
+            # ineligible: a full decode, then S3
+            box = SAMPLE.box_codes_plain(px).numpy()
+            if not np.array_equal(thumb, box):
+                raise AssertionError(f"thumbnail {label}: not the 8x box of "
+                                     f"its decode")
+            scaled = RESIZE.rescale_image_plain(
+                px, 960, 540, FIT, int(api.ResizeFilter.MITCHELL)).numpy()
+            d = np.abs(sampled[:, :, :3].astype(int) - scaled)
+            print(f"thumbnail jpeg {label}: S2's 8x box of its decode (equal "
+                  f"to the twin's); decode_sampled against S3's twin on "
+                  f"api.decode's pixels: max {d.max()} code", flush=True)
+            if d.max() > 1:
+                raise AssertionError(f"sampled jpeg {label}: not S3 of its "
+                                     f"decode")
+
+    layers = {label: jpeg_layers(label, streams[label]["data"], card)
+              for label in ("4k_444", "fhd_420")}
+    jpeg_timings(calls, card, ms)
+    print(f"phase 17 (the JPEG routes) took {time.perf_counter() - t_phase:.1f}"
+          f" s", flush=True)
+    return dict(counts, layers=layers)
 
 
 def main() -> int:
@@ -4303,7 +4769,8 @@ def main() -> int:
     # 2. build, one nvcc per source and g++ for the host codec, all at once
     t0 = time.perf_counter()
     sources = ("synth", "filters", "fused_filters", "detile", "entropy",
-               "modular", "post", "overlay", "sample", "pixel_ops", "compose")
+               "modular", "post", "overlay", "sample", "pixel_ops", "compose",
+               "jpeg")
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host = pool.submit(_build.load_host, "hostcodec")
         list(pool.map(_build.load, sources))
@@ -4311,19 +4778,26 @@ def main() -> int:
     print(f"build: nvcc sm_90a, {len(sources)} sources, and g++ for the host "
           f"codec in {time.perf_counter() - t0:.2f} s", flush=True)
     for name in ("synth", "filters", "fused_filters", "entropy", "modular",
-                 "post", "overlay", "sample", "pixel_ops", "compose"):
+                 "post", "overlay", "sample", "pixel_ops", "compose", "jpeg"):
         ptxas_report(name)
 
     phase_done("2 (build)")
 
     # 3. streams; the post-stage streams (phase 12) and their references
-    # start at once in worker processes, the 4K one first (the longest)
-    pool = multiprocessing.get_context("spawn").Pool(6)
+    # start at once in worker processes, as many as the card's host has
+    # cores, at a lower priority than the main thread's encodes and checks
+    pool = multiprocessing.get_context("spawn").Pool(
+        os.cpu_count() or 8, initializer=os.nice, initargs=(10,))
     atexit.register(pool.terminate)
-    # phase 14's 4K text (the longest encode) first
+    # the longest jobs first, so that phase 5b's wait for the pool's last
+    # job is short: phase 14's 4K text, phase 12's 4K noise + PQ stream
+    # (the first of POST_STREAMS), phase 16's 4K two-pass still (the first
+    # of its jobs), then phase 17's JPEGs, their round trips and oracles
     overlay_jobs = {"4k_text": pool.apply_async(overlay_job, ("4k_text",))}
     post_jobs = {label: pool.apply_async(post_job, (label,))
                  for label in POST_STREAMS}
+    anim_jobs = start_anim_jobs(pool)
+    jpeg_jobs = start_jpeg_jobs(pool)
     streams = {"4k_d1.0_e7": (2160, 3840, stream(bench_frame(2160, 3840), 1.0, 7)),
                "fhd_d4.0_e7": (1080, 1920, stream(bench_frame(1080, 1920), 4.0, 7)),
                "sharp_d1.0_e7": (517, 771, stream(sharp_frame(517, 771), 1.0, 7)),
@@ -4343,19 +4817,18 @@ def main() -> int:
                          for label in OVERLAY_STREAMS if label not in
                          overlay_jobs})
 
-    # the entropy kernel on the small streams and at 4K; its plain twin on
-    # the same tables in worker processes meanwhile (one step per token:
-    # tens of seconds), collected before the timings
+    # the entropy kernel on the small streams; its plain twin on the same
+    # tables in worker processes meanwhile (one step per token: seconds),
+    # collected before the timings.  At 4K the kernel is held to the host
+    # route's coefficients bit for bit (phase 6); its twin there took
+    # ~112 s of a worker and is not run
     twins = start_twins(pool, {k: streams[k][2] for k in (
         "sharp_d1.0_e7", "16bit_d1.0_e5", "sharp_d0.1_e7",
-        "waves_d1.0_e7_two_passes", "waves_d1.0_e7_single_section",
-        "4k_d1.0_e7")}, dev)
+        "waves_d1.0_e7_two_passes", "waves_d1.0_e7_single_section")}, dev)
     # the Modular streams, encoded and decoded on the CPU route in the same
     # workers once the twins free them; collected in phase 11
     modular_jobs = {label: pool.apply_async(modular_job, (label,))
                     for label in MODULAR_STREAMS}
-    # phase 16's streams and the progressive still's oracles
-    anim_jobs = start_anim_jobs(pool)
 
     phase_done("3 (streams)")
 
@@ -4463,7 +4936,9 @@ def main() -> int:
     planes, sigma = synthesized(cfg, inp)
     xyb = planes[:, :h, :w]
     ms = {}
-    entropy_4k(data, dev, card, ms, twin_s, layers)
+    entropy_4k(data, dev, card, ms, ("sharp_d1.0_e7",
+                                     streams["sharp_d1.0_e7"][2],
+                                     twin_s["sharp_d1.0_e7"]), layers)
     synth_timings(cfg, inp, planes, card, ms)
     px = h * w
     note_bound("restore_and_output", nbytes(xyb, sigma) + 3 * px,
@@ -4535,6 +5010,12 @@ def main() -> int:
     anim = anim_phase(anim_jobs, card, ms)
     launches.update({k: anim[k] for k in ANIM_KERNELS})
     phase_done("16 (animation, progressive and truncated)")
+
+    # 17. the JPEG routes: the 4:4:4 frame's A7 "ycbcr", and J1 and J2
+    # (csrc/jpeg.cu) for a subsampled JPEG and the round-1 container
+    jpeg = jpeg_phase(jpeg_jobs, streams["fhd_d4.0_e7"][2], card, ms)
+    launches.update({k: jpeg[k] for k in JPEG_KERNELS})
+    phase_done("17 (the JPEG routes)")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": spec["source"],

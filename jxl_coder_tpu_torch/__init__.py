@@ -1,6 +1,6 @@
 """PyTorch + CUDA port of jxl_coder_tpu's VarDCT and Modular still
-decode, its sampled decode and pixel ops, its DCT8-only frame path and
-its round-1 VarDCT codec.
+decode, its JPEG recompression, its sampled decode and pixel ops, its
+DCT8-only frame path and its round-1 VarDCT codec.
 
 The port needs nothing of ``jxl_coder_tpu``.  Its host layers
 (container, headers, entropy coding, the native host codec, the host
@@ -12,7 +12,9 @@ reconstruction, the resampling, tone mapping and pixel packing) runs in
 PyTorch and in hand-written CUDA kernels for Hopper (``csrc/``), each
 with a plain PyTorch twin that the CPU path and the tests use.  Entry
 points: ``jxl_coder_tpu_torch.api.decode(data, device="cuda")``,
-``decode_batch``, ``decode_sampled``, ``decode_thumbnail``,
+``decode_batch``, ``decode_sampled``, ``decode_thumbnail``, the JPEG
+recompression ``construct`` / ``reconstruct_jpeg`` (host code, exported
+here too),
 ``jxl_coder_tpu_torch.vardct.dct8.DCT8Frame`` and
 ``jxl_coder_tpu_torch.codec.encode_vardct_still`` /
 ``decode_vardct_still``.
@@ -21,11 +23,14 @@ The host layers import without torch; the device packages (and the
 entry points) import ``_device``, which pins full float32.
 """
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "construct", "reconstruct_jpeg"]
 
 
 def __getattr__(name):
     if name == "resolve_device":
         from ._device import resolve_device
         return resolve_device
+    if name in ("construct", "reconstruct_jpeg"):
+        from . import api
+        return getattr(api, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,7 +1,9 @@
 """Public decode entry points of the PyTorch port.
 
 ``decode(data, device="cuda")`` decodes a VarDCT or a Modular still (or
-an animation's last frame, or what arrived of a stream cut short);
+an animation's last frame, a recompressed JPEG, or what arrived of a
+stream cut short); ``construct`` / ``reconstruct_jpeg`` recompress a JPEG
+and give it back;
 ``decode_batch(datas, device="cuda")`` decodes many, the host half of
 each on a worker pool while the card reconstructs earlier ones
 (``batch.py``); ``decode_sampled(data, width, height, ...)`` decodes at a
@@ -81,14 +83,24 @@ Animations, progressive and truncated streams
   the AC passes that arrived whole, or the DC image resized to the frame
   on the device (S3, Catmull-Rom); anything else raises InvalidJXLError.
 
+Recompressed JPEGs (``jxl_coder_tpu/api.py:441-504,1217-1248``), in the
+reference's order: a round-1 private container (jbrd + jxcf boxes) and a
+chroma-subsampled frame with a jbrd box read their coefficients on the
+host (``jpeg/transcode.py``, ``jpeg/wire.py``), then two launches on the
+device (``jpeg/pixels.py``: J1, the block IDCT; J2, the chroma upsampling
+and YCbCr -> RGB, each route by the reference's rules), with the
+BasicInfo the reference makes up and no orientation; a 4:4:4 or grey
+frame is a VarDCT frame whose output step is A7's "ycbcr" case.
+``construct`` and ``reconstruct_jpeg`` are host code.
+
 A frame whose DC frame or patch sources were not decoded before it raises
-InvalidJXLError.  What raises NotImplementedError: a VarDCT frame with
-YCbCr; ``entropy="device"`` on a VarDCT frame with extra channels or on a
-Modular frame to decode; an embedded ICC profile where the reference
-applies it (a Modular frame: the reference converts it to sRGB with
-littlecms, which the card's machine lacks, and the port has no colour
-management of its own yet); the JPEG routes.  Nothing falls back to the
-host decoder.
+InvalidJXLError.  What raises NotImplementedError: a chroma-subsampled
+YCbCr frame without a jbrd box; ``entropy="device"`` on a VarDCT frame
+with extra channels or on a Modular frame to decode; an embedded ICC
+profile where the reference applies it (a Modular frame: the reference
+converts it to sRGB with littlecms, which the card's machine lacks, and
+the port has no colour management of its own yet).  Nothing falls back
+to the host decoder.
 """
 
 from __future__ import annotations
@@ -110,8 +122,14 @@ from .host.bitstream.headers import ImageHeader, read_image_header
 from .host.bitstream.reader import BitReader, BitstreamError
 from .host.codec import decode_modular_frame
 from .host.jpeg import transcode as _jpeg_tc
+from .host.jpeg import wire as _jpeg_wire
+from .host.jpeg.parser import JpegError
 from .host.modular.frame import ModularPlanes
 from .host.ops.color import is_hdr_encoding
+from .host.vardct.dec_real import jpeg_shifts
+from .jpeg import pixels as JPX
+from .jpeg import transcode as JTC
+from .jpeg import wire as JWIRE
 from .modular import device as MDEV
 from .modular import output as modular_output
 from .ops import compose as COMPOSE
@@ -130,16 +148,7 @@ def _read_frames(data: bytes):
     [(frame header, toc)]): the LF and reference-only frames in stream
     order, then the frame to decode (the first regular one), as the
     reference walks them (``jxl_coder_tpu/api.py:522-548``)."""
-    if _jpeg_tc.is_constructed(data):
-        raise NotImplementedError(
-            "JPEG reconstruction container: decode it with "
-            "jxl_coder_tpu.api.decode (the port has no JPEG route)")
-    c = _container.extract_codestream(data)
-    if c.jpeg_reconstruction_data is not None:
-        raise NotImplementedError(
-            "recompressed JPEG (jbrd): decode it with jxl_coder_tpu.api."
-            "decode (the port has no JPEG route)")
-    cs = c.codestream
+    cs = _container.extract_codestream(data).codestream
     br = BitReader(cs)
     hdr = read_image_header(br)
     _check_decode_size(hdr)
@@ -187,6 +196,75 @@ def _read_frame(data: bytes):
     toc)."""
     cs, hdr, frames = _read_frames(data)
     return (cs, hdr) + frames[-1]
+
+
+# ---- the JPEG routes (jxl_coder_tpu/api.py:441-504,1217-1248) ----------
+
+def _subsampled_jpeg(data: bytes) -> bool:
+    """The reference's _subsampled_jpeg_probe without its render: a
+    recompressed JPEG (jbrd box) whose frame has chroma subsampling."""
+    try:
+        c = _container.extract_codestream(data)
+        if c.jpeg_reconstruction_data is None:
+            return False
+        br = BitReader(c.codestream)
+        hdr = read_image_header(br)
+        return jpeg_shifts(read_frame_header(br, hdr)) is not None
+    except BitstreamError:
+        return False
+
+
+def _jpeg_host(data: bytes) -> Optional[JPX.JpegPlanes]:
+    """The host half of routes 2 and 3, in the reference's order: a
+    round-1 container, then a subsampled recompressed JPEG; None for any
+    other file (a 4:4:4 recompressed JPEG is a VarDCT frame, route 1)."""
+    if _jpeg_tc.is_constructed(data):
+        read = JTC.host_planes
+    elif _subsampled_jpeg(data):
+        read = JWIRE.host_planes
+    else:
+        return None
+    try:
+        return read(data)
+    except (JpegError, BitstreamError) as e:
+        raise InvalidJXLError(str(e)) from e
+
+
+def jpeg_info(host: JPX.JpegPlanes) -> BasicInfo:
+    """The BasicInfo that routes 2 and 3 make up, as the reference's
+    (8 bits, no alpha, orientation 1: none is applied)."""
+    return BasicInfo(xsize=host.width, ysize=host.height, bits_per_sample=8,
+                     float_samples=False, alpha=False,
+                     alpha_premultiplied=False, orientation=1,
+                     have_animation=False, intensity_target=255.0,
+                     uses_original_profile=True)
+
+
+def construct(jpeg_data: bytes) -> bytes:
+    """Lossless JPEG -> JXL (the reference's Convenience.construct): the
+    standard wire format (a jbrd box and a do_ycbcr VarDCT frame), or the
+    round-1 private container for a JPEG the wire format rejects; host
+    code.  A JPEG neither takes raises InvalidJXLError."""
+    try:
+        try:
+            return _jpeg_wire.construct(jpeg_data)
+        except JpegError:
+            return _jpeg_tc.construct(jpeg_data)
+    except JpegError as e:
+        raise InvalidJXLError(str(e)) from e
+
+
+def reconstruct_jpeg(data: bytes) -> bytes:
+    """JXL -> the byte-identical original JPEG (the reference's
+    Convenience.reconstructJPEG), from a standard recompressed file or a
+    round-1 container; host code.  Any other file raises
+    InvalidJXLError."""
+    try:
+        if _jpeg_tc.is_constructed(data):
+            return _jpeg_tc.reconstruct(data)
+        return _jpeg_wire.reconstruct(data)
+    except (JpegError, BitstreamError) as e:
+        raise InvalidJXLError(str(e)) from e
 
 
 class VarDCTHost(NamedTuple):
@@ -291,11 +369,16 @@ def _check_before(host, lf_levels, ref_sizes) -> None:
 
 
 def host_half(data: bytes, dev: torch.device, entropy: str = "host"):
-    """A still's host half: bytes -> VarDCTHost or ModularHost.  It reads
+    """A still's host half: bytes -> VarDCTHost, ModularHost or, for a
+    round-1 container or a subsampled recompressed JPEG, JpegPlanes (its
+    coefficients read on the host on either entropy route).  It reads
     the container, the headers and the TOCs, then, frame by frame, parses
     and packs a VarDCT frame (its AC pass groups on `dev` with
     entropy="device") or decodes a Modular frame's channels: the LF and
     reference frames first, then the frame to decode."""
+    jpeg = _jpeg_host(data)
+    if jpeg is not None:
+        return jpeg
     try:
         cs, hdr, frames = _read_frames(data)
     except BitstreamError as e:
@@ -383,7 +466,10 @@ def device_half(host, dev: torch.device, put=None) -> torch.Tensor:
     planes, then the frame's arrays uploaded (put: how a numpy array gets
     there; default a plain copy), then the VarDCT reconstruction or the
     Modular inverse transforms and output, on the current stream.  A
-    Modular frame reads no LF or reference frame (as the reference)."""
+    Modular frame reads no LF or reference frame (as the reference); a
+    JpegPlanes runs J1 and J2 (``jpeg/pixels.py``)."""
+    if isinstance(host, JPX.JpegPlanes):
+        return JPX.pixels(host, dev, put)
     dc_frames, refs = _device_before(host, dev, put)
     return _frame_device(host, dev, dc_frames, refs, put)
 
@@ -411,14 +497,17 @@ def prepare(data: bytes, device="cuda", entropy: str = "host"
     configuration, its inputs on `device`, the image header); the LF and
     reference frames before the frame are decoded on `device` (its DC and
     its patches' sources are in the inputs).  entropy: "host" or "device",
-    where the AC pass groups are entropy-decoded.  A Modular frame raises
-    NotImplementedError: decode it with ``decode``."""
+    where the AC pass groups are entropy-decoded.  A Modular frame, or a
+    JPEG whose coefficients the JPEG routes read (a subsampled one or the
+    round-1 container), raises NotImplementedError: decode it with
+    ``decode``."""
     check_entropy(entropy)
     dev = resolve_device(device)
     host = host_half(data, dev, entropy)
-    if isinstance(host, ModularHost):
+    if not isinstance(host, VarDCTHost):
         raise NotImplementedError(
-            "Modular frame: prepare is the VarDCT host half; decode it with "
+            "Modular frame, or a subsampled or round-1 recompressed JPEG: "
+            "prepare is the VarDCT host half; decode it with "
             "jxl_coder_tpu_torch.api.decode")
     dc_frames, refs = _device_before(host, dev)
     cfg, inputs = _vardct_inputs(host, dev, None, dc_frames, refs)
@@ -449,9 +538,19 @@ def decode(data: bytes, device="cuda", entropy: str = "host"
     except InvalidJXLError as e:
         return _partial_or_raise(data, dev, entropy, e)
     pixels = device_half(host, dev)
+    if isinstance(host, JPX.JpegPlanes):
+        return pixels.cpu().numpy(), jpeg_info(host)
     return (apply_orientation(pixels.cpu().numpy(),
                               host.hdr.metadata.orientation),
             basic_info(data))
+
+
+def orientation_of(host) -> int:
+    """The orientation that applies to a host half's pixels (none on the
+    JPEG routes 2 and 3, as the reference)."""
+    if isinstance(host, JPX.JpegPlanes):
+        return 1
+    return host.hdr.metadata.orientation
 
 
 def decode_batch(datas: Sequence[bytes], device="cuda",
@@ -572,9 +671,14 @@ def decode_frames(data: bytes, device="cuda", entropy: str = "host"):
     animation ticks.  A frame is shown when it is regular (or
     skip-progressive) and has a duration, or is the last, or the stream
     has no animation.  The slots, LF planes and reference frames' XYB
-    planes stay on `device`; each shown frame is downloaded once."""
+    planes stay on `device`; each shown frame is downloaded once.  A
+    subsampled recompressed JPEG is its one frame by the JPEG route (the
+    reference reads it with one block grid and raises, ROADMAP R17)."""
     check_entropy(entropy)
     dev = resolve_device(device)
+    if _subsampled_jpeg(data):
+        pixels, info = decode(data, dev, entropy)
+        return [pixels], [0], info
     try:
         cs = _container.extract_codestream(data).codestream
         br = BitReader(cs)
@@ -715,7 +819,7 @@ def _pixels(data: bytes, dev, entropy: str) -> torch.Tensor:
         return orient(img.frame_tensor(img.frames_count - 1),
                       img.image_header.metadata.orientation)
     host = host_half(data, dev, entropy)
-    return orient(device_half(host, dev), host.hdr.metadata.orientation)
+    return orient(device_half(host, dev), orientation_of(host))
 
 
 class DCHost(NamedTuple):
@@ -766,6 +870,7 @@ def _dc_device(host: DCHost, dev) -> torch.Tensor:
 def _dc_codes(host: DCHost, dev) -> torch.Tensor:
     """The DC image's codes in the output encoding, on `dev`."""
     m = host.hdr.metadata
+    spec = output_spec(m, host.fh)
     if host.dc is None:
         dc_frames, _ = _device_before(host, dev)
         w, h = host.fh.coded_size(host.hdr)
@@ -774,13 +879,15 @@ def _dc_codes(host: DCHost, dev) -> torch.Tensor:
     else:
         xyb = torch.from_numpy(host.dc).to(dev)
     bits = m.bit_depth.bits_per_sample
-    spec = output_spec(m)
     return (modular_output.srgb_codes(xyb, bits) if spec == ("srgb",)
             else encode_output(xyb, spec, bits))
 
 
 def _thumbnail(data: bytes, dev, entropy: str) -> torch.Tensor:
-    if _animated(data):
+    if _animated(data) or _subsampled_jpeg(data):
+        # a subsampled recompressed JPEG: the DC-only route takes one block
+        # grid; the reference raises there (ROADMAP R12) and decodes
+        # Modular and upsampled frames whole
         return box_codes(_pixels(data, dev, entropy))
     host = _dc_host(data, dev, entropy)
     if host is not None:
@@ -797,8 +904,8 @@ def decode_thumbnail(data: bytes, device="cuda", entropy: str = "host"
     whole, then each 8 x 8 cell of its codes averaged (all channels)."""
     check_entropy(entropy)
     dev = resolve_device(device)
-    pixels = _thumbnail(data, dev, entropy)
-    return pixels.cpu().numpy(), basic_info(data)
+    info = basic_info(data)
+    return _thumbnail(data, dev, entropy).cpu().numpy(), info
 
 
 def _quarter_eligible(data: bytes) -> bool:
@@ -814,7 +921,8 @@ def _quarter_eligible(data: bytes) -> bool:
         raise InvalidJXLError(str(e)) from e
     fh = frames[0][0]
     return (len(frames) == 1 and fh.frame_type == FrameType.REGULAR
-            and fh.encoding != Encoding.MODULAR and fh.is_last)
+            and fh.encoding != Encoding.MODULAR and fh.is_last
+            and not (fh.do_ycbcr and jpeg_shifts(fh) is not None))
 
 
 def _downsampled(data: bytes, factor: int, dev,

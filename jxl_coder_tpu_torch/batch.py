@@ -42,8 +42,11 @@ card's streams are drained before the exception leaves.  Nothing falls
 back to another route.
 
 WORKERS and IN_FLIGHT were chosen by measurement on an H100 with an
-8-core host (``chip_smoke.py`` phase 13's sweeps, recorded in
-``PERF.md`` §6); the caller does not choose them.
+8-core host (the worker and in-flight sweeps that ``chip_smoke.py`` phase
+13 ran before its depth was cut, recorded in ``PERF.md``); the caller does
+not choose them.  A JPEG route's host half (``jpeg/pixels.JpegPlanes``)
+pipelines as any other (the reference decodes such files one by one
+after its batch, ROADMAP R7).
 """
 
 from __future__ import annotations
@@ -138,7 +141,7 @@ def run(datas: List[bytes], dev: torch.device, entropy: str, workers: int,
                 if isinstance(h, np.ndarray):
                     results[i] = h
                     continue
-                orientation = h.hdr.metadata.orientation
+                orientation = api.orientation_of(h)
                 if card is None:
                     results[i] = apply_orientation(
                         api.device_half(h, dev).numpy(), orientation)

@@ -29,6 +29,10 @@
 //      inverse OOTF, or a named transfer function -> floor(v * max + 0.5)
 //      clipped.  Its byte bound is 12 B in and 3 or 6 B out a pixel; the
 //      PQ and HLG cases' powf / logf calls make it issue-bound in practice.
+//      Its YCbCr case (kind 3, a JPEG recompression frame; _encode_output_
+//      device's "ycbcr", tpu_full.py:685-690): the planes are (Cb, Y, Cr),
+//      Y + 128/255, then BT.601 in f32 in the reference's order, then the
+//      same codes; no transfer function.
 //   S1 encode_output_kernel<OutT, true>: the `down` stage of fn_post
 //      (tpu_full.py:862-876) read by A7.  Each output pixel first averages
 //      its down x down cell of the XYB planes (rows and columns past the
@@ -177,7 +181,7 @@ enum {
 };
 
 struct OutParams {
-  int kind;      // 0 sRGB, 1 gamma, 2 a signalled encoding
+  int kind;      // 0 sRGB, 1 gamma, 2 a signalled encoding, 3 YCbCr
   int trc;       // its transfer function (headers.TransferFunction)
   float maxv;    // 2^bits - 1
   float prm[N_PRM];
@@ -252,6 +256,15 @@ __global__ void __launch_bounds__(TW * TH)
   float q[3];
   if (p.kind == 0) {
     xyb_to_srgb_codes(X, Y, B, p.srgb, p.srgb.mul, q);
+  } else if (p.kind == 3) {
+    // (Cb, Y, Cr): the f32 values of 128 / 255 and of BT.601's constants
+    const float yp = Y + 0.501960814f;
+    const float enc[3] = {yp + 1.40199995f * B,
+                          (yp - 0.344136f * X) - 0.714136004f * B,
+                          yp + 1.77199996f * X};
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      q[c] = fminf(fmaxf(floorf(enc[c] * p.maxv + 0.5f), 0.0f), p.maxv);
   } else {
     const SrgbParams& s = p.srgb;
     const float gr = Y + X + s.cbrt_bias;
@@ -361,7 +374,8 @@ void launch_encode_output(const float* in, long long plane, long long row,
 // in: (3, H, W) XYB with the given plane and row strides; out: (ceil(H /
 // down), ceil(W / down), 3) uint8 (bits <= 8) or uint16, each pixel the
 // encoding of its down x down cell's mean (down 1: of the pixel); kind 0
-// sRGB, 1 gamma, 2 the signalled encoding with transfer function trc; prm:
+// sRGB, 1 gamma, 2 the signalled encoding with transfer function trc, 3
+// YCbCr (the planes are Cb, Y, Cr); prm:
 // N_PRM floats; srgb: the opsin inverse (9), the cube-root bias and the
 // bias; mul: the 16 FastLinearToSRGB multipliers.
 extern "C" int jxl_encode_output(const float* in, long long plane,
@@ -370,7 +384,7 @@ extern "C" int jxl_encode_output(const float* in, long long plane,
                                  const float* prm, const float* srgb,
                                  const uint32_t* mul, void* stream) {
   if (H <= 0 || W <= 0) return cudaSuccess;
-  if (kind < 0 || kind > 2 || bits < 1 || bits > 16 || down < 1)
+  if (kind < 0 || kind > 3 || bits < 1 || bits > 16 || down < 1)
     return cudaErrorInvalidValue;
   OutParams p;
   p.kind = kind;

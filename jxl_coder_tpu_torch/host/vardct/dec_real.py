@@ -8,8 +8,10 @@ the reference frames decoded before it), splines, noise, 2x/4x/8x
 upsampling, the gamma, PQ, HLG or other signalled output encoding, and
 the extra channels; a frame may take its DC from an LF frame
 (``dc_frame``), and an LF or reference frame returns its XYB planes
-(``return_xyb``).  The JAX device routes are gone, and so is YCbCr, which
-the port's decode does not cover: it raises NotImplementedError.  An
+(``return_xyb``); a YCbCr frame (JPEG recompression) outputs BT.601 RGB
+(``ycbcr_planes_to_rgb``), and with chroma subsampling raises
+NotImplementedError (``check_ycbcr``: such a frame decodes through the
+JPEG route).  The JAX device routes are gone.  An
 extra channel whose stream
 fails to decode raises; the original substitutes an opaque plane
 (fault R6 of ROADMAP.md).  The native host codec is required; nothing
@@ -226,6 +228,21 @@ class LfGroup:
     sharp_map: np.ndarray = None  # (ys_b, xs_b)
     ytox: np.ndarray = None       # tile grids (ceil/8)
     ytob: np.ndarray = None
+
+
+def jpeg_shifts(fh):
+    """Per-channel (hshift, vshift) of the STORED block grids for a
+    frame with chroma subsampling (fh.jpeg_upsampling), or None when
+    all channels are full resolution.  Value semantics: 0=1x1, 1=2x2,
+    2=2x1, 3=1x2 upsampling of that channel."""
+    ups = tuple(fh.jpeg_upsampling)
+    if not any(ups):
+        return None
+    HV = {0: (0, 0), 1: (1, 1), 2: (1, 0), 3: (0, 1)}
+    hv = [HV[u] for u in ups]
+    hmax = max(h for h, _ in hv)
+    vmax = max(v for _, v in hv)
+    return [(hmax - h, vmax - v) for h, v in hv]
 
 
 def _chan_dims(xs_b, ys_b, shifts, c):
@@ -938,6 +955,22 @@ def xyb_planes_to_srgb16(X, Y, B):
     return _native_xyb_to_srgb(X, Y, B, 16)
 
 
+def ycbcr_planes_to_rgb(Cb, Y, Cr, bits):
+    """JPEG-recompression frames: (Cb, Y, Cr) planes -> RGB.
+    BT.601 full-range constants as libjxl's YcbcrToRgb; the Y plane is
+    stored centred (the +128/255 offset lives here)."""
+    yp = Y.astype(np.float32) + np.float32(128.0 / 255.0)
+    Cb = Cb.astype(np.float32)
+    Cr = Cr.astype(np.float32)
+    r = yp + np.float32(1.402) * Cr
+    g = yp - np.float32(0.344136) * Cb - np.float32(0.714136) * Cr
+    b = yp + np.float32(1.772) * Cb
+    maxv = (1 << bits) - 1
+    out = np.stack([r, g, b], axis=-1)
+    out = np.clip(np.floor(out * maxv + 0.5), 0, maxv)
+    return out.astype(np.uint8 if bits <= 8 else np.uint16)
+
+
 def compute_dc_planes(lf: LfGlobal, lg: LfGroup):
     """Dequantized, DC-CfL'ed DC planes for one LF group."""
     igs = lf.inv_global_scale
@@ -1206,6 +1239,17 @@ def dc_from_frame(dc_frame, xs_b: int, ys_b: int) -> dict:
     return dc_glob
 
 
+def check_ycbcr(fh) -> None:
+    """A YCbCr frame with chroma subsampling decodes only through the
+    JPEG route (a jbrd box: jpeg/wire.py, per-channel block grids); here
+    it raises NotImplementedError."""
+    if fh.do_ycbcr and jpeg_shifts(fh) is not None:
+        raise NotImplementedError(
+            "VarDCT frame with YCbCr chroma subsampling and no jbrd box: the "
+            "port decodes subsampled YCbCr only as a recompressed JPEG "
+            "(ROADMAP queue 1: a subsampled YCbCr frame without jbrd)")
+
+
 def decode_vardct_frame(cs: bytes, hdr, fh, toc, dc_frame=None,
                         ref_frames=None,
                         return_xyb: bool = False,
@@ -1247,9 +1291,7 @@ def decode_vardct_frame(cs: bytes, hdr, fh, toc, dc_frame=None,
     if use_dc_frame and dc_frame is None:
         raise BitstreamError(
             "frame uses a DC frame but none was decoded before it")
-    if fh.do_ycbcr:
-        raise NotImplementedError(
-            "VarDCT frame with YCbCr: not in the port's host layers")
+    check_ycbcr(fh)
     if fh.upsampling not in (1, 2, 4, 8):
         raise BitstreamError(f"upsampling {fh.upsampling}")
 
@@ -1425,7 +1467,9 @@ def decode_vardct_frame(cs: bytes, hdr, fh, toc, dc_frame=None,
         B = upsample_plane(B[:h, :w], fh.upsampling, weights)
     bits = m.bit_depth.bits_per_sample
     ce = m.colour_encoding
-    if ce is not None and ce.have_gamma:
+    if fh.do_ycbcr:
+        rgb = ycbcr_planes_to_rgb(X, Y, B, bits)[:full_h, :full_w]
+    elif ce is not None and ce.have_gamma:
         # a pure power TRC (e.g. 1/2.2): encode the linear output with it
         rgb = xyb_planes_to_gamma(X, Y, B, ce.gamma / 1e7,
                                   bits)[:full_h, :full_w]

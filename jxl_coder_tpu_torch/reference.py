@@ -10,7 +10,8 @@ are the port's own copies of the JAX package's host layers (``host/``,
 numpy and C++).  The oracles: ``decode_float64`` (a still),
 ``thumbnail_float64``, ``preview_float64`` and ``dc_upsampled_float64``
 (a progressive preview and a truncated stream's two renders) and
-``frames_float64`` (an animation's shown frames, composed by A10's twin).
+``frames_float64`` (an animation's shown frames, composed by A10's twin)
+and ``jpeg_pixels_float64`` (a recompressed JPEG's routes 2 and 3).
 ``api.decode`` never calls this module.
 """
 
@@ -31,10 +32,11 @@ from .host.codec import (decode_modular_frame, encode_modular_frame,
                          modular_planes_to_xyb)
 from .host.modular.frame import undo_on_host
 from .host.ops.resize import resample_matrix
+from .host.jpeg.parser import ZIGZAG
 from .host.vardct.dec_real import (_is_srgb_output, dc_from_frame,
                                    decode_vardct_frame, xyb_planes_to_encoding,
                                    xyb_planes_to_gamma, xyb_planes_to_srgb8,
-                                   xyb_planes_to_srgb16)
+                                   xyb_planes_to_srgb16, ycbcr_planes_to_rgb)
 from .host.vardct.enc_real import encode_vardct_real as encode_vardct
 from .host.vardct.strategies import STRATEGIES
 from .host.vardct.synthesis import dequant_table, response_matrix
@@ -45,8 +47,8 @@ from .vardct.inputs import _PAD_SENTINEL as PAD_SENTINEL
 
 __all__ = ["encode_vardct", "encode_modular_frame", "decode_float64",
            "thumbnail_float64", "preview_float64", "dc_upsampled_float64",
-           "frames_float64", "photon_noise_lut", "STRATEGIES",
-           "dequant_table", "response_matrix", "PAD_SENTINEL"]
+           "frames_float64", "jpeg_pixels_float64", "photon_noise_lut",
+           "STRATEGIES", "dequant_table", "response_matrix", "PAD_SENTINEL"]
 
 
 def photon_noise_lut(iso: float) -> list:
@@ -93,7 +95,9 @@ def thumbnail_float64(data: bytes) -> np.ndarray:
     host in float64, as jxl_coder_tpu.api.decode_thumbnail computes it
     (``vardct/dec_real.py:1727-1747``): the frame's smoothed DC image (or
     its LF frame's planes, edge-replicated) through the host's output
-    encodings, orientation applied."""
+    encodings, orientation applied.  A YCbCr frame (JPEG recompression)
+    converts its DC by BT.601, as its full decode does; the JAX package
+    reads its DC as XYB there (fault R13 of ROADMAP.md)."""
     out, hdr = _dc_image_float64(data)
     return apply_orientation(out, hdr.metadata.orientation)
 
@@ -150,7 +154,9 @@ def _dc_image_float64(data: bytes):
     X, Y, B = (dc[c][:th, :tw] for c in range(3))
     m = hdr.metadata
     bits, ce = m.bit_depth.bits_per_sample, m.colour_encoding
-    if ce is not None and ce.have_gamma:
+    if fh.do_ycbcr:
+        out = ycbcr_planes_to_rgb(X, Y, B, bits)
+    elif ce is not None and ce.have_gamma:
         out = xyb_planes_to_gamma(X, Y, B, ce.gamma / 1e7, bits)
     elif not _is_srgb_output(ce):
         out = xyb_planes_to_encoding(X, Y, B, ce, bits,
@@ -233,3 +239,62 @@ def frames_float64(data: bytes):
             break
         br.pos = toc.end_offset * 8
     return frames, durations
+
+
+def _upsampled_float64(p: np.ndarray, fy: int, fx: int, triangle: bool,
+                       h: int, w: int) -> np.ndarray:
+    """A plane at the output size by the route's rule (jpeg/wire.py's
+    triangle (3a + b) / 4, the horizontal pass first, edges repeated; or
+    jpeg/transcode.py's np.repeat), cropped."""
+    if not triangle:
+        return np.repeat(np.repeat(p, fy, axis=0), fx, axis=1)[:h, :w]
+    for axis, f in ((1, fx), (0, fy)):
+        if f == 2:
+            q = np.moveaxis(p, axis, 0)
+            prev = np.concatenate([q[:1], q[:-1]])
+            nxt = np.concatenate([q[1:], q[-1:]])
+            up = np.empty((2 * q.shape[0],) + q.shape[1:])
+            up[0::2] = (3 * q + prev) / 4
+            up[1::2] = (3 * q + nxt) / 4
+            p = np.moveaxis(up, 0, axis)
+    return p[:h, :w]
+
+
+def jpeg_pixels_float64(data: bytes) -> np.ndarray:
+    """A round-1 container's or a subsampled recompressed JPEG's pixels
+    (routes 2 and 3 of ``api.decode``) in numpy float64: the coefficients
+    as the host reads them, dequantised and de-zigzagged, the IDCT as an
+    explicit sum over the 8x8 DCT basis, +128, the route's chroma
+    upsampling, BT.601, then the route's codes (+0.5 before the
+    truncation on the wire route, none on the round-1 route; a grey image
+    repeats Y)."""
+    from .api import _jpeg_host
+    host = _jpeg_host(data)
+    if host is None:
+        raise ValueError("jpeg_pixels_float64: not a round-1 container or "
+                         "a subsampled recompressed JPEG")
+    k = np.arange(8)
+    basis = np.cos(np.pi * k[:, None] * (2 * k[None, :] + 1) / 16) * 0.5
+    basis[0] *= np.sqrt(0.5)          # basis[u, y]: orthonormal DCT-II
+    planes, off = [], 0
+    for c, (bh, bw) in enumerate(host.grids):
+        n = bh * bw * 64
+        zz = host.coeffs[off:off + n].reshape(bh, bw, 64).astype(np.float64)
+        off += n
+        nat = np.empty_like(zz)
+        nat[:, :, ZIGZAG] = zz * host.quant[c].astype(np.float64)
+        pix = np.einsum("abuv,uy,vx->abyx", nat.reshape(bh, bw, 8, 8), basis,
+                        basis)
+        plane = pix.transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8) + 128.0
+        planes.append(_upsampled_float64(plane, *host.factors[c],
+                                         host.triangle, host.height,
+                                         host.width))
+    if len(planes) < 3:
+        rgb = np.repeat(planes[0][:, :, None], 3, axis=2)
+    else:
+        y, cb, cr = planes[0], planes[1] - 128.0, planes[2] - 128.0
+        rgb = np.stack([y + 1.402 * cr, y - 0.344136 * cb - 0.714136 * cr,
+                        y + 1.772 * cb], -1)
+    if host.rounded:
+        rgb = rgb + 0.5
+    return np.clip(rgb, 0, 255).astype(np.uint8)

@@ -35,8 +35,10 @@ the LF frame's planes, on the device, with no smoothing.  Its patch
 dictionary and splines come with LF global (``state["lf"]``).
 
 Unlike the reference it never asks whether a JAX device is attached and
-applies no frame-size floor.  A YCbCr frame, which the port's device path
-does not cover, raises NotImplementedError.
+applies no frame-size floor.  A YCbCr frame (JPEG recompression) parses
+as any other when its channels share one block grid; with chroma
+subsampling it raises NotImplementedError (the JPEG route,
+``jpeg/wire.py``, reads such a frame when a jbrd box comes with it).
 """
 
 from __future__ import annotations
@@ -51,8 +53,8 @@ from ..host.bitstream.reader import BitReader, BitstreamError
 from ..host.vardct.dec_real import (BlockArrays, _lf_group_view,
                                     adaptive_dc_smoothing,
                                     compute_dc_planes, read_hf_global,
-                                    read_lf_global, read_lf_group,
-                                    read_pass_group)
+                                    check_ycbcr, read_lf_global,
+                                    read_lf_group, read_pass_group)
 
 _LF_GROUP_BLOCKS = 256      # LF groups: 2048 px
 _GROUP_BLOCKS = 32          # AC groups: 256 px
@@ -63,11 +65,7 @@ DC_FRAME, _SKIP_SMOOTHING = 0x20, 0x80
 
 def check_supported(hdr, fh, entropy: str = "host") -> None:
     """Raise NotImplementedError for a frame outside the port's slice."""
-    if fh.do_ycbcr:
-        raise NotImplementedError(
-            "VarDCT frame with YCbCr (JPEG recompression, chroma "
-            "subsampling): not in the port's decode slice (ROADMAP queue 1: "
-            "the JPEG routes)")
+    check_ycbcr(fh)
     if entropy == "device" and hdr.metadata.extra_channels:
         raise NotImplementedError(
             "entropy='device' on a VarDCT frame with extra channels: each "

@@ -28,7 +28,9 @@ tensor never takes a twin):
   ``_xyb_to_linear_device`` ``:649`` and ``_quantize_device`` ``:669``):
   XYB -> linear -> [3x3 gamut] -> sRGB, gamma, PQ, HLG with the inverse
   OOTF or a named TRC -> codes.  Its "srgb" case is kernel 2's output
-  step, so its codes equal kernel 2's;
+  step, so its codes equal kernel 2's; its "ycbcr" case (a JPEG
+  recompression frame, ``tpu_full.py:685-690``) is BT.601 of the (Cb, Y,
+  Cr) planes, Y + 128 / 255, in f32;
 - ``encode_output_down`` (S1; the ``down`` stage of ``fn_post``,
   ``tpu_full.py:862-876``, then A7): A7's kernel with each down x down
   cell of the planes averaged first (edge-padded), so a quarter-scale
@@ -113,13 +115,17 @@ class PostConfig:
                           full_w=fh.frame_width or hdr.xsize,
                           bits=m.bit_depth.bits_per_sample, noise_lut=noise,
                           ups=ups, up_weights=upsample_weights(m, ups),
-                          out=output_spec(m), ec=ec,
+                          out=output_spec(m, fh), ec=ec,
                           overlay=OV.Overlay.of(lf, h, w))
 
 
-def output_spec(m) -> tuple:
-    """The output encoding of image metadata m: ("srgb",), ("gamma", g)
-    or ("enc", trc, gamut matrix or None, intensity_target, luma)."""
+def output_spec(m, fh=None) -> tuple:
+    """The output encoding of image metadata m and frame header fh:
+    ("ycbcr",) for a YCbCr frame (JPEG recompression), else ("srgb",),
+    ("gamma", g) or ("enc", trc, gamut matrix or None, intensity_target,
+    luma)."""
+    if fh is not None and fh.do_ycbcr:
+        return ("ycbcr",)
     ce = m.colour_encoding
     if ce is not None and ce.have_gamma:
         return ("gamma", float(ce.gamma / 1e7))
@@ -347,7 +353,10 @@ _PQ = tuple(float(_F(v)) for v in (HC._PQ_M1, HC._PQ_M2, HC._PQ_C1,
                                     HC._PQ_C2, HC._PQ_C3))
 _HLG = tuple(float(_F(v)) for v in (HC._HLG_A, HC._HLG_B, HC._HLG_C))
 # the spec's kind and the TRC cases of the kernel (csrc/post.cu)
-KIND = {"srgb": 0, "gamma": 1, "enc": 2}
+KIND = {"srgb": 0, "gamma": 1, "enc": 2, "ycbcr": 3}
+# BT.601 of dec_real.ycbcr_planes_to_rgb (f32), the Y plane stored centred
+_YCBCR = tuple(float(_F(v)) for v in (128.0 / 255.0, 1.402, 0.344136,
+                                      0.714136, 1.772))
 
 
 def _pow(v: torch.Tensor, e: float) -> torch.Tensor:
@@ -396,6 +405,12 @@ def encode_output_plain(xyb: torch.Tensor, spec: tuple,
                         bits: int) -> torch.Tensor:
     """The twin of encode_output (its "srgb" case gives
     color.xyb_to_srgb_plain's codes at 8 and 16 bits)."""
+    if spec[0] == "ycbcr":
+        # the planes are (Cb, Y, Cr)
+        off, kr, kgb, kgr, kb = _YCBCR
+        cb, y, cr = xyb[0], xyb[1] + off, xyb[2]
+        enc = [y + kr * cr, (y - kgb * cb) - kgr * cr, y + kb * cb]
+        return _quantize_plain(enc, bits)
     lin = color.xyb_to_linear_plain(xyb)
     if spec[0] == "srgb":
         enc = [color.fast_linear_to_srgb(v) for v in lin]
@@ -424,6 +439,11 @@ def encode_output_plain(xyb: torch.Tensor, spec: tuple,
             scale = float(_F(255.0 / 10000.0)) if trc == 16 else None
             enc = [torch.sign(v) * _linear_to_trc(
                 v.abs() * scale if scale else v.abs(), trc) for v in lin]
+    return _quantize_plain(enc, bits)
+
+
+def _quantize_plain(enc, bits: int) -> torch.Tensor:
+    """clip(floor(v * (2^bits - 1) + 0.5)) of each plane -> (H, W, 3)."""
     maxv = float((1 << bits) - 1)
     out = [torch.floor(e * maxv + 0.5).clamp(0.0, maxv) for e in enc]
     return torch.stack(out, -1).to(torch.uint8 if bits <= 8

@@ -371,6 +371,46 @@ def test_animation_and_truncation_without_the_jax_package(tmp_path):
         "True"), res.stdout
 
 
+def test_jpeg_routes_without_the_jax_package(tmp_path):
+    """The same copy, jax and jxl_coder_tpu blocked: port_fixtures writes
+    baseline JPEGs (4:2:0, 4:4:4, grey), the port's construct recompresses
+    them (and the round-1 container's writer one), reconstruct_jpeg gives
+    each back byte for byte, and api.decode reads the three routes on the
+    CPU equal to their float64 oracles."""
+    shutil.copytree(PKG, tmp_path / "jxl_coder_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(REPO / "port_fixtures.py", tmp_path)
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None        # any `import jax` now fails
+        sys.modules["jxl_coder_tpu"] = None
+        import numpy as np
+        from jxl_coder_tpu_torch import api, reference
+        from jxl_coder_tpu_torch.host.jpeg import transcode
+        import port_fixtures as F
+        img = F.bench_frame(37, 51)
+        jpegs = [F.baseline_jpeg(img, 90, 2), F.baseline_jpeg(img, 85, 0),
+                 F.baseline_jpeg(img, 80, grey=True)]
+        datas = [api.construct(j) for j in jpegs]
+        datas.append(transcode.construct(jpegs[0]))
+        back = [api.reconstruct_jpeg(d) for d in datas] == jpegs + jpegs[:1]
+        same = []
+        for k, data in enumerate(datas):
+            out = api.decode(data, device="cpu")[0]
+            ref = (reference.decode_float64(data) if k in (1, 2)
+                   else reference.jpeg_pixels_float64(data))
+            same.append(int(np.abs(out.astype(int) - ref).max()))
+        assert not any(m.split(".")[0] in ("jax", "jxl_coder_tpu")
+                       for m, v in sys.modules.items() if v is not None)
+        print(back, max(same) <= 1, out.shape)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "True True (37, 51, 3)", res.stdout
+
+
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     """A kernel that cannot be built raises; nothing falls back."""
     from jxl_coder_tpu_torch import _build

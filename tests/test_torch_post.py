@@ -186,7 +186,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         post.encode_output(x.double(), ("srgb",), 8)
     with pytest.raises(ValueError):
-        post.encode_output(x, ("ycbcr",), 8)
+        post.encode_output(x, ("cmyk",), 8)
     with pytest.raises(ValueError):
         post.upsample(x, torch.zeros((3, 3, 5, 5)))
     with pytest.raises(ValueError):
@@ -296,10 +296,13 @@ def _rewritten(data, **changes):
 
 @pytest.mark.parametrize("feature,changes", [
     ("patches", dict(flags=0x2)), ("splines", dict(flags=0x10)),
-    ("a DC frame", dict(flags=0x20)), ("YCbCr", dict(do_ycbcr=True))])
+    ("a DC frame", dict(flags=0x20)),
+    ("YCbCr", dict(do_ycbcr=True, jpeg_upsampling=(0, 1, 0)))])
 def test_frames_outside_the_slice_raise(feature, changes):
-    """YCbCr is outside the port's slice.  Patches, splines and a DC frame
-    decode now, so a flag set on a stream without their payload (a patch
+    """A chroma-subsampled YCbCr frame without a jbrd box is outside the
+    port's slice (a 4:4:4 one decodes since the JPEG routes,
+    tests/test_torch_jpeg.py).  Patches, splines and a DC frame decode
+    now, so a flag set on a stream without their payload (a patch
     dictionary, splines, an LF frame before the frame) is a corrupt stream,
     where the JAX package raises BitstreamError."""
     data = reference.encode_vardct(F.smooth_frame(40, 48), distance=1.0,
