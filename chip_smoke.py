@@ -1,8 +1,8 @@
 """Drive the PyTorch port's VarDCT still decode (with its post stages,
 extra channels, patches, splines, reference-only and LF frames), its
 Modular still decode, its sampled decode and pixel ops, its animated,
-progressive and truncated decode, its JPEG recompression routes and its
-round-1 VarDCT codec on one CUDA card.
+progressive and truncated decode, its JPEG recompression routes, its
+encoders and its round-1 VarDCT codec on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -159,7 +159,7 @@ prints no result):
      their 4K shapes by CUDA graph against twin, bound and, for S3, the
      dense float32 matmul pair;
  16. animation, progressive and truncated decode (streams written in the
-     worker processes during phases 3-5 by port_fixtures: 12 FHD lossy
+     worker processes during phases 3-5 by port_fixtures: 6 FHD lossy
      frames, AnimatedEncoder's defaults, one frame a job; an FHD lossless
      RGB + alpha + depth sprite animation, a full background, a
      reference-only frame, eight cropped 320x240 sprites in every blend
@@ -167,7 +167,7 @@ prints no result):
      the 4K d1.0 e7 frame with two passes and its prefixes cut after pass
      0 and after HF global, with their float64 oracles): counted, every
      plain twin made to raise, decode_frames, get_frame in order and at
-     (0, 3, 2, 7, last) and api.decode on both animations,
+     (0, 3, 2, 5, last) and api.decode on both animations,
      decode_frames_batch on the round-1 one, decode_preview on both
      entropy routes and decode of both cuts, each call's launches held to
      its route (A10 once per composed frame, by the cursor's walk; the
@@ -195,10 +195,33 @@ prints no result):
      grey frame), each within 1 code on < 0.1% of its oracle; the kernels
      against their twins on the main path's inputs; a mixed decode_batch
      equal to api.decode; decode_thumbnail and decode_sampled at 960x540
-     on both 4K streams; the 4K 4:4:4 and FHD 4:2:0 decodes split into
+     on the 4K 4:4:4 and FHD 4:2:0 streams; the 4K 4:4:4 and FHD 4:2:0
+     decodes split into
      their layers (M1; 4K 4:2:0's host read takes ~10 s a call); J1, J2
      and A7 "ycbcr" at 4K by CUDA graph against twin, bound and, for J1,
      the fp32 matmul pair.
+ 18. the encoders (api.encode, AnimatedEncoder; the 4K text's patch plan
+     and the FHD lossless still at effort 7, host code, in the worker
+     processes from phase 3): E1-E4 and the winners' gather
+     (csrc/encode.cu) against their twins on seeded inputs from 1x1 to a
+     ragged 2150x3830 crop (every candidate shape, every special
+     transform, u8 / u16 / float samples); the main path api.encode(4K
+     bench frame and the 517x771 sharp strokes, lossy, quality 90,
+     effort 7, device="cuda"), counted, the twins and the float64 host
+     front made to raise: E1 and E2 once, E3 once per shape (7), E4 once
+     per special transform where blocks are eligible, the gather once;
+     every E call of those encodes against its twin (values equal but at
+     quantisation ties, costs within 1e-4); each stream at the float64
+     host route's RD point (size within 2%, PSNR within 0.1 dB) and its
+     card decode within 1 code of the float64 decoder; the 4K text through
+     the patch path with the card's front; the 720x480 16-bit, RGBA,
+     noise and progressive encodes against the CPU route; the FHD
+     lossless still's round trip; AnimatedEncoder on four FHD lossy
+     frames, decode_frames against the float64 frames; the 4K encode
+     split into its layers (M1, 2 + 2 calls) beside phase 3's float64
+     host-route encode of the same frame; each kernel at 4K by CUDA graph
+     against twin, bound and
+     yardstick (the fp32 matmul pair, index_select for the gather).
 Every kernel's line carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its operations over their type's rate: 67 TFLOP/s for f32, 34 for
@@ -244,6 +267,8 @@ from jxl_coder_tpu_torch.host.jpeg.parser import ZIGZAG
 from jxl_coder_tpu_torch.host.modular import transform as MT
 from jxl_coder_tpu_torch.host.modular.frame import ModularFrameDecoder
 from jxl_coder_tpu_torch.host.vardct.dec_real import BlockArrays
+from jxl_coder_tpu_torch.host.vardct import enc_patches as EPAT
+from jxl_coder_tpu_torch.host.vardct import enc_real as ENCR
 from jxl_coder_tpu_torch.modular import device as MDEV
 from jxl_coder_tpu_torch.modular import output as MOUT
 from jxl_coder_tpu_torch.ops import compose as COMPOSE
@@ -254,6 +279,8 @@ from jxl_coder_tpu_torch.ops import tone as TONE
 from jxl_coder_tpu_torch.vardct import (color, dct8, filters, inputs, post,
                                         synth)
 from jxl_coder_tpu_torch.vardct import detile as DT
+from jxl_coder_tpu_torch.vardct import enc_device as ENCDEV
+from jxl_coder_tpu_torch.vardct import enc_kernels as EK
 from jxl_coder_tpu_torch.vardct.dct import dct_matrix
 from jxl_coder_tpu_torch.vardct import overlay as OV
 from jxl_coder_tpu_torch.vardct import fused_filters as FF
@@ -344,6 +371,22 @@ KERNELS = {
     "encode_output_ycbcr": dict(fn=post.encode_output,
                                 source="jxl_coder_tpu_torch/csrc/post.cu",
                                 replaces="jxl_coder_tpu/vardct/tpu_full.py:685"),
+    # the encoder front (jitted JAX, no Pallas kernel): E1-E4, the gather
+    "enc_front_planes": dict(fn=EK.front_planes,
+                             source="jxl_coder_tpu_torch/csrc/encode.cu",
+                             replaces="jxl_coder_tpu/vardct/enc_device.py:111"),
+    "enc_front_blocks": dict(fn=EK.front_blocks,
+                             source="jxl_coder_tpu_torch/csrc/encode.cu",
+                             replaces="jxl_coder_tpu/vardct/enc_device.py:120"),
+    "enc_dct_costs": dict(fn=EK.dct_costs,
+                          source="jxl_coder_tpu_torch/csrc/encode.cu",
+                          replaces="jxl_coder_tpu/vardct/enc_device.py:174"),
+    "enc_special_costs": dict(fn=EK.special_costs,
+                              source="jxl_coder_tpu_torch/csrc/encode.cu",
+                              replaces="jxl_coder_tpu/vardct/enc_device.py:280"),
+    "enc_gather_rows": dict(fn=EK.gather_rows,
+                            source="jxl_coder_tpu_torch/csrc/encode.cu",
+                            replaces="jxl_coder_tpu/vardct/enc_device.py:424"),
 }
 # the round-1 encoder's sources: a change to any of them re-encodes
 LEGACY_ENCODER = [sys.modules[m].__file__ for m in (
@@ -416,9 +459,14 @@ def smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
+# seconds of each encode cached() ran in this process, by (h, w, params)
+ENCODE_S = {}
+
+
 def cached(img: np.ndarray, params: str, sources, encode) -> bytes:
     """encode() of img, cached in the temp directory under the image, the
-    parameters and the encoder's sources."""
+    parameters and the encoder's sources; ENCODE_S keeps the time of each
+    encode it runs."""
     h, w, _ = img.shape
     key = hashlib.sha256(img.tobytes())
     key.update(f"{img.shape},{img.dtype},{params}".encode())
@@ -432,8 +480,9 @@ def cached(img: np.ndarray, params: str, sources, encode) -> bytes:
             return f.read()
     t0 = time.perf_counter()
     data = encode()
+    ENCODE_S[(h, w, params)] = time.perf_counter() - t0
     print(f"encoded {w}x{h} {params}: {len(data)} bytes in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{ENCODE_S[(h, w, params)]:.1f} s", flush=True)
     with open(path + ".tmp", "wb") as f:
         f.write(data)
     os.replace(path + ".tmp", path)
@@ -3846,7 +3895,7 @@ ANIM_WATCH = ANIM_KERNELS + ("synth_family", "synth_dct8",
                              "restore_and_output", "rescale_image")
 # the FHD lossy animation: AnimatedEncoder's defaults (quality 90, effort
 # 7), a seeded frame moving 24 px a frame
-ANIM_FRAMES, ANIM_H, ANIM_W = 12, 1080, 1920
+ANIM_FRAMES, ANIM_H, ANIM_W = 6, 1080, 1920
 SPRITE_H, SPRITE_W = 240, 320
 # the round-1 animation, cut to 256x384: its pure-Python entropy coding
 # takes ~20 s for one FHD parse (ROADMAP 2B item 9)
@@ -4122,7 +4171,7 @@ def anim_timings(calls: dict, streams: dict, prog, cuts, card: str,
 def anim_phase(jobs: dict, card: str, ms: dict) -> dict:
     """Phase 16: the animated, progressive and truncated decode.  Counted
     with every plain twin made to raise: decode_frames, get_frame in order
-    and at (0, 3, 2, 7, last) and api.decode on the FHD lossy and sprite
+    and at (0, 3, 2, 5, last) and api.decode on the FHD lossy and sprite
     animations, decode_frames_batch on the round-1 animation,
     decode_preview on both entropy routes and the two cuts of the 4K
     progressive still; each call's launches held to its route; the
@@ -4130,7 +4179,7 @@ def anim_phase(jobs: dict, card: str, ms: dict) -> dict:
     calls against their twins; M1 for get_frame; timings."""
     t_phase = time.perf_counter()
     hdr = animation_header(ANIM_H, ANIM_W, 3, 8, lossless=False)
-    streams = {"fhd_lossy_12": header_bytes(hdr) + b"".join(
+    streams = {"fhd_lossy": header_bytes(hdr) + b"".join(
         j.get() for j in jobs["frames"]), "fhd_sprites": jobs["sprites"].get()}
     round1 = jobs["round1"].get()
     prog, cuts, oracles = jobs["progressive"].get()
@@ -4141,7 +4190,7 @@ def anim_phase(jobs: dict, card: str, ms: dict) -> dict:
             for k, d in streams.items()}
     calls = {"compose": [], "batch": [], "read": []}
     current, ac, watch = [], [0], ANIM_WATCH
-    order = {k: [0, 3, 2, 7, len(r) - 1] for k, r in rules.items()}
+    order = {k: [0, 3, 2, 5, len(r) - 1] for k, r in rules.items()}
     dev = api.resolve_device("cuda")
 
     def main_path():
@@ -4226,7 +4275,7 @@ def anim_phase(jobs: dict, card: str, ms: dict) -> dict:
             raise AssertionError(f"{label}: durations {durations} vs the "
                                  f"oracle's {ref_durations}")
         for k, (a, b) in enumerate(zip(frames, ref_frames)):
-            if label == "fhd_lossy_12":
+            if label == "fhd_lossy":
                 within_one_code(a, b, f"{label} frame {k} vs the float64 "
                                       f"host decoder")
             elif not np.array_equal(a, b):
@@ -4245,7 +4294,7 @@ def anim_phase(jobs: dict, card: str, ms: dict) -> dict:
         if not np.array_equal(got[label, "decode"][0], frames[-1]):
             raise AssertionError(f"{label}: decode is not the last frame")
         print(f"animation {label}: {len(frames)} shown frames equal to the "
-              f"oracle{' within 1 code' if label == 'fhd_lossy_12' else ''}"
+              f"oracle{' within 1 code' if label == 'fhd_lossy' else ''}"
               f"; get_frame in order and at {order[label]} equal to "
               f"decode_frames; decode is the last frame", flush=True)
     host.shutdown()
@@ -4687,7 +4736,8 @@ def jpeg_phase(jobs: dict, still: bytes, card: str, ms: dict) -> dict:
         t_batch = time.perf_counter() - t0
         still_px = api.decode(still, "cuda")[0]
         other = {}
-        for label in ("4k_444", "4k_420"):
+        # the 4:2:0 route at FHD: at 4K its two full host reads took 27 s
+        for label in ("4k_444", "fhd_420"):
             t0 = time.perf_counter()
             thumb = api.decode_thumbnail(streams[label]["data"], "cuda")[0]
             t1 = time.perf_counter()
@@ -4749,6 +4799,595 @@ def jpeg_phase(jobs: dict, still: bytes, card: str, ms: dict) -> dict:
     return dict(counts, layers=layers)
 
 
+# ---------------------------------------------------------------------------
+# 18. The encoders: api.encode (lossy VarDCT with the encoder front E1-E4 on
+# the card, lossless Modular), AnimatedEncoder
+
+ENC_KERNELS = ("enc_front_planes", "enc_front_blocks", "enc_dct_costs",
+               "enc_special_costs", "enc_gather_rows")
+ENC_FNS = dict(zip(ENC_KERNELS, ("front_planes", "front_blocks", "dct_costs",
+                                 "special_costs", "gather_rows")))
+# what the card's route must not run: the twins and the float64 host front
+ENC_TWINS = ((EK, tuple(f"{n}_plain" for n in ENC_FNS.values())),
+             (ENCR, ("encoded_to_xyb", "_gaborish_sharpen", "_masking_field",
+                     "_estimate_cfl", "_select_strategies")))
+ENC_TIE_SHARE = 1e-5   # quantised values that differ, all at ties
+# relative, on varblocks whose values agree: a cost's distortion sums
+# squares of (reconstruction - coefficient), which cancel where the step is
+# small against the coefficient, so the coefficients' 1e-7 from the sums'
+# order grows there (1.57e-5 seen on the sharp strokes' 32x16 shape)
+ENC_COST_TOL = 1e-4
+ENC_CO_TOL = 2e-6      # of the coefficients' largest magnitude
+ENC_MASK_TOL = 1e-5    # the masking field, in [1, 4]
+ENC_CFL_TOL = 1e-5     # of each tile sum's largest magnitude (or 1e-9)
+ENC_PSNR_TOL = 0.1     # dB, tests/test_enc_device.py's criterion
+ENC_SIZE_TOL = 0.02
+ENC_ANIM_FRAMES = 4
+# the 4K lossless still is cut to FHD: the host encoder's effort-7 ladder
+# (RCT search, learned trees) took 46.3 s at FHD in a worker on the card's
+# host, ~4x that at 4K (PERF.md section 4)
+ENC_LOSSLESS_H, ENC_LOSSLESS_W = 1080, 1920
+
+
+def enc_text_plan_job():
+    """The 4K text frame's patch plan (the detector, host code)."""
+    from jxl_coder_tpu_torch.host.vardct import enc_patches
+    t0 = time.perf_counter()
+    plan = enc_patches.detect(text_frame(2160, 3840))
+    return plan, time.perf_counter() - t0
+
+
+def enc_lossless_job():
+    """The FHD lossless still at effort 7 (host code) and its time."""
+    img = bench_frame(ENC_LOSSLESS_H, ENC_LOSSLESS_W)
+    t0 = time.perf_counter()
+    data = api.encode(img, lossless=True, effort=7, device="cpu")
+    return data, time.perf_counter() - t0
+
+
+def start_enc_jobs(pool) -> dict:
+    return {"text_plan": pool.apply_async(enc_text_plan_job),
+            "lossless": pool.apply_async(enc_lossless_job)}
+
+
+@contextlib.contextmanager
+def enc_recorded(calls: list):
+    """Record each E1-E4 and gather call: (name, args, result, the cost it
+    wrote), the arguments as they were (nothing is updated in place but
+    the cost slice, cloned after the call)."""
+    saved = []
+
+    def wrap(name):
+        orig = getattr(EK, name)
+
+        @functools.wraps(orig)
+        def call(*args, **kwargs):
+            before = call.launches
+            out = orig(*args, **kwargs)
+            orig.launches += call.launches - before
+            cost = args[-1].clone() if name in ("dct_costs",
+                                               "special_costs") else None
+            calls.append((name, args, out, cost))
+            return out
+        saved.append((name, orig))
+        setattr(EK, name, call)
+
+    for name in ENC_FNS.values():
+        wrap(name)
+    try:
+        yield
+    finally:
+        for name, orig in reversed(saved):
+            setattr(EK, name, orig)
+
+
+def enc_check_quant(kernel: str, got, cost, ref, ref_cost, ratios, what,
+                    elig=None, block_dep: bool = False) -> tuple:
+    """E3 / E4 against the twin: values equal but at ties (EK.tie_faults:
+    a decision that moves when its ratio moves by 1e-5 relative; an X / B
+    value whose Y at the same coefficient, or for E4 anywhere in its
+    block, flipped at a tie); the costs within ENC_COST_TOL where the
+    values agree.  Returns (share of values that differ, the largest
+    relative cost error)."""
+    diff = got != ref
+    if elig is not None:
+        diff &= elig[..., None, None]
+    bad = EK.tie_faults(diff, ratios, ENCR.AC_DEADZONE, block_dep)
+    share = float(diff.float().mean())
+    if bad.any() or share > ENC_TIE_SHARE:
+        raise AssertionError(f"{kernel} {what}: {int(diff.sum())} values "
+                             f"differ (share {share:.3g}), {int(bad.sum())} "
+                             f"of them not at a tie")
+    rows = ~diff.flatten(2).any(-1).reshape(-1)
+    big = ref_cost >= 1e29
+    if not torch.equal(big, cost >= 1e29):
+        raise AssertionError(f"{kernel} {what}: the ineligible blocks differ")
+    keep = rows & ~big
+    rel = float(((cost - ref_cost).abs() / ref_cost.abs().clamp_min(1e-30))
+                [keep].max()) if keep.any() else 0.0
+    note_err(kernel, rel, ENC_COST_TOL,
+             f"{what} (relative cost; {share:.3g} of values differ, at ties)")
+    return share, rel
+
+
+def enc_check_call(call, what: str) -> None:
+    """One recorded E call against its twin on the same inputs."""
+    name, args, out, cost = call
+    if name == "front_planes":
+        ref = EK.front_planes_plain(*args)
+        note_err("enc_front_planes", float((out - ref).abs().max()), 0, what)
+    elif name == "front_blocks":
+        co, small = out
+        rco, rsmall = EK.front_blocks_plain(*args)
+        _, ph, pw = args[0].shape
+        nb = (ph // 8) * (pw // 8)
+        nt = (-(-ph // 64)) * (-(-pw // 64))
+        scale = float(rco.abs().max())
+        note_err("enc_front_blocks", float((co - rco).abs().max()),
+                 ENC_CO_TOL * scale, f"{what} co")
+        for part, sl, tol in (
+                ("mask", slice(0, nb), ENC_MASK_TOL),
+                ("dc", slice(nb + 3 * nt, None), ENC_CO_TOL * scale)):
+            d = float((small[sl] - rsmall[sl]).abs().max())
+            print(f"parity enc_front_blocks {what} {part}: {d:.3g} (tol "
+                  f"{tol:.3g})", flush=True)
+            if not d <= tol:
+                raise AssertionError(f"enc_front_blocks {what} {part}: {d}")
+        for k in range(3):
+            sl = slice(nb + k * nt, nb + (k + 1) * nt)
+            d = float((small[sl] - rsmall[sl]).abs().max())
+            m = float(rsmall[sl].abs().max())
+            # the host takes no CfL factor below y2 = 1e-9
+            if not d <= max(ENC_CFL_TOL * m, 1e-9):
+                raise AssertionError(f"enc_front_blocks {what} CfL sum {k}: "
+                                     f"{d} of {m}")
+    elif name == "dct_costs":
+        ref_cost = torch.empty_like(cost)
+        ref, ratios = EK.dct_costs_plain(*args[:-1], ref_cost,
+                                         return_ratios=True)
+        enc_check_quant("enc_dct_costs", out, cost, ref, ref_cost, ratios,
+                        f"{what} sid {args[7]} {args[8]}x{args[9]}")
+    elif name == "special_costs":
+        ref_cost = torch.empty_like(cost)
+        ref, ratios = EK.special_costs_plain(*args[:-1], ref_cost,
+                                             return_ratios=True)
+        enc_check_quant("enc_special_costs", out, cost, ref, ref_cost, ratios,
+                        f"{what} sid {args[8]}", elig=args[7],
+                        block_dep=True)
+    else:
+        ref = EK.gather_rows_plain(*args)
+        note_err("enc_gather_rows", float((out.int() - ref.int()).abs().max())
+                 if out.numel() else 0.0, 0, what)
+
+
+def enc_seeded(dev) -> None:
+    """E1-E4 and the gather against their twins on seeded inputs: 1x1 to a
+    ragged 4K crop (2150x3830: partial tiles of every kernel), every
+    candidate shape that fits, every special transform on a seeded
+    eligibility mask, u8 / u16 / float samples, gaborish on and off."""
+    rng = np.random.default_rng(18)
+    for size in ((1, 1), (40, 56), (136, 200), (2150, 3830)):
+        img = bench_frame(*size)
+        h, w, _ = img.shape
+        ph, pw = -(-h // 8) * 8, -(-w // 8) * 8
+        pad = np.pad(img, ((0, ph - h), (0, pw - w), (0, 0)), mode="edge")
+        kinds = [("u8", pad, 4)]
+        if h == 40:
+            kinds += [("u16", (pad.astype(np.uint16) * 257).view(np.int16), 4),
+                      ("f32", pad.astype(np.float32) / 255.0, 0)]
+        for kind, arr, gab in kinds:
+            pix = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+            calls = []
+            with enc_recorded(calls):
+                planes = EK.front_planes(pix, gab)
+                co, _small = EK.front_blocks(planes)
+            for call in calls:
+                enc_check_call(call, f"seeded {w}x{h} {kind} gab {gab}")
+        ys_b, xs_b = ph // 8, pw // 8
+        qf = torch.from_numpy(rng.integers(2, 16, (ys_b, xs_b)).astype(
+            np.int32)).to(dev)
+        fx, fb = (torch.from_numpy(rng.normal(0, 0.1, (ys_b, xs_b)).astype(
+            np.float32)).to(dev) for _ in range(2))
+        dq = co[:, :, :, 0, 0].contiguous()
+        elig = torch.from_numpy(rng.random((ys_b, xs_b)) < 0.5).to(dev)
+        calls = []
+        with enc_recorded(calls):
+            srcs = []
+            for sid, cy, cx in [(0, 1, 1)] + ENCR._EFFORT_CANDS["full"]:
+                if ys_b // cy and xs_b // cx:
+                    cost = torch.empty((ys_b // cy) * (xs_b // cx),
+                                       device=dev)
+                    srcs.append(EK.dct_costs(co if sid == 0 else planes, qf,
+                                             fx, fb, dq, 10.92, 0.05, sid,
+                                             cy, cx, ENCR.AC_DEADZONE, cost))
+            for sid in ENCR._SPECIAL_CANDS:
+                cost = torch.empty(ys_b * xs_b, device=dev)
+                srcs.append(EK.special_costs(planes, qf, fx, fb, dq, 10.92,
+                                             0.05, elig, sid,
+                                             ENCR.AC_DEADZONE, cost))
+            idxs = [torch.from_numpy(rng.integers(
+                -2, s.shape[0] * s.shape[1] + 2, 37).astype(np.int32)).to(dev)
+                for s in srcs]
+            EK.gather_rows(srcs, idxs)
+        for call in calls:
+            enc_check_call(call, f"seeded {w}x{h}")
+    torch.cuda.synchronize()
+
+
+def psnr(a: np.ndarray, b: np.ndarray, peak: float = 255.0) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float(10 * np.log10(peak ** 2 / max(mse, 1e-12)))
+
+
+def enc_same_point(label: str, ours: bytes, ref: bytes, img: np.ndarray,
+                   what: str, peak: float = 255.0) -> tuple:
+    """tests/test_enc_device.py's criterion: size within 2% (or 64 B) and
+    the decoded PSNR within 0.1 dB, both decoded on the card."""
+    a = api.decode(ours, "cuda")[0]
+    b = api.decode(ref, "cuda")[0]
+    src = img[..., :a.shape[-1]] if a.ndim == 3 else img
+    pa, pb = psnr(a, src, peak), psnr(b, src, peak)
+    print(f"encode {label}: {len(ours)} B against {what} {len(ref)} B "
+          f"({(len(ours) - len(ref)) / len(ref):+.4%}), bytes "
+          f"{'equal' if ours == ref else 'differ'}; PSNR {pa:.4f} / "
+          f"{pb:.4f} dB", flush=True)
+    if abs(len(ours) - len(ref)) > max(64, ENC_SIZE_TOL * len(ref)) or \
+            abs(pa - pb) >= ENC_PSNR_TOL:
+        raise AssertionError(f"encode {label}: not at {what}'s RD point")
+    return a, pa, pb
+
+
+ENC_LAYERS = ("prelude", "front dispatch", "small d2h",
+              "host quant field / DC", "costs + DC substreams", "greedy",
+              "gather + d2h", "tokens + assembly")
+
+
+@contextlib.contextmanager
+def enc_split(log: dict):
+    """Time the layers of one lossy api.encode: Front's calls (the front
+    dispatch synchronised), _greedy_decide and the patch detector (a
+    thread of its own) logged by name; the rest by difference."""
+    saved = []
+
+    def wrap(owner, name, sync=False):
+        orig = getattr(owner, name)
+
+        @functools.wraps(orig)
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            log.setdefault(name, []).append((t0, time.perf_counter()))
+            return out
+        saved.append((owner, name, orig))
+        setattr(owner, name, call)
+
+    wrap(ENCDEV.Front, "run_front_dispatch", sync=True)
+    for name in ("run_front_fetch", "run_costs_dispatch", "run_costs_fetch",
+                 "fetch_selected_dispatch", "fetch_selected_fetch"):
+        wrap(ENCDEV.Front, name)
+    wrap(ENCR, "_greedy_decide")
+    wrap(EPAT, "detect")
+    try:
+        yield
+    finally:
+        for owner, name, orig in reversed(saved):
+            setattr(owner, name, orig)
+
+
+def enc_layers(img: np.ndarray, card: str, host_s=None, runs: int = 2
+               ) -> dict:
+    """M1 for the 4K lossy encode: `runs` unsplit and `runs` split calls
+    in turns (unsplit first); each split call's layers from its own
+    timestamps.  Beside them, the float64 host route on the same frame:
+    phase 3's encode of it (host_s, seconds; the workers at nice 10 beside
+    it), or one call here when phase 3 read it from the cache."""
+    unsplit, split = [], []
+    for i in range(2 * runs):
+        gc.collect()
+        t0 = time.perf_counter()
+        if i % 2 == 0:
+            api.encode(img, lossless=False, quality=90, effort=7,
+                       device="cuda")
+            unsplit.append(time.perf_counter() - t0)
+            continue
+        log = {}
+        with enc_split(log):
+            t0 = time.perf_counter()
+            api.encode(img, lossless=False, quality=90, effort=7,
+                       device="cuda")
+            total = time.perf_counter() - t0
+        (f0, f1), = log["run_front_dispatch"]
+        (g0, g1), = log["run_front_fetch"]
+        (c0, _), = log["run_costs_dispatch"]
+        (_, c1), = log["run_costs_fetch"]
+        (r0, r1), = log["_greedy_decide"]
+        (s0, s1), = log["fetch_selected_dispatch"]
+        (h0, h1), = log["fetch_selected_fetch"]
+        lay = {"prelude": f0 - t0, "front dispatch": f1 - f0,
+               "small d2h": g1 - g0, "host quant field / DC": c0 - g1,
+               "costs + DC substreams": c1 - c0, "greedy": r1 - r0,
+               "gather + d2h": (s1 - s0) + (h1 - h0)}
+        lay["tokens + assembly"] = total - sum(lay.values())
+        det = [b - a for a, b in log.get("detect", [])]
+        split.append((total, lay, det))
+    t_un = statistics.median(unsplit)
+    t_sp = statistics.median(s[0] for s in split)
+    med = {k: statistics.median(s[1][k] for s in split) for k in ENC_LAYERS}
+    det = [d for s in split for d in s[2]]
+    print(f"layers 4k encode (d1.0 e7, the card's front; M1, medians of "
+          f"{runs} split calls, in turns with {runs} unsplit): total "
+          f"{t_un * 1e3:.1f} ms unsplit, {t_sp * 1e3:.1f} ms split; " +
+          ", ".join(f"{k} {v * 1e3:.1f}" for k, v in med.items()) +
+          (f"; the patch detector's thread {statistics.median(det) * 1e3:.1f}"
+           f" ms" if det else "") + f" [{card}]", flush=True)
+    if abs(t_sp - t_un) > 0.1 * t_un:
+        print(f"  (split and unsplit totals differ by "
+              f"{(t_sp - t_un) / t_un:+.1%})", flush=True)
+    where = "phase 3's encode of the same frame"
+    if host_s is None:
+        gc.collect()
+        t0 = time.perf_counter()
+        ENCR.encode_vardct_real(img, distance=1.0, effort=7)
+        host_s = time.perf_counter() - t0
+        where = "one call on the same frame, here"
+    t_host = host_s
+    print(f"encode 4k d1.0 e7 by the float64 host route ({where}): "
+          f"{t_host * 1e3:.1f} ms; the card's route {t_host / t_un:.2f}x "
+          f"faster [{card}]", flush=True)
+    return dict(unsplit=t_un, split=t_sp, layers=med, host=t_host)
+
+
+def enc_timings(main_calls: list, special_calls: list, card: str,
+                ms: dict) -> None:
+    """Each kernel at the 4K main path's shapes (E4 at the 4K text's, the
+    main path's own when it ran there): CUDA graph against the twin (CUDA
+    events; fp.div's host scalars keep it out of a graph), the bound and
+    the yardstick (the fp32 torch.matmul pair of the transforms, TF32 off;
+    index_select for the gather)."""
+    first = {}
+    for c in main_calls:
+        first.setdefault(c[0], c)
+    pix, gab = first["front_planes"][1]
+    planes = first["front_blocks"][1][0]
+    px = planes.shape[1] * planes.shape[2]
+    # four sharpen steps: the stencil of three planes (OPS_PX counts all
+    # three) and err -= g, out += err per plane; the XYB 40 a pixel
+    note_bound("enc_front_planes", nbytes(pix) + 12 * px,
+               px * (OPS_PX["gaborish"] + 3 * 2) * 4 + px * 40)
+    ms["enc_front_planes"] = (graph_ms(lambda: EK.front_planes(pix, gab)),
+                              device_ms(lambda: EK.front_planes_plain(pix,
+                                                                      gab)))
+    co, small = first["front_blocks"][2]
+    note_bound("enc_front_blocks", nbytes(planes, co, small),
+               px * (3 * 32 + 64 + 12))
+    ana = EK._tables(planes.device, "ana8")
+    ys_b, xs_b = planes.shape[1] // 8, planes.shape[2] // 8
+    b8 = planes.reshape(3, ys_b, 8, xs_b, 8).permute(0, 1, 3, 2, 4)
+    ms["enc_front_blocks"] = (graph_ms(lambda: EK.front_blocks(planes)),
+                              device_ms(lambda: EK.front_blocks_plain(planes)))
+    LIBRARY_MS["enc_front_blocks"] = graph_ms(
+        lambda: torch.matmul(torch.matmul(ana, b8), ana.t()))
+    # E3: the main path's seven launches, summed
+    k_ms = p_ms = lib = moved = ops = 0.0
+    for name, args, out, _cost in main_calls:
+        if name != "dct_costs":
+            continue
+        sid, cy, cx = args[7:10]
+        cost = torch.empty_like(args[-1])
+        a = args[:-1] + (cost,)
+        t = graph_ms(lambda: EK.dct_costs(*a))
+        tp = device_ms(lambda: EK.dct_costs_plain(*a))
+        h, w = 8 * cy, 8 * cx
+        n = out.shape[0] * out.shape[1]
+        moved += nbytes(out, cost, args[1], args[2], args[3], args[4]) + \
+            (nbytes(args[0]) if sid == 0 else n * 3 * h * w * 4)
+        ops += n * 3 * h * w * ((0 if sid == 0 else 2 * (h + w)) + 60)
+        tl = None
+        if sid:
+            st = EK._tables(planes.device, ("shape", sid, cy, cx))
+            reg = planes[:, :out.shape[0] * h, :out.shape[1] * w].reshape(
+                3, out.shape[0], h, out.shape[1], w).permute(1, 3, 0, 2, 4)
+            tl = graph_ms(lambda: torch.matmul(
+                torch.matmul(st["anaH"], reg), st["anaW"].t()))
+            lib += tl
+        k_ms += t
+        p_ms += tp
+        print(f"kernel enc_dct_costs sid {sid} {cy}x{cx} at 4k: {t:.4f} ms, "
+              f"plain {tp:.3f} ms" + (f", the matmul pair {tl:.4f} ms"
+                                      if tl is not None else "") +
+              f" [{card}]", flush=True)
+    note_bound("enc_dct_costs", int(moved), ops)
+    ms["enc_dct_costs"] = (k_ms, p_ms)
+    LIBRARY_MS["enc_dct_costs"] = lib
+    # E4: the five launches of one frame, summed
+    k_ms = p_ms = moved = ops = 0.0
+    label = None
+    for name, args, out, _cost in special_calls:
+        if name != "special_costs":
+            continue
+        label = f"{args[0].shape[2]}x{args[0].shape[1]}"
+        cost = torch.empty_like(args[-1])
+        a = args[:-1] + (cost,)
+        n_el = int(args[7].sum())
+        k_ms += graph_ms(lambda: EK.special_costs(*a))
+        p_ms += device_ms(lambda: EK.special_costs_plain(*a))
+        moved += nbytes(out, cost, args[1], args[2], args[3], args[4],
+                        args[7]) + n_el * 3 * 64 * 4
+        ops += n_el * 3 * (2 * 64 * 63 * 2 + 63 * 40)
+    note_bound("enc_special_costs", int(moved), ops)
+    ms["enc_special_costs"] = (k_ms, p_ms)
+    print(f"kernel enc_special_costs (5 transforms) at {label}: "
+          f"{k_ms:.4f} ms, plain {p_ms:.3f} ms [{card}]", flush=True)
+    srcs, idxs = first["gather_rows"][1]
+    flat = first["gather_rows"][2]
+    note_bound("enc_gather_rows", 2 * nbytes(flat) + nbytes(*idxs), 0)
+    ms["enc_gather_rows"] = (graph_ms(lambda: EK.gather_rows(srcs, idxs)),
+                             device_ms(lambda: EK.gather_rows_plain(srcs,
+                                                                    idxs)))
+    rows = [s.reshape(-1, s.shape[2] * s.shape[3]) for s in srcs]
+    LIBRARY_MS["enc_gather_rows"] = graph_ms(lambda: [
+        r.index_select(0, i) for r, i in zip(rows, idxs)])
+    for k in ENC_KERNELS:
+        lib_ms = LIBRARY_MS[k]
+        print(f"kernel {k} at 4k: {ms[k][0]:.4f} ms, plain {ms[k][1]:.3f} "
+              f"ms, bound {BOUND[k][0]:.4f} ms ({BOUND[k][1]}), yardstick "
+              + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none") +
+              f" [{card}]", flush=True)
+
+
+def enc_phase(jobs: dict, streams: dict, text: bytes, anim_frames: list,
+              card: str, ms: dict) -> dict:
+    """Phase 18: the encoders.  E1-E4 and the gather against their twins on
+    seeded inputs; the main path (the 4K d1.0 e7 lossy encode and the
+    517x771 sharp strokes), counted, the twins and the float64 host front
+    made to raise, each E call against its twin, each stream at the host
+    route's RD point and decoded within the decode contract; the 4K text
+    (patches), the 720x480 16-bit, RGBA, noise and progressive encodes
+    against the CPU route; the FHD lossless still's round trip; four FHD
+    lossy frames through AnimatedEncoder and decode_frames; M1; timings."""
+    t_phase = time.perf_counter()
+    dev = api.resolve_device("cuda")
+    enc_seeded(dev)
+    img4k = bench_frame(2160, 3840)
+    sharp = sharp_frame(517, 771)
+    calls, per = [], {}
+
+    def main_path():
+        out = {}
+        for label, img in (("4k", img4k), ("sharp", sharp)):
+            before = {k: KERNELS[k]["fn"].launches for k in ENC_KERNELS}
+            t0 = time.perf_counter()
+            out[label] = api.encode(img, lossless=False, quality=90,
+                                    effort=7, device="cuda")
+            print(f"encode {label} on the card: {len(out[label])} B in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            per[label] = {k: KERNELS[k]["fn"].launches - before[k]
+                          for k in ENC_KERNELS}
+        return out
+
+    with contextlib.ExitStack() as stack:
+        for module, names in ENC_TWINS:
+            stack.enter_context(forbidden(module, names))
+        stack.enter_context(enc_recorded(calls))
+        outs, counts = drive("main path (api.encode, lossy)", main_path,
+                             ENC_KERNELS)
+    host = ThreadPoolExecutor(2)
+    f64 = {k: host.submit(reference.decode_float64, d)
+           for k, d in outs.items()}
+    for label, img in (("4k", img4k), ("sharp", sharp)):
+        h, w, _ = img.shape
+        ys_b, xs_b = -(-h // 8), -(-w // 8)
+        specials = ENCR._special_eligibility(np.pad(img, (
+            (0, ys_b * 8 - h), (0, xs_b * 8 - w), (0, 0)), mode="edge"),
+            ys_b, xs_b).any()
+        want = {"enc_front_planes": 1, "enc_front_blocks": 1,
+                "enc_dct_costs": 7, "enc_special_costs": 5 * int(specials),
+                "enc_gather_rows": 1}
+        print(f"encode {label} launches: {per[label]}", flush=True)
+        if per[label] != want:
+            raise AssertionError(f"encode {label}: launches {per[label]}, "
+                                 f"expected {want}")
+    n4k = sum(per["4k"].values())
+    for i, call in enumerate(calls):
+        enc_check_call(call, "the main path's 4k" if i < n4k
+                       else "the main path's sharp 517x771")
+    dec = {}
+    for label, img, ref in (("4k", img4k, streams["4k_d1.0_e7"][2]),
+                            ("sharp", sharp, streams["sharp_d1.0_e7"][2])):
+        dec[label] = enc_same_point(label + " d1.0 e7", outs[label], ref,
+                                    img, "the float64 host route's stream")
+    # the patch path: the 4K text's plan from the pool, the main frame's
+    # front on the card
+    plan, t_plan = jobs["text_plan"].get()
+    text_img = text_frame(2160, 3840)
+    text_calls = []
+    with contextlib.ExitStack() as stack:
+        for module, names in ENC_TWINS:
+            stack.enter_context(forbidden(module, names))
+        stack.enter_context(enc_recorded(text_calls))
+        before = EK.special_costs.launches
+        t0 = time.perf_counter()
+        text_ours = ENCR._encode_with_patches(text_img, plan, distance=1.0,
+                                              effort=7,
+                                              front=ENCDEV.Front("cuda"))
+        t_text = time.perf_counter() - t0
+        n_sp = EK.special_costs.launches - before
+    print(f"encode 4k text with patches (detector {t_plan:.1f} s in a "
+          f"worker): {t_text:.2f} s on the card's route, E4 launches {n_sp}",
+          flush=True)
+    if n_sp not in (0, 5):
+        raise AssertionError(f"4k text: {n_sp} special launches")
+    for call in text_calls:
+        if call[0] in ("special_costs", "gather_rows"):
+            enc_check_call(call, "the 4k text")
+    dec["text"] = enc_same_point("4k text d1.0 e7 (patches)", text_ours, text,
+                                 text_img, "the host route's stream")
+    # the 720x480 variants against the CPU route (the twins)
+    base = bench_frame(480, 720)
+    variants = {"16bit": (base.astype(np.uint16) * 257, {}),
+                "rgba": (rgba8_frame(480, 720), {}),
+                "noise": (base, dict(photon_noise_iso=3200)),
+                "progressive": (base, dict(progressive=True))}
+    for label, (img, kw) in variants.items():
+        ours = api.encode(img, lossless=False, device="cuda", **kw)
+        cpu = api.encode(img, lossless=False, device="cpu", **kw)
+        peak = 65535.0 if img.dtype == np.uint16 else 255.0
+        a, _, _ = enc_same_point(f"720x480 {label}", ours, cpu, img,
+                                 "the CPU route's stream", peak)
+        if label == "rgba" and not np.array_equal(a[..., 3], img[..., 3]):
+            raise AssertionError("rgba: the alpha is not lossless")
+    # the lossless still (host code), its round trip on the card
+    ll, t_ll = jobs["lossless"].get()
+    back = api.decode(ll, "cuda")[0]
+    if not np.array_equal(back, bench_frame(ENC_LOSSLESS_H, ENC_LOSSLESS_W)):
+        raise AssertionError("the lossless still does not round-trip")
+    print(f"encode lossless {ENC_LOSSLESS_W}x{ENC_LOSSLESS_H} e7: {len(ll)} B "
+          f"in {t_ll:.1f} s (host code, a worker); decoded on the card equal",
+          flush=True)
+    # AnimatedEncoder: four FHD lossy frames, the front on the card
+    frames = [np.roll(bench_frame(ANIM_H, ANIM_W), 24 * k, axis=1)
+              for k in range(ENC_ANIM_FRAMES)]
+    t0 = time.perf_counter()
+    enc = animation.AnimatedEncoder(ANIM_W, ANIM_H, lossless=False,
+                                    quality=90, device="cuda")
+    for f in frames:
+        enc.add_frame(f, 100)
+    anim = enc.encode()
+    t_anim = time.perf_counter() - t0
+    got, durs, _ = api.decode_frames(anim, "cuda")
+    f64["anim"] = host.submit(reference.frames_float64, anim)
+    host_len = sum(len(anim_frames[k]) for k in range(ENC_ANIM_FRAMES))
+    print(f"AnimatedEncoder: {ENC_ANIM_FRAMES} FHD lossy frames {len(anim)} B "
+          f"in {t_anim:.2f} s (the host route's frames {host_len} B, "
+          f"{(len(anim) - host_len) / host_len:+.3%}); decode_frames "
+          f"{len(got)} frames, durations {list(durs)}; PSNR " +
+          ", ".join(f"{psnr(g, f):.3f}" for g, f in zip(got, frames)),
+          flush=True)
+    if len(got) != ENC_ANIM_FRAMES or \
+            abs(len(anim) - host_len) > ENC_SIZE_TOL * host_len:
+        raise AssertionError("AnimatedEncoder: frames or size off")
+    # the decode contract against the float64 host decoder
+    for label in ("4k", "sharp"):
+        within_one_code(dec[label][0], f64[label].result(),
+                        f"decode of the card's {label} encode vs float64")
+    ref_frames = f64["anim"].result()[0]
+    for k, (g, r) in enumerate(zip(got, ref_frames)):
+        within_one_code(g, r, f"AnimatedEncoder frame {k} vs float64")
+    host.shutdown()
+    layers = enc_layers(img4k, card, ENCODE_S.get(
+        (2160, 3840, "d1.0 e7 bits16 False progressive False")))
+    # E4 at 4K: the main path's own launches, else the 4K text's, else the
+    # sharp frame's
+    special = (calls[:n4k] if per["4k"]["enc_special_costs"] else
+               text_calls if n_sp else calls[n4k:])
+    enc_timings(calls[:n4k], special, card, ms)
+    print(f"phase 18 (the encoders) took {time.perf_counter() - t_phase:.1f}"
+          f" s", flush=True)
+    return dict(counts, layers=layers)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4770,7 +5409,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = ("synth", "filters", "fused_filters", "detile", "entropy",
                "modular", "post", "overlay", "sample", "pixel_ops", "compose",
-               "jpeg")
+               "jpeg", "encode")
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host = pool.submit(_build.load_host, "hostcodec")
         list(pool.map(_build.load, sources))
@@ -4778,7 +5417,8 @@ def main() -> int:
     print(f"build: nvcc sm_90a, {len(sources)} sources, and g++ for the host "
           f"codec in {time.perf_counter() - t0:.2f} s", flush=True)
     for name in ("synth", "filters", "fused_filters", "entropy", "modular",
-                 "post", "overlay", "sample", "pixel_ops", "compose", "jpeg"):
+                 "post", "overlay", "sample", "pixel_ops", "compose", "jpeg",
+                 "encode"):
         ptxas_report(name)
 
     phase_done("2 (build)")
@@ -4798,6 +5438,7 @@ def main() -> int:
                  for label in POST_STREAMS}
     anim_jobs = start_anim_jobs(pool)
     jpeg_jobs = start_jpeg_jobs(pool)
+    enc_jobs = start_enc_jobs(pool)
     streams = {"4k_d1.0_e7": (2160, 3840, stream(bench_frame(2160, 3840), 1.0, 7)),
                "fhd_d4.0_e7": (1080, 1920, stream(bench_frame(1080, 1920), 4.0, 7)),
                "sharp_d1.0_e7": (517, 771, stream(sharp_frame(517, 771), 1.0, 7)),
@@ -5016,6 +5657,13 @@ def main() -> int:
     jpeg = jpeg_phase(jpeg_jobs, streams["fhd_d4.0_e7"][2], card, ms)
     launches.update({k: jpeg[k] for k in JPEG_KERNELS})
     phase_done("17 (the JPEG routes)")
+
+    # 18. the encoders: api.encode's lossy front E1-E4 (csrc/encode.cu) and
+    # its lossless route, AnimatedEncoder
+    enc = enc_phase(enc_jobs, streams, overlay["streams"]["4k_text"],
+                    [j.get() for j in anim_jobs["frames"]], card, ms)
+    launches.update({k: enc[k] for k in ENC_KERNELS})
+    phase_done("18 (the encoders)")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": spec["source"],

@@ -1,9 +1,11 @@
 """Animated JPEG XL on the device: random access, playback and a batch.
 
-The counterpart of ``jxl_coder_tpu/animation.py`` (its decode side:
-``AnimatedImage``, ``decode_frames_batch``, ``iter_frames``,
-``FrameStore``, ``AnimatedStore`` and ``AnimationPlayer``; the encoder is
-ROADMAP queue 1, item 4).
+The counterpart of ``jxl_coder_tpu/animation.py``: ``AnimatedImage``,
+``decode_frames_batch``, ``iter_frames``, ``FrameStore``,
+``AnimatedStore`` and ``AnimationPlayer``, and the encoder side,
+``AnimatedEncoder`` (lossless Modular or lossy VarDCT frames, the lossy
+encoder front on the device) with ``gif_to_jxl`` / ``apng_to_jxl`` (PIL
+decodes the source on the host).
 
 ``AnimatedImage(data, device="cuda", entropy="host")`` indexes the
 frames by walking their headers and TOCs only (every frame: LF and
@@ -435,3 +437,181 @@ class AnimationPlayer:
             self._stop = True
             self._cv.notify_all()
         self._thread.join(timeout=5)
+
+
+# --------------------------------------------------------------------------
+# The encoder (jxl_coder_tpu/animation.py:206-353)
+
+def image_header(width: int, height: int, nch: int, bits: int = 8,
+                 lossless: bool = True, num_loops: int = 0):
+    """AnimatedEncoder's image header: ticks of 1 ms (tps 1000/1), grey for
+    one channel on the lossless path, a fourth channel as an alpha extra
+    channel at the colour's depth."""
+    from .host.bitstream.headers import (BitDepth, ColourEncoding,
+                                         ColourSpace, ExtraChannelInfo,
+                                         ExtraChannelType, ImageHeader,
+                                         ImageMetadata, SizeHeader)
+    m = ImageMetadata()
+    m.bit_depth = BitDepth(False, bits, 0)
+    m.animation = AnimationHeader(tps_numerator=1000, tps_denominator=1,
+                                  num_loops=num_loops)
+    if lossless:
+        m.xyb_encoded = False
+        ce = ColourEncoding()
+        if nch == 1:
+            ce.colour_space = ColourSpace.GREY
+        m.colour_encoding = ce
+    if nch == 4:
+        ec = ExtraChannelInfo(type=ExtraChannelType.ALPHA)
+        ec.bit_depth = BitDepth(False, bits, 0)
+        m.extra_channels = [ec]
+    return ImageHeader(size=SizeHeader(xsize=width, ysize=height),
+                       metadata=m)
+
+
+def frame_header(hdr, duration: int = 0, is_last: bool = False
+                 ) -> FrameHeader:
+    """A frame header with the image's extra channels' defaults."""
+    from .host.bitstream.frame_header import BlendingInfo
+    n_ec = len(hdr.metadata.extra_channels)
+    fh = FrameHeader()
+    fh.duration = int(duration)
+    fh.is_last = is_last
+    fh.ec_upsampling = [1] * n_ec
+    fh.ec_blending_info = [BlendingInfo() for _ in range(n_ec)]
+    return fh
+
+
+def encode_frame_into(bw, hdr, fh, pixels: np.ndarray, lossless: bool,
+                      quality: int = 90, ec_distance: float = 0.0,
+                      device="cuda") -> None:
+    """One AnimatedEncoder frame into bw: lossless, Modular at groups of
+    1024 (shift 3), no filters, RCT on three or more channels; lossy,
+    real-format VarDCT with epf_iters 1 at the distance of `quality`
+    (``codec.encode_vardct_frame_into``: the encoder front on `device`),
+    a fourth channel as a lossless alpha
+    pre-quantised with a step of ~2 * ec_distance at 8 bits when
+    ec_distance > 0."""
+    from . import codec
+    from .host.codec import encode_modular_frame
+    from .host.vardct.quant import quality_to_distance
+    nch = pixels.shape[2]
+    bits = hdr.metadata.bit_depth.bits_per_sample
+    if lossless:
+        fh.encoding = Encoding.MODULAR
+        fh.group_size_shift = 3
+        fh.restoration_filter.epf_iters = 0
+        fh.restoration_filter.gab = False
+        encode_modular_frame(bw, hdr, fh,
+                             [pixels[:, :, i].astype(np.int32)
+                              for i in range(nch)], use_ycocg=nch >= 3)
+        return
+    fh.encoding = Encoding.VARDCT
+    fh.restoration_filter.epf_iters = 1
+    alpha = None
+    if nch == 4:
+        alpha = pixels[:, :, 3].astype(np.int64)
+        if ec_distance > 0:
+            step = max(1, int(round(ec_distance * 2.0
+                                    * ((1 << bits) - 1) / 255.0)))
+            alpha = np.clip((alpha + step // 2) // step * step, 0,
+                            (1 << bits) - 1)
+    codec.encode_vardct_frame_into(bw, hdr, fh, pixels[:, :, :3],
+                                   quality_to_distance(quality), alpha=alpha,
+                                   device=device)
+
+
+class AnimatedEncoder:
+    """Streaming animated encoder: add_frame(pixels, ms) then encode()
+    (``jxl_coder_tpu/animation.py:206-311``); a lossy frame's encoder front
+    runs on `device`."""
+
+    def __init__(self, width: int, height: int, num_loops: int = 0,
+                 lossless: bool = True, quality: int = 90,
+                 effort: int = 7, ec_distance: float = 0.0,
+                 device="cuda"):
+        """ec_distance: the alpha's distance on lossy frames (0 keeps it
+        lossless; > 0 pre-quantises it, step ~ 2 * distance at 8 bits).
+        effort is kept for the reference's signature and, as there,
+        unused."""
+        self.width = width
+        self.height = height
+        self.num_loops = num_loops
+        self.lossless = lossless
+        self.quality = quality
+        self.effort = effort
+        self.ec_distance = float(ec_distance)
+        self.device = resolve_device(device)
+        self._frames: List = []
+        self._closed = False
+
+    def add_frame(self, pixels: np.ndarray, duration_ms: int) -> None:
+        if self._closed:
+            raise RuntimeError("encoder already closed")
+        pixels = np.asarray(pixels)
+        if pixels.ndim == 2:
+            pixels = pixels[:, :, None]
+        if pixels.shape[:2] != (self.height, self.width):
+            from .host.api import InvalidImageSizeError
+            raise InvalidImageSizeError(
+                f"frame size {pixels.shape[:2]} != "
+                f"({self.height}, {self.width})")
+        self._frames.append((pixels, int(duration_ms)))
+
+    def encode(self) -> bytes:
+        from .host.bitstream.writer import BitWriter
+        from .host.codec import write_image_header
+        if not self._frames:
+            raise RuntimeError("no frames added")
+        self._closed = True
+        first = self._frames[0][0]
+        hdr = image_header(self.width, self.height, first.shape[2],
+                           16 if first.dtype == np.uint16 else 8,
+                           self.lossless, self.num_loops)
+        bw = BitWriter()
+        write_image_header(bw, hdr)
+        for idx, (pixels, dur) in enumerate(self._frames):
+            fh = frame_header(hdr, dur, idx == len(self._frames) - 1)
+            encode_frame_into(bw, hdr, fh, pixels, self.lossless,
+                              self.quality, self.ec_distance, self.device)
+        bw.zero_pad_to_byte()
+        return bw.to_bytes()
+
+
+def gif_to_jxl(gif_data: bytes, lossless: bool = True, quality: int = 90,
+               device="cuda") -> bytes:
+    """GIF -> animated JXL (gif2JXL, JXLConventions.cpp:99-171): PIL
+    decodes the frames, composited to RGBA."""
+    return _pil_animation_to_jxl(gif_data, lossless, quality, device)
+
+
+def apng_to_jxl(png_data: bytes, lossless: bool = True, quality: int = 90,
+                device="cuda") -> bytes:
+    """APNG -> animated JXL (apng2JXL, JXLConventions.cpp:200-388): PIL
+    handles the acTL / fcTL chunks and the dispose / blend compositing."""
+    return _pil_animation_to_jxl(png_data, lossless, quality, device)
+
+
+def _pil_animation_to_jxl(data: bytes, lossless: bool, quality: int,
+                          device) -> bytes:
+    import io
+    try:
+        from PIL import Image, ImageSequence
+    except ImportError as e:
+        raise ImportError("gif_to_jxl / apng_to_jxl need PIL (Pillow) to "
+                          "decode the source animation") from e
+    im = Image.open(io.BytesIO(data))
+    frames = []
+    durations = []
+    for frame in ImageSequence.Iterator(im):
+        frames.append(np.asarray(frame.convert("RGBA")))
+        durations.append(int(frame.info.get("duration", 100)))
+    if not frames:
+        raise ValueError("no frames in animation")
+    loops = im.info.get("loop", 0)
+    h, w = frames[0].shape[:2]
+    enc = AnimatedEncoder(w, h, num_loops=loops, lossless=lossless,
+                          quality=quality, device=device)
+    for f, d in zip(frames, durations):
+        enc.add_frame(f, d)
+    return enc.encode()

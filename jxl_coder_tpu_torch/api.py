@@ -1,5 +1,15 @@
-"""Public decode entry points of the PyTorch port.
+"""Public encode and decode entry points of the PyTorch port.
 
+``encode(pixels, lossless=..., device="cuda")`` writes a bare JXL
+codestream as ``jxl_coder_tpu.api.encode`` does (``api.py:197-438``):
+lossless Modular on the host (the effort ladder 1-10, the palette body,
+an embedded ICC profile), lossy VarDCT with the encoder front on the
+device (``vardct/enc_device.Front``: E1-E4 and the winners' gather,
+``csrc/encode.cu``; a frame with a signalled ``colour`` converts on the
+host); ``gif_to_jxl`` / ``apng_to_jxl`` go through
+``animation.AnimatedEncoder`` (PIL reads the source).  A lossy encode
+with an ICC profile raises NotImplementedError (the reference converts
+through littlecms).
 ``decode(data, device="cuda")`` decodes a VarDCT or a Modular still (or
 an animation's last frame, a recompressed JPEG, or what arrived of a
 stream cut short); ``construct`` / ``reconstruct_jpeg`` recompress a JPEG
@@ -106,6 +116,7 @@ to the host decoder.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -998,3 +1009,245 @@ def decode_sampled(data: bytes, width: int, height: int,
     out = PACK.reformat(pixels, preferred_color_config, info.bits_per_sample,
                         tone)
     return out.cpu().numpy(), info
+
+
+# --------------------------------------------------------------------------
+# Encode (jxl_coder_tpu/api.py:197-438, 1251-1262)
+
+def encode(pixels, lossless: bool = True, bits_per_sample: int = None,
+           effort: int = 7, quality: int = None,
+           decoding_speed: int = 0, colour=None,
+           intensity_target: float = None,
+           icc: bytes = None, progressive: bool = False,
+           photon_noise_iso: float = 0.0, noise=None,
+           device="cuda") -> bytes:
+    """Encode an image array to a bare JXL codestream, as
+    jxl_coder_tpu.api.encode writes it.
+
+    pixels: uint8 / uint16 / float array (H, W), (H, W, 1), (H, W, 3) or
+    (H, W, 4).  Lossy: VarDCT (``host/vardct/enc_real``), RGBA split into
+    colour + a lossless alpha extra channel, grey expanded to RGB, the
+    distance from `quality` (90 by default), `photon_noise_iso` or a raw
+    8-knot `noise` lut as kNoise; without `colour` the encoder front runs
+    on `device` (``vardct/enc_device.Front``: kernels E1-E4 on a card, their
+    twins on the CPU), with `colour` it converts on the host.  A few-colour
+    8-bit sample at effort 3 and up also takes the lossless route and keeps
+    the smaller stream (the reference swallows a failure of that route,
+    fault R18 of ROADMAP.md; here it raises).  Lossless: Modular, the
+    reference's effort ladder 1-10 (RCT search, learned MA trees, the
+    palette body), all host code; `icc` is embedded.  A lossy `icc`
+    raises NotImplementedError: the reference converts through littlecms,
+    which the card's machine lacks.  A CUDA `device` without a card
+    raises."""
+    from .host.vardct.quant import quality_to_distance
+    from .host.vardct.enc_real import encode_vardct_real
+    from .vardct.enc_device import Front
+
+    dev = resolve_device(device)
+    pixels = np.asarray(pixels)
+    if pixels.ndim == 2:
+        pixels = pixels[:, :, None]
+    if icc is not None and not lossless:
+        raise NotImplementedError(
+            "a lossy encode with an ICC profile converts through littlecms "
+            "in the reference; the port has no colour management")
+    h, w, nch = pixels.shape
+    if bits_per_sample is None:
+        bits_per_sample = 16 if pixels.dtype == np.uint16 else 8
+    if not lossless:
+        if nch == 1:
+            pixels = np.repeat(pixels, 3, axis=2)
+            nch = 3
+        alpha_plane = None
+        if nch == 4:
+            if pixels.dtype.kind == "f":
+                # rescale the [0,1] float plane BEFORE the integer cast
+                alpha_plane = np.clip(
+                    np.rint(pixels[:, :, 3].astype(np.float64)
+                            * ((1 << bits_per_sample) - 1)), 0,
+                    (1 << bits_per_sample) - 1).astype(np.int64)
+            else:
+                alpha_plane = pixels[:, :, 3].astype(np.int64)
+            pixels = pixels[:, :, :3]
+            nch = 3
+        q = quality if quality is not None else 90
+        distance = quality_to_distance(int(q))
+        noise_lut = noise
+        if noise_lut is None and photon_noise_iso > 0:
+            # the reference's photon-noise curve: strength grows with ISO
+            # and falls with intensity
+            a = 0.12 * math.sqrt(photon_noise_iso / 3200.0)
+            noise_lut = [min(1.0, a * (1.0 - 0.8 * (k / 7.0)))
+                         for k in range(8)]
+        blob = encode_vardct_real(pixels, distance=distance,
+                                  decoding_speed=decoding_speed,
+                                  effort=effort, alpha=alpha_plane,
+                                  colour=colour,
+                                  bit_depth=bits_per_sample,
+                                  intensity_target=intensity_target,
+                                  progressive=progressive,
+                                  noise_lut=noise_lut, front=Front(dev))
+        # screen-content decision: a sample with few distinct colours
+        # also runs the lossless encoder, and the smaller stream wins
+        if (effort >= 3 and alpha_plane is None and colour is None
+                and noise_lut is None and pixels.dtype == np.uint8):
+            samp = pixels[::max(1, pixels.shape[0] // 64),
+                          ::max(1, pixels.shape[1] // 64)]
+            flat = samp.reshape(-1, samp.shape[2])
+            packed = (flat[:, 0].astype(np.uint32) << 16) \
+                | (flat[:, 1].astype(np.uint32) << 8) | flat[:, 2]
+            if len(np.unique(packed)) <= 64:
+                ll = _encode_lossless(pixels, 8, effort, None, None)
+                if len(ll) < len(blob):
+                    return ll
+        return blob
+    return _encode_lossless(pixels, bits_per_sample, effort, colour, icc)
+
+
+def _encode_lossless(pixels: np.ndarray, bits_per_sample: int, effort: int,
+                     colour, icc) -> bytes:
+    """encode's Modular route (jxl_coder_tpu/api.py:314-401), host code."""
+    import copy
+    from .host.api import InvalidImageSizeError
+    from .host.bitstream.frame_header import BlendingInfo, FrameHeader
+    from .host.bitstream.headers import (BitDepth, ColourEncoding,
+                                         ColourSpace, ExtraChannelInfo,
+                                         ExtraChannelType, ImageMetadata,
+                                         SizeHeader)
+    from .host.bitstream.writer import BitWriter
+    from .host import codec as HC
+
+    h, w, nch = pixels.shape
+    m = ImageMetadata()
+    m.xyb_encoded = False
+    m.bit_depth = BitDepth(False, bits_per_sample, 0)
+    ce = copy.copy(colour) if colour is not None else ColourEncoding()
+    if nch == 1:
+        ce.colour_space = ColourSpace.GREY
+    if icc is not None:
+        ce.want_icc = True
+        m.icc_profile = icc
+    m.colour_encoding = ce
+    planes = [pixels[:, :, i].astype(np.int32) for i in range(nch)]
+    if nch == 4:
+        ec = ExtraChannelInfo(type=ExtraChannelType.ALPHA)
+        ec.bit_depth = BitDepth(False, bits_per_sample, 0)
+        m.extra_channels = [ec]
+    elif nch not in (1, 3):
+        raise InvalidImageSizeError(f"unsupported channel count {nch}")
+    hdr = ImageHeader(size=SizeHeader(xsize=w, ysize=h), metadata=m)
+
+    fh = FrameHeader()
+    fh.encoding = Encoding.MODULAR
+    fh.group_size_shift = 3  # 1024 group dim
+    fh.x_qm_scale = 2
+    fh.ec_upsampling = [1] * len(m.extra_channels)
+    fh.ec_blending_info = [BlendingInfo() for _ in m.extra_channels]
+    fh.restoration_filter.epf_iters = 0
+    fh.restoration_filter.gab = False
+
+    # effort (JxlEffort.kt 1-10): 1 no colour decorrelation, fixed
+    # gradient predictor; 2 + RCT (YCoCg) when it wins; 3-6 + a learned
+    # MA tree of 6/10/16/24 leaves; 7 + RCT on/off search; 8 + RCT subtypes
+    # {6, 0}; 9 + all subtypes 0-6; 10 + 32 leaves
+    eff = max(1, min(10, int(effort)))
+    leaves = {3: 6, 4: 10, 5: 16, 6: 24, 7: 24, 8: 24, 9: 24, 10: 32}
+    can_rct = nch >= 3
+
+    def enc(ycocg, tree, rct_type=6):
+        cand = BitWriter()
+        HC.encode_modular_frame(cand, hdr, fh, planes, use_ycocg=ycocg,
+                                tree=tree, rct_type=rct_type)
+        return cand.to_bytes()
+
+    def learn(ycocg, rct_type=6):
+        return HC.learned_modular_tree(hdr, fh, planes, use_ycocg=ycocg,
+                                       rct_type=rct_type,
+                                       max_leaves=leaves[eff])
+
+    bw = BitWriter()
+    HC.write_image_header(bw, hdr)
+    if not can_rct:
+        body = enc(False, learn(False) if eff >= 3 else None)
+    elif eff == 1:
+        body = enc(False, None)
+    elif eff == 2:
+        body = min(enc(True, None), enc(False, None), key=len)
+    elif eff <= 6:
+        body = min(enc(True, learn(True)), enc(False, None), key=len)
+    else:
+        rct_types = {7: [6], 8: [6, 0],
+                     9: [6, 0, 1, 2, 3, 4, 5],
+                     10: [6, 0, 1, 2, 3, 4, 5]}[eff]
+        body = None
+        for rt in rct_types:
+            b = enc(True, learn(True, rt), rt)
+            if body is None or len(b) < len(body):
+                body = b
+        b = enc(False, learn(False))
+        if len(b) < len(body):
+            body = b
+    # the palette transform: few-colour images collapse to one index
+    # channel + the palette meta-channel; tried from effort 2, kept when
+    # it wins
+    if (eff >= 2 and nch == 3 and not m.extra_channels
+            and pixels.dtype in (np.uint8, np.uint16)):
+        pb = _try_palette_body(hdr, fh, planes, eff)
+        if pb is not None and len(pb) < len(body):
+            body = pb
+    for byte in body:
+        bw.u(byte, 8)
+    bw.zero_pad_to_byte()
+    return bw.to_bytes()
+
+
+def _try_palette_body(hdr, fh, planes, eff: int):
+    """Candidate Modular body using the palette transform, or None when
+    the image has more than 256 distinct colours."""
+    from .host import codec as HC
+    from .host.bitstream.writer import BitWriter
+    r, g, b3 = (p.astype(np.uint64) for p in planes[:3])
+    packed = (r << 32) | (g << 16) | b3
+    # cheap bail-out: a sparse sample with >256 colours decides early
+    samp = packed[::max(1, packed.shape[0] // 64),
+                  ::max(1, packed.shape[1] // 64)]
+    if len(np.unique(samp)) > 256:
+        return None
+    uniq, inv = np.unique(packed, return_inverse=True)
+    K = len(uniq)
+    if K > 256:
+        return None
+    pal = np.stack([(uniq >> 32) & 0xFFFF, (uniq >> 16) & 0xFFFF,
+                    uniq & 0xFFFF]).astype(np.int32)
+    idx = inv.reshape(packed.shape).astype(np.int32)
+    tree = None
+    if eff >= 3:
+        from .host.modular.image import Channel
+        from .host.modular.learn import learn_tree
+        pal_ch = Channel(K, 3, hshift=-1, vshift=-1)
+        pal_ch.data = pal
+        idx_ch = Channel(idx.shape[1], idx.shape[0])
+        idx_ch.data = idx
+        leaves = {3: 6, 4: 10, 5: 16, 6: 24}.get(min(eff, 6), 24)
+        tree = learn_tree([pal_ch, idx_ch], max_leaves=leaves,
+                          props_allowed=[0] + list(range(2, 15)))
+    cand = BitWriter()
+    HC.encode_modular_frame(cand, hdr, fh, planes, tree=tree,
+                            palette=(pal, idx))
+    return cand.to_bytes()
+
+
+def gif_to_jxl(gif_data: bytes, lossless: bool = True, quality: int = 90,
+               device="cuda") -> bytes:
+    """GIF -> animated JXL (Convenience.gif2JXL, JxlCoder.kt:146-153);
+    needs PIL."""
+    from . import animation as _anim
+    return _anim.gif_to_jxl(gif_data, lossless, quality, device)
+
+
+def apng_to_jxl(png_data: bytes, lossless: bool = True, quality: int = 90,
+                device="cuda") -> bytes:
+    """APNG -> animated JXL (Convenience.apng2JXL, JxlCoder.kt:159-166);
+    needs PIL."""
+    from . import animation as _anim
+    return _anim.apng_to_jxl(png_data, lossless, quality, device)

@@ -1,4 +1,6 @@
-"""The round-1 VarDCT still codec (``jxl_coder_tpu/codec.py:465-548``).
+"""The round-1 VarDCT still codec (``jxl_coder_tpu/codec.py:465-548``),
+and ``encode_vardct_frame_into`` (``codec.py:551-568``), one real-format
+VarDCT frame into a caller's stream (the animated encoder's lossy frame).
 
 ``encode_vardct_still`` and ``decode_vardct_still`` keep the JAX
 package's framing and entropy coding, in the port's copies
@@ -115,3 +117,20 @@ def decode_vardct_still(cs: bytes, hdr: ImageHeader, fh, toc,
     resolve_device(device)          # an unusable device fails before the parse
     return reconstruct_vardct_still(read_vardct_still(cs, hdr, fh, toc),
                                     hdr, fh, device)
+
+
+def encode_vardct_frame_into(bw: BitWriter, hdr: ImageHeader, fh,
+                             pixels: np.ndarray, distance: float,
+                             alpha=None, device="cuda") -> None:
+    """Encode one real-format VarDCT frame (header + TOC + sections) into
+    bw.  pixels: (H, W, 3) uint8/uint16 sRGB at the frame's size (uint16
+    is coded from its top 8 bits, as the reference does); alpha: an
+    optional (H, W) int plane at the extra channel's declared depth, coded
+    losslessly.  The encoder front runs on `device`."""
+    from .host.vardct.enc_real import encode_vardct_real
+    from .vardct.enc_device import Front
+    if pixels.dtype == np.uint16:
+        pixels = (np.asarray(pixels) >> 8).astype(np.uint8)
+    encode_vardct_real(pixels, distance=distance, fh=fh, hdr=hdr,
+                       into_bw=bw, alpha=alpha,
+                       front=Front(device))

@@ -1,0 +1,790 @@
+// The VarDCT encoder front: kernels E1-E4 and the winners' gather, each with
+// a plain C entry point (vardct/enc_kernels.py binds them; their plain
+// PyTorch twins are there too).
+//
+// They replace the jitted JAX front end of
+// jxl_coder_tpu/vardct/enc_device.py, which holds no Pallas kernel:
+//   E1 front_planes_kernel (_front's first half, enc_device.py:111-119, with
+//      tpu_real.gaborish_device): sRGB samples -> linear (glibc's powf, the
+//      twin's ops/fp.py powf, in float64 steps) -> the 3x3 opsin mix (the
+//      twin's fp.contract3: sequential, each step fused in float64) -> cbrt
+//      (powf(|x|, 1/3)) -> X, Y, B - Y, then four Neumann steps err -=
+//      gab(err), out += err on each plane.  A thread block a 32 x 16 tile
+//      with a 4-sample halo: the window loads clamped coordinates (for one
+//      sample numpy's "symmetric" pad repeats the edge), each step computes
+//      its in-frame window samples, then copies the edge into the
+//      out-of-frame ones, which is the twin's per-step padding; so the
+//      planes equal the twin's to the bit.  Bound by bytes (the samples
+//      read once, 12 B written a pixel).
+//   E2 front_blocks_kernel (_front's second half, :120-152): a thread block
+//      a 64-px tile, a warp a row of its 8x8 blocks.  Per block: the DCT8
+//      analysis (the basis in shared memory, two passes of 8-term sums),
+//      jnp.gradient of Y (central inside, one-sided at the frame edges),
+//      the activity sqrt(gy^2 + gx^2), its block mean and median (ranks by
+//      counting: the 32nd and 33rd values, s31 * 0.5 + s32 * 0.5 as
+//      jnp.median's linear interpolation), the masking field; the tile's
+//      CfL sums over AC coefficients reduced in the block in a fixed order.
+//      Bound by bytes (the planes read once, co written once).
+//   E3 dct_costs_kernel<CY, CX> (_costs' quant_cost and candidate loop,
+//      :174-279): a thread block a varblock.  Its region's DCT (anaH @ reg @
+//      anaW^T, both bases in shared memory; DCT8 reads E2's co), the biased
+//      quantisation with the deadzone in scan order, CfL-subtracted X / B,
+//      the squared errors, the LLF term from the DC means, the rate proxy;
+//      each thread's partial sums then a fixed-order block reduction (so a
+//      run repeats itself to the bit).  int16 values and an f32 cost out.
+//      Bound by operations at 32x32 (the two DCT passes), by bytes below.
+//   E4 special_costs_kernel (_costs' special branch, :280-321): a thread
+//      block (64 threads) an 8x8 block, one launch a special transform; the
+//      64x63 analysis and 63x64 response matrices are read through the
+//      cache (97 KB a transform).  Blocks outside the eligibility mask
+//      write zero values and cost 1e30 without computing.  Bound by
+//      operations.
+//   gather_kernel (_sel_gather_jit, :424-436): the winners' rows of every
+//      source back to back, int16; rows past a source clip to its last
+//      (jnp.take's mode="clip").  Bound by bytes.
+// -fmad=false: each f32 operation rounds once, in the twins' order; the sums
+// of E2-E4 run in another order than torch's, so those kernels agree with
+// their twins within a tolerance (vals equal but at quantisation ties).  The
+// per-value arithmetic (glibc's powf, the XYB of a pixel, the masking field
+// of a block, the quantiser, the rate proxy) is encode.cuh's, which a CPU
+// test holds to the twins bit for bit.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "encode.cuh"
+
+namespace {
+
+using jxl_enc::Bias;
+using jxl_enc::adjust;
+using jxl_enc::quantize;
+using jxl_enc::token_cost;
+
+__host__ __device__ inline unsigned cdiv(long long a, int b) {
+  return (unsigned)((a + b - 1) / b);
+}
+
+// ---------------------------------------------------------------------------
+// E1
+
+constexpr int E1_TW = 32, E1_TH = 16, E1_HALO = 4;
+constexpr int E1_WW = E1_TW + 2 * E1_HALO, E1_WH = E1_TH + 2 * E1_HALO;
+constexpr int E1_THREADS = 256;
+constexpr int E1_CORE = E1_TW * E1_TH / E1_THREADS;   // core samples a thread
+
+// consts: opsin (9, row-major), bias, cbrt_bias, w1, w2, norm
+struct FrontConsts {
+  float m[9];
+  float bias, cbrt_bias, w1, w2, norm;
+};
+
+__global__ void __launch_bounds__(E1_THREADS)
+    front_planes_kernel(const void* __restrict__ pix, int code,
+                        float* __restrict__ out, int ph, int pw, int iters,
+                        const float* __restrict__ consts) {
+  __shared__ float s_p[3][E1_WH][E1_WW];   // X, Y, B - Y of the window
+  __shared__ float s_e[2][E1_WH][E1_WW];   // err, ping-pong
+  __shared__ FrontConsts k;
+  const int tid = threadIdx.x;
+  if (tid < 14) (&k.m[0])[tid] = consts[tid];
+  __syncthreads();
+  const int x0 = blockIdx.x * E1_TW - E1_HALO;
+  const int y0 = blockIdx.y * E1_TH - E1_HALO;
+  for (int w = tid; w < E1_WH * E1_WW; w += E1_THREADS) {
+    const int wy = w / E1_WW, wx = w % E1_WW;
+    const int gy = min(max(y0 + wy, 0), ph - 1);
+    const int gx = min(max(x0 + wx, 0), pw - 1);
+    const long long base = ((long long)gy * pw + gx) * 3;
+    float lin[3], xyb[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      lin[c] = jxl_enc::srgb_to_linear(
+          jxl_enc::unit_sample(pix, code, base + c));
+    jxl_enc::xyb_of(k.m, k.bias, k.cbrt_bias, lin, xyb);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) s_p[c][wy][wx] = xyb[c];
+  }
+  __syncthreads();
+  for (int c = 0; c < 3; ++c) {
+    float acc[E1_CORE];
+#pragma unroll
+    for (int j = 0; j < E1_CORE; ++j) {
+      const int p = tid + j * E1_THREADS;
+      acc[j] = s_p[c][E1_HALO + p / E1_TW][E1_HALO + p % E1_TW];
+    }
+    for (int step = 1; step <= iters; ++step) {
+      float(*src)[E1_WW] = step == 1 ? s_p[c] : s_e[step & 1];
+      float(*dst)[E1_WW] = s_e[(step + 1) & 1];
+      const int vh = E1_WH - 2 * step, vw = E1_WW - 2 * step;
+      for (int w = tid; w < vh * vw; w += E1_THREADS) {
+        const int wy = step + w / vw, wx = step + w % vw;
+        const int gy = y0 + wy, gx = x0 + wx;
+        if (gy < 0 || gy >= ph || gx < 0 || gx >= pw) continue;
+        const float cc = src[wy][wx];
+        const float s1 = __fadd_rn(
+            __fadd_rn(__fadd_rn(src[wy - 1][wx], src[wy + 1][wx]),
+                      src[wy][wx - 1]),
+            src[wy][wx + 1]);
+        const float s2 = __fadd_rn(
+            __fadd_rn(__fadd_rn(src[wy - 1][wx - 1], src[wy - 1][wx + 1]),
+                      src[wy + 1][wx - 1]),
+            src[wy + 1][wx + 1]);
+        const float gab = __fdiv_rn(
+            __fadd_rn(__fadd_rn(cc, __fmul_rn(k.w1, s1)), __fmul_rn(k.w2, s2)),
+            k.norm);
+        dst[wy][wx] = __fsub_rn(cc, gab);
+      }
+      __syncthreads();
+      for (int w = tid; w < vh * vw; w += E1_THREADS) {
+        const int wy = step + w / vw, wx = step + w % vw;
+        const int gy = y0 + wy, gx = x0 + wx;
+        if (gy >= 0 && gy < ph && gx >= 0 && gx < pw) continue;
+        dst[wy][wx] = dst[min(max(gy, 0), ph - 1) - y0]
+                         [min(max(gx, 0), pw - 1) - x0];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < E1_CORE; ++j) {
+        const int p = tid + j * E1_THREADS;
+        acc[j] = __fadd_rn(acc[j],
+                           dst[E1_HALO + p / E1_TW][E1_HALO + p % E1_TW]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < E1_CORE; ++j) {
+      const int p = tid + j * E1_THREADS;
+      const int gy = y0 + E1_HALO + p / E1_TW, gx = x0 + E1_HALO + p % E1_TW;
+      if (gy < ph && gx < pw)
+        out[((long long)c * ph + gy) * pw + gx] = acc[j];
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// E2
+
+constexpr int E2_THREADS = 256;              // 8 warps: a warp a block row
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, o));
+  return v;   // lane 0 holds the sum
+}
+
+__global__ void __launch_bounds__(E2_THREADS)
+    front_blocks_kernel(const float* __restrict__ planes,
+                        float* __restrict__ co, float* __restrict__ small,
+                        int ph, int pw, const float* __restrict__ ana) {
+  __shared__ float s_ana[64];
+  __shared__ float s_b[8][3][64];
+  __shared__ float s_t[8][3][64];
+  __shared__ float s_act[8][64];
+  __shared__ float s_med[8][2];
+  __shared__ float s_cfl[8][3];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid < 64) s_ana[tid] = ana[tid];
+  __syncthreads();
+  const int ys_b = ph >> 3, xs_b = pw >> 3;
+  const int nb = ys_b * xs_b;
+  const int ntx = (xs_b + 7) >> 3, nty = (ys_b + 7) >> 3, nt = ntx * nty;
+  const int by = blockIdx.y * 8 + warp;
+  const long long plane = (long long)ph * pw;
+  const float* Yp = planes + plane;
+  float cy2 = 0.0f, cxy = 0.0f, cby = 0.0f;
+  for (int j = 0; j < 8 && by < ys_b; ++j) {
+    const int bx = blockIdx.x * 8 + j;
+    if (bx >= xs_b) break;
+    // this lane's two samples: p = lane, lane + 32 (row p / 8, column p % 8)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = lane + 32 * h;
+      const int y = by * 8 + (p >> 3), x = bx * 8 + (p & 7);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        s_b[warp][c][p] = planes[c * plane + (long long)y * pw + x];
+      // jnp.gradient of Y at unit spacing
+      float gy, gx;
+      if (y == 0)
+        gy = __fsub_rn(Yp[(long long)pw + x], Yp[x]);
+      else if (y == ph - 1)
+        gy = __fsub_rn(Yp[(long long)y * pw + x],
+                       Yp[(long long)(y - 1) * pw + x]);
+      else
+        gy = __fmul_rn(__fsub_rn(Yp[(long long)(y + 1) * pw + x],
+                                 Yp[(long long)(y - 1) * pw + x]),
+                       0.5f);
+      const float* row = Yp + (long long)y * pw;
+      if (x == 0)
+        gx = __fsub_rn(row[1], row[0]);
+      else if (x == pw - 1)
+        gx = __fsub_rn(row[x], row[x - 1]);
+      else
+        gx = __fmul_rn(__fsub_rn(row[x + 1], row[x - 1]), 0.5f);
+      s_act[warp][p] =
+          __fsqrt_rn(__fadd_rn(__fmul_rn(gy, gy), __fmul_rn(gx, gx)));
+    }
+    __syncwarp();
+    // the median: the values of rank 31 and 32 (ties by index)
+    float asum = 0.0f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = lane + 32 * h;
+      const float v = s_act[warp][p];
+      asum = __fadd_rn(asum, v);
+      int rank = 0;
+      for (int q = 0; q < 64; ++q) {
+        const float u = s_act[warp][q];
+        rank += (u < v) || (u == v && q < p);
+      }
+      if (rank == 31) s_med[warp][0] = v;
+      if (rank == 32) s_med[warp][1] = v;
+    }
+    asum = warp_sum(asum);
+    // the DCT8 analysis: t = ANA @ b (over rows), co = t @ ANA^T
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = lane + 32 * h, kk = p >> 3, xx = p & 7;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        float a = 0.0f;
+#pragma unroll
+        for (int yy = 0; yy < 8; ++yy)
+          a = __fadd_rn(a, __fmul_rn(s_ana[kk * 8 + yy],
+                                     s_b[warp][c][yy * 8 + xx]));
+        s_t[warp][c][p] = a;
+      }
+    }
+    __syncwarp();
+    float cv[2][3];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = lane + 32 * h, kk = p >> 3, ll = p & 7;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        float a = 0.0f;
+#pragma unroll
+        for (int xx = 0; xx < 8; ++xx)
+          a = __fadd_rn(a, __fmul_rn(s_t[warp][c][kk * 8 + xx],
+                                     s_ana[ll * 8 + xx]));
+        cv[h][c] = a;
+        co[(((long long)c * ys_b + by) * xs_b + bx) * 64 + p] = a;
+        if (p == 0) small[nb + 3 * nt + (long long)c * nb + by * xs_b + bx] = a;
+      }
+      if (p != 0) {
+        cy2 = __fadd_rn(cy2, __fmul_rn(cv[h][1], cv[h][1]));
+        cxy = __fadd_rn(cxy, __fmul_rn(cv[h][0], cv[h][1]));
+        cby = __fadd_rn(cby, __fmul_rn(cv[h][2], cv[h][1]));
+      }
+    }
+    __syncwarp();
+    if (lane == 0) {
+      const float mean = fmaxf(__fdiv_rn(asum, 64.0f), 0.0f);
+      const float med = __fadd_rn(__fmul_rn(s_med[warp][0], 0.5f),
+                                  __fmul_rn(s_med[warp][1], 0.5f));
+      small[by * xs_b + bx] = jxl_enc::mask_of(mean, med);
+    }
+    __syncwarp();
+  }
+  cy2 = warp_sum(cy2);
+  cxy = warp_sum(cxy);
+  cby = warp_sum(cby);
+  if (lane == 0) {
+    s_cfl[warp][0] = cy2;
+    s_cfl[warp][1] = cxy;
+    s_cfl[warp][2] = cby;
+  }
+  __syncthreads();
+  if (tid < 3) {
+    float a = 0.0f;
+    for (int w = 0; w < 8; ++w) a = __fadd_rn(a, s_cfl[w][tid]);
+    small[nb + tid * nt + blockIdx.y * ntx + blockIdx.x] = a;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The quantiser's constants
+
+struct QuantConsts {
+  Bias bias[3];
+  float area_w[3];   // area * D_c, or D_c for the specials
+  float dz, igs, lam;
+};
+
+// A fixed-order block reduction of NV values a thread (sums, or maxima for
+// the entries with max set): each warp by shuffles, then warp 0 over the
+// warps' partials in order.  The result is in out[] of every thread.
+template <int THREADS, int NV>
+__device__ void block_reduce(float (&v)[NV], const bool (&is_max)[NV],
+                             float* s_red /* [THREADS / 32][NV] */) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  constexpr int NW = THREADS / 32;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float u = __shfl_down_sync(0xffffffffu, v[i], o);
+      v[i] = is_max[i] ? fmaxf(v[i], u) : __fadd_rn(v[i], u);
+    }
+  }
+  if (lane == 0)
+#pragma unroll
+    for (int i = 0; i < NV; ++i) s_red[warp * NV + i] = v[i];
+  __syncthreads();
+  if (tid < NV) {
+    float a = s_red[tid];
+    for (int w = 1; w < NW; ++w)
+      a = is_max[tid] ? fmaxf(a, s_red[w * NV + tid])
+                      : __fadd_rn(a, s_red[w * NV + tid]);
+    s_red[NW * NV + tid] = a;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < NV; ++i) v[i] = s_red[NW * NV + i];
+}
+
+// ---------------------------------------------------------------------------
+// E3
+
+struct CostTables {
+  const float *anaH, *anaW;   // (h, h), (w, w)
+  const int* order;           // the scan tail's natural indices (tail)
+  const float* tab;           // (3, tail) dequant steps in that order
+  const int* pos;             // the covered positions (cov)
+  const float *anY, *anX, *rs;  // (cy, cy), (cx, cx), (cy, cx)
+};
+
+struct CostArgs {
+  const float* src;   // planes (3, ph, pw), or co (3, ys_b, xs_b, 64)
+  const int* qf;
+  const float *fx, *fb, *dqdc;
+  int16_t* vals;      // (n, 3, tail)
+  float* cost;        // (n)
+  int ys_b, xs_b, nxc, cov, tail;
+  QuantConsts k;
+};
+
+template <int CY, int CX>
+__global__ void __launch_bounds__((CY * CX * 64 < 256) ? CY * CX * 64 : 256)
+    dct_costs_kernel(CostArgs a, CostTables t) {
+  constexpr int H = 8 * CY, W = 8 * CX, N = H * W;
+  constexpr int THREADS = N < 256 ? N : 256;
+  constexpr bool FROM_CO = CY == 1 && CX == 1;
+  __shared__ float s_co[3][N];
+  __shared__ float s_reg[FROM_CO ? 1 : N];
+  __shared__ float s_t[FROM_CO ? 1 : N];
+  __shared__ float s_aH[FROM_CO ? 1 : H * H];
+  __shared__ float s_aW[FROM_CO ? 1 : W * W];
+  __shared__ float s_red[(THREADS / 32 + 1) * 12];
+  __shared__ float s_sc[3];   // inv_qac, fx, fb
+  const int tid = threadIdx.x;
+  const int blk = blockIdx.x;
+  const int by0 = (blk / a.nxc) * CY, bx0 = (blk % a.nxc) * CX;
+  const int ph = a.ys_b * 8, pw = a.xs_b * 8;
+  if (tid == 0) {
+    int qmin = a.qf[by0 * a.xs_b + bx0];
+    for (int y = 0; y < CY; ++y)
+      for (int x = 0; x < CX; ++x)
+        qmin = min(qmin, a.qf[(by0 + y) * a.xs_b + bx0 + x]);
+    const float qfv = __fdiv_rn((float)qmin, a.k.igs);
+    s_sc[0] = __fdiv_rn(1.0f, qfv);
+    s_sc[1] = a.fx[by0 * a.xs_b + bx0];
+    s_sc[2] = a.fb[by0 * a.xs_b + bx0];
+  }
+  if (FROM_CO) {
+    for (int p = tid; p < 64; p += THREADS)
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        s_co[c][p] =
+            a.src[(((long long)c * a.ys_b + by0) * a.xs_b + bx0) * 64 + p];
+  } else {
+    for (int p = tid; p < H * H; p += THREADS) s_aH[p] = t.anaH[p];
+    for (int p = tid; p < W * W; p += THREADS) s_aW[p] = t.anaW[p];
+    for (int c = 0; c < 3; ++c) {
+      __syncthreads();
+      for (int p = tid; p < N; p += THREADS)
+        s_reg[p] = a.src[((long long)c * ph + by0 * 8 + p / W) * pw +
+                         bx0 * 8 + p % W];
+      __syncthreads();
+      // anaH @ reg (over rows)
+      for (int p = tid; p < N; p += THREADS) {
+        const int kk = p / W, xx = p % W;
+        float acc = 0.0f;
+        for (int yy = 0; yy < H; ++yy)
+          acc = __fadd_rn(acc, __fmul_rn(s_aH[kk * H + yy], s_reg[yy * W + xx]));
+        s_t[p] = acc;
+      }
+      __syncthreads();
+      // @ anaW^T (over columns)
+      for (int p = tid; p < N; p += THREADS) {
+        const int kk = p / W, ll = p % W;
+        float acc = 0.0f;
+        for (int xx = 0; xx < W; ++xx)
+          acc = __fadd_rn(acc, __fmul_rn(s_t[kk * W + xx], s_aW[ll * W + xx]));
+        s_co[c][p] = acc;
+      }
+    }
+  }
+  __syncthreads();
+  const float inv_qac = s_sc[0], fxa = s_sc[1], fba = s_sc[2];
+  // per thread: error sums Y, X, B; then per channel X, Y, B: last, bits, cnt
+  float v[12];
+  bool is_max[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    v[i] = 0.0f;
+    is_max[i] = i >= 3 && (i - 3) % 3 == 0;
+  }
+  int16_t* vout = a.vals + (long long)blk * 3 * a.tail;
+  for (int j = tid; j < a.tail; j += THREADS) {
+    const int p = t.order[j];
+    const float fY = s_co[1][p];
+    const float stepY = __fmul_rn(t.tab[a.tail + j], inv_qac);
+    const float qy = quantize(__fdiv_rn(fY, stepY), a.k.bias[1], a.k.dz);
+    const float dqY = __fmul_rn(adjust(qy, a.k.bias[1]), stepY);
+    const float dY = __fsub_rn(dqY, fY);
+    v[0] = __fadd_rn(v[0], __fmul_rn(dY, dY));
+    float q[3];
+    q[1] = qy;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = h * 2;
+      const float f = c == 0 ? fxa : fba;
+      const float tgt = s_co[c][p];
+      const float sub = __fsub_rn(tgt, __fmul_rn(f, dqY));
+      const float step = __fmul_rn(t.tab[c * a.tail + j], inv_qac);
+      const float qc = quantize(__fdiv_rn(sub, step), a.k.bias[c], a.k.dz);
+      const float rec = __fadd_rn(__fmul_rn(adjust(qc, a.k.bias[c]), step),
+                                  __fmul_rn(f, dqY));
+      const float d = __fsub_rn(rec, tgt);
+      v[1 + h] = __fadd_rn(v[1 + h], __fmul_rn(d, d));
+      q[c] = qc;
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      vout[c * a.tail + j] = (int16_t)(int)q[c];
+      if (q[c] != 0.0f) {
+        v[3 + 3 * c] = (float)(j + 1);
+        v[4 + 3 * c] = __fadd_rn(v[4 + 3 * c], log2f(__fadd_rn(1.0f, fabsf(q[c]))));
+        v[5 + 3 * c] = __fadd_rn(v[5 + 3 * c], 1.0f);
+      }
+    }
+  }
+  block_reduce<THREADS, 12>(v, is_max, s_red);
+  if (tid == 0) {
+    const float* dq = a.dqdc;
+    const long long nb = (long long)a.ys_b * a.xs_b;
+    float d2[3];
+    for (int c = 0; c < 3; ++c) {
+      float s = 0.0f;
+      for (int j = 0; j < a.cov; ++j) {
+        float llf, tl;
+        if (FROM_CO) {
+          llf = __fmul_rn(dq[c * nb + by0 * a.xs_b + bx0], 1.0f);
+          tl = s_co[c][0];
+        } else {
+          const int kk = j / CX, ll = j % CX;
+          float acc2 = 0.0f;
+          for (int xx = 0; xx < CX; ++xx) {
+            float acc1 = 0.0f;
+            for (int yy = 0; yy < CY; ++yy)
+              acc1 = __fadd_rn(acc1,
+                               __fmul_rn(t.anY[kk * CY + yy],
+                                         dq[c * nb + (long long)(by0 + yy) *
+                                                         a.xs_b + bx0 + xx]));
+            acc2 = __fadd_rn(acc2, __fmul_rn(acc1, t.anX[ll * CX + xx]));
+          }
+          llf = __fmul_rn(acc2, t.rs[kk * CX + ll]);
+          tl = s_co[c][t.pos[j]];
+        }
+        const float d = __fsub_rn(llf, tl);
+        s = __fadd_rn(s, __fmul_rn(d, d));
+      }
+      d2[c] = s;
+    }
+    float dist = __fmul_rn(a.k.area_w[1], v[0]);
+    dist = __fadd_rn(dist, __fmul_rn(a.k.area_w[0], v[1]));
+    dist = __fadd_rn(dist, __fmul_rn(a.k.area_w[2], v[2]));
+    for (int c = 0; c < 3; ++c)
+      dist = __fadd_rn(dist, __fmul_rn(a.k.area_w[c], d2[c]));
+    float rate = 0.0f;
+    for (int c = 0; c < 3; ++c)
+      rate = __fadd_rn(rate, token_cost((int)v[3 + 3 * c], v[4 + 3 * c],
+                                        (int)v[5 + 3 * c]));
+    a.cost[blk] = __fadd_rn(rate, __fmul_rn(a.k.lam, dist));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// E4
+
+struct SpecialArgs {
+  const float* planes;
+  const int* qf;
+  const float *fx, *fb, *dqdc;
+  const uint8_t* elig;
+  const float *r0, *R1, *A;   // (3, 64), (3, 63, 64), (3, 64, 63)
+  int16_t* vals;              // (nb, 3, 63)
+  float* cost;
+  int ys_b, xs_b;
+  QuantConsts k;
+};
+
+__global__ void __launch_bounds__(64) special_costs_kernel(SpecialArgs a) {
+  __shared__ float s_in[64];    // t1, or sub
+  __shared__ float s_dq[64];
+  __shared__ float s_red[3 * 12];
+  __shared__ int s_elig;
+  const int tid = threadIdx.x;
+  const int n = blockIdx.x;
+  const int by = n / a.xs_b, bx = n % a.xs_b;
+  const long long nb = (long long)a.ys_b * a.xs_b;
+  int16_t* vout = a.vals + (long long)n * 3 * 63;
+  if (tid == 0) s_elig = a.elig[n];
+  __syncthreads();
+  if (!s_elig) {
+    for (int i = tid; i < 3 * 63; i += 64) vout[i] = 0;
+    if (tid == 0) a.cost[n] = 1e30f;
+    return;
+  }
+  const int pw = a.xs_b * 8;
+  const long long plane = (long long)a.ys_b * 8 * pw;
+  const long long pix = (long long)(by * 8 + (tid >> 3)) * pw + bx * 8 +
+                        (tid & 7);
+  const float qff = __fdiv_rn((float)a.qf[n], a.k.igs);
+  const float inv_qac = __fdiv_rn(1.0f, qff);
+  const float f[3] = {a.fx[n], 0.0f, a.fb[n]};
+  float v[12];
+  bool is_max[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    v[i] = 0.0f;
+    is_max[i] = i >= 3 && (i - 3) % 3 == 0;
+  }
+  float recY = 0.0f, tcY = 0.0f;
+  const int order[3] = {1, 0, 2};
+  for (int oi = 0; oi < 3; ++oi) {
+    const int c = order[oi];
+    const float dcb = a.dqdc[c * nb + n];
+    const float tc = __fsub_rn(a.planes[c * plane + pix],
+                               __fmul_rn(dcb, a.r0[c * 64 + tid]));
+    const float in = c == 1 ? tc : __fsub_rn(tc, __fmul_rn(f[c], recY));
+    if (c == 1) tcY = tc;
+    __syncthreads();
+    s_in[tid] = in;
+    __syncthreads();
+    float q = 0.0f;
+    if (tid < 63) {
+      const float* Ac = a.A + c * 64 * 63;
+      float g = 0.0f;
+      for (int kk = 0; kk < 64; ++kk)
+        g = __fadd_rn(g, __fmul_rn(s_in[kk], __ldg(Ac + kk * 63 + tid)));
+      q = quantize(__fdiv_rn(g, inv_qac), a.k.bias[c], a.k.dz);
+      s_dq[tid] = __fmul_rn(adjust(q, a.k.bias[c]), inv_qac);
+      vout[c * 63 + tid] = (int16_t)(int)q;
+      if (q != 0.0f) {
+        v[3 + 3 * c] = (float)(tid + 1);
+        v[4 + 3 * c] = log2f(__fadd_rn(1.0f, fabsf(q)));
+        v[5 + 3 * c] = 1.0f;
+      }
+    }
+    __syncthreads();
+    const float* Rc = a.R1 + c * 63 * 64;
+    float rec = 0.0f;
+    for (int jj = 0; jj < 63; ++jj)
+      rec = __fadd_rn(rec, __fmul_rn(s_dq[jj], __ldg(Rc + jj * 64 + tid)));
+    if (c == 1) {
+      recY = rec;
+      const float d = __fsub_rn(rec, tcY);
+      v[0] = __fmul_rn(d, d);
+    } else {
+      rec = __fadd_rn(rec, __fmul_rn(f[c], recY));
+      const float d = __fsub_rn(rec, tc);
+      v[c == 0 ? 1 : 2] = __fmul_rn(d, d);
+    }
+  }
+  block_reduce<64, 12>(v, is_max, s_red);
+  if (tid == 0) {
+    float dist = __fmul_rn(a.k.area_w[1], v[0]);
+    dist = __fadd_rn(dist, __fmul_rn(a.k.area_w[0], v[1]));
+    dist = __fadd_rn(dist, __fmul_rn(a.k.area_w[2], v[2]));
+    float rate = 0.0f;
+    for (int c = 0; c < 3; ++c)
+      rate = __fadd_rn(rate, token_cost((int)v[3 + 3 * c], v[4 + 3 * c],
+                                        (int)v[5 + 3 * c]));
+    a.cost[n] = __fadd_rn(rate, __fmul_rn(a.k.lam, dist));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The winners' gather
+
+constexpr int MAX_SOURCES = 16;
+constexpr int G_ROWS = 8;         // rows a thread block
+
+struct GatherSource {
+  const int16_t* src;
+  const int* idx;
+  long long rows, row_len, src_rows, out;
+};
+
+struct GatherParams {
+  GatherSource s[MAX_SOURCES];
+};
+
+__global__ void __launch_bounds__(256)
+    gather_kernel(GatherParams p, int16_t* __restrict__ out) {
+  const GatherSource g = p.s[blockIdx.y];
+  const long long r0 = (long long)blockIdx.x * G_ROWS;
+  for (int r = 0; r < G_ROWS; ++r) {
+    const long long row = r0 + r;
+    if (row >= g.rows) return;
+    long long i = g.idx[row];
+    i = i < 0 ? 0 : (i >= g.src_rows ? g.src_rows - 1 : i);
+    const int16_t* s = g.src + i * g.row_len;
+    int16_t* d = out + g.out + row * g.row_len;
+    for (long long e = threadIdx.x; e < g.row_len; e += blockDim.x) d[e] = s[e];
+  }
+}
+
+// qk: 1 - QUANT_BIAS[c] (3), QUANT_BIAS_NUM, the distortion weights (3);
+// f32, from the host
+QuantConsts quant_consts(float igs, float lam, float dz, const float* qk) {
+  QuantConsts k;
+  for (int c = 0; c < 3; ++c) {
+    k.bias[c].qb = qk[c];
+    k.bias[c].qbn = qk[3];
+    k.area_w[c] = qk[4 + c];
+  }
+  k.dz = dz;
+  k.igs = igs;
+  k.lam = lam;
+  return k;
+}
+
+}  // namespace
+
+extern "C" {
+
+int jxl_enc_front_planes(const void* pix, int code, float* out, int ph,
+                         int pw, int iters, const float* consts,
+                         cudaStream_t stream) {
+  const dim3 grid(cdiv(pw, E1_TW), cdiv(ph, E1_TH));
+  front_planes_kernel<<<grid, E1_THREADS, 0, stream>>>(pix, code, out, ph,
+                                                       pw, iters, consts);
+  return (int)cudaGetLastError();
+}
+
+int jxl_enc_front_blocks(const float* planes, float* co, float* small,
+                         int ph, int pw, const float* ana,
+                         cudaStream_t stream) {
+  const dim3 grid(cdiv(pw / 8, 8), cdiv(ph / 8, 8));
+  front_blocks_kernel<<<grid, E2_THREADS, 0, stream>>>(planes, co, small, ph,
+                                                       pw, ana);
+  return (int)cudaGetLastError();
+}
+
+// tabs: the device pointers of anaH, anaW, order, tab, pos, anY, anX, rs
+// (host array); qk: quant_consts' (weights area * D_c)
+int jxl_enc_dct_costs(const float* src, const int* qf, const float* fx,
+                      const float* fb, const float* dqdc,
+                      const unsigned long long* tabs, int16_t* vals,
+                      int ys_b, int xs_b, int cy, int cx, float igs,
+                      float lam, float dz, float* cost, int cov, int tail,
+                      const float* qk, cudaStream_t stream) {
+  CostTables t;
+  t.anaH = (const float*)tabs[0];
+  t.anaW = (const float*)tabs[1];
+  t.order = (const int*)tabs[2];
+  t.tab = (const float*)tabs[3];
+  t.pos = (const int*)tabs[4];
+  t.anY = (const float*)tabs[5];
+  t.anX = (const float*)tabs[6];
+  t.rs = (const float*)tabs[7];
+  CostArgs a;
+  a.src = src;
+  a.qf = qf;
+  a.fx = fx;
+  a.fb = fb;
+  a.dqdc = dqdc;
+  a.vals = vals;
+  a.cost = cost;
+  a.ys_b = ys_b;
+  a.xs_b = xs_b;
+  a.nxc = xs_b / cx;
+  a.cov = cov;
+  a.tail = tail;
+  a.k = quant_consts(igs, lam, dz, qk);
+  const unsigned n = (unsigned)((ys_b / cy) * (xs_b / cx));
+  if (n == 0) return 0;
+#define JXL_SHAPE(Y, X)                                                   \
+  if (cy == Y && cx == X) {                                               \
+    constexpr int T = (Y * X * 64 < 256) ? Y * X * 64 : 256;              \
+    dct_costs_kernel<Y, X><<<n, T, 0, stream>>>(a, t);                    \
+    return (int)cudaGetLastError();                                       \
+  }
+  JXL_SHAPE(1, 1)
+  JXL_SHAPE(1, 2)
+  JXL_SHAPE(2, 1)
+  JXL_SHAPE(2, 2)
+  JXL_SHAPE(2, 4)
+  JXL_SHAPE(4, 2)
+  JXL_SHAPE(4, 4)
+#undef JXL_SHAPE
+  return (int)cudaErrorInvalidValue;
+}
+
+// mats: the device pointers of r0, R1, A (host array); qk: quant_consts'
+// (weights D_c)
+int jxl_enc_special_costs(const float* planes, const int* qf, const float* fx,
+                          const float* fb, const float* dqdc,
+                          const uint8_t* elig,
+                          const unsigned long long* mats, int ys_b,
+                          int xs_b, float igs, float lam, float dz,
+                          int16_t* vals, float* cost, const float* qk,
+                          cudaStream_t stream) {
+  SpecialArgs a;
+  a.planes = planes;
+  a.qf = qf;
+  a.fx = fx;
+  a.fb = fb;
+  a.dqdc = dqdc;
+  a.elig = elig;
+  a.r0 = (const float*)mats[0];
+  a.R1 = (const float*)mats[1];
+  a.A = (const float*)mats[2];
+  a.vals = vals;
+  a.cost = cost;
+  a.ys_b = ys_b;
+  a.xs_b = xs_b;
+  a.k = quant_consts(igs, lam, dz, qk);
+  const unsigned n = (unsigned)(ys_b * xs_b);
+  if (n == 0) return 0;
+  special_costs_kernel<<<n, 64, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// desc: per source (src, idx, rows, row length, rows in the source, output
+// offset), int64 (host array)
+int jxl_enc_gather_rows(const long long* desc, int n, int16_t* out,
+                        int max_rows, cudaStream_t stream) {
+  if (n < 1 || n > MAX_SOURCES) return (int)cudaErrorInvalidValue;
+  GatherParams p;
+  for (int k = 0; k < n; ++k) {
+    p.s[k].src = (const int16_t*)desc[6 * k];
+    p.s[k].idx = (const int*)desc[6 * k + 1];
+    p.s[k].rows = desc[6 * k + 2];
+    p.s[k].row_len = desc[6 * k + 3];
+    p.s[k].src_rows = desc[6 * k + 4];
+    p.s[k].out = desc[6 * k + 5];
+  }
+  if (max_rows == 0) return 0;
+  const dim3 grid(cdiv(max_rows, G_ROWS), n);
+  gather_kernel<<<grid, 256, 0, stream>>>(p, out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,213 @@
+// The per-value arithmetic of the encoder front's kernels (encode.cu) as
+// __host__ __device__ functions: the kernels run them on the card, and a CPU
+// test builds this header with g++ and holds them to the plain twins
+// (vardct/enc_kernels.py, ops/fp.py) bit for bit.
+//
+// Each operation rounds once, in the twins' order: the card's build has no
+// FMA contraction (-fmad=false), the host's none either (-ffp-contract=off);
+// IEEE division, square root and round-half-to-even are the defaults of both.
+
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+
+#if defined(__CUDACC__)
+#define JXL_EHD __host__ __device__ __forceinline__
+#else
+#define JXL_EHD static inline
+#endif
+
+namespace jxl_enc {
+
+// glibc's powf tables (sysdeps/ieee754/flt-32): __powf_log2_data's (invc,
+// logc) per subinterval, then __exp2f_data's bits(2^(i/32)) - (i << 47)
+#define JXL_LOG2_TAB                                                        \
+  {0x1.661ec79f8f3bep+0,  -0x1.efec65b963019p-2, 0x1.571ed4aaf883dp+0,       \
+   -0x1.b0b6832d4fca4p-2, 0x1.49539f0f010b0p+0,  -0x1.7418b0a1fb77bp-2,      \
+   0x1.3c995b0b80385p+0,  -0x1.39de91a6dcf7bp-2, 0x1.30d190c8864a5p+0,       \
+   -0x1.01d9bf3f2b631p-2, 0x1.25e227b0b8ea0p+0,  -0x1.97c1d1b3b7af0p-3,      \
+   0x1.1bb4a4a1a343fp+0,  -0x1.2f9e393af3c9fp-3, 0x1.12358f08ae5bap+0,       \
+   -0x1.960cbbf788d5cp-4, 0x1.0953f419900a7p+0,  -0x1.a6f9db6475fcep-5,      \
+   0x1.0000000000000p+0,  0x0.0p+0,              0x1.e608cfd9a47acp-1,       \
+   0x1.338ca9f24f53dp-4,  0x1.ca4b31f026aa0p-1,  0x1.476a9543891bap-3,       \
+   0x1.b2036576afce6p-1,  0x1.e840b4ac4e4d2p-3,  0x1.9c2d163a1aa2dp-1,       \
+   0x1.40645f0c6651cp-2,  0x1.886e6037841edp-1,  0x1.88e9c2c1b9ff8p-2,       \
+   0x1.767dcf5534862p-1,  0x1.ce0a44eb17bccp-2}
+#define JXL_EXP2_TAB                                                        \
+  {0x3ff0000000000000ull, 0x3fefd9b0d3158574ull, 0x3fefb5586cf9890full,     \
+   0x3fef9301d0125b51ull, 0x3fef72b83c7d517bull, 0x3fef54873168b9aaull,     \
+   0x3fef387a6e756238ull, 0x3fef1e9df51fdee1ull, 0x3fef06fe0a31b715ull,     \
+   0x3feef1a7373aa9cbull, 0x3feedea64c123422ull, 0x3feece086061892dull,     \
+   0x3feebfdad5362a27ull, 0x3feeb42b569d4f82ull, 0x3feeab07dd485429ull,     \
+   0x3feea47eb03a5585ull, 0x3feea09e667f3bcdull, 0x3fee9f75e8ec5f74ull,     \
+   0x3feea11473eb0187ull, 0x3feea589994cce13ull, 0x3feeace5422aa0dbull,     \
+   0x3feeb737b0cdc5e5ull, 0x3feec49182a3f090ull, 0x3feed503b23e255dull,     \
+   0x3feee89f995ad3adull, 0x3feeff76f2fb5e47ull, 0x3fef199bdd85529cull,     \
+   0x3fef3720dcef9069ull, 0x3fef5818dcfba487ull, 0x3fef7c97337b9b5full,     \
+   0x3fefa4afa2a490daull, 0x3fefd0765b6e4540ull}
+
+#if defined(__CUDACC__)
+__device__ const double kLog2TabD[32] = JXL_LOG2_TAB;
+__device__ const unsigned long long kExp2TabD[32] = JXL_EXP2_TAB;
+#endif
+static const double kLog2TabH[32] = JXL_LOG2_TAB;
+static const unsigned long long kExp2TabH[32] = JXL_EXP2_TAB;
+
+JXL_EHD double log2_tab(int i) {
+#if defined(__CUDA_ARCH__)
+  return kLog2TabD[i];
+#else
+  return kLog2TabH[i];
+#endif
+}
+
+JXL_EHD unsigned long long exp2_tab(int i) {
+#if defined(__CUDA_ARCH__)
+  return kExp2TabD[i];
+#else
+  return kExp2TabH[i];
+#endif
+}
+
+JXL_EHD int32_t f2i(float f) {
+  int32_t i;
+  memcpy(&i, &f, 4);
+  return i;
+}
+
+JXL_EHD float i2f(int32_t i) {
+  float f;
+  memcpy(&f, &i, 4);
+  return f;
+}
+
+JXL_EHD int64_t d2ll(double d) {
+  int64_t i;
+  memcpy(&i, &d, 8);
+  return i;
+}
+
+JXL_EHD double ll2d(int64_t i) {
+  double d;
+  memcpy(&d, &i, 8);
+  return d;
+}
+
+// x ** y for a positive normal float x, rounded as glibc rounds it (the
+// twin's ops/fp.py powf, step for step in float64)
+JXL_EHD float powf_glibc(float x, float y) {
+  const double A0 = 0x1.27616c9496e0bp-2, A1 = -0x1.71969a075c67ap-2,
+               A2 = 0x1.ec70a6ca7baddp-2, A3 = -0x1.7154748bef6c8p-1,
+               A4 = 0x1.71547652ab82bp+0;
+  const double C0 = 0x1.c6af84b912394p-5, C1 = 0x1.ebfce50fac4f3p-3,
+               C2 = 0x1.62e42ff0c52d6p-1;
+  const double SHIFT = 0x1.8p52 / 32;
+  const int64_t ix = f2i(x);
+  const int64_t tmp = ix - 0x3f330000ll;
+  const int i = (int)((tmp >> 19) & 15);
+  const int64_t k = tmp >> 23;
+  const double z = (double)i2f((int32_t)(ix - k * (1ll << 23)));
+  const double r = z * log2_tab(2 * i) - 1.0;
+  const double y0 = log2_tab(2 * i + 1) + (double)k;
+  const double r2 = r * r;
+  const double p5 = A0 * r + A1;
+  const double p3 = A2 * r + A3;
+  const double r4 = r2 * r2;
+  double q = A4 * r + y0;
+  q = p3 * r2 + q;
+  const double logx = p5 * r4 + q;
+  const double xd = (double)y * logx;
+  const double kd = xd + SHIFT;
+  const int64_t ki = d2ll(kd) - d2ll(SHIFT);
+  const double rr = xd - (kd - SHIFT);
+  const double s = ll2d((int64_t)(exp2_tab((int)(ki & 31)) +
+                                  (unsigned long long)ki * (1ull << 47)));
+  const double zz = C0 * rr + C1;
+  double out = C2 * rr + 1.0;
+  out = zz * (rr * rr) + out;
+  return (float)(out * s);
+}
+
+// fp.fma: the product is exact in float64; the sum rounds there, then to f32
+JXL_EHD float fused(float a, float b, float c) {
+  return (float)((double)a * (double)b + (double)c);
+}
+
+// a sample (0: u8, 1: u16, 2: f32) -> [0, 1], the IEEE division
+JXL_EHD float unit_sample(const void* pix, int code, long long i) {
+  if (code == 0) return (float)((const uint8_t*)pix)[i] / 255.0f;
+  if (code == 1) return (float)((const uint16_t*)pix)[i] / 65535.0f;
+  return ((const float*)pix)[i];
+}
+
+JXL_EHD float srgb_to_linear(float f) {
+  return f <= 0.04045f ? f / 12.92f : powf_glibc((f + 0.055f) / 1.055f, 2.4f);
+}
+
+// jnp.cbrt as glibc's powf(|x|, 1/3) with the sign; 0 stays 0
+JXL_EHD float cbrt_glibc(float x) {
+  if (x == 0.0f) return x;
+  const float a = powf_glibc(fabsf(x), (float)(1.0 / 3.0));
+  return x < 0.0f ? -a : a;
+}
+
+// the opsin mix (row-major 3x3 m), cbrt and X, Y, B - Y of one pixel's
+// linear samples: fp.contract3, then the twin's steps
+JXL_EHD void xyb_of(const float* m, float bias, float cbrt_bias,
+                    const float lin[3], float out[3]) {
+  float g[3];
+  for (int i = 0; i < 3; ++i) {
+    float acc = m[3 * i] * lin[0];
+    acc = fused(m[3 * i + 1], lin[1], acc);
+    acc = fused(m[3 * i + 2], lin[2], acc);
+    g[i] = cbrt_glibc(acc + bias) - cbrt_bias;
+  }
+  const float Y = (g[0] + g[1]) * 0.5f;
+  out[0] = (g[0] - g[1]) * 0.5f;
+  out[1] = Y;
+  out[2] = g[2] - Y;
+}
+
+JXL_EHD float pow0(float x, float y) { return x > 0.0f ? powf_glibc(x, y) : 0.0f; }
+
+// the masking field of one block from its activity mean and median
+JXL_EHD float mask_of(float mean, float med) {
+  const float blk = sqrtf(mean * fminf(mean, 4.0f * med));
+  const float m = (1.0f + 4.3f * pow0(blk, 0.68f)) + 52.0f * pow0(blk, 1.6f);
+  return fminf(fmaxf(m, 1.0f), 4.0f);
+}
+
+// the quantiser (enc_device.py:47-69): qb = 1 - QUANT_BIAS[c], qbn =
+// QUANT_BIAS_NUM
+struct Bias {
+  float qb, qbn;
+};
+
+JXL_EHD float adjust(float q, Bias b) {
+  const float safe = q == 0.0f ? 1.0f : q;
+  return fabsf(q) > 1.0f ? q - b.qbn / safe : q * b.qb;
+}
+
+JXL_EHD float quantize(float r, Bias b, float dz) {
+  const float q0 = rintf(r);
+  float bq = q0, be = fabsf(adjust(q0, b) - r);
+  for (int d = -1; d <= 1; d += 2) {
+    const float q = q0 + (float)d;
+    const float e = fabsf(adjust(q, b) - r);
+    if (e < be) {
+      bq = q;
+      be = e;
+    }
+  }
+  return fabsf(r) < dz ? 0.0f : bq;
+}
+
+// the rate proxy of one channel's scan tail from its (last, bits, count)
+JXL_EHD float token_cost(int last, float bits, int cnt) {
+  if (cnt == 0) return 2.0f;
+  return ((2.0f + 1.1f * (float)last) + bits) + (float)cnt;
+}
+
+}  // namespace jxl_enc

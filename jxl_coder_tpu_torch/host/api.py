@@ -1,9 +1,8 @@
 """The API layer's host pieces that the port uses
-(``jxl_coder_tpu/api.py``): the option enums of the sampled decode, the
-decode-size ceiling, the typed errors, ``basic_info`` and
-``apply_orientation``.  The encode entry points stay in the JAX package;
-the port's decode entry points are in ``api.py``, its round-1 codec in
-``codec``.
+(``jxl_coder_tpu/api.py:24-116``): the option enums of the encode and of
+the sampled decode, the decode-size ceiling, the typed errors,
+``basic_info`` and ``apply_orientation``.  The port's encode and decode
+entry points are in ``api.py``, its round-1 codec in ``codec``.
 """
 
 from __future__ import annotations
@@ -16,7 +15,49 @@ from .bitstream import container as _container
 from .bitstream.headers import read_image_header, ImageHeader
 
 
-# ---- Option enums of the sampled decode (jxl_coder_tpu/api.py:66-97) ----
+# ---- Option enums (values mirror JxlDefinitions.h:32-58) -----------------
+
+class CompressionOption(enum.IntEnum):
+    """JxlCompressionOption.kt:30-32"""
+    LOSSLESS = 1
+    LOSSY = 2
+
+
+class Effort(enum.IntEnum):
+    """JxlEffort.kt — 1 (fastest) .. 10 (slowest)."""
+    LIGHTNING = 1
+    THUNDER = 2
+    FALCON = 3
+    CHEETAH = 4
+    HARE = 5
+    WOMBAT = 6
+    SQUIRREL = 7
+    KITTEN = 8
+    TORTOISE = 9
+    GLACIER = 10
+
+
+class DecodingSpeed(enum.IntEnum):
+    """JxlDecodingSpeed.kt — 0 (slowest decode) .. 4 (fastest decode)."""
+    SLOWEST = 0
+    SLOW = 1
+    MEDIUM = 2
+    FAST = 3
+    FASTEST = 4
+
+
+class ChannelsConfiguration(enum.IntEnum):
+    """JxlChannelsConfiguration.kt"""
+    RGB = 1
+    RGBA = 2
+    MONOCHROME = 3
+
+
+class EncodingPixelFormat(enum.IntEnum):
+    """JxlEncodingDataPixelFormat.kt"""
+    UNSIGNED_8 = 1
+    BINARY_16 = 2
+
 
 class PreferredColorConfig(enum.IntEnum):
     """PreferredColorConfig.kt"""
@@ -53,6 +94,18 @@ class ResizeFilter(enum.IntEnum):
 
 class InvalidJXLError(ValueError):
     """InvalidJXLException.kt — not a JXL stream / corrupt stream."""
+
+
+class CompressionError(RuntimeError):
+    """JXLCoderCompressionException.kt"""
+
+
+class InvalidColorSpaceError(ValueError):
+    """InvalidColorSpaceException.kt"""
+
+
+class InvalidCompressionOptionError(ValueError):
+    """InvalidCompressionOptionException.kt"""
 
 
 class InvalidImageSizeError(ValueError):

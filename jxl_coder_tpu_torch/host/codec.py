@@ -2,8 +2,8 @@
 (``jxl_coder_tpu/codec.py``): the image-header writer, the DC
 quantisation reader, and the Modular frame's decode (its channel planes
 on the host; the device layer, ``modular/device.py``, undoes its
-transforms) and encode (a fixture writer for the tests and
-``chip_smoke.py``, reached through ``reference``).  The port's own
+transforms) and encode (``api.encode``'s lossless route, with
+``learned_modular_tree`` for its effort ladder).  The port's own
 VarDCT codec is ``jxl_coder_tpu_torch.codec``.
 """
 
@@ -272,6 +272,22 @@ def modular_planes_to_xyb(planes, dc_quant):
 
 # --------------------------------------------------------------------------
 # Encode
+
+def learned_modular_tree(hdr: ImageHeader, fh, planes,
+                         use_ycocg: bool, rct_type: int = 6,
+                         max_leaves: int = 16) -> Tree:
+    """Learn an MA tree on the (optionally RCT'd) frame channels — the
+    encode-effort search depth knob (JxlEffort.kt 1-10 semantics)."""
+    image = frame_channel_layout(hdr, fh)
+    for chan, plane in zip(image.channels, planes):
+        chan.data = plane.astype(np.int32)
+    if use_ycocg and len(planes) >= 3:
+        t = T.Transform(id=0, begin_c=0, rct_type=rct_type)
+        T.rct_forward(image, t)
+    from .modular.learn import learn_tree
+    return learn_tree(image.channels, max_leaves=max_leaves,
+                      props_allowed=[0] + list(range(2, 15)))
+
 
 def encode_modular_frame(bw: BitWriter, hdr: ImageHeader, fh: FrameHeader,
                          planes: List[np.ndarray],

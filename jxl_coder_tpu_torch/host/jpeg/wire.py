@@ -160,6 +160,7 @@ def write_jpeg_codestream(j: JpegData, _ytox=None, _ytob=None) -> bytes:
     integer-CfL semantics against libjxl (production writes zeros)."""
     from ..vardct.enc_real import (_modular_substream, _write_ac_tokens,
                                    NUM_CTXS)
+    from ..vardct.selected import SelectedFlat
     from ..vardct.dec_real import (NONZERO_BUCKETS,
                                    ZERO_DENSITY_CTX_COUNT)
     if j.precision != 8:
@@ -299,11 +300,9 @@ def write_jpeg_codestream(j: JpegData, _ytox=None, _ytob=None) -> bytes:
         gw = min(gd_b, xs_b - ax)
         gh = min(gd_b, ys_b - ay)
         if shifts is None:
-            acs_map = np.zeros((gh, gw), np.int32)
-            vals = {(by, bx): {c: coeffs[c][ay + by, ax + bx]
-                               for c in range(3)}
-                    for by in range(gh) for bx in range(gw)}
-            _write_ac_tokens(ts, acs_map, vals, gw, gh)
+            _write_ac_tokens(ts, SelectedFlat.all_dct8(np.stack(
+                [coeffs[c][ay:ay + gh, ax:ax + gw] for c in range(3)],
+                axis=2)), gw, gh)
         else:
             _write_jpeg_group_tokens(ts, coeffs, ax, ay, gw, gh, shifts)
 

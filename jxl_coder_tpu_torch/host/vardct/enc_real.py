@@ -17,12 +17,23 @@ caller's frame and image headers (``fh``, ``hdr``: an upsampled frame is
 coded at its reduced size; ``into_bw``: one frame into a caller's
 stream), a patch dictionary (``patch_dict_bw``), and the effort-7 patch
 path (``enc_patches.detect``, then ``_encode_with_patches``: a Modular
-reference-only atlas frame and the main frame).  The JAX device front end
-is gone, and the native host codec is required (no pure-Python
-fallback).  Its bytes equal the JAX package's host encoder's.
+reference-only atlas frame and the main frame).  The native host codec is
+required (no pure-Python fallback).  Without ``front`` its bytes equal the
+JAX package's host encoder's.
+
+The device front end comes in by injection (``front``: an object with the
+six calls of ``vardct/enc_device.Front``, which the host layer does not
+import): XYB, sharpening, DCT analysis, masking, CfL and the RD
+quantise / cost grids run on its device in float32, the host keeps the
+greedy decision, the DC and metadata tree learning, the tokens and the
+bitstream.  As in the reference, only a frame without a signalled colour
+encoding (``colour is None``) takes the front; a failure there raises
+(the reference re-encodes on the host instead, fault R19 of ROADMAP.md).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -38,6 +49,7 @@ from ..modular.tree import Tree
 from .strategies import STRATEGIES
 from .dec_real import (DEFAULT_CTX_MAP, NONZERO_BUCKETS,
                        ZERO_DENSITY_CTX_COUNT)
+from .selected import cost_meta, gather_plan, selected_from_rows
 from . import synthesis as S
 
 _BIAS = 0.0037930732552754493
@@ -396,8 +408,8 @@ def _select_strategies(co8, X, Y, B, qf_map, igs, fx_blk, fb_blk,
     """Greedy varblock rate+distortion selection, vectorized: every
     candidate shape is quantized for ALL its aligned positions in one
     batch, then a greedy largest-first pass picks winners from the
-    precomputed cost maps.  Returns (acs_map, values per anchor, qf per
-    anchor)."""
+    precomputed cost maps.  Returns (acs_map, the winners' values as a
+    SelectedFlat, qf per anchor)."""
     from . import synthesis as S
     tabs_cache = {}
 
@@ -461,10 +473,9 @@ def _select_strategies(co8, X, Y, B, qf_map, igs, fx_blk, fb_blk,
                 valsS.reshape(ys_b, xs_b, 3, -1),
                 costS.reshape(ys_b, xs_b),
                 qf_map.astype(np.int32))
-        cands = list(cands) + [(sid, 1, 1) for sid in specials]
-
-    return _greedy_select(cands, cand_data, cost8, vals8, qf_map,
-                          ys_b, xs_b)
+    meta = cost_meta(ys_b, xs_b, cands, specials)
+    cands = list(cands) + [(sid, 1, 1) for sid in specials]
+    return _greedy_select(cands, cand_data, cost8, vals8, qf_map, meta)
 
 
 def _greedy_decide(cands, cost_data, cost8, qf_map, ys_b, xs_b):
@@ -509,65 +520,108 @@ def _greedy_decide(cands, cost_data, cost8, qf_map, ys_b, xs_b):
     return acs_map, qf_sel
 
 
-def _greedy_select(cands, cand_data, cost8, vals8, qf_map, ys_b, xs_b):
-    """Greedy winner pass + host vals_map materialization."""
+def _greedy_select(cands, cand_data, cost8, vals8, qf_map, meta):
+    """Greedy winner pass, then the winners' values gathered as the
+    device route's fetch gathers them (gather_plan, selected_from_rows)."""
+    ys_b, xs_b = qf_map.shape
     cost_data = {sid: (c, q) for sid, (v, c, q) in cand_data.items()}
     acs_map, qf_sel = _greedy_decide(cands, cost_data, cost8, qf_map,
                                      ys_b, xs_b)
-    vals_map = {}
-    for by, bx in zip(*np.nonzero(acs_map >= 0)):
-        sid = int(acs_map[by, bx])
-        if sid == 0:
-            v = vals8[by, bx]
-        else:
-            cy, cx = STRATEGIES[sid].cy, STRATEGIES[sid].cx
-            v = cand_data[sid][0][by // cy, bx // cx]
-        vals_map[(int(by), int(bx))] = {c: v[c] for c in range(3)}
-    return acs_map, vals_map, qf_sel
+    plan, anchors = gather_plan(meta, acs_map)
+    # each source's (rows, 3, num_coeffs) values and its covered prefix
+    srcs = [(vals8, 1)] + [(cand_data[m[0]][0], m[5]) for m in meta]
+    rows = []
+    for k, ix in plan:
+        v, cov = srcs[k]
+        rows.append(v.reshape(-1, 3, v.shape[-1])[ix][:, :, cov:])
+    flat = np.concatenate([r.reshape(-1) for r in rows])
+    return (acs_map, selected_from_rows(flat, anchors,
+                                        [r.shape[2] for r in rows]), qf_sel)
 
 
-def _write_ac_tokens(ts, acs_map, vals_map, xs_b, ys_b):
+@_functools.lru_cache(maxsize=None)
+def _strategy_luts():
+    """Per-strategy-id attribute LUT arrays for the vectorized anchor
+    build (covered, log2_covered, num_coeffs, cx, cy and the three
+    per-channel block-context ids)."""
+    ns = max(STRATEGIES) + 1
+    luts = {k: np.zeros(ns, np.int32)
+            for k in ("cov", "l2c", "nc", "cx", "cy", "ctx1", "ctx0",
+                      "ctx2")}
+    for sid, s in STRATEGIES.items():
+        luts["cov"][sid] = s.covered
+        luts["l2c"][sid] = s.log2_covered
+        luts["nc"][sid] = s.num_coeffs
+        luts["cx"][sid] = s.cx
+        luts["cy"][sid] = s.cy
+        luts["ctx1"][sid] = DEFAULT_CTX_MAP[1 * 13 + s.order_bucket]
+        luts["ctx0"][sid] = DEFAULT_CTX_MAP[0 * 13 + s.order_bucket]
+        luts["ctx2"][sid] = DEFAULT_CTX_MAP[2 * 13 + s.order_bucket]
+    return luts
+
+
+def _write_ac_tokens(ts, flat, xs_b, ys_b):
     """Mirror of read_pass_group's varblock walk: nonzero counts with
     spread prediction, zero-density contexts with covered/log2cov, in
-    the native single-pass tokenizer."""
-    from .. import native as native_mod
-    _write_ac_tokens_native(native_mod.get_lib(), ts, acs_map, vals_map,
-                            xs_b, ys_b)
-
-
-def _write_ac_tokens_native(lib, ts, acs_map, vals_map, xs_b, ys_b):
+    the native single-pass tokenizer, fed from a SelectedFlat: the
+    anchors table is a vectorized LUT gather and the value buffer is
+    used as-is."""
     import ctypes
-    bys, bxs = np.nonzero(acs_map >= 0)
-    ids = acs_map[bys, bxs]
-    n = len(ids)
-    anchors = np.empty((max(n, 1), 10), np.int32)
-    offs = np.zeros(n + 1, np.int64)
-    sizes = np.asarray([STRATEGIES[int(s)].num_coeffs for s in ids],
-                       np.int64)
-    np.cumsum(3 * sizes, out=offs[1:])
-    vals_flat = np.empty(max(int(offs[-1]), 1), np.int32)
-    for i in range(n):
-        s = STRATEGIES[int(ids[i])]
-        anchors[i] = (int(bxs[i]), int(bys[i]), s.covered,
-                      s.log2_covered, s.num_coeffs, s.cx, s.cy,
-                      DEFAULT_CTX_MAP[1 * 13 + s.order_bucket],
-                      DEFAULT_CTX_MAP[0 * 13 + s.order_bucket],
-                      DEFAULT_CTX_MAP[2 * 13 + s.order_bucket])
-        chans = vals_map[(int(bys[i]), int(bxs[i]))]
-        off = int(offs[i])
-        sz = int(sizes[i])
-        for c in range(3):
-            vals_flat[off + c * sz: off + (c + 1) * sz] = chans[c]
-    cap = int(3 * n + (offs[-1] - 3 * n * 0))      # nz tokens + coeffs
+    from .. import native as native_mod
+    n = len(flat.bys)
+    if n == 0:
+        return
+    luts = _strategy_luts()
+    sids = flat.sids
+    anchors = np.empty((n, 10), np.int32)
+    anchors[:, 0] = flat.bxs
+    anchors[:, 1] = flat.bys
+    anchors[:, 2] = luts["cov"][sids]
+    anchors[:, 3] = luts["l2c"][sids]
+    anchors[:, 4] = luts["nc"][sids]
+    anchors[:, 5] = luts["cx"][sids]
+    anchors[:, 6] = luts["cy"][sids]
+    anchors[:, 7] = luts["ctx1"][sids]
+    anchors[:, 8] = luts["ctx0"][sids]
+    anchors[:, 9] = luts["ctx2"][sids]
+    anchors = np.ascontiguousarray(anchors)
+    offs = np.ascontiguousarray(flat.offs, np.int64)
+    vals_flat = np.ascontiguousarray(flat.vals, np.int32)
+    cap = int(3 * n + offs[-1])
     out_ctx = np.empty(max(cap, 1), np.int32)
     out_val = np.empty(max(cap, 1), np.int32)
     i32p = ctypes.POINTER(ctypes.c_int32)
-    m = lib.encode_ac_tokens(
+    m = native_mod.get_lib().encode_ac_tokens(
         anchors.ctypes.data_as(i32p), n,
         offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         vals_flat.ctypes.data_as(i32p), xs_b, ys_b, NUM_CTXS,
         out_ctx.ctypes.data_as(i32p), out_val.ctypes.data_as(i32p))
     ts.add_arrays(out_ctx[:m], out_val[:m])
+
+
+def _dc_substreams(dc_int: np.ndarray, ys_b: int, xs_b: int) -> dict:
+    """{LF group: its DC modular substream (learned tree)}, the groups
+    on a thread pool (numpy + native work: the GIL is released)."""
+    lf_b = 256
+    gx_lf = -(-xs_b // lf_b)
+    ngl = gx_lf * -(-ys_b // lf_b)
+
+    def one(gi):
+        lx = (gi % gx_lf) * lf_b
+        ly = (gi // gx_lf) * lf_b
+        gw = min(lf_b, xs_b - lx)
+        gh = min(lf_b, ys_b - ly)
+        return gi, _modular_substream([
+            Channel(gw, gh, data=np.ascontiguousarray(
+                dc_int[i, ly:ly + gh, lx:lx + gw], np.int32))
+            for i in range(3)], learn=True, max_leaves=24)
+
+    if ngl == 1:
+        return dict([one(0)])
+    import concurrent.futures as _fut
+    with _fut.ThreadPoolExecutor(
+            max_workers=min(ngl, os.cpu_count() or 2)) as ex:
+        return dict(ex.map(one, range(ngl)))
 
 
 def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
@@ -579,7 +633,7 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
                        patch_dict_bw=None,
                        try_patches: bool = True,
                        progressive: bool = False,
-                       noise_lut=None) -> bytes:
+                       noise_lut=None, front=None) -> bytes:
     """(H, W, 3) colour -> real-format VarDCT codestream.
 
     pixels: uint8, uint16 or float [0, 1] in the colour encoding given
@@ -597,7 +651,11 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
     encoding, the patch detector runs in a thread meanwhile; when it finds
     repeated glyphs the stream becomes two frames (_encode_with_patches).
     As in the original, that path drops a requested noise_lut (fault R5 of
-    ROADMAP.md)."""
+    ROADMAP.md).
+    front: the device front end (``vardct/enc_device.Front``), or None for
+    the float64 host route.  Route rule: it runs only when ``colour`` is
+    None (a signalled colour encoding converts on the host); the patch
+    path's main frame takes it too."""
     if pixels.ndim != 3 or pixels.shape[2] != 3:
         raise ValueError("the host encoder takes (H, W, 3) pixels")
     H, W, _ = pixels.shape
@@ -610,6 +668,15 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
     # decoding-speed tiers drop decode-side filters (the reference's
     # JxlDecodingSpeed semantics); gaborish costs a 3x3 conv at decode
     use_gab = decoding_speed < 2
+
+    # the device front end (XYB, sharpening, DCT analysis, masking, CfL,
+    # then the RD quantise / cost grids) for frames without a signalled
+    # colour encoding; dispatched first so that the patch detector below
+    # overlaps its device work and d2h copy.  A failure raises.
+    dev_pending = None
+    if front is not None and colour is None:
+        dev_pending = front.run_front_dispatch(pad,
+                                               gab_iters=4 if use_gab else 0)
 
     # encoder-side patches (libjxl e7+ behaviour): repeated glyph
     # content moves to a hidden reference frame; the main frame codes the
@@ -633,26 +700,29 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
         _pt.start()
         _patch_box["thread"] = _pt
 
-    if pad.dtype == np.uint8 and colour is None:
-        X, Y, B = srgb8_to_xyb(pad)
+    if dev_pending is not None:
+        planes_dev, co_dev, mask, ytox, ytob, co_dc = \
+            front.run_front_fetch(dev_pending)
     else:
-        if pad.dtype == np.uint8:
-            f = pad.astype(np.float64) / 255.0
-        elif pad.dtype == np.uint16:
-            f = pad.astype(np.float64) / 65535.0
+        if pad.dtype == np.uint8 and colour is None:
+            X, Y, B = srgb8_to_xyb(pad)
         else:
-            f = pad.astype(np.float64)
-        X, Y, B = encoded_to_xyb(f, colour, intensity_target or 255.0)
-    B = B - Y                 # CfL base factor 1.0
-    if use_gab:
-        X = _gaborish_sharpen(X)
-        Y = _gaborish_sharpen(Y)
-        B = _gaborish_sharpen(B)
-
-    # content-adaptive global scale: per-block target step
-    # s_b = BASE_STEP_MULT * distance * masking; the global scale
-    # carries the masking median and the integer qf field the rest
-    mask = _masking_field(Y, ys_b, xs_b)
+            if pad.dtype == np.uint8:
+                f = pad.astype(np.float64) / 255.0
+            elif pad.dtype == np.uint16:
+                f = pad.astype(np.float64) / 65535.0
+            else:
+                f = pad.astype(np.float64)
+            X, Y, B = encoded_to_xyb(f, colour, intensity_target or 255.0)
+        B = B - Y                 # CfL base factor 1.0
+        if use_gab:
+            X = _gaborish_sharpen(X)
+            Y = _gaborish_sharpen(Y)
+            B = _gaborish_sharpen(B)
+        # content-adaptive global scale: per-block target step
+        # s_b = BASE_STEP_MULT * distance * masking; the global scale
+        # carries the masking median and the integer qf field the rest
+        mask = _masking_field(Y, ys_b, xs_b)
     # scale the global quant scale with distance AND masking so the
     # integer qf field keeps its resolution around 6 (libjxl keeps
     # qf_med 5-6 at every distance; igs carries the rest)
@@ -672,21 +742,29 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
     dc_steps = [d * igs / qdc / (1 << extra_precision)
                 for d in DC_STEPS]
 
-    ANA = S.ana_basis(8)
+    if dev_pending is not None:
+        # the DC terms came in the front's one flat fetch; the planes and
+        # coefficients stay on the device for the cost stage
+        dc_int = np.zeros((3, ys_b, xs_b), np.int64)
+        dc_int[0] = np.round(co_dc[1] / dc_steps[1])
+        dc_int[1] = np.round(co_dc[0] / dc_steps[0])
+        dc_int[2] = np.round(co_dc[2] / dc_steps[2])
+    else:
+        ANA = S.ana_basis(8)
 
-    # per-block coefficients (vectorised analysis)
-    def block_coeffs(plane):
-        b = plane.reshape(ys_b, 8, xs_b, 8).transpose(0, 2, 1, 3)
-        return np.einsum("ky,YXyx,lx->YXkl", ANA, b, ANA)
+        # per-block coefficients (vectorised analysis)
+        def block_coeffs(plane):
+            b = plane.reshape(ys_b, 8, xs_b, 8).transpose(0, 2, 1, 3)
+            return np.einsum("ky,YXyx,lx->YXkl", ANA, b, ANA)
 
-    co = {0: block_coeffs(X), 1: block_coeffs(Y),
-          2: block_coeffs(B)}
-    dc_int = np.zeros((3, ys_b, xs_b), np.int64)
-    dc_int[0] = np.round(co[1][:, :, 0, 0] / dc_steps[1])
-    dc_int[1] = np.round(co[0][:, :, 0, 0] / dc_steps[0])
-    dc_int[2] = np.round(co[2][:, :, 0, 0] / dc_steps[2])
+        co = {0: block_coeffs(X), 1: block_coeffs(Y),
+              2: block_coeffs(B)}
+        dc_int = np.zeros((3, ys_b, xs_b), np.int64)
+        dc_int[0] = np.round(co[1][:, :, 0, 0] / dc_steps[1])
+        dc_int[1] = np.round(co[0][:, :, 0, 0] / dc_steps[0])
+        dc_int[2] = np.round(co[2][:, :, 0, 0] / dc_steps[2])
 
-    ytox, ytob = _estimate_cfl(co[1], co[0], co[2], ys_b, xs_b)
+        ytox, ytob = _estimate_cfl(co[1], co[0], co[2], ys_b, xs_b)
     fx_blk = np.repeat(np.repeat(ytox, 8, 0), 8, 1)[:ys_b, :xs_b] / 84.0
     fb_blk = np.repeat(np.repeat(ytob, 8, 0), 8, 1)[:ys_b, :xs_b] / 84.0
     # dequantized DC means per channel (X, Y, B) for LLF distortion
@@ -707,10 +785,29 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
         special_eligible = _special_eligibility(pad, ys_b, xs_b)
         if not special_eligible.any():
             specials = ()
-    acs_map, vals_map, qf_map = _select_strategies(
-        co, X, Y, B, qf_map, igs, fx_blk, fb_blk, ys_b, xs_b,
-        dq_dc, lam, cands=cands, specials=specials,
-        special_eligible=special_eligible)
+    if dev_pending is not None:
+        pending = front.run_costs_dispatch(
+            planes_dev, co_dev, qf_map, fx_blk, fb_blk, dq_dc, igs,
+            lam, cands, AC_DEADZONE, specials=specials,
+            special_eligible=special_eligible)
+    # the DC modular substreams depend only on dc_int: learned here, while
+    # the device (on its route) computes the cost grids
+    dc_subs = _dc_substreams(dc_int, ys_b, xs_b)
+    if dev_pending is not None:
+        cost8, cost_data, vals_list, meta = front.run_costs_fetch(pending)
+        full_cands = list(cands) + [(s, 1, 1) for s in specials]
+        acs_map, qf_map = _greedy_decide(full_cands, cost_data, cost8,
+                                         qf_map, ys_b, xs_b)
+        # the winner gather runs asynchronously; the AC-metadata tree
+        # learning below overlaps its device work and d2h copy
+        _vals_box = {"pending": front.fetch_selected_dispatch(
+            vals_list, meta, acs_map)}
+    else:
+        acs_map, selected, qf_map = _select_strategies(
+            co, X, Y, B, qf_map, igs, fx_blk, fb_blk, ys_b, xs_b,
+            dq_dc, lam, cands=cands, specials=specials,
+            special_eligible=special_eligible)
+        _vals_box = {"vals": selected}
 
     # ---- frame assembly
     if hdr is None:
@@ -864,18 +961,11 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
         return nb, gw, gh, sub
 
     def lf_group_bits(gi):
-        lx = (gi % gx_lf) * lf_b
-        ly = (gi // gx_lf) * lf_b
-        gw = min(lf_b, xs_b - lx)
-        gh = min(lf_b, ys_b - ly)
         w_ = BitWriter()
         w_.u(extra_precision, 2)
-        w_.append_writer(_modular_substream([
-            Channel(gw, gh, data=np.ascontiguousarray(
-                dc_int[i, ly:ly + gh, lx:lx + gw], np.int32))
-            for i in range(3)], learn=True, max_leaves=24))
-        nb, gw2, gh2, meta_sub = _meta_substream(gi)
-        upper = gw2 * gh2
+        w_.append_writer(dc_subs[gi])
+        nb, gw, gh, meta_sub = _meta_substream(gi)
+        upper = gw * gh
         cb = (upper - 1).bit_length() if upper > 1 else 0
         w_.u(nb - 1, cb)
         w_.append_writer(meta_sub)
@@ -889,36 +979,37 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
         w_.u32(0, 0x5F, 0x13, 0, (13, 0))
         return w_
 
-    if npasses == 1:
-        vals_maps = [vals_map]
-    else:
-        # split v = (v0 << 1) + v1 with v0 = round(v/2): pass 0 the
-        # coarse field, pass 1 a {-1,0,1} refinement (the decoder
-        # accumulates sum(v_p << shift_p))
-        v0m, v1m = {}, {}
-        for key, chans in vals_map.items():
-            a0, a1 = {}, {}
-            for c, v in chans.items():
-                v = np.asarray(v)
-                v0 = (v + 1) >> 1
-                a0[c] = v0
-                a1[c] = v - (v0 << 1)
-            v0m[key] = a0
-            v1m[key] = a1
-        vals_maps = [v0m, v1m]
+    def _vals_maps():
+        """The winners' values per pass: the first call blocks on the
+        device gather (device route), so the assembly builds the DC and
+        metadata substreams while it is in flight."""
+        if "maps" in _vals_box:
+            return _vals_box["maps"]
+        vm = _vals_box.get("vals")
+        if vm is None:
+            vm = front.fetch_selected_fetch(_vals_box["pending"])
+        if npasses == 1:
+            maps = [vm]
+        else:
+            # split v = (v0 << 1) + v1 with v0 = round(v/2): pass 0 the
+            # coarse field, pass 1 a {-1,0,1} refinement (the decoder
+            # accumulates sum(v_p << shift_p))
+            v0 = (vm.vals + 1) >> 1
+            maps = [vm.transform(lambda v: v0),
+                    vm.transform(lambda v: v - (v0 << 1))]
+        _vals_box["maps"] = maps
+        return maps
 
     # shared AC histograms must cover all groups: gather all tokens
     def group_tokens(gi, ts, p_):
-        vmap = vals_maps[p_]
+        vmap = _vals_maps()[p_]
         ax = (gi % gx) * gd_b
         ay = (gi // gx) * gd_b
         gw = min(gd_b, xs_b - ax)
         gh = min(gd_b, ys_b - ay)
-        sub_acs = acs_map[ay:ay + gh, ax:ax + gw]
-        sub_vals = {(by, bx): vmap[(ay + by, ax + bx)]
-                    for by in range(gh) for bx in range(gw)
-                    if sub_acs[by, bx] >= 0}
-        _write_ac_tokens(ts, sub_acs, sub_vals, gw, gh)
+        sub_vals = (vmap if gw == xs_b and gh == ys_b
+                    else vmap.window(ay, ax, gh, gw))
+        _write_ac_tokens(ts, sub_vals, gw, gh)
 
     if ng == 1 and ndc == 1 and npasses == 1:
         lfgb = lf_group_bits(0)
@@ -987,7 +1078,7 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
             return _encode_with_patches(
                 pixels, plan, distance=distance, effort=effort,
                 decoding_speed=decoding_speed,
-                intensity_target=intensity_target)
+                intensity_target=intensity_target, front=front)
     bw = BitWriter()
     write_image_header(bw, hdr)
     write_frame_header(bw, fh, hdr)
@@ -997,7 +1088,8 @@ def encode_vardct_real(pixels: np.ndarray, distance: float = 1.0,
 
 def _encode_with_patches(pixels, plan, distance: float, effort: int,
                          decoding_speed: int = 0,
-                         intensity_target: float = None) -> bytes:
+                         intensity_target: float = None,
+                         front=None) -> bytes:
     """Two-frame stream: a hidden kReferenceOnly atlas frame carrying
     the distinct glyph patches (saved before the colour transform, so
     its XYB is what the dictionary adds), then the main frame with the
@@ -1045,5 +1137,5 @@ def _encode_with_patches(pixels, plan, distance: float, effort: int,
     encode_vardct_real(plan.filled, distance=distance, effort=effort,
                        decoding_speed=decoding_speed, fh=fh_main,
                        hdr=hdr, into_bw=bw, patch_dict_bw=pd_bw,
-                       try_patches=False)
+                       try_patches=False, front=front)
     return bw.to_bytes()

@@ -39,3 +39,12 @@ def default_dequant_matrix(block: int = 8) -> np.ndarray:
     ]).astype(np.float32)
     return base
 
+
+def quality_to_distance(quality: int) -> float:
+    """The reference's quality->Butteraugli-distance curve
+    (interop/JxlEncoding.cpp:38-46; jxl_coder_tpu/vardct/quant.py:48-55)."""
+    if quality == 0:
+        return 1.0
+    if quality >= 30:
+        return max(0.0, min(15.0, 0.1 + (100 - quality) * 0.09))
+    return max(0.0, min(25.0, 6.24 + 2.5 ** ((30.0 - quality) / 5.0) / 6.25))

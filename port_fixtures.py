@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from jxl_coder_tpu_torch import animation as ANIM
 from jxl_coder_tpu_torch import api
 from jxl_coder_tpu_torch import reference as R
 from jxl_coder_tpu_torch.host.bitstream.frame_header import (
@@ -27,6 +28,7 @@ from jxl_coder_tpu_torch.host.modular.stream import (GroupHeader,
                                                      encode_modular_stream)
 from jxl_coder_tpu_torch.host.modular.tree import Tree
 from jxl_coder_tpu_torch.host.vardct.enc_real import srgb8_to_xyb
+from jxl_coder_tpu_torch.host.vardct.quant import quality_to_distance
 from jxl_coder_tpu_torch.host.vardct import synthesis as S
 from jxl_coder_tpu_torch.host.vardct.dec_real import (read_lf_global,
                                                       read_lf_group)
@@ -684,60 +686,22 @@ def patched_alpha_still(img: np.ndarray, alpha: np.ndarray) -> bytes:
     return bw.to_bytes()
 
 
-# ---- animations (jxl_coder_tpu/animation.py:206-309) ----------------------
-
-def quality_to_distance(quality: int) -> float:
-    """The reference's quality -> distance curve
-    (jxl_coder_tpu/vardct/quant.py:48-56)."""
-    if quality == 0:
-        return 1.0
-    if quality >= 30:
-        return max(0.0, min(15.0, 0.1 + (100 - quality) * 0.09))
-    return max(0.0, min(25.0, 6.24 + 2.5 ** ((30.0 - quality) / 5.0) / 6.25))
-
+# ---- animations (the package's animation.AnimatedEncoder) ------------------
 
 def animation_header(h: int, w: int, nch: int, bits: int = 8,
                      lossless: bool = True, num_loops: int = 0,
                      extra=(ExtraChannelType.ALPHA,)) -> ImageHeader:
     """AnimatedEncoder.encode's image header for frames of (h, w, nch) at
-    `bits`: ticks of 1 ms, grey for 1 channel, the channels past three as
-    extra channels of the types in `extra` (alpha for 4 channels) at the
-    colour's depth."""
-    m = ImageMetadata()
-    m.bit_depth = BitDepth(False, bits, 0)
-    m.animation = AnimationHeader(tps_numerator=1000, tps_denominator=1,
-                                  num_loops=num_loops)
-    if lossless:
-        m.xyb_encoded = False
-        ce = ColourEncoding()
-        if nch == 1:
-            ce.colour_space = ColourSpace.GREY
-        m.colour_encoding = ce
-    m.extra_channels = []
+    `bits` (animation.image_header), with the channels past three as extra
+    channels of the types in `extra` (alpha for 4 channels) at the colour's
+    depth."""
+    hdr = ANIM.image_header(w, h, min(nch, 3), bits, lossless, num_loops)
+    hdr.metadata.extra_channels = []
     for t in extra[:max(0, nch - 3)]:
         ec = ExtraChannelInfo(type=t)
         ec.bit_depth = BitDepth(False, bits, 0)
-        m.extra_channels.append(ec)
-    return ImageHeader(size=SizeHeader(xsize=w, ysize=h), metadata=m)
-
-
-def _animation_frame(hdr: ImageHeader) -> FrameHeader:
-    n_ec = len(hdr.metadata.extra_channels)
-    fh = FrameHeader()
-    fh.ec_upsampling = [1] * n_ec
-    fh.ec_blending_info = [BlendingInfo() for _ in range(n_ec)]
-    return fh
-
-
-def _lossless_frame(bw, hdr, fh, pixels: np.ndarray) -> None:
-    """AnimatedEncoder's lossless frame: Modular, groups of 1024 (shift
-    3), no filters, RCT on three colour channels."""
-    fh.encoding = Encoding.MODULAR
-    fh.group_size_shift = 3
-    fh.restoration_filter.epf_iters = 0
-    fh.restoration_filter.gab = False
-    R.encode_modular_frame(bw, hdr, fh, _planes(pixels),
-                           use_ycocg=pixels.shape[2] >= 3)
+        hdr.metadata.extra_channels.append(ec)
+    return hdr
 
 
 def animation_frame(hdr: ImageHeader, pixels: np.ndarray, duration: int,
@@ -745,23 +709,24 @@ def animation_frame(hdr: ImageHeader, pixels: np.ndarray, duration: int,
                     quality: int = 90) -> bytes:
     """One frame as AnimatedEncoder.encode writes it, alone: a frame starts
     and ends on a byte, so the stream is the image header's bytes and its
-    frames' bytes one after another (animated_stream)."""
+    frames' bytes one after another (animated_stream).  A lossy frame is
+    animation.encode_frame_into's on the float64 host front (front None),
+    the JAX package's host route: epf_iters 1, 16-bit colour from its top
+    8 bits, a fourth channel as a lossless alpha."""
     pixels = pixels if pixels.ndim == 3 else pixels[:, :, None]
     bw = BitWriter()
-    fh = _animation_frame(hdr)
-    fh.duration = int(duration)
-    fh.is_last = is_last
+    fh = ANIM.frame_header(hdr, duration, is_last)
     if lossless:
-        _lossless_frame(bw, hdr, fh, pixels)
+        ANIM.encode_frame_into(bw, hdr, fh, pixels, True)
     else:
         fh.encoding = Encoding.VARDCT
         fh.restoration_filter.epf_iters = 1
-        alpha = (pixels[:, :, 3].astype(np.int64) if pixels.shape[2] == 4
-                 else None)
-        colour = pixels[:, :, :3]
-        if colour.dtype == np.uint16:
-            colour = (colour >> 8).astype(np.uint8)
-        R.encode_vardct(colour, distance=quality_to_distance(quality), fh=fh,
+        rgb = pixels[:, :, :3]
+        if rgb.dtype == np.uint16:
+            rgb = (rgb >> 8).astype(np.uint8)
+        alpha = pixels[:, :, 3].astype(np.int64) \
+            if pixels.shape[2] == 4 else None
+        R.encode_vardct(rgb, distance=quality_to_distance(quality), fh=fh,
                         hdr=hdr, into_bw=bw, alpha=alpha)
     bw.zero_pad_to_byte()
     return bw.to_bytes()
@@ -849,16 +814,16 @@ def sprite_animation(h: int, w: int, sh: int, sw: int, seed: int = 0
 
     bw = BitWriter()
     write_image_header(bw, hdr)
-    fh = _animation_frame(hdr)
+    fh = ANIM.frame_header(hdr)
     fh.duration, fh.is_last, fh.save_as_reference = 100, False, 1
-    _lossless_frame(bw, hdr, fh, image(h, w))
-    fh = _animation_frame(hdr)
+    ANIM.encode_frame_into(bw, hdr, fh, image(h, w), True)
+    fh = ANIM.frame_header(hdr)
     fh.frame_type = FrameType.REFERENCE_ONLY
     fh.is_last, fh.save_as_reference = False, 2
-    _lossless_frame(bw, hdr, fh, image(h, w))
+    ANIM.encode_frame_into(bw, hdr, fh, image(h, w), True)
     for k, (colour, alpha, depth, place, src, slot, dur) in enumerate(
             SPRITE_FRAMES):
-        fh = _animation_frame(hdr)
+        fh = ANIM.frame_header(hdr)
         if place != "full":
             fh.have_crop = True
             fh.x0, fh.y0 = _sprite_place(place, h, w, sh, sw)
@@ -871,8 +836,8 @@ def sprite_animation(h: int, w: int, sh: int, sw: int, seed: int = 0
         fh.duration = dur
         fh.is_last = k == len(SPRITE_FRAMES) - 1
         fh.save_as_reference = 0 if fh.is_last else slot
-        _lossless_frame(bw, hdr, fh, image(*((h, w) if place == "full"
-                                             else (sh, sw))))
+        ANIM.encode_frame_into(bw, hdr, fh, image(*((h, w) if place == "full"
+                                                     else (sh, sw))), True)
     bw.zero_pad_to_byte()
     return bw.to_bytes()
 

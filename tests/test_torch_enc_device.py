@@ -1,0 +1,402 @@
+"""The encoder front's device layer on the CPU (the twins of kernels E1-E4
+and of the winners' gather, ``vardct/enc_kernels.py``, driven through
+``vardct/enc_device.Front``) against the JAX package's jitted front end
+(``jxl_coder_tpu/vardct/enc_device.py``), on the same seeded inputs.
+
+Tolerances: E1's planes within 1e-6 (float32 planes of magnitude < 1; the
+twin rounds glibc's powf as XLA's CPU backend does, but XLA may fuse the
+gaborish sums); E2's coefficients within 2e-6 of their largest magnitude,
+the masking field (values in [1, 4]) within 1e-4 (the JAX function's own
+field moves by 2.1e-5 between a fresh XLA compile and an executable loaded
+from the persistent compile cache: its powers of the block activity), the
+DC slice within 1e-6 and ytox / ytob equal; E3 / E4's quantised values equal except at ties (a value whose
+quantiser decision changes when its ratio moves by 1e-5 relative) and
+costs within 1e-5 relative; the gather equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jxl_coder_tpu.vardct import enc_device as JD
+from jxl_coder_tpu.vardct import enc_real as JR
+from jxl_coder_tpu_torch.host.vardct import enc_real as PR
+from jxl_coder_tpu_torch.host.vardct import selected as SEL
+from jxl_coder_tpu_torch.vardct import enc_kernels as EK
+from jxl_coder_tpu_torch.vardct.enc_device import Front
+
+# a ragged frame (17 x 25 blocks: partial 64-px tiles) and one narrower
+# than a tile (5 x 7 blocks)
+SIZES = [(136, 200), (40, 56)]
+
+
+def _image(h, w, seed=4):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([120 + 80 * np.sin(yy / 29) + 20 * np.cos(xx / 13),
+                    110 + 70 * np.sin((xx + yy) / 43),
+                    100 + 60 * np.cos(yy / 17)], -1)
+    img += rng.normal(0, 9, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _unit(pad):
+    if pad.dtype == np.uint8:
+        return pad.astype(np.float32) / np.float32(255.0)
+    if pad.dtype == np.uint16:
+        return pad.astype(np.float32) / np.float32(65535.0)
+    return pad.astype(np.float32)
+
+
+_CACHE = {}
+
+
+def _jax_stage(h, w):
+    """The JAX front and costs of one size (every candidate shape, every
+    special transform on a seeded eligibility mask), once per process."""
+    if (h, w) in _CACHE:
+        return _CACHE[(h, w)]
+    pad = _image(h, w)
+    planes, co, mask, ytox, ytob, co_dc = JD.run_front(_unit(pad), 4)
+    ys_b, xs_b = h // 8, w // 8
+    rng = np.random.default_rng(1)
+    inputs = dict(
+        qf_map=rng.integers(3, 12, (ys_b, xs_b)).astype(np.int32),
+        fx_blk=rng.normal(0, 0.1, (ys_b, xs_b)),
+        fb_blk=rng.normal(0, 0.1, (ys_b, xs_b)),
+        dq_dc=co_dc.copy(), igs=65536 / 6000, lam=0.05,
+        cands=JR._EFFORT_CANDS["full"], deadzone=JR.AC_DEADZONE,
+        specials=JR._SPECIAL_CANDS,
+        special_eligible=rng.random((ys_b, xs_b)) < 0.5)
+    pending = JD.run_costs_dispatch(planes, co, **inputs)
+    cost8, cost_data, vals_list, meta = JD.run_costs_fetch(pending)
+    out = dict(pad=pad, planes=np.asarray(planes), co=np.asarray(co),
+               front=(mask, ytox, ytob, co_dc), inputs=inputs,
+               costs=(cost8, cost_data, [np.asarray(v) for v in vals_list],
+                      meta), vals_dev=vals_list)
+    _CACHE[(h, w)] = out
+    return out
+
+
+# --------------------------------------------------------------------------
+# The pieces of E1 / E2 against jnp
+
+def test_gradient_is_jnp_gradient():
+    a = np.random.default_rng(0).normal(size=(9, 11)).astype(np.float32)
+    gy, gx = jnp.gradient(jnp.asarray(a))
+    t = torch.from_numpy(a)
+    assert np.array_equal(EK._gradient(t, 0).numpy(), np.asarray(gy))
+    assert np.array_equal(EK._gradient(t, 1).numpy(), np.asarray(gx))
+
+
+def test_median_of_64_is_jnp_median():
+    rng = np.random.default_rng(1)
+    a = rng.random((50, 64)).astype(np.float32)
+    a[:10, :40] = 0.25                 # ties across the middle ranks
+    srt = torch.from_numpy(a).sort(-1).values
+    ours = (srt[:, 31] * 0.5 + srt[:, 32] * 0.5).numpy()
+    assert np.array_equal(ours, np.asarray(jnp.median(jnp.asarray(a), -1)))
+
+
+def test_powers_of_zero_and_cbrt_signs():
+    x = torch.tensor([0.0, 1e-3, 0.5, 2.0])
+    assert EK._pow0(x, 0.68)[0] == 0
+    assert np.allclose(EK._pow0(x, 1.6).numpy(), x.numpy() ** 1.6,
+                       rtol=1e-6)
+    c = EK._cbrt(torch.tensor([-8.0, 0.0, 27.0]))
+    assert c.tolist() == [-2.0, 0.0, 3.0]
+
+
+# --------------------------------------------------------------------------
+# E1 + E2 against run_front
+
+@pytest.mark.parametrize("h,w", SIZES)
+def test_front_equals_the_jax_front(h, w):
+    st = _jax_stage(h, w)
+    front = Front("cpu")
+    planes, co, mask, ytox, ytob, co_dc = front.run_front_fetch(
+        front.run_front_dispatch(st["pad"], 4))
+    jmask, jx, jb, jdc = st["front"]
+    assert np.abs(planes.numpy() - st["planes"]).max() <= 1e-6
+    assert np.abs(co.numpy() - st["co"]).max() <= \
+        2e-6 * np.abs(st["co"]).max()
+    assert np.abs(mask - jmask).max() <= 1e-4
+    assert np.array_equal(ytox, jx) and np.array_equal(ytob, jb)
+    assert np.abs(co_dc - jdc).max() <= 1e-6
+
+
+@pytest.mark.parametrize("dtype,gab", [(np.uint16, 4), (np.float32, 0)])
+def test_front_takes_u16_and_float_samples(dtype, gab):
+    pad = _image(40, 56, seed=9).astype(np.float32) / 255.0
+    pad = (pad * 65535).astype(np.uint16) if dtype == np.uint16 else pad
+    jp, jco, jmask, jx, jb, jdc = JD.run_front(_unit(pad), gab)
+    front = Front("cpu")
+    planes, co, mask, ytox, ytob, co_dc = front.run_front_fetch(
+        front.run_front_dispatch(pad, gab))
+    assert np.abs(planes.numpy() - np.asarray(jp)).max() <= 1e-6
+    assert np.abs(mask - jmask).max() <= 1e-4
+    assert np.array_equal(ytox, jx) and np.array_equal(ytob, jb)
+
+
+# --------------------------------------------------------------------------
+# E3 + E4 against run_costs
+
+@pytest.mark.parametrize("h,w", SIZES)
+def test_costs_equal_the_jax_costs(h, w):
+    st = _jax_stage(h, w)
+    jc8, jcd, jvals, jmeta = st["costs"]
+    front = Front("cpu")
+    pending = front.run_costs_dispatch(
+        torch.from_numpy(st["planes"].copy()),
+        torch.from_numpy(st["co"].copy()), **st["inputs"])
+    c8, cd, vals, meta = front.run_costs_fetch(pending)
+    assert meta == jmeta
+    assert np.allclose(c8, jc8, rtol=1e-5, atol=0)
+    assert np.array_equal(vals[0].numpy(), jvals[0])
+    elig = st["inputs"]["special_eligible"]
+    for k, (sid, cy, cx, nyc, nxc, cov) in enumerate(meta):
+        ours, ref = vals[k + 1].numpy(), jvals[k + 1]
+        diff = ours != ref
+        if sid in JR._SPECIAL_CANDS:
+            diff &= elig[:, :, None, None]     # values only where eligible
+        assert diff.mean() <= 1e-4, (sid, diff.mean())
+        rows = ~diff.reshape(nyc * nxc, -1).any(-1)
+        cost, jcost = cd[sid][0].ravel(), jcd[sid][0].ravel()
+        assert np.array_equal(cost >= 1e29, jcost >= 1e29)
+        fin = rows & (jcost < 1e29)
+        assert np.allclose(cost[fin], jcost[fin], rtol=1e-5, atol=0), sid
+        assert np.array_equal(cd[sid][1], jcd[sid][1])
+
+
+def test_tie_rule_finds_the_quantiser_boundaries():
+    dz = float(np.float32(PR.AC_DEADZONE))
+    r = torch.tensor([[dz, 3.0, 0.2, -5.0]] * 3)
+    t = EK.ties(r, PR.AC_DEADZONE)
+    # at the deadzone the decision moves; away from every boundary it holds
+    assert t[:, 0].all() and not t[:, 2].any()
+    v, ratios = EK.dct_costs_plain(
+        torch.zeros((3, 1, 1, 8, 8)), torch.ones((1, 1), dtype=torch.int32),
+        torch.zeros((1, 1)), torch.zeros((1, 1)), torch.zeros((3, 1, 1)),
+        1.0, 1.0, 0, 1, 1, PR.AC_DEADZONE, torch.zeros(1),
+        return_ratios=True)
+    assert ratios.shape == v.shape == (1, 1, 3, 63)
+
+
+def test_the_tie_check_catches_a_fault_in_y():
+    """The card check's rule (EK.tie_faults) on the twins' own values: a
+    varblock whose Y values are one off is a fault, and so is a Y value off
+    a tie beside a Y flip at a tie; X / B values beside a Y flip at a tie
+    are excused (at its coefficient; for E4 anywhere in the block)."""
+    dz = PR.AC_DEADZONE
+    g = torch.Generator().manual_seed(5)
+    planes = torch.rand((3, 32, 48), generator=g) - 0.5
+    qf = torch.full((4, 6), 6, dtype=torch.int32)
+    fx, fb = (0.1 * (torch.rand((4, 6), generator=g) - 0.5)
+              for _ in range(2))
+    sid, cy, cx = next(c for c in PR._EFFORT_CANDS["full"]
+                       if c[1:] == (2, 2))
+    vals, ratios = EK.dct_costs_plain(
+        planes, qf, fx, fb, torch.zeros((3, 4, 6)), 0.5, 1.0, sid, cy, cx,
+        dz, torch.empty(6), return_ratios=True)
+    spec, sratios = EK.special_costs_plain(
+        planes, qf, fx, fb, torch.zeros((3, 4, 6)), 0.5, 1.0,
+        torch.ones((4, 6), dtype=torch.bool), PR._SPECIAL_CANDS[0], dz,
+        torch.empty(24), return_ratios=True)
+    for v, r, block_dep in ((vals, ratios, False), (spec, sratios, True)):
+        assert not EK.tie_faults(v != v, r, dz, block_dep).any()
+        got = v.clone()
+        got[1, 2, 1] += 1                 # one varblock's Y, all of it
+        bad = EK.tie_faults(got != v, r, dz, block_dep)
+        assert int(bad.sum()) == int((~EK.ties(r, dz)[1, 2, 1]).sum()) > 0
+        assert bad[1, 2, 1].sum() == bad.sum()
+    # synthetic ratios: 3.3 is no tie, the deadzone is one
+    r = torch.full((2, 2, 3, 5), 3.3)
+    assert not EK.ties(r, dz).any()
+    r[0, 0, 1, 2] = float(np.float32(dz))
+    diff = torch.zeros(r.shape, dtype=torch.bool)
+    diff[0, 0, :, 2] = True               # Y flips at a tie, X / B beside it
+    assert not EK.tie_faults(diff, r, dz).any()
+    diff[0, 0, 0, 4] = True               # X elsewhere in the block
+    assert EK.tie_faults(diff, r, dz).nonzero().tolist() == [[0, 0, 0, 4]]
+    assert not EK.tie_faults(diff, r, dz, block_dep=True).any()
+    diff[0, 0, 1, 4] = True               # Y off a tie, in the same block
+    assert EK.tie_faults(diff, r, dz, block_dep=True).nonzero().tolist() == \
+        [[0, 0, 1, 4]]
+
+
+# --------------------------------------------------------------------------
+# The winners' gather against fetch_selected
+
+def test_gather_equals_fetch_selected():
+    st = _jax_stage(*SIZES[0])
+    jc8, jcd, _, jmeta = st["costs"]
+    inputs = st["inputs"]
+    full = list(inputs["cands"]) + [(s, 1, 1) for s in inputs["specials"]]
+    acs_map, _ = JR._greedy_decide(full, jcd, jc8, inputs["qf_map"],
+                                   *inputs["qf_map"].shape)
+    ref = JD.fetch_selected(st["vals_dev"], jmeta, acs_map)
+    vals = [torch.from_numpy(v.copy()) for v in st["costs"][2]]
+    front = Front("cpu")
+    ours = front.fetch_selected_fetch(front.fetch_selected_dispatch(
+        vals, jmeta, acs_map))
+    assert isinstance(ours, SEL.SelectedFlat)
+    for name in ("bys", "bxs", "sids", "sizes", "offs", "vals"):
+        assert np.array_equal(getattr(ours, name), getattr(ref, name)), name
+    assert len(set(ours.sids.tolist())) > 2     # several sources gathered
+    # a group's window keeps its anchors, relative, with their values
+    win = ours.window(8, 8, 8, 16)
+    inside = ((ours.bys >= 8) & (ours.bys < 16) & (ours.bxs >= 8)
+              & (ours.bxs < 24))
+    assert np.array_equal(win.bys, ours.bys[inside] - 8)
+    assert np.array_equal(win.bxs, ours.bxs[inside] - 8)
+    assert np.array_equal(win.vals, np.concatenate(
+        [ours.vals[ours.offs[i]:ours.offs[i + 1]]
+         for i in np.nonzero(inside)[0]]))
+
+
+def test_gather_rows_clips_like_jnp_take():
+    src = torch.arange(2 * 3 * 3 * 4, dtype=torch.int16).reshape(2, 3, 3, 4)
+    out = EK.gather_rows([src], [torch.tensor([5, 9, -2],
+                                              dtype=torch.int32)])
+    rows = src.reshape(6, 12)
+    assert torch.equal(out, torch.cat([rows[5], rows[5], rows[0]]))
+
+
+# --------------------------------------------------------------------------
+# The wrappers' checks and the device rule
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError):
+        EK.front_planes(torch.zeros((12, 16, 3), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        EK.front_planes(torch.zeros((8, 8, 3), dtype=torch.float64))
+    with pytest.raises(ValueError):
+        EK.front_blocks(torch.zeros((3, 8, 12)))
+    qf = torch.ones((2, 2), dtype=torch.int32)
+    f = torch.zeros((2, 2))
+    with pytest.raises(ValueError):      # a 32x32 shape does not fit
+        EK.dct_costs(torch.zeros((3, 16, 16)), qf, f, f,
+                     torch.zeros((3, 2, 2)), 1.0, 1.0, 5, 4, 4, 0.58,
+                     torch.zeros(1))
+    with pytest.raises(ValueError):      # DCT8 is not a special
+        EK.special_costs(torch.zeros((3, 16, 16)), qf, f, f,
+                         torch.zeros((3, 2, 2)), 1.0, 1.0,
+                         torch.ones((2, 2), dtype=torch.bool), 0, 0.58,
+                         torch.zeros(4))
+
+
+def test_a_cuda_front_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError):
+        Front("cuda")
+
+
+# --------------------------------------------------------------------------
+# csrc/encode.cuh, the kernels' per-value arithmetic, built with g++
+
+_ENC_RUN = r"""
+#include "encode.cuh"
+using namespace jxl_enc;
+extern "C" void enc_powf(const float* x, int n, float y, float* out) {
+  for (int i = 0; i < n; ++i) out[i] = powf_glibc(x[i], y);
+}
+extern "C" void enc_xyb(const uint8_t* pix, int n, const float* k,
+                        float* out) {
+  for (int i = 0; i < n; ++i) {
+    float lin[3];
+    for (int c = 0; c < 3; ++c)
+      lin[c] = srgb_to_linear(unit_sample(pix, 0, 3ll * i + c));
+    xyb_of(k, k[9], k[10], lin, out + 3 * i);
+  }
+}
+extern "C" void enc_mask(const float* mean, const float* med, int n,
+                         float* out) {
+  for (int i = 0; i < n; ++i) out[i] = mask_of(mean[i], med[i]);
+}
+extern "C" void enc_quantize(const float* r, int n, float qb, float qbn,
+                             float dz, float* out) {
+  for (int i = 0; i < n; ++i) out[i] = quantize(r[i], Bias{qb, qbn}, dz);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def enc_host(tmp_path_factory):
+    """csrc/encode.cuh built for the host with g++ (no FMA contraction, as
+    the kernels' -fmad=false)."""
+    import ctypes
+    import shutil
+    import subprocess
+    from jxl_coder_tpu_torch import _build
+    gxx = shutil.which("g++")
+    assert gxx, "g++ builds the port's host codec; it is needed here too"
+    tmp = tmp_path_factory.mktemp("encode")
+    cpp, so = tmp / "run.cpp", tmp / "librun.so"
+    cpp.write_text(_ENC_RUN)
+    subprocess.run([gxx, "-O2", "-std=c++17", "-Wall", "-Werror",
+                    "-ffp-contract=off", "-shared", "-fPIC", "-I",
+                    str(_build.CSRC), "-o", str(so), str(cpp)], check=True)
+    lib = ctypes.CDLL(str(so))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.enc_powf.argtypes = [p, i, f, p]
+    lib.enc_xyb.argtypes = [p, i, p, p]
+    lib.enc_mask.argtypes = [p, p, i, p]
+    lib.enc_quantize.argtypes = [p, i, f, f, f, p]
+    return lib
+
+
+def _ptr(a):
+    return a.ctypes.data
+
+
+def test_kernel_powf_is_the_twins_powf(enc_host):
+    rng = np.random.default_rng(3)
+    x = np.concatenate([
+        np.exp(rng.uniform(-80, 80, 200_000)),          # every exponent
+        rng.uniform(0.0038, 1.2, 200_000),              # cbrt / sRGB inputs
+        rng.uniform(1e-6, 0.05, 50_000)]).astype(np.float32)
+    for y in (2.4, 1 / 3, 0.68, 1.6):
+        out = np.empty_like(x)
+        enc_host.enc_powf(_ptr(x), len(x), float(np.float32(y)), _ptr(out))
+        ref = EK.fp.powf(torch.from_numpy(x), y).numpy()
+        assert np.array_equal(out.view(np.int32), ref.view(np.int32)), y
+
+
+def test_kernel_xyb_is_the_twins_on_every_grey_and_random_colours(enc_host):
+    rng = np.random.default_rng(4)
+    grey = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+    pix = np.concatenate([grey, rng.integers(0, 256, (65_280, 3))]).astype(
+        np.uint8).reshape(8, -1, 3)
+    k = EK._front_consts(torch.device("cpu")).numpy()
+    out = np.empty(pix.shape, np.float32)
+    enc_host.enc_xyb(_ptr(pix), pix.shape[0] * pix.shape[1], _ptr(k),
+                     _ptr(out))
+    ref = EK.front_planes_plain(torch.from_numpy(pix), 0).permute(
+        1, 2, 0).numpy()
+    assert np.array_equal(out.view(np.int32), ref.view(np.int32))
+
+
+def test_kernel_mask_and_quantiser_are_the_twins(enc_host):
+    rng = np.random.default_rng(5)
+    mean = np.abs(rng.normal(0, 0.05, 100_000)).astype(np.float32)
+    med = (mean * rng.uniform(0, 1.2, mean.shape)).astype(np.float32)
+    mean[:100] = 0
+    med[100:200] = 0
+    out = np.empty_like(mean)
+    enc_host.enc_mask(_ptr(mean), _ptr(med), len(mean), _ptr(out))
+    ref = EK._mask_of(torch.from_numpy(mean), torch.from_numpy(med)).numpy()
+    assert np.array_equal(out.view(np.int32), ref.view(np.int32))
+    r = np.concatenate([rng.normal(0, 6, 100_000),
+                        np.arange(-40, 40) + 0.5,             # half ties
+                        np.linspace(-1.5, 1.5, 3001)]).astype(np.float32)
+    for c in range(3):
+        qb = np.float32(1.0 - EK.S.QUANT_BIAS[c])
+        q = np.empty_like(r)
+        enc_host.enc_quantize(_ptr(r), len(r), float(qb),
+                              float(np.float32(EK.S.QUANT_BIAS_NUM)),
+                              float(np.float32(PR.AC_DEADZONE)), _ptr(q))
+        ref = EK._quantize(torch.from_numpy(r), c,
+                           float(np.float32(PR.AC_DEADZONE))).numpy()
+        assert np.array_equal(q, ref), c

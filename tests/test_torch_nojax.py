@@ -231,6 +231,42 @@ def test_port_runs_in_a_directory_without_the_jax_package(tmp_path):
         "libhostcodec-*.so"))
 
 
+def test_encoders_without_the_jax_package(tmp_path):
+    """The port copied where no jxl_coder_tpu exists, jax blocked: a lossy
+    api.encode on the CPU route (the encoder front's twins), a lossless
+    one and an AnimatedEncoder stream, each decoded by api.decode."""
+    shutil.copytree(PKG, tmp_path / "jxl_coder_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(REPO / "port_fixtures.py", tmp_path)
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None        # any `import jax` now fails
+        sys.modules["jxl_coder_tpu"] = None
+        import numpy as np
+        from jxl_coder_tpu_torch import animation, api
+        from port_fixtures import smooth_frame
+        img = smooth_frame(40, 56)
+        lossy = api.encode(img, lossless=False, quality=90, device="cpu")
+        out, _ = api.decode(lossy, device="cpu")
+        err = float(np.abs(out.astype(int) - img.astype(int)).mean())
+        lossless = api.encode(img, lossless=True, effort=3, device="cpu")
+        same = np.array_equal(api.decode(lossless, device="cpu")[0], img)
+        enc = animation.AnimatedEncoder(56, 40, lossless=False,
+                                        device="cpu")
+        for k in range(2):
+            enc.add_frame(np.roll(img, 4 * k, 1), 50)
+        frames, _, _ = api.decode_frames(enc.encode(), device="cpu")
+        assert not any(m.split(".")[0] in ("jax", "jxl_coder_tpu")
+                       for m, v in sys.modules.items() if v is not None)
+        print(out.shape, err < 4, same, len(frames))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.split() == ["(40,", "56,", "3)", "True", "True", "2"]
+
+
 def test_patched_and_lf_streams_without_the_jax_package(tmp_path):
     """The same copy, jax and jxl_coder_tpu blocked: the host encoder's
     effort-7 patch path (host/vardct/enc_patches.py, the atlas frame, the
