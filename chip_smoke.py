@@ -222,6 +222,28 @@ prints no result):
      host-route encode of the same frame; each kernel at 4K by CUDA graph
      against twin, bound and
      yardstick (the fp32 matmul pair, index_select for the gather).
+ 19. the ICC step (csrc/icc.cu: littlecms's 8-bit matrix / TRC program,
+     the profile read on the host) and any channel count (S2, S3, S4 past
+     4 channels, A10 past 8 extra channels; the streams written as the
+     last jobs of phase 3's pool): the ICC kernel against its
+     twin on the whole 2^24 cube of 8-bit RGB for each of the 14 test
+     profiles of port_fixtures.icc_test_profiles, and on u16 RGBA, grey,
+     RGBA, 1x1 and ragged images for three (0 differences: integers, no
+     tie), the cube within 1 code of the float64 model; api.decode of phase 11's 4K Modular still with a
+     Display P3 profile spliced into its header, counted (the ICC kernel
+     once, its twin made to raise), equal to the still without its
+     profile through the twin on the CPU and within 1 code of the float64
+     model, timed beside the still without it; a lossy api.encode of the
+     4K bench frame with the profile, counted (the ICC kernel once, then
+     E1-E4 as in phase 18), at the RD point of the encode of the twin's
+     sRGB pixels; decode_thumbnail and decode_sampled of an FHD Modular
+     still of RGB and 3 extra channels, counted (S2, S3, S4 once each, the
+     twins made to raise), each call held to its twin; decode_frames of a
+     540x960 sprite animation of RGB and 10 extra channels (every blend
+     mode; A10 twice per composed frame), each A10 call held to its twin;
+     the ICC kernel at 4K by CUDA graph against twin, bound and a yardstick
+     of PyTorch calls (gather, fp32 matmul, where / pow), and S2, S3 and
+     A10 at 4K past their old channel limits.
 Every kernel's line carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its operations over their type's rate: 67 TFLOP/s for f32, 34 for
@@ -271,7 +293,9 @@ from jxl_coder_tpu_torch.host.vardct import enc_patches as EPAT
 from jxl_coder_tpu_torch.host.vardct import enc_real as ENCR
 from jxl_coder_tpu_torch.modular import device as MDEV
 from jxl_coder_tpu_torch.modular import output as MOUT
+from jxl_coder_tpu_torch.host.ops import icc as HICC
 from jxl_coder_tpu_torch.ops import compose as COMPOSE
+from jxl_coder_tpu_torch.ops import icc_apply as ICC
 from jxl_coder_tpu_torch.ops import pack as PACK
 from jxl_coder_tpu_torch.ops import resize as RESIZE
 from jxl_coder_tpu_torch.ops import sample as SAMPLE
@@ -289,13 +313,13 @@ from jxl_coder_tpu_torch.vardct import pipeline as LP
 from jxl_coder_tpu_torch.vardct.frame import VarDCTFrame
 from port_fixtures import (animation_frame, animation_header, baseline_jpeg,
                            bench_frame, dct8_arguments, group_rct_still, header_bytes,
-                           legacy_animation, modular_still,
+                           icc_test_profiles, legacy_animation, modular_still,
                            patched_alpha_still, posterized_frame,
                            seeded_splines, sharp_frame, sprite_animation,
                            squeezed_still, synthetic_family, text_frame,
                            upsampled_modular_still, vardct_reference_still,
-                           waves_frame, with_lf_frame, with_splines,
-                           xyb_still)
+                           waves_frame, with_icc, with_lf_frame,
+                           with_splines, xyb_still)
 
 SYNTH_TOL = 1e-4      # f32 sums in another order than the twin's matmuls
 FILTER_TOL = 1e-5     # no FMA contraction; EPF SADs summed in another order
@@ -387,6 +411,9 @@ KERNELS = {
     "enc_gather_rows": dict(fn=EK.gather_rows,
                             source="jxl_coder_tpu_torch/csrc/encode.cu",
                             replaces="jxl_coder_tpu/vardct/enc_device.py:424"),
+    # the ICC -> sRGB step (littlecms on the host in the JAX package)
+    "icc_to_srgb": dict(fn=ICC.transform, source="jxl_coder_tpu_torch/csrc/icc.cu",
+                        replaces="jxl_coder_tpu/ops/icc_apply.py:22"),
 }
 # the round-1 encoder's sources: a change to any of them re-encodes
 LEGACY_ENCODER = [sys.modules[m].__file__ for m in (
@@ -439,18 +466,23 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def note_bound(name: str, moved: int, ops: float,
-               rate: float = F32_OPS_PER_S, kind: str = "f32") -> None:
-    """The least time the card could take: bytes moved over the memory
-    rate or operations over their type's rate (f32 unless said),
+def bound_of(moved: int, ops: float, rate: float = F32_OPS_PER_S) -> tuple:
+    """(the least ms the card could take, "bytes" | "operations"): bytes
+    moved over the memory rate or operations over their type's rate,
     whichever is larger."""
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
-    BOUND[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
-                   else (t_ops, "operations"))
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def note_bound(name: str, moved: int, ops: float,
+               rate: float = F32_OPS_PER_S, kind: str = "f32") -> None:
+    """BOUND[name] from bound_of (f32 operations unless said), printed."""
+    BOUND[name] = bound_of(moved, ops, rate)
     print(f"bound {name}: {moved / 1e6:.1f} MB, {ops / 1e9:.2f} G {kind} ops "
           f"-> {BOUND[name][0]:.4f} ms ({BOUND[name][1]}; bytes "
-          f"{t_bytes:.4f}, operations {t_ops:.4f})", flush=True)
+          f"{moved / HBM_BYTES_PER_S * 1e3:.4f}, operations "
+          f"{ops / rate * 1e3:.4f})", flush=True)
 
 
 def smi() -> str:
@@ -5388,6 +5420,349 @@ def enc_phase(jobs: dict, streams: dict, text: bytes, anim_frames: list,
     return dict(counts, layers=layers)
 
 
+# ---- 19. the ICC step and any channel count --------------------------------
+
+ICC_TWINS = ((ICC, ("transform_plain",)),)
+# the 4K Modular still's embedded profile: Display P3 (para type 3), v4
+ICC_P3 = "p3 v4"
+ICC_H, ICC_W = 2160, 3840     # phase 11's 4k_rct still, the bench frame
+# phase 19's channel streams: an FHD Modular still of RGB and 3 extra
+# channels, and a sprite animation of RGB and 10 extra channels, cut to
+# 540x960 (120x160 sprites): its pure-Python lossless encode grows with
+# the pixels, ~4x longer at FHD (PERF.md section 4 has the times)
+CH6_H, CH6_W, CH6_N = 1080, 1920, 6
+CH13_H, CH13_W, CH13_SH, CH13_SW, CH13_EXTRA = 540, 960, 120, 160, 10
+# least operations per pixel of the ICC step: 3 x (3 multiply-adds, the
+# rounding add and shift, the clamp's two compares) = 24 int32
+ICC_OPS = 24
+
+
+def many_channel_frame(h: int, w: int, nch: int, seed: int = 19
+                       ) -> np.ndarray:
+    """bench_frame's RGB, an alpha with runs of 0 and 255, then smooth
+    seeded channels (gradients with 2 bits of noise)."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.empty((h, w, nch), np.uint8)
+    img[..., :3] = bench_frame(h, w)
+    alpha = np.full((h, w), 200, np.int64)
+    alpha[(x // 64 + y // 48) % 3 == 0] = 0
+    alpha[(x // 40 + y // 56) % 5 == 1] = 255
+    img[..., 3] = alpha
+    for k in range(4, nch):
+        img[..., k] = ((x * (k - 2) + y * 3) // 5 + rng.integers(
+            0, 4, (h, w))) % 256
+    return img
+
+
+def ch6_job():
+    img = many_channel_frame(CH6_H, CH6_W, CH6_N)
+    t0 = time.perf_counter()
+    return modular_still(img), time.perf_counter() - t0
+
+
+def ch13_job():
+    t0 = time.perf_counter()
+    data = sprite_animation(CH13_H, CH13_W, CH13_SH, CH13_SW, seed=19,
+                            n_extra=CH13_EXTRA)
+    return data, time.perf_counter() - t0
+
+
+def start_icc_jobs(pool) -> dict:
+    """Phase 19's two streams, the last jobs of phase 3's pool: no worker
+    of their own takes the host's cores from the timed phases."""
+    return {"ch6": pool.apply_async(ch6_job),
+            "ch13": pool.apply_async(ch13_job)}
+
+
+def icc_cube(dev) -> torch.Tensor:
+    """Every 8-bit RGB value once: (4096, 4096, 3) uint8 on `dev`."""
+    x = torch.arange(256, dtype=torch.uint8, device=dev)
+    return torch.stack(torch.meshgrid(x, x, x, indexing="ij"),
+                       -1).reshape(4096, 4096, 3)
+
+
+def ragged(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    return img[:h, :w].contiguous()
+
+
+def check_icc_seeded(profiles: dict, dev) -> None:
+    """The ICC kernel against its twin on the card: the 2^24 cube for
+    every test profile; u16 RGBA (low bytes and alpha seeded), grey and
+    RGBA u8 variants of the cube, a 1x1 and a ragged image for three of
+    them; the float64 model on the cube for one.  The program is integers
+    only: nothing can tie, so the kernel equals the twin exactly."""
+    cube = icc_cube(dev)
+    rng = torch.Generator(device=dev).manual_seed(19)
+    low = torch.randint(0, 256, cube.shape, generator=rng, device=dev,
+                        dtype=torch.int32)
+    cube16 = ((cube.to(torch.int32) << 8) | low).to(torch.uint16)
+    alpha16 = torch.randint(0, 65536, cube.shape[:2] + (1,), generator=rng,
+                            device=dev, dtype=torch.int32).to(torch.uint16)
+    variants = {
+        "u16 RGBA": torch.cat([cube16, alpha16], -1),
+        "u8 RGBA": torch.cat([cube, cube[..., :1]], -1),
+        "u8 grey": cube[..., 1:2].contiguous(),
+        "u16 grey": cube16[..., :1].contiguous(),
+        "1x1": ragged(cube, 1, 1),
+        "ragged 1013x771": ragged(cube, 1013, 771),
+        "ragged u16 RGBA 771x1013": ragged(torch.cat([cube16, alpha16], -1),
+                                           771, 1013)}
+    worst, n = 0, 0
+    for name, prof in profiles.items():
+        tab = ICC.tables_on(HICC.plan(prof), dev)
+        imgs = {"u8 RGB cube": cube}
+        if name in ("p3 v4", "curv table", "srgb"):
+            imgs.update(variants)
+        for what, img in imgs.items():
+            got = ICC.transform(img, tab)
+            ref = ICC.transform_plain(img, tab)
+            if got.shape != ref.shape or got.dtype != ref.dtype:
+                raise AssertionError(f"icc {name} {what}: {got.shape} "
+                                     f"{got.dtype} vs {ref.shape}")
+            worst = max(worst, (got.to(torch.int32) - ref.to(torch.int32))
+                        .abs().max().item())
+            n += 1
+    torch.cuda.synchronize()
+    note_err("icc_to_srgb", worst, 0, f"{n} images over {len(profiles)} "
+             f"profiles (the 2^24 cube each; integers: no tie)")
+    tr = HICC.plan(profiles[ICC_P3])
+    got = ICC.transform(cube, ICC.tables_on(tr, dev)).cpu().numpy()
+    model = HICC.srgb8_model(cube.cpu().numpy(), tr).astype(np.int64)
+    d = np.abs(model - got)
+    print(f"icc {ICC_P3} on the cube: the float64 model within {d.max()} "
+          f"code on {(d > 0).mean():.4%} of values", flush=True)
+    if d.max() > 1 or (d > 0).mean() > 0.03:
+        raise AssertionError("icc: the cube against the float64 model")
+
+
+def icc_yardstick(img: torch.Tensor, tables: torch.Tensor,
+                  m: torch.Tensor) -> torch.Tensor:
+    """The same transform as a few PyTorch calls on the card: the float
+    model (a table gather, a float32 matmul with TF32 off, the clamp, the
+    sRGB curve by torch.where / pow, the rounding)."""
+    lin = torch.stack([tables[c][img[..., c].long()] for c in range(3)], -1)
+    v = torch.clamp(torch.matmul(lin, m.T), 0.0, 1.0)
+    e = torch.where(v <= 0.0031308, 12.92 * v,
+                    1.055 * torch.pow(v, 1 / 2.4) - 0.055)
+    return torch.round(e * 255.0).to(torch.uint8)
+
+
+def icc_decode_timing(plain: bytes, icc: bytes, card: str) -> dict:
+    """Host ms of api.decode(..., "cuda") of the 4K Modular still without
+    and with its profile, 2 each in turns (P I I P), medians."""
+    t = {"without": [], "with": []}
+    for k in ("without", "with", "with", "without"):
+        with no_gc():
+            t0 = time.perf_counter()
+            api.decode(icc if k == "with" else plain, "cuda")
+            t[k].append((time.perf_counter() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in t.items()}
+    print(f"4k Modular decode (host clock, ms, median of 2 in turns): "
+          f"without its profile {med['without']:.1f}, with Display P3 "
+          f"{med['with']:.1f} (+{med['with'] - med['without']:.1f}) "
+          f"[{card}]", flush=True)
+    return med
+
+
+def icc_phase(jobs: dict, rct: bytes, dev, card: str, ms: dict) -> dict:
+    """Phase 19: the ICC kernel against its twin; the 4K Modular ICC still
+    and a lossy encode(icc=) counted; S2, S3 and S4 past four channels and
+    A10 past eight extra channels on the main path, held to their twins;
+    each kernel at 4K by CUDA graph."""
+    profiles = icc_test_profiles()
+    p3 = profiles[ICC_P3]
+    tr = HICC.plan(p3)
+    check_icc_seeded(profiles, dev)
+    launches = {}
+
+    # the 4K Modular still of phase 11 (lossless: its pixels are the
+    # source) with the profile in its header
+    img = bench_frame(ICC_H, ICC_W)
+    still = with_icc(rct, p3)
+    with forbidden(ICC, ("transform_plain",)):
+        got, counts = drive("main path (api.decode, 4K Modular still with "
+                            "Display P3)", lambda: api.decode(still, "cuda")[0],
+                            ("icc_to_srgb", "rct_inverse"))
+    if counts["icc_to_srgb"] != 1:
+        raise AssertionError(f"icc decode: launches {counts}")
+    launches["icc_to_srgb"] = counts["icc_to_srgb"]
+    plain = api.decode(rct, "cuda")[0]
+    if not np.array_equal(plain, img):
+        raise AssertionError("the 4K still without its profile is not its "
+                             "source")
+    twin = ICC.transform_plain(torch.from_numpy(plain),
+                               ICC.tables_on(tr, "cpu")).numpy()
+    model = HICC.srgb8_model(img, tr).astype(np.int64)
+    d = np.abs(model - got)
+    print(f"decode 4k Modular with Display P3: equal to the still without "
+          f"its profile through the twin on the CPU "
+          f"{np.array_equal(got, twin)}; the float64 model within "
+          f"{d.max()} code on {(d > 0).mean():.4%} of values", flush=True)
+    if not np.array_equal(got, twin) or d.max() > 1:
+        raise AssertionError("icc decode against the twin / the model")
+    icc_decode_timing(rct, still, card)
+
+    # the lossy encode with the profile: the kernel, then E1-E4
+    enc_want = ("icc_to_srgb", "enc_front_planes", "enc_front_blocks",
+                "enc_dct_costs", "enc_gather_rows")
+    with contextlib.ExitStack() as stack:
+        for module, names in ICC_TWINS + ENC_TWINS:
+            stack.enter_context(forbidden(module, names))
+        t0 = time.perf_counter()
+        ours, counts = drive("main path (api.encode, lossy, icc=Display P3)",
+                             lambda: api.encode(img, lossless=False,
+                                                quality=90, effort=7,
+                                                icc=p3, device="cuda"),
+                             enc_want)
+        t_enc = time.perf_counter() - t0
+    ys_b, xs_b = ICC_H // 8, ICC_W // 8
+    srgb = ICC.transform_plain(torch.from_numpy(img),
+                               ICC.tables_on(tr, "cpu")).numpy()
+    specials = bool(ENCR._special_eligibility(srgb, ys_b, xs_b).any())
+    want = {"icc_to_srgb": 1, "enc_front_planes": 1, "enc_front_blocks": 1,
+            "enc_dct_costs": 7, "enc_gather_rows": 1}
+    if counts != want or (KERNELS["enc_special_costs"]["fn"].launches
+                          != 5 * int(specials)):
+        raise AssertionError(f"icc encode: launches {counts}, expected "
+                             f"{want}")
+    launches["icc_to_srgb"] += counts["icc_to_srgb"]
+    ref = api.encode(srgb, lossless=False, quality=90, effort=7,
+                     device="cuda")
+    print(f"encode 4k lossy with Display P3 on the card: {len(ours)} B in "
+          f"{t_enc:.2f} s", flush=True)
+    enc_same_point("4k d1.0 e7 icc=Display P3", ours, ref, srgb,
+                   "the encode of the twin's sRGB pixels")
+
+    # S2, S3 and S4 on the FHD still of 6 channels; A10 on the sprite
+    # animation of 13 channels (10 extra channels: two launches a frame)
+    (ch6, t6), (ch13, t13) = jobs["ch6"].get(), jobs["ch13"].get()
+    print(f"phase 19 streams (written in phase 3's pool): FHD {CH6_N}-"
+          f"channel still {len(ch6)} B ({t6:.1f} s), {CH13_H}x{CH13_W} "
+          f"animation of {3 + CH13_EXTRA} channels {len(ch13)} B "
+          f"({t13:.1f} s)", flush=True)
+    calls, current = {}, []
+    sampled_twins = ((SAMPLE, ("box_codes_plain",)),
+                     (RESIZE, ("rescale_image_plain",
+                               "resize_plane_stack_plain")),
+                     (PACK, ("convert_plain",)))
+    with contextlib.ExitStack() as stack:
+        for module, names in sampled_twins:
+            stack.enter_context(forbidden(module, names))
+        stack.enter_context(recorded(calls, current))
+
+        def sampled_calls():
+            current[:] = ["fhd 6ch", "thumbnail"]
+            thumb = api.decode_thumbnail(ch6, "cuda")[0]
+            current[:] = ["fhd 6ch", "half FIT", RGBA_8888]
+            out = api.decode_sampled(ch6, CH6_W // 2, CH6_H // 2, RGBA_8888,
+                                     FIT, device="cuda")[0]
+            current[:] = []
+            return thumb, out
+
+        (thumb, out6), counts = drive(
+            f"main path (decode_thumbnail / decode_sampled, FHD {CH6_N} "
+            f"channels)", sampled_calls,
+            ("box_codes", "rescale_image", "convert"))
+    if counts != {"box_codes": 1, "rescale_image": 1, "convert": 1}:
+        raise AssertionError(f"channels: launches {counts}")
+    src6 = many_channel_frame(CH6_H, CH6_W, CH6_N)
+    full = calls["box_codes", "fhd 6ch", "thumbnail"][0][0]
+    if not np.array_equal(full.cpu().numpy(), src6):
+        raise AssertionError("the 6-channel still does not decode to its "
+                             "source")
+    if thumb.shape != (-(-CH6_H // 8), -(-CH6_W // 8), CH6_N) or \
+            out6.shape != (CH6_H // 2, CH6_W // 2, CH6_N):
+        raise AssertionError(f"channels: {thumb.shape} {out6.shape}")
+    check_sampled_kernels(calls)
+    anim_calls = {"compose": [], "batch": [], "read": []}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(forbidden(COMPOSE, ("compose_plain",)))
+        stack.enter_context(recorded_anim(anim_calls, ["ch13"]))
+        (frames, _d, _i), counts = drive(
+            f"main path (decode_frames, {3 + CH13_EXTRA} channels)",
+            lambda: api.decode_frames(ch13, "cuda"), ("compose",))
+    composed = len(anim_calls["compose"])
+    if counts["compose"] != 2 * composed or not composed or \
+            frames[0].shape != (CH13_H, CH13_W, 3 + CH13_EXTRA):
+        raise AssertionError(f"A10 on {3 + CH13_EXTRA} channels: "
+                             f"{counts['compose']} launches for {composed} "
+                             f"frames")
+    worst = 0
+    for _label, pre, src, win, params, post_ in anim_calls["compose"]:
+        twin = pre.clone()
+        COMPOSE.compose_plain(twin, src, win, params)
+        worst = max(worst, (twin.int() - post_.int()).abs().max().item())
+    note_err("compose", worst, 0, f"{composed} composed frames of "
+             f"{3 + CH13_EXTRA} channels (two launches each)")
+
+    # timings at 4K: the ICC kernel against its twin, bound and yardstick;
+    # S2, S3 and A10 past their old channel limits
+    img_d = torch.from_numpy(img).to(dev)
+    tab = ICC.tables_on(tr, dev)
+    out = ICC.transform(img_d, tab)
+    BOUND["icc_to_srgb"] = bound_of(nbytes(img_d, out),
+                                    img_d.numel() // 3 * ICC_OPS)
+    ms["icc_to_srgb"] = (graph_ms(lambda: ICC.transform(img_d, tab)),
+                         device_ms(lambda: ICC.transform_plain(img_d, tab)))
+    t32 = torch.from_numpy(tr.tables).float().to(dev)
+    m32 = torch.from_numpy(tr.linear).float().to(dev)
+    yard = icc_yardstick(img_d, t32, m32)
+    dy = (yard.int() - out.int()).abs()
+    LIBRARY_MS["icc_to_srgb"] = device_ms(
+        lambda: icc_yardstick(img_d, t32, m32))
+    print(f"kernel icc_to_srgb at 4K RGB8: device {ms['icc_to_srgb'][0]:.4f} "
+          f"ms (CUDA graph), plain twin {ms['icc_to_srgb'][1]:.4f} ms, bound "
+          f"{BOUND['icc_to_srgb'][0]:.4f} ms ({BOUND['icc_to_srgb'][1]}), "
+          f"yardstick (gather, fp32 matmul, where/pow) "
+          f"{LIBRARY_MS['icc_to_srgb']:.4f} ms, within {dy.max().item()} "
+          f"code of the kernel on {(dy > 0).float().mean().item():.4%} "
+          f"[{card}]", flush=True)
+    wide = {}
+    rng = torch.Generator(device=dev).manual_seed(5)
+    px6 = torch.randint(0, 256, (ICC_H, ICC_W, CH6_N), generator=rng,
+                        device=dev, dtype=torch.int32).to(torch.uint8)
+    box = SAMPLE.box_codes(px6)
+    wide["box_codes"] = (graph_ms(lambda: SAMPLE.box_codes(px6)),
+                         device_ms(lambda: SAMPLE.box_codes_plain(px6)),
+                         bound_of(nbytes(px6, box),
+                                  box.numel() * SAMPLED_OPS["box_codes"]),
+                         f"4K x{CH6_N} u8 -> 480x270")
+    pl = RESIZE.HR.plan(ICC_H, ICC_W, ICC_W // 2, ICC_H // 2, FIT)
+    fid = int(api.ResizeFilter.MITCHELL)
+    bnd = RESIZE.bands(ICC_H, ICC_W, pl, fid, dev)
+    scaled = RESIZE.resample(px6, pl, bnd)
+    bv = RESIZE.HR.band(ICC_H, pl.oh, fid, pl.y0, pl.ch)
+    bh = RESIZE.HR.band(ICC_W, pl.ow, fid, pl.x0, pl.cw)
+    taps = 2 * CH6_N * (int(bv.length.sum()) * ICC_W
+                        + int(bh.length.sum()) * pl.ch)
+    wide["rescale_image"] = (
+        graph_ms(lambda: RESIZE.resample(px6, pl, bnd)),
+        device_ms(lambda: RESIZE.rescale_image_plain(px6, ICC_W // 2,
+                                                     ICC_H // 2, FIT, fid)),
+        bound_of(nbytes(px6, scaled), taps),
+        f"4K x{CH6_N} u8 -> 1920x1080 Mitchell")
+    nch = 3 + CH13_EXTRA
+    canvas = torch.randint(0, 256, (ICC_H, ICC_W, nch), generator=rng,
+                           device=dev, dtype=torch.int32).to(torch.uint8)
+    src = torch.randint(0, 256, (ICC_H, ICC_W, nch), generator=rng,
+                        device=dev, dtype=torch.int32).to(torch.uint8)
+    win = COMPOSE.Window(0, 0, 0, 0, ICC_W, ICC_H)
+    params = np.asarray([nch, 3, CH13_EXTRA, 2, 0, 0]
+                        + [2, 0, 0, 0] * CH13_EXTRA, np.int32)
+    vals = ICC_W * ICC_H * nch
+    wide["compose"] = (
+        graph_ms(lambda: COMPOSE.compose(canvas, src, win, params)),
+        device_ms(lambda: COMPOSE.compose_plain(canvas, src, win, params)),
+        bound_of(3 * vals, vals * COMPOSE_OPS, F64_OPS_PER_S),
+        f"4K x{nch} u8 whole-canvas BLEND ({-(-CH13_EXTRA // 8)} launches)")
+    for name, (t_k, t_p, (b, by), shape) in wide.items():
+        print(f"kernel {name} (widened) at {shape}: device {t_k:.4f} ms "
+              f"(CUDA graph), plain twin {t_p:.4f} ms, bound {b:.4f} ms "
+              f"({by}) [{card}]", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -5409,7 +5784,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = ("synth", "filters", "fused_filters", "detile", "entropy",
                "modular", "post", "overlay", "sample", "pixel_ops", "compose",
-               "jpeg", "encode")
+               "jpeg", "encode", "icc")
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host = pool.submit(_build.load_host, "hostcodec")
         list(pool.map(_build.load, sources))
@@ -5418,7 +5793,7 @@ def main() -> int:
           f"codec in {time.perf_counter() - t0:.2f} s", flush=True)
     for name in ("synth", "filters", "fused_filters", "entropy", "modular",
                  "post", "overlay", "sample", "pixel_ops", "compose", "jpeg",
-                 "encode"):
+                 "encode", "icc"):
         ptxas_report(name)
 
     phase_done("2 (build)")
@@ -5470,6 +5845,8 @@ def main() -> int:
     # workers once the twins free them; collected in phase 11
     modular_jobs = {label: pool.apply_async(modular_job, (label,))
                     for label in MODULAR_STREAMS}
+    # phase 19's streams, last
+    icc_jobs = start_icc_jobs(pool)
 
     phase_done("3 (streams)")
 
@@ -5664,6 +6041,12 @@ def main() -> int:
                     [j.get() for j in anim_jobs["frames"]], card, ms)
     launches.update({k: enc[k] for k in ENC_KERNELS})
     phase_done("18 (the encoders)")
+
+    # 19. the ICC step (csrc/icc.cu) on the Modular decode and the lossy
+    # encode; S2, S3, S4 and A10 past their old channel limits
+    launches.update(icc_phase(icc_jobs, modular["streams"]["4k_rct"], dev,
+                              card, ms))
+    phase_done("19 (the ICC step, any channel count)")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": spec["source"],

@@ -20,14 +20,19 @@ device: ``vardct/enc_device.py`` over ``csrc/encode.cu``; lossless Modular
 on the host) and ``animation.AnimatedEncoder`` (both exported here),
 ``jxl_coder_tpu_torch.vardct.dct8.DCT8Frame`` and
 ``jxl_coder_tpu_torch.codec.encode_vardct_still`` /
-``decode_vardct_still``.
+``decode_vardct_still``; the probes ``is_jxl`` / ``get_size`` (host code,
+exported here too), ``config`` (typed settings over ``api``),
+``utils.trace`` (spans, a ``torch.profiler`` trace, JSON logs) and
+``integrations.pil_plugin`` (Pillow; the only module that imports PIL).
+A Modular still's embedded ICC profile converts to sRGB on the device
+(``ops/icc_apply.py``, ``csrc/icc.cu``).
 
 The host layers import without torch; the device packages (and the
 entry points) import ``_device``, which pins full float32.
 """
 
 __all__ = ["resolve_device", "construct", "reconstruct_jpeg", "encode",
-           "AnimatedEncoder"]
+           "AnimatedEncoder", "is_jxl", "get_size"]
 
 
 def __getattr__(name):
@@ -37,6 +42,9 @@ def __getattr__(name):
     if name in ("construct", "reconstruct_jpeg", "encode"):
         from . import api
         return getattr(api, name)
+    if name in ("is_jxl", "get_size"):
+        from .host import api as host_api
+        return getattr(host_api, name)
     if name == "AnimatedEncoder":
         from .animation import AnimatedEncoder
         return AnimatedEncoder

@@ -6,10 +6,10 @@ lossless Modular on the host (the effort ladder 1-10, the palette body,
 an embedded ICC profile), lossy VarDCT with the encoder front on the
 device (``vardct/enc_device.Front``: E1-E4 and the winners' gather,
 ``csrc/encode.cu``; a frame with a signalled ``colour`` converts on the
-host); ``gif_to_jxl`` / ``apng_to_jxl`` go through
-``animation.AnimatedEncoder`` (PIL reads the source).  A lossy encode
-with an ICC profile raises NotImplementedError (the reference converts
-through littlecms).
+host; an ICC profile's pixels converted to sRGB on the device first,
+``ops/icc_apply.py``); ``gif_to_jxl`` / ``apng_to_jxl`` go through
+``animation.AnimatedEncoder`` (PIL reads the source).  ``is_jxl``,
+``get_size`` and ``basic_info`` probe a stream on the host.
 ``decode(data, device="cuda")`` decodes a VarDCT or a Modular still (or
 an animation's last frame, a recompressed JPEG, or what arrived of a
 stream cut short); ``construct`` / ``reconstruct_jpeg`` recompress a JPEG
@@ -52,7 +52,12 @@ channel planes decode on the host, as in the reference
 (``host.codec.decode_modular_frame``); the inverse RCT, palette and
 squeeze run on the device (``modular/device.py``), then the output step
 with its upsampling (``modular/output.py``).  A delta palette raises
-InvalidJXLError, as the host does.
+InvalidJXLError, as the host does.  A Modular still with an embedded ICC
+profile is converted to sRGB on the device before its orientation, as the
+reference converts it with littlecms (``jxl_coder_tpu/api.py:563-568``):
+``ops/icc_apply.py`` over ``csrc/icc.cu``, the profile read on the host
+(``host/ops/icc.py``); a VarDCT still and an animation's frames keep
+their pixels, as there (ROADMAP R22).
 
 The sampled decode (``jxl_coder_tpu/api.py:1043-1214``), on the device
 from the decode to one download at the end:
@@ -106,10 +111,9 @@ frame is a VarDCT frame whose output step is A7's "ycbcr" case.
 A frame whose DC frame or patch sources were not decoded before it raises
 InvalidJXLError.  What raises NotImplementedError: a chroma-subsampled
 YCbCr frame without a jbrd box; ``entropy="device"`` on a VarDCT frame
-with extra channels or on a Modular frame to decode; an embedded ICC
-profile where the reference applies it (a Modular frame: the reference
-converts it to sRGB with littlecms, which the card's machine lacks, and
-the port has no colour management of its own yet).  Nothing falls back
+with extra channels or on a Modular frame to decode; an ICC profile that
+littlecms would apply by a lookup table (``A2B0``) or with black-point
+compensation of a nonzero black, on a Modular still.  Nothing falls back
 to the host decoder.
 """
 
@@ -125,7 +129,8 @@ import torch
 from ._device import resolve_device
 from .host.api import (BasicInfo, InvalidJXLError, PreferredColorConfig,
                        ResizeFilter, ScaleMode, _check_decode_size,
-                       apply_orientation, basic_info, parse_header)
+                       apply_orientation, basic_info, get_size, is_jxl,
+                       parse_header)
 from .host.bitstream import container as _container
 from .host.bitstream.frame_header import (BlendMode, Encoding, FrameType,
                                           read_frame_header, read_toc)
@@ -144,6 +149,7 @@ from .jpeg import wire as JWIRE
 from .modular import device as MDEV
 from .modular import output as modular_output
 from .ops import compose as COMPOSE
+from .ops import icc_apply as ICC
 from .ops import pack as PACK
 from .ops import tone as TONE
 from .ops.resize import rescale_image
@@ -339,11 +345,6 @@ def _host_modular(cs, hdr, fh, toc, entropy: str,
             "entropy='device' on a Modular frame: the reference decodes "
             "Modular channels on the host (jxl_coder_tpu/modular/device.py:1-16"
             ", after the negative result of research/entropy_batch_probe.py)")
-    if hdr.metadata.icc_profile is not None and not xyb:
-        raise NotImplementedError(
-            "embedded ICC profile: the reference converts a Modular still's "
-            "pixels to sRGB with littlecms (PIL), which the card's machine "
-            "lacks, and the port has no colour management of its own yet")
     try:
         raw, dc_quant = decode_modular_frame(cs, hdr, fh, toc)
     except BitstreamError as e:
@@ -477,12 +478,17 @@ def device_half(host, dev: torch.device, put=None) -> torch.Tensor:
     planes, then the frame's arrays uploaded (put: how a numpy array gets
     there; default a plain copy), then the VarDCT reconstruction or the
     Modular inverse transforms and output, on the current stream.  A
-    Modular frame reads no LF or reference frame (as the reference); a
-    JpegPlanes runs J1 and J2 (``jpeg/pixels.py``)."""
+    Modular frame reads no LF or reference frame (as the reference), and
+    its embedded ICC profile converts its pixels to sRGB (``ops/
+    icc_apply.py``); a JpegPlanes runs J1 and J2 (``jpeg/pixels.py``)."""
     if isinstance(host, JPX.JpegPlanes):
         return JPX.pixels(host, dev, put)
     dc_frames, refs = _device_before(host, dev, put)
-    return _frame_device(host, dev, dc_frames, refs, put)
+    pixels = _frame_device(host, dev, dc_frames, refs, put)
+    icc = host.hdr.metadata.icc_profile
+    if isinstance(host, ModularHost) and icc is not None:
+        pixels = ICC.icc_to_srgb(pixels, icc)
+    return pixels
 
 
 def _frame_device(host, dev, dc_frames: dict, refs: dict, put=None
@@ -529,8 +535,11 @@ def decode(data: bytes, device="cuda", entropy: str = "host"
            ) -> Tuple[np.ndarray, BasicInfo]:
     """Decode a still to (pixels, BasicInfo), as jxl_coder_tpu.api.decode
     returns them: a VarDCT frame (H, W, 3 + its extra channels), a
-    Modular frame (H, W, C) with C in {1, 3, 4}; uint8 at 8 bits per
-    sample or less, uint16 above.  The device half runs on `device`
+    Modular frame (H, W, C), its 1 or 3 colour channels and its extra
+    channels; uint8 at 8 bits per
+    sample or less, uint16 above.  A Modular still's embedded ICC profile
+    converts it to sRGB on `device` (a grey still then has 3 channels,
+    ROADMAP R21).  The device half runs on `device`
     ("cuda" raises when no card is present); entropy="device" decodes a
     VarDCT frame's AC pass groups there too (on the CPU, with the
     kernel's plain twin).  An animation decodes to its last composed
@@ -1036,9 +1045,9 @@ def encode(pixels, lossless: bool = True, bits_per_sample: int = None,
     fault R18 of ROADMAP.md; here it raises).  Lossless: Modular, the
     reference's effort ladder 1-10 (RCT search, learned MA trees, the
     palette body), all host code; `icc` is embedded.  A lossy `icc`
-    raises NotImplementedError: the reference converts through littlecms,
-    which the card's machine lacks.  A CUDA `device` without a card
-    raises."""
+    converts the pixels to sRGB on `device` first (``ops/icc_apply.py``;
+    float pixels through uint16, as the reference), then the encode goes
+    on without it.  A CUDA `device` without a card raises."""
     from .host.vardct.quant import quality_to_distance
     from .host.vardct.enc_real import encode_vardct_real
     from .vardct.enc_device import Front
@@ -1048,9 +1057,8 @@ def encode(pixels, lossless: bool = True, bits_per_sample: int = None,
     if pixels.ndim == 2:
         pixels = pixels[:, :, None]
     if icc is not None and not lossless:
-        raise NotImplementedError(
-            "a lossy encode with an ICC profile converts through littlecms "
-            "in the reference; the port has no colour management")
+        pixels = _icc_pixels(pixels, icc, dev)
+        icc = None
     h, w, nch = pixels.shape
     if bits_per_sample is None:
         bits_per_sample = 16 if pixels.dtype == np.uint16 else 8
@@ -1102,6 +1110,18 @@ def encode(pixels, lossless: bool = True, bits_per_sample: int = None,
                     return ll
         return blob
     return _encode_lossless(pixels, bits_per_sample, effort, colour, icc)
+
+
+def _icc_pixels(pixels: np.ndarray, icc: bytes, dev) -> np.ndarray:
+    """A lossy encode's (H, W, C) pixels from the profile's space to sRGB
+    on `dev` (jxl_coder_tpu/api.py:231-239): float pixels through uint16
+    and back to float64 / 65535."""
+    if pixels.dtype.kind == "f":
+        pix16 = np.clip(np.rint(pixels * 65535.0), 0, 65535).astype(np.uint16)
+        out = ICC.icc_to_srgb(torch.from_numpy(pix16).to(dev), icc)
+        return out.cpu().numpy().astype(np.float64) / 65535.0
+    return ICC.icc_to_srgb(torch.from_numpy(np.ascontiguousarray(pixels))
+                           .to(dev), icc).cpu().numpy()
 
 
 def _encode_lossless(pixels: np.ndarray, bits_per_sample: int, effort: int,

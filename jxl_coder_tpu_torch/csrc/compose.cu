@@ -8,7 +8,10 @@
 // five blend modes, clamp, associated alpha).  The window is clipped on
 // the host.  A thread owns one canvas pixel of the window and runs
 // compose.cuh's compose_pixel over its channels in float64: the codes
-// equal the reference's.
+// equal the reference's.  Up to kMaxExtra (8) extra channels one launch
+// blends every channel; beyond, one launch per group of 8 extra channels
+// (the colour with the first), each reading the background alpha from a
+// copy of the window the wrapper makes before the first.
 //
 // What bounds it on the H100: bytes.  Each window pixel's frame values and
 // canvas values are read once and the canvas values written once (FHD
@@ -31,14 +34,16 @@ constexpr int TX = 32, TY = 8;
 template <typename T>
 __global__ void __launch_bounds__(TX* TY)
     compose_kernel(T* __restrict__ canvas, int canvas_w,
-                   const T* __restrict__ src, int src_w, int sx, int sy,
-                   int dx, int dy, int cw, int ch, Params p) {
+                   const T* __restrict__ src, int src_w,
+                   const T* __restrict__ bg, int sx, int sy, int dx, int dy,
+                   int cw, int ch, Params p) {
   const int x = blockIdx.x * TX + threadIdx.x;
   const int y = blockIdx.y * TY + threadIdx.y;
   if (x >= cw || y >= ch) return;
   const T* s = src + ((long long)(sy + y) * src_w + sx + x) * p.nch;
   T* d = canvas + ((long long)(dy + y) * canvas_w + dx + x) * p.nch;
-  compose_pixel<T>(s, d, p);
+  const T* b = bg != nullptr ? bg + ((long long)y * cw + x) * p.nch : nullptr;
+  compose_pixel<T>(s, d, b, p);
 }
 
 }  // namespace
@@ -48,39 +53,31 @@ __global__ void __launch_bounds__(TX* TY)
 // pixels from (sx, sy) go to the canvas from (dx, dy), cw x ch of them.
 // ip: nch, ncolor, n_ec, the colour's mode, alpha channel and clamp, then
 // per extra channel its mode, alpha channel, clamp and alpha_associated;
-// maxv 255 or 65535.
+// maxv 255 or 65535.  This launch blends the extra channels from g0 (a
+// multiple of 8) on, up to 8 of them, and the colour when g0 is 0; bg: the
+// window's canvas values before the first launch, (ch, cw, nch), needed
+// when n_ec > 8, else null.
 extern "C" int jxl_compose(void* canvas, int dtype, int canvas_w,
-                           const void* src, int src_w, int sx, int sy,
-                           int dx, int dy, int cw, int ch, const int* ip,
-                           double maxv, void* stream) {
+                           const void* src, int src_w, const void* bg,
+                           int sx, int sy, int dx, int dy, int cw, int ch,
+                           const int* ip, double maxv, int g0,
+                           void* stream) {
   if (cw <= 0 || ch <= 0) return cudaSuccess;
   Params p;
-  p.nch = ip[0];
-  p.ncolor = ip[1];
-  p.n_ec = ip[2];
-  if (p.n_ec < 0 || p.n_ec > kMaxExtra || (p.ncolor != 1 && p.ncolor != 3) ||
-      p.nch != p.ncolor + p.n_ec)
+  if (!params_of(ip, maxv, g0, &p) || (p.n_ec > kMaxExtra && bg == nullptr))
     return cudaErrorInvalidValue;
-  p.maxv = maxv;
-  p.colour = Blend{ip[3], ip[4], ip[5]};
-  for (int i = 0; i < p.n_ec; ++i) {
-    p.ec[i] = Blend{ip[6 + 4 * i], ip[7 + 4 * i], ip[8 + 4 * i]};
-    p.assoc[i] = ip[9 + 4 * i];
-  }
-  for (int i = p.n_ec; i < kMaxExtra; ++i) {
-    p.ec[i] = Blend{0, 0, 0};
-    p.assoc[i] = 0;
-  }
   const dim3 grid((cw + TX - 1) / TX, (ch + TY - 1) / TY), block(TX, TY);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     compose_kernel<uint8_t><<<grid, block, 0, s>>>(
         static_cast<uint8_t*>(canvas), canvas_w,
-        static_cast<const uint8_t*>(src), src_w, sx, sy, dx, dy, cw, ch, p);
+        static_cast<const uint8_t*>(src), src_w,
+        static_cast<const uint8_t*>(bg), sx, sy, dx, dy, cw, ch, p);
   else if (dtype == 1)
     compose_kernel<uint16_t><<<grid, block, 0, s>>>(
         static_cast<uint16_t*>(canvas), canvas_w,
-        static_cast<const uint16_t*>(src), src_w, sx, sy, dx, dy, cw, ch, p);
+        static_cast<const uint16_t*>(src), src_w,
+        static_cast<const uint16_t*>(bg), sx, sy, dx, dy, cw, ch, p);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

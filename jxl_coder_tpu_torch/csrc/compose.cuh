@@ -9,7 +9,9 @@
 // details decide them:
 //   - every blend reads the background alpha from before this frame's
 //     blend (the reference's _ba0 snapshot), whatever an earlier channel
-//     of the pixel wrote;
+//     of the pixel wrote: from the pixel on entry when one launch blends
+//     every channel, else from a copy of the window made before the
+//     first launch (more than kMaxExtra extra channels);
 //   - an extra channel that the colour's BLEND already wrote (its alpha,
 //     when its own mode is BLEND too) is skipped; any other mode of it
 //     reads the value that BLEND wrote;
@@ -28,23 +30,57 @@
 
 namespace jxl_blend {
 
+// extra channels a launch blends; more go in further launches, each its
+// own group of up to kMaxExtra (the colour blended by the first), reading
+// the background alpha from a copy of the window made before the first
 constexpr int kMaxExtra = 8;
-constexpr int kMaxChannels = 3 + kMaxExtra;
 
 // BlendMode of the frame header
 enum { kReplace = 0, kAdd = 1, kBlend = 2, kAlphaWeightedAdd = 3, kMul = 4 };
 
 struct Blend {
   int mode, alpha, clamp;   // BlendingInfo's mode, alpha_channel, clamp
+  int assoc;                // alpha_associated of its alpha channel
 };
 
 struct Params {
   int nch, ncolor, n_ec;    // channels of a pixel: colour, then extra
   double maxv;              // 255 or 65535
+  int colour_on;            // this launch blends the colour channels
   Blend colour;
-  Blend ec[kMaxExtra];
-  int assoc[kMaxExtra];     // extra channel i's alpha_associated
+  int g0, ng;               // this launch's extra channels g0 .. g0 + ng - 1
+  Blend ec[kMaxExtra];      // theirs
 };
+
+// The launch of extra channels from g0 on, from compose's int32
+// parameters (ops/compose.py blend_params: nch, ncolor, n_ec, the colour's
+// mode, alpha channel and clamp, then per extra channel its mode, alpha
+// channel, clamp and alpha_associated); false when they do not fit.
+JXL_CHD bool params_of(const int* ip, double maxv, int g0, Params* p) {
+  p->nch = ip[0];
+  p->ncolor = ip[1];
+  p->n_ec = ip[2];
+  if (p->n_ec < 0 || (p->ncolor != 1 && p->ncolor != 3) ||
+      p->nch != p->ncolor + p->n_ec || g0 < 0 ||
+      (g0 > 0 && g0 >= p->n_ec) || g0 % kMaxExtra)
+    return false;
+  p->maxv = maxv;
+  const int n_ec = p->n_ec;
+  auto blend = [ip, n_ec](int mode, int alpha, int clamp) {
+    const int assoc = alpha >= 0 && alpha < n_ec ? ip[9 + 4 * alpha] : 0;
+    return Blend{mode, alpha, clamp, assoc};
+  };
+  p->colour_on = g0 == 0;
+  p->colour = blend(ip[3], ip[4], ip[5]);
+  p->g0 = g0;
+  p->ng = n_ec - g0 < kMaxExtra ? n_ec - g0 : kMaxExtra;
+  for (int k = 0; k < kMaxExtra; ++k) {
+    const int i = g0 + k;
+    p->ec[k] = k < p->ng ? blend(ip[6 + 4 * i], ip[7 + 4 * i], ip[8 + 4 * i])
+                         : Blend{0, 0, 0, 0};
+  }
+  return true;
+}
 
 JXL_CHD double clip_unit(double v) { return v < 0.0 ? 0.0 : (v > 1.0 ? 1.0 : v); }
 
@@ -55,81 +91,93 @@ JXL_CHD double to_code(double v, double maxv) {
 }
 
 // src, dst: the pixel's nch values in the frame and on the canvas; dst is
-// updated in place.
+// updated in place: the colour channels when p.colour_on, then extra
+// channels g0 .. g0 + ng - 1.  bg: the pixel's canvas values before this
+// frame's blend, whose alpha channels BLEND reads; nullptr when this launch
+// blends every channel (n_ec <= kMaxExtra), which reads them from dst on
+// entry.
 template <typename T>
-JXL_CHD void compose_pixel(const T* src, T* dst, const Params& p) {
-  double s[kMaxChannels], d[kMaxChannels], ba0[kMaxExtra];
-  for (int c = 0; c < p.nch; ++c) {
-    s[c] = (double)src[c];
-    d[c] = (double)dst[c];
-  }
-  for (int i = 0; i < p.n_ec; ++i) ba0[i] = d[p.ncolor + i] / p.maxv;
+JXL_CHD void compose_pixel(const T* src, T* dst, const T* bg,
+                           const Params& p) {
   const double maxv = p.maxv;
+  const int nc = p.ncolor;
+  double ba0[kMaxExtra];
+  if (bg == nullptr)
+    for (int i = 0; i < p.n_ec && i < kMaxExtra; ++i)
+      ba0[i] = (double)dst[nc + i] / maxv;
+  auto back = [&](int a) {
+    return bg != nullptr ? (double)bg[nc + a] / maxv : ba0[a];
+  };
   const Blend& cb = p.colour;
   // the colour channels
-  if (cb.mode == kReplace) {
-    for (int c = 0; c < p.ncolor; ++c) d[c] = s[c];
-  } else if (cb.mode == kAdd) {
-    for (int c = 0; c < p.ncolor; ++c) d[c] = to_code(s[c] + d[c], maxv);
-  } else if (cb.mode == kBlend) {
-    double fa = s[p.ncolor + cb.alpha] / maxv;
-    const double ba = ba0[cb.alpha];
-    if (cb.clamp) fa = clip_unit(fa);
-    const double na = fa + ba * (1.0 - fa);
-    double out[3];
-    for (int c = 0; c < p.ncolor; ++c) {
-      if (p.assoc[cb.alpha])
-        out[c] = s[c] + d[c] * (1.0 - fa);
-      else
-        out[c] = na > 0.0 ? (s[c] * fa + d[c] * (ba * (1.0 - fa))) / na : 0.0;
-    }
-    d[p.ncolor + cb.alpha] = to_code(na * maxv, maxv);
-    for (int c = 0; c < p.ncolor; ++c) d[c] = to_code(out[c], maxv);
-  } else if (cb.mode == kAlphaWeightedAdd) {
-    double fa = s[p.ncolor + cb.alpha] / maxv;
-    if (cb.clamp) fa = clip_unit(fa);
-    for (int c = 0; c < p.ncolor; ++c) d[c] = to_code(d[c] + s[c] * fa, maxv);
-  } else {  // kMul
-    for (int c = 0; c < p.ncolor; ++c) {
-      double sc = s[c];
-      if (cb.clamp) sc = sc < 0.0 ? 0.0 : (sc > maxv ? maxv : sc);
-      d[c] = to_code(sc * d[c] / maxv, maxv);
+  if (p.colour_on) {
+    if (cb.mode == kReplace) {
+      for (int c = 0; c < nc; ++c) dst[c] = src[c];
+    } else if (cb.mode == kAdd) {
+      for (int c = 0; c < nc; ++c)
+        dst[c] = (T)to_code((double)src[c] + (double)dst[c], maxv);
+    } else if (cb.mode == kBlend) {
+      double fa = (double)src[nc + cb.alpha] / maxv;
+      const double ba = back(cb.alpha);
+      if (cb.clamp) fa = clip_unit(fa);
+      const double na = fa + ba * (1.0 - fa);
+      for (int c = 0; c < nc; ++c) {
+        const double s = (double)src[c], d = (double)dst[c];
+        const double out =
+            cb.assoc ? s + d * (1.0 - fa)
+                     : (na > 0.0 ? (s * fa + d * (ba * (1.0 - fa))) / na : 0.0);
+        dst[c] = (T)to_code(out, maxv);
+      }
+      dst[nc + cb.alpha] = (T)to_code(na * maxv, maxv);
+    } else if (cb.mode == kAlphaWeightedAdd) {
+      double fa = (double)src[nc + cb.alpha] / maxv;
+      if (cb.clamp) fa = clip_unit(fa);
+      for (int c = 0; c < nc; ++c)
+        dst[c] = (T)to_code((double)dst[c] + (double)src[c] * fa, maxv);
+    } else {  // kMul
+      for (int c = 0; c < nc; ++c) {
+        double sc = (double)src[c];
+        if (cb.clamp) sc = sc < 0.0 ? 0.0 : (sc > maxv ? maxv : sc);
+        dst[c] = (T)to_code(sc * (double)dst[c] / maxv, maxv);
+      }
     }
   }
-  // the extra channels, each by its own blending
-  for (int i = 0; i < p.n_ec; ++i) {
-    const int e = p.ncolor + i;
-    const Blend& b = p.ec[i];
+  // this launch's extra channels, each by its own blending
+  for (int k = 0; k < p.ng; ++k) {
+    const int i = p.g0 + k, e = nc + i;
+    const Blend& b = p.ec[k];
     if (cb.mode == kBlend && cb.alpha == i && b.mode == kBlend) continue;
+    const double s = (double)src[e], d = (double)dst[e];
+    double v = 0.0;
     if (b.mode == kReplace) {
-      d[e] = s[e];
+      dst[e] = src[e];
+      continue;
     } else if (b.mode == kAdd) {
-      d[e] = to_code(s[e] + d[e], maxv);
+      v = s + d;
     } else if (b.mode == kBlend) {
-      double fa = s[p.ncolor + b.alpha] / maxv;
-      const double ba = ba0[b.alpha];
+      double fa = (double)src[nc + b.alpha] / maxv;
+      const double ba = back(b.alpha);
       if (b.clamp) fa = clip_unit(fa);
       if (b.alpha == i) {
         // the alpha channel itself: source-over coverage
-        d[e] = to_code((fa + ba * (1.0 - fa)) * maxv, maxv);
-      } else if (p.assoc[b.alpha]) {
-        d[e] = to_code(s[e] + d[e] * (1.0 - fa), maxv);
+        v = (fa + ba * (1.0 - fa)) * maxv;
+      } else if (b.assoc) {
+        v = s + d * (1.0 - fa);
       } else {
         const double na = fa + ba * (1.0 - fa);
-        d[e] = to_code(na > 0.0 ? (s[e] * fa + d[e] * ba * (1.0 - fa)) / na : 0.0,
-                       maxv);
+        v = na > 0.0 ? (s * fa + d * ba * (1.0 - fa)) / na : 0.0;
       }
     } else if (b.mode == kAlphaWeightedAdd) {
-      double fa = s[p.ncolor + b.alpha] / maxv;
+      double fa = (double)src[nc + b.alpha] / maxv;
       if (b.clamp) fa = clip_unit(fa);
-      d[e] = to_code(d[e] + s[e] * fa, maxv);
+      v = d + s * fa;
     } else {  // kMul
-      double se = s[e];
+      double se = s;
       if (b.clamp) se = se < 0.0 ? 0.0 : (se > maxv ? maxv : se);
-      d[e] = to_code(se * d[e] / maxv, maxv);
+      v = se * d / maxv;
     }
+    dst[e] = (T)to_code(v, maxv);
   }
-  for (int c = 0; c < p.nch; ++c) dst[c] = (T)d[c];
 }
 
 }  // namespace jxl_blend

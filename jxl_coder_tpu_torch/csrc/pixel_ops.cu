@@ -128,7 +128,9 @@ __device__ __forceinline__ uint32_t q(float v, float scale) {
 }
 
 // fmt: 0 the codes (C channels, the tone-mapped colour), 1 RGBA8888, 2
-// RGBA F16, 3 RGB565, 4 RGBA1010102
+// RGBA F16, 3 RGB565, 4 RGBA1010102.  Past 4 channels (C > 4) 8888 and F16
+// pack every channel, C wide, 565 the first three and 1010102 the first
+// four, as the reference's packers do on its (H, W, C) floats.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     reformat_kernel(const T* __restrict__ in, long long n, int C, float maxv,
@@ -149,6 +151,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       if (c < C) dst[c] = (T)v[c];
+    for (int c = 4; c < C; ++c) dst[c] = src[c];
     return;
   }
   float r, g, b, a;
@@ -161,23 +164,28 @@ __global__ void __launch_bounds__(THREADS)
     r = v[0];
     g = v[1];
     b = v[2];
-    a = C == 4 ? v[3] : 1.0f;
+    a = C >= 4 ? v[3] : 1.0f;
   }
+  const int wide = C > 4 ? C : 4;
   switch (fmt) {
     case 1: {
-      uint8_t* dst = static_cast<uint8_t*>(out) + i * 4;
+      uint8_t* dst = static_cast<uint8_t*>(out) + i * wide;
       dst[0] = (uint8_t)q(r, 255.0f);
       dst[1] = (uint8_t)q(g, 255.0f);
       dst[2] = (uint8_t)q(b, 255.0f);
       dst[3] = (uint8_t)q(a, 255.0f);
+      for (int c = 4; c < C; ++c)
+        dst[c] = (uint8_t)q((float)src[c] / maxv, 255.0f);
       break;
     }
     case 2: {
-      __half* dst = static_cast<__half*>(out) + i * 4;
+      __half* dst = static_cast<__half*>(out) + i * wide;
       dst[0] = __float2half_rn(r);
       dst[1] = __float2half_rn(g);
       dst[2] = __float2half_rn(b);
       dst[3] = __float2half_rn(a);
+      for (int c = 4; c < C; ++c)
+        dst[c] = __float2half_rn((float)src[c] / maxv);
       break;
     }
     case 3:
@@ -274,7 +282,7 @@ extern "C" int jxl_reformat(const void* in, int dtype, long long n, int C,
                             float maxv, const float* tone, int fmt, void* out,
                             void* stream) {
   if (n <= 0) return cudaSuccess;
-  if (C < 1 || C > 4 || fmt < 0 || fmt > 4 || (fmt == 0 && dtype == 2))
+  if (C < 1 || fmt < 0 || fmt > 4 || (fmt == 0 && dtype == 2))
     return cudaErrorInvalidValue;
   Tone t{};
   if (tone != nullptr) {

@@ -1,7 +1,8 @@
 """The API layer's host pieces that the port uses
 (``jxl_coder_tpu/api.py:24-116``): the option enums of the encode and of
 the sampled decode, the decode-size ceiling, the typed errors,
-``basic_info`` and ``apply_orientation``.  The port's encode and decode
+the probes ``is_jxl`` / ``get_size`` / ``basic_info``, and
+``apply_orientation``.  The port's encode and decode
 entry points are in ``api.py``, its round-1 codec in ``codec``.
 """
 
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Tuple
 
 from .bitstream.reader import BitReader, BitstreamError
 from .bitstream import container as _container
@@ -128,6 +130,12 @@ def _check_decode_size(hdr) -> None:
             f"exceeds the 2^31-byte buffer ceiling")
 
 
+def is_jxl(data: bytes) -> bool:
+    """Magic sniff, both bare codestream and container
+    (JxlCoder.kt:244-267)."""
+    return _container.is_jxl(data)
+
+
 def parse_header(data: bytes) -> ImageHeader:
     """Parse container + image header, raising InvalidJXLError on garbage."""
     try:
@@ -136,6 +144,13 @@ def parse_header(data: bytes) -> ImageHeader:
         return read_image_header(br)
     except BitstreamError as e:
         raise InvalidJXLError(str(e)) from e
+
+
+def get_size(data: bytes) -> Tuple[int, int]:
+    """(width, height) after orientation, as the reference's getSize
+    (JniDecoding.cpp:394-414) reports post-orientation dimensions."""
+    hdr = parse_header(data)
+    return hdr.oriented_xsize, hdr.oriented_ysize
 
 
 @dataclasses.dataclass

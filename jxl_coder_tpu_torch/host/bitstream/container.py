@@ -1,6 +1,7 @@
-"""ISOBMFF container handling.
+"""ISOBMFF container handling + signature sniffing.
 
-Mirrors the container unwrapping libjxl performs internally: a `.jxl` file is
+Mirrors the reference's `isJXL` magic check and the container unwrapping
+libjxl performs internally: a `.jxl` file is
 either a bare codestream starting FF 0A or an ISOBMFF container whose
 `jxlc` (complete) / `jxlp` (partial, 4-byte sequence prefix) boxes hold the
 codestream.
@@ -15,6 +16,13 @@ from .reader import BitstreamError
 
 MAGIC_BARE = b"\xff\x0a"
 MAGIC_CONTAINER = b"\x00\x00\x00\x0cJXL \r\n\x87\n"
+
+
+def is_jxl(data: bytes) -> bool:
+    """Signature sniff for both bare codestream and ISOBMFF container."""
+    if len(data) >= 2 and data[:2] == MAGIC_BARE:
+        return True
+    return len(data) >= 12 and data[:12] == MAGIC_CONTAINER
 
 
 @dataclasses.dataclass

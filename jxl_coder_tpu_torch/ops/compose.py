@@ -12,9 +12,12 @@ launch; its twin ``compose_plain`` repeats the reference's numpy
 arithmetic in torch float64, channel plane by channel plane (dividing
 by maxv with ``fp.div``: on CUDA, torch divides by a Python number as a
 product by its reciprocal, a rounding off the reference's).  Both give
-the reference's codes exactly.  The wrapper counts its launches in
-``compose.launches``; on a CPU tensor it runs the twin, on a CUDA tensor
-it launches the kernel or raises.
+the reference's codes exactly, at any number of extra channels: one
+launch up to ``MAX_EXTRA`` of them, else one per group of ``MAX_EXTRA``
+(the colour with the first), after a copy of the window's canvas values
+that each reads the background alpha from.  The wrapper counts its
+launches in ``compose.launches``; on a CPU tensor it runs the twin, on a
+CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from .. import _build
 from ..host.api import InvalidJXLError
 from . import fp
 
-MAX_EXTRA = 8           # compose.cuh's kMaxExtra
+MAX_EXTRA = 8           # compose.cuh's kMaxExtra: extra channels a launch
 _DTYPES = {torch.uint8: (0, 255.0), torch.uint16: (1, 65535.0)}
 REPLACE, ADD, BLEND, ALPHA_WEIGHTED_ADD, MUL = range(5)
 _NEEDS_ALPHA = (BLEND, ALPHA_WEIGHTED_ADD)
@@ -40,7 +43,8 @@ _NEEDS_ALPHA = (BLEND, ALPHA_WEIGHTED_ADD)
 def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind(_build.load("compose"), "jxl_compose",
-                       [p, i, i, p, i, i, i, i, i, i, i, p, ctypes.c_double])
+                       [p, i, i, p, i, p, i, i, i, i, i, i, p,
+                        ctypes.c_double, i])
 
 
 class Window(NamedTuple):
@@ -79,9 +83,6 @@ def blend_params(fh, m, nch: int) -> np.ndarray:
     if nch != ncolor + n_ec:
         raise InvalidJXLError(f"a frame of {nch} channels in an image with "
                               f"{n_ec} extra channels")
-    if n_ec > MAX_EXTRA:
-        raise NotImplementedError(f"composing {n_ec} extra channels: the "
-                                  f"kernel takes up to {MAX_EXTRA}")
 
     def blend(bi, what: str):
         if bi.mode not in range(5):
@@ -195,7 +196,7 @@ def compose(canvas: torch.Tensor, src: torch.Tensor, win: Window,
             params: np.ndarray) -> None:
     """Blend src's window onto canvas in place (canvas and src: (H, W,
     C) uint8 or uint16 on one device, the canvas contiguous; params from
-    blend_params)."""
+    blend_params): one launch, or ceil(extra channels / MAX_EXTRA)."""
     _check(canvas, src, params)
     if canvas.device.type == "cpu":
         compose_plain(canvas, src, win, params)
@@ -206,11 +207,18 @@ def compose(canvas: torch.Tensor, src: torch.Tensor, win: Window,
     src = src.contiguous()
     params = np.ascontiguousarray(params, np.int32)
     code, maxv = _DTYPES[canvas.dtype]
-    _build.launch(_kernel(), canvas.device, canvas.data_ptr(), code,
-                  canvas.shape[1], src.data_ptr(), src.shape[1], win.sx,
-                  win.sy, win.dx, win.dy, win.cw, win.ch, params.ctypes.data,
-                  maxv)
-    compose.launches += 1
+    n_ec = int(params[2])
+    bg = None
+    if n_ec > MAX_EXTRA:
+        bg = canvas[win.dy:win.dy + win.ch, win.dx:win.dx + win.cw].clone(
+            memory_format=torch.contiguous_format)
+    for g0 in range(0, max(n_ec, 1), MAX_EXTRA):
+        _build.launch(_kernel(), canvas.device, canvas.data_ptr(), code,
+                      canvas.shape[1], src.data_ptr(), src.shape[1],
+                      None if bg is None else bg.data_ptr(), win.sx, win.sy,
+                      win.dx, win.dy, win.cw, win.ch, params.ctypes.data,
+                      maxv, g0)
+        compose.launches += 1
 
 
 compose.launches = 0

@@ -4,7 +4,7 @@ PreferredColorConfig dispatch of ``reformat``.
 
 ``convert(pixels, fmt, tone)`` is kernel S4 of ``csrc/pixel_ops.cu``
 (``reformat_kernel``): (H, W, C) uint8 / uint16 codes or float32 values
-in [0, 1], C 1..4 -> values / maxv, optionally the HDR -> SDR tone map
+in [0, 1], any C -> values / maxv, optionally the HDR -> SDR tone map
 of ``ops/tone.py`` on the colour (then the codes of it), grey repeated
 to RGB, an opaque alpha where there is none, then one packer: ``CODES``
 (the tone-mapped codes, the input's type and channels), ``RGBA8888``
@@ -22,7 +22,10 @@ The reference's ``reformat`` takes (H, W, 4) floats; ``convert`` takes
 what ``decode_sampled`` holds before its grey and alpha steps
 (``api.py:1206-1213``), and a float (H, W, 4) input is the reference's
 case.  A grey image with alpha (C 2) becomes (g, g, g, a); the reference
-leaves it two channels wide (its packers then read past them).
+leaves it two channels wide (its packers then read past them).  Past four
+channels (extra channels beyond alpha) RGBA8888 and RGBA_F16 pack all C,
+RGB565 the first three and RGBA1010102 the first four, as the reference's
+packers do with what ``decode_sampled`` hands them there.
 """
 
 from __future__ import annotations
@@ -73,8 +76,9 @@ def _out_like(pixels: torch.Tensor, fmt: int) -> torch.Tensor:
     if fmt == CODES:
         return torch.empty(pixels.shape, dtype=pixels.dtype, device=dev)
     if fmt in (RGBA8888, RGBA_F16):
-        return torch.empty(shape + (4,), device=dev, dtype=torch.uint8
-                           if fmt == RGBA8888 else torch.float16)
+        return torch.empty(shape + (max(4, pixels.shape[-1]),), device=dev,
+                           dtype=torch.uint8 if fmt == RGBA8888
+                           else torch.float16)
     return torch.empty(shape, device=dev, dtype=torch.uint16
                        if fmt == RGB565 else torch.uint32)
 
@@ -99,8 +103,11 @@ def convert_plain(pixels: torch.Tensor, fmt: int,
         rgb = v[..., :1].expand(v.shape[:-1] + (3,))
     else:
         rgb = v[..., :3]
-    a = v[..., -1:] if c in (2, 4) else torch.ones_like(v[..., :1])
+    a = v[..., 3:4] if c >= 4 else (v[..., -1:] if c == 2
+                                    else torch.ones_like(v[..., :1]))
     rgba = torch.cat([rgb, a], -1)
+    if c > 4 and fmt in (RGBA8888, RGBA_F16):
+        rgba = torch.cat([rgba, v[..., 4:]], -1)
     if fmt == RGBA8888:
         return _q(rgba, 255.0).to(torch.uint8)
     if fmt == RGBA_F16:
@@ -115,13 +122,13 @@ def convert_plain(pixels: torch.Tensor, fmt: int,
 
 def convert(pixels: torch.Tensor, fmt: int,
             tone: Optional[T.ToneParams] = None) -> torch.Tensor:
-    """(..., C) uint8 / uint16 codes or float32 values, C 1..4 -> packed
+    """(..., C) uint8 / uint16 codes or float32 values, C >= 1 -> packed
     as `fmt`; tone: ``tone.params`` of the stream to map the colour (C
     >= 3) from HDR / wide gamut to SDR sRGB first, or None."""
     if pixels.dtype not in _DTYPES or pixels.dim() < 1 or \
-            not 1 <= pixels.shape[-1] <= 4:
+            pixels.shape[-1] < 1:
         raise ValueError(f"pixels: expected (..., C) uint8, uint16 or "
-                         f"float32, C 1..4, got {tuple(pixels.shape)} "
+                         f"float32, C >= 1, got {tuple(pixels.shape)} "
                          f"{pixels.dtype}")
     if fmt not in range(5) or (fmt == CODES and
                                pixels.dtype == torch.float32):

@@ -7,7 +7,8 @@ and returns them resized as a scale mode says (``host/ops/resize.py``
 premultiplied when the image has unassociated alpha (C 2 or 4), a
 vertical then a horizontal pass of ``resample_matrix``'s weights, alpha
 unpremultiplied (``clip(alpha, 1e-6, 1)``), clip to [0, 1] and round
-half to even to the input's type.  On a CUDA tensor that is kernel S3 of
+half to even to the input's type, at any channel count (alpha only at C
+2 or 4, as the reference).  On a CUDA tensor that is kernel S3 of
 ``csrc/sample.cu``: each output reads only its row's band of nonzero
 weights (``host/ops/resize.py`` ``band``; the folded edge taps are
 summed into the band, as the matrix holds them), and only the kept rows
@@ -45,10 +46,9 @@ def _kernel():
 
 
 def _check(img: torch.Tensor) -> None:
-    if img.dim() != 3 or img.dtype not in _DTYPES or \
-            not 1 <= img.shape[2] <= 4:
+    if img.dim() != 3 or img.dtype not in _DTYPES or img.shape[2] < 1:
         raise ValueError(f"img: expected (H, W, C) uint8, uint16 or "
-                         f"float32, C 1..4, got {tuple(img.shape)} "
+                         f"float32, C >= 1, got {tuple(img.shape)} "
                          f"{img.dtype}")
 
 

@@ -5,9 +5,9 @@ then averages each 8 x 8 cell of the codes, edge-padded, and rounds half
 to even (``jxl_coder_tpu/api.py:1062-1069,1101-1107``).  ``box_codes``
 is kernel S2 of ``csrc/sample.cu``; ``box_codes_plain`` its twin.  The
 sum of a cell is an integer, so both round it exactly and agree with the
-reference's numpy to the code.  The wrapper counts its launches in
-``box_codes.launches``; on a CPU tensor it runs the twin, on a CUDA
-tensor it launches the kernel or raises.
+reference's numpy to the code, at any channel count.  The wrapper
+counts its launches in ``box_codes.launches``; on a CPU tensor it runs
+the twin, on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -32,9 +32,9 @@ def _kernel():
 
 def _check(codes: torch.Tensor) -> None:
     if codes.dim() != 3 or codes.dtype not in _DTYPES or \
-            not 1 <= codes.shape[2] <= 4:
+            codes.shape[2] < 1:
         raise ValueError(f"codes: expected (H, W, C) uint8 or uint16, C "
-                         f"1..4, got {tuple(codes.shape)} {codes.dtype}")
+                         f">= 1, got {tuple(codes.shape)} {codes.dtype}")
 
 
 def round_half_even(s: torch.Tensor, shift: int) -> torch.Tensor:

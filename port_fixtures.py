@@ -6,6 +6,8 @@ and chip_smoke.py; imports no JAX.
 
 from __future__ import annotations
 
+import struct
+
 import numpy as np
 
 from jxl_coder_tpu_torch import animation as ANIM
@@ -27,6 +29,7 @@ from jxl_coder_tpu_torch.host.modular.image import Channel, ModularImage
 from jxl_coder_tpu_torch.host.modular.stream import (GroupHeader,
                                                      encode_modular_stream)
 from jxl_coder_tpu_torch.host.modular.tree import Tree
+from jxl_coder_tpu_torch.host.ops.icc import SRGB_D50
 from jxl_coder_tpu_torch.host.vardct.enc_real import srgb8_to_xyb
 from jxl_coder_tpu_torch.host.vardct.quant import quality_to_distance
 from jxl_coder_tpu_torch.host.vardct import synthesis as S
@@ -218,22 +221,40 @@ def posterized_frame(h: int, w: int, levels: int = 6) -> np.ndarray:
     return (bench_frame(h, w) // step * step).astype(np.uint8)
 
 
+# the extra channels past alpha of the many-channel fixtures, in turn
+EXTRA_TYPES = (ExtraChannelType.DEPTH, ExtraChannelType.THERMAL,
+               ExtraChannelType.SELECTION_MASK, ExtraChannelType.OPTIONAL)
+
+
+def extra_types(n: int) -> tuple:
+    """n extra channels: alpha, then EXTRA_TYPES in turn."""
+    return ((ExtraChannelType.ALPHA,)
+            + tuple(EXTRA_TYPES[i % len(EXTRA_TYPES)]
+                    for i in range(n - 1)))[:n]
+
+
 def modular_headers(h: int, w: int, nch: int, bits: int = 8,
-                    xyb: bool = False, group_shift: int = 3):
+                    xyb: bool = False, group_shift: int = 3,
+                    icc: bytes = None):
     """(ImageHeader, FrameHeader) of a Modular still as
     jxl_coder_tpu.api.encode writes them (lossless: api.py:306-327);
-    nch 4 carries alpha as an extra channel, xyb an XYB-encoded frame."""
+    channels past the colour (1 or 3) are extra channels (extra_types: a
+    fourth is alpha), xyb an XYB-encoded frame, icc an embedded ICC
+    profile."""
     m = ImageMetadata()
     m.xyb_encoded = xyb
     m.bit_depth = BitDepth(False, bits, 0)
     ce = ColourEncoding()
     if nch == 1:
         ce.colour_space = ColourSpace.GREY
+    if icc is not None:
+        ce.want_icc = True
+        m.icc_profile = icc
     m.colour_encoding = ce
-    if nch == 4:
-        ec = ExtraChannelInfo(type=ExtraChannelType.ALPHA)
+    for t in extra_types(max(0, nch - 3)):
+        ec = ExtraChannelInfo(type=t)
         ec.bit_depth = BitDepth(False, bits, 0)
-        m.extra_channels = [ec]
+        m.extra_channels.append(ec)
     hdr = ImageHeader(size=SizeHeader(xsize=w, ysize=h), metadata=m)
     fh = FrameHeader()
     fh.encoding = Encoding.MODULAR
@@ -261,15 +282,16 @@ def _planes(img: np.ndarray):
 
 
 def modular_still(img: np.ndarray, palette: bool = False,
-                  group_shift: int = 3) -> bytes:
+                  group_shift: int = 3, icc: bytes = None) -> bytes:
     """What api.encode(..., effort=1/2) writes, with RCT 6 forced on three
     colour channels and a single-leaf predictor-5 tree
     (reference.encode_modular_frame); palette: the colours of np.unique
-    of the pixels as the palette body (api._try_palette_body)."""
+    of the pixels as the palette body (api._try_palette_body); icc: an
+    embedded ICC profile (api.encode(..., icc=...))."""
     planes = _planes(img)
     bits = 16 if img.dtype == np.uint16 else 8
     hdr, fh = modular_headers(img.shape[0], img.shape[1], len(planes), bits,
-                              group_shift=group_shift)
+                              group_shift=group_shift, icc=icc)
     pal = None
     if palette:
         packed = np.stack(planes[:3], -1).reshape(-1, 3)
@@ -786,9 +808,11 @@ def _sprite_place(place: str, h: int, w: int, sh: int, sw: int):
             "outside": (-sw - 3, h // 2)}[place]
 
 
-def sprite_animation(h: int, w: int, sh: int, sw: int, seed: int = 0
-                     ) -> bytes:
-    """A lossless 8-bit animation of RGB, alpha and a depth channel: a
+def sprite_animation(h: int, w: int, sh: int, sw: int, seed: int = 0,
+                     n_extra: int = 2) -> bytes:
+    """A lossless 8-bit animation of RGB, alpha and a depth channel (with
+    n_extra > 2, more extra channels of EXTRA_TYPES, the k-th past depth
+    in depth's mode + k - 1, its clamp flipped every other one): a
     full-canvas background saved to slot 1, a reference-only frame (slot
     2, stored as pixels), then SPRITE_FRAMES: eight cropped sh x sw
     sprites, every blend mode of the colour with and without clamp, the
@@ -799,9 +823,8 @@ def sprite_animation(h: int, w: int, sh: int, sw: int, seed: int = 0
     duration; last, a whole-canvas frame blended over slot 1.  Seeded
     values, alpha with runs of 0 and 255."""
     rng = np.random.default_rng(seed)
-    nch = 5
-    hdr = animation_header(h, w, nch, extra=(ExtraChannelType.ALPHA,
-                                             ExtraChannelType.DEPTH))
+    nch = 3 + n_extra
+    hdr = animation_header(h, w, nch, extra=extra_types(n_extra))
 
     def image(ih: int, iw: int) -> np.ndarray:
         px = rng.integers(0, 256, (ih, iw, nch)).astype(np.uint8)
@@ -830,9 +853,11 @@ def sprite_animation(h: int, w: int, sh: int, sw: int, seed: int = 0
             fh.frame_width, fh.frame_height = sw, sh
         fh.blending_info = BlendingInfo(mode=colour[0], alpha_channel=0,
                                         clamp=colour[1], source=src)
+        more = [((depth[0] + k) % 5, 0, depth[2] ^ (k % 2 == 1))
+                for k in range(1, n_extra - 1)]
         fh.ec_blending_info = [BlendingInfo(mode=m, alpha_channel=a,
                                             clamp=c, source=src)
-                               for m, a, c in (alpha, depth)]
+                               for m, a, c in [alpha, depth] + more]
         fh.duration = dur
         fh.is_last = k == len(SPRITE_FRAMES) - 1
         fh.save_as_reference = 0 if fh.is_last else slot
@@ -1012,3 +1037,152 @@ def baseline_jpeg(img: np.ndarray, quality: int = 90, subsampling: int = 0,
         head += _segment(0xDD, restart.to_bytes(2, "big"))
     j.header_bytes = head + _segment(0xDA, bytes(sos))
     return write_jpeg(j)
+
+
+# ---- ICC profiles (ICC.1:2010 matrix / TRC), from published constants -----
+
+# D50-adapted colorants (columns: red, green, blue; rows: X, Y, Z) as the
+# published profiles carry them: Adobe RGB (1998) (Adobe's profile), Display
+# P3 (Apple's), ProPhoto / ROMM RGB (ISO 22028-2), and littlecms's sRGB
+ICC_COLORANTS = {
+    "adobe": np.array([[0.60974, 0.20528, 0.14919],
+                       [0.31111, 0.62567, 0.06322],
+                       [0.01947, 0.06087, 0.74457]]),
+    "p3": np.array([[0.515121, 0.291977, 0.157104],
+                    [0.241196, 0.692245, 0.066574],
+                    [-0.001053, 0.041885, 0.784073]]),
+    "prophoto": np.array([[0.7977, 0.1352, 0.0313],
+                          [0.2880, 0.7119, 0.0001],
+                          [0.0, 0.0, 0.8249]]),
+    "srgb": SRGB_D50,
+}
+# tone curves: ("curv", None) the identity, ("curv", gamma), ("curv", array
+# of 16-bit entries), ("para", function type, params)
+SRGB_PARA = ("para", 3, (2.4, 1 / 1.055, 0.055 / 1.055, 1 / 12.92, 0.04045))
+ADOBE_CURV = ("curv", 563 / 256)
+PROPHOTO_CURV = ("curv", 1.8)
+
+
+def _s15(v: float) -> bytes:
+    return struct.pack(">i", int(round(v * 65536)))
+
+
+def _icc_curve(spec) -> bytes:
+    if spec[0] == "curv":
+        ent = spec[1]
+        if ent is None:
+            return b"curv\0\0\0\0" + struct.pack(">I", 0)
+        if np.isscalar(ent):
+            return b"curv\0\0\0\0" + struct.pack(">IH", 1,
+                                                    int(round(ent * 256)))
+        ent = np.asarray(ent)
+        return b"curv\0\0\0\0" + struct.pack(">I", len(ent)) + \
+            ent.astype(">u2").tobytes()
+    _, ftype, params = spec
+    return b"para\0\0\0\0" + struct.pack(">HH", ftype, 0) + \
+        b"".join(_s15(p) for p in params)
+
+
+def icc_profile(colorants="p3", curve=SRGB_PARA, version: int = 2,
+                space: bytes = b"RGB ", cls: bytes = b"mntr",
+                extra=()) -> bytes:
+    """An ICC display profile: the header (D50 illuminant), desc (v2
+    textDescription, v4 mluc), wtpt D50, the rXYZ / gXYZ / bXYZ colorants
+    (a name of ICC_COLORANTS or a 3x3 array; None: none) and the three
+    TRCs (one spec for all, a list of three, or None: none), then `extra`
+    (signature, bytes) tags."""
+    if version >= 4:
+        desc = b"mluc\0\0\0\0" + struct.pack(">II", 1, 12) + b"enUS" + \
+            struct.pack(">II", 8, 28) + "test".encode("utf-16-be")
+    else:
+        desc = b"desc\0\0\0\0" + struct.pack(">I", 5) + b"test\0" + \
+            b"\0" * 79
+    d50 = (0.9642, 1.0, 0.8249)
+    tags = [(b"desc", desc),
+            (b"wtpt", b"XYZ \0\0\0\0" + b"".join(_s15(v) for v in d50))]
+    if colorants is not None:
+        col = ICC_COLORANTS[colorants] if isinstance(colorants, str) \
+            else np.asarray(colorants)
+        for sig, xyz in zip((b"rXYZ", b"gXYZ", b"bXYZ"), col.T):
+            tags.append((sig, b"XYZ \0\0\0\0" +
+                         b"".join(_s15(v) for v in xyz)))
+    if curve is not None:
+        curves = curve if isinstance(curve, list) else [curve] * 3
+        for sig, c in zip((b"rTRC", b"gTRC", b"bTRC"), curves):
+            tags.append((sig, _icc_curve(c)))
+    tags.extend(extra)
+    start = 128 + 4 + 12 * len(tags)
+    table, body = b"", b""
+    for sig, data in tags:
+        data += b"\0" * (-len(data) % 4)
+        table += sig + struct.pack(">II", start + len(body), len(data))
+        body += data
+    hdr = struct.pack(">I4sI4s4s4s", start + len(body), b"lcms",
+                      0x04300000 if version >= 4 else 0x02100000, cls,
+                      space, b"XYZ ")
+    hdr += struct.pack(">6H", 2024, 1, 1, 0, 0, 0) + b"acsp" + b"APPL" + \
+        b"\0" * 20 + struct.pack(">I", 0) + b"".join(_s15(v) for v in d50)
+    hdr += b"lcms" + b"\0" * 44
+    return hdr + struct.pack(">I", len(tags)) + table + body
+
+
+def icc_lut8() -> bytes:
+    """A minimal identity lut8Type (mft1) tag, for an A2B0 / D2B0."""
+    body = b"mft1\0\0\0\0" + bytes([3, 3, 2, 0])
+    body += b"".join(_s15(v) for v in (1, 0, 0, 0, 1, 0, 0, 0, 1))
+    body += bytes(range(256)) * 3
+    body += bytes(v for i in range(2) for j in range(2) for k in range(2)
+                  for v in (i * 255, j * 255, k * 255))
+    return body + bytes(range(256)) * 3
+
+
+def lut_profile() -> bytes:
+    """A Display P3 matrix / TRC profile that also carries an A2B0 table,
+    which littlecms's perceptual intent converts through."""
+    return icc_profile("p3", SRGB_PARA, 2, extra=[(b"A2B0", icc_lut8())])
+
+
+def _srgb_decode(x: np.ndarray) -> np.ndarray:
+    return np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+
+
+def icc_test_profiles() -> dict:
+    """The matrix / TRC profiles the ICC step is held to littlecms on:
+    name -> profile bytes (Adobe RGB, Display P3 v2 / v4, ProPhoto, curv
+    tables and the identity, para types 0-4, mixed curves, and sRGB,
+    whose matrix littlecms drops)."""
+    x1024, x4096 = np.linspace(0, 1, 1024), np.linspace(0, 1, 4096)
+    gamma_table = ("curv", np.round(65535 * x1024 ** 2.2).astype(np.int64))
+    srgb_table = ("curv", np.round(65535 * _srgb_decode(x4096))
+                  .astype(np.int64))
+    para4 = ("para", 4, (2.2, 1 / 1.055, 0.055 / 1.055, 1 / 12.92, 0.04045,
+                         0.0, 0.0))
+    specs = {
+        "adobe": ("adobe", ADOBE_CURV, 2),
+        "p3 v2": ("p3", SRGB_PARA, 2),
+        "p3 v4": ("p3", SRGB_PARA, 4),
+        "prophoto": ("prophoto", PROPHOTO_CURV, 2),
+        "curv table": ("adobe", gamma_table, 2),
+        "curv identity": ("p3", ("curv", None), 4),
+        "para 0": ("p3", ("para", 0, (2.2,)), 4),
+        "para 1": ("prophoto", ("para", 1, (2.4, 1.1, -0.1)), 4),
+        "para 2": ("adobe", ("para", 2, (2.4, 1.1, -0.1, 0.0)), 4),
+        "para 3": ("adobe", SRGB_PARA, 4),
+        "para 4": ("p3", para4, 4),
+        "mixed curves": ("p3", [ADOBE_CURV, SRGB_PARA, gamma_table], 2),
+        "srgb": ("srgb", SRGB_PARA, 4),
+        "srgb table": ("srgb", srgb_table, 2),
+    }
+    return {k: icc_profile(*v) for k, v in specs.items()}
+
+
+def with_icc(data: bytes, icc: bytes) -> bytes:
+    """A still's stream with `icc` embedded in its image header (the
+    frames as they are: the header ends on a byte)."""
+    hdr = api.parse_header(data)
+    n = len(header_bytes(hdr))
+    if header_bytes(hdr) != data[:n]:
+        raise ValueError("the stream's header does not re-serialise")
+    hdr.metadata.colour_encoding.want_icc = True
+    hdr.metadata.icc_profile = icc
+    return header_bytes(hdr) + data[n:]

@@ -274,25 +274,34 @@ def test_compose_rejects_what_the_reference_cannot_blend():
 
 
 _COMPOSE_RUN = r"""
+#include <cstdlib>
+#include <vector>
 #include "compose.cuh"
 using namespace jxl_blend;
-// compose.cu's threads one after another on the host
+// compose.cu's launches and their threads one after another on the host:
+// one launch per group of kMaxExtra extra channels, the window's canvas
+// values copied first when there is more than one
 template <typename T>
 static void run(T* canvas, int canvas_w, const T* src, int src_w, int sx,
                 int sy, int dx, int dy, int cw, int ch, const int* ip,
                 double maxv) {
-  Params p;
-  p.nch = ip[0]; p.ncolor = ip[1]; p.n_ec = ip[2]; p.maxv = maxv;
-  p.colour = Blend{ip[3], ip[4], ip[5]};
-  for (int i = 0; i < p.n_ec; ++i) {
-    p.ec[i] = Blend{ip[6 + 4 * i], ip[7 + 4 * i], ip[8 + 4 * i]};
-    p.assoc[i] = ip[9 + 4 * i];
+  const int nch = ip[0], n_ec = ip[2];
+  std::vector<T> bg;
+  if (n_ec > kMaxExtra)
+    for (int y = 0; y < ch; ++y)
+      for (int x = 0; x < cw * nch; ++x)
+        bg.push_back(canvas[(long long)(dy + y) * canvas_w * nch +
+                            (long long)dx * nch + x]);
+  for (int g0 = 0; g0 < (n_ec > 0 ? n_ec : 1); g0 += kMaxExtra) {
+    Params p;
+    if (!params_of(ip, maxv, g0, &p)) std::abort();
+    for (int y = 0; y < ch; ++y)
+      for (int x = 0; x < cw; ++x)
+        compose_pixel<T>(
+            src + ((long long)(sy + y) * src_w + sx + x) * nch,
+            canvas + ((long long)(dy + y) * canvas_w + dx + x) * nch,
+            bg.empty() ? nullptr : &bg[((long long)y * cw + x) * nch], p);
   }
-  for (int y = 0; y < ch; ++y)
-    for (int x = 0; x < cw; ++x)
-      compose_pixel<T>(src + ((long long)(sy + y) * src_w + sx + x) * p.nch,
-                       canvas + ((long long)(dy + y) * canvas_w + dx + x) * p.nch,
-                       p);
 }
 extern "C" void compose_host(void* canvas, int dtype, int canvas_w,
                              const void* src, int src_w, int sx, int sy,
@@ -357,6 +366,59 @@ def test_compose_kernel_program_equals_the_reference(compose_host, dtype,
                         pix.shape[1], *win, ip.ctypes.data,
                         float(np.iinfo(dtype).max))
                 assert np.array_equal(got, ref), (mode, amode, offset)
+
+
+def _many_case(n_ec, mode, dtype, seed, ncolor=3):
+    """A seeded canvas and frame with n_ec extra channels: the colour in
+    `mode` through an alpha channel past the first group of eight, every
+    extra channel in a drawn mode through a drawn alpha channel (BLEND and
+    ALPHA_WEIGHTED_ADD through alpha channels in every group), associated
+    alpha on some of them."""
+    rng = np.random.default_rng(seed)
+    maxv = np.iinfo(dtype).max
+    nch = ncolor + n_ec
+    canvas = rng.integers(0, maxv + 1, (13, 19, nch)).astype(dtype)
+    pix = rng.integers(0, maxv + 1, (9, 11, nch)).astype(dtype)
+    alphas = [0, n_ec - 1, n_ec // 2]
+    for a in (canvas, pix):
+        for k, al in enumerate(alphas):
+            a[k::3, ::2, ncolor + al] = 0
+            a[1 + k::4, 1::3, ncolor + al] = maxv
+    ec = [_blend(int(rng.integers(5)), alphas[int(rng.integers(3))],
+                 bool(rng.integers(2))) for _ in range(n_ec)]
+    for al in alphas:
+        ec[al] = _blend(mode, al, bool(rng.integers(2)))
+    fh = NS(x0=int(rng.integers(-4, 12)), y0=int(rng.integers(-3, 8)),
+            blending_info=_blend(mode, alphas[1], bool(rng.integers(2))),
+            ec_blending_info=ec)
+    m = NS(extra_channels=[NS(alpha_associated=bool(i % 3 == 1))
+                           for i in range(n_ec)])
+    return canvas, pix, fh, m
+
+
+@pytest.mark.parametrize("n_ec", [9, 10, 17])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_compose_many_extra_channels_equal_the_reference(compose_host,
+                                                         dtype, n_ec):
+    """Past compose.cuh's eight extra channels a launch: its groups (the
+    host harness runs them as compose.cu launches them, after the window's
+    copy) and A10's twin, against the JAX package, every colour mode."""
+    for mode in range(5):
+        for ncolor in (1, 3):
+            canvas, pix, fh, m = _many_case(n_ec, mode, dtype,
+                                            mode * 7 + n_ec + ncolor, ncolor)
+            ref = canvas.copy()
+            ref_api._compose_frame(ref, pix, fh, m)
+            assert np.array_equal(_twin_compose(canvas, pix, fh, m), ref)
+            got = np.ascontiguousarray(canvas.copy())
+            win = C.window(got.shape[:2], pix.shape[:2], fh.x0, fh.y0)
+            if win is not None:
+                ip = C.blend_params(fh, m, pix.shape[2])
+                compose_host.compose_host(
+                    got.ctypes.data, int(dtype == np.uint16), got.shape[1],
+                    np.ascontiguousarray(pix).ctypes.data, pix.shape[1],
+                    *win, ip.ctypes.data, float(np.iinfo(dtype).max))
+            assert np.array_equal(got, ref), (mode, ncolor)
 
 
 # ---- decode_frames, AnimatedImage, api.decode ------------------------------

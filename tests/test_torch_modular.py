@@ -348,11 +348,18 @@ def test_xyb_output_is_kernel_2s_output_step(monkeypatch):
 # ---- (f) what must raise ----
 
 def test_modular_outside_the_slice_raises():
+    """An embedded profile littlecms applies by a lookup table raises (a
+    matrix / TRC one, here PIL's sRGB, now decodes as the JAX package
+    does: tests/test_torch_icc.py), as do entropy="device" and prepare."""
     img = _rgb(16, 24)
     from PIL import ImageCms
     icc = ImageCms.ImageCmsProfile(ImageCms.createProfile("sRGB")).tobytes()
+    srgb = ref_api.encode(img, lossless=True, icc=icc)
+    assert np.array_equal(api.decode(srgb, device="cpu")[0],
+                          ref_api.decode(srgb)[0])
     with pytest.raises(NotImplementedError, match="ICC"):
-        api.decode(ref_api.encode(img, lossless=True, icc=icc), device="cpu")
+        api.decode(ref_api.encode(img, lossless=True, icc=F.lut_profile()),
+                   device="cpu")
     plain = ref_api.encode(img, lossless=True, effort=2)
     with pytest.raises(NotImplementedError, match="host"):
         api.decode(plain, device="cpu", entropy="device")
@@ -362,8 +369,9 @@ def test_modular_outside_the_slice_raises():
 
 def test_modular_upsampling_raises():
     """Frame upsampling raised until the post stages' upsampler (A6);
-    the frame now decodes as the JAX package decodes it, and only an
-    embedded ICC profile or entropy="device" still raises."""
+    the frame now decodes as the JAX package decodes it, and only
+    entropy="device" (or an ICC profile littlecms applies by a lookup
+    table) still raises."""
     hdr, fh = F.modular_headers(16, 24, 3)
     fh.upsampling = 2
     planes = [p[::2, ::2].copy() for p in F._planes(_rgb(16, 24))]

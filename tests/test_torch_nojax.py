@@ -447,6 +447,62 @@ def test_jpeg_routes_without_the_jax_package(tmp_path):
     assert res.stdout.strip() == "True True (37, 51, 3)", res.stdout
 
 
+def test_icc_config_trace_and_plugin_without_the_jax_package(tmp_path):
+    """The same copy, jax and jxl_coder_tpu blocked: the modules of the ICC
+    step, config, utils.trace and the Pillow plugin import; is_jxl and
+    get_size probe a stream; a Modular still with a Display P3 profile
+    decodes on the CPU to the twin's codes; a lossy encode with
+    the profile, config.encode, a span and a device trace, and a plugin
+    round trip run."""
+    shutil.copytree(PKG, tmp_path / "jxl_coder_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(REPO / "port_fixtures.py", tmp_path)
+    code = textwrap.dedent("""
+        import io, os, sys
+        sys.modules["jax"] = None        # any `import jax` now fails
+        sys.modules["jxl_coder_tpu"] = None
+        import numpy as np
+        import torch
+        from PIL import Image
+        from jxl_coder_tpu_torch import api, config
+        from jxl_coder_tpu_torch.host.ops import icc as HICC
+        from jxl_coder_tpu_torch.integrations import pil_plugin
+        from jxl_coder_tpu_torch.ops import icc_apply
+        from jxl_coder_tpu_torch.utils import trace
+        import port_fixtures as F
+        img = F.bench_frame(20, 28)
+        p3 = F.icc_profile("p3", F.SRGB_PARA, 4)
+        data = F.modular_still(img, icc=p3)
+        out, _ = api.decode(data, device="cpu")
+        tab = icc_apply.tables_on(HICC.plan(p3), "cpu")
+        same = np.array_equal(out, icc_apply.transform_plain(
+            torch.from_numpy(img), tab).numpy())
+        lossy = api.encode(img, lossless=False, icc=p3, device="cpu")
+        cfg = config.encode(img, device="cpu", quality=80)
+        trace.enable(True)
+        with trace.span("decode"):
+            api.decode(lossy, device="cpu")
+        trace.enable(False)
+        with trace.device_trace(os.path.join(os.getcwd(), "t")):
+            api.decode(cfg, device="cpu")
+        pil_plugin.register("cpu")
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="JXL")
+        back = np.asarray(Image.open(io.BytesIO(buf.getvalue())))
+        assert not any(m.split(".")[0] in ("jax", "jxl_coder_tpu")
+                       for m, v in sys.modules.items() if v is not None)
+        print(api.is_jxl(data), api.get_size(data), same,
+              api.get_size(lossy), trace.report().splitlines()[1].split()[:2],
+              len(os.listdir("t")), np.array_equal(back, img))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == (
+        "True (28, 20) True (28, 20) ['decode', '1'] 1 True"), res.stdout
+
+
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     """A kernel that cannot be built raises; nothing falls back."""
     from jxl_coder_tpu_torch import _build
