@@ -2,7 +2,8 @@
 extra channels, patches, splines, reference-only and LF frames), its
 Modular still decode, its sampled decode and pixel ops, its animated,
 progressive and truncated decode, its JPEG recompression routes, its
-encoders and its round-1 VarDCT codec on one CUDA card.
+encoders, its round-1 VarDCT codec and its multi-device decode and
+encode on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -244,6 +245,26 @@ prints no result):
      the ICC kernel at 4K by CUDA graph against twin, bound and a yardstick
      of PyTorch calls (gather, fp32 matmul, where / pow), and S2, S3 and
      A10 at 4K past their old channel limits.
+ 20. the multi-device decode and encode (jxl_coder_tpu_torch/parallel over
+     torch.distributed; ranks spawned after every timed phase, sharing the
+     one card): kernel 2 in a row window (the lower half of the 4K
+     all-DCT8 frame's rows) bit-equal to the same rows of the whole-frame
+     launch, within 1 code of its twin, timed beside it; the 4K all-DCT8
+     frame (effort 2, 270 x 480 blocks) by block rows at 1 rank (NCCL)
+     and at 2 and 3 ranks (gloo), and at 2 ranks with epf_iters 3, counted
+     with the twins made to raise (kernel 7 and one windowed kernel-2
+     launch a rank, plus its EPF0 pass at epf_iters 3), every rank's
+     whole output equal to DCT8Frame's on the card (0 codes), each
+     windowed launch against its twin on the rank's slab, and each rank's
+     host ms split into compute, exchange and all_gather; phase 16's 8
+     round-1 frames at 2 ranks: decode_frames_batch(mesh=),
+     sharded_reconstruct and sharded_frame_reconstruct equal to the
+     non-mesh path; in this process and in the same 2 ranks, the
+     multihost workers (the GOP decode of the 4K d1.0 e7 stream, 4 frames
+     a rank, each rank's frames equal to api.decode; the GOP encode of 4
+     FHD frames, the bitstreams byte-identical) at 1 and 2 processes,
+     their frames per second printed as contention on one card, not
+     scaling.
 Every kernel's line carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its operations over their type's rate: 67 TFLOP/s for f32, 34 for
@@ -251,7 +272,9 @@ fp64 (the spline kernel's sums, the composition) (the H100 SXM's
 published peaks at 700 W).  Calls the host cannot queue ahead of the card are timed by
 replaying a CUDA graph of them.  The last two lines are the card's name
 and power limit and
-{"ok": true, "device": {...}}; the line before them lists the kernels.
+{"ok": true, "device": {...}}; the line before them lists the kernels
+(kernel 2's row and its EPF0 pass's also count phase 20's windowed
+launches, "window_launches").
 """
 
 from __future__ import annotations
@@ -310,9 +333,10 @@ from jxl_coder_tpu_torch.vardct import overlay as OV
 from jxl_coder_tpu_torch.vardct import fused_filters as FF
 from jxl_coder_tpu_torch.vardct import parse as PARSE
 from jxl_coder_tpu_torch.vardct import pipeline as LP
+from jxl_coder_tpu_torch.parallel import groups as G
 from jxl_coder_tpu_torch.vardct.frame import VarDCTFrame
 from port_fixtures import (animation_frame, animation_header, baseline_jpeg,
-                           bench_frame, dct8_arguments, group_rct_still, header_bytes,
+                           bench_frame, group_rct_still, header_bytes,
                            icc_test_profiles, legacy_animation, modular_still,
                            patched_alpha_still, posterized_frame,
                            seeded_splines, sharp_frame, sprite_animation,
@@ -723,13 +747,22 @@ def device_rows(fn, runs: int, tries: int = 2):
     return None
 
 
+# whether the profiler still gives whole profiles in this process: once
+# every try of a call has dropped records it keeps dropping them (44 of 46
+# such calls in one full run of this script on the H100, 54 of 55 in
+# another), and each try of a twin costs seconds, so later calls skip it;
+# the seconds the failed tries took
+PROFILER = {"whole": True, "failed_s": 0.0, "skipped": 0}
+
+
 def device_ms(fn, n: int = 50) -> float:
     """Device milliseconds per call of fn.  CUDA events around n
     back-to-back calls time the card's own work (a few us between
     launches included) when the host queues the calls in under 0.8 of
     that time; otherwise (short kernels, twins of many small ops) the
-    profiler's device-busy time, and where no profile is whole either,
-    the event time as an upper bound, said so in the output."""
+    profiler's device-busy time, and where no profile is whole either
+    (or the profiler has stopped giving whole ones, PROFILER), the event
+    time as an upper bound, said so in the output."""
     fn()
     torch.cuda.synchronize()
     s = torch.cuda.Event(enable_timing=True)
@@ -744,9 +777,17 @@ def device_ms(fn, n: int = 50) -> float:
     total = s.elapsed_time(e)
     if queued < 0.8 * total:
         return total / n
+    if not PROFILER["whole"]:
+        PROFILER["skipped"] += 1
+        print(f"  (host-bound, the profiler no longer whole: {total / n:.3f} "
+              f"ms is an upper bound)", flush=True)
+        return total / n
+    t0 = time.perf_counter()
     rows = device_rows(fn, REPS)
     if rows is not None:
         return sum(r[0] for r in rows) / 1e3 / REPS
+    PROFILER["whole"] = False
+    PROFILER["failed_s"] += time.perf_counter() - t0
     print(f"  (host-bound and no whole profile: {total / n:.3f} ms is an "
           f"upper bound)", flush=True)
     return total / n
@@ -1200,7 +1241,7 @@ def dct8_phase(dev, card: str, ms: dict) -> dict:
     # the 4K all-DCT8 stream: the repo's host encoder at effort 2
     img = bench_frame(2160, 3840)
     data = stream(img, 1.0, 2)
-    args, (gab, epf_iters, skip) = dct8_arguments(data)
+    args, (gab, epf_iters, skip) = dct8.arguments(data)
     print(f"dct8 4k_d1.0_e2: {len(data)} bytes, gab {gab} epf_iters "
           f"{epf_iters} skip_dc_smooth {skip}", flush=True)
     state = dct8.to_device(*args, dev)
@@ -1218,7 +1259,7 @@ def dct8_phase(dev, card: str, ms: dict) -> dict:
 
     # a ragged all-DCT8 frame (65 x 97 blocks, the image 517 x 771)
     rdata = stream(bench_frame(517, 771), 1.0, 2)
-    rargs, rflt = dct8_arguments(rdata)
+    rargs, rflt = dct8.arguments(rdata)
     rframe = dct8.DCT8Frame(*rflt)
     within_one_code(rframe(dct8.to_device(*rargs, dev)).cpu().numpy(),
                     rframe(dct8.to_device(*rargs, "cpu")).numpy(),
@@ -4381,7 +4422,8 @@ def anim_phase(jobs: dict, card: str, ms: dict) -> dict:
     times = anim_timings(calls, streams, prog, cuts, card, ms)
     print(f"phase 16 (animation, progressive and truncated) took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    return dict(counts, layers=layers, times=times)
+    return dict(counts, layers=layers, times=times,
+                round1=(batch, [d for _, d in calls["read"]]))
 
 
 # ---- phase 17: the JPEG routes ----------------------------------------------
@@ -5763,6 +5805,371 @@ def icc_phase(jobs: dict, rct: bytes, dev, card: str, ms: dict) -> dict:
     return launches
 
 
+# ---- phase 20: the multi-device decode and encode (torch.distributed) ------
+
+# the 4K all-DCT8 frame's rank counts: 270 block rows divide by 2 and 3, not
+# by 4; one rank (this process) takes NCCL, ranks that share the one card
+# take gloo (NCCL refuses two ranks on one GPU)
+PAR_RUNS = ((1, "nccl"), (2, "gloo"), (3, "gloo"))
+# what the sharded paths on the card must not run: their kernels' twins
+PAR_TWINS = ((filters, ("restore_and_output_plain", "epf0_pass_plain")),
+             (DT, ("detile_plain",)),
+             (FF, ("legacy_filters_plain", "legacy_filters_batch_plain")))
+PAR_TIMED = 3
+
+
+@contextlib.contextmanager
+def par_counted():
+    """The phase's kernels' counts at 0 and every twin of its paths made to
+    raise while the block runs; yields the counts, read after it."""
+    fns = {"restore_and_output": filters.restore_and_output,
+           "epf0_pass": filters.epf0_pass, "detile": DT.detile,
+           "fused_gab_epf": FF.fused_gab_epf,
+           "fused_filters2": FF.fused_filters2,
+           "legacy_filters_batch": FF.legacy_filters_batch}
+    for f in fns.values():
+        f.launches = 0
+    filters.restore_and_output.window_launches = 0
+    filters.epf0_pass.window_launches = 0
+    counts = {}
+    with contextlib.ExitStack() as stack:
+        for module, names in PAR_TWINS:
+            stack.enter_context(forbidden(module, names))
+        yield counts
+        torch.cuda.synchronize()
+    counts.update({k: f.launches for k, f in fns.items()})
+    counts["window_launches"] = filters.restore_and_output.window_launches
+    counts["epf0_window_launches"] = filters.epf0_pass.window_launches
+
+
+@contextlib.contextmanager
+def par_spans(log: dict):
+    """groups.exchange_halo and groups.gather timed into log (host ms, the
+    card synchronised around each call) while the block runs."""
+    saved = {n: getattr(G, n) for n in ("exchange_halo", "gather")}
+
+    def timed_(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            log[name] = log.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    for n, f in saved.items():
+        setattr(G, n, timed_(n, f))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(G, n, f)
+
+
+def par_split(fn, runs: int = PAR_TIMED) -> dict:
+    """fn() timed `runs` times with its exchanges and gathers split out:
+    the medians of total, exchange, gather and compute (the rest) ms."""
+    rows = []
+    for _ in range(runs):
+        log = {}
+        with par_spans(log):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+        ex, ga = log.get("exchange_halo", 0.0), log.get("gather", 0.0)
+        rows.append((total, ex, ga, total - ex - ga))
+    return dict(zip(("total", "exchange", "gather", "compute"),
+                    (statistics.median(c) for c in zip(*rows))))
+
+
+@contextlib.contextmanager
+def window_calls(calls: list):
+    """kernel 2's windowed calls (arguments and output) recorded."""
+    real = filters.restore_and_output
+
+    @functools.wraps(real)
+    def rec(*a, **k):
+        out = real(*a, **k)
+        if k.get("window") is not None:
+            calls.append((a, k, out))
+        return out
+
+    filters.restore_and_output = rec
+    try:
+        yield
+    finally:
+        real.launches, real.window_launches = rec.launches, rec.window_launches
+        filters.restore_and_output = real
+
+
+def par_real_rank(mesh, args, cases, refs) -> dict:
+    """A rank of the sharded 4K all-DCT8 frame, per case (gab, epf_iters,
+    dc_smooth): the counted run (twins raise) against DCT8Frame's codes
+    on the card (0 codes, every rank's whole output), each windowed kernel-2
+    launch against its twin on the shard's slab, then PAR_TIMED runs split
+    into compute, exchange and gather."""
+    res = {"rank": mesh.rank}
+    for case, ref in zip(cases, refs):
+        fn = G.sharded_reconstruct_real(mesh, *case)
+        calls = []
+        with par_counted() as counts, window_calls(calls):
+            got = fn(*args)
+        diff = int((got.to(torch.int32) - torch.from_numpy(ref).to(
+            got.device, torch.int32)).abs().max())
+        twin = []
+        for a, k, out in calls:
+            plain = filters.restore_and_output_plain(*a, **k)
+            d = (out.to(torch.int32) - plain.to(torch.int32)).abs()
+            twin.append((int(d.max()), float((d > 0).float().mean()),
+                         tuple(a[0].shape)))
+        res[case] = {"diff": diff, "counts": counts, "twin": twin,
+                     "times": par_split(lambda: fn(*args))}
+    return res
+
+
+def par_round1(mesh, data, arrays, refs) -> dict:
+    """The round-1 animation's paths on this rank, counted with the twins
+    made to raise: decode_frames_batch(mesh=), sharded_reconstruct of
+    frame 0 and sharded_frame_reconstruct of all frames, each against the
+    non-mesh path on the card (0 differences); then the block-row decode
+    timed, split."""
+    ac, dc, qf, fx, fb, dist, epf, gab = arrays
+    img = animation.AnimatedImage(data, mesh.device)
+    rows = G.sharded_reconstruct(mesh, epf, gab)
+    frames = G.sharded_frame_reconstruct(mesh, epf, gab)
+    with par_counted() as counts:
+        got = (animation.decode_frames_batch(img, mesh=mesh),
+               rows(ac[0], dc[0], qf[0], fx[0], fb[0], dist).cpu().numpy(),
+               frames(ac, dc, qf, fx, fb, dist).cpu().numpy())
+    diffs = [float(np.abs(g.astype(np.float64) - r.astype(np.float64)).max())
+             for g, r in zip(got, refs)]
+    return {"diffs": diffs, "counts": counts,
+            "times": par_split(lambda: rows(ac[0], dc[0], qf[0], fx[0],
+                                            fb[0], dist))}
+
+
+def par_rank(mesh, real: tuple, round1: tuple = None,
+             gop: tuple = None) -> dict:
+    """A rank of phase 20: par_real_rank(*real), then par_round1(*round1)
+    and the GOP decode and encode workers (gop: their arguments) where
+    given, with its start time (the process's) beside them."""
+    from jxl_coder_tpu_torch.parallel import multihost
+    ready = time.time()
+    res = par_real_rank(mesh, *real)
+    if round1 is not None:
+        res["round1"] = par_round1(mesh, *round1)
+    if gop is not None:
+        res["gop"] = (multihost.worker_main(mesh, *gop[0]),
+                      multihost.worker_encode_main(mesh, *gop[1]))
+    res["ready"] = ready
+    return res
+
+
+def window_timing(state, gab, epf_iters, skip, card: str) -> None:
+    """Kernel 2 on the lower half of the 4K frame's rows (a 2-rank shard's
+    window) beside the whole-image launch and its twin, by CUDA graph."""
+    planes = dct8.synth_dct8_planes(*(state[k] for k in (
+        "coeffs", "dc", "qf", "xf", "bf", "table", "igs", "quant_dc", "dcq",
+        "qm_x", "qm_b")), skip)
+    sigma = filters.sigma_map(state["sharp"], state["qf"],
+                              float(np.float32(state["igs"])))
+    H, W = planes.shape[1:]
+    half = H // 2
+    win = filters.Window(H, half - filters.HALO, half // 8 - 1, half, half)
+    slab, sig = planes[:, win.lo:], sigma[win.sig_lo:]
+    chain = (gab, epf_iters, dct8._GABW, dct8._PASS0_SCALE,
+             dct8._PASS2_SCALE, "u8")
+    got = filters.restore_and_output(slab, sig, *chain, window=win)
+    whole = filters.restore_and_output(planes, sigma, *chain)
+    if not torch.equal(got, whole[half:]):
+        raise AssertionError("kernel 2's window differs from the same rows "
+                             "of the whole-image launch")
+    note_codes("restore_and_output", got, filters.restore_and_output_plain(
+        slab, sig, *chain, window=win), False,
+        f"4k window rows {half}-{H - 1} epf_iters {epf_iters}")
+    t_win = graph_ms(lambda: filters.restore_and_output(slab, sig, *chain,
+                                                        window=win))
+    t_whole = graph_ms(lambda: filters.restore_and_output(planes, sigma,
+                                                          *chain))
+    t_twin = device_ms(lambda: filters.restore_and_output_plain(
+        slab, sig, *chain, window=win))
+    moved = nbytes(slab[:, :half + filters.HALO], sig) + half * W * 3
+    bound = bound_of(moved, half * W * chain_ops(gab, epf_iters))
+    print(f"kernel restore_and_output windowed: 4k rows {half}-{H - 1} of "
+          f"{H} (a 2-rank shard) epf_iters {epf_iters} u8: device "
+          f"{t_win:.4f} ms, the whole-image launch {t_whole:.4f} ms, plain "
+          f"{t_twin:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}) [{card}]",
+          flush=True)
+
+
+def round1_arrays(data: bytes, frames: list, dev) -> tuple:
+    """The round-1 animation's frames (their host data, as phase 16 read
+    them) as the block-row and frame-axis decodes take them (numpy), with
+    frame 0's distance, epf_iters and gaborish."""
+    per = []
+    for d in frames:
+        ac, dc, qf, cx, cb, _ = LP.inputs_from_frame_data(d, dev)
+        fx, fb = LP.expand_cfl(cx, cb, *qf.shape)
+        per.append([t.cpu().numpy() for t in (ac.to(torch.int32), dc, qf, fx,
+                                              fb)])
+    rf = animation.AnimatedImage(data, dev).frames[0].header.restoration_filter
+    return tuple(np.stack(a) for a in zip(*per)) + (
+        frames[0].distance, rf.epf_iters or 0, rf.gab)
+
+
+def par_phase(vardct: dict, round1: bytes, anim_round1: tuple,
+              card: str) -> dict:
+    """Phase 20: the multi-device decode and encode over torch.distributed
+    on the one card (jxl_coder_tpu_torch/parallel), its ranks spawned
+    after every timed phase (one rank, and the GOP runs' one process, in
+    this process; the GOP runs' 2 processes in the 2 ranks); anim_round1:
+    phase 16's round-1 batch and frame data.  Returns the windowed
+    kernel-2 launches."""
+    import torch.distributed as dist
+    from jxl_coder_tpu_torch.parallel import multihost
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    data = stream(bench_frame(2160, 3840), 1.0, 2)
+    args, (gab, epf_iters, skip) = dct8.arguments(data)
+    state = dct8.to_device(*args, dev)
+    ys, xs = args[2].shape
+    print(f"phase 20: the 4K all-DCT8 frame, {ys} x {xs} blocks, gab {gab} "
+          f"epf_iters {epf_iters} skip_dc_smooth {skip} [{card}]", flush=True)
+    window_timing(state, gab, epf_iters, skip, card)
+    # the frame at its own filters, and with EPF0 on top (epf_iters 3: the
+    # JAX sharded function leaves EPF0 out, ROADMAP R23)
+    cases = [(gab, epf_iters, not skip), (gab, 3, not skip)]
+    refs = [dct8.DCT8Frame(gab, c[1], skip)(state).cpu().numpy()
+            for c in cases]
+    del state
+    torch.cuda.empty_cache()
+    halo = {"planes": filters.HALO * xs * 8 * 3 * 4, "sigma": xs * 4,
+            "dc": xs * 3 * 4}
+    print(f"halo bytes per shard edge: planes {halo['planes']:,} B (8 rows x "
+          f"{xs * 8} x 3 planes x 4 B), sigma {halo['sigma']:,} B, DC "
+          f"{halo['dc']:,} B; the gather {8 * ys * 8 * xs * 3:,} B of "
+          f"codes", flush=True)
+    # phase 16's round-1 animation (its batch and its frames' host data), at
+    # 2 ranks beside the frame's
+    batch, datas = anim_round1
+    round1 = (round1, round1_arrays(round1, datas, dev))
+    ac, dcq, qf, fx, fb, dist_, r_epf, r_gab = round1[1]
+    t = [torch.from_numpy(a).to(dev) for a in (ac, dcq, qf, fx, fb)]
+    xyb = [LP._filters(LP.dequant_idct(*(a[f] for a in t), dist_), t[2][f],
+                       dist_, r_epf, r_gab, "f32").cpu().numpy()
+           for f in range(ac.shape[0])]
+    round1 += ((batch, xyb[0], np.stack(xyb)),)
+    del t
+    # the GOP decode of the 4K d1.0 e7 stream (4 frames a rank) and the GOP
+    # encode of 4 FHD frames: 1 process (this one, no process group), then
+    # in the 2 ranks beside their other work
+    path = os.path.join(tempfile.mkdtemp(), "4k_d1.0_e7.jxl")
+    with open(path, "wb") as f:
+        f.write(vardct["4k_d1.0_e7"][2])
+    gop = ((path, 4, 3), (4, 1080, 1920, 1))
+    t0 = time.perf_counter()
+    mesh = G.make_mesh(1, device="cuda")
+    gop_runs = {1: [(multihost.worker_main(mesh, *gop[0]),
+                     multihost.worker_encode_main(mesh, *gop[1]))]}
+    print(f"  GOP decode and encode at 1 process: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    windows = epf0_windows = 0
+    for n, backend in PAR_RUNS:
+        run_cases = cases if n == 2 else cases[:1]
+        real = (args, run_cases, refs[:len(run_cases)])
+        t0 = time.time()
+        if n == 1:
+            # one rank needs no spawn: this process, a process group of one
+            # over NCCL
+            dist.init_process_group(
+                backend, init_method=f"tcp://localhost:{multihost.free_port()}",
+                world_size=1, rank=0)
+            try:
+                res = [par_rank(G.make_mesh(1, device="cuda"), real)]
+            finally:
+                dist.destroy_process_group()
+        else:
+            res = multihost.run_ranks(n, par_rank, real,
+                                      *((round1, gop) if n == 2 else ()),
+                                      backend=backend, device="cuda",
+                                      timeout=300.0)
+            if n == 2:
+                gop_runs[2] = [r["gop"] for r in res]
+        wall = time.time() - t0
+        for case in run_cases:
+            for r in res:
+                got = r[case]
+                c = got["counts"]
+                windows += c["window_launches"]
+                epf0_windows += c["epf0_window_launches"]
+                want = {"window_launches": 1, "detile": 1,
+                        "epf0_window_launches": int(case[1] >= 3)}
+                if any(c[k] != v for k, v in want.items()):
+                    raise AssertionError(f"{n} ranks {case} rank "
+                                         f"{r['rank']}: launches {c}")
+                if got["diff"]:
+                    raise AssertionError(f"{n} ranks {case} rank {r['rank']}: "
+                                         f"{got['diff']} codes from DCT8Frame")
+                for d, share, shape in got["twin"]:
+                    note_err("restore_and_output", d, 1,
+                             f"window on a {shape} slab, {n} ranks, rank "
+                             f"{r['rank']} (differing share {share:.2g})")
+                    if share >= 1e-3:
+                        raise AssertionError(f"window twin share {share}")
+                t = got["times"]
+                print(f"sharded_reconstruct_real 4k {n} ranks ({backend}) "
+                      f"epf_iters {case[1]} rank {r['rank']}: 0 codes from "
+                      f"DCT8Frame; host ms total {t['total']:.2f} = compute "
+                      f"{t['compute']:.2f} + exchange {t['exchange']:.2f} + "
+                      f"gather {t['gather']:.2f}; launches {c} [{card}]",
+                      flush=True)
+        for r in res if n == 2 else ():
+            r1 = r["round1"]
+            c = r1["counts"]
+            if max(r1["diffs"]) != 0 or c["legacy_filters_batch"] != 1 or \
+                    c["fused_gab_epf"] < 1:
+                raise AssertionError(f"round-1 rank {r['rank']}: diffs "
+                                     f"{r1['diffs']}, launches {c}")
+            tt = r1["times"]
+            print(f"round-1 {ROUND1_FRAMES} x {ROUND1_H}x{ROUND1_W} at 2 "
+                  f"ranks rank {r['rank']}: decode_frames_batch(mesh=), "
+                  f"sharded_reconstruct and sharded_frame_reconstruct equal "
+                  f"to the non-mesh path (0); launches {c}; "
+                  f"sharded_reconstruct host ms {tt['total']:.2f} = compute "
+                  f"{tt['compute']:.2f} + exchange {tt['exchange']:.2f} + "
+                  f"gather {tt['gather']:.2f} [{card}]", flush=True)
+        print(f"  {n} ranks ({backend}): {wall:.1f} s, the last rank ready "
+              f"after {max(r['ready'] for r in res) - t0:.1f} s", flush=True)
+
+    note = "ranks sharing one card: contention, not scaling"
+    dec = multihost.decode_report(*([d for d, _ in gop_runs[k]]
+                                    for k in (1, 2)), "cuda")
+    for c in dec["launches"]:
+        if c["restore_and_output"] < 1 or c["synth_dct8"] < 1:
+            raise AssertionError(f"GOP decode launches {c}")
+    print(f"multihost GOP decode 4k d1.0 e7, 4 frames a rank: "
+          f"{dec['fps_1proc']:.2f} f/s @1 process, {dec['fps_nproc']:.2f} "
+          f"f/s @2, efficiency {dec['efficiency']:.3f} ({note}); launches "
+          f"{dec['launches']} [{card}]", flush=True)
+    enc = multihost.encode_report(*([e for _, e in gop_runs[k]]
+                                    for k in (1, 2)), "cuda")
+    for c in enc["launches"]:
+        if min(c[k] for k in ("enc_front_planes", "enc_front_blocks",
+                              "enc_dct_costs", "enc_gather_rows")) < 1:
+            raise AssertionError(f"GOP encode launches {c}")
+    print(f"multihost GOP encode 4 FHD frames (quality 90, effort 5): "
+          f"byte-identical {enc['byte_identical']}, {enc['fps_1proc']:.3f} "
+          f"f/s @1 process, {enc['fps_nproc']:.3f} f/s @2, efficiency "
+          f"{enc['efficiency']:.3f} ({note}); launches {enc['launches']} "
+          f"[{card}]", flush=True)
+    print(f"phase 20 (multi-device) took {time.perf_counter() - t_phase:.1f} "
+          f"s", flush=True)
+    return {"restore_and_output": windows, "epf0_pass": epf0_windows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -6048,13 +6455,29 @@ def main() -> int:
                               card, ms))
     phase_done("19 (the ICC step, any channel count)")
 
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": spec["source"],
-         "replaces": spec["replaces"], "launches": launches[k],
-         "max_abs_err": ERR[k], "ms": ms[k][0], "plain_ms": ms[k][1],
-         "bound_ms": BOUND[k][0], "bound_by": BOUND[k][1],
-         "library_ms": LIBRARY_MS[k]}
-        for k, spec in KERNELS.items()]}))
+    # 20. the multi-device decode and encode: block rows with halo
+    # exchange (kernel 2 in a row window), the frame axis, the GOP decode
+    # and encode, in ranks spawned now that no timed phase runs
+    windows = par_phase(streams, anim_jobs["round1"].get(), anim["round1"],
+                        card)
+    phase_done("20 (multi-device)")
+
+    def row(k, spec):
+        r = {"name": k, "route": "cuda", "source": spec["source"],
+             "replaces": spec["replaces"], "launches": launches[k],
+             "max_abs_err": ERR[k], "ms": ms[k][0], "plain_ms": ms[k][1],
+             "bound_ms": BOUND[k][0], "bound_by": BOUND[k][1],
+             "library_ms": LIBRARY_MS[k]}
+        if k in windows:
+            # the row-window launches of phase 20's ranks
+            r["window_launches"] = windows[k]
+        return r
+
+    print(f"profiler: {PROFILER['failed_s']:.1f} s in the tries that found "
+          f"no whole profile, {PROFILER['skipped']} later calls skipped it",
+          flush=True)
+    print(json.dumps({"kernels": [row(k, spec)
+                                  for k, spec in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

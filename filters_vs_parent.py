@@ -12,12 +12,12 @@ OTHER_CSRC is the other tree's jxl_coder_tpu_torch/csrc, for a commit:
 It builds the other filters.cu with this tree's nvcc flags into build/,
 decodes chip_smoke.py's 4K d1.0 e7 stream (cached in the temp directory
 by chip_smoke.py, else encoded here) to the main path's planes, and times
-kernel 2 there with the other build's jxl_restore and this tree's, in the
-order other, this, this, other: by CUDA events around 50 calls (the
+kernel 2 there with the other build's jxl_restore_window and this tree's,
+in the order other, this, this, other: by CUDA events around 50 calls (the
 main-path method of chip_smoke.py), by replaying a CUDA graph of 50 calls,
 and the 4K stage's device-busy time.  The other build must export
-jxl_restore with this tree's arguments.  Each line carries the card's
-name and power limit.
+jxl_restore_window with this tree's arguments.  Each line carries the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def main() -> int:
                     "-o", str(so), str(other_src / "filters.cu")],
                    check=True, capture_output=True)
     bound = filters._kernel()
-    other = _build.bind(ctypes.CDLL(str(so)), "jxl_restore",
+    other = _build.bind(ctypes.CDLL(str(so)), "jxl_restore_window",
                         bound.argtypes[:-1])
     this = bound
 

@@ -27,7 +27,8 @@ host, the dequantisation and inverse transform in plain torch, then the
 filters and sRGB output of all the frames in one launch of kernel 6 with
 a frame axis (``vardct/fused_filters.legacy_filters_batch``).  As the
 reference it filters every frame with frame 0's distance, epf_iters and
-gaborish (ROADMAP R10), and needs frames of one size.  Real-format frames
+gaborish (ROADMAP R10), and needs frames of one size; with a mesh the
+frames split over its ranks (``parallel/groups.py``).  Real-format frames
 decode with ``get_frame`` on a pool of threads.
 """
 
@@ -51,7 +52,7 @@ from .host.bitstream.frame_header import (BlendMode, Encoding, FrameHeader,
                                           read_toc)
 from .host.bitstream.headers import AnimationHeader, read_image_header
 from .host.bitstream.reader import BitReader, BitstreamError
-from .host.vardct.frame import is_legacy_vardct_payload
+from .host.vardct.frame import decode_lf_global, is_legacy_vardct_payload
 from .ops.resize import rescale_image
 from .vardct import fused_filters as FF
 from .vardct import pipeline as P
@@ -222,13 +223,12 @@ def decode_frames_batch(img: AnimatedImage, indices=None,
     reads each frame's data, plain torch dequantises and inverse-
     transforms it, and one launch of kernel 6 with a frame axis filters
     all of them into sRGB8, with frame 0's distance, epf_iters and
-    gaborish for every frame (R10).  Other frames decode with get_frame on
-    a pool of 8 threads.  mesh (sharding over devices) raises
-    NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "decode_frames_batch(mesh=...): the port has no multi-device "
-            "path yet (ROADMAP queue 1, item 5)")
+    gaborish for every frame (R10).  With a mesh
+    (``parallel.groups.make_mesh``; img on the rank's device) the frames
+    split over its ranks, each rank's share read and filtered there as
+    one batch, and every rank returns all of them (``all_gather``).
+    Other frames decode with get_frame on a pool of 8 threads, the mesh
+    unused, as in the JAX package."""
     if indices is None:
         indices = list(range(img.frames_count))
     hdr = img.image_header
@@ -241,25 +241,37 @@ def decode_frames_batch(img: AnimatedImage, indices=None,
     if not legacy:
         with ThreadPoolExecutor(max_workers=min(8, len(indices))) as ex:
             return np.stack(list(ex.map(img.get_frame, indices)))
-    return _legacy_batch(img, indices)
+    if mesh is None:
+        return _to_host(_legacy_batch(img, indices))
+    from .parallel.groups import gather_frames
+    per = -(-len(indices) // mesh.size)
+    mine = indices[mesh.rank * per:(mesh.rank + 1) * per]
+    local = _legacy_batch(img, mine, indices[0]) if mine else torch.zeros(
+        (0, hdr.ysize, hdr.xsize, 3), dtype=torch.uint8, device=img.device)
+    return _to_host(gather_frames(local, len(indices), mesh))
 
 
-def _legacy_batch(img: AnimatedImage, indices) -> np.ndarray:
-    """The round-1 branch of decode_frames_batch."""
+def _legacy_batch(img: AnimatedImage, indices, first=None) -> torch.Tensor:
+    """The round-1 branch of decode_frames_batch -> (N, H, W, 3) uint8 on
+    the device, filtered with the settings of frame `first` (default
+    indices[0])."""
     from .codec import read_vardct_still
     hdr, dev = img.image_header, img.device
+    first = indices[0] if first is None else first
     try:
         datas = [read_vardct_still(img.codestream, hdr, img.frames[i].header,
                                    img.frames[i].toc) for i in indices]
+        # the distance is LfGlobal's first two bytes
+        e = img.frames[first].toc.section(0)
+        dist = decode_lf_global(img.codestream[e.offset:e.offset + 2])
     except BitstreamError as e:
         raise InvalidJXLError(str(e)) from e
     if len({d.qf.shape for d in datas}) != 1:
         raise ValueError("decode_frames_batch: round-1 frames of more than "
                          "one size")
-    fh = img.frames[indices[0]].header
+    fh = img.frames[first].header
     epf = fh.restoration_filter.epf_iters or 0
     gab = fh.restoration_filter.gab
-    dist = datas[0].distance
     planes, qfs = [], []
     for d in datas:
         ac, dc, qf, cfl_x, cfl_b, _ = P.inputs_from_frame_data(d, dev)
@@ -275,8 +287,7 @@ def _legacy_batch(img: AnimatedImage, indices) -> np.ndarray:
         # (the round-1 encoders write epf_iters 0 or 1)
         out = torch.stack([P._filters(im, q, dist, epf, gab, "u8")
                            for im, q in zip(imgs, qf)])
-    out = out[:, :, :hdr.ysize, :hdr.xsize].permute(0, 2, 3, 1)
-    return _to_host(out)
+    return out[:, :, :hdr.ysize, :hdr.xsize].permute(0, 2, 3, 1)
 
 
 def iter_frames(img: AnimatedImage):

@@ -10,6 +10,10 @@
 //     has no width or height gate, takes per-channel gaborish weights, and
 //     runs EPF pass 0 (epf_iters 3), which the repo's own encoder emits at
 //     every distance >= 2.0.
+//     A launch writes a window of the image's rows from a slab of them
+//     (jxl_restore_window): the whole image, or a shard of the
+//     multi-device decode, equal to the same rows of the whole-image
+//     launch.
 //   Kernels 3 and 4, modes PADDED_MIRROR and PADDED_EDGE, replace
 //     filters_pallas.py:588 fused_real_filters (_kernel_chain +
 //     _chain_math: gaborish -> EPF1 (-> EPF2) (-> sRGB8/16)) and :794
@@ -113,6 +117,19 @@ struct Slopes {
   const float* p;
   int rows, cols;
   int stride;  // floats between the map's rows
+  int row0;    // the image's block row of the map's first row
+};
+
+// The rows a launch writes and the rows it reads: kernel 2 on the whole
+// image writes rows [0, H) and reads rows [0, H); windowed, it writes
+// rows [r0, r0 + rows) of an image whose true height is H from a slab
+// that holds the image's rows [lo, hi) (input row 0 at image row lo), at
+// least 8 of them past each end of the window unless the slab ends at
+// the image's edge.  Kernels 3 and 4 write [0, H) and read [-pad, H +
+// pad), input row 0 at image row 0.
+struct Window {
+  int r0, rows;
+  int lo, hi;
 };
 
 // Window sources: where each window position of the input comes from,
@@ -229,11 +246,12 @@ __host__ __device__ constexpr int strip_rows(int rows, int cols) {
   return (rows + NT / cols - 1) / (NT / cols);
 }
 
-// in: the image's row 0 (kernels 3 and 4: `pad` readable rows above and
-// below it); out: (3, H, W) float32 planes or (H, W, 3) codes.
+// in: the image's row w.lo (kernel 2) or row 0 (kernels 3 and 4, with
+// `pad` readable rows above and below it); out: the window's (3, rows, W)
+// float32 planes or (rows, W, 3) codes.
 template <bool GAB, int PA, bool EPF2, typename OutT, int MODE>
 __global__ void __launch_bounds__(NT)
-    chain_kernel(Planes in, int pad, int H, int W, Slopes sl,
+    chain_kernel(Planes in, int pad, int H, int W, Window w, Slopes sl,
                  OutT* __restrict__ out, ChainParams p) {
   using Gm = Geo<GAB, PA, EPF2, OutT>;
   constexpr int R0 = Gm::R0, R1 = Gm::R1, R2 = Gm::R2, RA = Gm::RA;
@@ -252,8 +270,13 @@ __global__ void __launch_bounds__(NT)
   uint32_t* const mul = reinterpret_cast<uint32_t*>(smem + Gm::MUL);
   OutT* const stage = reinterpret_cast<OutT*>(smem + Gm::STAGE);
   const int tid = threadIdx.x;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
-  const bool edge = x0 < R0 || y0 < R0 || x0 + TW + R0 > W || y0 + TH + R0 > H;
+  const int x0 = blockIdx.x * TW, y0 = w.r0 + blockIdx.y * TH;
+  // the input's row 0 is image row `row0`; a tile whose window crosses the
+  // image's edge or the slab's loads from the window sources (clamped to
+  // the slab: rows past it reach no output row of the window)
+  const int row0 = MODE == CHAIN ? w.lo : 0;
+  const bool edge = x0 < R0 || y0 < R0 || x0 + TW + R0 > W || y0 + TH + R0 > H ||
+                    y0 - R0 < w.lo || y0 + TH + R0 > w.hi;
 
   // the FastLinearToSRGB table (a lookup per channel and pixel: shared
   // memory serves the warp's 16 classes at once, constant memory would not)
@@ -265,7 +288,7 @@ __global__ void __launch_bounds__(NT)
     constexpr int NTAB = MODE == CHAIN ? 2 : 1;
     for (int i = tid; i < NTAB * NSB; i += NT) {
       const int t = i / NSB, j = i - t * NSB;
-      const int br = (y0 >> 3) - 1 + j / SBX, bc = (x0 >> 3) - 1 + j % SBX;
+      const int br = (y0 >> 3) - 1 + j / SBX - sl.row0, bc = (x0 >> 3) - 1 + j % SBX;
       float v = 0.0f;
       if ((unsigned)br < (unsigned)sl.rows && (unsigned)bc < (unsigned)sl.cols) {
         const float s = sl.p[br * sl.stride + bc];
@@ -289,10 +312,10 @@ __global__ void __launch_bounds__(NT)
   auto emit = [&](int r, int c, const float* o) {
     if constexpr (sizeof(OutT) == 4) {
       const int gy = y0 + r, gx = x0 + c;
-      if (gy < H && gx < W) {
+      if (gy < w.r0 + w.rows && gx < W) {
 #pragma unroll
         for (int ch = 0; ch < 3; ++ch)
-          out[((long long)ch * H + gy) * W + gx] = o[ch];
+          out[((long long)ch * w.rows + gy - w.r0) * W + gx] = o[ch];
       }
     } else {
       float q[3];
@@ -314,7 +337,7 @@ __global__ void __launch_bounds__(NT)
           (in.row_stride & 3) == 0 && (in.plane_stride & 3) == 0;
     if (vec) {
       constexpr int V = LX / 4, NV = NR0 * V;
-      const float* base = in.p + (long long)(y0 - R0) * in.row_stride + (x0 - A0);
+      const float* base = in.p + (long long)(y0 - R0 - row0) * in.row_stride + (x0 - A0);
       for (int i = tid; i < 3 * NV; i += NT) {
         const int ch = i / NV, j = i - ch * NV, r = j / V, v = j - r * V;
         cp_async16(&X[ch * PX + r * LX + 4 * v],
@@ -327,10 +350,10 @@ __global__ void __launch_bounds__(NT)
       const int r = i / C0, c = i - r * C0;
       int gy = y0 - R0 + r, gx = x0 - R0 + c;
       if (edge) {
-        gy = source_row<MODE>(gy, H, pad);
+        gy = min(max(source_row<MODE>(gy, H, pad), w.lo), w.hi - 1);
         gx = source_col<MODE>(gx, W);
       }
-      const float* src = in.p + (long long)gy * in.row_stride + gx;
+      const float* src = in.p + (long long)(gy - row0) * in.row_stride + gx;
       float* dst = X + r * LX + OX + c;
       cp_async4(dst, src);
       cp_async4(dst + PX, src + in.plane_stride);
@@ -633,64 +656,65 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();
     constexpr int ROW = TW * 3;  // codes per tile row
     const int ncols = min(TW, W - x0);
+    const int end = w.r0 + w.rows;
     if (ncols == TW && ((long long)W * 3 * sizeof(OutT)) % 16 == 0) {
       constexpr int V = ROW * (int)sizeof(OutT) / 16;
       const uint4* s4 = reinterpret_cast<const uint4*>(stage);
       for (int i = tid; i < TH * V; i += NT) {
         const int r = i / V, v = i - r * V;
         const int gy = y0 + r;
-        if (gy < H)
-          reinterpret_cast<uint4*>(out + ((long long)gy * W + x0) * 3)[v] = s4[i];
+        if (gy < end)
+          reinterpret_cast<uint4*>(out + ((long long)(gy - w.r0) * W + x0) * 3)[v] = s4[i];
       }
     } else {
       for (int i = tid; i < TH * ROW; i += NT) {
         const int r = i / ROW, e = i - r * ROW;
         const int gy = y0 + r;
-        if (gy < H && e < ncols * 3)
-          out[((long long)gy * W + x0) * 3 + e] = stage[i];
+        if (gy < end && e < ncols * 3)
+          out[((long long)(gy - w.r0) * W + x0) * 3 + e] = stage[i];
       }
     }
   }
 }
 
 template <bool GAB, int PA, bool EPF2, typename OutT, int MODE>
-cudaError_t run(const Planes& in, int pad, int H, int W, const Slopes& sl,
-                void* out, const ChainParams& p, cudaStream_t s) {
+cudaError_t run(const Planes& in, int pad, int H, int W, const Window& w,
+                const Slopes& sl, void* out, const ChainParams& p, cudaStream_t s) {
   auto* kern = chain_kernel<GAB, PA, EPF2, OutT, MODE>;
   constexpr int bytes = Geo<GAB, PA, EPF2, OutT>::bytes();
   const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
-  kern<<<grid, NT, bytes, s>>>(in, pad, H, W, sl, static_cast<OutT*>(out), p);
+  const dim3 grid((W + TW - 1) / TW, (w.rows + TH - 1) / TH);
+  kern<<<grid, NT, bytes, s>>>(in, pad, H, W, w, sl, static_cast<OutT*>(out), p);
   return cudaGetLastError();
 }
 
 template <bool GAB, int PA, bool EPF2, int MODE>
 cudaError_t run_out(int out_kind, const Planes& in, int pad, int H, int W,
-                    const Slopes& sl, void* out, const ChainParams& p,
-                    cudaStream_t s) {
+                    const Window& w, const Slopes& sl, void* out,
+                    const ChainParams& p, cudaStream_t s) {
   switch (out_kind) {
-    case 0: return run<GAB, PA, EPF2, float, MODE>(in, pad, H, W, sl, out, p, s);
-    case 1: return run<GAB, PA, EPF2, uint8_t, MODE>(in, pad, H, W, sl, out, p, s);
-    case 2: return run<GAB, PA, EPF2, uint16_t, MODE>(in, pad, H, W, sl, out, p, s);
+    case 0: return run<GAB, PA, EPF2, float, MODE>(in, pad, H, W, w, sl, out, p, s);
+    case 1: return run<GAB, PA, EPF2, uint8_t, MODE>(in, pad, H, W, w, sl, out, p, s);
+    case 2: return run<GAB, PA, EPF2, uint16_t, MODE>(in, pad, H, W, w, sl, out, p, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <bool GAB>
 cudaError_t run_gab(int pass_a, int epf2, int out_kind, const Planes& in,
-                    int H, int W, const Slopes& sl, void* out,
+                    int H, int W, const Window& w, const Slopes& sl, void* out,
                     const ChainParams& p, cudaStream_t s) {
   if (pass_a < 0 && !epf2)
-    return run_out<GAB, -1, false, CHAIN>(out_kind, in, 0, H, W, sl, out, p, s);
+    return run_out<GAB, -1, false, CHAIN>(out_kind, in, 0, H, W, w, sl, out, p, s);
   if (pass_a == 1 && !epf2)
-    return run_out<GAB, 1, false, CHAIN>(out_kind, in, 0, H, W, sl, out, p, s);
+    return run_out<GAB, 1, false, CHAIN>(out_kind, in, 0, H, W, w, sl, out, p, s);
   if (pass_a == 1 && epf2)
-    return run_out<GAB, 1, true, CHAIN>(out_kind, in, 0, H, W, sl, out, p, s);
+    return run_out<GAB, 1, true, CHAIN>(out_kind, in, 0, H, W, w, sl, out, p, s);
   // EPF0 runs as its own pass to f32 planes
   if (pass_a == 0 && !epf2 && out_kind == 0)
-    return run<GAB, 0, false, float, CHAIN>(in, 0, H, W, sl, out, p, s);
+    return run<GAB, 0, false, float, CHAIN>(in, 0, H, W, w, sl, out, p, s);
   return cudaErrorInvalidValue;
 }
 
@@ -716,30 +740,42 @@ ChainParams chain_params(const float* consts, const float* srgb,
 
 }  // namespace
 
-// Kernel 2.  in: three planes with channel stride `plane_stride` and row
-// stride `row_stride` (a cropped view is fine), H x W.  sigma: the
-// per-block EPF sigma map, sig_rows x sig_cols, row-major (unused without
-// EPF).  gab: run gaborish first; pass_a: -1 none, 0 EPF0, 1 EPF1; epf2:
-// run EPF2 after EPF1.  out_kind: 0 float32 (3, H, W), 1 uint8 or 2
-// uint16 (H, W, 3) sRGB.  consts: w1[3], w2[3], 1 / norm[3], cs[3],
+// Kernel 2 in a row window (the whole image: lo = r0 = 0, hi = rows =
+// H, sig_row0 = 0).  in: three planes with channel stride
+// `plane_stride` and row stride `row_stride` (a cropped view is fine)
+// holding rows [lo, hi) of an H x W image; out: its rows [r0, r0 + rows),
+// equal to the same rows of the launch on the whole image when the slab
+// holds 8 rows past each end of the window or reaches the image's edge
+// (the chain reads at most 7 rows away: gaborish 1, EPF0 3, EPF1 2, EPF2
+// 1).  Borders fold at the image's rows 0 and H - 1 only.  sigma: the
+// per-block EPF sigma map of the image's block rows sig_row0 ..
+// sig_row0 + sig_rows - 1, sig_cols wide, row-major (unused without EPF).
+// gab: run gaborish first; pass_a: -1 none, 0 EPF0, 1 EPF1; epf2: run
+// EPF2 after EPF1.  out_kind: 0 float32 (3, rows, W), 1 uint8 or 2 uint16
+// (rows, W, 3) sRGB.  consts: w1[3], w2[3], 1 / norm[3], cs[3],
 // border_mul, gate, slope c of pass A, slope c of EPF2; srgb: 9
 // opsin-inverse floats, cbrt_bias, bias; mul: 16 uint32.
-extern "C" int jxl_restore(const float* in, long long plane_stride,
-                           int row_stride, int H, int W, const float* sigma,
-                           int sig_rows, int sig_cols, void* out, int gab,
-                           int pass_a, int epf2, int out_kind,
-                           const float* consts, const float* srgb,
-                           const uint32_t* mul, void* stream) {
-  if (H <= 0 || W <= 0) return cudaSuccess;
+extern "C" int jxl_restore_window(const float* in, long long plane_stride,
+                                  int row_stride, int H, int W, int lo, int hi,
+                                  int r0, int rows, const float* sigma,
+                                  int sig_row0, int sig_rows, int sig_cols,
+                                  void* out, int gab, int pass_a, int epf2,
+                                  int out_kind, const float* consts,
+                                  const float* srgb, const uint32_t* mul,
+                                  void* stream) {
+  if (rows <= 0 || W <= 0) return cudaSuccess;
+  if (r0 < 0 || r0 + rows > H || lo < 0 || hi > H || lo > r0 || hi < r0 + rows)
+    return cudaErrorInvalidValue;
   ChainParams p = chain_params(consts, srgb, mul, out_kind);
   p.gate = consts[13];
   p.slope[0] = consts[14];
   p.slope[1] = consts[15];
   const Planes pl{in, plane_stride, row_stride};
-  const Slopes sl{sigma, sig_rows, sig_cols, sig_cols};
+  const Window w{r0, rows, lo, hi};
+  const Slopes sl{sigma, sig_rows, sig_cols, sig_cols, sig_row0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return gab ? run_gab<true>(pass_a, epf2, out_kind, pl, H, W, sl, out, p, s)
-             : run_gab<false>(pass_a, epf2, out_kind, pl, H, W, sl, out, p, s);
+  return gab ? run_gab<true>(pass_a, epf2, out_kind, pl, H, W, w, sl, out, p, s)
+             : run_gab<false>(pass_a, epf2, out_kind, pl, H, W, w, sl, out, p, s);
 }
 
 // Kernels 3 (mirror 1) and 4 (mirror 0): gaborish -> EPF1 (-> EPF2 with
@@ -761,12 +797,13 @@ extern "C" int jxl_restore_padded(const float* in, long long plane_stride,
   ChainParams p = chain_params(consts, srgb, mul, out_kind);
   p.pass2_scale = consts[13];
   const Planes pl{in, plane_stride, row_stride};
-  const Slopes sl{inv, (H + 7) / 8, (W + 7) / 8, inv_stride};
+  const Window w{0, H, -pad, H + pad};
+  const Slopes sl{inv, (H + 7) / 8, (W + 7) / 8, inv_stride, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mirror && epf2)
-    return run_out<true, 1, true, PADDED_MIRROR>(out_kind, pl, pad, H, W, sl, out, p, s);
+    return run_out<true, 1, true, PADDED_MIRROR>(out_kind, pl, pad, H, W, w, sl, out, p, s);
   if (mirror)
-    return run_out<true, 1, false, PADDED_MIRROR>(out_kind, pl, pad, H, W, sl, out, p, s);
+    return run_out<true, 1, false, PADDED_MIRROR>(out_kind, pl, pad, H, W, w, sl, out, p, s);
   if (epf2 || out_kind > 1) return cudaErrorInvalidValue;
-  return run_out<true, 1, false, PADDED_EDGE>(out_kind, pl, pad, H, W, sl, out, p, s);
+  return run_out<true, 1, false, PADDED_EDGE>(out_kind, pl, pad, H, W, w, sl, out, p, s);
 }

@@ -13,7 +13,8 @@ chain and the sRGB output as kernel 2's tile pass
 (``filters.restore_and_output``) on the whole block grid, as
 ``tpu_real`` filters it.  On CPU tensors the kernels' plain versions
 run; on CUDA tensors every kernel of the path launches.  ``DCT8Frame``
-wraps it as an ``nn.Module`` over the tensors of ``to_device``.
+wraps it as an ``nn.Module`` over the tensors of ``to_device``;
+``arguments`` reads the arrays from an all-DCT8 stream.
 """
 
 from __future__ import annotations
@@ -24,9 +25,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..host.vardct.dec_real import DC_SMOOTH_W1, DC_SMOOTH_W2
+from ..host.bitstream.reader import BitReader
+from ..host.vardct import synthesis as S
+from ..host.vardct.dec_real import (DC_SMOOTH_W1, DC_SMOOTH_W2,
+                                    read_lf_global, read_lf_group)
 from .detile import detile
 from .filters import restore_and_output, sigma_map
+from .parse import parse_frame
 
 # tpu_real.apply_filters_device: default gaborish weights; EPF pass 0
 # (epf_iters 3) with the diamond at slope 0.9, pass 2 at scale 6.5
@@ -70,12 +75,21 @@ def dc_xyb_planes(dc: torch.Tensor, steps) -> torch.Tensor:
 def dc_smoothing(dc: torch.Tensor, steps) -> torch.Tensor:
     """Adaptive DC smoothing of (3, ys, xs) f32 planes with per-channel
     steps (tpu_real.dc_smoothing_device); border samples are kept."""
-    w1, w2 = DC_SMOOTH_W1, DC_SMOOTH_W2
-    w0 = 1.0 - 4.0 * (w1 + w2)
-    _, ys, xs = dc.shape
+    ys, xs = dc.shape[1:]
     iy = torch.arange(-1, ys + 1, device=dc.device).clamp(0, ys - 1)
     ix = torch.arange(-1, xs + 1, device=dc.device).clamp(0, xs - 1)
-    p = dc[:, iy][:, :, ix]                      # edge padding by 1
+    return smooth_dc_rows(dc, dc[:, iy][:, :, ix], steps, 0, ys)
+
+
+def smooth_dc_rows(dc: torch.Tensor, p: torch.Tensor, steps, row0: int,
+                   ys: int) -> torch.Tensor:
+    """dc_smoothing of (3, n, xs) planes holding the rows row0 .. row0 +
+    n - 1 of a DC image ys rows tall; p: dc with the row above and the
+    row below it (edge copies at the image's border) and one column edge-
+    padded on each side.  The image's border rows and columns are kept."""
+    w1, w2 = DC_SMOOTH_W1, DC_SMOOTH_W2
+    w0 = 1.0 - 4.0 * (w1 + w2)
+    n, xs = dc.shape[1:]
     sm = (w0 * dc
           + w1 * (p[:, :-2, 1:-1] + p[:, 2:, 1:-1]
                   + p[:, 1:-1, :-2] + p[:, 1:-1, 2:])
@@ -89,7 +103,7 @@ def dc_smoothing(dc: torch.Tensor, steps) -> torch.Tensor:
     # tpu_real keeps rows and columns with i % (n - 1) == 0, i.e. the
     # first and the last; jnp's x % 0 is 0, so a frame one block tall or
     # wide keeps everything, as this mask does
-    ry = torch.arange(ys, device=dc.device)
+    ry = torch.arange(row0, row0 + n, device=dc.device)
     rx = torch.arange(xs, device=dc.device)
     keep = (((ry == 0) | (ry == ys - 1))[:, None]
             | ((rx == 0) | (rx == xs - 1))[None, :])
@@ -167,6 +181,76 @@ def reconstruct_dct8_frame(coeffs, dc, qf, sharp, xf, bf, table,
     planes = synth_dct8_planes(coeffs, dc, qf, xf, bf, table, igs,
                                quant_dc, dcq, qm_x, qm_b, skip_dc_smooth)
     return filter_and_output(planes, qf, sharp, igs, gab, epf_iters)
+
+
+# ---- the frame's arrays from a stream ----
+
+def _raw_dc(cs: bytes, hdr, fh, toc, xs_b: int, ys_b: int) -> np.ndarray:
+    """The quantised DC ints (3, ys_b, xs_b), channel order (y, x, b),
+    read again from the LF groups (parse_frame keeps only the dequantised
+    planes); also checks that no LF group uses extra precision, which
+    tpu_real's DC planes leave out."""
+    def section(i):
+        s = toc.section(0 if len(toc.entries) == 1 else i)
+        return BitReader(cs[s.offset:s.offset + s.size])
+    single = len(toc.entries) == 1
+    br0 = section(0)
+    lf = read_lf_global(br0, fh, hdr, xs_b * 8, ys_b * 8)
+    _ng, ndc = fh.counts(hdr)
+    gx = -(-xs_b // 256)
+    dc = np.zeros((3, ys_b, xs_b), np.int32)
+    for gi in range(ndc):
+        lx, ly = (gi % gx) * 256, (gi // gx) * 256
+        gw, gh = min(256, xs_b - lx), min(256, ys_b - ly)
+        lg = read_lf_group(br0 if single else section(1 + gi), lf, gw, gh,
+                           gi, ndc)
+        if lg.extra_precision:
+            raise ValueError("DC extra precision: not a tpu_real frame")
+        for c in range(3):
+            dc[c, ly:ly + gh, lx:lx + gw] = lg.dc.channels[c].data
+    return dc
+
+
+def arguments(data: bytes):
+    """reconstruct_dct8_frame's numpy arguments (coeffs, dc, qf, sharp,
+    xf, bf, table, igs, quant_dc, dcq, qm_x, qm_b) and (gab, epf_iters,
+    skip_dc_smooth) from the port's parse of an all-DCT8 stream (the
+    host encoder at effort <= 2 writes only DCT8; at distance < 1.5 it
+    sets no DC extra precision).  AdjustQuantBias is applied here, as the
+    DCT8 path expects of its caller.  Both this path and the JAX
+    package's tpu_real.reconstruct_dct8_frame take these arrays."""
+    from ..api import _read_frame      # api imports the device modules
+    cs, hdr, fh, toc = _read_frame(data)
+    state = parse_frame(cs, hdr, fh, toc)
+    lf, ba = state["lf"], state["blocks_glob"]
+    if (ba.ids != 0).any():
+        raise ValueError("not an all-DCT8 frame")
+    if (lf.cfl_base_x, lf.cfl_base_b, lf.cfl_ytox_dc, lf.cfl_ytob_dc) != \
+            (0.0, 1.0, 0, 0) or getattr(lf, "quant_encodings", None):
+        raise ValueError("non-default DC CfL or dequant tables")
+    qf, sharp = state["qf_map"], state["sharp_map"]
+    ys, xs = qf.shape
+    order = S.scan_to_basis(0)
+    vals = ba.coeffs[ba.offs[:-1, None] + np.arange(192)].reshape(-1, 3, 64)
+    coeffs = np.zeros((3, ys, xs, 64), np.float32)
+    for c in range(3):
+        basis = np.zeros((len(ba.ids), 64))
+        basis[:, order] = S.adjust_quant_bias(vals[:, c], c)
+        coeffs[c, ba.bys, ba.bxs] = basis
+    cf = 1.0 / lf.cfl_color_factor
+    tiles = np.ones((8, 8))
+    xf = lf.cfl_base_x + np.kron(state["ytox_glob"], tiles)[:ys, :xs] * cf
+    bf = lf.cfl_base_b + np.kron(state["ytob_glob"], tiles)[:ys, :xs] * cf
+    table = np.stack([S.dequant_table(0, c) for c in range(3)])
+    rf = fh.restoration_filter
+    args = (coeffs, _raw_dc(cs, hdr, fh, toc, xs, ys), qf.astype(np.int32),
+            sharp.astype(np.int32), xf.astype(np.float32),
+            bf.astype(np.float32), table.astype(np.float32),
+            np.float32(lf.inv_global_scale), np.float32(lf.quant_dc),
+            np.asarray(lf.dcq, np.float32),
+            np.float32(0.8 ** (fh.x_qm_scale - 2)),
+            np.float32(0.8 ** (fh.b_qm_scale - 2)))
+    return args, (bool(rf.gab), int(rf.epf_iters), bool(fh.flags & 0x80))
 
 
 _TENSORS = {"coeffs": np.float32, "dc": np.int32, "qf": np.int32,

@@ -13,6 +13,12 @@ PyTorch chain below (``filter_chain_plain`` and
 (``tpu_real.gaborish_device`` / ``epf_device``,
 ``tpu_full._epf2_device``) operation for operation.
 
+A ``Window`` makes a launch write rows [r0, r0 + rows) of an image H
+rows tall from a slab of its rows (a shard of the multi-device decode,
+``parallel/groups.py``): borders fold at the image's rows 0 and H - 1
+only, so the window's rows equal the same rows of the whole-image
+launch; the twin runs the plain chain on the slab and crops.
+
 The constants come from ``host/vardct/dec_real.py``.  Input planes may
 be a cropped view (row stride larger than the width).
 """
@@ -21,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,6 +39,9 @@ from ..host.vardct.dec_real import (EPF1_INV_SCALE, EPF_CHANNEL_SCALE,
 from . import color
 
 BORDER_MUL = np.float32(2.0 / 3.0)
+# rows the chain reads past an output row: gaborish 1, EPF0 3, EPF1 2,
+# EPF2 1 (7), rounded up to a block row
+HALO = 8
 _PLUS4 = ((0, 1), (0, -1), (1, 0), (-1, 0))
 _DIAMOND12 = _PLUS4 + ((1, 1), (1, -1), (-1, 1), (-1, -1),
                        (0, 2), (0, -2), (2, 0), (-2, 0))
@@ -158,6 +168,39 @@ def filter_chain_plain(x: torch.Tensor, sigma: torch.Tensor, gab: bool,
 OUT_KINDS = {"f32": 0, "u8": 1, "u16": 2}
 
 
+class Window(NamedTuple):
+    """A launch on a slab of an image's rows: the planes' row 0 is the
+    image's row `lo` and the sigma map's row 0 its block row `sig_lo`
+    (rows outside the image are never read); the launch writes the
+    image's rows [r0, r0 + rows) of H.  The slab must hold HALO rows past
+    each end of the window, or reach the image's edge."""
+    H: int
+    lo: int
+    sig_lo: int
+    r0: int
+    rows: int
+
+
+def _window_rows(x: torch.Tensor, win: Window) -> tuple:
+    """The rows [lo, hi) of the slab a window reads, as a view of x, and
+    lo, hi: HALO rows past the window, cut at the image's edges."""
+    if not (0 <= win.r0 and win.rows >= 0 and win.r0 + win.rows <= win.H):
+        raise ValueError(f"{win}: rows outside the image")
+    lo = max(0, win.r0 - HALO)
+    hi = min(win.H, win.r0 + win.rows + HALO)
+    if win.lo > lo or win.lo + x.shape[1] < hi:
+        raise ValueError(f"{win}: the slab of {x.shape[1]} rows does not "
+                         f"hold the image's rows [{lo}, {hi})")
+    return x[:, lo - win.lo:hi - win.lo], lo, hi
+
+
+def _window_sigma(sigma, win: Window, lo: int, hi: int) -> None:
+    if sigma is not None and (win.sig_lo > lo // 8 or win.sig_lo
+                              + sigma.shape[0] <= (hi - 1) // 8):
+        raise ValueError(f"{win}: the sigma map of {sigma.shape[0]} block "
+                         f"rows does not cover the image's rows [{lo}, {hi})")
+
+
 def epf0_pass_plain(x: torch.Tensor, sigma: torch.Tensor, gab: bool, gabw,
                     pass0_scale: float) -> torch.Tensor:
     if gab:
@@ -167,8 +210,24 @@ def epf0_pass_plain(x: torch.Tensor, sigma: torch.Tensor, gab: bool, gabw,
 
 def restore_and_output_plain(x: torch.Tensor, sigma, gab: bool,
                              epf_iters: int, gabw, pass0_scale: float,
-                             pass2_scale: float, out: str = "u8"
-                             ) -> torch.Tensor:
+                             pass2_scale: float, out: str = "u8",
+                             window: Window = None) -> torch.Tensor:
+    if window is not None:
+        # the chain on the slab as an image of its own: its Mirror() at a
+        # cut inside the image reaches 7 rows, short of the window; rows
+        # copied above a slab that starts inside a block row keep the
+        # block grid where the image has it
+        x, lo, hi = _window_rows(x, window)
+        _window_sigma(sigma if epf_iters else None, window, lo, hi)
+        k = lo % 8
+        x = torch.cat([x[:, :1].expand(-1, k, -1), x], 1)
+        if epf_iters:
+            sigma = sigma[(lo - k) // 8 - window.sig_lo:]
+        res = restore_and_output_plain(x, sigma, gab, epf_iters, gabw,
+                                       pass0_scale, pass2_scale, out)
+        r = window.r0 - lo + k
+        return res[:, r:r + window.rows] if out == "f32" else \
+            res[r:r + window.rows]
     x = filter_chain_plain(x, sigma, gab, epf_iters, gabw, pass0_scale,
                            pass2_scale)
     return x if out == "f32" else color.xyb_to_srgb_plain(x, out == "u16")
@@ -207,16 +266,19 @@ _c = ctypes
 @functools.lru_cache(maxsize=None)
 def _kernel():
     return _build.bind(
-        _build.load("filters"), "jxl_restore",
-        [_c.c_void_p, _c.c_longlong, _c.c_int, _c.c_int, _c.c_int,
-         _c.c_void_p, _c.c_int, _c.c_int, _c.c_void_p, _c.c_int, _c.c_int,
-         _c.c_int, _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p])
+        _build.load("filters"), "jxl_restore_window",
+        [_c.c_void_p, _c.c_longlong] + [_c.c_int] * 7
+        + [_c.c_void_p] + [_c.c_int] * 3 + [_c.c_void_p] + [_c.c_int] * 4
+        + [_c.c_void_p] * 3)
 
 
 def _launch(x: torch.Tensor, sigma, gab: bool, pass_a: int, epf2: bool,
-            out: str, gabw, scale_a: float, scale_2: float) -> torch.Tensor:
+            out: str, gabw, scale_a: float, scale_2: float,
+            rows: tuple) -> torch.Tensor:
     """One chain_kernel launch on CUDA planes x: [gaborish] -> [pass A:
-    EPF0 or EPF1] -> [EPF2] -> out."""
+    EPF0 or EPF1] -> [EPF2] -> out; rows = (H, lo, sig_lo, r0, n): x
+    holds the image's rows [lo, lo + x.shape[1]), the sigma map its block
+    rows from sig_lo, and the output is its rows [r0, r0 + n)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype != torch.float32 or x.dim() != 3 or x.shape[0] != 3:
@@ -225,28 +287,30 @@ def _launch(x: torch.Tensor, sigma, gab: bool, pass_a: int, epf2: bool,
         raise ValueError(f"out must be one of {tuple(OUT_KINDS)}")
     if x.stride(2) != 1:
         x = x.contiguous()
-    _, H, W = x.shape
+    _, n_in, W = x.shape
+    H, lo, sig_lo, r0, n = rows
     sig_ptr, sig_rows, sig_cols = None, 0, 0
     if pass_a >= 0:
+        need = (lo + n_in + 7) // 8 - sig_lo
         if sigma is None or sigma.dtype != torch.float32 or \
                 sigma.device != x.device or sigma.dim() != 2 or \
-                sigma.shape[0] < (H + 7) // 8 or sigma.shape[1] < (W + 7) // 8:
+                sigma.shape[0] < need or sigma.shape[1] < (W + 7) // 8:
             raise ValueError(f"sigma must be float32 on {x.device}, at "
-                             f"least {((H + 7) // 8, (W + 7) // 8)} blocks")
+                             f"least {(need, (W + 7) // 8)} blocks")
         sigma = sigma.contiguous()
         sig_ptr, (sig_rows, sig_cols) = sigma.data_ptr(), sigma.shape
     if out == "f32":
-        res = torch.empty((3, H, W), dtype=torch.float32, device=x.device)
+        res = torch.empty((3, n, W), dtype=torch.float32, device=x.device)
     else:
-        res = torch.empty((H, W, 3), device=x.device, dtype=torch.uint16
+        res = torch.empty((n, W, 3), device=x.device, dtype=torch.uint16
                           if out == "u16" else torch.uint8)
     consts = _launch_consts(tuple(gabw), scale_a, scale_2)
     # the constants are host arrays, copied into the launch parameters
     _build.launch(_kernel(), x.device, x.data_ptr(), x.stride(0),
-                  x.stride(1), H, W, sig_ptr, sig_rows, sig_cols,
-                  res.data_ptr(), int(gab), int(pass_a), int(epf2),
-                  OUT_KINDS[out], consts.ctypes.data, color._CONSTS.ctypes.data,
-                  color._MUL.ctypes.data)
+                  x.stride(1), H, W, lo, lo + n_in, r0, n, sig_ptr, sig_lo,
+                  sig_rows, sig_cols, res.data_ptr(), int(gab), int(pass_a),
+                  int(epf2), OUT_KINDS[out], consts.ctypes.data,
+                  color._CONSTS.ctypes.data, color._MUL.ctypes.data)
     return res
 
 
@@ -256,31 +320,49 @@ def epf0_pass(x: torch.Tensor, sigma: torch.Tensor, gab: bool, gabw,
     two launches at epf_iters 3."""
     if x.device.type == "cpu":
         return epf0_pass_plain(x, sigma, gab, gabw, pass0_scale)
-    res = _launch(x, sigma, gab, 0, False, "f32", gabw, pass0_scale, 1.0)
+    H = x.shape[1]
+    res = _launch(x, sigma, gab, 0, False, "f32", gabw, pass0_scale, 1.0,
+                  (H, 0, 0, 0, H))
     epf0_pass.launches += 1
     return res
 
 
 def restore_and_output(x: torch.Tensor, sigma, gab: bool, epf_iters: int,
                        gabw, pass0_scale: float, pass2_scale: float,
-                       out: str = "u8") -> torch.Tensor:
+                       out: str = "u8", window: Window = None
+                       ) -> torch.Tensor:
     """(3, H, W) float32 XYB -> the filter chain -> (H, W, 3) uint8
     (out "u8") or uint16 ("u16") sRGB, or the filtered (3, H, W) float32
     planes ("f32").  sigma: the per-block EPF sigma map (sigma_map), None
-    when epf_iters is 0; gabw: (x1, x2, y1, y2, b1, b2)."""
+    when epf_iters is 0; gabw: (x1, x2, y1, y2, b1, b2).  With a window,
+    x and sigma are a slab of the image's rows and block rows and the
+    result the window's rows; a caller's window also counts in
+    ``window_launches``."""
     if epf_iters not in (0, 1, 2, 3):
         raise ValueError(f"epf_iters {epf_iters}: expected 0-3")
     if x.device.type == "cpu":
         return restore_and_output_plain(x, sigma, gab, epf_iters, gabw,
-                                        pass0_scale, pass2_scale, out)
+                                        pass0_scale, pass2_scale, out,
+                                        window)
+    win = window or Window(x.shape[1], 0, 0, 0, x.shape[1])
+    x, lo, hi = _window_rows(x, win)
+    _window_sigma(sigma if epf_iters else None, win, lo, hi)
+    H, sig_lo, r0, n = win.H, win.sig_lo, win.r0, win.rows
     if epf_iters >= 3:
-        x = epf0_pass(x, sigma, gab, gabw, pass0_scale)
-        gab = False
+        # EPF0 over the rows EPF1 and EPF2 read (3 past the window)
+        e0, e1 = max(0, r0 - 4), min(H, r0 + n + 4)
+        x = _launch(x, sigma, gab, 0, False, "f32", gabw, pass0_scale, 1.0,
+                    (H, lo, sig_lo, e0, e1 - e0))
+        epf0_pass.launches += 1
+        epf0_pass.window_launches += window is not None
+        lo, gab = e0, False
     res = _launch(x, sigma, gab, 1 if epf_iters >= 1 else -1,
-                  epf_iters >= 2, out, gabw, 1.0, pass2_scale)
+                  epf_iters >= 2, out, gabw, 1.0, pass2_scale,
+                  (H, lo, sig_lo, r0, n))
     restore_and_output.launches += 1
+    restore_and_output.window_launches += window is not None
     return res
 
 
-epf0_pass.launches = 0
-restore_and_output.launches = 0
+epf0_pass.launches = epf0_pass.window_launches = 0
+restore_and_output.launches = restore_and_output.window_launches = 0

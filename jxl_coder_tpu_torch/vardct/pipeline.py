@@ -176,16 +176,33 @@ def _filters(img: torch.Tensor, qf: torch.Tensor, distance: float,
             return img
         return FF.legacy_filters(img, qf, distance, gab, epf_iters == 1, out)
     halo = filter_halo(epf_iters, gab)
-    slab = pad_rows(img, halo)
-    if gab:
-        slab = FF.legacy_filters(slab, None, distance, True, False, "f32")
-    for _ in range(epf_iters):
-        slab = FF.legacy_filters(slab, qf, distance, False, True, "f32",
-                                 qf_row=-halo)
-    xyb = slab[:, halo:-halo]
+    xyb = filter_padded(pad_rows(img, halo), qf, distance, epf_iters, gab,
+                        halo, -halo)
     if out == "f32":
         return xyb
     return FF.legacy_filters(xyb, None, distance, False, False, out)
+
+
+def filter_padded(slab: torch.Tensor, qf: torch.Tensor, distance: float,
+                  epf_iters: int, gab: bool, halo: int, qf_row: int
+                  ) -> torch.Tensor:
+    """apply_filters through fused_filters.legacy_filters (f32) on planes
+    padded by halo = filter_halo() rows (edge copies at the image's
+    borders, a neighbour shard's rows elsewhere), the halo cropped: one
+    launch at epf_iters <= 1, else gaborish, then one launch per EPF pass
+    over the whole slab.  qf_row: the quant field's pixel row of the
+    slab's row 0."""
+    from . import fused_filters as FF
+    if epf_iters <= 1:
+        slab = FF.legacy_filters(slab, qf, distance, gab, epf_iters == 1,
+                                 "f32", qf_row=qf_row)
+    else:
+        if gab:
+            slab = FF.legacy_filters(slab, None, distance, True, False, "f32")
+        for _ in range(epf_iters):
+            slab = FF.legacy_filters(slab, qf, distance, False, True, "f32",
+                                     qf_row=qf_row)
+    return slab[:, halo:-halo]
 
 
 def _reconstruct(ac_coeffs, dc, qf, cfl_x, cfl_b, distance, epf_iters, gab,

@@ -32,10 +32,10 @@ from jxl_coder_tpu_torch.host.modular.tree import Tree
 from jxl_coder_tpu_torch.host.ops.icc import SRGB_D50
 from jxl_coder_tpu_torch.host.vardct.enc_real import srgb8_to_xyb
 from jxl_coder_tpu_torch.host.vardct.quant import quality_to_distance
-from jxl_coder_tpu_torch.host.vardct import synthesis as S
 from jxl_coder_tpu_torch.host.vardct.dec_real import (read_lf_global,
                                                       read_lf_group)
-from jxl_coder_tpu_torch.vardct.parse import parse_frame
+# an all-DCT8 stream -> the DCT8 path's arrays (moved into the package)
+from jxl_coder_tpu_torch.vardct.dct8 import arguments as dct8_arguments  # noqa: F401
 
 
 def bench_frame(h: int, w: int) -> np.ndarray:
@@ -144,72 +144,6 @@ def synthetic_family(sid: int, dtype, rng: np.random.Generator,
         fam["tab"] = np.stack([R.dequant_table(sid, c)[:K] for c in range(3)]
                               ).astype(np.float32)
     return (sid, n_pad, bh, bw, cov, special), fam, ys_b, xs_b
-
-
-def _raw_dc(cs: bytes, hdr, fh, toc, xs_b: int, ys_b: int) -> np.ndarray:
-    """The quantised DC ints (3, ys_b, xs_b), channel order (y, x, b),
-    read again from the LF groups (parse_frame keeps only the dequantised
-    planes); also checks that no LF group uses extra precision, which
-    tpu_real's DC planes leave out."""
-    def section(i):
-        s = toc.section(0 if len(toc.entries) == 1 else i)
-        return BitReader(cs[s.offset:s.offset + s.size])
-    single = len(toc.entries) == 1
-    br0 = section(0)
-    lf = read_lf_global(br0, fh, hdr, xs_b * 8, ys_b * 8)
-    _ng, ndc = fh.counts(hdr)
-    gx = -(-xs_b // 256)
-    dc = np.zeros((3, ys_b, xs_b), np.int32)
-    for gi in range(ndc):
-        lx, ly = (gi % gx) * 256, (gi // gx) * 256
-        gw, gh = min(256, xs_b - lx), min(256, ys_b - ly)
-        lg = read_lf_group(br0 if single else section(1 + gi), lf, gw, gh,
-                           gi, ndc)
-        if lg.extra_precision:
-            raise ValueError("DC extra precision: not a tpu_real frame")
-        for c in range(3):
-            dc[c, ly:ly + gh, lx:lx + gw] = lg.dc.channels[c].data
-    return dc
-
-
-def dct8_arguments(data: bytes):
-    """reconstruct_dct8_frame's numpy arguments (coeffs, dc, qf, sharp,
-    xf, bf, table, igs, quant_dc, dcq, qm_x, qm_b) and (gab, epf_iters,
-    skip_dc_smooth) from the port's parse of an all-DCT8 stream (the
-    host encoder at effort <= 2 writes only DCT8; at distance < 1.5 it
-    sets no DC extra precision).  AdjustQuantBias is applied here, as the
-    DCT8 path expects of its caller."""
-    cs, hdr, fh, toc = api._read_frame(data)
-    state = parse_frame(cs, hdr, fh, toc)
-    lf, ba = state["lf"], state["blocks_glob"]
-    if (ba.ids != 0).any():
-        raise ValueError("not an all-DCT8 frame")
-    if (lf.cfl_base_x, lf.cfl_base_b, lf.cfl_ytox_dc, lf.cfl_ytob_dc) != \
-            (0.0, 1.0, 0, 0) or getattr(lf, "quant_encodings", None):
-        raise ValueError("non-default DC CfL or dequant tables")
-    qf, sharp = state["qf_map"], state["sharp_map"]
-    ys, xs = qf.shape
-    order = S.scan_to_basis(0)
-    vals = ba.coeffs[ba.offs[:-1, None] + np.arange(192)].reshape(-1, 3, 64)
-    coeffs = np.zeros((3, ys, xs, 64), np.float32)
-    for c in range(3):
-        basis = np.zeros((len(ba.ids), 64))
-        basis[:, order] = S.adjust_quant_bias(vals[:, c], c)
-        coeffs[c, ba.bys, ba.bxs] = basis
-    cf = 1.0 / lf.cfl_color_factor
-    tiles = np.ones((8, 8))
-    xf = lf.cfl_base_x + np.kron(state["ytox_glob"], tiles)[:ys, :xs] * cf
-    bf = lf.cfl_base_b + np.kron(state["ytob_glob"], tiles)[:ys, :xs] * cf
-    table = np.stack([S.dequant_table(0, c) for c in range(3)])
-    rf = fh.restoration_filter
-    args = (coeffs, _raw_dc(cs, hdr, fh, toc, xs, ys), qf.astype(np.int32),
-            sharp.astype(np.int32), xf.astype(np.float32),
-            bf.astype(np.float32), table.astype(np.float32),
-            np.float32(lf.inv_global_scale), np.float32(lf.quant_dc),
-            np.asarray(lf.dcq, np.float32),
-            np.float32(0.8 ** (fh.x_qm_scale - 2)),
-            np.float32(0.8 ** (fh.b_qm_scale - 2)))
-    return args, (bool(rf.gab), int(rf.epf_iters), bool(fh.flags & 0x80))
 
 
 # ---- Modular streams ----

@@ -503,6 +503,39 @@ def test_icc_config_trace_and_plugin_without_the_jax_package(tmp_path):
         "True (28, 20) True (28, 20) ['decode', '1'] 1 True"), res.stdout
 
 
+def test_multi_device_dry_run_without_the_jax_package(tmp_path):
+    """The port copied where no jxl_coder_tpu exists, jax blocked:
+    parallel.dryrun spawns 2 gloo ranks on the CPU (the sharded round-1
+    and real-format decodes against the single-device path), then the
+    multihost GOP decode and encode run their workers in 1 and 2 spawned
+    ranks (multihost.run_ranks, jax blocked there too)."""
+    shutil.copytree(PKG, tmp_path / "jxl_coder_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None        # any `import jax` now fails
+        sys.modules["jxl_coder_tpu"] = None
+        from jxl_coder_tpu_torch.parallel import dryrun
+
+        if __name__ == "__main__":
+            dryrun.dryrun_multichip(2, "cpu")
+            assert not any(m.split(".")[0] in ("jax", "jxl_coder_tpu")
+                           for m, v in sys.modules.items() if v is not None)
+            print("clean")
+    """)
+    (tmp_path / "run.py").write_text(code)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "run.py"], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=tmp_path)
+    assert res.returncode == 0, (res.stdout + res.stderr)[-3000:]
+    lines = res.stdout.splitlines()
+    assert lines[0].startswith("dryrun_multichip(2): OK") and \
+        "max|diff|=0" in lines[0], res.stdout
+    assert lines[1].startswith("multihost_dryrun: GOP decode OK")
+    assert lines[2].startswith("multihost_encode_dryrun: GOP encode OK")
+    assert lines[-1] == "clean"
+
+
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     """A kernel that cannot be built raises; nothing falls back."""
     from jxl_coder_tpu_torch import _build
