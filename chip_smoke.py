@@ -244,7 +244,18 @@ prints no result):
      mode; A10 twice per composed frame), each A10 call held to its twin;
      the ICC kernel at 4K by CUDA graph against twin, bound and a yardstick
      of PyTorch calls (gather, fp32 matmul, where / pow), and S2, S3 and
-     A10 at 4K past their old channel limits.
+     A10 at 4K past their old channel limits.  The CLUT program
+     (clut_kernel: lookup-table profiles, black-point compensation): the
+     kernel against its twin on the 2^24 cube for each CLUT profile of
+     port_fixtures.lut_test_profiles (and the matrix kernel on the one
+     whose sums leave int32), on u16 grey, RGBA, 1x1 and ragged images for
+     two; the 4K still with the mAB profile through api.decode, counted
+     (clut_kernel once), equal to the twin; the decode's added time split
+     in the same calls into the host plan (cold, cached), the tables'
+     upload and the kernel, for Display P3 and the mAB profile; a lossy
+     encode of the 4K bench frame with the mAB profile, counted, and that
+     stream decoded on the card (kernels 1 and 2); clut_kernel at 4K by
+     CUDA graph against twin, bound and F.grid_sample on the CLUT.
  20. the multi-device decode and encode (jxl_coder_tpu_torch/parallel over
      torch.distributed; ranks spawned after every timed phase, sharing the
      one card): kernel 2 in a row window (the lower half of the 4K
@@ -307,6 +318,7 @@ from jxl_coder_tpu_torch import _build, animation, api, codec, reference
 from jxl_coder_tpu_torch import batch as BATCH
 from jxl_coder_tpu_torch.entropy import device as ENT
 from jxl_coder_tpu_torch.jpeg import pixels as JPX
+from jxl_coder_tpu_torch.host.bitstream import icc as HBICC
 from jxl_coder_tpu_torch.host.jpeg import transcode as JTC
 from jxl_coder_tpu_torch.host.jpeg.parser import ZIGZAG
 from jxl_coder_tpu_torch.host.modular import transform as MT
@@ -317,6 +329,7 @@ from jxl_coder_tpu_torch.host.vardct import enc_real as ENCR
 from jxl_coder_tpu_torch.modular import device as MDEV
 from jxl_coder_tpu_torch.modular import output as MOUT
 from jxl_coder_tpu_torch.host.ops import icc as HICC
+from jxl_coder_tpu_torch.host.ops import icc_lut as HLUT
 from jxl_coder_tpu_torch.ops import compose as COMPOSE
 from jxl_coder_tpu_torch.ops import icc_apply as ICC
 from jxl_coder_tpu_torch.ops import pack as PACK
@@ -337,7 +350,8 @@ from jxl_coder_tpu_torch.parallel import groups as G
 from jxl_coder_tpu_torch.vardct.frame import VarDCTFrame
 from port_fixtures import (animation_frame, animation_header, baseline_jpeg,
                            bench_frame, group_rct_still, header_bytes,
-                           icc_test_profiles, legacy_animation, modular_still,
+                           icc_test_profiles, legacy_animation,
+                           lut_test_profiles, modular_still,
                            patched_alpha_still, posterized_frame,
                            seeded_splines, sharp_frame, sprite_animation,
                            squeezed_still, synthetic_family, text_frame,
@@ -437,6 +451,10 @@ KERNELS = {
                             replaces="jxl_coder_tpu/vardct/enc_device.py:424"),
     # the ICC -> sRGB step (littlecms on the host in the JAX package)
     "icc_to_srgb": dict(fn=ICC.transform, source="jxl_coder_tpu_torch/csrc/icc.cu",
+                        replaces="jxl_coder_tpu/ops/icc_apply.py:22"),
+    # its CLUT program: lookup-table profiles, moving black points
+    "clut_kernel": dict(fn=ICC.clut_transform,
+                        source="jxl_coder_tpu_torch/csrc/icc.cu",
                         replaces="jxl_coder_tpu/ops/icc_apply.py:22"),
 }
 # the round-1 encoder's sources: a change to any of them re-encodes
@@ -5464,9 +5482,15 @@ def enc_phase(jobs: dict, streams: dict, text: bytes, anim_frames: list,
 
 # ---- 19. the ICC step and any channel count --------------------------------
 
-ICC_TWINS = ((ICC, ("transform_plain",)),)
+ICC_TWINS = ((ICC, ("transform_plain", "clut_transform_plain")),)
 # the 4K Modular still's embedded profile: Display P3 (para type 3), v4
 ICC_P3 = "p3 v4"
+# the table profile of the CLUT program's main path: a v4 lutAtoB (A
+# curves, a 9 x 11 x 13 CLUT at 16 bits, M curves, matrix + offset, B
+# curves) on the XYZ PCS
+ICC_LUT = "mab16 xyz v4"
+# the CLUT variants' profiles (u16, grey, RGBA, 1x1, ragged)
+ICC_LUT_VARIANTS = ("mab16 xyz v4", "black v2")
 ICC_H, ICC_W = 2160, 3840     # phase 11's 4k_rct still, the bench frame
 # phase 19's channel streams: an FHD Modular still of RGB and 3 extra
 # channels, and a sprite animation of RGB and 10 extra channels, cut to
@@ -5477,6 +5501,11 @@ CH13_H, CH13_W, CH13_SH, CH13_SW, CH13_EXTRA = 540, 960, 120, 160, 10
 # least operations per pixel of the ICC step: 3 x (3 multiply-adds, the
 # rounding add and shift, the clamp's two compares) = 24 int32
 ICC_OPS = 24
+# and of the CLUT program: the tetrahedron's 3 compares and its two
+# corners' and the fractions' selects (6), then per channel 3 differences,
+# 3 multiply-adds, the rounding (add, shift, add, shift, add) and
+# FROM_16_TO_8 (multiply-add, shift): 3 + 6 + 3 x 16 = 57 int32
+CLUT_OPS = 57
 
 
 def many_channel_frame(h: int, w: int, nch: int, seed: int = 19
@@ -5528,12 +5557,15 @@ def ragged(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return img[:h, :w].contiguous()
 
 
-def check_icc_seeded(profiles: dict, dev) -> None:
-    """The ICC kernel against its twin on the card: the 2^24 cube for
-    every test profile; u16 RGBA (low bytes and alpha seeded), grey and
-    RGBA u8 variants of the cube, a 1x1 and a ragged image for three of
-    them; the float64 model on the cube for one.  The program is integers
-    only: nothing can tie, so the kernel equals the twin exactly."""
+def check_icc_seeded(profiles: dict, luts: dict, dev) -> None:
+    """The ICC kernels against their twins on the card: the 2^24 cube for
+    every test profile and every lookup-table / black-point profile (the
+    matrix kernel for those littlecms keeps on its matrix program, the
+    CLUT kernel for the rest); u16 RGBA (low bytes and alpha seeded), grey
+    and RGBA u8 variants of the cube, a 1x1 and a ragged image for three
+    matrix and two CLUT profiles; the float64 model on the cube for one.
+    The programs are integers only: nothing can tie, so each kernel equals
+    its twin exactly."""
     cube = icc_cube(dev)
     rng = torch.Generator(device=dev).manual_seed(19)
     low = torch.randint(0, 256, cube.shape, generator=rng, device=dev,
@@ -5550,24 +5582,33 @@ def check_icc_seeded(profiles: dict, dev) -> None:
         "ragged 1013x771": ragged(cube, 1013, 771),
         "ragged u16 RGBA 771x1013": ragged(torch.cat([cube16, alpha16], -1),
                                            771, 1013)}
-    worst, n = 0, 0
-    for name, prof in profiles.items():
-        tab = ICC.tables_on(HICC.plan(prof), dev)
+    worst = {"icc_to_srgb": 0, "clut_kernel": 0}
+    n = {"icc_to_srgb": [0, 0], "clut_kernel": [0, 0]}
+    for name, prof in {**profiles, **luts}.items():
+        tr = HICC.plan(prof)
+        tab = ICC.tables_on(tr, dev)
+        key, fn, plain = ("clut_kernel", ICC.clut_transform,
+                          ICC.clut_transform_plain) \
+            if isinstance(tr, HLUT.ClutTransform) else \
+            ("icc_to_srgb", ICC.transform, ICC.transform_plain)
         imgs = {"u8 RGB cube": cube}
-        if name in ("p3 v4", "curv table", "srgb"):
+        if name in ("p3 v4", "curv table", "srgb") + ICC_LUT_VARIANTS:
             imgs.update(variants)
         for what, img in imgs.items():
-            got = ICC.transform(img, tab)
-            ref = ICC.transform_plain(img, tab)
+            got = fn(img, tab)
+            ref = plain(img, tab)
             if got.shape != ref.shape or got.dtype != ref.dtype:
                 raise AssertionError(f"icc {name} {what}: {got.shape} "
                                      f"{got.dtype} vs {ref.shape}")
-            worst = max(worst, (got.to(torch.int32) - ref.to(torch.int32))
-                        .abs().max().item())
-            n += 1
+            worst[key] = max(worst[key], (got.to(torch.int32) -
+                                          ref.to(torch.int32))
+                             .abs().max().item())
+            n[key][0] += 1
+        n[key][1] += 1
     torch.cuda.synchronize()
-    note_err("icc_to_srgb", worst, 0, f"{n} images over {len(profiles)} "
-             f"profiles (the 2^24 cube each; integers: no tie)")
+    for key in worst:
+        note_err(key, worst[key], 0, f"{n[key][0]} images over {n[key][1]} "
+                 f"profiles (the 2^24 cube each; integers: no tie)")
     tr = HICC.plan(profiles[ICC_P3])
     got = ICC.transform(cube, ICC.tables_on(tr, dev)).cpu().numpy()
     model = HICC.srgb8_model(cube.cpu().numpy(), tr).astype(np.int64)
@@ -5590,21 +5631,98 @@ def icc_yardstick(img: torch.Tensor, tables: torch.Tensor,
     return torch.round(e * 255.0).to(torch.uint8)
 
 
-def icc_decode_timing(plain: bytes, icc: bytes, card: str) -> dict:
-    """Host ms of api.decode(..., "cuda") of the 4K Modular still without
-    and with its profile, 2 each in turns (P I I P), medians."""
-    t = {"without": [], "with": []}
-    for k in ("without", "with", "with", "without"):
-        with no_gc():
+@contextlib.contextmanager
+def icc_split(log: dict):
+    """Time, inside api.decode, the header's ICC stream read, the host
+    plan, the tables' upload and the kernel (either program), each between
+    two synchronisations; summed by name."""
+    saved = []
+
+    def wrap(owner, name, key):
+        fn = getattr(owner, name)
+
+        @functools.wraps(fn)
+        def timed(*a, **k):
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
-            api.decode(icc if k == "with" else plain, "cuda")
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            log[key] = log.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        saved.append((owner, name, fn))
+        setattr(owner, name, timed)
+    wrap(HBICC, "read_icc_profile", "icc stream")
+    wrap(HICC, "plan", "plan")
+    wrap(ICC, "tables_on", "upload")
+    wrap(ICC, "transform", "kernel")
+    wrap(ICC, "clut_transform", "kernel")
+    try:
+        yield
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+
+
+def icc_decode_timing(plain: bytes, stills: dict, card: str) -> dict:
+    """Host ms of api.decode(..., "cuda") of the 4K Modular still without
+    its profile and with each of `stills` (label -> bytes), in turns
+    (without, each, each, without); the calls with a profile split in the
+    same calls (icc_split): the plan's cache emptied before the turns, so
+    each profile's first call plans cold and its second from the cache."""
+    order = ["without", *stills, *stills, "without"]
+    t = {k: [] for k in ["without", *stills]}
+    split = {k: [] for k in stills}
+    HICC.plan.cache_clear()
+    for k in order:
+        log = {}
+        with no_gc(), icc_split(log) if k != "without" else \
+                contextlib.nullcontext():
+            t0 = time.perf_counter()
+            api.decode(stills.get(k, plain), "cuda")
             t[k].append((time.perf_counter() - t0) * 1e3)
-    med = {k: statistics.median(v) for k, v in t.items()}
-    print(f"4k Modular decode (host clock, ms, median of 2 in turns): "
-          f"without its profile {med['without']:.1f}, with Display P3 "
-          f"{med['with']:.1f} (+{med['with'] - med['without']:.1f}) "
-          f"[{card}]", flush=True)
-    return med
+        if k != "without":
+            split[k].append(log)
+    base = statistics.median(t["without"])
+    print(f"4k Modular decode (host clock, ms; in turns {', '.join(order)}): "
+          f"without a profile {base:.1f} (median of 2) [{card}]", flush=True)
+    for k in stills:
+        for label, total, log in zip(("cold", "cached"), t[k], split[k]):
+            parts = ", ".join(f"{n} {log[n]:.2f}" for n in
+                              ("icc stream", "plan", "upload", "kernel"))
+            print(f"  with {k}, plan {label}: {total:.1f} "
+                  f"(+{total - base:.1f}): {parts} (each between two "
+                  f"synchronisations; the ICC stream is the header's, "
+                  f"read on the host), the rest "
+                  f"{total - base - sum(log.values()):.1f}", flush=True)
+    return {"without": base, **{k: t[k] for k in stills}}
+
+
+def clut_yardstick(img: torch.Tensor, tr) -> tuple:
+    """F.grid_sample's inputs for the CLUT program on img: the CLUT as a
+    (1, 3, 33, 33, 33) fp32 volume (red the depth axis, blue the width) and
+    each pixel's position in it, through the prelinearisation curves where
+    littlecms has them (node + fraction / 65536), as a (1, 1, H, W, 3)
+    grid in [-1, 1]."""
+    dev = img.device
+    g = HLUT.GRID
+    vol = torch.from_numpy(tr.table.reshape(g, g, g, 3).astype(np.float32)
+                           ).permute(3, 0, 1, 2)[None].contiguous().to(dev)
+    strides = np.array([3 * g * g, 3 * g, 3])[:, None]
+    pos = (tr.offs // strides + tr.fracs / 65536.0) / (g - 1) * 2 - 1
+    pos = torch.from_numpy(pos.astype(np.float32)).to(dev)
+    idx = img.long()
+    grid = torch.stack([pos[2][idx[..., 2]], pos[1][idx[..., 1]],
+                        pos[0][idx[..., 0]]], -1)[None, None].contiguous()
+    return vol, grid
+
+
+def grid_sample_codes(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """The yardstick's one call, trilinear in fp32, then its 16-bit values
+    to 8-bit codes."""
+    v = torch.nn.functional.grid_sample(vol, grid, mode="bilinear",
+                                        padding_mode="border",
+                                        align_corners=True)
+    return torch.round(v[0, :, 0].permute(1, 2, 0) / 257.0).to(torch.uint8)
 
 
 def icc_phase(jobs: dict, rct: bytes, dev, card: str, ms: dict) -> dict:
@@ -5613,9 +5731,10 @@ def icc_phase(jobs: dict, rct: bytes, dev, card: str, ms: dict) -> dict:
     A10 past eight extra channels on the main path, held to their twins;
     each kernel at 4K by CUDA graph."""
     profiles = icc_test_profiles()
-    p3 = profiles[ICC_P3]
+    luts = lut_test_profiles()
+    p3, mab = profiles[ICC_P3], luts[ICC_LUT]
     tr = HICC.plan(p3)
-    check_icc_seeded(profiles, dev)
+    check_icc_seeded(profiles, luts, dev)
     launches = {}
 
     # the 4K Modular still of phase 11 (lossless: its pixels are the
@@ -5643,7 +5762,27 @@ def icc_phase(jobs: dict, rct: bytes, dev, card: str, ms: dict) -> dict:
           f"{d.max()} code on {(d > 0).mean():.4%} of values", flush=True)
     if not np.array_equal(got, twin) or d.max() > 1:
         raise AssertionError("icc decode against the twin / the model")
-    icc_decode_timing(rct, still, card)
+
+    # the same still with the table profile: the CLUT program once
+    tr_lut = HICC.plan(mab)
+    still_lut = with_icc(rct, mab)
+    with forbidden(ICC, ("clut_transform_plain", "transform_plain")):
+        got, counts = drive("main path (api.decode, 4K Modular still with "
+                            "the mAB profile)",
+                            lambda: api.decode(still_lut, "cuda")[0],
+                            ("clut_kernel", "rct_inverse"))
+    if counts["clut_kernel"] != 1:
+        raise AssertionError(f"icc lut decode: launches {counts}")
+    launches["clut_kernel"] = counts["clut_kernel"]
+    twin = ICC.clut_transform_plain(torch.from_numpy(plain),
+                                    ICC.tables_on(tr_lut, "cpu")).numpy()
+    print(f"decode 4k Modular with the mAB profile: equal to the still "
+          f"without its profile through the twin on the CPU "
+          f"{np.array_equal(got, twin)}; changed {(got != plain).mean():.2%}"
+          f" of values", flush=True)
+    if not np.array_equal(got, twin):
+        raise AssertionError("icc lut decode against the twin")
+    icc_decode_timing(rct, {"Display P3": still, "mAB": still_lut}, card)
 
     # the lossy encode with the profile: the kernel, then E1-E4
     enc_want = ("icc_to_srgb", "enc_front_planes", "enc_front_blocks",
@@ -5675,6 +5814,37 @@ def icc_phase(jobs: dict, rct: bytes, dev, card: str, ms: dict) -> dict:
           f"{t_enc:.2f} s", flush=True)
     enc_same_point("4k d1.0 e7 icc=Display P3", ours, ref, srgb,
                    "the encode of the twin's sRGB pixels")
+
+    # the lossy encode with the table profile, and its stream decoded on
+    # the card (kernels 1 and 2)
+    with contextlib.ExitStack() as stack:
+        for module, names in ICC_TWINS + ENC_TWINS:
+            stack.enter_context(forbidden(module, names))
+        t0 = time.perf_counter()
+        ours, counts = drive("main path (api.encode, lossy, icc=mAB)",
+                             lambda: api.encode(img, lossless=False,
+                                                quality=90, effort=7,
+                                                icc=mab, device="cuda"),
+                             ("clut_kernel",) + enc_want[1:])
+        t_enc = time.perf_counter() - t0
+    if counts["clut_kernel"] != 1:
+        raise AssertionError(f"icc lut encode: launches {counts}")
+    launches["clut_kernel"] += counts["clut_kernel"]
+    with forbidden(synth, ("synth_family_plain",)), \
+            forbidden(filters, ("restore_and_output_plain",)):
+        back, counts = drive("main path (api.decode of the lossy icc=mAB "
+                             "stream)", lambda: api.decode(ours, "cuda")[0],
+                             ("synth_dct8", "restore_and_output"))
+    srgb_lut = ICC.clut_transform_plain(torch.from_numpy(img),
+                                        ICC.tables_on(tr_lut, "cpu")).numpy()
+    p_lut, p_src = psnr(back, srgb_lut), psnr(back, img)
+    print(f"encode 4k lossy with the mAB profile on the card: {len(ours)} B "
+          f"in {t_enc:.2f} s; decoded on the card, PSNR {p_lut:.4f} dB "
+          f"against the twin's sRGB pixels, {p_src:.4f} against the "
+          f"unconverted frame", flush=True)
+    if not p_lut >= 25 or not p_lut > p_src + 3:
+        raise AssertionError("icc lut encode: the stream is not the "
+                             "converted frame's")
 
     # S2, S3 and S4 on the FHD still of 6 channels; A10 on the sprite
     # animation of 13 channels (10 extra channels: two launches a frame)
@@ -5760,6 +5930,27 @@ def icc_phase(jobs: dict, rct: bytes, dev, card: str, ms: dict) -> dict:
           f"{LIBRARY_MS['icc_to_srgb']:.4f} ms, within {dy.max().item()} "
           f"code of the kernel on {(dy > 0).float().mean().item():.4%} "
           f"[{card}]", flush=True)
+    tab = ICC.tables_on(tr_lut, dev)
+    out = ICC.clut_transform(img_d, tab)
+    BOUND["clut_kernel"] = bound_of(nbytes(img_d, out, tab),
+                                    img_d.numel() // 3 * CLUT_OPS)
+    ms["clut_kernel"] = (
+        graph_ms(lambda: ICC.clut_transform(img_d, tab)),
+        device_ms(lambda: ICC.clut_transform_plain(img_d, tab)))
+    vol, grid = clut_yardstick(img_d, tr_lut)
+    dy = (grid_sample_codes(vol, grid).int() - out.int()).abs()
+    LIBRARY_MS["clut_kernel"] = device_ms(
+        lambda: torch.nn.functional.grid_sample(
+            vol, grid, mode="bilinear", padding_mode="border",
+            align_corners=True))
+    print(f"kernel clut_kernel at 4K RGB8 (mAB profile): device "
+          f"{ms['clut_kernel'][0]:.4f} ms (CUDA graph), plain twin "
+          f"{ms['clut_kernel'][1]:.4f} ms, bound "
+          f"{BOUND['clut_kernel'][0]:.4f} ms ({BOUND['clut_kernel'][1]}), "
+          f"yardstick F.grid_sample (the CLUT as a 5-D fp32 volume, "
+          f"trilinear, grid precomputed) {LIBRARY_MS['clut_kernel']:.4f} ms, "
+          f"its codes within {dy.max().item()} of the kernel's on "
+          f"{(dy > 0).float().mean().item():.4%} [{card}]", flush=True)
     wide = {}
     rng = torch.Generator(device=dev).manual_seed(5)
     px6 = torch.randint(0, 256, (ICC_H, ICC_W, CH6_N), generator=rng,

@@ -2,47 +2,51 @@
 (numpy; no torch).
 
 The reference converts a decoded Modular still, and a lossy encode's
-input, from its embedded ICC profile to sRGB with littlecms
+input, from its embedded ICC profile to sRGB with littlecms 2.17
 (``jxl_coder_tpu/ops/icc_apply.py:22-61``: perceptual intent with
-black-point compensation, 8-bit samples).  The port reads the profile
-itself, for the profiles littlecms converts with a matrix and tone curves:
-an RGB profile with the ``rXYZ`` / ``gXYZ`` / ``bXYZ`` colorants and the
-``rTRC`` / ``gTRC`` / ``bTRC`` curves (``curv`` with 0, 1 or n entries,
-``para`` of function types 0-4).  ``plan`` builds what littlecms builds
-for 8-bit RGB to 8-bit RGB there (its ``OptimizeMatrixShaper``): each
-channel's 256-entry input shaper in 1.14 fixed point (the curve evaluated
-in float at i / 255), the 3x3 matrix to sRGB in 1.14 fixed point (the
-colorants, then the inverse of its built-in D50 sRGB colorants, each
-scaled by its XYZ encoding factor, multiplied in float64 in its order),
-and the output shaper ``SHAPER2``, shared by every profile: the 8-bit sRGB
-code of each of the 16,385 fixed-point values in [0, 1].  A matrix within
-1/65535 of the identity is dropped as littlecms drops it, and its curves
-joined through a 4096-point 16-bit table (``OptimizeByJoiningCurves``);
-the port then writes each channel's 256 codes into the input shaper,
-pointing at the first ``SHAPER2`` entry of that code, with an identity
-matrix, so one per-pixel program serves both.  The codes equal
-littlecms's on the whole 2^24 cube of 8-bit RGB for the test profiles
-(Adobe RGB, Display P3 v2 / v4, ProPhoto, curv tables, para types 0-4,
-sRGB), with glibc's pow as littlecms uses it.
+black-point compensation, 8-bit samples).  ``plan`` builds what littlecms
+builds for 8-bit RGB to 8-bit RGB: its pipeline from the profile to its
+built-in sRGB profile (``host/ops/icc_lut.py``: the input tables or the
+matrix and tone curves, the PCS conversion, black-point compensation,
+sRGB's inverse), simplified as littlecms simplifies it, then one of its
+two 8-bit programs:
 
-What ``plan`` does with the rest mirrors what littlecms does there (each
-case checked against the reference on the CPU):
-- it raises ``Rejected`` where littlecms builds no transform and the
-  reference returns the pixels unconverted: a profile too short, without
-  the ``acsp`` signature, of the abstract, device-link or named-colour
-  class, whose data colour space is not RGB (LAB, XYZ, GRAY, CMYK), or
-  an RGB profile without a colorant or a curve, or with a curve it
-  cannot read;
-- it raises ``NotImplementedError`` where littlecms converts but the
-  port cannot: an ``A2B0`` / ``D2B0`` lookup table (what the perceptual
-  intent reads before the matrix; an ``A2B1`` / ``A2B2`` alone leaves
-  littlecms on the matrix, and the port too), a curve whose black is not
-  0 (black-point compensation then moves every value), and a profile
-  whose fixed-point sums could leave int32.
+- the matrix-shaper program (``OptimizeMatrixShaper``), where the
+  pipeline is curves, a matrix and curves: an RGB matrix / TRC profile
+  (``rXYZ`` / ``gXYZ`` / ``bXYZ``, ``rTRC`` / ``gTRC`` / ``bTRC`` of
+  ``curv`` with 0, 1 or n entries or ``para`` of function types 0-4)
+  whose black stays 0.  ``Transform``: each channel's 256-entry input
+  shaper in 1.14 fixed point (the curve evaluated in float at i / 255;
+  0x7fffffff from 131072 up, so the matrix sums, which wrap in int32 as
+  littlecms's do, may leave int32), the 3x3 matrix to sRGB in 1.14 fixed
+  point, and the output shaper ``SHAPER2``, shared by every profile: the
+  8-bit sRGB code of each of the 16,385 fixed-point values in [0, 1].  A
+  matrix within 1/65535 of the identity is dropped as littlecms drops it,
+  and its curves joined through a 4096-point 16-bit table
+  (``OptimizeByJoiningCurves``); the port then writes each channel's 256
+  codes into the input shaper, pointing at the first ``SHAPER2`` entry of
+  that code, with an identity matrix, so one per-pixel program serves
+  both.
+- the CLUT program, for everything else (``icc_lut.ClutTransform``): an
+  ``A2B0`` / ``D2B0`` lookup table (what the perceptual intent reads
+  before the matrix; an ``A2B1`` / ``A2B2`` alone leaves littlecms on the
+  matrix, and the port too), and a matrix / TRC profile whose black is
+  not 0, whose black-point compensation adds a stage.
 
-``srgb8_model`` is the float64 model of the same transform (the curves,
-the matrix, a clamp to [0, 1], the sRGB curve by its formula, rint):
-within 1 code of littlecms's fixed point on about 1% of values.
+The codes equal littlecms's on the whole 2^24 cube of 8-bit RGB for every
+test profile (``port_fixtures.icc_test_profiles`` and
+``lut_test_profiles``), with glibc's pow as littlecms uses it.  ``plan``
+raises ``Rejected`` where littlecms builds no transform and the reference
+returns the pixels unconverted: a profile too short, without the ``acsp``
+signature, of the abstract, device-link or named-colour class, whose data
+colour space is not RGB (LAB, XYZ, GRAY, CMYK) or whose PCS is neither
+XYZ nor Lab, an RGB profile without a table and without a colorant or a
+curve, with a curve it cannot read, or with a table it cannot read under
+its tag (an ``mft1`` under ``D2B0``) or of other channels than RGB -> 3.
+
+``srgb8_model`` is the float64 model of the matrix-shaper transform (the
+curves, the matrix, a clamp to [0, 1], the sRGB curve by its formula,
+rint): within 1 code of littlecms's fixed point on about 1% of values.
 """
 
 from __future__ import annotations
@@ -131,6 +135,18 @@ def _parametric(t: int, p, r: np.ndarray) -> np.ndarray:
                                 r * p[3])
             return np.where(r >= p[4], np.where(e > 0, pw + p[5], p[5]),
                             r * p[3] + p[6])
+        if t == 6:
+            e = p[1] * r + p[2]
+            if p[0] == 1.0:
+                return e + p[3]
+            return np.where(e < 0, p[3], np.power(np.maximum(e, 0.0), p[0])
+                            + p[3])
+        if t == 7:
+            e = p[2] * np.power(r, p[0]) + p[3]
+            return np.where(e <= 0, p[4], p[1] * np.log10(np.where(
+                e > 0, e, 1.0)) + p[4])
+        if t == 8:
+            return p[0] * np.power(p[1], p[2] * r + p[3]) + p[4]
         if t == -4:
             e = p[1] * p[4] + p[2]
             disc = 0.0 if e < 0 else e ** p[0]
@@ -173,7 +189,6 @@ SHAPER2 = _output_shaper()
 _FIRST = np.searchsorted(SHAPER2, np.arange(256)).astype(np.int64)
 assert np.array_equal(SHAPER2[_FIRST], np.arange(256))
 
-_LUT_TAGS = (b"A2B0", b"D2B0")
 _NO_TRANSFORM_CLASSES = (b"abst", b"link", b"nmcl")
 MAX_TAGS = 100      # littlecms's MAX_TABLE_TAG
 
@@ -308,12 +323,44 @@ def _joined_shaper(curve: Curve) -> np.ndarray:
     return _FIRST[codes]
 
 
+def _first_shaper(curve) -> np.ndarray:
+    """FillFirstShaper: the curve at each code's float32 i / 255 in 1.14
+    fixed point, 0x7fffffff from 131072 up (and for NaN); a value past
+    int32 below converts as x86 does, to INT32_MIN."""
+    x32 = (np.arange(256) / 255.0).astype(np.float32)
+    y = curve.eval_float(x32).astype(np.float64)
+    with np.errstate(invalid="ignore"):
+        v = np.floor(y * 16384.0 + 0.5)
+        v = np.where((v >= 2.0 ** 31) | (v < -2.0 ** 31), -2.0 ** 31, v)
+        return np.where(y < 131072.0, v, 2 ** 31 - 1).astype(np.int64)
+
+
+def _matrix_shaper(stages: list):
+    """OptimizeMatrixShaper's patterns on the simplified pipeline: curves,
+    a matrix and curves, or curves, two matrices (the first without an
+    offset) and curves; all curves (an identity matrix PreOptimize took
+    out).  (input curves, matrix) or None.  The last matrix is always
+    sRGB's, which has no offset, so no offset reaches the program."""
+    from .icc_lut import Curves, Matrix
+    kinds = [type(s) for s in stages]
+    if kinds == [Curves, Curves]:
+        return stages[0].curves, np.eye(3)
+    if kinds == [Curves, Matrix, Curves] and stages[1].off is None:
+        return stages[0].curves, stages[1].m
+    if kinds == [Curves, Matrix, Matrix, Curves] and \
+            stages[1].off is None and stages[2].off is None:
+        return stages[0].curves, np.array(_product(stages[2].m.tolist(),
+                                                   stages[1].m.tolist()))
+    return None
+
+
 @functools.lru_cache(maxsize=16)
-def plan(icc: bytes) -> Transform:
-    """The profile's transform to sRGB; raises Rejected where the
-    reference returns the pixels unconverted and NotImplementedError where
-    littlecms converts by what the port does not read (module
-    docstring)."""
+def plan(icc: bytes):
+    """The profile's transform to sRGB: a Transform (littlecms's 8-bit
+    matrix-shaper program) or an icc_lut.ClutTransform (its 8-bit CLUT
+    program); raises Rejected where the reference returns the pixels
+    unconverted (module docstring)."""
+    from . import icc_lut
     icc = bytes(icc)
     tags = _tags(icc)
     cls, space = icc[12:16], icc[16:20]
@@ -323,45 +370,23 @@ def plan(icc: bytes) -> Transform:
     if space != b"RGB ":
         raise Rejected(f"the profile's data colour space is {space!r}, not "
                        f"RGB")
-    for sig in _LUT_TAGS:
-        if sig in tags:
-            raise NotImplementedError(
-                f"ICC profile with an {sig.decode()} lookup table: littlecms "
-                f"converts through it, the port reads matrix / TRC "
-                f"profiles only")
-    colorants = np.stack([_xyz(tags, s) for s in (b"rXYZ", b"gXYZ",
-                                                   b"bXYZ")], 1)
-    curves = []
-    for sig in (b"rTRC", b"gTRC", b"bTRC"):
-        if sig not in tags:
-            raise Rejected(f"no {sig.decode()} tone curve")
-        curves.append(read_curve(tags[sig]))
+    stages = icc_lut.pipeline(icc, tags)
+    shaper = _matrix_shaper(stages)
+    if shaper is None:
+        return icc_lut.clut_transform(stages)
+    curves, res = shaper
     x = np.arange(256, dtype=np.float64) / 255.0
-    tables = np.stack([_curve64(c, x) for c in curves])
-    if np.any(tables[:, 0] != 0.0):
-        raise NotImplementedError(
-            "ICC tone curve whose black is not 0: littlecms's black-point "
-            "compensation moves every value, which the port does not model")
-    src = [[v / MAX_ENCODEABLE_XYZ for v in row] for row in colorants]
-    dst = [[v * MAX_ENCODEABLE_XYZ for v in row]
-           for row in _inverse(SRGB_D50.tolist())]
-    res = np.array(_product(dst, src))
+    tables = np.stack([_curve64(c, x) if isinstance(c, Curve) else
+                       c.eval_float(x.astype(np.float32)).astype(np.float64)
+                       for c in curves])
     if np.all(np.abs(res - np.eye(3)) < 1.0 / 65535.0):
         shaper1 = np.stack([_joined_shaper(c) for c in curves])
         matrix = np.eye(3, dtype=np.int64) * 16384
     else:
-        x32 = (np.arange(256) / 255.0).astype(np.float32)
-        shaper1 = np.stack([np.floor(c.eval_float(x32).astype(np.float64)
-                                     * 16384.0 + 0.5) for c in curves])
+        shaper1 = np.stack([_first_shaper(c) for c in curves])
         matrix = np.floor(res * 16384.0 + 0.5)
-        reach = np.abs(matrix).sum(1).max() * np.abs(shaper1).max() + 8192
-        if not np.all(np.isfinite(shaper1)) or reach >= 2 ** 31:
-            raise NotImplementedError(
-                "ICC profile whose fixed-point sums leave int32 (a curve "
-                "far above 1): littlecms saturates there")
     return Transform(shaper1.astype(np.int64), matrix.astype(np.int64),
-                     np.ascontiguousarray(tables),
-                     np.linalg.inv(SRGB_D50) @ colorants)
+                     np.ascontiguousarray(tables), np.asarray(res))
 
 
 def srgb8_model(rgb8: np.ndarray, tr: Transform) -> np.ndarray:

@@ -1019,8 +1019,8 @@ def _icc_curve(spec) -> bytes:
 
 def icc_profile(colorants="p3", curve=SRGB_PARA, version: int = 2,
                 space: bytes = b"RGB ", cls: bytes = b"mntr",
-                extra=()) -> bytes:
-    """An ICC display profile: the header (D50 illuminant), desc (v2
+                extra=(), pcs: bytes = b"XYZ ") -> bytes:
+    """An ICC display profile: the header (D50 illuminant, `pcs`), desc (v2
     textDescription, v4 mluc), wtpt D50, the rXYZ / gXYZ / bXYZ colorants
     (a name of ICC_COLORANTS or a 3x3 array; None: none) and the three
     TRCs (one spec for all, a list of three, or None: none), then `extra`
@@ -1053,7 +1053,7 @@ def icc_profile(colorants="p3", curve=SRGB_PARA, version: int = 2,
         body += data
     hdr = struct.pack(">I4sI4s4s4s", start + len(body), b"lcms",
                       0x04300000 if version >= 4 else 0x02100000, cls,
-                      space, b"XYZ ")
+                      space, pcs)
     hdr += struct.pack(">6H", 2024, 1, 1, 0, 0, 0) + b"acsp" + b"APPL" + \
         b"\0" * 20 + struct.pack(">I", 0) + b"".join(_s15(v) for v in d50)
     hdr += b"lcms" + b"\0" * 44
@@ -1074,6 +1074,235 @@ def lut_profile() -> bytes:
     """A Display P3 matrix / TRC profile that also carries an A2B0 table,
     which littlecms's perceptual intent converts through."""
     return icc_profile("p3", SRGB_PARA, 2, extra=[(b"A2B0", icc_lut8())])
+
+
+# ---- ICC lookup-table profiles (ICC.1:2010 10.8-10.14), seeded tables -----
+
+def icc_mft1(in_tables, clut, out_tables, matrix=np.eye(3)) -> bytes:
+    """A lut8Type (mft1) tag: 3 x 256 byte input tables, a CLUT of
+    clut.shape[0] points per axis (shape (g, g, g, nout), bytes), nout x
+    256 byte output tables, and the 3x3 matrix."""
+    clut = np.asarray(clut)
+    nout, g = clut.shape[-1], clut.shape[0]
+    body = b"mft1\0\0\0\0" + bytes([3, nout, g, 0])
+    body += b"".join(_s15(v) for v in np.asarray(matrix).ravel())
+    body += np.asarray(in_tables, np.uint8).tobytes()
+    body += clut.astype(np.uint8).tobytes()
+    return body + np.asarray(out_tables, np.uint8).tobytes()
+
+
+def icc_mft2(in_tables, clut, out_tables, matrix=np.eye(3)) -> bytes:
+    """A lut16Type (mft2) tag: as icc_mft1 with 16-bit tables of any
+    length (each list's rows the same length) and CLUT."""
+    clut = np.asarray(clut)
+    nout, g = clut.shape[-1], clut.shape[0]
+    in_tables, out_tables = np.asarray(in_tables), np.asarray(out_tables)
+    body = b"mft2\0\0\0\0" + bytes([3, nout, g, 0])
+    body += b"".join(_s15(v) for v in np.asarray(matrix).ravel())
+    body += struct.pack(">HH", in_tables.shape[1], out_tables.shape[1])
+    body += in_tables.astype(">u2").tobytes()
+    body += clut.astype(">u2").tobytes()
+    return body + out_tables.astype(">u2").tobytes()
+
+
+def _pad4(b: bytes) -> bytes:
+    return b + b"\0" * (-len(b) % 4)
+
+
+def icc_mab(a=None, clut=None, m=None, matrix=None, b=None,
+            precision: int = 2) -> bytes:
+    """A lutAtoBType (mAB ) tag of 3 inputs: a / m / b lists of curve specs
+    (as icc_profile's TRCs), clut of shape (g0, g1, g2, nout) in [0, 1]
+    (written at `precision` bytes), matrix (3x3, 3 offsets); None leaves
+    an element out."""
+    nout = 3 if clut is None else np.asarray(clut).shape[-1]
+    parts, offsets = [], {}
+    pos = 32
+
+    def add(key, data):
+        nonlocal pos
+        offsets[key] = pos
+        data = _pad4(data)
+        parts.append(data)
+        pos += len(data)
+    if b is not None:
+        add("b", b"".join(_pad4(_icc_curve(c)) for c in b))
+    if matrix is not None:
+        mat, off = matrix
+        add("mat", b"".join(_s15(v) for v in np.asarray(mat).ravel())
+            + b"".join(_s15(v) for v in off))
+    if m is not None:
+        add("m", b"".join(_pad4(_icc_curve(c)) for c in m))
+    if clut is not None:
+        c = np.asarray(clut, np.float64)
+        grid = bytes(c.shape[:3]) + b"\0" * 13
+        top = 255 if precision == 1 else 65535
+        vals = np.clip(np.round(c * top), 0, top).astype(
+            np.uint8 if precision == 1 else ">u2")
+        add("clut", grid + bytes([precision, 0, 0, 0]) + vals.tobytes())
+    if a is not None:
+        add("a", b"".join(_pad4(_icc_curve(c)) for c in a))
+    head = b"mAB \0\0\0\0" + bytes([3, nout]) + b"\0\0"
+    head += b"".join(struct.pack(">I", offsets.get(k, 0))
+                     for k in ("b", "mat", "m", "clut", "a"))
+    return head + b"".join(parts)
+
+
+def _f32s(vals) -> bytes:
+    return np.asarray(vals, ">f4").tobytes()
+
+
+def mpet_curve(segments) -> bytes:
+    """A segmented curve (curf): segments as (breakpoint or None for the
+    last, ("parf", type, params) or ("samf", points))."""
+    body = b"curf\0\0\0\0" + struct.pack(">HH", len(segments), 0)
+    body += _f32s([bp for bp, _ in segments[:-1]])
+    for _, seg in segments:
+        if seg[0] == "parf":
+            body += b"parf\0\0\0\0" + struct.pack(">HH", seg[1], 0) + \
+                _f32s(seg[2])
+        else:
+            body += b"samf\0\0\0\0" + struct.pack(">I", len(seg[1])) + \
+                _f32s(seg[1])
+    return body
+
+
+def icc_mpet(elements, nin: int = 3, nout: int = 3) -> bytes:
+    """A multiProcessElementType (mpet) tag: elements ("cvst", [curf
+    bytes]), ("matf", 3x3, offsets), ("clut", (g, g, g, 3) floats)."""
+    blobs = []
+    for el in elements:
+        if el[0] == "cvst":
+            curves = el[1]
+            n = len(curves)
+            pos, table, data = 12 + 8 * n, b"", b""
+            for c in curves:
+                c = _pad4(c)
+                table += struct.pack(">II", pos, len(c))
+                data += c
+                pos += len(c)
+            blobs.append(b"cvst\0\0\0\0" + struct.pack(">HH", n, n) +
+                         table + data)
+        elif el[0] == "matf":
+            mat = np.asarray(el[1])
+            blobs.append(b"matf\0\0\0\0" + struct.pack(
+                ">HH", mat.shape[1], mat.shape[0]) + _f32s(mat.ravel()) +
+                _f32s(el[2]))
+        else:
+            c = np.asarray(el[1])
+            blobs.append(b"clut\0\0\0\0" + struct.pack(
+                ">HH", c.ndim - 1, c.shape[-1]) + bytes(c.shape[:-1]) +
+                b"\0" * (16 - (c.ndim - 1)) + _f32s(c.ravel()))
+    pos = 16 + 8 * len(blobs)
+    head = b"mpet\0\0\0\0" + struct.pack(">HHI", nin, nout, len(blobs))
+    table, data = b"", b""
+    for bl in blobs:
+        bl = _pad4(bl)
+        table += struct.pack(">II", pos, len(bl))
+        data += bl
+        pos += len(bl)
+    return head + table + data
+
+
+def _lab_of(xyz: np.ndarray) -> np.ndarray:
+    """D50-relative CIELAB."""
+    t = xyz / np.array([0.9642, 1.0, 0.8249])
+    f = np.where(t > (6 / 29) ** 3, np.cbrt(t), t / (3 * (6 / 29) ** 2)
+                 + 4 / 29)
+    return np.stack([116 * f[..., 1] - 16, 500 * (f[..., 0] - f[..., 1]),
+                     200 * (f[..., 1] - f[..., 2])], -1)
+
+
+def _grid_rgb(*dims) -> np.ndarray:
+    axes = [np.linspace(0, 1, d) for d in dims]
+    return np.stack(np.meshgrid(*axes, indexing="ij"), -1)
+
+
+def _p3_xyz(rgb_linear: np.ndarray) -> np.ndarray:
+    return rgb_linear @ ICC_COLORANTS["p3"].T
+
+
+def lut_test_profiles() -> dict:
+    """The profiles littlecms converts by its resampled CLUT, and the
+    matrix / TRC ones it converts with black-point compensation or
+    saturating sums: name -> profile bytes, every table seeded."""
+    rng = np.random.default_rng(1806)
+    x256 = np.arange(256) / 255.0
+    # v2 mft1 on the Lab PCS: a 9-point grid of P3's Lab, jittered
+    gam = rng.uniform(0.85, 1.2, 3)
+    in8 = np.round(255 * x256[None] ** gam[:, None])
+    lab = _lab_of(_p3_xyz(_grid_rgb(9, 9, 9) ** 2.2))
+    lab8 = np.stack([lab[..., 0] * 255 / 100, lab[..., 1] + 128,
+                     lab[..., 2] + 128], -1) + rng.integers(-2, 3,
+                                                            lab.shape)
+    out8 = np.round(255 * x256[None] ** rng.uniform(0.95, 1.05, 3)[:, None])
+    mft1 = icc_mft1(in8, np.clip(np.round(lab8), 0, 255), out8)
+    # v2 mft2 on the XYZ PCS, with its matrix
+    x1024 = np.linspace(0, 1, 1024)
+    in16 = np.round(65535 * x1024[None] ** rng.uniform(1.8, 2.4, 3)[:, None])
+    xyz = _p3_xyz(_grid_rgb(17, 17, 17)) * 32768 * \
+        (1 + rng.uniform(-0.01, 0.01, (17, 17, 17, 3)))
+    out16 = np.round(65535 * np.linspace(0, 1, 64)[None] ** np.array(
+        [[1.0], [0.98], [1.03]]))
+    mix = np.array([[0.92, 0.05, 0.03], [0.04, 0.93, 0.03],
+                    [0.02, 0.06, 0.92]])
+    mft2 = icc_mft2(in16, np.clip(np.round(xyz), 0, 65535), out16, mix)
+    # v4 mAB: A curves, a CLUT of 9 x 11 x 13 points, M curves, matrix +
+    # offset, B curves; XYZ PCS at 16 bits, Lab PCS at 8 bits
+    enc = 32768 / 65535
+    a_curves = [SRGB_PARA, ("para", 0, (2.2,)), ADOBE_CURV]
+    mab_clut = _p3_xyz(_grid_rgb(9, 11, 13)) * enc * \
+        (1 + rng.uniform(-0.01, 0.01, (9, 11, 13, 3)))
+    m_curves = [("para", 0, (1.1,)), ("curv", None), ("para", 0, (0.9,))]
+    mat = (np.eye(3) + rng.uniform(-0.03, 0.03, (3, 3)),
+           rng.uniform(0, 0.004, 3))
+    b_curves = [("curv", None), ("para", 0, (1.05,)),
+                ("curv", np.round(65535 * np.linspace(0, 1, 200) ** 0.97))]
+    mab16 = icc_mab(a_curves, mab_clut, m_curves, mat, b_curves, 2)
+    lab_clut = _lab_of(_p3_xyz(_grid_rgb(9, 11, 13)) * 1.0)
+    lab_clut = np.stack([lab_clut[..., 0] / 100, (lab_clut[..., 1] + 128)
+                         / 255, (lab_clut[..., 2] + 128) / 255], -1)
+    mat8 = (np.eye(3) + rng.uniform(-0.01, 0.01, (3, 3)),
+            np.array([0.002, 0.0, 0.0]))
+    mab8 = icc_mab(a_curves, lab_clut, [("curv", None)] * 3, mat8,
+                   [("curv", None)] * 3, 1)
+    # v4 mpet D2B0: segmented curves (a line, sampled points, a line), a
+    # matrix with offsets, a float CLUT of P3's XYZ
+    pts = list(((np.linspace(0.04045, 1, 65)[1:] + 0.055) / 1.055) ** 2.4)
+    curf = mpet_curve([(0.04045, ("parf", 0, (1.0, 1 / 12.92, 0.0, 0.0))),
+                       (1.0, ("samf", pts)),
+                       (None, ("parf", 0, (1.0, 1.0, 0.0, 0.0)))])
+    gamma = mpet_curve([(None, ("parf", 0, (2.2, 1.0, 0.0, 0.0)))])
+    mix_f = np.eye(3) + rng.uniform(-0.02, 0.02, (3, 3))
+    fclut = _p3_xyz(_grid_rgb(7, 7, 7)) * (1 + rng.uniform(
+        -0.005, 0.005, (7, 7, 7, 3)))
+    mpet = icc_mpet([("cvst", [curf, gamma, curf]),
+                     ("matf", mix_f, [0.0, 0.001, 0.0]),
+                     ("clut", fclut)])
+    black = ("para", 2, (2.4, 1 / 1.055, 0.055 / 1.055, 0.02))
+    return {
+        "mft1 lab v2": icc_profile("p3", SRGB_PARA, 2, pcs=b"Lab ",
+                                   extra=[(b"A2B0", mft1)]),
+        "mft2 xyz v2": icc_profile(None, None, 2, extra=[(b"A2B0", mft2)]),
+        "mab16 xyz v4": icc_profile("p3", SRGB_PARA, 4,
+                                    extra=[(b"A2B0", mab16)]),
+        "mab8 lab v4": icc_profile(None, None, 4, pcs=b"Lab ",
+                                   extra=[(b"A2B0", mab8)]),
+        "mpet d2b0 v4": icc_profile(None, None, 4,
+                                    extra=[(b"D2B0", mpet)]),
+        "identity mft1": lut_profile(),
+        "black v2": icc_profile("p3", black, 2),
+        "black v4": icc_profile("adobe", ("para", 4, (2.2, 0.95, 0.05, 0.1,
+                                                      0.03, 0.01, 0.01)), 4),
+        "int32 reach": icc_profile("prophoto", ("para", 1, (2.4, 200.0,
+                                                            0.0)), 2),
+    }
+
+
+def mft1_under_d2b0() -> bytes:
+    """A lut8Type under D2B0, where littlecms reads only mpet: it builds no
+    transform, and the reference passes the pixels through."""
+    return icc_profile("p3", SRGB_PARA, 2, extra=[(b"D2B0", icc_lut8())])
 
 
 def _srgb_decode(x: np.ndarray) -> np.ndarray:

@@ -10,7 +10,8 @@ v2 and v4), ProPhoto (curv 1.8), curv tables, para types 0-4, sRGB.
 Tolerances: the port builds littlecms's own 8-bit fixed-point program, so
 its codes equal the reference's (0 differences) on every profile here;
 the float64 model beside it (``host/ops/icc.srgb8_model``) is held to
-within 1 code on at most 3% of values.  The pass-through cases equal the
+within 1 code on at most 3% of values.  The lookup-table profiles and
+black-point compensation are tests/test_torch_icc_lut.py's.  The pass-through cases equal the
 reference's in shape, dtype and values.  Decodes and lossy encodes equal
 the JAX package's (pixels, bytes).
 """
@@ -28,6 +29,7 @@ from jxl_coder_tpu import api as ref_api
 from jxl_coder_tpu.ops.icc_apply import icc_to_srgb as ref_icc
 from jxl_coder_tpu_torch import _build, api
 from jxl_coder_tpu_torch.host.ops import icc as HICC
+from jxl_coder_tpu_torch.host.ops import icc_lut as HLUT
 from jxl_coder_tpu_torch.ops import icc_apply as I
 import port_fixtures as F
 
@@ -123,13 +125,26 @@ def test_passthrough_equals_the_reference(case, caplog):
 
 
 @pytest.mark.parametrize("tag", [b"A2B0", b"D2B0"])
-def test_lookup_table_profile_raises(tag):
-    """littlecms converts through an A2B0 / D2B0 table (the reference
-    converts): the port raises NotImplementedError naming the tag."""
+def test_lookup_table_profile_raises(tag, caplog):
+    """A Display P3 profile with an identity lut8 (mft1) table: under A2B0
+    littlecms converts through the table, and so does the port (equal to
+    the reference on a 52^3 cube); under D2B0, where littlecms reads only
+    mpet, it builds no transform, and the port passes the pixels through
+    with the reference's warning.  (The name is the test's from when the
+    port raised NotImplementedError on both.)"""
     prof = F.icc_profile("p3", F.SRGB_PARA, 2, extra=[(tag, F.icc_lut8())])
-    px = torch.zeros((4, 4, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match=tag.decode()):
-        I.icc_to_srgb(px, prof)
+    cube = _cube(5)
+    ref = ref_icc(cube, prof)
+    t = torch.from_numpy(cube)
+    with caplog.at_level(logging.WARNING, logger="jxl_coder_tpu_torch.icc"):
+        got = I.icc_to_srgb(t, prof)
+    assert np.array_equal(got.numpy(), ref)
+    unconverted = any("returning pixels unconverted" in r.getMessage()
+                      for r in caplog.records)
+    if tag == b"D2B0":
+        assert got is t and unconverted and np.array_equal(ref, cube)
+    else:
+        assert not unconverted and not np.array_equal(ref, cube)
 
 
 def test_a2b1_alone_stays_on_the_matrix():
@@ -142,11 +157,16 @@ def test_a2b1_alone_stays_on_the_matrix():
 
 
 def test_nonzero_black_raises():
-    """A curve whose black is not 0 turns on littlecms's black-point
-    compensation: NotImplementedError."""
+    """A Display P3 v4 profile whose curves' black is 0.02: littlecms's
+    black-point compensation moves every value (its CLUT program), and
+    the port equals the reference on an 86^3 cube.  (The name is the
+    test's from when the port raised NotImplementedError there.)"""
     prof = F.icc_profile("p3", ("para", 2, (2.4, 1.1, -0.1, 0.02)), 4)
-    with pytest.raises(NotImplementedError, match="black"):
-        I.icc_to_srgb(torch.zeros((2, 2, 3), dtype=torch.uint8), prof)
+    cube = _cube(3)
+    got = I.icc_to_srgb(torch.from_numpy(cube), prof).numpy()
+    ref = ref_icc(cube, prof)
+    assert np.array_equal(got, ref)
+    assert isinstance(HICC.plan(prof), HLUT.ClutTransform)
 
 
 _ICC_RUN = r"""
@@ -250,22 +270,28 @@ def test_modular_icc_decode_equals_the_jax_package(nch, dtype):
 
 
 def test_decode_runs_the_transform_once(monkeypatch):
-    """The decode of an ICC still transforms once, through the wrapper;
-    the LUT profile's still raises NotImplementedError."""
+    """The decode of an ICC still transforms once, through the wrapper of
+    its program: the matrix profile's through transform, the lookup-table
+    profile's through clut_transform (equal to the JAX package's)."""
     calls = []
-    plain = I.transform_plain
 
-    def counted(*a, **k):
-        calls.append(a[0].shape)
-        return plain(*a, **k)
-    monkeypatch.setattr(I, "transform_plain", counted)
+    def counted(name):
+        plain = getattr(I, name)
+
+        def run(*a, **k):
+            calls.append((name, a[0].shape))
+            return plain(*a, **k)
+        monkeypatch.setattr(I, name, run)
+    counted("transform_plain")
+    counted("clut_transform_plain")
     api.decode(_still(3, np.uint8), device="cpu")
-    assert calls == [(30, 44, 3)]
+    assert calls == [("transform_plain", (30, 44, 3))]
+    calls.clear()
     lut = ref_api.encode(F.bench_frame(8, 8), lossless=True, effort=1,
-                         icc=F.icc_profile("p3", F.SRGB_PARA, 2,
-                                           extra=[(b"A2B0", F.icc_lut8())]))
-    with pytest.raises(NotImplementedError, match="A2B0"):
-        api.decode(lut, device="cpu")
+                         icc=F.lut_profile())
+    got, _ = api.decode(lut, device="cpu")
+    assert calls == [("clut_transform_plain", (8, 8, 3))]
+    assert np.array_equal(got, ref_api.decode(lut)[0])
 
 
 @pytest.mark.parametrize("kind", ["u8", "u16", "float", "grey", "rgba"])

@@ -348,18 +348,17 @@ def test_xyb_output_is_kernel_2s_output_step(monkeypatch):
 # ---- (f) what must raise ----
 
 def test_modular_outside_the_slice_raises():
-    """An embedded profile littlecms applies by a lookup table raises (a
-    matrix / TRC one, here PIL's sRGB, now decodes as the JAX package
-    does: tests/test_torch_icc.py), as do entropy="device" and prepare."""
+    """entropy="device" and prepare raise on a Modular frame.  An embedded
+    profile decodes as the JAX package decodes it: a matrix / TRC one
+    (here PIL's sRGB) and one littlecms applies by a lookup table, which
+    raised until the CLUT program (tests/test_torch_icc*.py)."""
     img = _rgb(16, 24)
     from PIL import ImageCms
     icc = ImageCms.ImageCmsProfile(ImageCms.createProfile("sRGB")).tobytes()
-    srgb = ref_api.encode(img, lossless=True, icc=icc)
-    assert np.array_equal(api.decode(srgb, device="cpu")[0],
-                          ref_api.decode(srgb)[0])
-    with pytest.raises(NotImplementedError, match="ICC"):
-        api.decode(ref_api.encode(img, lossless=True, icc=F.lut_profile()),
-                   device="cpu")
+    for prof in (icc, F.lut_profile()):
+        data = ref_api.encode(img, lossless=True, icc=prof)
+        assert np.array_equal(api.decode(data, device="cpu")[0],
+                              ref_api.decode(data)[0])
     plain = ref_api.encode(img, lossless=True, effort=2)
     with pytest.raises(NotImplementedError, match="host"):
         api.decode(plain, device="cpu", entropy="device")
@@ -370,8 +369,7 @@ def test_modular_outside_the_slice_raises():
 def test_modular_upsampling_raises():
     """Frame upsampling raised until the post stages' upsampler (A6);
     the frame now decodes as the JAX package decodes it, and only
-    entropy="device" (or an ICC profile littlecms applies by a lookup
-    table) still raises."""
+    entropy="device" still raises."""
     hdr, fh = F.modular_headers(16, 24, 3)
     fh.upsampling = 2
     planes = [p[::2, ::2].copy() for p in F._planes(_rgb(16, 24))]

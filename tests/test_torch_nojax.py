@@ -503,6 +503,47 @@ def test_icc_config_trace_and_plugin_without_the_jax_package(tmp_path):
         "True (28, 20) True (28, 20) ['decode', '1'] 1 True"), res.stdout
 
 
+def test_lookup_table_icc_without_the_jax_package(tmp_path):
+    """The same copy, jax and jxl_coder_tpu blocked: host/ops/icc_lut.py
+    reads each lookup-table profile of port_fixtures into littlecms's CLUT
+    program, and a Modular still with the mAB profile decodes on the CPU
+    to the CLUT twin's codes; the mft1 under D2B0 passes through."""
+    shutil.copytree(PKG, tmp_path / "jxl_coder_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(REPO / "port_fixtures.py", tmp_path)
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None        # any `import jax` now fails
+        sys.modules["jxl_coder_tpu"] = None
+        import numpy as np
+        import torch
+        from jxl_coder_tpu_torch import api
+        from jxl_coder_tpu_torch.host.ops import icc as HICC
+        from jxl_coder_tpu_torch.host.ops import icc_lut as HLUT
+        from jxl_coder_tpu_torch.ops import icc_apply
+        import port_fixtures as F
+        luts = F.lut_test_profiles()
+        kinds = sorted({type(HICC.plan(p)).__name__ for p in luts.values()})
+        img = F.bench_frame(20, 28)
+        mab = luts["mab16 xyz v4"]
+        out, _ = api.decode(F.modular_still(img, icc=mab), device="cpu")
+        tab = icc_apply.tables_on(HICC.plan(mab), "cpu")
+        same = np.array_equal(out, icc_apply.clut_transform_plain(
+            torch.from_numpy(img), tab).numpy())
+        kept, _ = api.decode(F.modular_still(img, icc=F.mft1_under_d2b0()),
+                             device="cpu")
+        assert not any(m.split(".")[0] in ("jax", "jxl_coder_tpu")
+                       for m, v in sys.modules.items() if v is not None)
+        print(kinds, same, np.array_equal(kept, img))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "['ClutTransform', 'Transform'] True True", \
+        res.stdout
+
+
 def test_multi_device_dry_run_without_the_jax_package(tmp_path):
     """The port copied where no jxl_coder_tpu exists, jax blocked:
     parallel.dryrun spawns 2 gloo ranks on the CPU (the sharded round-1

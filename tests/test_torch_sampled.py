@@ -288,16 +288,16 @@ def test_decode_sampled_raises():
         api.decode_sampled(b"\xff\x0a" + data[2:40], 16, 16, device="cpu")
     with pytest.raises(api.InvalidJXLError):
         api.decode_sampled(b"not a jxl stream", 16, 16, device="cpu")
-    # a profile littlecms applies by a lookup table (a matrix / TRC one
-    # decodes: tests/test_torch_icc.py)
+    # a profile littlecms applies by a lookup table (these raised until
+    # the CLUT program) decodes as the JAX package decodes it
     icc = ref_api.encode(F.smooth_frame(H, W), lossless=True,
                          icc=F.lut_profile())
-    for fn in (lambda: api.decode_sampled(icc, 16, 11, device="cpu"),
-               lambda: api.decode_sampled(icc, 60, 40, device="cpu"),
-               lambda: api.decode_thumbnail(icc, device="cpu"),
-               lambda: api.decode(icc, device="cpu")):
-        with pytest.raises(NotImplementedError, match="littlecms"):
-            fn()
+    for name, args in (("decode_sampled", (16, 11)),
+                       ("decode_sampled", (60, 40)),
+                       ("decode_thumbnail", ()), ("decode", ())):
+        got = getattr(api, name)(icc, *args, device="cpu")[0]
+        ref = getattr(ref_api, name)(icc, *args)[0]
+        assert got.shape == ref.shape and np.array_equal(got, ref)
     if not torch.cuda.is_available():
         for fn in (api.decode_sampled, api.decode_thumbnail):
             with pytest.raises(RuntimeError, match="CUDA"):
