@@ -19,7 +19,7 @@ prints no result):
      single-section 232x200 frame with the repo's own host encoder
      (jxl_coder_tpu_torch.reference), cached in the temp directory by
      content hash; then the AC entropy decode's kernel (entropy="device")
-     on the five small streams, its plain twin on the same tables started
+     on three small streams, its plain twin on the same tables started
      in worker processes on the CPU (one step per token; not at 4K, where
      it took ~112 s: phase 6 holds the 4K kernel to the host route);
   4. each kernel against its plain PyTorch twin on the card: synthesis
@@ -3989,7 +3989,7 @@ ANIM_WATCH = ANIM_KERNELS + ("synth_family", "synth_dct8",
 ANIM_FRAMES, ANIM_H, ANIM_W = 6, 1080, 1920
 SPRITE_H, SPRITE_W = 240, 320
 # the round-1 animation, cut to 256x384: its pure-Python entropy coding
-# takes ~20 s for one FHD parse (ROADMAP 2B item 9)
+# takes ~20 s for one FHD parse (ROADMAP 2B item 10)
 ROUND1_FRAMES, ROUND1_H, ROUND1_W = 8, 256, 384
 # least fp64 operations per composed value (the BLEND of a colour channel:
 # the alpha's division, 1 - fa, two products, the sum, the division by
@@ -5293,6 +5293,9 @@ def enc_timings(main_calls: list, special_calls: list, card: str,
     note_bound("enc_dct_costs", int(moved), ops)
     ms["enc_dct_costs"] = (k_ms, p_ms)
     LIBRARY_MS["enc_dct_costs"] = lib
+    print(f"kernel enc_dct_costs at 4k: the seven shapes {k_ms:.4f} ms "
+          f"against the six shapes' matmul pairs {lib:.4f} ms (the "
+          f"transforms alone) [{card}]", flush=True)
     # E4: the five launches of one frame, summed
     k_ms = p_ms = moved = ops = 0.0
     label = None
@@ -6126,7 +6129,7 @@ def par_round1(mesh, data, arrays, refs) -> dict:
     made to raise: decode_frames_batch(mesh=), sharded_reconstruct of
     frame 0 and sharded_frame_reconstruct of all frames, each against the
     non-mesh path on the card (0 differences); then the block-row decode
-    timed, split."""
+    and the frame-axis decode (P3) timed, split."""
     ac, dc, qf, fx, fb, dist, epf, gab = arrays
     img = animation.AnimatedImage(data, mesh.device)
     rows = G.sharded_reconstruct(mesh, epf, gab)
@@ -6139,7 +6142,9 @@ def par_round1(mesh, data, arrays, refs) -> dict:
              for g, r in zip(got, refs)]
     return {"diffs": diffs, "counts": counts,
             "times": par_split(lambda: rows(ac[0], dc[0], qf[0], fx[0],
-                                            fb[0], dist))}
+                                            fb[0], dist)),
+            "frame_times": par_split(lambda: frames(ac, dc, qf, fx, fb,
+                                                    dist))}
 
 
 def par_rank(mesh, real: tuple, round1: tuple = None,
@@ -6324,14 +6329,17 @@ def par_phase(vardct: dict, round1: bytes, anim_round1: tuple,
                     c["fused_gab_epf"] < 1:
                 raise AssertionError(f"round-1 rank {r['rank']}: diffs "
                                      f"{r1['diffs']}, launches {c}")
-            tt = r1["times"]
+            tt, tf = r1["times"], r1["frame_times"]
             print(f"round-1 {ROUND1_FRAMES} x {ROUND1_H}x{ROUND1_W} at 2 "
                   f"ranks rank {r['rank']}: decode_frames_batch(mesh=), "
                   f"sharded_reconstruct and sharded_frame_reconstruct equal "
                   f"to the non-mesh path (0); launches {c}; "
                   f"sharded_reconstruct host ms {tt['total']:.2f} = compute "
                   f"{tt['compute']:.2f} + exchange {tt['exchange']:.2f} + "
-                  f"gather {tt['gather']:.2f} [{card}]", flush=True)
+                  f"gather {tt['gather']:.2f}; sharded_frame_reconstruct "
+                  f"host ms {tf['total']:.2f} = compute {tf['compute']:.2f} "
+                  f"+ exchange {tf['exchange']:.2f} + gather "
+                  f"{tf['gather']:.2f} [{card}]", flush=True)
         print(f"  {n} ranks ({backend}): {wall:.1f} s, the last rank ready "
               f"after {max(r['ready'] for r in res) - t0:.1f} s", flush=True)
 
@@ -6431,14 +6439,16 @@ def main() -> int:
                          for label in OVERLAY_STREAMS if label not in
                          overlay_jobs})
 
-    # the entropy kernel on the small streams; its plain twin on the same
-    # tables in worker processes meanwhile (one step per token: seconds),
-    # collected before the timings.  At 4K the kernel is held to the host
-    # route's coefficients bit for bit (phase 6); its twin there took
-    # ~112 s of a worker and is not run
+    # the entropy kernel on three small streams (many groups, two passes,
+    # one section); its plain twin on the same tables in worker processes
+    # meanwhile (one step per token: seconds), collected before the
+    # timings.  At 4K the kernel is held to the host route's coefficients
+    # bit for bit (phase 6), and every stream's decode to the host route's
+    # pixels (phase 5); the twin took ~112 s of a worker at 4K and 55-69 s
+    # on the 16-bit and d0.1 streams, and is not run there
     twins = start_twins(pool, {k: streams[k][2] for k in (
-        "sharp_d1.0_e7", "16bit_d1.0_e5", "sharp_d0.1_e7",
-        "waves_d1.0_e7_two_passes", "waves_d1.0_e7_single_section")}, dev)
+        "sharp_d1.0_e7", "waves_d1.0_e7_two_passes",
+        "waves_d1.0_e7_single_section")}, dev)
     # the Modular streams, encoded and decoded on the CPU route in the same
     # workers once the twins free them; collected in phase 11
     modular_jobs = {label: pool.apply_async(modular_job, (label,))

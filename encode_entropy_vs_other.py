@@ -1,0 +1,233 @@
+"""Time E3 (csrc/encode.cu dct_costs_kernel) and the AC entropy decode A1
+(csrc/entropy.cu groups_kernel) against other trees' encode.cu and
+entropy.cu on one CUDA card, in turns, and count the entropy kernel's SASS
+of every build.
+
+    python3 encode_entropy_vs_other.py [--only e3|a1] [--sass DIR]
+        [--stream FILE] OTHER_CSRC [OTHER_CSRC ...]
+
+OTHER_CSRC is another tree's jxl_coder_tpu_torch/csrc: a parent commit's,
+
+    mkdir -p build/parent
+    git archive <commit> jxl_coder_tpu_torch/csrc | tar -x -C build/parent
+    python3 encode_entropy_vs_other.py build/parent/jxl_coder_tpu_torch/csrc
+
+or an edited copy of this tree's under build/ (a variant to time).  Each
+build is named by its path.  It builds every other encode.cu and entropy.cu
+with this tree's nvcc flags into build/, records the dct_costs calls of
+api.encode(the 4K bench frame, quality 90, effort 7) and the entropy
+tables of chip_smoke.py's 4K d1.0 e7 stream (--stream: that stream from a
+file; else cached in the temp directory by chip_smoke.py, else encoded
+here), then, in the order others, this, this, others reversed:
+- E3: each of the seven shapes by replaying a CUDA graph of 50 calls, the
+  seven summed, beside the fp32 torch.matmul pair of each shape's
+  transforms (TF32 off); every build's values and costs held to the twin
+  by chip_smoke.py's tie rule;
+- A1: CUDA events around 10 launches (chip_smoke.py's method), both
+  instantiations (tables staged in shared memory, and in global memory),
+  with ns per token of the longest group; every build's output held to
+  the first build's (coefficients, status, final states, tokens).
+Then cuobjdump -sass of every entropy library into DIR (default
+build/sass) and, per build, groups_kernel<true>'s instructions counted by
+opcode.  The other builds must export jxl_enc_dct_costs and
+jxl_entropy_groups with this tree's arguments.  Each line carries the
+card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import ctypes
+import re
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+import chip_smoke as cs
+from jxl_coder_tpu_torch import _build, api
+from jxl_coder_tpu_torch.entropy import device as ENT
+from jxl_coder_tpu_torch.vardct import enc_kernels as EK
+
+
+def label_of(src: Path) -> str:
+    """A build's name: its path without the trailing package and csrc."""
+    parts = [p for p in src.parts if p not in ("csrc", "jxl_coder_tpu_torch")]
+    return "_".join(parts[-2:])
+
+
+def build(src: Path, name: str, tag: str) -> ctypes.CDLL:
+    so = _build.BUILD_DIR / f"lib{name}-{tag}.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src),
+                    "-o", str(so), str(src / f"{name}.cu")], check=True,
+                   capture_output=True)
+    return ctypes.CDLL(str(so))
+
+
+def turns(tags: list) -> list:
+    others = [t for t in tags if t != "this"]
+    return others + ["this", "this"] + others[::-1]
+
+
+def e3_turns(calls: list, kernels: dict, card: str) -> None:
+    """The main path's seven dct_costs calls with each build, in turns."""
+    orig = EK._kernels
+    sums = collections.defaultdict(list)
+    try:
+        for tag in turns(list(kernels)):
+            fn = kernels[tag]
+            EK._kernels = lambda fn=fn: {**orig(), "dct_costs": fn}
+            total = 0.0
+            for _name, args, _out, _cost in calls:
+                sid, cy, cx = args[7:10]
+                cost = torch.empty_like(args[-1])
+                a = args[:-1] + (cost,)
+                out = EK.dct_costs(*a)
+                ref_cost = torch.empty_like(cost)
+                ref, ratios = EK.dct_costs_plain(*a[:-1], ref_cost,
+                                                 return_ratios=True)
+                cs.enc_check_quant("enc_dct_costs", out, cost, ref, ref_cost,
+                                   ratios, f"{tag} 4k sid {sid} {cy}x{cx}")
+                t = cs.graph_ms(lambda: EK.dct_costs(*a))
+                total += t
+                print(f"E3 {tag} sid {sid} {cy}x{cx} at 4k: {t:.4f} ms "
+                      f"[{card}]", flush=True)
+            sums[tag].append(total)
+            print(f"E3 {tag} the seven shapes at 4k: {total:.4f} ms "
+                  f"[{card}]", flush=True)
+    finally:
+        EK._kernels = orig
+    planes = next(c[1][0] for c in calls if c[1][7] != 0)
+    lib = 0.0
+    for _name, args, out, _cost in calls:
+        sid, cy, cx = args[7:10]
+        if sid == 0:
+            continue
+        h, w = 8 * cy, 8 * cx
+        st = EK._tables(planes.device, ("shape", sid, cy, cx))
+        reg = planes[:, :out.shape[0] * h, :out.shape[1] * w].reshape(
+            3, out.shape[0], h, out.shape[1], w).permute(1, 3, 0, 2, 4)
+        t = cs.graph_ms(lambda: torch.matmul(torch.matmul(st["anaH"], reg),
+                                             st["anaW"].t()))
+        lib += t
+        print(f"E3 yardstick sid {sid} {cy}x{cx}: the matmul pair {t:.4f} ms"
+              f" [{card}]", flush=True)
+    for tag, v in sums.items():
+        print(f"E3 at 4k, {tag}: " + " / ".join(f"{x:.4f}" for x in v) +
+              f" ms; the six matmul pairs {lib:.4f} ms [{card}]", flush=True)
+
+
+def a1_turns(tables, kernels: dict, card: str) -> None:
+    """decode_pass_groups on the 4K tables with each build, in turns."""
+    orig = ENT._kernel
+    outs, times = {}, collections.defaultdict(list)
+    try:
+        for tag in turns(list(kernels)):
+            ENT._kernel = lambda fn=kernels[tag]: fn
+            for label, t in (("staged", tables),
+                             ("global", tables._replace(
+                                 stage_words=1 << 30))):
+                dec = ENT.decode_pass_groups(t)
+                torch.cuda.synchronize()
+                got = tuple(x.cpu() for x in dec)
+                ref = outs.setdefault(label, got)
+                same = all(torch.equal(x, y) for x, y in zip(ref, got))
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                for _ in range(cs.REPS):
+                    ENT.decode_pass_groups(t)
+                e.record()
+                e.synchronize()
+                ms = s.elapsed_time(e) / cs.REPS
+                times[(tag, label)].append(ms)
+                tok = int(got[3].max())
+                print(f"A1 {tag} {label} at 4k: {ms:.3f} ms = "
+                      f"{ms * 1e6 / tok:.1f} ns per token of the longest "
+                      f"group ({tok} tokens); output "
+                      f"{'equal' if same else 'DIFFERENT'} [{card}]",
+                      flush=True)
+    finally:
+        ENT._kernel = orig
+    for (tag, label), v in times.items():
+        print(f"A1 at 4k, {tag} {label}: " +
+              " / ".join(f"{x:.3f}" for x in v) + f" ms [{card}]", flush=True)
+
+
+def sass_counts(so: Path, out: Path, tag: str) -> None:
+    """cuobjdump -sass of a library into `out`; groups_kernel<true>'s
+    instructions by opcode."""
+    text = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"),
+                           "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    out.write_text(text)
+    body = re.split(r"\n\s*Function : ", text)
+    fn = [b for b in body if b.startswith("_ZN") and "groups_kernelILb1E"
+          in b.split("\n", 1)[0]]
+    ops = collections.Counter(
+        m.group(1).split(".")[0] for m in re.finditer(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+            fn[0] if fn else ""))
+    print(f"SASS {tag} groups_kernel<true>: {sum(ops.values())} "
+          f"instructions; " + ", ".join(f"{k} {v}"
+                                        for k, v in ops.most_common(24)),
+          flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(
+        description="E3 and A1 against other trees' sources, in turns")
+    ap.add_argument("others", nargs="+", type=Path)
+    ap.add_argument("--only", choices=("e3", "a1"))
+    ap.add_argument("--sass", type=Path, default=Path("build/sass"))
+    ap.add_argument("--stream", type=Path)
+    opts = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("encode_entropy_vs_other: torch sees no CUDA device",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = cs.smi()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    names = [n for n, k in (("encode", "e3"), ("entropy", "a1"))
+             if opts.only in (None, k)]
+    srcs = {label_of(p.resolve()): p.resolve() for p in opts.others}
+    with ThreadPoolExecutor(8) as ex:
+        futs = {(tag, n): ex.submit(build, src, n, tag)
+                for tag, src in srcs.items() for n in names}
+        libs = {k: f.result() for k, f in futs.items()}
+    if "encode" in names:
+        this = EK._kernels()["dct_costs"]
+        e3 = {tag: _build.bind(libs[(tag, "encode")], "jxl_enc_dct_costs",
+                               this.argtypes[:-1]) for tag in srcs}
+        e3["this"] = this
+        cs.ptxas_report("encode")
+        calls = []
+        with cs.enc_recorded(calls):
+            api.encode(cs.bench_frame(2160, 3840), lossless=False,
+                       quality=90, effort=7, device="cuda")
+        e3_turns([c for c in calls if c[0] == "dct_costs"], e3, card)
+    if "entropy" in names:
+        this = ENT._kernel()
+        a1 = {tag: _build.bind(libs[(tag, "entropy")], "jxl_entropy_groups",
+                               this.argtypes[:-1]) for tag in srcs}
+        a1["this"] = this
+        cs.ptxas_report("entropy")
+        data = opts.stream.read_bytes() if opts.stream else cs.stream(
+            cs.bench_frame(2160, 3840), 1.0, 7)
+        tables, _dec = cs.entropy_run(data, dev)
+        a1_turns(tables, a1, card)
+        opts.sass.mkdir(parents=True, exist_ok=True)
+        for tag in srcs:
+            sass_counts(_build.BUILD_DIR / f"libentropy-{tag}.so",
+                        opts.sass / f"entropy_{tag}.sass", tag)
+        sass_counts(_build.library_path("entropy"),
+                    opts.sass / "entropy_this.sass", "this")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

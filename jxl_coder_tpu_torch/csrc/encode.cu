@@ -26,13 +26,30 @@
 //      CfL sums over AC coefficients reduced in the block in a fixed order.
 //      Bound by bytes (the planes read once, co written once).
 //   E3 dct_costs_kernel<CY, CX> (_costs' quant_cost and candidate loop,
-//      :174-279): a thread block a varblock.  Its region's DCT (anaH @ reg @
-//      anaW^T, both bases in shared memory; DCT8 reads E2's co), the biased
-//      quantisation with the deadzone in scan order, CfL-subtracted X / B,
-//      the squared errors, the LLF term from the DC means, the rate proxy;
-//      each thread's partial sums then a fixed-order block reduction (so a
-//      run repeats itself to the bit).  int16 values and an f32 cost out.
-//      Bound by operations at 32x32 (the two DCT passes), by bytes below.
+//      :174-279): per varblock its region's DCT (anaH @ reg @ anaW^T; DCT8
+//      reads E2's co), the biased quantisation with the deadzone in scan
+//      order, CfL-subtracted X / B, the squared errors, the LLF term from
+//      the DC means, the rate proxy; int16 values and an f32 cost out.
+//      Bound by operations (the two products, then the quantiser's three
+//      IEEE divisions a value), over the card's f32 rate.  What held the
+//      first design (a varblock a block, a thread an output as a 32-term
+//      sum) back: pass 2 read anaW with a stride of W across the warp
+//      (a 32-way bank conflict at W = 32), two shared loads and two
+//      instructions a term, the channels one after another behind six
+//      barriers, the LLF term on one thread while the block waited, and
+//      64-thread blocks for DCT8.  The design now: every block has 192
+//      threads, as many varblocks as fill them (1 at 32x32, 12 for DCT8),
+//      all three channels at once; each thread owns a 4 x 4 output tile of
+//      one channel (encode.cuh tile_product: 8 values from shared memory in
+//      two 16-byte loads for 16 fused multiply-adds a step, k ascending from
+//      0, so an output's value does not depend on its tile), the bases
+//      transposed and the intermediate stored transposed (padded below 32
+//      rows), so that no read conflicts; 16-byte loads of the region; a
+//      thread a covered position for the LLF term; the quantiser a scan
+//      position a thread (encode.cuh quant_position); partial sums reduced
+//      by 8-lane shuffles then the varblock's segments in order (a run
+//      repeats itself to the bit).  The fused products round otherwise than
+//      the twin's torch.matmul, so values agree but at quantisation ties.
 //   E4 special_costs_kernel (_costs' special branch, :280-321): a thread
 //      block (64 threads) an 8x8 block, one launch a special transform; the
 //      64x63 analysis and 63x64 response matrices are read through the
@@ -42,12 +59,15 @@
 //   gather_kernel (_sel_gather_jit, :424-436): the winners' rows of every
 //      source back to back, int16; rows past a source clip to its last
 //      (jnp.take's mode="clip").  Bound by bytes.
-// -fmad=false: each f32 operation rounds once, in the twins' order; the sums
-// of E2-E4 run in another order than torch's, so those kernels agree with
-// their twins within a tolerance (vals equal but at quantisation ties).  The
+// -fmad=false: each f32 operation rounds once, in the twins' order (E3's
+// products are explicit fused multiply-adds); the sums of E2-E4 run in
+// another order than torch's, so those kernels agree with their twins
+// within a tolerance (vals equal but at quantisation ties).  The
 // per-value arithmetic (glibc's powf, the XYB of a pixel, the masking field
 // of a block, the quantiser, the rate proxy) is encode.cuh's, which a CPU
-// test holds to the twins bit for bit.
+// test holds to the twins bit for bit; E3's tile product, quantiser and LLF
+// term are there too, and a CPU test holds them, in the kernel's tiles, to
+// the twin under the tie rule.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -367,153 +387,199 @@ struct CostArgs {
   QuantConsts k;
 };
 
+constexpr int E3_THREADS = 192;   // 6 warps
+constexpr int E3_SEG = 8;         // lanes of a first-level reduction
+
+// E3's geometry for cy x cx blocks: each thread owns a 4 x 4 output tile
+// of one channel of one varblock, so a varblock takes 3 * N / 16 threads
+// and a thread block as many varblocks as fill its 192 threads (DCT8 has
+// no product: 16 threads share a varblock's 189 values)
 template <int CY, int CX>
-__global__ void __launch_bounds__((CY * CX * 64 < 256) ? CY * CX * 64 : 256)
-    dct_costs_kernel(CostArgs a, CostTables t) {
-  constexpr int H = 8 * CY, W = 8 * CX, N = H * W;
-  constexpr int THREADS = N < 256 ? N : 256;
-  constexpr bool FROM_CO = CY == 1 && CX == 1;
-  __shared__ float s_co[3][N];
-  __shared__ float s_reg[FROM_CO ? 1 : N];
-  __shared__ float s_t[FROM_CO ? 1 : N];
-  __shared__ float s_aH[FROM_CO ? 1 : H * H];
-  __shared__ float s_aW[FROM_CO ? 1 : W * W];
-  __shared__ float s_red[(THREADS / 32 + 1) * 12];
-  __shared__ float s_sc[3];   // inv_qac, fx, fb
+struct E3Shape {
+  static constexpr int H = 8 * CY, W = 8 * CX, N = H * W, COV = CY * CX;
+  static constexpr bool FROM_CO = CY == 1 && CX == 1;
+  static constexpr int TPV = FROM_CO ? 16 : 3 * N / 16;   // threads a varblock
+  static constexpr int V = E3_THREADS / TPV;              // varblocks a block
+  // the intermediate's row (a region column, its H values side by side),
+  // padded below 32 so that pass 1's 16-byte stores spread over the banks
+  static constexpr int SH = H == 32 ? H : H + 4;
+  static_assert(V * TPV == E3_THREADS && TPV % E3_SEG == 0 && TPV >= 12,
+                "a varblock's threads fill whole reduction segments");
+};
+
+__host__ __device__ constexpr bool e3_is_max(int i) {
+  return i >= 3 && (i - 3) % 3 == 0;
+}
+
+template <int CY, int CX>
+__global__ void __launch_bounds__(E3_THREADS)
+    dct_costs_kernel(CostArgs a, CostTables t, int n) {
+  using S = E3Shape<CY, CX>;
+  constexpr int H = S::H, W = S::W, N = S::N, TPV = S::TPV, V = S::V;
+  constexpr int NSEG = TPV / E3_SEG;
+  constexpr bool FROM_CO = S::FROM_CO;
+  __shared__ __align__(16) float s_co[V * 3 * N];   // region, then its DCT
+  __shared__ __align__(16) float s_tt[FROM_CO ? 4 : V * 3 * W * S::SH];
+  __shared__ __align__(16) float s_aHT[FROM_CO ? 4 : H * H];  // anaH^T
+  __shared__ __align__(16) float s_aWT[FROM_CO ? 4 : W * W];  // anaW^T
+  __shared__ float s_sc[V][3];                      // inv_qac, fx, fb
+  __shared__ float s_llf[V][3][S::COV];             // squared LLF errors
+  __shared__ float s_part[V * NSEG][12];
+  __shared__ float s_tot[V][12];
   const int tid = threadIdx.x;
-  const int blk = blockIdx.x;
-  const int by0 = (blk / a.nxc) * CY, bx0 = (blk % a.nxc) * CX;
+  const int vb = tid / TPV, lt = tid % TPV;
+  const int blk = blockIdx.x * V + vb;
+  const bool live = blk < n;
+  const int by0 = live ? (blk / a.nxc) * CY : 0;
+  const int bx0 = live ? (blk % a.nxc) * CX : 0;
   const int ph = a.ys_b * 8, pw = a.xs_b * 8;
-  if (tid == 0) {
+  const long long nb = (long long)a.ys_b * a.xs_b;
+  if (lt == 0 && live) {
     int qmin = a.qf[by0 * a.xs_b + bx0];
     for (int y = 0; y < CY; ++y)
       for (int x = 0; x < CX; ++x)
         qmin = min(qmin, a.qf[(by0 + y) * a.xs_b + bx0 + x]);
     const float qfv = __fdiv_rn((float)qmin, a.k.igs);
-    s_sc[0] = __fdiv_rn(1.0f, qfv);
-    s_sc[1] = a.fx[by0 * a.xs_b + bx0];
-    s_sc[2] = a.fb[by0 * a.xs_b + bx0];
+    s_sc[vb][0] = __fdiv_rn(1.0f, qfv);
+    s_sc[vb][1] = a.fx[by0 * a.xs_b + bx0];
+    s_sc[vb][2] = a.fb[by0 * a.xs_b + bx0];
   }
-  if (FROM_CO) {
-    for (int p = tid; p < 64; p += THREADS)
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        s_co[c][p] =
-            a.src[(((long long)c * a.ys_b + by0) * a.xs_b + bx0) * 64 + p];
+  if constexpr (FROM_CO) {
+    // E2's 3 x 64 coefficients of each varblock, 16-byte loads
+    for (int i = lt; i < 3 * 16 && live; i += TPV) {
+      const int c = i >> 4, q = i & 15;
+      *reinterpret_cast<float4*>(s_co + (vb * 3 + c) * 64 + 4 * q) =
+          *reinterpret_cast<const float4*>(
+              a.src + (((long long)c * a.ys_b + by0) * a.xs_b + bx0) * 64 +
+              4 * q);
+    }
   } else {
-    for (int p = tid; p < H * H; p += THREADS) s_aH[p] = t.anaH[p];
-    for (int p = tid; p < W * W; p += THREADS) s_aW[p] = t.anaW[p];
-    for (int c = 0; c < 3; ++c) {
-      __syncthreads();
-      for (int p = tid; p < N; p += THREADS)
-        s_reg[p] = a.src[((long long)c * ph + by0 * 8 + p / W) * pw +
-                         bx0 * 8 + p % W];
-      __syncthreads();
-      // anaH @ reg (over rows)
-      for (int p = tid; p < N; p += THREADS) {
-        const int kk = p / W, xx = p % W;
-        float acc = 0.0f;
-        for (int yy = 0; yy < H; ++yy)
-          acc = __fadd_rn(acc, __fmul_rn(s_aH[kk * H + yy], s_reg[yy * W + xx]));
-        s_t[p] = acc;
-      }
-      __syncthreads();
-      // @ anaW^T (over columns)
-      for (int p = tid; p < N; p += THREADS) {
-        const int kk = p / W, ll = p % W;
-        float acc = 0.0f;
-        for (int xx = 0; xx < W; ++xx)
-          acc = __fadd_rn(acc, __fmul_rn(s_t[kk * W + xx], s_aW[ll * W + xx]));
-        s_co[c][p] = acc;
-      }
+    for (int i = tid; i < H * H; i += E3_THREADS)
+      s_aHT[(i % H) * H + i / H] = t.anaH[i];
+    for (int i = tid; i < W * W; i += E3_THREADS)
+      s_aWT[(i % W) * W + i / W] = t.anaW[i];
+    // the varblocks' regions, all three channels, 16-byte loads
+    constexpr int Q = W / 4;
+    for (int i = tid; i < V * 3 * H * Q; i += E3_THREADS) {
+      const int v = i / (3 * H * Q), r = i % (3 * H * Q);
+      const int c = r / (H * Q), y = (r / Q) % H, q = r % Q;
+      const int b = blockIdx.x * V + v;
+      if (b >= n) continue;
+      const int y0 = (b / a.nxc) * H, x0 = (b % a.nxc) * W;
+      *reinterpret_cast<float4*>(s_co + ((v * 3 + c) * H + y) * W + 4 * q) =
+          *reinterpret_cast<const float4*>(
+              a.src + ((long long)c * ph + y0 + y) * pw + x0 + 4 * q);
     }
   }
   __syncthreads();
-  const float inv_qac = s_sc[0], fxa = s_sc[1], fba = s_sc[2];
-  // per thread: error sums Y, X, B; then per channel X, Y, B: last, bits, cnt
-  float v[12];
-  bool is_max[12];
+  const float* co = s_co + vb * 3 * N;
+  if constexpr (!FROM_CO) {
+    // a thread: channel c of its varblock, a 4 x 4 tile
+    constexpr int G = N / 16;
+    const int c = lt / G, g = lt % G;
+    float* reg = s_co + (vb * 3 + c) * N;
+    float* tt = s_tt + (vb * 3 + c) * W * S::SH;
+    float acc[4][4];
+    // pass 1: T = anaH @ reg, stored transposed (tt[x][k])
+    {
+      const int k0 = 4 * (g % (H / 4)), x0 = 4 * (g / (H / 4));
+      jxl_enc::tile_product<H, 4, 4>(s_aHT + k0, H, reg + x0, W, acc);
 #pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    v[i] = 0.0f;
-    is_max[i] = i >= 3 && (i - 3) % 3 == 0;
-  }
-  int16_t* vout = a.vals + (long long)blk * 3 * a.tail;
-  for (int j = tid; j < a.tail; j += THREADS) {
-    const int p = t.order[j];
-    const float fY = s_co[1][p];
-    const float stepY = __fmul_rn(t.tab[a.tail + j], inv_qac);
-    const float qy = quantize(__fdiv_rn(fY, stepY), a.k.bias[1], a.k.dz);
-    const float dqY = __fmul_rn(adjust(qy, a.k.bias[1]), stepY);
-    const float dY = __fsub_rn(dqY, fY);
-    v[0] = __fadd_rn(v[0], __fmul_rn(dY, dY));
-    float q[3];
-    q[1] = qy;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = h * 2;
-      const float f = c == 0 ? fxa : fba;
-      const float tgt = s_co[c][p];
-      const float sub = __fsub_rn(tgt, __fmul_rn(f, dqY));
-      const float step = __fmul_rn(t.tab[c * a.tail + j], inv_qac);
-      const float qc = quantize(__fdiv_rn(sub, step), a.k.bias[c], a.k.dz);
-      const float rec = __fadd_rn(__fmul_rn(adjust(qc, a.k.bias[c]), step),
-                                  __fmul_rn(f, dqY));
-      const float d = __fsub_rn(rec, tgt);
-      v[1 + h] = __fadd_rn(v[1 + h], __fmul_rn(d, d));
-      q[c] = qc;
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<float4*>(tt + (x0 + j) * S::SH + k0) =
+            make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
     }
+    __syncthreads();
+    // pass 2: co = T @ anaW^T, over the region it replaces
+    {
+      const int l0 = 4 * (g % (W / 4)), k0 = 4 * (g / (W / 4));
+      jxl_enc::tile_product<W, 4, 4>(tt + k0, S::SH, s_aWT + l0, W, acc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(reg + (k0 + i) * W + l0) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+    __syncthreads();
+  }
+  // the LLF term: a thread a covered position of a channel
+  if (lt < 3 * S::COV && live) {
+    const int c = lt / S::COV, j = lt % S::COV;
+    const float* dq = a.dqdc + c * nb;
+    float e;
+    if constexpr (FROM_CO) {
+      const float d = __fsub_rn(dq[by0 * a.xs_b + bx0], co[c * N]);
+      e = __fmul_rn(d, d);
+    } else {
+      e = jxl_enc::llf_error(t.anY, t.anX, t.rs, dq, a.xs_b, by0, bx0, CY,
+                             CX, j, co[c * N + t.pos[j]]);
+    }
+    s_llf[vb][c][j] = e;
+  }
+  // the quantiser over the scan tail: error sums Y, X, B; then per channel
+  // X, Y, B: last, bits, count
+  const float inv_qac = s_sc[vb][0], fxa = s_sc[vb][1], fba = s_sc[vb][2];
+  float v[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) v[i] = 0.0f;
+  int16_t* vout = a.vals + (long long)blk * 3 * a.tail;
+  for (int j = lt; j < a.tail && live; j += TPV) {
+    const int p = __ldg(t.order + j);
+    const float f[3] = {co[p], co[N + p], co[2 * N + p]};
+    const float tab[3] = {__ldg(t.tab + j), __ldg(t.tab + a.tail + j),
+                          __ldg(t.tab + 2 * a.tail + j)};
+    float q[3], e[3];
+    jxl_enc::quant_position(f, tab, inv_qac, fxa, fba, a.k.bias, a.k.dz, q,
+                            e);
+    v[0] = __fadd_rn(v[0], e[1]);
+    v[1] = __fadd_rn(v[1], e[0]);
+    v[2] = __fadd_rn(v[2], e[2]);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       vout[c * a.tail + j] = (int16_t)(int)q[c];
       if (q[c] != 0.0f) {
         v[3 + 3 * c] = (float)(j + 1);
-        v[4 + 3 * c] = __fadd_rn(v[4 + 3 * c], log2f(__fadd_rn(1.0f, fabsf(q[c]))));
+        v[4 + 3 * c] =
+            __fadd_rn(v[4 + 3 * c], log2f(__fadd_rn(1.0f, fabsf(q[c]))));
         v[5 + 3 * c] = __fadd_rn(v[5 + 3 * c], 1.0f);
       }
     }
   }
-  block_reduce<THREADS, 12>(v, is_max, s_red);
-  if (tid == 0) {
-    const float* dq = a.dqdc;
-    const long long nb = (long long)a.ys_b * a.xs_b;
-    float d2[3];
+  // a fixed-order reduction: 8 lanes by xor shuffles, then the varblock's
+  // segments in order, so that a run repeats itself to the bit
+#pragma unroll
+  for (int i = 0; i < 12; ++i)
+#pragma unroll
+    for (int o = E3_SEG / 2; o > 0; o >>= 1) {
+      const float u = __shfl_xor_sync(0xffffffffu, v[i], o);
+      v[i] = e3_is_max(i) ? fmaxf(v[i], u) : __fadd_rn(v[i], u);
+    }
+  if (tid % E3_SEG == 0)
+#pragma unroll
+    for (int i = 0; i < 12; ++i) s_part[tid / E3_SEG][i] = v[i];
+  __syncthreads();
+  if (lt < 12) {
+    float s = s_part[vb * NSEG][lt];
+    for (int k = 1; k < NSEG; ++k) {
+      const float u = s_part[vb * NSEG + k][lt];
+      s = e3_is_max(lt) ? fmaxf(s, u) : __fadd_rn(s, u);
+    }
+    s_tot[vb][lt] = s;
+  }
+  __syncthreads();
+  if (lt == 0 && live) {
+    const float* r = s_tot[vb];
+    float dist = __fmul_rn(a.k.area_w[1], r[0]);
+    dist = __fadd_rn(dist, __fmul_rn(a.k.area_w[0], r[1]));
+    dist = __fadd_rn(dist, __fmul_rn(a.k.area_w[2], r[2]));
     for (int c = 0; c < 3; ++c) {
       float s = 0.0f;
-      for (int j = 0; j < a.cov; ++j) {
-        float llf, tl;
-        if (FROM_CO) {
-          llf = __fmul_rn(dq[c * nb + by0 * a.xs_b + bx0], 1.0f);
-          tl = s_co[c][0];
-        } else {
-          const int kk = j / CX, ll = j % CX;
-          float acc2 = 0.0f;
-          for (int xx = 0; xx < CX; ++xx) {
-            float acc1 = 0.0f;
-            for (int yy = 0; yy < CY; ++yy)
-              acc1 = __fadd_rn(acc1,
-                               __fmul_rn(t.anY[kk * CY + yy],
-                                         dq[c * nb + (long long)(by0 + yy) *
-                                                         a.xs_b + bx0 + xx]));
-            acc2 = __fadd_rn(acc2, __fmul_rn(acc1, t.anX[ll * CX + xx]));
-          }
-          llf = __fmul_rn(acc2, t.rs[kk * CX + ll]);
-          tl = s_co[c][t.pos[j]];
-        }
-        const float d = __fsub_rn(llf, tl);
-        s = __fadd_rn(s, __fmul_rn(d, d));
-      }
-      d2[c] = s;
+      for (int j = 0; j < S::COV; ++j) s = __fadd_rn(s, s_llf[vb][c][j]);
+      dist = __fadd_rn(dist, __fmul_rn(a.k.area_w[c], s));
     }
-    float dist = __fmul_rn(a.k.area_w[1], v[0]);
-    dist = __fadd_rn(dist, __fmul_rn(a.k.area_w[0], v[1]));
-    dist = __fadd_rn(dist, __fmul_rn(a.k.area_w[2], v[2]));
-    for (int c = 0; c < 3; ++c)
-      dist = __fadd_rn(dist, __fmul_rn(a.k.area_w[c], d2[c]));
     float rate = 0.0f;
     for (int c = 0; c < 3; ++c)
-      rate = __fadd_rn(rate, token_cost((int)v[3 + 3 * c], v[4 + 3 * c],
-                                        (int)v[5 + 3 * c]));
+      rate = __fadd_rn(rate, token_cost((int)r[3 + 3 * c], r[4 + 3 * c],
+                                        (int)r[5 + 3 * c]));
     a.cost[blk] = __fadd_rn(rate, __fmul_rn(a.k.lam, dist));
   }
 }
@@ -722,8 +788,9 @@ int jxl_enc_dct_costs(const float* src, const int* qf, const float* fx,
   if (n == 0) return 0;
 #define JXL_SHAPE(Y, X)                                                   \
   if (cy == Y && cx == X) {                                               \
-    constexpr int T = (Y * X * 64 < 256) ? Y * X * 64 : 256;              \
-    dct_costs_kernel<Y, X><<<n, T, 0, stream>>>(a, t);                    \
+    constexpr int V = E3Shape<Y, X>::V;                                   \
+    dct_costs_kernel<Y, X><<<(n + V - 1) / V, E3_THREADS, 0, stream>>>(   \
+        a, t, (int)n);                                                    \
     return (int)cudaGetLastError();                                       \
   }
   JXL_SHAPE(1, 1)

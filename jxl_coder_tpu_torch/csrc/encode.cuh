@@ -15,8 +15,10 @@
 
 #if defined(__CUDACC__)
 #define JXL_EHD __host__ __device__ __forceinline__
+#define JXL_UNROLL(n) _Pragma(#n)
 #else
 #define JXL_EHD static inline
+#define JXL_UNROLL(n)
 #endif
 
 namespace jxl_enc {
@@ -208,6 +210,100 @@ JXL_EHD float quantize(float r, Bias b, float dz) {
 JXL_EHD float token_cost(int last, float bits, int cnt) {
   if (cnt == 0) return 2.0f;
   return ((2.0f + 1.1f * (float)last) + bits) + (float)cnt;
+}
+
+// a * b + c rounded once
+JXL_EHD float fma_rn(float a, float b, float c) {
+#if defined(__CUDA_ARCH__)
+  return __fmaf_rn(a, b, c);
+#else
+  return fmaf(a, b, c);
+#endif
+}
+
+// n consecutive floats; on the card as 16-byte loads (p 16-byte aligned)
+template <int n>
+JXL_EHD void load_run(const float* p, float (&v)[n]) {
+#if defined(__CUDA_ARCH__)
+  if constexpr (n % 4 == 0) {
+    for (int i = 0; i < n; i += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + i);
+      v[i] = q.x;
+      v[i + 1] = q.y;
+      v[i + 2] = q.z;
+      v[i + 3] = q.w;
+    }
+    return;
+  }
+#endif
+  for (int i = 0; i < n; ++i) v[i] = p[i];
+}
+
+// E3's product step, one thread's TM x TN output tile:
+//   acc[i][j] = sum over k = 0, 1, ..., K - 1 of a[k * as + i] * b[k * bs + j]
+// each term one fused multiply-add from 0.0f, in ascending k, so that an
+// output's value is the same whatever tile holds it.  a and b are the
+// shared-memory operands laid out so that the TM (TN) values of one k sit
+// side by side.
+template <int K, int TM, int TN>
+JXL_EHD void tile_product(const float* a, int as, const float* b, int bs,
+                          float (&acc)[TM][TN]) {
+  for (int i = 0; i < TM; ++i)
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+  JXL_UNROLL(unroll 4)
+  for (int k = 0; k < K; ++k) {
+    float av[TM], bv[TN];
+    load_run<TM>(a + k * as, av);
+    load_run<TN>(b + k * bs, bv);
+    JXL_UNROLL(unroll)
+    for (int i = 0; i < TM; ++i)
+      JXL_UNROLL(unroll)
+      for (int j = 0; j < TN; ++j) acc[i][j] = fma_rn(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// E3's quantisation of one scan position (enc_device.py:174-279): f are
+// its coefficients (X, Y, B), tab its three dequant steps, inv_qac the
+// varblock's 1 / qf, fx / fb its CfL factors.  Y first; X and B quantise
+// what the dequantised Y leaves (CfL).  q gets the quantised values, e
+// the squared reconstruction errors, both by channel (X, Y, B).
+JXL_EHD void quant_position(const float f[3], const float tab[3],
+                            float inv_qac, float fx, float fb,
+                            const Bias bias[3], float dz, float q[3],
+                            float e[3]) {
+  const float stepY = tab[1] * inv_qac;
+  q[1] = quantize(f[1] / stepY, bias[1], dz);
+  const float dqY = adjust(q[1], bias[1]) * stepY;
+  const float dY = dqY - f[1];
+  e[1] = dY * dY;
+  for (int c = 0; c < 3; c += 2) {
+    const float cf = c == 0 ? fx : fb;
+    const float sub = f[c] - cf * dqY;
+    const float step = tab[c] * inv_qac;
+    q[c] = quantize(sub / step, bias[c], dz);
+    const float rec = adjust(q[c], bias[c]) * step + cf * dqY;
+    const float d = rec - f[c];
+    e[c] = d * d;
+  }
+}
+
+// the squared LLF error of covered position j of a cy x cx varblock: the
+// varblock's dequantised DC means (dq, a plane with row stride xs_b, from
+// block (by0, bx0)) through its cy / cx bases (anY, anX) and the resample
+// rs, against tl, the coefficient at that position
+JXL_EHD float llf_error(const float* anY, const float* anX, const float* rs,
+                        const float* dq, long long xs_b, int by0, int bx0,
+                        int cy, int cx, int j, float tl) {
+  const int kk = j / cx, ll = j % cx;
+  float acc2 = 0.0f;
+  for (int xx = 0; xx < cx; ++xx) {
+    float acc1 = 0.0f;
+    for (int yy = 0; yy < cy; ++yy)
+      acc1 = acc1 + anY[kk * cy + yy] * dq[(by0 + yy) * xs_b + bx0 + xx];
+    acc2 = acc2 + acc1 * anX[ll * cx + xx];
+  }
+  const float d = acc2 * rs[kk * cx + ll] - tl;
+  return d * d;
 }
 
 }  // namespace jxl_enc

@@ -26,7 +26,8 @@ Host side (numpy):
   end in the codestream, and its histogram's context base.
 
 ``decode_pass_groups`` launches ``csrc/entropy.cu`` (one group per
-warp) on a CUDA device and runs ``decode_pass_groups_plain``, the
+thread block: a lane runs the token chain, a warp scatters its records)
+on a CUDA device and runs ``decode_pass_groups_plain``, the
 reference's lockstep step in torch (one token per group per step), on
 the CPU.  ``check_groups`` reads back the small status vector and
 raises for a group that failed; nothing falls back to the host decoder.

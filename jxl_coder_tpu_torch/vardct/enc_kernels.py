@@ -522,6 +522,9 @@ def dct_costs(src: torch.Tensor, qf: torch.Tensor, fx: torch.Tensor,
     if dev.type == "cpu":
         return dct_costs_plain(src, qf, fx, fb, dq_dc, igs, lam, sid, cy,
                                cx, deadzone, cost_out)
+    if src.data_ptr() % 16:
+        raise ValueError("src: the kernel reads it in 16-byte loads; "
+                         "expected a 16-byte aligned tensor")
     t = _tables(dev, ("shape", sid, cy, cx))
     tail = STRATEGIES[sid].num_coeffs - STRATEGIES[sid].covered
     vals = torch.empty((nyc, nxc, 3, tail), dtype=torch.int16, device=dev)

@@ -297,8 +297,11 @@ def test_a_cuda_front_without_a_card_raises():
 # csrc/encode.cuh, the kernels' per-value arithmetic, built with g++
 
 _ENC_RUN = r"""
+#include <algorithm>
+#include <vector>
 #include "encode.cuh"
 using namespace jxl_enc;
+static const float *g_aHT, *g_aWT;   // E3's bases, transposed
 extern "C" void enc_powf(const float* x, int n, float y, float* out) {
   for (int i = 0; i < n; ++i) out[i] = powf_glibc(x[i], y);
 }
@@ -318,6 +321,113 @@ extern "C" void enc_mask(const float* mean, const float* med, int n,
 extern "C" void enc_quantize(const float* r, int n, float qb, float qbn,
                              float dz, float* out) {
   for (int i = 0; i < n; ++i) out[i] = quantize(r[i], Bias{qb, qbn}, dz);
+}
+
+// E3 (encode.cu dct_costs_kernel) one varblock after another: the region's
+// two passes through tile_product in 4 x 4 tiles with the kernel's layouts
+// (its products bit for bit), quant_position and llf_error; the sums in
+// plain order (the kernel reduces in a tree)
+template <int H, int W>
+static void e3_dct(const float* src, long long ph, long long pw, int y0,
+                   int x0, float* co) {
+  std::vector<float> reg(H * W), tt(W * H), aHT(H * H), aWT(W * W);
+  for (int c = 0; c < 3; ++c) {
+    for (int y = 0; y < H; ++y)
+      for (int x = 0; x < W; ++x)
+        reg[y * W + x] = src[(c * ph + y0 + y) * pw + x0 + x];
+    for (int k0 = 0; k0 < H; k0 += 4)
+      for (int xb = 0; xb < W; xb += 4) {
+        float acc[4][4];
+        tile_product<H, 4, 4>(g_aHT + k0, H, reg.data() + xb, W, acc);
+        for (int i = 0; i < 4; ++i)
+          for (int j = 0; j < 4; ++j) tt[(xb + j) * H + k0 + i] = acc[i][j];
+      }
+    for (int k0 = 0; k0 < H; k0 += 4)
+      for (int l0 = 0; l0 < W; l0 += 4) {
+        float acc[4][4];
+        tile_product<W, 4, 4>(tt.data() + k0, H, g_aWT + l0, W, acc);
+        for (int i = 0; i < 4; ++i)
+          for (int j = 0; j < 4; ++j)
+            co[c * H * W + (k0 + i) * W + l0 + j] = acc[i][j];
+      }
+  }
+}
+
+extern "C" void enc_dct_costs(
+    const float* src, const int* qf, const float* fx, const float* fb,
+    const float* dqdc, const float* anaH, const float* anaW,
+    const int* order, const float* tab, const int* pos, const float* anY,
+    const float* anX, const float* rs, int ys_b, int xs_b, int cy, int cx,
+    float igs, float lam, float dz, const float* qk, int cov, int tail,
+    int16_t* vals, float* cost) {
+  const int H = 8 * cy, W = 8 * cx, N = H * W;
+  const long long ph = 8ll * ys_b, pw = 8ll * xs_b, nb = 1ll * ys_b * xs_b;
+  std::vector<float> aHT(H * H), aWT(W * W), co(3 * N);
+  for (int i = 0; i < H * H; ++i) aHT[(i % H) * H + i / H] = anaH[i];
+  for (int i = 0; i < W * W; ++i) aWT[(i % W) * W + i / W] = anaW[i];
+  g_aHT = aHT.data();
+  g_aWT = aWT.data();
+  const Bias bias[3] = {{qk[0], qk[3]}, {qk[1], qk[3]}, {qk[2], qk[3]}};
+  const int nyc = ys_b / cy, nxc = xs_b / cx;
+  for (int blk = 0; blk < nyc * nxc; ++blk) {
+    const int by0 = blk / nxc * cy, bx0 = blk % nxc * cx;
+    if (cy == 1 && cx == 1)
+      for (int c = 0; c < 3; ++c)
+        for (int p = 0; p < 64; ++p)
+          co[c * 64 + p] = src[((c * ys_b + by0) * xs_b + bx0) * 64ll + p];
+    else if (H == 8) e3_dct<8, 16>(src, ph, pw, by0 * 8, bx0 * 8, co.data());
+    else if (W == 8) e3_dct<16, 8>(src, ph, pw, by0 * 8, bx0 * 8, co.data());
+    else if (H == 16 && W == 16)
+      e3_dct<16, 16>(src, ph, pw, by0 * 8, bx0 * 8, co.data());
+    else if (H == 16) e3_dct<16, 32>(src, ph, pw, by0 * 8, bx0 * 8, co.data());
+    else if (W == 16) e3_dct<32, 16>(src, ph, pw, by0 * 8, bx0 * 8, co.data());
+    else e3_dct<32, 32>(src, ph, pw, by0 * 8, bx0 * 8, co.data());
+    int qmin = qf[by0 * xs_b + bx0];
+    for (int y = 0; y < cy; ++y)
+      for (int x = 0; x < cx; ++x)
+        qmin = std::min(qmin, qf[(by0 + y) * xs_b + bx0 + x]);
+    const float inv_qac = 1.0f / ((float)qmin / igs);
+    const float fxa = fx[by0 * xs_b + bx0], fba = fb[by0 * xs_b + bx0];
+    float err[3] = {0, 0, 0}, bits[3] = {0, 0, 0};
+    int last[3] = {0, 0, 0}, cnt[3] = {0, 0, 0};
+    for (int j = 0; j < tail; ++j) {
+      const int p = order[j];
+      const float f[3] = {co[p], co[N + p], co[2 * N + p]};
+      const float t3[3] = {tab[j], tab[tail + j], tab[2 * tail + j]};
+      float q[3], e[3];
+      quant_position(f, t3, inv_qac, fxa, fba, bias, dz, q, e);
+      for (int c = 0; c < 3; ++c) {
+        err[c] = err[c] + e[c];
+        vals[(blk * 3ll + c) * tail + j] = (int16_t)(int)q[c];
+        if (q[c] != 0.0f) {
+          last[c] = j + 1;
+          bits[c] = bits[c] + log2f(1.0f + fabsf(q[c]));
+          cnt[c] += 1;
+        }
+      }
+    }
+    float dist = qk[5] * err[1];
+    dist = dist + qk[4] * err[0];
+    dist = dist + qk[6] * err[2];
+    for (int c = 0; c < 3; ++c) {
+      const float* dq = dqdc + c * nb;
+      float s = 0.0f;
+      for (int j = 0; j < cov; ++j) {
+        if (cy == 1 && cx == 1) {
+          const float d = dq[by0 * xs_b + bx0] - co[c * N];
+          s = s + d * d;
+        } else {
+          s = s + llf_error(anY, anX, rs, dq, xs_b, by0, bx0, cy, cx, j,
+                            co[c * N + pos[j]]);
+        }
+      }
+      dist = dist + qk[4 + c] * s;
+    }
+    float rate = 0.0f;
+    for (int c = 0; c < 3; ++c)
+      rate = rate + token_cost(last[c], bits[c], cnt[c]);
+    cost[blk] = rate + lam * dist;
+  }
 }
 """
 
@@ -344,6 +454,8 @@ def enc_host(tmp_path_factory):
     lib.enc_xyb.argtypes = [p, i, p, p]
     lib.enc_mask.argtypes = [p, p, i, p]
     lib.enc_quantize.argtypes = [p, i, f, f, f, p]
+    lib.enc_dct_costs.argtypes = [p] * 13 + [i] * 4 + [f] * 3 + [p, i, i,
+                                                                 p, p]
     return lib
 
 
@@ -400,3 +512,49 @@ def test_kernel_mask_and_quantiser_are_the_twins(enc_host):
         ref = EK._quantize(torch.from_numpy(r), c,
                            float(np.float32(PR.AC_DEADZONE))).numpy()
         assert np.array_equal(q, ref), c
+
+
+@pytest.mark.parametrize("sid,cy,cx", [(0, 1, 1)] + PR._EFFORT_CANDS["full"])
+def test_kernel_dct_costs_arithmetic_meets_the_tie_rule(sid, cy, cx,
+                                                        enc_host):
+    """E3's arithmetic (encode.cuh's tile_product in the kernel's 4 x 4
+    tiles and layouts, quant_position, llf_error), built with g++, against
+    dct_costs_plain on the front's planes of a seeded 256 x 384 frame: the
+    values equal but at quantisation ties, on a share of at most 1e-5, and
+    the costs within 1e-4 where a varblock's values agree (the card's
+    rule, chip_smoke.enc_check_quant)."""
+    pad = _image(256, 384, seed=9)
+    planes = EK.front_planes_plain(torch.from_numpy(pad), 4)
+    co, _small = EK.front_blocks_plain(planes)
+    ys_b, xs_b = 32, 48
+    rng = np.random.default_rng(sid)
+    qf = torch.from_numpy(rng.integers(2, 16, (ys_b, xs_b)).astype(np.int32))
+    fx, fb = (torch.from_numpy(rng.normal(0, 0.1, (ys_b, xs_b)).astype(
+        np.float32)) for _ in range(2))
+    dq = co[:, :, :, 0, 0].contiguous()
+    igs, lam = 10.92, 0.05
+    src = (co if sid == 0 else planes).contiguous()
+    nyc, nxc = ys_b // cy, xs_b // cx
+    cost_ref = torch.empty(nyc * nxc)
+    ref, ratios = EK.dct_costs_plain(src, qf, fx, fb, dq, igs, lam, sid, cy,
+                                     cx, PR.AC_DEADZONE, cost_ref,
+                                     return_ratios=True)
+    t = EK._host_tables(sid, cy, cx)
+    st = EK.STRATEGIES[sid]
+    qk = EK._quant_consts(EK._weights(st.covered))
+    vals = np.zeros(ref.shape, np.int16)
+    cost = np.zeros(nyc * nxc, np.float32)
+    arrs = [np.ascontiguousarray(x.numpy()) for x in (src, qf, fx, fb, dq)]
+    arrs += [t[k] for k in ("anaH", "anaW", "order", "tab", "pos", "anY",
+                            "anX", "rs")]
+    enc_host.enc_dct_costs(*[_ptr(x) for x in arrs], ys_b, xs_b, cy, cx,
+                           float(np.float32(igs)), float(np.float32(lam)),
+                           float(np.float32(PR.AC_DEADZONE)), _ptr(qk),
+                           st.covered, st.num_coeffs - st.covered,
+                           _ptr(vals), _ptr(cost))
+    diff = torch.from_numpy(vals) != ref
+    assert not EK.tie_faults(diff, ratios, PR.AC_DEADZONE).any()
+    assert float(diff.float().mean()) <= 1e-5
+    rows = ~diff.flatten(2).any(-1).reshape(-1).numpy()
+    rel = np.abs(cost - cost_ref.numpy()) / np.abs(cost_ref.numpy())
+    assert rows.any() and rel[rows].max() <= 1e-4, rel[rows].max()

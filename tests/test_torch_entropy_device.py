@@ -212,18 +212,49 @@ _STEP_RUN = r"""
 #include <vector>
 #include "entropy.cuh"
 using namespace jxl_entropy;
-// entropy.cu's groups_kernel with one group after another on the host
+// entropy.cu's groups_kernel with one group after another on the host: the
+// chain's records go through a ring of `ring` slots (a power of two); the
+// chain's loop stops when it is full (open() false), room() drains it,
+// and the pass's end drains the rest, as the scatter warp drains the
+// kernel's
+struct HostRing {
+  std::vector<uint32_t> rec;   // where, lo, hi a slot
+  uint32_t mask, head = 0, tail = 0;
+  const Scatter* s;
+  int over = 0;
+  void drain() {
+    for (; tail != head; ++tail) {
+      const uint32_t* e = &rec[3 * (tail & mask)];
+      over |= apply_record(*s, e[0], e[1], e[2]);
+    }
+  }
+  bool open() const { return head - tail <= mask; }
+  void room() { drain(); }
+  void put(bool keep, uint32_t where, uint32_t lo, uint32_t hi) {
+    if (!keep) return;
+    uint32_t* e = &rec[3 * (head & mask)];
+    e[0] = where;
+    e[1] = lo;
+    e[2] = hi;
+    ++head;
+  }
+};
+
 extern "C" void decode_groups(
     const uint32_t* words, long long nwords, const int32_t* anchors,
     const int64_t* offs, const int32_t* group_start, const int64_t* streams,
     const int32_t* passes, const uint32_t* alias, const uint32_t* configs,
     const uint8_t* cmap, const int32_t* orders, const int32_t* order_off,
     const uint16_t* ctx_tabs, int num_ctxs, int num_passes, int num_groups,
-    int32_t* out, int32_t* status, uint32_t* states, int64_t* tokens) {
+    int ring, int32_t* out, int32_t* status, uint32_t* states,
+    int64_t* tokens) {
   for (int g = 0; g < num_groups; g++) {
     const int first = group_start[g], n = group_start[g + 1] - first;
-    int s = 0;
-    int64_t tok = 0;
+    std::vector<uint32_t> packed(n);
+    for (int i = 0; i < n; i++)
+      packed[i] = pack_anchor(anchors + first + i, group_start[num_groups]);
+    int s = n > kGroupBlocks * kGroupBlocks ? kErrIndex : 0;
+    uint32_t tok = 0;
     for (int p = 0; p < num_passes && !s; p++) {
       const int32_t* pp = passes + p * 7;
       const int64_t* st = streams + ((int64_t)p * num_groups + g) * 3;
@@ -232,20 +263,30 @@ extern "C" void decode_groups(
       t.cmap = cmap + pp[3] + st[2];
       t.alias = alias + pp[1];
       t.configs = configs + pp[2];
-      t.orders = orders;
-      t.order_off = order_off + p * kOrderBuckets * 3;
       t.nz_ctx = ctx_tabs;
       t.freq_ctx = ctx_tabs + 64;
       t.log_alpha = pp[0];
       t.num_ctxs = num_ctxs;
-      t.shift = pp[4];
-      t.add = p > 0;
+      Scatter sc;
+      sc.out = out;
+      sc.offs = offs + first;
+      sc.anchors = packed.data();
+      sc.orders = orders;
+      sc.order_off = order_off + p * kOrderBuckets * 3;
+      sc.shift = pp[4];
+      sc.add = p > 0;
+      HostRing r;
+      r.rec.resize(3 * ring);
+      r.mask = ring - 1;
+      r.s = &sc;
       Bits b;
       bits_init(b, words, nwords, st[0], st[1]);
       uint32_t state = bits_read(b, 32, s);
       if (!(s & kStop))
-        s |= decode_group_pass(anchors + first, group_start[num_groups], n,
-                               offs + first, t, b, state, nz.data(), out, tok);
+        s |= decode_group_pass(packed.data(), n, t, b, state, nz.data(), r,
+                               tok);
+      r.drain();
+      s |= r.over ? kErrOverflow : 0;
       states[(int64_t)p * num_groups + g] = state;
     }
     status[g] = s;
@@ -257,8 +298,9 @@ extern "C" void decode_groups(
 
 @pytest.fixture(scope="module")
 def step_decode(tmp_path_factory):
-    """csrc/entropy.cuh's token step built for the host with g++, behind
-    decode_pass_groups' signature (Tables -> Decoded)."""
+    """csrc/entropy.cuh's token chain and scatter built for the host with
+    g++, behind decode_pass_groups' signature (Tables -> Decoded; `ring`:
+    the records' ring, the kernel's 512 slots by default)."""
     gxx = shutil.which("g++")
     assert gxx, "g++ builds the port's host codec; it is needed here too"
     tmp = tmp_path_factory.mktemp("entropy")
@@ -269,10 +311,10 @@ def step_decode(tmp_path_factory):
                     str(cpp)], check=True)
     fn = ctypes.CDLL(str(so)).decode_groups
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 4)
 
-    def decode(t: ENT.Tables) -> ENT.Decoded:
+    def decode(t: ENT.Tables, ring: int = 512) -> ENT.Decoded:
         G, P = t.group_start.numel() - 1, t.passes.shape[0]
         out = torch.zeros(max(t.total, 1), dtype=torch.int32)
         status = torch.zeros(G, dtype=torch.int32)
@@ -283,7 +325,7 @@ def step_decode(tmp_path_factory):
                                     t.streams, t.passes, t.alias, t.configs,
                                     t.cmap, t.orders, t.order_off,
                                     t.ctx_tabs)],
-           t.num_ctxs, P, G,
+           t.num_ctxs, P, G, ring,
            *[x.data_ptr() for x in (out, status, states, tokens)])
         return ENT.Decoded(out[:t.total], status, states.long() & 0xFFFFFFFF,
                            tokens)
@@ -304,6 +346,115 @@ def test_kernel_step_decodes_like_the_host(name, step_decode, monkeypatch):
     assert np.array_equal(blocks.coeffs.numpy().astype(np.int64),
                           _host_blocks(data).coeffs.astype(np.int64))
     assert int(seen["decoded"].tokens.max()) > 0
+
+
+@pytest.mark.parametrize("name", ["jax 128x128 d0.1",
+                                  "jax 200x232 d1.0 two passes",
+                                  "port 256x384 sharp d0.1",
+                                  "jax 200x232 noisy two passes"])
+def test_kernel_split_decodes_like_the_host_through_a_ring_that_wraps(
+        name, step_decode, monkeypatch):
+    """The chain and the scatter (g++) with a ring of 4 records, fewer
+    than one varblock's coefficients: the ring wraps inside every dense
+    varblock and the chain waits on the scatter, and the coefficients are
+    still the host route's, with the status, final states and tokens of
+    the kernel's own ring size."""
+    data = _stream(name)
+    seen = _spy_port(monkeypatch)
+    monkeypatch.setattr(ENT, "decode_pass_groups",
+                        functools.partial(step_decode, ring=4))
+    cs, hdr, fh, toc = api._read_frame(data)
+    blocks = PARSE.parse_frame(cs, hdr, fh, toc, entropy="device",
+                               device=CPU)["blocks_glob"]
+    assert np.array_equal(blocks.coeffs.numpy().astype(np.int64),
+                          _host_blocks(data).coeffs.astype(np.int64))
+    for x, y in zip(seen["decoded"], step_decode(seen["tables"])):
+        assert torch.equal(x, y)
+    # nonzeros per varblock channel well past the ring
+    assert int((blocks.coeffs != 0).sum()) > 4 * len(seen["tables"].offs)
+
+
+_ASAN_MAIN = r"""
+#include <cstdio>
+#include <fstream>
+#include <string>
+template <class T>
+static std::vector<T> load(const std::string& dir, const char* name) {
+  std::ifstream in(dir + "/" + name, std::ios::binary | std::ios::ate);
+  const size_t n = in.tellg();
+  std::vector<T> v(n / sizeof(T));   // exactly the array: nothing around it
+  in.seekg(0);
+  in.read(reinterpret_cast<char*>(v.data()), n);
+  return v;
+}
+int main(int argc, char** argv) {
+  const std::string d = argv[1];
+  const int num_ctxs = atoi(argv[2]), P = atoi(argv[3]), G = atoi(argv[4]);
+  const long long total = atoll(argv[5]);
+  auto words = load<uint32_t>(d, "words");
+  auto anchors = load<int32_t>(d, "anchors");
+  auto offs = load<int64_t>(d, "offs");
+  auto gs = load<int32_t>(d, "group_start");
+  auto streams = load<int64_t>(d, "streams");
+  auto passes = load<int32_t>(d, "passes");
+  auto alias = load<uint32_t>(d, "alias");
+  auto configs = load<uint32_t>(d, "configs");
+  auto cmap = load<uint8_t>(d, "cmap");
+  auto orders = load<int32_t>(d, "orders");
+  auto order_off = load<int32_t>(d, "order_off");
+  auto ctx = load<uint16_t>(d, "ctx_tabs");
+  for (int ring : {4, 512}) {
+    std::vector<int32_t> out(total), status(G);
+    std::vector<uint32_t> states(P * G);
+    std::vector<int64_t> tokens(G);
+    decode_groups(words.data(), (long long)words.size(), anchors.data(),
+                  offs.data(), gs.data(), streams.data(), passes.data(),
+                  alias.data(), configs.data(), cmap.data(), orders.data(),
+                  order_off.data(), ctx.data(), num_ctxs, P, G, ring,
+                  out.data(), status.data(), states.data(), tokens.data());
+    std::ofstream(d + "/out" + std::to_string(ring), std::ios::binary)
+        .write(reinterpret_cast<const char*>(out.data()), total * 4);
+  }
+  return 0;
+}
+"""
+
+
+@pytest.mark.parametrize("name", list(DENSE_STREAMS))
+def test_kernel_chain_reads_and_writes_stay_inside_its_tables(
+        name, step_decode, tmp_path, monkeypatch):
+    """The chain and the scatter built with g++ as a program under
+    AddressSanitizer and UBSan, each table in a buffer of exactly its size:
+    no access outside them (the nonzero-count context of a channel
+    without nonzeros, kCoeffNumNonzeroCtx[0], is a sentinel past the
+    zero-density contexts), and the host route's coefficients, with the
+    kernel's ring and with one that wraps."""
+    seen = _spy_port(monkeypatch)
+    monkeypatch.setattr(ENT, "decode_pass_groups", step_decode)
+    data = _stream(name)
+    PARSE.parse_frame(*api._read_frame(data), entropy="device", device=CPU)
+    t = seen["tables"]
+    for field in ("words", "anchors", "offs", "group_start", "streams",
+                  "passes", "alias", "configs", "cmap", "orders",
+                  "order_off", "ctx_tabs"):
+        getattr(t, field).numpy().tofile(tmp_path / field)
+    src = _STEP_RUN.replace('extern "C" void decode_groups',
+                            "void decode_groups") + _ASAN_MAIN
+    (tmp_path / "run.cpp").write_text(src)
+    exe = tmp_path / "run"
+    subprocess.run([shutil.which("g++"), "-O1", "-g", "-std=c++17",
+                    "-fsanitize=address,undefined",
+                    "-fno-sanitize-recover=all", "-I", str(_build.CSRC),
+                    "-o", str(exe), str(tmp_path / "run.cpp")], check=True)
+    G, P = t.group_start.numel() - 1, t.passes.shape[0]
+    run = subprocess.run([str(exe), str(tmp_path), str(t.num_ctxs), str(P),
+                          str(G), str(t.total)], capture_output=True,
+                         text=True, env={"ASAN_OPTIONS": "detect_leaks=0"})
+    assert run.returncode == 0, run.stderr[-3000:]
+    host = _host_blocks(data).coeffs.astype(np.int64)
+    for ring in (4, 512):
+        got = np.fromfile(tmp_path / f"out{ring}", np.int32)
+        assert np.array_equal(got.astype(np.int64), host)
 
 
 def _corrupt(data: bytes, where: float) -> bytes:

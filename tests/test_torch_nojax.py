@@ -161,8 +161,8 @@ def _reaches_the_jax_package(path: Path):
 PORT_SOURCES = sorted(
     str(p.relative_to(REPO)) for p in PKG.rglob("*")
     if p.suffix in (".py", ".cu", ".cuh", ".cpp")) + [
-        "chip_smoke.py", "filters_vs_parent.py", "modular_vs_other.py",
-        "port_fixtures.py"]
+        "chip_smoke.py", "encode_entropy_vs_other.py",
+        "filters_vs_parent.py", "modular_vs_other.py", "port_fixtures.py"]
 
 
 @pytest.mark.parametrize("name", PORT_SOURCES)
