@@ -82,7 +82,8 @@ prints no result):
      section): the three kernels of csrc/modular.cu (unsqueeze,
      rct_inverse, palette_inverse) against their twins on seeded inputs
      (lines of 1-70 steps both ways, +-2^29, all 42 RCT types, palette
-     indices out of range), 0 differences; the main path api.decode(data,
+     indices out of range), 0 differences (a squeeze step's channels are
+     one batched unsqueeze launch, each channel of it held to the twin); the main path api.decode(data,
      device="cuda") on every stream, counted, with the plain twins made
      to raise, each transform in a stream's headers launching its kernel
      and the XYB stream's output kernel 2 once, lossless streams equal to the
@@ -158,7 +159,9 @@ prints no result):
      float64 host thumbnail; decode_sampled split into its layers inside
      the same calls (M1) beside api.decode on the same bytes; S1-S4 at
      their 4K shapes by CUDA graph against twin, bound and, for S3, the
-     dense float32 matmul pair;
+     dense float32 matmul pair (S4: F.pad); S3 (one launch) also on 4K
+     RGBA8, the 8x Catmull-Rom upscale of a 480x270 DC image and 4K -> FIT
+     480x270, each held to its twin;
  16. animation, progressive and truncated decode (streams written in the
      worker processes during phases 3-5 by port_fixtures: 6 FHD lossy
      frames, AnimatedEncoder's defaults, one frame a job; an FHD lossless
@@ -1977,9 +1980,10 @@ MODULAR_PLAIN = {"unsqueeze": MDEV.unsqueeze_plain,
 
 @contextlib.contextmanager
 def twin_checked(calls: dict):
-    """Each Modular kernel wrapper replaced by one that also runs the plain
-    twin on the same inputs and records the largest difference; these
-    launches compare and count nowhere."""
+    """Each Modular kernel wrapper (and the unsqueeze's batched one, each
+    channel of it) replaced by one that also runs the plain twin on the
+    same inputs and records the largest difference; these launches compare
+    and count nowhere."""
     saved = {k: getattr(MDEV, k) for k in MODULAR_KERNELS}
 
     def checked(k):
@@ -1995,13 +1999,28 @@ def twin_checked(calls: dict):
         call.launches = 0
         return call
 
+    batch = MDEV.unsqueeze_batch
+
+    def checked_batch(pairs):
+        outs = batch(pairs)
+        for (avg, res, horizontal), got in zip(pairs, outs):
+            ref = MDEV.unsqueeze_plain(avg, res, horizontal)
+            d = ((got.long() - ref.long()).abs().max().item()
+                 if got.shape == ref.shape and got.numel() else
+                 (0 if got.shape == ref.shape else float("inf")))
+            n, worst = calls.get("unsqueeze", (0, 0))
+            calls["unsqueeze"] = (n + 1, max(worst, d))
+        return outs
+
     for k in MODULAR_KERNELS:
         setattr(MDEV, k, checked(k))
+    MDEV.unsqueeze_batch = checked_batch
     try:
         yield
     finally:
         for k, f in saved.items():
             setattr(MDEV, k, f)
+        MDEV.unsqueeze_batch = batch
 
 
 def check_modular_seeded(dev) -> None:
@@ -2145,6 +2164,36 @@ def modular_layers(data: bytes, mp: float, card: str, runs: int = 5) -> dict:
           f"{t_unsplit:.1f} ms = {mp / t_unsplit * 1e3:.2f} MP/s [{card}]",
           flush=True)
     return dict(m, total=t_unsplit)
+
+
+def squeezed_undo(data: bytes, card: str, runs: int = 3) -> None:
+    """A2 in the 1024x1024 squeezed still's whole undo_frame: its unsqueeze
+    launches (one a squeeze step, over all its channels) beside the channel
+    unsqueezes they carry (one launch each before the steps were batched),
+    and undo_frame's host ms (synchronised), median of `runs` api.decode
+    calls."""
+    log, per, channels = [], [], [0]
+    undo, batch = MDEV.undo_frame, MDEV.unsqueeze_batch
+
+    def counted(pairs):
+        channels[0] += len(pairs)
+        return batch(pairs)
+
+    MDEV.undo_frame = timed(undo, "undo_frame", log, sync=True)
+    MDEV.unsqueeze_batch = counted
+    try:
+        for _ in range(runs):
+            n0, c0 = MDEV.unsqueeze.launches, channels[0]
+            torch.cuda.synchronize()
+            api.decode(data, device="cuda")
+            per.append((MDEV.unsqueeze.launches - n0, channels[0] - c0))
+    finally:
+        MDEV.undo_frame, MDEV.unsqueeze_batch = undo, batch
+    t = statistics.median((end - start) * 1e3 for _, start, end in log)
+    print(f"A2 1024x1024 squeezed undo_frame: {per[0][0]} unsqueeze launches "
+          f"for {per[0][1]} channel unsqueezes (one launch each before "
+          f"batching); undo_frame {t:.3f} host ms (synchronised, median of "
+          f"{runs} api.decode calls) [{card}]", flush=True)
 
 
 def once_ms(fn) -> float:
@@ -2313,6 +2362,7 @@ def modular_phase(jobs: dict, dev, card: str, ms: dict) -> dict:
     inputs["palette_inverse"] = (chans[0], chans[t.begin_c + 1], t.num_c,
                                  t.nb_colours)
     layers = modular_layers(streams["4k_rct"][0], 3840 * 2160 / 1e6, card)
+    squeezed_undo(streams["1024_squeezed"][0], card)
     modular_timings(inputs, dev, card, ms)
     return dict(counts, layers=layers,
                 streams={label: data for label, (data, _) in streams.items()})
@@ -3541,6 +3591,7 @@ SAMPLED_TWINS = OVERLAY_TWINS + (
     (PACK, ("convert_plain", "unpack_plain")),
     (TONE, ("sdr_codes_plain",)))
 FIT, FILL = int(api.ScaleMode.FIT), int(api.ScaleMode.FILL)
+RESIZE_MODE = int(api.ScaleMode.RESIZE)
 # target: (width, height, scale mode) of decode_sampled on the 4K streams
 SAMPLED_TARGETS = {"thumbnail 480x270": (480, 270, FIT),
                    "quarter 960x540": (960, 540, FIT),
@@ -3825,6 +3876,32 @@ def sampled_layers(label: str, data: bytes, card: str, runs: int,
     return out
 
 
+def s3_case(img: torch.Tensor, tw: int, th: int, mode: int, fid: int,
+            label: str, card: str) -> float:
+    """S3's kernel on one input against its twin under the sampled parity
+    rule (1 code; with unassociated alpha colour x alpha within 1.02), and
+    its time by CUDA graph beside its bound, printed -> the time."""
+    h, w, c = img.shape
+    pl = RESIZE.HR.plan(h, w, tw, th, mode)
+    bnd = RESIZE.bands(h, w, pl, fid, img.device)
+    got = RESIZE.resample(img, pl, bnd)
+    ref = RESIZE.rescale_image_plain(img, tw, th, mode, fid)
+    d = (got.double() - ref.double()).abs()
+    alpha = c in (2, 4)
+    if alpha:
+        a = ref[..., -1:].double() / RESIZE._DTYPES[ref.dtype][1]
+        d = torch.cat([d[..., :-1] * a, d[..., -1:]], -1)
+    note_err("rescale_image", d.max().item(), 1.02 if alpha else 1, label)
+    bv = RESIZE.HR.band(h, pl.oh, fid, pl.y0, pl.ch)
+    bh = RESIZE.HR.band(w, pl.ow, fid, pl.x0, pl.cw)
+    taps = 2 * c * (int(bv.length.sum()) * w + int(bh.length.sum()) * pl.ch)
+    b, by = bound_of(nbytes(img, got), taps)
+    t = graph_ms(lambda: RESIZE.resample(img, pl, bnd))
+    print(f"kernel rescale_image at {label}: device {t:.4f} ms (CUDA graph, "
+          f"one launch), bound {b:.4f} ms ({by}) [{card}]", flush=True)
+    return t
+
+
 def sampled_timings(calls: dict, card: str, ms: dict) -> None:
     """S1-S4 at the main path's 4K shapes by CUDA graph against their twins
     (CUDA events) and bounds; S3 beside the dense float32 matrix pair."""
@@ -3853,7 +3930,7 @@ def sampled_timings(calls: dict, card: str, ms: dict) -> None:
     bh = RESIZE.HR.band(w, pl.ow, fid, pl.x0, pl.cw)
     taps = 2 * c * (int(bv.length.sum()) * w + int(bh.length.sum()) * pl.ch)
     note_bound("rescale_image", nbytes(img, out), taps)
-    # the kernel's two launches on the bands the wrapper uploads first
+    # the kernel's launch on the bands the wrapper uploads first
     bnd = RESIZE.bands(h, w, pl, fid, img.device)
     ms["rescale_image"] = (
         graph_ms(lambda: RESIZE.resample(img, pl, bnd)),
@@ -3868,8 +3945,14 @@ def sampled_timings(calls: dict, card: str, ms: dict) -> None:
         lambda: torch.matmul(torch.matmul(wy, planes), wx.T), n=10)
     shapes["rescale_image"] = (f"{tuple(img.shape)} {img.dtype} -> "
                                f"{tuple(out.shape)} Mitchell")
+    # S3 on more of the plans the API makes, each held to the twin
     rgba = torch.cat([img, img[..., :1]], -1)
-    t_rgba = graph_ms(lambda: RESIZE.resample(rgba, pl, bnd))
+    t_rgba = s3_case(rgba, *args[1:5], "4K RGBA8 -> 1920x1080 Mitchell",
+                     card)
+    s3_case(torch.from_numpy(bench_frame(270, 480)).to(img.device), 3840,
+            2160, RESIZE_MODE, int(api.ResizeFilter.CATMULL_ROM),
+            "the 8x upscale 480x270 RGB8 -> 3840x2160 Catmull-Rom", card)
+    s3_case(img, 480, 270, FIT, fid, "4K RGB8 -> FIT 480x270 Mitchell", card)
     planes4 = (rgba.permute(2, 0, 1).float() / 255.0).contiguous()
     t_dense4 = graph_ms(lambda: torch.matmul(torch.matmul(wy, planes4),
                                              wx.T), n=10)
@@ -3886,6 +3969,11 @@ def sampled_timings(calls: dict, card: str, ms: dict) -> None:
                      device_ms(lambda: PACK.convert_plain(*args, **kw)))
     shapes["convert"] = (f"{tuple(args[0].shape)} {args[0].dtype} -> "
                          f"{tuple(out.shape)} {out.dtype}")
+    codes = args[0]
+    if codes.dtype == torch.uint8 and codes.shape[-1] == 3:
+        # RGB8 -> RGBA8888 is the codes with an opaque alpha appended
+        LIBRARY_MS["convert"] = graph_ms(
+            lambda: torch.nn.functional.pad(codes, (0, 1), value=255))
     targs, tkw, tout = calls["convert", "4k_rgba16_noise_pq", fhd, 2]
     t_tone = graph_ms(lambda: PACK.convert(*targs, **tkw))
     t_tone_plain = device_ms(lambda: PACK.convert_plain(*targs, **tkw))
@@ -3898,8 +3986,9 @@ def sampled_timings(calls: dict, card: str, ms: dict) -> None:
         print(f"kernel {k} at {shapes[k]}: device {ms[k][0]:.4f} ms (CUDA "
               f"graph), plain twin {ms[k][1]:.4f} ms, bound "
               f"{BOUND[k][0]:.4f} ms ({BOUND[k][1]}), "
-              + (f"the dense float32 matmul pair {lib:.4f} ms" if lib
-                 else "no PyTorch call computes it") + f" [{card}]",
+              + ((f"the dense float32 matmul pair {lib:.4f} ms"
+                  if k == "rescale_image" else f"F.pad {lib:.4f} ms")
+                 if lib else "no PyTorch call computes it") + f" [{card}]",
               flush=True)
 
 
@@ -5968,6 +6057,9 @@ def icc_phase(jobs: dict, rct: bytes, dev, card: str, ms: dict) -> dict:
     fid = int(api.ResizeFilter.MITCHELL)
     bnd = RESIZE.bands(ICC_H, ICC_W, pl, fid, dev)
     scaled = RESIZE.resample(px6, pl, bnd)
+    note_err("rescale_image", (scaled.double() - RESIZE.rescale_image_plain(
+        px6, ICC_W // 2, ICC_H // 2, FIT, fid).double()).abs().max().item(),
+        1, f"4K x{CH6_N} u8 -> 1920x1080 Mitchell")
     bv = RESIZE.HR.band(ICC_H, pl.oh, fid, pl.y0, pl.ch)
     bh = RESIZE.HR.band(ICC_W, pl.ow, fid, pl.x0, pl.cw)
     taps = 2 * CH6_N * (int(bv.length.sum()) * ICC_W

@@ -16,20 +16,30 @@
 // Each line (a row for a horizontal squeeze, a column for a vertical one)
 // carries its last output into the next step's SmoothTendency, so a line is
 // one thread and the line's length is the time.  A block is 32 lines: one
-// warp walks them along the squeeze axis in chunks of kChunk steps in
-// shared memory, while three helper warps bring the next chunk of averages
-// and residuals in by cp.async and store the last chunk's outputs, both
-// coalesced.  Along a row (horizontal), a thread per row reading its row
-// directly would touch 32 cache lines per load; staging turns that into
-// row segments, and the same staging serves the vertical squeeze, whose
-// loads coalesce either way, so both take one path.  Line pitches in
-// shared memory are odd, so a warp reading one step of 32 lines, or 32
-// steps of one line, hits 32 banks.  The walk runs the int32 step over a
-// chunk and, if the carry or an input left 2^27, the chunk again in
-// int64: on 4K planes on an H100 SXM (700 W) the int32 step is 1.37x
-// (horizontal) and 1.79x (vertical) faster than the int64 one
-// (modular_vs_other.py).
-//
+// warp walks them along the squeeze axis in chunks of kChunk steps, while
+// kHelpers (11) helper warps bring a later chunk of averages and residuals
+// in by cp.async, turn each step into a 16-byte record of its carry-free terms
+// (the average, the residual, 2 (a - next), 6 - 3 next - a) and each
+// line's range flag (modular.cuh step_fits: the inputs alone bound the
+// next carry, so the walk checks only the carry a chunk starts from), and
+// store an earlier chunk's outputs, all coalesced.  A walker's step is one
+// 16-byte shared load, the chain and one 8-byte shared store: a lone warp
+// issues in order, so everything off the chain leaves it.  With 3 or 7
+// helpers the horizontal squeeze's chunks waited on them at the barrier
+// (PERF.md §6).  Along a row
+// (horizontal), a thread per row reading its row directly would touch 32
+// cache lines per load; staging turns that into row segments, and the
+// same staging serves the vertical squeeze, whose loads coalesce either
+// way, so both take one path.  Raw line pitches in shared memory are odd,
+// records are step-major and outputs padded to 33 lines, so neither the
+// walker nor the helpers meet a bank conflict worth counting.  A chunk
+// whose range check fails is walked again in int64 from device memory.
+// Every channel of a squeeze step is one launch (jxl_unsqueeze_batch:
+// the block finds its channel in a table on the card); jxl_unsqueeze is a
+// batch of one, its channel passed by value.  Fewer lines a block would
+// not help: a lone walker's step latency, not the count of lines, sets
+// the time while there are fewer than 132 x 32 lines.
+
 // rct_inverse: one thread per pixel over three planes, bound by bytes (12 B
 // in, 12 B out).  palette_inverse: one thread per pixel gathering num_c
 // values from the palette (the meta channel, small and read through the
@@ -52,40 +62,84 @@ __device__ __forceinline__ void async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// Warp 0 walks chunk c of its 32 lines while the kHelpers warps bring
-// chunk c + 1 in by cp.async and store chunk c - 1's outputs (two buffers
-// of each), so the walk waits on no load or store; one barrier a chunk.
+__device__ __forceinline__ void helpers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(kLines * kHelpers));
+}
+
+// Warp 0 walks chunk c of its 32 lines from the records while the kHelpers
+// warps make chunk c + 1's records (after its cp.async lands: a barrier of
+// the helpers alone), bring chunk c + 2 in by cp.async and store chunk
+// c - 1's outputs (two buffers of each), so the walk waits on no load,
+// store or carry-free operation; one block barrier a chunk.  A batched
+// launch (table non-null) finds its channel by the first blocks of the
+// table's n entries; a single one is `one`.
 __global__ void __launch_bounds__(kLines * (1 + kHelpers))
-    unsqueeze_kernel(Unsqueeze u) {
-  __shared__ int s_avg[2][kLines * kAvgPitch];
-  __shared__ int s_res[2][kLines * kAvgPitch];
-  __shared__ int s_out[2][kLines * kOutPitch];
-  const int l0 = blockIdx.x * kLines;
+    unsqueeze_kernel(const UnsqueezeDesc* __restrict__ table, int n,
+                     Unsqueeze one) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  UnsqueezeShared& sh = *reinterpret_cast<UnsqueezeShared*>(smem);
+  int blk = blockIdx.x;
+  Unsqueeze u = one;
+  if (table) {
+    const int d = unsqueeze_find(table, n, blk);
+    u = unsqueeze_of(table[d]);
+    blk -= (int)table[d].block0;
+  }
+  const int l0 = blk * kLines;
   const bool walker = threadIdx.x < kLines;
   const int h = threadIdx.x - kLines;  // a helper's index
+  const int chunks = (u.na + kChunk - 1) / kChunk;
   long long left = 0;
   if (!walker) {
-    u.load(h, kHelpers, l0, 0, s_avg[0], s_res[0]);
+    u.load(h, kHelpers, l0, 0, sh.avg[0], sh.res[0]);
     async_commit();
     async_wait_all();
+    helpers_sync();
+    u.prep(h, kHelpers, l0, 0, sh.avg[0], sh.res[0], sh.rec[0], sh.ok[0]);
+    if (chunks > 1) {
+      u.load(h, kHelpers, l0, kChunk, sh.avg[1], sh.res[1]);
+      async_commit();
+    }
   }
   __syncthreads();
-  int b = 0;
-  for (int k0 = 0; k0 < u.na; k0 += kChunk, b ^= 1) {
+  for (int c = 0; c < chunks; ++c) {
+    const int b = c & 1, k0 = c * kChunk;
     if (walker) {
-      u.walk(threadIdx.x, l0, k0, s_avg[b], s_res[b], s_out[b], left);
+      u.walk(threadIdx.x, kHelpers, l0, k0, sh.rec[b], sh.ok[b], sh.out[b],
+             left);
     } else {
-      if (k0 + kChunk < u.na) {
-        u.load(h, kHelpers, l0, k0 + kChunk, s_avg[b ^ 1], s_res[b ^ 1]);
-        async_commit();
+      if (c + 1 < chunks) {
+        async_wait_all();
+        helpers_sync();
+        u.prep(h, kHelpers, l0, k0 + kChunk, sh.avg[b ^ 1], sh.res[b ^ 1],
+               sh.rec[b ^ 1], sh.ok[b ^ 1]);
+        if (c + 2 < chunks) {
+          u.load(h, kHelpers, l0, k0 + 2 * kChunk, sh.avg[b], sh.res[b]);
+          async_commit();
+        }
       }
-      if (k0 > 0) u.store(h, kHelpers, l0, k0 - kChunk, s_out[b ^ 1]);
-      async_wait_all();
+      if (c > 0) u.store(h, kHelpers, l0, k0 - kChunk, sh.out[b ^ 1]);
     }
     __syncthreads();
   }
-  if (!walker) u.store(h, kHelpers, l0, (u.na - 1) / kChunk * kChunk,
-                       s_out[b ^ 1]);
+  if (!walker)
+    u.store(h, kHelpers, l0, (chunks - 1) * kChunk, sh.out[(chunks - 1) & 1]);
+}
+
+cudaError_t launch_unsqueeze(const UnsqueezeDesc* table, int n,
+                             const Unsqueeze& one, long long blocks,
+                             cudaStream_t s) {
+  const int bytes = (int)sizeof(UnsqueezeShared);
+  cudaError_t err = cudaFuncSetAttribute(
+      unsqueeze_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(unsqueeze_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  unsqueeze_kernel<<<(unsigned)blocks, kLines * (1 + kHelpers), bytes, s>>>(
+      table, n, one);
+  return cudaGetLastError();
 }
 
 __global__ void rct_kernel(const int* __restrict__ c0,
@@ -128,26 +182,28 @@ int grid_for(long long n, int threads) {
 }  // namespace
 
 // avg (lines, na) or (na, lines) with row stride avg_rs; res likewise with
-// nr steps; out contiguous, (lines, na + nr) or (na + nr, lines).
+// nr steps; out contiguous, (lines, na + nr) or (na + nr, lines).  A batch
+// of one.
 extern "C" int jxl_unsqueeze(const int* avg, long long avg_rs, const int* res,
                              long long res_rs, int* out, int lines, int na,
                              int nr, int horizontal, void* stream) {
   if (lines <= 0 || na <= 0) return cudaSuccess;
-  Unsqueeze u;
-  u.avg = avg;
-  u.res = res;
-  u.out = out;
-  u.pa = horizontal ? Plane{avg_rs, 1} : Plane{1, avg_rs};
-  u.pr = horizontal ? Plane{res_rs, 1} : Plane{1, res_rs};
-  u.po = horizontal ? Plane{na + nr, 1} : Plane{1, lines};
-  u.lines = lines;
-  u.na = na;
-  u.nr = nr;
-  u.horizontal = horizontal;
-  unsqueeze_kernel<<<(lines + kLines - 1) / kLines,
-                     kLines * (1 + kHelpers), 0,
-                     static_cast<cudaStream_t>(stream)>>>(u);
-  return cudaGetLastError();
+  return launch_unsqueeze(
+      nullptr, 0,
+      unsqueeze_of(avg, avg_rs, res, res_rs, out, lines, na, nr, horizontal),
+      (lines + kLines - 1) / kLines, static_cast<cudaStream_t>(stream));
+}
+
+// table: n UnsqueezeDesc on the card, each a channel as jxl_unsqueeze
+// takes it (lines > 0, na > 0) with its first block, block0, the sum of
+// ceil(lines / 32) over the entries before it; blocks: that sum over all
+// n.  One launch for every channel of a squeeze step.
+extern "C" int jxl_unsqueeze_batch(const void* table, int n, long long blocks,
+                                   void* stream) {
+  if (n <= 0 || blocks <= 0) return cudaSuccess;
+  return launch_unsqueeze(static_cast<const UnsqueezeDesc*>(table), n,
+                          Unsqueeze{}, blocks,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // c0..c2: (H, W) planes with row strides rs0..rs2; out: (3, H, W);

@@ -26,10 +26,10 @@ using std::min;
 namespace jxl_modular {
 
 constexpr int kLines = 32;              // lines per block (one warp)
-constexpr int kHelpers = 3;             // warps that load and store for it
+constexpr int kHelpers = 11;             // warps that load, prepare, store
 constexpr int kChunk = 40;              // steps staged at a time
 constexpr int kAvgPitch = kChunk + 1;   // the chunk's averages and the next
-constexpr int kOutPitch = 2 * kChunk + 1;
+constexpr int kOutLines = kLines + 1;   // a step's output pairs, padded
 // |v| < 2^27 for the carry and a step's average, next average and
 // residual keeps every sum of the step inside int32 (4a - 3c - b + 6 <
 // 2^30.3, the tendency and the residual's difference < 2^29.3, the
@@ -101,10 +101,68 @@ struct Plane {
   long long line, step;
 };
 
-// One unsqueeze block's work on one chunk, in three phases: the helper
-// warps load the next chunk and store the last one's outputs while the
-// walking warp walks this one; the CPU test runs each phase for every
-// thread in turn.  avg has na steps, res nr (na or na - 1), out na + nr.
+// A step's carry-free terms, made by the helper warps while the walker is
+// a chunk behind: the average a, the residual r, bc = 2 (a - next) and
+// k6 = 6 - 3 next - a (the tendency's numerator less 4 left, plus 6).
+struct alignas(16) Step {
+  int a, r, bc, k6;
+};
+
+// A step's two outputs, stored by the walker as one 8-byte value.
+struct alignas(8) Pair {
+  int v[2];
+};
+
+// unsqueeze_step in int32 from the carry and the step's record: the same
+// operations on the same values, with the carry-free ones done before.
+// a <= next is bc <= 0 (no wrap when |a|, |next| < 2^27).
+JXL_HD void unsqueeze_fast(int left, Step s, int& first, int& second) {
+  using U = unsigned;
+  const int ab = (int)(2u * ((U)left - (U)s.a));
+  const U num = 4u * (U)left + (U)s.k6;
+  // (num - 12) / 12 is one less than num / 12 unless 0 < num < 12
+  const int q = (int)num / 12;
+  int x = q;
+  x = x - (x & 1) > ab ? (int)((U)ab + 1u) : x;
+  x = x + (x & 1) > s.bc ? s.bc : x;
+  int y = q - (int)(num - 1u >= 11u);
+  y = y + (y & 1) < ab ? (int)((U)ab - 1u) : y;
+  y = y - (y & 1) < s.bc ? s.bc : y;
+  const int tend = (left <= s.a && s.bc <= 0)
+                       ? y
+                       : ((left >= s.a && s.bc >= 0) ? x : 0);
+  const U diff = (U)s.r + (U)tend;
+  const int half = (int)(diff + (diff >> 31)) >> 1;
+  first = (int)((U)s.a + (U)half);
+  second = (int)((U)first - diff);
+}
+
+// Whether a step's int32 form equals its int64 one and leaves a carry
+// under 2^27, from its inputs alone.  The tendency lies between 0 and
+// bc = 2 (a - next): in the falling branch (left >= a >= next) the
+// numerator 4 (left - a) + 3 (a - next) + 6 is positive, so x starts at
+// >= 0, its first clamp sets ab + 1 >= 1, and its second keeps x <= bc
+// (x + (x & 1) > bc sets bc, else x <= bc); the rising branch mirrors it,
+// and the third case is 0.  So |diff| <= |r| + |bc|, and the carry
+// first - diff = a + half - diff lies within ceil(|diff| / 2) of a.  With
+// |a|, |next|, |r| < 2^27 and |a| + ceil((|r| + |bc|) / 2) < 2^27, and a
+// carry under 2^27 coming in, every sum of the step fits in int32 and the
+// next carry is under 2^27 again: a chunk whose steps all pass needs only
+// its incoming carry checked.
+JXL_HD bool step_fits(int a, int next, int r) {
+  if (!(fits_fast(a) && fits_fast(next) && fits_fast(r))) return false;
+  // |a|, |next|, |r| <= 2^27 now: these sums stay under 2^31
+  const int bc = a > next ? a - next : next - a;
+  const int reach = (a < 0 ? -a : a) + ((r < 0 ? -r : r) + 2 * bc + 1) / 2;
+  return reach < (1 << kFastBits);
+}
+
+// One unsqueeze block's work, a chunk of kChunk steps at a time, in four
+// phases: the helper warps load a chunk's averages and residuals (raw),
+// turn them into the walker's records and range flags (prep), and store
+// an earlier chunk's outputs (store), while the walking warp walks the
+// chunk before (walk).  The CPU test runs each phase for every thread in
+// turn.  avg has na steps, res nr (na or na - 1), out na + nr.
 struct Unsqueeze {
   const int* avg;
   Plane pa;
@@ -142,62 +200,143 @@ struct Unsqueeze {
     }
   }
 
+  // the chunk's records, step j of line l at j * kLines + l, and helper
+  // warp w's range flag of line l at w * kLines + l (1: every step it made
+  // passes step_fits).  Helper h makes the steps h / 32, h / 32 + nw, ...
+  // of line h % 32.
+  JXL_HD_MEMBER void prep(int h, int nw, int l0, int k0, const int* s_avg,
+                          const int* s_res, Step* s_rec, int* s_ok) const {
+    const int w = h / kLines, l = h % kLines;
+    int ok = 1;
+    if (l0 + l < lines) {
+      const int n = min(kChunk, na - k0);
+      for (int j = w; j < n; j += nw) {
+        const int a = s_avg[l * kAvgPitch + j];
+        const int next = s_avg[l * kAvgPitch + j + 1];
+        const bool walked = k0 + j < nr;
+        const int r = walked ? s_res[l * kAvgPitch + j] : 0;
+        using U = unsigned;
+        s_rec[j * kLines + l] = Step{a, r, (int)(2u * ((U)a - (U)next)),
+                                     (int)(6u - 3u * (U)next - (U)a)};
+        if (walked && !step_fits(a, next, r)) ok = 0;
+      }
+    }
+    s_ok[w * kLines + l] = ok;
+  }
+
   // thread t's line through the chunk from its carry `left` (at k0 == 0
-  // the first average): the int32 step throughout, and again with the
-  // int64 step if the carry or a step's inputs left 2^27
-  JXL_HD_MEMBER void walk(int t, int l0, int k0,
-                          const int* __restrict__ s_avg,
-                          const int* __restrict__ s_res,
-                          int* __restrict__ s_out, long long& left) const {
+  // the first average): the int32 step from the records, and again in
+  // int64 from device memory if the incoming carry or a step's inputs
+  // failed the range check
+  JXL_HD_MEMBER void walk(int t, int nw, int l0, int k0,
+                          const Step* __restrict__ s_rec,
+                          const int* __restrict__ s_ok,
+                          Pair* __restrict__ s_out, long long& left) const {
     if (l0 + t >= lines) return;
-    const int* sa = s_avg + t * kAvgPitch;
-    const int* sr = s_res + t * kAvgPitch;
-    int* so = s_out + t * kOutPitch;
-    if (k0 == 0) left = sa[0];
+    if (k0 == 0) left = s_rec[t].a;
     const int steps = min(kChunk, nr - k0);  // the steps with a residual
     bool ok = fits_fast(left);
+    for (int w = 0; w < nw; ++w) ok = ok & (s_ok[w * kLines + t] != 0);
     int carry = (int)left;
+    // the next step's record is loaded while this one's chain runs (the
+    // records have a row past the chunk)
+    Step q = s_rec[t];
 #if defined(__CUDACC__)
 #pragma unroll 8
 #endif
     for (int j = 0; j < steps; ++j) {
-      const int a = sa[j], next = sa[j + 1], r = sr[j];
-      ok = ok & fits_fast(a) & fits_fast(next) & fits_fast(r);
+      const Step next = s_rec[(j + 1) * kLines + t];
       int first;
-      unsqueeze_step(carry, a, next, r, first, carry);
-      so[2 * j] = first;
-      so[2 * j + 1] = carry;
-      ok = ok & fits_fast(carry);
+      unsqueeze_fast(carry, q, first, carry);
+      s_out[j * kOutLines + t] = Pair{{first, carry}};
+      q = next;
     }
     if (ok) {
       left = carry;
     } else {
+      const long long line = l0 + t;
       for (int j = 0; j < steps; ++j) {
+        const int k = k0 + j;
         long long first;
-        unsqueeze_step<long long>(left, sa[j], sa[j + 1], sr[j], first, left);
-        so[2 * j] = (int)first;
-        so[2 * j + 1] = (int)left;
+        unsqueeze_step<long long>(
+            left, avg[line * pa.line + k * pa.step],
+            avg[line * pa.line + min(k + 1, na - 1) * pa.step],
+            res[line * pr.line + k * pr.step], first, left);
+        s_out[j * kOutLines + t] = Pair{{(int)first, (int)left}};
       }
     }
     // an odd length's last step has no residual: its output is the average
-    if (steps < kChunk && k0 + steps < na) so[2 * steps] = sa[steps];
+    if (steps < kChunk && k0 + steps < na)
+      s_out[steps * kOutLines + t].v[0] = s_rec[steps * kLines + t].a;
   }
 
   // the chunk's outputs from shared memory, by helper thread h of nw warps
   JXL_HD_MEMBER void store(int h, int nw, int l0, int k0,
-                           const int* s_out) const {
+                           const Pair* s_out) const {
     const int w = h / kLines, lane = h % kLines;
     const int n_out = min(2 * kChunk, na + nr - 2 * k0);
+    const int* so = reinterpret_cast<const int*>(s_out);
     if (horizontal) {
       for (int l = w; l < kLines && l0 + l < lines; l += nw)
         for (int j = lane; j < n_out; j += kLines)
-          out[(l0 + l) * po.line + 2 * k0 + j] = s_out[l * kOutPitch + j];
+          out[(l0 + l) * po.line + 2 * k0 + j] =
+              so[2 * ((j >> 1) * kOutLines + l) + (j & 1)];
     } else if (l0 + lane < lines) {
       for (int j = w; j < n_out; j += nw)
         out[(2 * k0 + j) * po.step + l0 + lane] =
-            s_out[lane * kOutPitch + j];
+            so[2 * ((j >> 1) * kOutLines + lane) + (j & 1)];
     }
   }
+};
+
+// jxl_unsqueeze's arguments as a block program's plane: avg (lines, na) or
+// (na, lines) with row stride avg_rs, res likewise with nr steps, out
+// contiguous, (lines, na + nr) or (na + nr, lines)
+JXL_HD Unsqueeze unsqueeze_of(const int* avg, long long avg_rs,
+                              const int* res, long long res_rs, int* out,
+                              int lines, int na, int nr, int horizontal) {
+  Unsqueeze u;
+  u.avg = avg;
+  u.res = res;
+  u.out = out;
+  u.pa = horizontal ? Plane{avg_rs, 1} : Plane{1, avg_rs};
+  u.pr = horizontal ? Plane{res_rs, 1} : Plane{1, res_rs};
+  u.po = horizontal ? Plane{na + nr, 1} : Plane{1, lines};
+  u.lines = lines;
+  u.na = na;
+  u.nr = nr;
+  u.horizontal = horizontal;
+  return u;
+}
+
+// One channel of a batched launch, as the wrapper writes it (int64 each):
+// jxl_unsqueeze's arguments, then the channel's first block.
+struct UnsqueezeDesc {
+  long long avg, avg_rs, res, res_rs, out, lines, na, nr, horizontal, block0;
+};
+
+// the entry of a batched launch's table that block `blk` belongs to
+JXL_HD int unsqueeze_find(const UnsqueezeDesc* table, int n, long long blk) {
+  int d = 0;
+  for (int i = 1; i < n; ++i)
+    if (blk >= table[i].block0) d = i;
+  return d;
+}
+
+JXL_HD Unsqueeze unsqueeze_of(const UnsqueezeDesc& d) {
+  return unsqueeze_of((const int*)d.avg, d.avg_rs, (const int*)d.res,
+                      d.res_rs, (int*)d.out, (int)d.lines, (int)d.na,
+                      (int)d.nr, (int)d.horizontal);
+}
+
+// The shared arrays of an unsqueeze block, two buffers of each: the raw
+// chunk, its records and flags, the outputs.
+struct UnsqueezeShared {
+  int avg[2][kLines * kAvgPitch];
+  int res[2][kLines * kAvgPitch];
+  Step rec[2][(kChunk + 1) * kLines];
+  int ok[2][kHelpers * kLines];
+  Pair out[2][kChunk * kOutLines];
 };
 
 // transform._PERMUTATIONS[perm][i]: the channel that takes the inverse's

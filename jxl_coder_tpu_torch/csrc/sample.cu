@@ -10,7 +10,7 @@
 //      integer arithmetic.  A thread an output sample (any channel
 //      count: a sample is one channel of a pixel); bound by bytes
 //      (each code read once, 1/64 of them written).
-//   S3 resample_v_kernel<T> then resample_h_kernel<T>: resize_plane_stack
+//   S3 resample_kernel<T, C, ALPHA>: resize_plane_stack
 //      (jxl_coder_tpu/ops/resize.py:108) inside rescale_image (:131):
 //      codes / maxv, alpha premultiplied, a vertical then a horizontal
 //      pass of resample_matrix's weights, alpha unpremultiplied (clip(a,
@@ -18,18 +18,28 @@
 //      dense matmuls (the MXU wants them); here each output reads only
 //      its row's nonzero band (first index, length, weights, from the
 //      host), so the work is ~(taps) multiply-adds an output and the
-//      kernel is bound by bytes: the codes read once, the vertical
-//      result (f32, only the kept rows) written and read once, the
-//      output written once.  A thread a (row, column) of each pass, its
-//      channels in groups of G in registers (G = C up to 4 channels, a
-//      template parameter; beyond, groups of 4, the last one masked;
-//      alpha is premultiplied only at C 2 or 4, one group, as the
-//      reference).  Sums use fmaf in the band's order.
+//      kernel is bound by bytes: the codes read once, the output written
+//      once.  One launch, a block a tile of output pixels (sample.cuh's
+//      program): the band tables in shared memory, the vertical sums of
+//      the tile's rows into a float32 tile in shared memory (a pixel's
+//      channels a thread, codes to units through a table for u8), the
+//      horizontal sums from it, the output rows stored by 16-byte
+//      stores.  The two-pass kernel it replaces wrote and read the
+//      vertical sums of every input column through device memory
+//      (float32, 3.2x the kernel's own bytes at 4K RGB8 -> FHD), divided
+//      each tap's code, and launched twice.  C is a template parameter up
+//      to 4 channels (alpha only at C 2 or 4, as the reference), a
+//      runtime count beyond.  Sums use fmaf in the band's order, as the
+//      two-pass kernel's: each output equals its, bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sample.cuh"
+
 namespace {
+
+using namespace jxl_sample;
 
 constexpr int BOX = 8;
 constexpr int THREADS = 256;
@@ -61,141 +71,83 @@ __global__ void __launch_bounds__(THREADS)
   out[i] = (T)q;
 }
 
-// one pass's band: row o's weights w[o * stride + k], k < len[o], at input
-// indices first[o] + k
-struct Band {
-  const int* first;
-  const int* len;
-  const float* w;
-  int stride;
+// a phase of the block program: this thread's part, then the barrier
+struct BlockEach {
+  template <typename F>
+  __host__ __device__ void operator()(F phase) const {
+#if defined(__CUDA_ARCH__)
+    phase((int)threadIdx.x);
+    __syncthreads();
+#endif
+  }
 };
 
-template <typename T>
-__device__ __forceinline__ float unit(T v, float maxv) {
-  return (float)v / maxv;
+template <typename T, int C, bool ALPHA>
+__global__ void __launch_bounds__(kThreads)
+    resample_kernel(Resample<T, C, ALPHA> R) {
+  extern __shared__ __align__(16) char s[];
+  R.run(blockIdx.x, s, BlockEach{});
 }
 
-// t (rows, W, C) f32: row r of the kept rows, every column; the channels
-// in groups of G, alpha premultiplied (premul: C == G, C 2 or 4)
-template <typename T, int G>
-__global__ void __launch_bounds__(THREADS)
-    resample_v_kernel(const T* __restrict__ in, int W, int C, float maxv,
-                      int premul, Band b, int rows, float* __restrict__ t) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= (long long)rows * W) return;
-  const int x = (int)(i % W), r = (int)(i / W);
-  const int f = b.first[r], n = b.len[r];
-  const float* w = b.w + (long long)r * b.stride;
-  for (int c0 = 0; c0 < C; c0 += G) {
-    float acc[G];
-#pragma unroll
-    for (int c = 0; c < G; ++c) acc[c] = 0.0f;
-    for (int k = 0; k < n; ++k) {
-      const T* p = in + ((long long)(f + k) * W + x) * C + c0;
-      float v[G];
-#pragma unroll
-      for (int c = 0; c < G; ++c)
-        v[c] = c0 + c < C ? unit(p[c], maxv) : 0.0f;
-      if (premul) {
-        const float a = v[G - 1];
-#pragma unroll
-        for (int c = 0; c < G - 1; ++c) v[c] = v[c] * a;
-      }
-      const float wk = w[k];
-#pragma unroll
-      for (int c = 0; c < G; ++c) acc[c] = fmaf(wk, v[c], acc[c]);
-    }
-    float* dst = t + i * C + c0;
-#pragma unroll
-    for (int c = 0; c < G; ++c)
-      if (c0 + c < C) dst[c] = acc[c];
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T store(float v, float maxv);
-template <>
-__device__ __forceinline__ uint8_t store<uint8_t>(float v, float maxv) {
-  return (uint8_t)rintf(v * maxv);
-}
-template <>
-__device__ __forceinline__ uint16_t store<uint16_t>(float v, float maxv) {
-  return (uint16_t)rintf(v * maxv);
-}
-template <>
-__device__ __forceinline__ float store<float>(float v, float) {
-  return v;
-}
-
-// out (rows, cols, C): column p of the kept columns; the channels in
-// groups of G, alpha divided out (unpremul: C == G, C 2 or 4)
-template <typename T, int G>
-__global__ void __launch_bounds__(THREADS)
-    resample_h_kernel(const float* __restrict__ t, int W, int C, float maxv,
-                      int unpremul, Band b, int rows, int cols,
-                      T* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= (long long)rows * cols) return;
-  const int p = (int)(i % cols), r = (int)(i / cols);
-  const int f = b.first[p], n = b.len[p];
-  const float* w = b.w + (long long)p * b.stride;
-  for (int c0 = 0; c0 < C; c0 += G) {
-    const float* src = t + ((long long)r * W + f) * C + c0;
-    float acc[G];
-#pragma unroll
-    for (int c = 0; c < G; ++c) acc[c] = 0.0f;
-    for (int k = 0; k < n; ++k) {
-      const float wk = w[k];
-#pragma unroll
-      for (int c = 0; c < G; ++c)
-        if (c0 + c < C) acc[c] = fmaf(wk, src[k * C + c], acc[c]);
-    }
-    if (unpremul) {
-      const float a = fminf(fmaxf(acc[G - 1], 1e-6f), 1.0f);
-#pragma unroll
-      for (int c = 0; c < G - 1; ++c) acc[c] = acc[c] / a;
-    }
-    T* dst = out + i * C + c0;
-#pragma unroll
-    for (int c = 0; c < G; ++c)
-      if (c0 + c < C)
-        dst[c] = store<T>(fminf(fmaxf(acc[c], 0.0f), 1.0f), maxv);
-  }
-}
-
-template <typename T, int G>
-cudaError_t resample_g(const void* in, int W, int C, float maxv, int alpha,
-                       Band v, int rows, Band h, int cols, float* t,
-                       void* out, cudaStream_t s) {
-  resample_v_kernel<T, G>
-      <<<cdiv((long long)rows * W, THREADS), THREADS, 0, s>>>(
-          static_cast<const T*>(in), W, C, maxv, alpha, v, rows, t);
-  const cudaError_t err = cudaGetLastError();
+template <typename T, int C, bool ALPHA>
+cudaError_t resample_tiles(const void* in, int W, int c, float maxv, Band v,
+                           int rows, Band h, int cols, void* out,
+                           cudaStream_t s) {
+  Resample<T, C, ALPHA> R;
+  R.in = static_cast<const T*>(in);
+  R.out = static_cast<T*>(out);
+  R.W = W;
+  R.c = c;
+  R.maxv = maxv;
+  R.v = v;
+  R.h = h;
+  R.rows = rows;
+  R.cols = cols;
+  R.t = plan_tiles(W, c, sizeof(T), rows, cols, v.stride, h.stride);
+  if (R.t.ty == 0) return cudaErrorInvalidValue;
+  R.l = layout_of(R.t, c, sizeof(T), v.stride, h.stride);
+  // the most shared memory an SM can give: several blocks an SM
+  cudaError_t err = cudaFuncSetAttribute(
+      resample_kernel<T, C, ALPHA>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBudget);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(resample_kernel<T, C, ALPHA>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  resample_h_kernel<T, G>
-      <<<cdiv((long long)rows * cols, THREADS), THREADS, 0, s>>>(
-          t, W, C, maxv, alpha, h, rows, cols, static_cast<T*>(out));
+  const long long blocks = (long long)((rows + R.t.ty - 1) / R.t.ty) *
+                           ((cols + R.t.tx - 1) / R.t.tx);
+  resample_kernel<T, C, ALPHA>
+      <<<(unsigned)blocks, kThreads, R.l.total, s>>>(R);
   return cudaGetLastError();
 }
 
-// the group width: C up to 4 channels, else 4
+// the channel count as a template parameter up to 4 channels (alpha only
+// at 2 or 4), a runtime one beyond
 template <typename T>
 cudaError_t resample(const void* in, int W, int C, float maxv, int alpha,
-                     Band v, int rows, Band h, int cols, float* t, void* out,
+                     Band v, int rows, Band h, int cols, void* out,
                      cudaStream_t s) {
   switch (C) {
     case 1:
-      return resample_g<T, 1>(in, W, C, maxv, alpha, v, rows, h, cols, t,
-                              out, s);
+      return resample_tiles<T, 1, false>(in, W, C, maxv, v, rows, h, cols,
+                                         out, s);
     case 2:
-      return resample_g<T, 2>(in, W, C, maxv, alpha, v, rows, h, cols, t,
-                              out, s);
+      return alpha ? resample_tiles<T, 2, true>(in, W, C, maxv, v, rows, h,
+                                                cols, out, s)
+                   : resample_tiles<T, 2, false>(in, W, C, maxv, v, rows, h,
+                                                 cols, out, s);
     case 3:
-      return resample_g<T, 3>(in, W, C, maxv, alpha, v, rows, h, cols, t,
-                              out, s);
+      return resample_tiles<T, 3, false>(in, W, C, maxv, v, rows, h, cols,
+                                         out, s);
+    case 4:
+      return alpha ? resample_tiles<T, 4, true>(in, W, C, maxv, v, rows, h,
+                                                cols, out, s)
+                   : resample_tiles<T, 4, false>(in, W, C, maxv, v, rows, h,
+                                                 cols, out, s);
     default:
-      return resample_g<T, 4>(in, W, C, maxv, alpha, v, rows, h, cols, t,
-                              out, s);
+      return resample_tiles<T, 0, false>(in, W, C, maxv, v, rows, h, cols,
+                                         out, s);
   }
 }
 
@@ -224,9 +176,10 @@ extern "C" int jxl_box_codes(const void* in, void* out, int dtype, int H,
 
 // in: (H, W, C) contiguous, dtype 0 uint8, 1 uint16, 2 float32, C >= 1;
 // maxv 255, 65535 or 1; alpha (C 2 or 4 only): premultiply the last
-// channel into the others before and divide after; the vertical band (rows entries) gives
-// the kept output rows, the horizontal (cols entries) the kept columns;
-// t: (rows, W, C) f32 scratch; out: (rows, cols, C) of the input's type.
+// channel into the others before and divide after; the vertical band (rows
+// entries) gives the kept output rows, the horizontal (cols entries) the
+// kept columns; t: unused (the two-pass kernel's scratch; pass null);
+// out: (rows, cols, C) of the input's type.  One launch.
 extern "C" int jxl_resample(const void* in, int dtype, int W, int C,
                             float maxv, int alpha, const int* v_first,
                             const int* v_len, const float* v_w, int v_stride,
@@ -235,18 +188,19 @@ extern "C" int jxl_resample(const void* in, int dtype, int W, int C,
                             float* t, void* out, void* stream) {
   if (rows <= 0 || cols <= 0 || W <= 0) return cudaSuccess;
   if (C < 1 || (alpha && C != 2 && C != 4)) return cudaErrorInvalidValue;
+  (void)t;
   const Band v{v_first, v_len, v_w, v_stride};
   const Band h{h_first, h_len, h_w, h_stride};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return resample<uint8_t>(in, W, C, maxv, alpha, v, rows, h, cols, t,
-                               out, s);
+      return resample<uint8_t>(in, W, C, maxv, alpha, v, rows, h, cols, out,
+                               s);
     case 1:
-      return resample<uint16_t>(in, W, C, maxv, alpha, v, rows, h, cols, t,
-                                out, s);
+      return resample<uint16_t>(in, W, C, maxv, alpha, v, rows, h, cols, out,
+                                s);
     case 2:
-      return resample<float>(in, W, C, maxv, alpha, v, rows, h, cols, t, out,
+      return resample<float>(in, W, C, maxv, alpha, v, rows, h, cols, out,
                              s);
     default:
       return cudaErrorInvalidValue;

@@ -17,7 +17,9 @@ transform the host could not undo either.
 
 Each transform is one kernel of ``csrc/modular.cu`` on a CUDA tensor
 (``unsqueeze``, ``rct_inverse``, ``palette_inverse``, each counting its
-launches in ``.launches``) and its plain twin on a CPU tensor.  They
+launches in ``.launches``) and its plain twin on a CPU tensor; a squeeze
+step's channels go to the unsqueeze kernel in one launch
+(``unsqueeze_batch``, counted in ``unsqueeze.launches``).  They
 are held to the int64 host oracle (``jxl_coder_tpu/modular/transform.py``),
 not to the JAX device path, whose SmoothTendency wraps in int32 from
 about 2^28 (fault R1).
@@ -38,7 +40,7 @@ from ..host.modular.image import Channel, ModularImage
 from ..host.modular.transform import _PERMUTATIONS
 
 __all__ = ["upload", "undo_transforms", "undo_frame", "unsqueeze",
-           "unsqueeze_plain",
+           "unsqueeze_batch", "unsqueeze_plain",
            "rct_inverse", "rct_inverse_plain", "palette_inverse",
            "palette_inverse_plain"]
 
@@ -52,7 +54,8 @@ def _kernels():
             _build.bind(lib, "jxl_rct_inverse",
                         [p, p, p, i64, i64, i64, p, i, i, i]),
             _build.bind(lib, "jxl_palette_inverse",
-                        [p, i64, i, p, i64, p, i, i, i]))
+                        [p, i64, i, p, i64, p, i, i, i]),
+            _build.bind(lib, "jxl_unsqueeze_batch", [p, i, i64]))
 
 
 def _plane(t: torch.Tensor, what: str) -> torch.Tensor:
@@ -143,6 +146,43 @@ def unsqueeze(avg: torch.Tensor, res: torch.Tensor,
 
 
 unsqueeze.launches = 0
+
+# lines a block of the unsqueeze kernel (csrc/modular.cuh kLines)
+_LINES = 32
+
+
+def unsqueeze_batch(pairs) -> list:
+    """Several channels' inverse squeezes, [(avg, res, horizontal)] -> the
+    outputs ``unsqueeze`` gives each, in order; on the card one launch
+    over all of them (a table of their planes on the card, each channel's
+    lines in blocks of 32)."""
+    checked = []
+    for avg, res, horizontal in pairs:
+        avg, res = _plane(avg, "avg"), _plane(res, "res")
+        checked.append((avg, res, horizontal,
+                        *_check_squeeze(avg, res, horizontal)))
+    if not checked:
+        return []
+    dev = checked[0][0].device
+    if any(c[0].device != dev for c in checked):
+        raise ValueError("unsqueeze_batch: channels on more than one device")
+    if dev.type == "cpu":
+        return [unsqueeze_plain(a, r, hz) for a, r, hz, *_ in checked]
+    outs, table, blocks = [], [], 0
+    for avg, res, horizontal, lines, na, nr in checked:
+        shape = (lines, na + nr) if horizontal else (na + nr, lines)
+        out = torch.empty(shape, dtype=torch.int32, device=dev)
+        outs.append(out)
+        if lines and na:
+            table.append((avg.data_ptr(), avg.stride(0), res.data_ptr(),
+                          res.stride(0) if nr else 0, out.data_ptr(), lines,
+                          na, nr, int(horizontal), blocks))
+            blocks += -(-lines // _LINES)
+    if table:
+        t = torch.from_numpy(np.asarray(table, np.int64)).to(dev)
+        _build.launch(_kernels()[3], dev, t.data_ptr(), len(table), blocks)
+        unsqueeze.launches += 1
+    return outs
 
 
 # --------------------------------------------------------------------------
@@ -292,18 +332,31 @@ def _undo_palette(chans, t) -> None:
 
 
 def _undo_squeeze(chans, t) -> None:
+    """Each squeeze step, last first, as one unsqueeze_batch over its
+    channels; the channel list changes in the host's order."""
     for s in reversed(t.squeezes):
         # non-in-place residuals form a contiguous tail block; fix its
         # base BEFORE deleting (deletions above base don't move base+i)
         base = len(chans) - s.num_c
+        steps, n = [], len(chans)
         for i in reversed(range(s.num_c)):
             c = s.begin_c + i
             res_idx = s.begin_c + s.num_c + i if s.in_place else base + i
-            if not 0 <= res_idx < len(chans):
+            if not 0 <= res_idx < n:
                 raise BitstreamError(f"squeeze residual channel {res_idx} "
-                                     f"outside the {len(chans)}-channel image")
-            avg, res = chans[c], chans[res_idx]
-            out = unsqueeze(avg.data, res.data, s.horizontal)
+                                     f"outside the {n}-channel image")
+            # the host undoes these one after another; one launch needs
+            # each to read channels no earlier one wrote or moved
+            if any(max(c, res_idx) >= r or c == c2 or res_idx == c2
+                   for c2, r in steps):
+                raise BitstreamError(f"squeeze channels {c} / {res_idx} "
+                                     f"overlap an earlier channel's")
+            steps.append((c, res_idx))
+            n -= 1
+        outs = unsqueeze_batch([(chans[c].data, chans[r].data, s.horizontal)
+                                for c, r in steps])
+        for (c, res_idx), out in zip(steps, outs):
+            avg = chans[c]
             if s.horizontal:
                 chans[c] = Channel(out.shape[1], avg.height, avg.hshift - 1,
                                    avg.vshift, out)

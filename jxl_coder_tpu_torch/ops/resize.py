@@ -9,10 +9,11 @@ vertical then a horizontal pass of ``resample_matrix``'s weights, alpha
 unpremultiplied (``clip(alpha, 1e-6, 1)``), clip to [0, 1] and round
 half to even to the input's type, at any channel count (alpha only at C
 2 or 4, as the reference).  On a CUDA tensor that is kernel S3 of
-``csrc/sample.cu``: each output reads only its row's band of nonzero
-weights (``host/ops/resize.py`` ``band``; the folded edge taps are
-summed into the band, as the matrix holds them), and only the kept rows
-and columns are computed.  Its plain twin, ``rescale_image_plain``, is
+``csrc/sample.cu``, one launch: each output reads only its row's band of
+nonzero weights (``host/ops/resize.py`` ``band``; the folded edge taps
+are summed into the band, as the matrix holds them), a block computes a
+tile of the kept rows and columns with its vertical sums in shared
+memory (``csrc/sample.cuh``), and nothing but the output is allocated.  Its plain twin, ``rescale_image_plain``, is
 the reference's dense form: two float32 matrix products
 (``resize_plane_stack_plain``, TF32 off), then the crop.  The two sum in
 other orders, so their codes may differ by 1 where a value lies near a
@@ -100,19 +101,18 @@ def bands(h: int, w: int, pl: HR.Plan, filter_id: int, dev) -> tuple:
 def resample(img: torch.Tensor, pl: HR.Plan, bnd: tuple,
              premultiplied: bool = False) -> torch.Tensor:
     """S3 on a contiguous CUDA (H, W, C) image with its plan's bands
-    already on the card (``bands``): two launches, nothing copied from
-    the host."""
+    already on the card (``bands``): one launch, nothing copied from the
+    host (the entry point's scratch argument is null)."""
     h, w, c = img.shape
     code, maxv = _DTYPES[img.dtype]
     vf, vl, vw, hf, hl, hw = bnd
-    t = torch.empty((pl.ch, w, c), dtype=torch.float32, device=img.device)
     out = torch.empty((pl.ch, pl.cw, c), dtype=img.dtype, device=img.device)
     if h and w:
         _build.launch(_kernel(), img.device, img.data_ptr(), code, w, c, maxv,
                       int(c in (2, 4) and not premultiplied), vf.data_ptr(),
                       vl.data_ptr(), vw.data_ptr(), vw.shape[1], pl.ch,
                       hf.data_ptr(), hl.data_ptr(), hw.data_ptr(),
-                      hw.shape[1], pl.cw, t.data_ptr(), out.data_ptr())
+                      hw.shape[1], pl.cw, None, out.data_ptr())
         rescale_image.launches += 1
     return out
 

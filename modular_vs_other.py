@@ -1,7 +1,7 @@
-"""Time the unsqueeze kernel (csrc/modular.cu) against other trees'
-modular.cu on one CUDA card, in turns.
+"""Time the unsqueeze kernel (csrc/modular.cu) and the banded resample S3
+(csrc/sample.cu) against other trees' on one CUDA card, in turns.
 
-    python3 modular_vs_other.py OTHER_CSRC [OTHER_CSRC ...]
+    python3 modular_vs_other.py OTHER_CSRC [OTHER_CSRC ...] [--only=a2|s3]
 
 Each OTHER_CSRC is another tree's jxl_coder_tpu_torch/csrc, for a commit:
 
@@ -9,13 +9,20 @@ Each OTHER_CSRC is another tree's jxl_coder_tpu_torch/csrc, for a commit:
     git archive <commit> jxl_coder_tpu_torch/csrc | tar -x -C build/parent
     python3 modular_vs_other.py build/parent/jxl_coder_tpu_torch/csrc
 
-It builds each other modular.cu with this tree's nvcc flags into build/
-and times jxl_unsqueeze on chip_smoke.py's 4K planes (the first
-horizontal and the first vertical squeeze of a 3840x2160 plane) by
-replaying a CUDA graph of 50 calls, each build's in the order other(s),
-this, this, other(s) reversed.  Every build's output is checked equal to
-this tree's first.  The other builds must export jxl_unsqueeze with this
-tree's arguments.  Each line carries the card's name and power limit.
+It builds each other modular.cu and sample.cu with this tree's nvcc flags
+into build/ and times, by replaying a CUDA graph of 50 calls, each build's
+in the order other(s), this, this, other(s) reversed:
+- jxl_unsqueeze on chip_smoke.py's 4K planes (the first horizontal and
+  the first vertical squeeze of a 3840x2160 plane);
+- jxl_resample on chip_smoke.py's S3 cases: 4K RGB8 and RGBA8 -> 1920x1080
+  Mitchell, 4K x6 u8 -> 1920x1080 Mitchell, the 8x Catmull-Rom upscale
+  480x270 -> 3840x2160 (a cut-short render's DC image), 4K -> FIT 480x270
+  Mitchell (a thumbnail's widest band).
+Every build's output is checked equal to this tree's first (0 codes or
+values).  The other builds must export jxl_unsqueeze and jxl_resample
+with this tree's arguments; another tree's jxl_resample is handed its
+float32 scratch (rows x W x C), this tree's gets null.  Each line carries
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -32,31 +39,54 @@ import chip_smoke as cs
 from jxl_coder_tpu_torch import _build
 from jxl_coder_tpu_torch.host.modular import transform as MT
 from jxl_coder_tpu_torch.modular import device as MDEV
+from jxl_coder_tpu_torch.ops import resize as RESIZE
+
+# label: (source (h, w, C), target (w, h), scale mode, filter)
+S3_CASES = {
+    "4K RGB8 -> 1920x1080 Mitchell": ((2160, 3840, 3), (1920, 1080), 1, 4),
+    "4K RGBA8 -> 1920x1080 Mitchell": ((2160, 3840, 4), (1920, 1080), 1, 4),
+    "4K x6 u8 -> 1920x1080 Mitchell": ((2160, 3840, 6), (1920, 1080), 1, 4),
+    "480x270 RGB8 -> 3840x2160 Catmull-Rom": ((270, 480, 3), (3840, 2160), 3,
+                                              6),
+    "4K RGB8 -> FIT 480x270 Mitchell": ((2160, 3840, 3), (480, 270), 1, 4),
+}
 
 
-def main() -> int:
-    if len(sys.argv) < 2:
-        print(__doc__, file=sys.stderr)
-        return 2
-    if not torch.cuda.is_available():
-        print("modular_vs_other: torch sees no CUDA device", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda", 0)
-    card = cs.smi()
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    this = MDEV._kernels()
-    builds = []
-    for n, arg in enumerate(sys.argv[1:]):
-        src = Path(arg).resolve()
-        so = _build.BUILD_DIR / f"libmodular-other{n}.so"
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src),
-                        "-o", str(so), str(src / "modular.cu")],
-                       check=True, capture_output=True)
-        fn = _build.bind(ctypes.CDLL(str(so)), "jxl_unsqueeze",
-                         this[0].argtypes[:-1])
-        builds.append((arg, (fn,) + this[1:]))
+def s3_image(shape, dev) -> torch.Tensor:
+    """chip_smoke's frames: the bench frame (RGB), with its red as alpha
+    (RGBA), or seeded codes (6 channels)."""
+    h, w, c = shape
+    if c == 6:
+        g = torch.Generator(device=dev).manual_seed(5)
+        return torch.randint(0, 256, (h, w, c), generator=g, device=dev,
+                             dtype=torch.int32).to(torch.uint8)
+    img = torch.from_numpy(cs.bench_frame(h, w)).to(dev)
+    return torch.cat([img, img[..., :1]], -1) if c == 4 else img
+
+
+def resample_call(fn, img, pl, bnd, out, scratch):
+    """One jxl_resample of a build: this tree's with scratch None."""
+    h, w, c = img.shape
+    code, maxv = RESIZE._DTYPES[img.dtype]
+    vf, vl, vw, hf, hl, hw = bnd
+    return lambda: _build.launch(
+        fn, img.device, img.data_ptr(), code, w, c, maxv, int(c in (2, 4)),
+        vf.data_ptr(), vl.data_ptr(), vw.data_ptr(), vw.shape[1], pl.ch,
+        hf.data_ptr(), hl.data_ptr(), hw.data_ptr(), hw.shape[1], pl.cw,
+        scratch, out.data_ptr())
+
+
+def build(src: Path, name: str, n: int, fn: str, argtypes):
+    so = _build.BUILD_DIR / f"lib{name}-other{n}.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src),
+                    "-o", str(so), str(src / f"{name}.cu")],
+                   check=True, capture_output=True)
+    return _build.bind(ctypes.CDLL(str(so)), fn, argtypes)
+
+
+def time_a2(others, this, dev, card) -> None:
+    builds = [(tag, (fn,) + this[1:]) for tag, fn in others]
     order = builds + [("this", this)] * 2 + builds[::-1]
-
     plane = cs.bench_frame(2160, 3840)[..., 1].astype(np.int64) * 37 - 4000
     try:
         for horizontal in (True, False):
@@ -79,6 +109,60 @@ def main() -> int:
                       f"[{card}]", flush=True)
     finally:
         MDEV._kernels = lambda: this
+
+
+def time_s3(others, this, dev, card) -> None:
+    order = others + [("this", this)] * 2 + others[::-1]
+    for label, (shape, (tw, th), mode, fid) in S3_CASES.items():
+        img = s3_image(shape, dev)
+        h, w, c = img.shape
+        pl = RESIZE.HR.plan(h, w, tw, th, mode)
+        bnd = RESIZE.bands(h, w, pl, fid, dev)
+        scratch = torch.empty((pl.ch, w, c), dtype=torch.float32, device=dev)
+        want = RESIZE.resample(img, pl, bnd)
+        for tag, fn in order:
+            out = torch.empty_like(want)
+            call = resample_call(fn, img, pl, bnd, out,
+                                 None if tag == "this" else scratch.data_ptr())
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                d = (out.int() - want.int()).abs().max().item()
+                raise AssertionError(f"{tag}: resample {label} differs from "
+                                     f"this tree's by {d}")
+            ms = cs.graph_ms(call)
+            print(f"resample {label}, {tag} tree's sample.cu: graph "
+                  f"{ms:.4f} ms, 0 codes differ [{card}]", flush=True)
+
+
+def main() -> int:
+    args = [a for a in sys.argv[1:] if not a.startswith("--only")]
+    only = next((a.split("=", 1)[1] for a in sys.argv[1:]
+                 if a.startswith("--only=")), None)
+    if not args:
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("modular_vs_other: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = cs.smi()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    this_a2 = MDEV._kernels()
+    this_s3 = RESIZE._kernel()
+    a2, s3 = [], []
+    for n, arg in enumerate(args):
+        src = Path(arg).resolve()
+        if only in (None, "a2"):
+            a2.append((arg, build(src, "modular", n, "jxl_unsqueeze",
+                                  this_a2[0].argtypes[:-1])))
+        if only in (None, "s3"):
+            s3.append((arg, build(src, "sample", n, "jxl_resample",
+                                  this_s3.argtypes[:-1])))
+    if only in (None, "a2"):
+        time_a2(a2, this_a2, dev, card)
+    if only in (None, "s3"):
+        time_s3(s3, this_s3, dev, card)
     return 0
 
 

@@ -464,29 +464,56 @@ _KERNELS_RUN = r"""
 #include "modular.cuh"
 using namespace jxl_modular;
 // modular.cu's kernels with their threads one after another on the host:
-// the helper warps' load, the walking warp's walk, the helpers' store
+// per chunk the helper warps' load and prep, the walking warp's walk, the
+// helpers' store
+static void unsqueeze_block(const Unsqueeze& u, int l0, UnsqueezeShared& sh) {
+  long long left[kLines] = {0};
+  for (int k0 = 0; k0 < u.na; k0 += kChunk) {
+    for (int h = 0; h < kLines * kHelpers; ++h)
+      u.load(h, kHelpers, l0, k0, sh.avg[0], sh.res[0]);
+    for (int h = 0; h < kLines * kHelpers; ++h)
+      u.prep(h, kHelpers, l0, k0, sh.avg[0], sh.res[0], sh.rec[0], sh.ok[0]);
+    for (int t = 0; t < kLines; ++t)
+      u.walk(t, kHelpers, l0, k0, sh.rec[0], sh.ok[0], sh.out[0], left[t]);
+    for (int h = 0; h < kLines * kHelpers; ++h)
+      u.store(h, kHelpers, l0, k0, sh.out[0]);
+  }
+}
 extern "C" void unsqueeze_host(const int* avg, long long avg_rs,
                                const int* res, long long res_rs, int* out,
                                int lines, int na, int nr, int horizontal) {
-  Unsqueeze u;
-  u.avg = avg; u.res = res; u.out = out;
-  u.pa = horizontal ? Plane{avg_rs, 1} : Plane{1, avg_rs};
-  u.pr = horizontal ? Plane{res_rs, 1} : Plane{1, res_rs};
-  u.po = horizontal ? Plane{na + nr, 1} : Plane{1, lines};
-  u.lines = lines; u.na = na; u.nr = nr; u.horizontal = horizontal;
-  std::vector<int> s_avg(kLines * kAvgPitch), s_res(kLines * kAvgPitch),
-      s_out(kLines * kOutPitch);
-  for (int l0 = 0; l0 < lines; l0 += kLines) {
-    long long left[kLines] = {0};
-    for (int k0 = 0; k0 < na; k0 += kChunk) {
-      for (int h = 0; h < kLines * kHelpers; ++h)
-        u.load(h, kHelpers, l0, k0, s_avg.data(), s_res.data());
-      for (int t = 0; t < kLines; ++t)
-        u.walk(t, l0, k0, s_avg.data(), s_res.data(), s_out.data(),
-               left[t]);
-      for (int h = 0; h < kLines * kHelpers; ++h)
-        u.store(h, kHelpers, l0, k0, s_out.data());
-    }
+  const Unsqueeze u = unsqueeze_of(avg, avg_rs, res, res_rs, out, lines, na,
+                                   nr, horizontal);
+  std::vector<UnsqueezeShared> sh(1);
+  for (int l0 = 0; l0 < lines; l0 += kLines) unsqueeze_block(u, l0, sh[0]);
+}
+// jxl_unsqueeze_batch: every block of the launch, its channel found in the
+// table as the kernel finds it
+extern "C" void unsqueeze_batch_host(const void* table, int n,
+                                     long long blocks) {
+  const UnsqueezeDesc* d = static_cast<const UnsqueezeDesc*>(table);
+  std::vector<UnsqueezeShared> sh(1);
+  for (long long b = 0; b < blocks; ++b) {
+    const int i = unsqueeze_find(d, n, b);
+    unsqueeze_block(unsqueeze_of(d[i]), (int)(b - d[i].block0) * kLines,
+                    sh[0]);
+  }
+}
+// the walker's int32 step from its record against unsqueeze_step<int>, and
+// step_fits, on n steps (left, a, next, r): out[3 i .. 3 i + 2] = the
+// fast step's two outputs and whether step_fits holds
+extern "C" void steps_host(const int* in, int n, long long* out) {
+  for (int i = 0; i < n; ++i) {
+    const int left = in[4 * i], a = in[4 * i + 1], next = in[4 * i + 2],
+              r = in[4 * i + 3];
+    using U = unsigned;
+    const Step s{a, r, (int)(2u * ((U)a - (U)next)),
+                 (int)(6u - 3u * (U)next - (U)a)};
+    int first, second;
+    unsqueeze_fast(left, s, first, second);
+    out[3 * i] = first;
+    out[3 * i + 1] = second;
+    out[3 * i + 2] = step_fits(a, next, r);
   }
 }
 extern "C" void rct_host(const int* c0, const int* c1, const int* c2,
@@ -526,6 +553,8 @@ def kernels_host(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     p, i64, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.unsqueeze_host.argtypes = [p, i64, p, i64, p, i, i, i, i]
+    lib.unsqueeze_batch_host.argtypes = [p, i, i64]
+    lib.steps_host.argtypes = [p, i, p]
     lib.rct_host.argtypes = [p, p, p, p, i64, i]
     lib.palette_host.argtypes = [p, i64, i, p, p, i64, i]
     return lib
@@ -545,11 +574,14 @@ def _kernel_unsqueeze(lib, avg, res, horizontal):
 
 @pytest.mark.parametrize("horizontal", [True, False])
 @pytest.mark.parametrize("lines,n", [(1, 1), (3, 2), (33, 129), (70, 131),
-                                     (5, 200), (40, 64), (2, 65)])
+                                     (5, 200), (40, 64), (2, 65), (9, 80),
+                                     (31, 81), (4, 161)])
 def test_kernel_unsqueeze_program_equals_the_host_oracle(kernels_host,
                                                          horizontal, lines,
                                                          n):
-    """Chunks of 64 steps, warps of 32 lines, ragged on both counts."""
+    """Chunks of 40 steps (80 and 81 outputs end a chunk), warps of 32
+    lines, ragged on both counts: the helpers' records and range flags,
+    the walker's int32 step from them."""
     rng = np.random.default_rng(lines * 1000 + n)
     avg, res = _squeeze_pair(rng, lines, n, horizontal)
     assert np.array_equal(_kernel_unsqueeze(kernels_host, avg, res,
@@ -584,6 +616,98 @@ def test_kernel_unsqueeze_program_near_2_29(kernels_host, case):
             assert np.array_equal(host, lines if horizontal else lines.T)
         assert np.array_equal(_kernel_unsqueeze(kernels_host, a, r,
                                                 horizontal), host)
+    # the int64 retry fires: steps fail the range check, and the int32
+    # step alone would differ from the oracle on some of them
+    left = _host_unsqueeze(avg, res, True)[:, 1:-1:2]
+    k = min(left.shape[1], avg.shape[1] - 1)
+    quads = np.stack([left[:, :k - 1], avg[:, 1:k], avg[:, 2:k + 1],
+                      res[:, 1:k]], -1).reshape(-1, 4).astype(np.int32)
+    fast = _fast_steps(kernels_host, quads)
+    assert not fast[:, 2].all()
+    oracle = _oracle_steps(quads)
+    assert (fast[:, :2] != oracle).any(axis=1)[fast[:, 2] == 0].any()
+
+
+def _fast_steps(lib, quads):
+    """The walker's int32 step and step_fits on (left, a, next, r) rows
+    -> (first, second, fits) int64 rows."""
+    quads = np.ascontiguousarray(quads, np.int32)
+    out = np.zeros((len(quads), 3), np.int64)
+    lib.steps_host(quads.ctypes.data, len(quads), out.ctypes.data)
+    return out
+
+
+def _oracle_steps(quads):
+    """transform._unsqueeze_1d's step in int64 on (left, a, next, r) rows,
+    each output cut to int32 -> (first, second)."""
+    q = quads.astype(np.int64)
+    left, a, nxt, r = q.T
+    diff = r + RT.smooth_tendency(left, a, nxt)
+    first = a + np.sign(diff) * (np.abs(diff) >> 1)
+    second = first - diff
+    return np.stack([first, second], -1).astype(np.int32).astype(np.int64)
+
+
+def test_kernel_unsqueeze_range_check_is_sound(kernels_host):
+    """step_fits: wherever it holds and the carry is under 2^27, the int32
+    step from the record equals the int64 step and the next carry is under
+    2^27 again (the walk checks only a chunk's incoming carry); near the
+    bound it fails on some steps, and everywhere the record's step equals
+    the oracle's where both stay in range."""
+    rng = np.random.default_rng(27)
+    bound = 1 << 27
+    n = 200_000
+    mags = np.array([1000, 1 << 20, bound // 2, bound - 5000, bound,
+                     1 << 29, 1 << 31], np.int64)
+    pick = rng.integers(0, len(mags), (n, 4))
+    q = rng.integers(-mags[pick], mags[pick], dtype=np.int64)
+    # the carry must come in under 2^27; the next average near the average
+    q[:, 0] = np.clip(q[:, 0], -bound, bound - 1)
+    near = rng.random(n) < 0.5
+    q[near, 2] = np.clip(q[near, 1] + rng.integers(-3000, 3000, near.sum()),
+                         -2**31, 2**31 - 1)
+    q = np.clip(q, -2**31, 2**31 - 1).astype(np.int32)
+    fast = _fast_steps(kernels_host, q)
+    oracle = _oracle_steps(q)
+    fits = fast[:, 2] == 1
+    assert 0.2 < fits.mean() < 0.8
+    assert np.array_equal(fast[fits, :2], oracle[fits])
+    assert ((fast[fits, 1] >= -bound) & (fast[fits, 1] < bound)).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kernel_unsqueeze_batch_equals_the_host_oracle(kernels_host, seed):
+    """One batched launch (jxl_unsqueeze_batch's table, each block finding
+    its channel): channels of different sizes, both axes, odd lengths and
+    a one-step line, rows of a wider plane (a row stride past the width),
+    values near 2^29 in one; each equals the int64 host oracle."""
+    rng = np.random.default_rng(seed)
+    specs = [(70, 131, True), (33, 80, False), (1, 1, True), (5, 2, False),
+             (40, 41, True), (65, 9, False), (3, 200, True)]
+    keep, table, want, block = [], [], [], 0
+    for i, (lines, n, horizontal) in enumerate(specs):
+        avg, res = _squeeze_pair(rng, lines, n, horizontal,
+                                 scale=3000 if i != 4 else 1 << 28)
+        if i == 0:   # a view of a wider plane: its rows' stride past na
+            wide = np.zeros((avg.shape[0], avg.shape[1] + 7), np.int32)
+            wide[:, :avg.shape[1]] = avg
+            avg_arr, avg_rs = wide, wide.shape[1]
+        else:
+            avg_arr, avg_rs = avg, avg.shape[1]
+        ax = 1 if horizontal else 0
+        na, nr = avg.shape[ax], res.shape[ax]
+        out = np.zeros((lines, na + nr) if horizontal else (na + nr, lines),
+                       np.int32)
+        keep += [avg_arr, res, out]
+        table.append((avg_arr.ctypes.data, avg_rs, res.ctypes.data,
+                      res.shape[1] if nr else 0, out.ctypes.data, lines, na,
+                      nr, int(horizontal), block))
+        block += -(-lines // 32)
+        want.append(_host_unsqueeze(avg, res, horizontal))
+    t = np.ascontiguousarray(np.asarray(table, np.int64))
+    kernels_host.unsqueeze_batch_host(t.ctypes.data, len(table), block)
+    for out, ref in zip(keep[2::3], want):
+        assert np.array_equal(out, ref)
 
 
 def test_kernel_rct_and_palette_programs_equal_the_host_oracle(kernels_host):
