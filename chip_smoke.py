@@ -186,7 +186,8 @@ prints no result):
      each split pass's layers within 2% of its total); decode_frames'
      frames per second; the 4K
      preview and cuts beside decode in turns; A10 and the batched kernel 6
-     by CUDA graph against twin and bound;
+     by CUDA graph against twin and bound, and A10 on a seeded u16 canvas
+     of the same size and blending (held to its twin first);
  17. the JPEG routes (JPEGs written by port_fixtures.baseline_jpeg in the
      worker processes during phases 3-5, each recompressed by the port's
      api.construct or the round-1 container's writer, reconstructed byte
@@ -224,8 +225,9 @@ prints no result):
      frames, decode_frames against the float64 frames; the 4K encode
      split into its layers (M1, 2 + 2 calls) beside phase 3's float64
      host-route encode of the same frame; each kernel at 4K by CUDA graph
-     against twin, bound and
-     yardstick (the fp32 matmul pair, index_select for the gather).
+     against twin, bound (E1's the largest of its bytes, its f32
+     operations and its cbrt's float64 steps) and yardstick (the fp32
+     matmul pair, index_select for the gather).
  19. the ICC step (csrc/icc.cu: littlecms's 8-bit matrix / TRC program,
      the profile read on the host) and any channel count (S2, S3, S4 past
      4 channels, A10 past 8 extra channels; the streams written as the
@@ -521,13 +523,25 @@ def bound_of(moved: int, ops: float, rate: float = F32_OPS_PER_S) -> tuple:
 
 
 def note_bound(name: str, moved: int, ops: float,
-               rate: float = F32_OPS_PER_S, kind: str = "f32") -> None:
-    """BOUND[name] from bound_of (f32 operations unless said), printed."""
+               rate: float = F32_OPS_PER_S, kind: str = "f32",
+               also: tuple = None) -> None:
+    """BOUND[name] from bound_of (f32 operations unless said), printed;
+    also: a second kind of operations (ops, rate, kind), the bound then
+    the largest of the three times, the line naming the term that sets
+    it."""
     BOUND[name] = bound_of(moved, ops, rate)
-    print(f"bound {name}: {moved / 1e6:.1f} MB, {ops / 1e9:.2f} G {kind} ops "
-          f"-> {BOUND[name][0]:.4f} ms ({BOUND[name][1]}; bytes "
-          f"{moved / HBM_BYTES_PER_S * 1e3:.4f}, operations "
-          f"{ops / rate * 1e3:.4f})", flush=True)
+    terms = [("bytes", moved / HBM_BYTES_PER_S * 1e3),
+             (f"{kind} operations", ops / rate * 1e3)]
+    what = f"{ops / 1e9:.2f} G {kind} ops"
+    if also is not None:
+        terms.append((f"{also[2]} operations", also[0] / also[1] * 1e3))
+        what += f", {also[0] / 1e9:.2f} G {also[2]} ops"
+        if terms[2][1] > BOUND[name][0]:
+            BOUND[name] = (terms[2][1], "operations")
+    top = max(terms, key=lambda t: t[1])
+    print(f"bound {name}: {moved / 1e6:.1f} MB, {what} -> "
+          f"{BOUND[name][0]:.4f} ms ({BOUND[name][1]}, set by the {top[0]}; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in terms) + ")", flush=True)
 
 
 def smi() -> str:
@@ -1341,16 +1355,18 @@ def dct8_phase(dev, card: str, ms: dict) -> dict:
     return counts
 
 
-def ptxas_report(name: str) -> None:
-    """Registers, shared memory and spills of each kernel of
-    csrc/<name>.cu, from ptxas's report in the build log, by kernel and
-    template arguments (demangled where c++filt is installed)."""
+def ptxas_report(name: str, log=None, tag: str = "") -> None:
+    """Registers, shared memory, stack and spills of each kernel of
+    csrc/<name>.cu, from ptxas's report in the build log (this tree's, or
+    `log`, another build's, printed with `tag`), by kernel and template
+    arguments (demangled where c++filt is installed)."""
     rows, kern, spill = [], None, ""
-    for line in _build.library_path(name).with_suffix(".log").read_text().splitlines():
+    log = log or _build.library_path(name).with_suffix(".log")
+    for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
             kern = line.split("'")[1]
         elif "spill stores" in line and kern:
-            spill = line.split(",")[1].strip()
+            spill = line.strip()
         elif "Used" in line and "registers" in line and kern:
             rows.append((kern, line.split(":", 1)[1].strip(), spill))
             kern = None
@@ -1362,7 +1378,7 @@ def ptxas_report(name: str) -> None:
     for name_, (_, used, spill) in zip(names, rows):
         kernel = name_.replace("(anonymous namespace)::", "").split("(")[0]
         kernel = kernel.removeprefix("void ")
-        print(f"ptxas {name}.cu {kernel}: {used}; {spill}", flush=True)
+        print(f"ptxas {tag}{name}.cu {kernel}: {used}; {spill}", flush=True)
 
 
 def synthesized(cfg, inp):
@@ -4080,10 +4096,33 @@ SPRITE_H, SPRITE_W = 240, 320
 # the round-1 animation, cut to 256x384: its pure-Python entropy coding
 # takes ~20 s for one FHD parse (ROADMAP 2B item 10)
 ROUND1_FRAMES, ROUND1_H, ROUND1_W = 8, 256, 384
+# the float64 arithmetic of one glibc powf (encode.cuh powf_glibc): the
+# log2 polynomial (r, r2, r4, its three pairs and the sum, 15), the
+# exponent's scaling and split (xd, kd, rr: 4) and the exp2 polynomial and
+# its scale (8)
+POWF_F64_OPS = 27
 # least fp64 operations per composed value (the BLEND of a colour channel:
 # the alpha's division, 1 - fa, two products, the sum, the division by
 # the coverage, the rounding and the clip)
 COMPOSE_OPS = 12
+
+
+def compose_case(dtype, dev, params: np.ndarray, h: int = ANIM_H,
+                 w: int = ANIM_W):
+    """A seeded h x w canvas and frame of params' channels (compose's
+    int32 parameters), made on the card, the colour's alpha channel with
+    runs of 0 and the largest code; the whole canvas its window."""
+    nch, ncolor = int(params[0]), int(params[1])
+    maxv = 255 if dtype == torch.uint8 else 65535
+    g = torch.Generator(device=dev).manual_seed(21)
+    canvas, src = (torch.randint(0, maxv + 1, (h, w, nch), generator=g,
+                                 device=dev, dtype=torch.int32)
+                   for _ in range(2))
+    for k, a in enumerate((canvas, src)):
+        a[k::3, ::2, ncolor] = 0
+        a[1 + k::4, 1::3, ncolor] = maxv
+    return (canvas.to(dtype), src.to(dtype),
+            COMPOSE.Window(0, 0, 0, 0, w, h))
 
 
 def anim_frame_job(k: int) -> bytes:
@@ -4327,6 +4366,23 @@ def anim_timings(calls: dict, streams: dict, prog, cuts, card: str,
           f"{ms['compose'][1]:.4f} ms, bound {BOUND['compose'][0]:.4f} ms "
           f"({BOUND['compose'][1]}), no PyTorch call computes it [{card}]",
           flush=True)
+    # the same blending at 16 bits: a seeded canvas of the same size
+    canvas16, src16, win16 = compose_case(torch.uint16, src.device, params,
+                                          win.ch, win.cw)
+    got, want = canvas16.clone(), canvas16.clone()
+    COMPOSE.compose(got, src16, win16, params)
+    COMPOSE.compose_plain(want, src16, win16, params)
+    bad = int((got.to(torch.int32) != want.to(torch.int32)).sum())
+    if bad:
+        raise AssertionError(f"A10 u16: {bad} codes differ from its twin")
+    t16 = (graph_ms(lambda: COMPOSE.compose(canvas16, src16, win16, params)),
+           device_ms(lambda: COMPOSE.compose_plain(canvas16, src16, win16,
+                                                   params)))
+    b16 = bound_of(3 * vals * 2, vals * COMPOSE_OPS, F64_OPS_PER_S)
+    print(f"kernel compose (A10) at {win.cw}x{win.ch}x{nch} torch.uint16 "
+          f"(a seeded canvas of the same blending): device {t16[0]:.4f} ms "
+          f"(CUDA graph), plain twin {t16[1]:.4f} ms, bound {b16[0]:.4f} ms "
+          f"({b16[1]}), 0 codes differ from the twin [{card}]", flush=True)
     args, kw, out = calls["batch"][0]
     imgs, qfs = args[0], args[1]
     px = imgs.shape[0] * imgs.shape[2] * imgs.shape[3]
@@ -5334,9 +5390,11 @@ def enc_timings(main_calls: list, special_calls: list, card: str,
     planes = first["front_blocks"][1][0]
     px = planes.shape[1] * planes.shape[2]
     # four sharpen steps: the stencil of three planes (OPS_PX counts all
-    # three) and err -= g, out += err per plane; the XYB 40 a pixel
+    # three) and err -= g, out += err per plane; the XYB 40 f32 a pixel;
+    # and at least the three cbrt powf a pixel in float64 steps
     note_bound("enc_front_planes", nbytes(pix) + 12 * px,
-               px * (OPS_PX["gaborish"] + 3 * 2) * 4 + px * 40)
+               px * (OPS_PX["gaborish"] + 3 * 2) * 4 + px * 40,
+               also=(px * 3 * POWF_F64_OPS, F64_OPS_PER_S, "fp64"))
     ms["enc_front_planes"] = (graph_ms(lambda: EK.front_planes(pix, gab)),
                               device_ms(lambda: EK.front_planes_plain(pix,
                                                                       gab)))

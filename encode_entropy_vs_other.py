@@ -1,9 +1,9 @@
-"""Time E3 (csrc/encode.cu dct_costs_kernel) and the AC entropy decode A1
-(csrc/entropy.cu groups_kernel) against other trees' encode.cu and
-entropy.cu on one CUDA card, in turns, and count the entropy kernel's SASS
-of every build.
+"""Time E1 and E3 (csrc/encode.cu front_planes_kernel, dct_costs_kernel)
+and the AC entropy decode A1 (csrc/entropy.cu groups_kernel) against
+other trees' encode.cu and entropy.cu on one CUDA card, in turns, and
+count the entropy kernel's SASS of every build.
 
-    python3 encode_entropy_vs_other.py [--only e3|a1] [--sass DIR]
+    python3 encode_entropy_vs_other.py [--only e1|e3|a1] [--sass DIR]
         [--stream FILE] OTHER_CSRC [OTHER_CSRC ...]
 
 OTHER_CSRC is another tree's jxl_coder_tpu_torch/csrc: a parent commit's,
@@ -14,11 +14,15 @@ OTHER_CSRC is another tree's jxl_coder_tpu_torch/csrc: a parent commit's,
 
 or an edited copy of this tree's under build/ (a variant to time).  Each
 build is named by its path.  It builds every other encode.cu and entropy.cu
-with this tree's nvcc flags into build/, records the dct_costs calls of
-api.encode(the 4K bench frame, quality 90, effort 7) and the entropy
+with this tree's nvcc flags into build/, records the front_planes and
+dct_costs calls of api.encode(the 4K bench frame, quality 90, effort 7)
+and the entropy
 tables of chip_smoke.py's 4K d1.0 e7 stream (--stream: that stream from a
 file; else cached in the temp directory by chip_smoke.py, else encoded
 here), then, in the order others, this, this, others reversed:
+- E1: the main path's front_planes call, and the same pixels at
+  gab_iters 0 (the XYB alone), by replaying a CUDA graph of 50 calls;
+  every build's planes held to the twin's (0 differences);
 - E3: each of the seven shapes by replaying a CUDA graph of 50 calls, the
   seven summed, beside the fp32 torch.matmul pair of each shape's
   transforms (TF32 off); every build's values and costs held to the twin
@@ -31,7 +35,8 @@ Then cuobjdump -sass of every entropy library into DIR (default
 build/sass) and, per build, groups_kernel<true>'s instructions counted by
 opcode.  The other builds must export jxl_enc_dct_costs and
 jxl_entropy_groups with this tree's arguments.  Each line carries the
-card's name and power limit.
+card's name and power limit; ptxas's report of every encode.cu build
+(stack and spills) is printed first.
 """
 
 from __future__ import annotations
@@ -60,16 +65,49 @@ def label_of(src: Path) -> str:
 
 
 def build(src: Path, name: str, tag: str) -> ctypes.CDLL:
+    """Another tree's csrc/<name>.cu; ptxas's report kept beside it."""
     so = _build.BUILD_DIR / f"lib{name}-{tag}.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src),
-                    "-o", str(so), str(src / f"{name}.cu")], check=True,
-                   capture_output=True)
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src),
+                          "-o", str(so), str(src / f"{name}.cu")],
+                         check=True, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(res.stdout + res.stderr)
     return ctypes.CDLL(str(so))
 
 
 def turns(tags: list) -> list:
     others = [t for t in tags if t != "this"]
     return others + ["this", "this"] + others[::-1]
+
+
+def e1_turns(call, kernels: dict, card: str) -> None:
+    """The main path's front_planes call with each build, in turns, and
+    the same pixels at gab_iters 0 (the XYB alone)."""
+    pix, gab = call[1]
+    want = {g: EK.front_planes_plain(pix, g) for g in (gab, 0)}
+    orig = EK._kernels
+    times = collections.defaultdict(list)
+    try:
+        for tag in turns(list(kernels)):
+            fn = kernels[tag]
+            EK._kernels = lambda fn=fn: {**orig(), "front_planes": fn}
+            for g, ref in want.items():
+                got = EK.front_planes(pix, g)
+                torch.cuda.synchronize()
+                if not torch.equal(got.view(torch.int32),
+                                   ref.view(torch.int32)):
+                    raise AssertionError(f"E1 {tag}: planes differ from the "
+                                         f"twin at gab_iters {g}")
+                t = cs.graph_ms(lambda: EK.front_planes(pix, g))
+                times[(tag, g)].append(t)
+                print(f"E1 {tag} at {pix.shape[1]}x{pix.shape[0]} "
+                      f"{pix.dtype} gab_iters {g}: {t:.4f} ms, 0 values "
+                      f"differ from the twin [{card}]", flush=True)
+    finally:
+        EK._kernels = orig
+    for (tag, g), v in times.items():
+        print(f"E1 at 4k gab_iters {g}, {tag}: " +
+              " / ".join(f"{x:.4f}" for x in v) + f" ms [{card}]",
+              flush=True)
 
 
 def e3_turns(calls: list, kernels: dict, card: str) -> None:
@@ -181,7 +219,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(
         description="E3 and A1 against other trees' sources, in turns")
     ap.add_argument("others", nargs="+", type=Path)
-    ap.add_argument("--only", choices=("e3", "a1"))
+    ap.add_argument("--only", choices=("e1", "e3", "a1"))
     ap.add_argument("--sass", type=Path, default=Path("build/sass"))
     ap.add_argument("--stream", type=Path)
     opts = ap.parse_args()
@@ -192,24 +230,35 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = cs.smi()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    names = [n for n, k in (("encode", "e3"), ("entropy", "a1"))
-             if opts.only in (None, k)]
+    names = [n for n, k in (("encode", ("e1", "e3")), ("entropy", ("a1",)))
+             if opts.only is None or opts.only in k]
     srcs = {label_of(p.resolve()): p.resolve() for p in opts.others}
     with ThreadPoolExecutor(8) as ex:
         futs = {(tag, n): ex.submit(build, src, n, tag)
                 for tag, src in srcs.items() for n in names}
         libs = {k: f.result() for k, f in futs.items()}
     if "encode" in names:
-        this = EK._kernels()["dct_costs"]
-        e3 = {tag: _build.bind(libs[(tag, "encode")], "jxl_enc_dct_costs",
-                               this.argtypes[:-1]) for tag in srcs}
-        e3["this"] = this
+        this = EK._kernels()
         cs.ptxas_report("encode")
+        for tag in srcs:
+            cs.ptxas_report("encode", _build.BUILD_DIR /
+                            f"libencode-{tag}.log", f"{tag} ")
         calls = []
         with cs.enc_recorded(calls):
             api.encode(cs.bench_frame(2160, 3840), lossless=False,
                        quality=90, effort=7, device="cuda")
-        e3_turns([c for c in calls if c[0] == "dct_costs"], e3, card)
+        for kind, key, fn in (("e1", "front_planes", "jxl_enc_front_planes"),
+                              ("e3", "dct_costs", "jxl_enc_dct_costs")):
+            if opts.only not in (None, kind):
+                continue
+            builds = {tag: _build.bind(libs[(tag, "encode")], fn,
+                                       this[key].argtypes[:-1])
+                      for tag in srcs}
+            builds["this"] = this[key]
+            if kind == "e1":
+                e1_turns(next(c for c in calls if c[0] == key), builds, card)
+            else:
+                e3_turns([c for c in calls if c[0] == key], builds, card)
     if "entropy" in names:
         this = ENT._kernel()
         a1 = {tag: _build.bind(libs[(tag, "entropy")], "jxl_entropy_groups",

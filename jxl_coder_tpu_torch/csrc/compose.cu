@@ -6,19 +6,27 @@
 // frame's crop window onto the canvas by the frame header's blending (the
 // colour by blending_info, each extra channel by its ec_blending_info; the
 // five blend modes, clamp, associated alpha).  The window is clipped on
-// the host.  A thread owns one canvas pixel of the window and runs
-// compose.cuh's compose_pixel over its channels in float64: the codes
-// equal the reference's.  Up to kMaxExtra (8) extra channels one launch
-// blends every channel; beyond, one launch per group of 8 extra channels
-// (the colour with the first), each reading the background alpha from a
-// copy of the window the wrapper makes before the first.
+// the host.  compose.cuh holds the program: a block stages a segment of
+// window rows of the frame and of the canvas in shared memory by 16-byte
+// loads, blends a pixel a thread (compose_pixel, float64, the codes equal
+// the reference's), and stores the canvas segment back by 16-byte stores,
+// the partial vectors at its ends a byte at a time.  Up to kMaxExtra (8)
+// extra channels one launch blends every channel; beyond, one launch per
+// group of 8 extra channels (the colour with the first), each reading the
+// background alpha from a copy of the window the wrapper makes before the
+// first.  compose_kernel<T, NC, NE> is instantiated on the sample type, the
+// colour's channels (1, 3) and 2 or 8 extra channels, the least that holds
+// the launch's (8 instantiations; 20, on each of 0, 1, 2, 4 and 8, ran no
+// faster and took 30 s to build): no blending is indexed at run time, so
+// nothing lives in local memory (ptxas: 0 bytes of stack).
 //
 // What bounds it on the H100: bytes.  Each window pixel's frame values and
 // canvas values are read once and the canvas values written once (FHD
-// RGBA8: 24.9 MB, 0.0074 ms at 3.35 TB/s); the float64 arithmetic is ~40
-// operations a pixel, far under the card's fp64 rate.  Neighbouring
-// threads take neighbouring pixels, so a warp's reads and writes are one
-// contiguous run of the row.
+// RGBA + depth u8: 31.1 MB, 0.0093 ms at 3.35 TB/s); the float64 work is
+// ~40 operations a pixel with up to four IEEE divisions (a u8 code's
+// quotient by 255 comes from a table of the 256).  The design it
+// replaces, a thread a pixel reading its bytes at a stride of nch with
+// Params copied to a 272-byte stack, ran at 10.8x the byte bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,21 +37,69 @@ namespace {
 
 using namespace jxl_blend;
 
-constexpr int TX = 32, TY = 8;
+// a phase of the block program: this thread's part, then the barrier
+struct BlockEach {
+  template <typename F>
+  __host__ __device__ void operator()(F phase) const {
+#if defined(__CUDA_ARCH__)
+    phase((int)threadIdx.x);
+    __syncthreads();
+#endif
+  }
+};
+
+template <typename T, int NC, int NE>
+__global__ void __launch_bounds__(kThreads)
+    compose_kernel(Walk<T, NC, NE> w) {
+  extern __shared__ __align__(16) char s[];
+  w.run(blockIdx.x, blockIdx.y, s, BlockEach{});
+}
+
+template <typename T, int NC, int NE>
+cudaError_t launch(void* canvas, int canvas_w, const void* src, int src_w,
+                   const void* bg, int sx, int sy, int dx, int dy, int cw,
+                   int ch, const Params& p, cudaStream_t s) {
+  Walk<T, NC, NE> w;
+  w.canvas = static_cast<T*>(canvas);
+  w.src = static_cast<const T*>(src);
+  w.bg = static_cast<const T*>(bg);
+  w.canvas_w = canvas_w;
+  w.src_w = src_w;
+  w.sx = sx;
+  w.sy = sy;
+  w.dx = dx;
+  w.dy = dy;
+  w.cw = cw;
+  w.ch = ch;
+  w.p = p;
+  w.g = geo_of(cw, ch, p.nch * (int)sizeof(T), bg != nullptr,
+               sizeof(T) == 1);
+  const dim3 grid(w.g.nseg, (ch + w.g.rows - 1) / w.g.rows);
+  compose_kernel<T, NC, NE>
+      <<<grid, kThreads, shared_bytes(w.g), s>>>(w);
+  return cudaGetLastError();
+}
+
+template <typename T, int NC>
+cudaError_t by_extra(void* canvas, int canvas_w, const void* src, int src_w,
+                     const void* bg, int sx, int sy, int dx, int dy, int cw,
+                     int ch, const Params& p, cudaStream_t s) {
+  if (ne_of(p.ng) == 2)
+    return launch<T, NC, 2>(canvas, canvas_w, src, src_w, bg, sx, sy, dx, dy,
+                            cw, ch, p, s);
+  return launch<T, NC, kMaxExtra>(canvas, canvas_w, src, src_w, bg, sx, sy,
+                                  dx, dy, cw, ch, p, s);
+}
 
 template <typename T>
-__global__ void __launch_bounds__(TX* TY)
-    compose_kernel(T* __restrict__ canvas, int canvas_w,
-                   const T* __restrict__ src, int src_w,
-                   const T* __restrict__ bg, int sx, int sy, int dx, int dy,
-                   int cw, int ch, Params p) {
-  const int x = blockIdx.x * TX + threadIdx.x;
-  const int y = blockIdx.y * TY + threadIdx.y;
-  if (x >= cw || y >= ch) return;
-  const T* s = src + ((long long)(sy + y) * src_w + sx + x) * p.nch;
-  T* d = canvas + ((long long)(dy + y) * canvas_w + dx + x) * p.nch;
-  const T* b = bg != nullptr ? bg + ((long long)y * cw + x) * p.nch : nullptr;
-  compose_pixel<T>(s, d, b, p);
+cudaError_t by_colour(void* canvas, int canvas_w, const void* src, int src_w,
+                      const void* bg, int sx, int sy, int dx, int dy, int cw,
+                      int ch, const Params& p, cudaStream_t s) {
+  if (p.ncolor == 1)
+    return by_extra<T, 1>(canvas, canvas_w, src, src_w, bg, sx, sy, dx, dy,
+                          cw, ch, p, s);
+  return by_extra<T, 3>(canvas, canvas_w, src, src_w, bg, sx, sy, dx, dy, cw,
+                        ch, p, s);
 }
 
 }  // namespace
@@ -66,19 +122,12 @@ extern "C" int jxl_compose(void* canvas, int dtype, int canvas_w,
   Params p;
   if (!params_of(ip, maxv, g0, &p) || (p.n_ec > kMaxExtra && bg == nullptr))
     return cudaErrorInvalidValue;
-  const dim3 grid((cw + TX - 1) / TX, (ch + TY - 1) / TY), block(TX, TY);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    compose_kernel<uint8_t><<<grid, block, 0, s>>>(
-        static_cast<uint8_t*>(canvas), canvas_w,
-        static_cast<const uint8_t*>(src), src_w,
-        static_cast<const uint8_t*>(bg), sx, sy, dx, dy, cw, ch, p);
-  else if (dtype == 1)
-    compose_kernel<uint16_t><<<grid, block, 0, s>>>(
-        static_cast<uint16_t*>(canvas), canvas_w,
-        static_cast<const uint16_t*>(src), src_w,
-        static_cast<const uint16_t*>(bg), sx, sy, dx, dy, cw, ch, p);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+    return by_colour<uint8_t>(canvas, canvas_w, src, src_w, bg, sx, sy, dx,
+                              dy, cw, ch, p, s);
+  if (dtype == 1)
+    return by_colour<uint16_t>(canvas, canvas_w, src, src_w, bg, sx, sy, dx,
+                               dy, cw, ch, p, s);
+  return cudaErrorInvalidValue;
 }

@@ -4,18 +4,27 @@
 //
 // They replace the jitted JAX front end of
 // jxl_coder_tpu/vardct/enc_device.py, which holds no Pallas kernel:
-//   E1 front_planes_kernel (_front's first half, enc_device.py:111-119, with
-//      tpu_real.gaborish_device): sRGB samples -> linear (glibc's powf, the
-//      twin's ops/fp.py powf, in float64 steps) -> the 3x3 opsin mix (the
-//      twin's fp.contract3: sequential, each step fused in float64) -> cbrt
-//      (powf(|x|, 1/3)) -> X, Y, B - Y, then four Neumann steps err -=
-//      gab(err), out += err on each plane.  A thread block a 32 x 16 tile
-//      with a 4-sample halo: the window loads clamped coordinates (for one
-//      sample numpy's "symmetric" pad repeats the edge), each step computes
-//      its in-frame window samples, then copies the edge into the
-//      out-of-frame ones, which is the twin's per-step padding; so the
-//      planes equal the twin's to the bit.  Bound by bytes (the samples
-//      read once, 12 B written a pixel).
+//   E1 front_planes_kernel<ITERS> (_front's first half,
+//      enc_device.py:111-119, with tpu_real.gaborish_device): sRGB samples
+//      -> linear (glibc's powf, the twin's ops/fp.py powf, in float64
+//      steps; a u8 code through a table of the 256 values the same
+//      function gives) -> the 3x3 opsin mix (the twin's fp.contract3:
+//      sequential, each step fused in float64) -> cbrt (powf(|x|, 1/3)) ->
+//      X, Y, B - Y, then ITERS (0-4) Neumann steps err -= gab(err), out +=
+//      err on each plane.  encode.cuh's strip walk: a 4-warp block walks
+//      a strip of 64 columns (56 of output) and 64 output rows down the
+//      frame in chunks of 8 rows; every thread computes the XYB of the
+//      chunk's pixels once into shared memory (powf's tables copied there),
+//      then warp c runs plane c's steps in registers, a lane two columns, a
+//      three-row window per step with the horizontal neighbours by shuffle,
+//      no barrier between steps; the frame's edge is each step's
+//      one-sample replicate pad, by clamped neighbours.  So the planes
+//      equal the twin's to the bit.  Bound by bytes (the samples read once,
+//      12 B written a pixel), with the cbrt's float64 steps close behind.
+//      The design it replaces (a 32 x 16 tile in a 40 x 24 window
+//      a block, XYB on the whole window, each of the 12 plane-steps a pass
+//      over shared memory with a barrier and an edge-copy pass) ran at 27x
+//      that bound.
 //   E2 front_blocks_kernel (_front's second half, :120-152): a thread block
 //      a 64-px tile, a warp a row of its 8x8 blocks.  Per block: the DCT8
 //      analysis (the basis in shared memory, two passes of 8-term sums),
@@ -89,97 +98,89 @@ __host__ __device__ inline unsigned cdiv(long long a, int b) {
 // ---------------------------------------------------------------------------
 // E1
 
-constexpr int E1_TW = 32, E1_TH = 16, E1_HALO = 4;
-constexpr int E1_WW = E1_TW + 2 * E1_HALO, E1_WH = E1_TH + 2 * E1_HALO;
-constexpr int E1_THREADS = 256;
-constexpr int E1_CORE = E1_TW * E1_TH / E1_THREADS;   // core samples a thread
+using jxl_enc::FrontShared;
+using jxl_enc::FrontStrip;
+using jxl_enc::kE1Chunk;
+using jxl_enc::kE1Out;
+using jxl_enc::kE1Rows;
+using jxl_enc::kE1Side;
+using jxl_enc::kE1Threads;
 
-// consts: opsin (9, row-major), bias, cbrt_bias, w1, w2, norm
-struct FrontConsts {
-  float m[9];
-  float bias, cbrt_bias, w1, w2, norm;
+// encode.cuh PlaneWalk's lanes on the card: a lane's own float, shuffles
+struct CardLanes {
+  using F = float;
+  using B = bool;
+  static __host__ __device__ __forceinline__ int lane() {
+#if defined(__CUDA_ARCH__)
+    return (int)(threadIdx.x & 31);
+#else
+    return 0;
+#endif
+  }
+  static __host__ __device__ __forceinline__ B at(int x0, int col) {
+    return x0 + 2 * lane() == col;
+  }
+  static __host__ __device__ __forceinline__ F left(F v) {
+#if defined(__CUDA_ARCH__)
+    return __shfl_up_sync(0xffffffffu, v, 1);
+#else
+    return v;
+#endif
+  }
+  static __host__ __device__ __forceinline__ F right(F v) {
+#if defined(__CUDA_ARCH__)
+    return __shfl_down_sync(0xffffffffu, v, 1);
+#else
+    return v;
+#endif
+  }
+  static __host__ __device__ __forceinline__ F pick(B c, F a, F b) {
+    return c ? a : b;
+  }
+  static __host__ __device__ __forceinline__ F div(F a, float b) {
+#if defined(__CUDA_ARCH__)
+    return __fdiv_rn(a, b);
+#else
+    return a / b;
+#endif
+  }
+  // the lane's two output columns of a row (lanes past the halo, inside
+  // the frame), one 8-byte store
+  static __host__ __device__ __forceinline__ void store(float* row, int x0,
+                                                        int pw, F a, F b) {
+    const int l = lane(), col = x0 + 2 * l;
+    if (l >= kE1Side / 2 && l < 32 - kE1Side / 2 && col < pw)
+      *reinterpret_cast<float2*>(row + col) = make_float2(a, b);
+  }
 };
 
-__global__ void __launch_bounds__(E1_THREADS)
+template <int ITERS>
+__global__ void __launch_bounds__(kE1Threads)
     front_planes_kernel(const void* __restrict__ pix, int code,
-                        float* __restrict__ out, int ph, int pw, int iters,
+                        float* __restrict__ out, int ph, int pw,
                         const float* __restrict__ consts) {
-  __shared__ float s_p[3][E1_WH][E1_WW];   // X, Y, B - Y of the window
-  __shared__ float s_e[2][E1_WH][E1_WW];   // err, ping-pong
-  __shared__ FrontConsts k;
-  const int tid = threadIdx.x;
-  if (tid < 14) (&k.m[0])[tid] = consts[tid];
+  __shared__ FrontShared s;
+  const int k = threadIdx.x, warp = k >> 5, lane = k & 31;
+  jxl_enc::front_tables(k, consts, s);
   __syncthreads();
-  const int x0 = blockIdx.x * E1_TW - E1_HALO;
-  const int y0 = blockIdx.y * E1_TH - E1_HALO;
-  for (int w = tid; w < E1_WH * E1_WW; w += E1_THREADS) {
-    const int wy = w / E1_WW, wx = w % E1_WW;
-    const int gy = min(max(y0 + wy, 0), ph - 1);
-    const int gx = min(max(x0 + wx, 0), pw - 1);
-    const long long base = ((long long)gy * pw + gx) * 3;
-    float lin[3], xyb[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      lin[c] = jxl_enc::srgb_to_linear(
-          jxl_enc::unit_sample(pix, code, base + c));
-    jxl_enc::xyb_of(k.m, k.bias, k.cbrt_bias, lin, xyb);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) s_p[c][wy][wx] = xyb[c];
-  }
-  __syncthreads();
-  for (int c = 0; c < 3; ++c) {
-    float acc[E1_CORE];
-#pragma unroll
-    for (int j = 0; j < E1_CORE; ++j) {
-      const int p = tid + j * E1_THREADS;
-      acc[j] = s_p[c][E1_HALO + p / E1_TW][E1_HALO + p % E1_TW];
-    }
-    for (int step = 1; step <= iters; ++step) {
-      float(*src)[E1_WW] = step == 1 ? s_p[c] : s_e[step & 1];
-      float(*dst)[E1_WW] = s_e[(step + 1) & 1];
-      const int vh = E1_WH - 2 * step, vw = E1_WW - 2 * step;
-      for (int w = tid; w < vh * vw; w += E1_THREADS) {
-        const int wy = step + w / vw, wx = step + w % vw;
-        const int gy = y0 + wy, gx = x0 + wx;
-        if (gy < 0 || gy >= ph || gx < 0 || gx >= pw) continue;
-        const float cc = src[wy][wx];
-        const float s1 = __fadd_rn(
-            __fadd_rn(__fadd_rn(src[wy - 1][wx], src[wy + 1][wx]),
-                      src[wy][wx - 1]),
-            src[wy][wx + 1]);
-        const float s2 = __fadd_rn(
-            __fadd_rn(__fadd_rn(src[wy - 1][wx - 1], src[wy - 1][wx + 1]),
-                      src[wy + 1][wx - 1]),
-            src[wy + 1][wx + 1]);
-        const float gab = __fdiv_rn(
-            __fadd_rn(__fadd_rn(cc, __fmul_rn(k.w1, s1)), __fmul_rn(k.w2, s2)),
-            k.norm);
-        dst[wy][wx] = __fsub_rn(cc, gab);
-      }
-      __syncthreads();
-      for (int w = tid; w < vh * vw; w += E1_THREADS) {
-        const int wy = step + w / vw, wx = step + w % vw;
-        const int gy = y0 + wy, gx = x0 + wx;
-        if (gy >= 0 && gy < ph && gx >= 0 && gx < pw) continue;
-        dst[wy][wx] = dst[min(max(gy, 0), ph - 1) - y0]
-                         [min(max(gx, 0), pw - 1) - x0];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < E1_CORE; ++j) {
-        const int p = tid + j * E1_THREADS;
-        acc[j] = __fadd_rn(acc[j],
-                           dst[E1_HALO + p / E1_TW][E1_HALO + p % E1_TW]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < E1_CORE; ++j) {
-      const int p = tid + j * E1_THREADS;
-      const int gy = y0 + E1_HALO + p / E1_TW, gx = x0 + E1_HALO + p % E1_TW;
-      if (gy < ph && gx < pw)
-        out[((long long)c * ph + gy) * pw + gx] = acc[j];
-    }
+  const FrontStrip st =
+      jxl_enc::front_strip(blockIdx.x, blockIdx.y, ph, ITERS);
+  jxl_enc::PlaneWalk<ITERS, CardLanes> walk;
+  walk.init(st.x0, pw);
+  const jxl_enc::FrontConsts kc = s.k;   // in registers across the barriers
+  float* plane = out + (long long)min(warp, 2) * ph * pw;
+  int buf = 0;
+  for (int tc = st.a0; tc <= st.t_end; tc += kE1Chunk, buf ^= 1) {
+    jxl_enc::front_xyb(k, pix, code, ph, pw, st, tc, buf, s);
     __syncthreads();
+    if (warp < 3) {
+#pragma unroll 1
+      for (int r = 0; r < kE1Chunk && tc + r <= st.t_end; ++r) {
+        const float2 x =
+            *reinterpret_cast<const float2*>(&s.xyb[buf][warp][r][2 * lane]);
+        walk.row(tc + r, x.x, x.y, st, ph, pw, kc, plane);
+      }
+    }
   }
 }
 
@@ -738,9 +739,31 @@ extern "C" {
 int jxl_enc_front_planes(const void* pix, int code, float* out, int ph,
                          int pw, int iters, const float* consts,
                          cudaStream_t stream) {
-  const dim3 grid(cdiv(pw, E1_TW), cdiv(ph, E1_TH));
-  front_planes_kernel<<<grid, E1_THREADS, 0, stream>>>(pix, code, out, ph,
-                                                       pw, iters, consts);
+  const dim3 grid(cdiv(pw, kE1Out), cdiv(ph, kE1Rows));
+  switch (iters) {
+    case 0:
+      front_planes_kernel<0><<<grid, kE1Threads, 0, stream>>>(
+          pix, code, out, ph, pw, consts);
+      break;
+    case 1:
+      front_planes_kernel<1><<<grid, kE1Threads, 0, stream>>>(
+          pix, code, out, ph, pw, consts);
+      break;
+    case 2:
+      front_planes_kernel<2><<<grid, kE1Threads, 0, stream>>>(
+          pix, code, out, ph, pw, consts);
+      break;
+    case 3:
+      front_planes_kernel<3><<<grid, kE1Threads, 0, stream>>>(
+          pix, code, out, ph, pw, consts);
+      break;
+    case 4:
+      front_planes_kernel<4><<<grid, kE1Threads, 0, stream>>>(
+          pix, code, out, ph, pw, consts);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
-"""Time the unsqueeze kernel (csrc/modular.cu) and the banded resample S3
-(csrc/sample.cu) against other trees' on one CUDA card, in turns.
+"""Time the unsqueeze kernel (csrc/modular.cu), the banded resample S3
+(csrc/sample.cu) and the composition A10 (csrc/compose.cu) against other
+trees' on one CUDA card, in turns.
 
-    python3 modular_vs_other.py OTHER_CSRC [OTHER_CSRC ...] [--only=a2|s3]
+    python3 modular_vs_other.py OTHER_CSRC [OTHER_CSRC ...] [--only=a2|s3|a10]
 
 Each OTHER_CSRC is another tree's jxl_coder_tpu_torch/csrc, for a commit:
 
@@ -9,20 +10,25 @@ Each OTHER_CSRC is another tree's jxl_coder_tpu_torch/csrc, for a commit:
     git archive <commit> jxl_coder_tpu_torch/csrc | tar -x -C build/parent
     python3 modular_vs_other.py build/parent/jxl_coder_tpu_torch/csrc
 
-It builds each other modular.cu and sample.cu with this tree's nvcc flags
-into build/ and times, by replaying a CUDA graph of 50 calls, each build's
-in the order other(s), this, this, other(s) reversed:
+It builds each other modular.cu, sample.cu and compose.cu with this tree's
+nvcc flags into build/ and times, by replaying a CUDA graph of 50 calls,
+each build's in the order other(s), this, this, other(s) reversed:
 - jxl_unsqueeze on chip_smoke.py's 4K planes (the first horizontal and
   the first vertical squeeze of a 3840x2160 plane);
 - jxl_resample on chip_smoke.py's S3 cases: 4K RGB8 and RGBA8 -> 1920x1080
   Mitchell, 4K x6 u8 -> 1920x1080 Mitchell, the 8x Catmull-Rom upscale
   480x270 -> 3840x2160 (a cut-short render's DC image), 4K -> FIT 480x270
-  Mitchell (a thumbnail's widest band).
+  Mitchell (a thumbnail's widest band);
+- jxl_compose on the FHD x5 whole-canvas BLEND call of chip_smoke.py's
+  phase 16 (RGB + alpha + depth, the sprite animation's last frame's
+  blending), on a seeded canvas and frame (chip_smoke.compose_case), u8
+  and u16, and the same window with every channel REPLACE (the staging
+  and the stores alone).
 Every build's output is checked equal to this tree's first (0 codes or
-values).  The other builds must export jxl_unsqueeze and jxl_resample
-with this tree's arguments; another tree's jxl_resample is handed its
-float32 scratch (rows x W x C), this tree's gets null.  Each line carries
-the card's name and power limit.
+values).  The other builds must export jxl_unsqueeze, jxl_resample and
+jxl_compose with this tree's arguments; another tree's jxl_resample is
+handed its float32 scratch (rows x W x C), this tree's gets null.  Each
+line carries the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import chip_smoke as cs
 from jxl_coder_tpu_torch import _build
 from jxl_coder_tpu_torch.host.modular import transform as MT
 from jxl_coder_tpu_torch.modular import device as MDEV
+from jxl_coder_tpu_torch.ops import compose as COMPOSE
 from jxl_coder_tpu_torch.ops import resize as RESIZE
 
 # label: (source (h, w, C), target (w, h), scale mode, filter)
@@ -77,10 +84,13 @@ def resample_call(fn, img, pl, bnd, out, scratch):
 
 
 def build(src: Path, name: str, n: int, fn: str, argtypes):
+    """Another tree's csrc/<name>.cu, bound; ptxas's report kept beside
+    the library."""
     so = _build.BUILD_DIR / f"lib{name}-other{n}.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src),
-                    "-o", str(so), str(src / f"{name}.cu")],
-                   check=True, capture_output=True)
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src),
+                          "-o", str(so), str(src / f"{name}.cu")],
+                         check=True, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(res.stdout + res.stderr)
     return _build.bind(ctypes.CDLL(str(so)), fn, argtypes)
 
 
@@ -135,6 +145,45 @@ def time_s3(others, this, dev, card) -> None:
                   f"{ms:.4f} ms, 0 codes differ [{card}]", flush=True)
 
 
+# the sprite animation's whole-canvas frame (port_fixtures.SPRITE_FRAMES'
+# last): RGB + alpha + depth, the colour, alpha (clamped) and depth all
+# BLEND through alpha 0, no associated alpha (ops/compose.blend_params)
+A10_PARAMS = {
+    "BLEND": np.asarray([5, 3, 2, 2, 0, 0, 2, 0, 1, 0, 2, 0, 0, 0], np.int32),
+    # every channel REPLACE: the staging and the stores without arithmetic
+    "REPLACE": np.asarray([5, 3, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                          np.int32)}
+
+
+def time_a10(others, this, dev, card) -> None:
+    order = others + [("this", this)] * 2 + others[::-1]
+    orig = COMPOSE._kernel
+    try:
+        for dtype in (torch.uint8, torch.uint16):
+            for mode, params in A10_PARAMS.items():
+                canvas, src, win = cs.compose_case(dtype, dev, params)
+                COMPOSE._kernel = lambda: this
+                want = canvas.clone()
+                COMPOSE.compose(want, src, win, params)
+                for tag, fn in order:
+                    COMPOSE._kernel = lambda fn=fn: fn
+                    got = canvas.clone()
+                    COMPOSE.compose(got, src, win, params)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got.to(torch.int32),
+                                       want.to(torch.int32)):
+                        raise AssertionError(f"{tag}: compose differs from "
+                                             f"this tree's")
+                    ms = cs.graph_ms(lambda: COMPOSE.compose(got, src, win,
+                                                             params))
+                    print(f"compose FHD x5 {str(dtype).split('.')[-1]} "
+                          f"whole-canvas {mode}, {tag} tree's compose.cu: "
+                          f"graph {ms:.4f} ms, 0 codes differ [{card}]",
+                          flush=True)
+    finally:
+        COMPOSE._kernel = orig
+
+
 def main() -> int:
     args = [a for a in sys.argv[1:] if not a.startswith("--only")]
     only = next((a.split("=", 1)[1] for a in sys.argv[1:]
@@ -150,7 +199,8 @@ def main() -> int:
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     this_a2 = MDEV._kernels()
     this_s3 = RESIZE._kernel()
-    a2, s3 = [], []
+    this_a10 = COMPOSE._kernel()
+    a2, s3, a10 = [], [], []
     for n, arg in enumerate(args):
         src = Path(arg).resolve()
         if only in (None, "a2"):
@@ -159,10 +209,19 @@ def main() -> int:
         if only in (None, "s3"):
             s3.append((arg, build(src, "sample", n, "jxl_resample",
                                   this_s3.argtypes[:-1])))
+        if only in (None, "a10"):
+            a10.append((arg, build(src, "compose", n, "jxl_compose",
+                                   this_a10.argtypes[:-1])))
     if only in (None, "a2"):
         time_a2(a2, this_a2, dev, card)
     if only in (None, "s3"):
         time_s3(s3, this_s3, dev, card)
+    if only in (None, "a10"):
+        cs.ptxas_report("compose")
+        for n, arg in enumerate(args):
+            cs.ptxas_report("compose", _build.BUILD_DIR /
+                            f"libcompose-other{n}.log", f"{arg} ")
+        time_a10(a10, this_a10, dev, card)
     return 0
 
 

@@ -275,52 +275,133 @@ def test_compose_rejects_what_the_reference_cannot_blend():
 
 _COMPOSE_RUN = r"""
 #include <cstdlib>
+#include <cstring>
+#include <functional>
 #include <vector>
 #include "compose.cuh"
 using namespace jxl_blend;
-// compose.cu's launches and their threads one after another on the host:
-// one launch per group of kMaxExtra extra channels, the window's canvas
-// values copied first when there is more than one
+// compose.cu's launches and their blocks one after another on the host,
+// each block's phases over its threads one after another: one launch per
+// group of kMaxExtra extra channels, the window's canvas values copied
+// first when there is more than one
+// every block's phase k before any block's phase k + 1, the blocks last to
+// first and each block's threads one after another: a block that wrote a
+// byte outside its segment would put back a stale value over a
+// neighbour's blended one
+struct HostPhases {
+  std::vector<std::function<void(int)>>* phases;
+  template <typename F>
+  void operator()(F phase) const {
+    phases->push_back(phase);
+  }
+};
+template <typename T, int NC, int NE>
+static void walk(T* canvas, int canvas_w, const T* src, int src_w,
+                 const T* bg, int sx, int sy, int dx, int dy, int cw, int ch,
+                 const Params& p) {
+  Walk<T, NC, NE> w;
+  w.canvas = canvas; w.src = src; w.bg = bg;
+  w.canvas_w = canvas_w; w.src_w = src_w;
+  w.sx = sx; w.sy = sy; w.dx = dx; w.dy = dy; w.cw = cw; w.ch = ch;
+  w.p = p;
+  w.g = geo_of(cw, ch, p.nch * (int)sizeof(T), bg != nullptr,
+               sizeof(T) == 1);
+  const int nrb = (ch + w.g.rows - 1) / w.g.rows;
+  std::vector<std::vector<double>> s(nrb * w.g.nseg);
+  std::vector<std::vector<std::function<void(int)>>> blocks;
+  for (int rb = nrb - 1; rb >= 0; --rb)
+    for (int seg = w.g.nseg - 1; seg >= 0; --seg) {
+      std::vector<double>& sm = s[rb * w.g.nseg + seg];
+      sm.resize((shared_bytes(w.g) + 7) / 8);
+      blocks.emplace_back();
+      // the phases of the block, recorded (w and sm outlive them)
+      w.run(seg, rb, (char*)sm.data(), HostPhases{&blocks.back()});
+    }
+  for (size_t ph = 0; ph < blocks[0].size(); ++ph)
+    for (auto& b : blocks)
+      for (int k = 0; k < kThreads; ++k) b[ph](k);
+}
+template <typename T, int NC>
+static void by_extra(T* c, int cwd, const T* s, int swd, const T* bg, int sx,
+                     int sy, int dx, int dy, int cw, int ch, const Params& p) {
+  if (ne_of(p.ng) == 2)
+    return walk<T, NC, 2>(c, cwd, s, swd, bg, sx, sy, dx, dy, cw, ch, p);
+  return walk<T, NC, 8>(c, cwd, s, swd, bg, sx, sy, dx, dy, cw, ch, p);
+}
+// a copy of n bytes at an address of the given remainder mod 16, with 48
+// guard bytes of 0xA5 on each side
+struct Guarded {
+  std::vector<char> buf;
+  char* at;
+  size_t n;
+  Guarded(const void* data, size_t n_, int rem) : buf(n_ + 128, (char)0xA5), n(n_) {
+    char* b = buf.data() + 48;
+    at = b + (((rem - (int)((uintptr_t)b & 15)) % 16) + 16) % 16;
+    memcpy(at, data, n);
+  }
+  bool intact() const {
+    for (const char* q = buf.data(); q < buf.data() + buf.size(); ++q)
+      if ((q < at || q >= at + n) && *q != (char)0xA5) return false;
+    return true;
+  }
+};
 template <typename T>
-static void run(T* canvas, int canvas_w, const T* src, int src_w, int sx,
-                int sy, int dx, int dy, int cw, int ch, const int* ip,
-                double maxv) {
+static int run(T* canvas, int H, int canvas_w, const T* src, int h,
+               int src_w, int sx, int sy, int dx, int dy, int cw, int ch,
+               const int* ip, double maxv, int coff, int soff) {
   const int nch = ip[0], n_ec = ip[2];
-  std::vector<T> bg;
+  Guarded cg(canvas, sizeof(T) * H * canvas_w * nch, coff);
+  Guarded sg(src, sizeof(T) * h * src_w * nch, soff);
+  T* c = (T*)cg.at;
+  std::vector<T> bgv;
   if (n_ec > kMaxExtra)
     for (int y = 0; y < ch; ++y)
       for (int x = 0; x < cw * nch; ++x)
-        bg.push_back(canvas[(long long)(dy + y) * canvas_w * nch +
-                            (long long)dx * nch + x]);
+        bgv.push_back(c[(long long)(dy + y) * canvas_w * nch +
+                        (long long)dx * nch + x]);
+  Guarded bgg(bgv.data(), sizeof(T) * bgv.size(), coff ^ 6);
   for (int g0 = 0; g0 < (n_ec > 0 ? n_ec : 1); g0 += kMaxExtra) {
     Params p;
     if (!params_of(ip, maxv, g0, &p)) std::abort();
-    for (int y = 0; y < ch; ++y)
-      for (int x = 0; x < cw; ++x)
-        compose_pixel<T>(
-            src + ((long long)(sy + y) * src_w + sx + x) * nch,
-            canvas + ((long long)(dy + y) * canvas_w + dx + x) * nch,
-            bg.empty() ? nullptr : &bg[((long long)y * cw + x) * nch], p);
+    const T* bg = bgv.empty() ? nullptr : (const T*)bgg.at;
+    if (p.ncolor == 1)
+      by_extra<T, 1>(c, canvas_w, (const T*)sg.at, src_w, bg, sx, sy, dx, dy,
+                     cw, ch, p);
+    else
+      by_extra<T, 3>(c, canvas_w, (const T*)sg.at, src_w, bg, sx, sy, dx, dy,
+                     cw, ch, p);
   }
+  memcpy(canvas, c, cg.n);
+  return cg.intact() && sg.intact() && bgg.intact() &&
+         memcmp(sg.at, src, sg.n) == 0;
 }
-extern "C" void compose_host(void* canvas, int dtype, int canvas_w,
-                             const void* src, int src_w, int sx, int sy,
-                             int dx, int dy, int cw, int ch, const int* ip,
-                             double maxv) {
+// unit's quotients of every 16-bit code by 65535
+extern "C" void compose_units(double* out) {
+  Params p{};
+  p.maxv = 65535.0;
+  p.rcp = 1.0 / 65535.0;
+  for (int v = 0; v < 65536; ++v) out[v] = unit<uint16_t>((uint16_t)v, p, nullptr);
+}
+// 1 when the canvas was composed and no byte outside the canvas (nor any
+// of the frame's) changed; coff, soff: the canvas's and the frame's first
+// byte's address mod 16
+extern "C" int compose_host(void* canvas, int dtype, int H, int canvas_w,
+                            const void* src, int h, int src_w, int sx, int sy,
+                            int dx, int dy, int cw, int ch, const int* ip,
+                            double maxv, int coff, int soff) {
   if (dtype == 0)
-    run((uint8_t*)canvas, canvas_w, (const uint8_t*)src, src_w, sx, sy, dx,
-        dy, cw, ch, ip, maxv);
-  else
-    run((uint16_t*)canvas, canvas_w, (const uint16_t*)src, src_w, sx, sy,
-        dx, dy, cw, ch, ip, maxv);
+    return run((uint8_t*)canvas, H, canvas_w, (const uint8_t*)src, h, src_w,
+               sx, sy, dx, dy, cw, ch, ip, maxv, coff, soff);
+  return run((uint16_t*)canvas, H, canvas_w, (const uint16_t*)src, h, src_w,
+             sx, sy, dx, dy, cw, ch, ip, maxv, coff, soff);
 }
 """
 
 
 @pytest.fixture(scope="module")
 def compose_host(tmp_path_factory):
-    """csrc/compose.cuh's compose_pixel built for the host with g++ (no
-    FMA contraction, as the kernel's -fmad=false)."""
+    """csrc/compose.cuh's row walk built for the host with g++ (no FMA
+    contraction, as the kernel's -fmad=false)."""
     gxx = shutil.which("g++")
     assert gxx, "g++ builds the port's host codec; it is needed here too"
     tmp = tmp_path_factory.mktemp("compose")
@@ -331,18 +412,47 @@ def compose_host(tmp_path_factory):
                     str(_build.CSRC), "-o", str(so), str(cpp)], check=True)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.compose_host.argtypes = [p, i, i, p, i, i, i, i, i, i, i, p,
-                                 ctypes.c_double]
+    lib.compose_host.argtypes = [p, i, i, i, p, i, i, i, i, i, i, i, i, p,
+                                 ctypes.c_double, i, i]
+    lib.compose_units.argtypes = [p]
     return lib
+
+
+def test_compose_unit_is_the_division_for_every_16_bit_code(compose_host):
+    """compose.cuh's code / 65535 (a product by the reciprocal and one
+    fused correction) is the IEEE quotient for all 65,536 codes, as the
+    reference's float64 division."""
+    out = np.empty(65536, np.float64)
+    compose_host.compose_units(out.ctypes.data)
+    ref = np.arange(65536, dtype=np.float64) / 65535.0
+    assert np.array_equal(out.view(np.int64), ref.view(np.int64))
+
+
+def _walk(lib, canvas, pix, fh, m, coff=0, soff=0):
+    """The kernel's program on a copy of canvas, its first byte at an
+    address of coff mod 16 and the frame's at soff; asserts that no byte
+    outside the canvas's and the frame's buffers changed."""
+    got = np.ascontiguousarray(canvas.copy())
+    pix = np.ascontiguousarray(pix)
+    win = C.window(got.shape[:2], pix.shape[:2], fh.x0, fh.y0)
+    if win is not None:
+        ip = C.blend_params(fh, m, pix.shape[2])
+        assert lib.compose_host(
+            got.ctypes.data, int(got.dtype == np.uint16), *got.shape[:2],
+            pix.ctypes.data, *pix.shape[:2], *win, ip.ctypes.data,
+            float(np.iinfo(got.dtype).max), coff, soff) == 1, \
+            "a byte outside the canvas or of the frame changed"
+    return got
 
 
 @pytest.mark.parametrize("ncolor", [1, 3])
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
 def test_compose_kernel_program_equals_the_reference(compose_host, dtype,
                                                      ncolor):
-    """compose_pixel on every pixel of the window, for every pair of the
-    colour's and the alpha channel's modes, the depth channel's mode, clamp
-    and associated alpha drawn per case."""
+    """The kernel's row walk over the whole window (compose_pixel on every
+    pixel), for every pair of the colour's and the alpha channel's modes,
+    the depth channel's mode, clamp and associated alpha drawn per case;
+    the canvas and the frame at drawn addresses mod 16 (u16: even)."""
     rng = np.random.default_rng(ncolor * 10 + np.dtype(dtype).itemsize)
     for mode in range(5):
         for amode in range(5):
@@ -356,16 +466,62 @@ def test_compose_kernel_program_equals_the_reference(compose_host, dtype,
                                                 bool(rng.integers(2)))
                 ref = canvas.copy()
                 ref_api._compose_frame(ref, pix, fh, m)
-                got = np.ascontiguousarray(canvas.copy())
-                win = C.window(got.shape[:2], pix.shape[:2], fh.x0, fh.y0)
-                if win is not None:
-                    ip = C.blend_params(fh, m, pix.shape[2])
-                    compose_host.compose_host(
-                        got.ctypes.data, int(dtype == np.uint16),
-                        got.shape[1], np.ascontiguousarray(pix).ctypes.data,
-                        pix.shape[1], *win, ip.ctypes.data,
-                        float(np.iinfo(dtype).max))
+                step = np.dtype(dtype).itemsize
+                got = _walk(compose_host, canvas, pix, fh, m,
+                            int(rng.integers(16 // step)) * step,
+                            int(rng.integers(16 // step)) * step)
                 assert np.array_equal(got, ref), (mode, amode, offset)
+
+
+# windows that take the walk's other paths: rows cut into segments (more
+# than compose.cuh's kSegBytes a row), several blocks of window rows, one
+# pixel; (canvas, frame, two crop offsets: the window inside the canvas,
+# and at its origin)
+WALK_SHAPES = {"segments": ((4, 2200), (3, 2100), ((17, 1), (-17, -1))),
+               "row blocks": ((75, 23), (71, 21), ((1, 2), (-1, -2))),
+               "one pixel": ((3, 5), (2, 2), ((2, 1), (-1, -1)))}
+
+
+@pytest.mark.parametrize("shape", list(WALK_SHAPES))
+@pytest.mark.parametrize("ncolor", [1, 3])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_compose_row_walk_keeps_the_bytes_outside_the_window(
+        compose_host, dtype, ncolor, shape):
+    """The row walk on windows cut into segments, over several blocks of
+    rows and of one pixel, every colour mode, two crop offsets (the window
+    inside the canvas, and at its origin), the canvas
+    and the frame at drawn addresses mod 16: the codes equal the JAX
+    package's, and every canvas byte outside the window keeps its value."""
+    (hc, wc), (hf, wf), offsets = WALK_SHAPES[shape]
+    rng = np.random.default_rng(ncolor + 7 * np.dtype(dtype).itemsize)
+    maxv = np.iinfo(dtype).max
+    step = np.dtype(dtype).itemsize
+    for mode in range(5):
+        for x0, y0 in offsets:
+            nch = ncolor + 2
+            canvas = rng.integers(0, maxv + 1, (hc, wc, nch)).astype(dtype)
+            pix = rng.integers(0, maxv + 1, (hf, wf, nch)).astype(dtype)
+            for a in (canvas, pix):
+                a[::3, ::2, ncolor] = 0
+                a[1::4, 1::3, ncolor] = maxv
+            fh = NS(x0=x0, y0=y0,
+                    blending_info=_blend(mode, 0, bool(rng.integers(2))),
+                    ec_blending_info=[
+                        _blend(int(rng.integers(5)), 0,
+                               bool(rng.integers(2))),
+                        _blend(int(rng.integers(5)), 0,
+                               bool(rng.integers(2)))])
+            m = _meta(2, bool(rng.integers(2)))
+            ref = canvas.copy()
+            ref_api._compose_frame(ref, pix, fh, m)
+            got = _walk(compose_host, canvas, pix, fh, m,
+                        int(rng.integers(16 // step)) * step,
+                        int(rng.integers(16 // step)) * step)
+            assert np.array_equal(got, ref), (mode, x0, y0)
+            win = C.window(canvas.shape[:2], pix.shape[:2], fh.x0, fh.y0)
+            outside = np.ones(canvas.shape[:2], bool)
+            outside[win.dy:win.dy + win.ch, win.dx:win.dx + win.cw] = False
+            assert np.array_equal(got[outside], canvas[outside])
 
 
 def _many_case(n_ec, mode, dtype, seed, ncolor=3):
@@ -410,14 +566,8 @@ def test_compose_many_extra_channels_equal_the_reference(compose_host,
             ref = canvas.copy()
             ref_api._compose_frame(ref, pix, fh, m)
             assert np.array_equal(_twin_compose(canvas, pix, fh, m), ref)
-            got = np.ascontiguousarray(canvas.copy())
-            win = C.window(got.shape[:2], pix.shape[:2], fh.x0, fh.y0)
-            if win is not None:
-                ip = C.blend_params(fh, m, pix.shape[2])
-                compose_host.compose_host(
-                    got.ctypes.data, int(dtype == np.uint16), got.shape[1],
-                    np.ascontiguousarray(pix).ctypes.data, pix.shape[1],
-                    *win, ip.ctypes.data, float(np.iinfo(dtype).max))
+            got = _walk(compose_host, canvas, pix, fh, m, 2 * mode,
+                        2 * ncolor)
             assert np.array_equal(got, ref), (mode, ncolor)
 
 

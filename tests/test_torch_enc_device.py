@@ -302,6 +302,112 @@ _ENC_RUN = r"""
 #include "encode.cuh"
 using namespace jxl_enc;
 static const float *g_aHT, *g_aWT;   // E3's bases, transposed
+
+// E1's lanes on the host: a warp's 32 lanes as arrays, the shuffles as
+// shifts (lane 0 / 31 keep their own value, as __shfl_up / down_sync)
+struct Lanes32 {
+  float v[32];
+  Lanes32() = default;
+  explicit Lanes32(float x) { for (float& e : v) e = x; }
+};
+static Lanes32 operator+(const Lanes32& a, const Lanes32& b) {
+  Lanes32 r;
+  for (int l = 0; l < 32; ++l) r.v[l] = a.v[l] + b.v[l];
+  return r;
+}
+static Lanes32 operator-(const Lanes32& a, const Lanes32& b) {
+  Lanes32 r;
+  for (int l = 0; l < 32; ++l) r.v[l] = a.v[l] - b.v[l];
+  return r;
+}
+static Lanes32 operator*(float a, const Lanes32& b) {
+  Lanes32 r;
+  for (int l = 0; l < 32; ++l) r.v[l] = a * b.v[l];
+  return r;
+}
+struct Mask32 {
+  bool v[32];
+};
+struct HostLanes {
+  using F = Lanes32;
+  using B = Mask32;
+  static B at(int x0, int col) {
+    B m;
+    for (int l = 0; l < 32; ++l) m.v[l] = x0 + 2 * l == col;
+    return m;
+  }
+  static F left(const F& x) {
+    F r = x;
+    for (int l = 1; l < 32; ++l) r.v[l] = x.v[l - 1];
+    return r;
+  }
+  static F right(const F& x) {
+    F r = x;
+    for (int l = 0; l < 31; ++l) r.v[l] = x.v[l + 1];
+    return r;
+  }
+  static F pick(const B& c, const F& a, const F& b) {
+    F r;
+    for (int l = 0; l < 32; ++l) r.v[l] = c.v[l] ? a.v[l] : b.v[l];
+    return r;
+  }
+  static F div(const F& a, float b) {
+    F r;
+    for (int l = 0; l < 32; ++l) r.v[l] = a.v[l] / b;
+    return r;
+  }
+  static void store(float* row, int x0, int pw, const F& a, const F& b) {
+    for (int l = kE1Side / 2; l < 32 - kE1Side / 2; ++l) {
+      const int col = x0 + 2 * l;
+      if (col < pw) {
+        row[col] = a.v[l];
+        row[col + 1] = b.v[l];
+      }
+    }
+  }
+};
+// E1 (encode.cu front_planes_kernel) block after block: the tables and
+// each chunk's XYB over the block's threads one after another, then the
+// three warps' walks of the chunk's rows, a warp's lanes as arrays
+template <int ITERS>
+static void front_walk(const void* pix, int code, float* out, int ph, int pw,
+                       const float* consts) {
+  std::vector<FrontShared> sv(1);
+  FrontShared& s = sv[0];
+  for (int by = 0; by < (ph + kE1Rows - 1) / kE1Rows; ++by)
+    for (int bx = 0; bx < (pw + kE1Out - 1) / kE1Out; ++bx) {
+      for (int k = 0; k < kE1Threads; ++k) front_tables(k, consts, s);
+      const FrontStrip st = front_strip(bx, by, ph, ITERS);
+      PlaneWalk<ITERS, HostLanes> walks[3];
+      for (auto& w : walks) w.init(st.x0, pw);
+      int buf = 0;
+      for (int tc = st.a0; tc <= st.t_end; tc += kE1Chunk, buf ^= 1) {
+        for (int k = 0; k < kE1Threads; ++k)
+          front_xyb(k, pix, code, ph, pw, st, tc, buf, s);
+        for (int c = 0; c < 3; ++c)
+          for (int r = 0; r < kE1Chunk && tc + r <= st.t_end; ++r) {
+            Lanes32 a, b;
+            for (int l = 0; l < 32; ++l) {
+              a.v[l] = s.xyb[buf][c][r][2 * l];
+              b.v[l] = s.xyb[buf][c][r][2 * l + 1];
+            }
+            walks[c].row(tc + r, a, b, st, ph, pw, s.k,
+                         out + (long long)c * ph * pw);
+          }
+      }
+    }
+}
+extern "C" int enc_front_walk(const void* pix, int code, float* out, int ph,
+                              int pw, int iters, const float* consts) {
+  switch (iters) {
+    case 0: front_walk<0>(pix, code, out, ph, pw, consts); return 0;
+    case 1: front_walk<1>(pix, code, out, ph, pw, consts); return 0;
+    case 2: front_walk<2>(pix, code, out, ph, pw, consts); return 0;
+    case 3: front_walk<3>(pix, code, out, ph, pw, consts); return 0;
+    case 4: front_walk<4>(pix, code, out, ph, pw, consts); return 0;
+  }
+  return 1;
+}
 extern "C" void enc_powf(const float* x, int n, float y, float* out) {
   for (int i = 0; i < n; ++i) out[i] = powf_glibc(x[i], y);
 }
@@ -456,6 +562,7 @@ def enc_host(tmp_path_factory):
     lib.enc_quantize.argtypes = [p, i, f, f, f, p]
     lib.enc_dct_costs.argtypes = [p] * 13 + [i] * 4 + [f] * 3 + [p, i, i,
                                                                  p, p]
+    lib.enc_front_walk.argtypes = [p, i, p, i, i, i, p]
     return lib
 
 
@@ -488,6 +595,40 @@ def test_kernel_xyb_is_the_twins_on_every_grey_and_random_colours(enc_host):
     ref = EK.front_planes_plain(torch.from_numpy(pix), 0).permute(
         1, 2, 0).numpy()
     assert np.array_equal(out.view(np.int32), ref.view(np.int32))
+
+
+# frames of one strip (narrower than its 56 output columns, and as wide),
+# of two strips across, and taller than a strip (64 rows) and than two:
+# the frame's edge falls inside a strip's halo at every step
+FRONT_WALK_SIZES = [(8, 8), (8, 16), (40, 56), (64, 96), (144, 48)]
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
+@pytest.mark.parametrize("h,w", FRONT_WALK_SIZES)
+def test_kernel_front_walk_equals_the_twin(enc_host, h, w, dtype):
+    """E1's strip walk (encode.cuh front_tables, front_xyb and PlaneWalk in
+    the kernel's blocks, chunks and warps), built with g++, against
+    front_planes_plain at every gab_iters 0-4: 0 differences."""
+    img = _image(h, w, seed=h + w)
+    if dtype == np.uint8:
+        pix, view = img, img
+    elif dtype == np.uint16:
+        rng = np.random.default_rng(h * w)
+        pix = (img.astype(np.uint16) * 257 + rng.integers(
+            0, 257, img.shape)).astype(np.uint16)
+        view = pix.view(np.int16)
+    else:
+        pix = (img.astype(np.float32) / np.float32(255.0) * np.float32(
+            0.98)).astype(np.float32)
+        view = pix
+    code = {np.uint8: 0, np.uint16: 1, np.float32: 2}[dtype]
+    k = EK._front_consts(torch.device("cpu")).numpy()
+    for gab in range(5):
+        out = np.full((3, h, w), np.nan, np.float32)
+        assert enc_host.enc_front_walk(_ptr(np.ascontiguousarray(pix)), code,
+                                       _ptr(out), h, w, gab, _ptr(k)) == 0
+        ref = EK.front_planes_plain(torch.from_numpy(view), gab).numpy()
+        assert np.array_equal(out.view(np.int32), ref.view(np.int32)), gab
 
 
 def test_kernel_mask_and_quantiser_are_the_twins(enc_host):
