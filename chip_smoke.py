@@ -621,6 +621,29 @@ def cuda_ms(fn) -> float:
     return statistics.median(times)
 
 
+REFUSED = set()   # kernels whose wrapper refused an unaligned view
+
+
+def refuses_unaligned(name: str, call, t: torch.Tensor) -> None:
+    """call(view), with view a contiguous copy of t that starts 4 bytes
+    past a 16-byte boundary, must raise ValueError before it launches: the
+    kernel reads t in 16-byte loads.  Once a kernel."""
+    if name in REFUSED:
+        return
+    REFUSED.add(name)
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = buf[4 // t.element_size():][:t.numel()].view(t.shape)
+    view.copy_(t)
+    try:
+        call(view)
+    except ValueError as e:
+        print(f"check {name}: an unaligned view is refused ({e})",
+              flush=True)
+        return
+    raise AssertionError(f"{name}: a view 4 bytes off a 16-byte boundary "
+                         f"was not refused")
+
+
 def note_err(name: str, err: float, tol: float, what: str) -> None:
     ERR[name] = max(ERR[name], float(err))
     print(f"parity {name:12s} {what}: max_abs_err {err:.3g} (tol {tol})",
@@ -1355,11 +1378,13 @@ def dct8_phase(dev, card: str, ms: dict) -> dict:
     return counts
 
 
-def ptxas_report(name: str, log=None, tag: str = "") -> None:
+def ptxas_report(name: str, log=None, tag: str = "",
+                 only: str = "") -> None:
     """Registers, shared memory, stack and spills of each kernel of
     csrc/<name>.cu, from ptxas's report in the build log (this tree's, or
     `log`, another build's, printed with `tag`), by kernel and template
-    arguments (demangled where c++filt is installed)."""
+    arguments (demangled where c++filt is installed); `only`: the kernels
+    whose name holds it."""
     rows, kern, spill = [], None, ""
     log = log or _build.library_path(name).with_suffix(".log")
     for line in log.read_text().splitlines():
@@ -1378,7 +1403,9 @@ def ptxas_report(name: str, log=None, tag: str = "") -> None:
     for name_, (_, used, spill) in zip(names, rows):
         kernel = name_.replace("(anonymous namespace)::", "").split("(")[0]
         kernel = kernel.removeprefix("void ")
-        print(f"ptxas {tag}{name}.cu {kernel}: {used}; {spill}", flush=True)
+        if only in kernel:
+            print(f"ptxas {tag}{name}.cu {kernel}: {used}; {spill}",
+                  flush=True)
 
 
 def synthesized(cfg, inp):
@@ -1431,6 +1458,20 @@ def synth_timings(cfg, inp, planes, card: str, ms: dict) -> None:
               f"{int(f.coef.shape[0])} rows, {str(f.coef.dtype)[6:]}): device "
               f"{per[f.sid][0]:.4f} ms, plain {per[f.sid][1]:.3f} ms [{card}]",
               flush=True)
+    for f in fams:
+        if synth.is_dct8(f):
+            # the DCT8 family's IDCT as the fp32 torch.matmul pair (TF32
+            # off) on its blocks' coefficients: the transform alone
+            valid = f.bys != inputs._PAD_SENTINEL
+            coef = synth.coefficients(f)[valid].to(torch.float32).reshape(
+                -1, 3, 8, 8).contiguous()
+            n = coef.shape[0]
+            basis = synth._basis(8, planes.device)
+            LIBRARY_MS["synth_dct8"] = graph_ms(
+                lambda: basis.t() @ (coef @ basis))
+            print(f"synth_dct8 yardstick: the fp32 matmul pair on {n} DCT8 "
+                  f"blocks {LIBRARY_MS['synth_dct8']:.4f} ms [{card}]",
+                  flush=True)
     for k in ("synth_dct8", "synth_family"):
         mine = [f for f in fams if synth_kernel(f) == k]
         synth_bound(k, mine, inp.dc)
@@ -3415,6 +3456,8 @@ def check_overlay_kernels(label: str, data: bytes, dev) -> tuple:
                  f"{(a != b).sum().item()} values not bit-equal, "
                  f"{(a != xyb).sum().item()} changed, "
                  f"{ov.point_tiles[0].numel()} tiles)")
+        refuses_unaligned("draw_splines", lambda boxes: OV.draw_splines(
+            xyb.clone(), ov.points, boxes, *ov.point_tiles), ov.boxes)
     return cfg, inp, xyb
 
 
@@ -3481,10 +3524,13 @@ def overlay_timings(streams: dict, dev, card: str, ms: dict) -> None:
         print(f"kernel {name} at 4k on the {label} stream ({what}): device "
               f"{ms[name][0]:.4f} ms (CUDA graph), plain twin "
               f"{ms[name][1]:.1f} ms, bound {BOUND[name][0]:.4f} ms "
-              f"({BOUND[name][1]}); the JAX route's dense x * mul + add "
+              f"({BOUND[name][1]}); the JAX route's application of planes "
+              f"the host rendered, dense x * mul + add (it renders nothing) "
               f"{LIBRARY_MS[name]:.4f} ms (CUDA graph) after uploading its "
               f"{(mul.nbytes + add.nbytes) / 1e6:.1f} MB of planes in "
               f"{h2d:.2f} ms [{card}]", flush=True)
+        if name == "draw_splines":
+            ptxas_report("overlay", only="splines_kernel")
 
 
 def overlay_phase(jobs: dict, vardct: dict, modular: dict, dev, card: str,
@@ -4094,7 +4140,7 @@ ANIM_WATCH = ANIM_KERNELS + ("synth_family", "synth_dct8",
 ANIM_FRAMES, ANIM_H, ANIM_W = 6, 1080, 1920
 SPRITE_H, SPRITE_W = 240, 320
 # the round-1 animation, cut to 256x384: its pure-Python entropy coding
-# takes ~20 s for one FHD parse (ROADMAP 2B item 10)
+# takes ~20 s for one FHD parse (ROADMAP 2B item 8)
 ROUND1_FRAMES, ROUND1_H, ROUND1_W = 8, 256, 384
 # the float64 arithmetic of one glibc powf (encode.cuh powf_glibc): the
 # log2 polynomial (r, r2, r4, its three pairs and the sum, 15), the
@@ -5191,6 +5237,9 @@ def enc_check_call(call, what: str) -> None:
         enc_check_quant("enc_special_costs", out, cost, ref, ref_cost, ratios,
                         f"{what} sid {args[8]}", elig=args[7],
                         block_dep=True)
+        refuses_unaligned(
+            "enc_special_costs", lambda planes: EK.special_costs(
+                planes, *args[1:-1], torch.empty_like(cost)), args[0])
     else:
         ref = EK.gather_rows_plain(*args)
         note_err("enc_gather_rows", float((out.int() - ref.int()).abs().max())
@@ -5376,6 +5425,22 @@ def enc_layers(img: np.ndarray, card: str, host_s=None, runs: int = 2
     return dict(unsplit=t_un, split=t_sp, layers=med, host=t_host)
 
 
+def special_products_ms(args) -> float:
+    """The products of special_costs_plain (enc_kernels.py), two a
+    channel, by fp32 torch.matmul (TF32 off) on one call's eligible
+    blocks, by CUDA graph: the transforms alone, no quantiser."""
+    planes, elig, sid = args[0], args[7], args[8]
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the yardstick runs with TF32 off")
+    ys_b, xs_b = elig.shape
+    _r0, R1, A = EK._tables(planes.device, ("special", sid))
+    blocks = planes.reshape(3, ys_b, 8, xs_b, 8).permute(1, 3, 0, 2, 4) \
+        .reshape(ys_b * xs_b, 3, 64)[elig.reshape(-1)].contiguous()
+    coef = torch.ones((blocks.shape[0], 63), device=planes.device)
+    return graph_ms(lambda: [(torch.matmul(blocks[:, c], A[c]),
+                              torch.matmul(coef, R1[c])) for c in range(3)])
+
+
 def enc_timings(main_calls: list, special_calls: list, card: str,
                 ms: dict) -> None:
     """Each kernel at the 4K main path's shapes (E4 at the 4K text's, the
@@ -5446,6 +5511,7 @@ def enc_timings(main_calls: list, special_calls: list, card: str,
     # E4: the five launches of one frame, summed
     k_ms = p_ms = moved = ops = 0.0
     label = None
+    LIBRARY_MS["enc_special_costs"] = 0.0
     for name, args, out, _cost in special_calls:
         if name != "special_costs":
             continue
@@ -5458,10 +5524,15 @@ def enc_timings(main_calls: list, special_calls: list, card: str,
         moved += nbytes(out, cost, args[1], args[2], args[3], args[4],
                         args[7]) + n_el * 3 * 64 * 4
         ops += n_el * 3 * (2 * 64 * 63 * 2 + 63 * 40)
+        LIBRARY_MS["enc_special_costs"] += special_products_ms(a)
     note_bound("enc_special_costs", int(moved), ops)
     ms["enc_special_costs"] = (k_ms, p_ms)
     print(f"kernel enc_special_costs (5 transforms) at {label}: "
-          f"{k_ms:.4f} ms, plain {p_ms:.3f} ms [{card}]", flush=True)
+          f"{k_ms:.4f} ms, plain {p_ms:.3f} ms; the twin's fp32 "
+          f"torch.matmul products on the eligible blocks (the transforms "
+          f"alone) {LIBRARY_MS['enc_special_costs']:.4f} ms [{card}]",
+          flush=True)
+    ptxas_report("encode", only="special_costs_kernel")
     srcs, idxs = first["gather_rows"][1]
     flat = first["gather_rows"][2]
     note_bound("enc_gather_rows", 2 * nbytes(flat) + nbytes(*idxs), 0)

@@ -1,9 +1,10 @@
-"""Time E1 and E3 (csrc/encode.cu front_planes_kernel, dct_costs_kernel)
-and the AC entropy decode A1 (csrc/entropy.cu groups_kernel) against
-other trees' encode.cu and entropy.cu on one CUDA card, in turns, and
-count the entropy kernel's SASS of every build.
+"""Time E1, E3 and E4 (csrc/encode.cu front_planes_kernel,
+dct_costs_kernel, special_costs_kernel) and the AC entropy decode A1
+(csrc/entropy.cu groups_kernel) against other trees' encode.cu and
+entropy.cu on one CUDA card, in turns, and count the entropy kernel's SASS
+of every build.
 
-    python3 encode_entropy_vs_other.py [--only e1|e3|a1] [--sass DIR]
+    python3 encode_entropy_vs_other.py [--only e1|e3|e4|a1] [--sass DIR]
         [--stream FILE] OTHER_CSRC [OTHER_CSRC ...]
 
 OTHER_CSRC is another tree's jxl_coder_tpu_torch/csrc: a parent commit's,
@@ -15,8 +16,10 @@ OTHER_CSRC is another tree's jxl_coder_tpu_torch/csrc: a parent commit's,
 or an edited copy of this tree's under build/ (a variant to time).  Each
 build is named by its path.  It builds every other encode.cu and entropy.cu
 with this tree's nvcc flags into build/, records the front_planes and
-dct_costs calls of api.encode(the 4K bench frame, quality 90, effort 7)
-and the entropy
+dct_costs calls of api.encode(the 4K bench frame, quality 90, effort 7),
+the special_costs calls of the 4K text's encode with its patches (d1.0,
+effort 7, as chip_smoke.py's phase 18: the patch detector first, on the
+host) and the entropy
 tables of chip_smoke.py's 4K d1.0 e7 stream (--stream: that stream from a
 file; else cached in the temp directory by chip_smoke.py, else encoded
 here), then, in the order others, this, this, others reversed:
@@ -27,16 +30,22 @@ here), then, in the order others, this, this, others reversed:
   seven summed, beside the fp32 torch.matmul pair of each shape's
   transforms (TF32 off); every build's values and costs held to the twin
   by chip_smoke.py's tie rule;
+- E4: each of the five special transforms by replaying a CUDA graph of 50
+  calls, the five summed, beside the twin's fp32 torch.matmul products on
+  the eligible blocks (TF32 off); every build's values and costs held to
+  the twin by the tie rule (block_dep: X and B subtract Y's whole block);
 - A1: CUDA events around 10 launches (chip_smoke.py's method), both
   instantiations (tables staged in shared memory, and in global memory),
   with ns per token of the longest group; every build's output held to
   the first build's (coefficients, status, final states, tokens).
 Then cuobjdump -sass of every entropy library into DIR (default
 build/sass) and, per build, groups_kernel<true>'s instructions counted by
-opcode.  The other builds must export jxl_enc_dct_costs and
-jxl_entropy_groups with this tree's arguments.  Each line carries the
-card's name and power limit; ptxas's report of every encode.cu build
-(stack and spills) is printed first.
+opcode.  The other builds must export jxl_enc_front_planes,
+jxl_enc_dct_costs, jxl_enc_special_costs and jxl_entropy_groups with this
+tree's arguments; a build that lacks one is named, with the reason, and
+left out of those turns.  Each line carries the card's name and power
+limit; ptxas's report of every encode.cu build (stack and spills) is
+printed first.
 """
 
 from __future__ import annotations
@@ -158,6 +167,45 @@ def e3_turns(calls: list, kernels: dict, card: str) -> None:
               f" ms; the six matmul pairs {lib:.4f} ms [{card}]", flush=True)
 
 
+def e4_turns(calls: list, kernels: dict, card: str) -> None:
+    """The 4K text's five special_costs calls with each build, in turns."""
+    orig = EK._kernels
+    sums = collections.defaultdict(list)
+    try:
+        for tag in turns(list(kernels)):
+            fn = kernels[tag]
+            EK._kernels = lambda fn=fn: {**orig(), "special_costs": fn}
+            total = 0.0
+            for _name, args, _out, _cost in calls:
+                sid = args[8]
+                cost = torch.empty_like(args[-1])
+                a = args[:-1] + (cost,)
+                out = EK.special_costs(*a)
+                ref_cost = torch.empty_like(cost)
+                ref, ratios = EK.special_costs_plain(*a[:-1], ref_cost,
+                                                     return_ratios=True)
+                share, _rel = cs.enc_check_quant(
+                    "enc_special_costs", out, cost, ref, ref_cost, ratios,
+                    f"{tag} 4k text sid {sid}", elig=a[7], block_dep=True)
+                t = cs.graph_ms(lambda: EK.special_costs(*a))
+                total += t
+                print(f"E4 {tag} sid {sid} on the 4k text "
+                      f"({int(a[7].sum())} eligible blocks): {t:.4f} ms, "
+                      f"{share:.3g} of values differ from the twin at ties "
+                      f"[{card}]", flush=True)
+            sums[tag].append(total)
+            print(f"E4 {tag} the five transforms on the 4k text: "
+                  f"{total:.4f} ms [{card}]", flush=True)
+    finally:
+        EK._kernels = orig
+    lib = sum(cs.special_products_ms(c[1][:-1] + (torch.empty_like(
+        c[1][-1]),)) for c in calls)
+    for tag, v in sums.items():
+        print(f"E4 on the 4k text, {tag}: " + " / ".join(
+            f"{x:.4f}" for x in v) + f" ms; the twin's fp32 matmul products "
+            f"on the eligible blocks {lib:.4f} ms [{card}]", flush=True)
+
+
 def a1_turns(tables, kernels: dict, card: str) -> None:
     """decode_pass_groups on the 4K tables with each build, in turns."""
     orig = ENT._kernel
@@ -219,7 +267,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(
         description="E3 and A1 against other trees' sources, in turns")
     ap.add_argument("others", nargs="+", type=Path)
-    ap.add_argument("--only", choices=("e1", "e3", "a1"))
+    ap.add_argument("--only", choices=("e1", "e3", "e4", "a1"))
     ap.add_argument("--sass", type=Path, default=Path("build/sass"))
     ap.add_argument("--stream", type=Path)
     opts = ap.parse_args()
@@ -230,7 +278,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = cs.smi()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    names = [n for n, k in (("encode", ("e1", "e3")), ("entropy", ("a1",)))
+    names = [n for n, k in (("encode", ("e1", "e3", "e4")),
+                            ("entropy", ("a1",)))
              if opts.only is None or opts.only in k]
     srcs = {label_of(p.resolve()): p.resolve() for p in opts.others}
     with ThreadPoolExecutor(8) as ex:
@@ -243,22 +292,41 @@ def main() -> int:
         for tag in srcs:
             cs.ptxas_report("encode", _build.BUILD_DIR /
                             f"libencode-{tag}.log", f"{tag} ")
-        calls = []
-        with cs.enc_recorded(calls):
-            api.encode(cs.bench_frame(2160, 3840), lossless=False,
-                       quality=90, effort=7, device="cuda")
+        calls, text_calls = [], []
+        if opts.only in (None, "e1", "e3"):
+            with cs.enc_recorded(calls):
+                api.encode(cs.bench_frame(2160, 3840), lossless=False,
+                           quality=90, effort=7, device="cuda")
+        if opts.only in (None, "e4"):
+            from jxl_coder_tpu_torch.host.vardct import enc_patches
+            img = cs.text_frame(2160, 3840)
+            plan = enc_patches.detect(img)
+            with cs.enc_recorded(text_calls):
+                cs.ENCR._encode_with_patches(img, plan, distance=1.0,
+                                             effort=7,
+                                             front=cs.ENCDEV.Front("cuda"))
         for kind, key, fn in (("e1", "front_planes", "jxl_enc_front_planes"),
-                              ("e3", "dct_costs", "jxl_enc_dct_costs")):
+                              ("e3", "dct_costs", "jxl_enc_dct_costs"),
+                              ("e4", "special_costs",
+                               "jxl_enc_special_costs")):
             if opts.only not in (None, kind):
                 continue
-            builds = {tag: _build.bind(libs[(tag, "encode")], fn,
-                                       this[key].argtypes[:-1])
-                      for tag in srcs}
+            builds = {}
+            for tag in srcs:
+                try:
+                    builds[tag] = _build.bind(libs[(tag, "encode")], fn,
+                                              this[key].argtypes[:-1])
+                except AttributeError as e:
+                    print(f"{kind.upper()}: cannot bind {tag}'s {fn}: {e}",
+                          flush=True)
             builds["this"] = this[key]
             if kind == "e1":
                 e1_turns(next(c for c in calls if c[0] == key), builds, card)
-            else:
+            elif kind == "e3":
                 e3_turns([c for c in calls if c[0] == key], builds, card)
+            else:
+                e4_turns([c for c in text_calls if c[0] == key], builds,
+                         card)
     if "entropy" in names:
         this = ENT._kernel()
         a1 = {tag: _build.bind(libs[(tag, "entropy")], "jxl_entropy_groups",

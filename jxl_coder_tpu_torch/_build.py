@@ -143,3 +143,12 @@ def launch(fn: ctypes._CFuncPtr, device, *args) -> None:
     if err != 0:
         raise RuntimeError(
             f"CUDA launch of {fn.__name__} failed: cudaError {err}")
+
+
+def check_aligned(t, name: str) -> None:
+    """Raise ValueError unless tensor t starts on a 16-byte boundary, as a
+    kernel that reads it in 16-byte loads needs (a contiguous view into
+    a larger tensor may start anywhere)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel reads it in 16-byte loads; "
+                         f"expected a 16-byte aligned tensor")

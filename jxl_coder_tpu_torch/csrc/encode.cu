@@ -59,11 +59,19 @@
 //      by 8-lane shuffles then the varblock's segments in order (a run
 //      repeats itself to the bit).  The fused products round otherwise than
 //      the twin's torch.matmul, so values agree but at quantisation ties.
-//   E4 special_costs_kernel (_costs' special branch, :280-321): a thread
-//      block (64 threads) an 8x8 block, one launch a special transform; the
-//      64x63 analysis and 63x64 response matrices are read through the
-//      cache (97 KB a transform).  Blocks outside the eligibility mask
-//      write zero values and cost 1e30 without computing.  Bound by
+//   E4 special_costs_kernel (_costs' special branch, :280-321): one launch
+//      a special transform, a persistent block an SM with the transform's
+//      64x63 analysis and 63x64 response matrices in shared memory (97
+//      KB of its 225 KB opt-in, loaded once a block) and two groups of 256
+//      threads, each with its own barrier and batch buffers (encode.cuh's
+//      batch walk): a group takes every 2G-th 8x8 block of the frame (G
+//      blocks), queues the eligible ones and runs them 64 at a time: the
+//      two products of a channel as (64 x 64) . (64 x 63) and (64 x 63) .
+//      (63 x 64), each thread a 4 x 4 register tile (tile_product), Y
+//      first, then X and B from Y's reconstruction kept in registers; the
+//      quantiser's divisions by q from a table, without a branch; the
+//      values out through shared memory in coalesced rows.  Ineligible
+//      blocks get zero values and cost 1e30 without computing.  Bound by
 //      operations.
 //   gather_kernel (_sel_gather_jit, :424-436): the winners' rows of every
 //      source back to back, int16; rows past a source clip to its last
@@ -81,6 +89,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "encode.cuh"
 
@@ -329,43 +339,7 @@ __global__ void __launch_bounds__(E2_THREADS)
 // ---------------------------------------------------------------------------
 // The quantiser's constants
 
-struct QuantConsts {
-  Bias bias[3];
-  float area_w[3];   // area * D_c, or D_c for the specials
-  float dz, igs, lam;
-};
-
-// A fixed-order block reduction of NV values a thread (sums, or maxima for
-// the entries with max set): each warp by shuffles, then warp 0 over the
-// warps' partials in order.  The result is in out[] of every thread.
-template <int THREADS, int NV>
-__device__ void block_reduce(float (&v)[NV], const bool (&is_max)[NV],
-                             float* s_red /* [THREADS / 32][NV] */) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  constexpr int NW = THREADS / 32;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float u = __shfl_down_sync(0xffffffffu, v[i], o);
-      v[i] = is_max[i] ? fmaxf(v[i], u) : __fadd_rn(v[i], u);
-    }
-  }
-  if (lane == 0)
-#pragma unroll
-    for (int i = 0; i < NV; ++i) s_red[warp * NV + i] = v[i];
-  __syncthreads();
-  if (tid < NV) {
-    float a = s_red[tid];
-    for (int w = 1; w < NW; ++w)
-      a = is_max[tid] ? fmaxf(a, s_red[w * NV + tid])
-                      : __fadd_rn(a, s_red[w * NV + tid]);
-    s_red[NW * NV + tid] = a;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < NV; ++i) v[i] = s_red[NW * NV + i];
-}
+using jxl_enc::QuantConsts;
 
 // ---------------------------------------------------------------------------
 // E3
@@ -588,101 +562,93 @@ __global__ void __launch_bounds__(E3_THREADS)
 // ---------------------------------------------------------------------------
 // E4
 
-struct SpecialArgs {
-  const float* planes;
-  const int* qf;
-  const float *fx, *fb, *dqdc;
-  const uint8_t* elig;
-  const float *r0, *R1, *A;   // (3, 64), (3, 63, 64), (3, 64, 63)
-  int16_t* vals;              // (nb, 3, 63)
-  float* cost;
-  int ys_b, xs_b;
-  QuantConsts k;
-};
+using jxl_enc::E4Thread;
+using jxl_enc::SpecialArgs;
+using jxl_enc::SpecialBatch;
+using jxl_enc::SpecialMats;
+using jxl_enc::kE4Batch;
+using jxl_enc::kE4Groups;
+using jxl_enc::kE4Ring;
+using jxl_enc::kE4Seg;
+using jxl_enc::kE4Threads;
 
-__global__ void __launch_bounds__(64) special_costs_kernel(SpecialArgs a) {
-  __shared__ float s_in[64];    // t1, or sub
-  __shared__ float s_dq[64];
-  __shared__ float s_red[3 * 12];
-  __shared__ int s_elig;
-  const int tid = threadIdx.x;
-  const int n = blockIdx.x;
-  const int by = n / a.xs_b, bx = n % a.xs_b;
+constexpr size_t kE4Smem =
+    sizeof(SpecialMats) + kE4Groups * sizeof(SpecialBatch);
+static_assert(kE4Smem <= 232448, "a block's opt-in shared memory");
+constexpr int kE4MaxDevices = 64;
+
+// group h's barrier: named barrier 1 + h, its kE4Threads threads
+__device__ __forceinline__ void group_sync(int h) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + h), "r"(kE4Threads));
+}
+
+// encode.cuh's batch walk: group h of this block is walker w; warp 0 of a
+// group appends a round's eligible blocks to its ring by ballot, in
+// block order; every full batch runs at once, the rest after the last
+// round
+__global__ void __launch_bounds__(kE4Threads * kE4Groups, 1)
+    special_costs_kernel(SpecialArgs a) {
+  extern __shared__ __align__(16) unsigned char e4_smem[];
+  SpecialMats& m = *reinterpret_cast<SpecialMats*>(e4_smem);
+  const int h = threadIdx.x / kE4Threads, t = threadIdx.x % kE4Threads;
+  SpecialBatch& s = reinterpret_cast<SpecialBatch*>(
+      e4_smem + sizeof(SpecialMats))[h];
+  const int lane = t & 31;
+  const int w = blockIdx.x * kE4Groups + h, nw = gridDim.x * kE4Groups;
   const long long nb = (long long)a.ys_b * a.xs_b;
-  int16_t* vout = a.vals + (long long)n * 3 * 63;
-  if (tid == 0) s_elig = a.elig[n];
+  E4Thread st;
+  jxl_enc::e4_load(threadIdx.x, kE4Threads * kE4Groups, a, m);
+  if (t == 0) s.head = s.count = 0;
   __syncthreads();
-  if (!s_elig) {
-    for (int i = tid; i < 3 * 63; i += 64) vout[i] = 0;
-    if (tid == 0) a.cost[n] = 1e30f;
-    return;
-  }
-  const int pw = a.xs_b * 8;
-  const long long plane = (long long)a.ys_b * 8 * pw;
-  const long long pix = (long long)(by * 8 + (tid >> 3)) * pw + bx * 8 +
-                        (tid & 7);
-  const float qff = __fdiv_rn((float)a.qf[n], a.k.igs);
-  const float inv_qac = __fdiv_rn(1.0f, qff);
-  const float f[3] = {a.fx[n], 0.0f, a.fb[n]};
-  float v[12];
-  bool is_max[12];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    v[i] = 0.0f;
-    is_max[i] = i >= 3 && (i - 3) % 3 == 0;
-  }
-  float recY = 0.0f, tcY = 0.0f;
-  const int order[3] = {1, 0, 2};
-  for (int oi = 0; oi < 3; ++oi) {
-    const int c = order[oi];
-    const float dcb = a.dqdc[c * nb + n];
-    const float tc = __fsub_rn(a.planes[c * plane + pix],
-                               __fmul_rn(dcb, a.r0[c * 64 + tid]));
-    const float in = c == 1 ? tc : __fsub_rn(tc, __fmul_rn(f[c], recY));
-    if (c == 1) tcY = tc;
-    __syncthreads();
-    s_in[tid] = in;
-    __syncthreads();
-    float q = 0.0f;
-    if (tid < 63) {
-      const float* Ac = a.A + c * 64 * 63;
-      float g = 0.0f;
-      for (int kk = 0; kk < 64; ++kk)
-        g = __fadd_rn(g, __fmul_rn(s_in[kk], __ldg(Ac + kk * 63 + tid)));
-      q = quantize(__fdiv_rn(g, inv_qac), a.k.bias[c], a.k.dz);
-      s_dq[tid] = __fmul_rn(adjust(q, a.k.bias[c]), inv_qac);
-      vout[c * 63 + tid] = (int16_t)(int)q;
-      if (q != 0.0f) {
-        v[3 + 3 * c] = (float)(tid + 1);
-        v[4 + 3 * c] = log2f(__fadd_rn(1.0f, fabsf(q)));
-        v[5 + 3 * c] = 1.0f;
+  for (int r = 0;; ++r) {
+    const bool done = jxl_enc::e4_block(w, nw, (long long)r * kE4Seg) >= nb;
+    if (!done) {
+      if (t < 32) {
+        int tail = s.head + s.count;
+        for (int i = 0; i < kE4Seg; i += 32) {
+          const long long n =
+              jxl_enc::e4_block(w, nw, (long long)r * kE4Seg + i + lane);
+          const bool e = n < nb && a.elig[n];
+          const unsigned mk = __ballot_sync(0xffffffffu, e);
+          if (e)
+            s.ring[(tail + __popc(mk & ((1u << lane) - 1u))) &
+                   (kE4Ring - 1)] = (int)n;
+          tail += __popc(mk);
+        }
+        if (lane == 0) s.count = tail - s.head;
       }
+      jxl_enc::e4_clear(t, w, nw, r, a);
     }
-    __syncthreads();
-    const float* Rc = a.R1 + c * 63 * 64;
-    float rec = 0.0f;
-    for (int jj = 0; jj < 63; ++jj)
-      rec = __fadd_rn(rec, __fmul_rn(s_dq[jj], __ldg(Rc + jj * 64 + tid)));
-    if (c == 1) {
-      recY = rec;
-      const float d = __fsub_rn(rec, tcY);
-      v[0] = __fmul_rn(d, d);
-    } else {
-      rec = __fadd_rn(rec, __fmul_rn(f[c], recY));
-      const float d = __fsub_rn(rec, tc);
-      v[c == 0 ? 1 : 2] = __fmul_rn(d, d);
+    group_sync(h);
+    for (;;) {
+      const int count = s.count;
+      if (count < kE4Batch && !(done && count > 0)) break;
+      const int nbat = count < kE4Batch ? count : kE4Batch;
+      jxl_enc::e4_slot(t, nbat, a, s);
+      group_sync(h);
+#pragma unroll
+      for (int oi = 0; oi < 3; ++oi) {
+        const int c = oi == 1 ? 0 : (oi == 0 ? 1 : 2);   // Y, X, B
+        jxl_enc::e4_input(t, c, a, m, s, st);
+        if (oi) jxl_enc::e4_reduce(t, oi == 1 ? 1 : 0, s);
+        group_sync(h);
+        jxl_enc::e4_quant(t, c, a, m, s);
+        group_sync(h);
+        jxl_enc::e4_recon(t, c, a, m, s, st);
+        group_sync(h);
+      }
+      jxl_enc::e4_reduce(t, 2, s);
+      group_sync(h);
+      jxl_enc::e4_cost(t, nbat, a, s);
+      if (t == 0) {
+        s.head += nbat;
+        s.count = count - nbat;
+      }
+      group_sync(h);
     }
-  }
-  block_reduce<64, 12>(v, is_max, s_red);
-  if (tid == 0) {
-    float dist = __fmul_rn(a.k.area_w[1], v[0]);
-    dist = __fadd_rn(dist, __fmul_rn(a.k.area_w[0], v[1]));
-    dist = __fadd_rn(dist, __fmul_rn(a.k.area_w[2], v[2]));
-    float rate = 0.0f;
-    for (int c = 0; c < 3; ++c)
-      rate = __fadd_rn(rate, token_cost((int)v[3 + 3 * c], v[4 + 3 * c],
-                                        (int)v[5 + 3 * c]));
-    a.cost[n] = __fadd_rn(rate, __fmul_rn(a.k.lam, dist));
+    if (done) break;
+    // every warp has read s.count before warp 0 appends the next round
+    group_sync(h);
   }
 }
 
@@ -851,9 +817,35 @@ int jxl_enc_special_costs(const float* planes, const int* qf, const float* fx,
   a.ys_b = ys_b;
   a.xs_b = xs_b;
   a.k = quant_consts(igs, lam, dz, qk);
-  const unsigned n = (unsigned)(ys_b * xs_b);
-  if (n == 0) return 0;
-  special_costs_kernel<<<n, 64, 0, stream>>>(a);
+  const long long nb = (long long)ys_b * xs_b;
+  if (nb == 0) return 0;
+  const int smem = (int)kE4Smem, threads = kE4Threads * kE4Groups;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  // the shared-memory opt-in and the resident blocks, once a device
+  static std::atomic<int> resident[kE4MaxDevices];
+  if (dev >= kE4MaxDevices) return (int)cudaErrorInvalidDevice;
+  if (resident[dev].load() == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(special_costs_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, special_costs_kernel, threads, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    resident[dev].store(sms * per_sm);
+  }
+  // no more walkers than rounds of blocks
+  const long long rounds = (nb + kE4Seg - 1) / kE4Seg;
+  long long grid = resident[dev].load();
+  if (grid * kE4Groups > rounds) grid = (rounds + kE4Groups - 1) / kE4Groups;
+  special_costs_kernel<<<(unsigned)grid, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

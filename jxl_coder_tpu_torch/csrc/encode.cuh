@@ -219,6 +219,13 @@ JXL_EHD float token_cost(int last, float bits, int cnt) {
   return ((2.0f + 1.1f * (float)last) + bits) + (float)cnt;
 }
 
+// the quantiser's constants of E3 / E4
+struct QuantConsts {
+  Bias bias[3];
+  float area_w[3];   // area * D_c, or D_c for the specials
+  float dz, igs, lam;
+};
+
 // a * b + c rounded once
 JXL_EHD float fma_rn(float a, float b, float c) {
 #if defined(__CUDA_ARCH__)
@@ -518,5 +525,356 @@ struct PlaneWalk {
     }
   }
 };
+
+
+// ---- E4's batch walk (encode.cu special_costs_kernel) ---------------------
+//
+// A persistent thread block an SM holds one special transform's matrices
+// in shared memory (SpecialMats: A with a zero 64th column, R1 and r0, 97
+// KB, read once a block, and the quantiser's tables) and runs kE4Groups
+// groups of kE4Threads threads, each with its own batch buffers
+// (SpecialBatch) and barrier.  Group h of block g is walker w = kE4Groups
+// g + h of W = kE4Groups x blocks; walker w takes the frame's 8x8 blocks
+// w, w + W, w + 2W, ... (an even share of the eligible ones wherever they
+// cluster), kE4Seg at a time: a round's eligible blocks join the walker's
+// ring of pending blocks, its ineligible ones get zero values and cost
+// 1e30 there and then (e4_clear, a warp a block).  Each batch of kE4Batch
+// pending blocks (at the end, what is left) runs the channels in the
+// twin's order, Y, X, B, in phases separated by the group's barrier:
+//   e4_slot: a pending block a slot: its index, 1 / qf, CfL factors, DC;
+//   e4_input: thread (bg, cg) owns the tile of kE4Slots slots from
+//     kE4Slots bg and pixel positions 4 cg .. 4 cg + 3 (a 16-byte row load
+//     a slot): tc = pixel - dc * r0 (kept in registers), the product's
+//     input (X and B subtract f * recY, Y's reconstruction at the same
+//     positions, kept in registers too) into inT, position-major;
+//   e4_quant: g = in . A on the same tile of slots x coefficients
+//     (tile_product: 16-byte loads, fused multiply-adds, k ascending from
+//     0), the quantiser a value, the values into qv, the dequantised
+//     values into dqT (coefficient-major), the tile's rate partials
+//     (last, bits, count);
+//   e4_recon: the batch's values of the channel out, a warp a slot's 63
+//     in two coalesced stores; rec = dq . R1 on the tile of slots x
+//     positions, the tile's squared errors;
+//   e4_reduce: a (slot, quantity) a thread, the 16 column groups'
+//     partials in order (the maxima for last);
+//   e4_cost: a slot a thread, distortion and rate in the old kernel's
+//     order.
+// The quantiser is quantize's: the IEEE quotient of the ratio, then, for
+// a thread whose ratios all lie inside the tables, QUANT_BIAS_NUM / q of
+// the integer candidates from a table of those quotients
+// (SpecialMats.qbn_over, made by the same division) and log2(1 + |q|)
+// from a table of log2f's values, without a branch; otherwise quantize
+// itself.
+// inT and dqT rows hold 4 floats of padding: the 16-byte stores of a
+// quarter warp then meet 4-way, not 8-way, bank conflicts; the reads
+// (a broadcast pair of slots, 16 consecutive columns) meet none.  A
+// block's values and cost depend on its own inputs alone, not on the
+// batch, slot, walker or thread block that takes it.
+
+constexpr int kE4Threads = 256;            // a group: 8 warps, 16 x 16 tiles
+constexpr int kE4Groups = 2;               // groups a thread block
+constexpr int kE4Slots = 4;                // slots a thread's tile
+constexpr int kE4Batch = 16 * kE4Slots;    // 8x8 blocks a batch
+constexpr int kE4Seg = 128;                // 8x8 blocks a round
+constexpr int kE4Ring = 256;               // pending blocks (power of 2)
+constexpr int kE4Row = kE4Batch + 4;       // inT / dqT row stride
+constexpr int kE4Vals = 3 * 63;            // values an 8x8 block
+constexpr int kE4Tab = 256;                // the quantiser's table entries
+static_assert(kE4Threads == 256 && kE4Slots % 4 == 0, "16 x 16 tiles");
+static_assert(kE4Ring >= kE4Batch - 1 + kE4Seg, "a round fits the ring");
+
+struct SpecialArgs {
+  const float* planes;        // (3, 8 ys_b, 8 xs_b)
+  const int* qf;
+  const float *fx, *fb, *dqdc;
+  const uint8_t* elig;
+  const float *r0, *R1, *A;   // (3, 64), (3, 63, 64), (3, 64, 63)
+  int16_t* vals;              // (nb, 3, 63)
+  float* cost;
+  int ys_b, xs_b;
+  QuantConsts k;
+};
+
+// what a thread block's groups share
+struct alignas(16) SpecialMats {
+  float A[3][64][64];           // column 63 zero
+  float R1[3][63][64];
+  float r0[3][64];
+  float qbn_over[kE4Tab];       // QUANT_BIAS_NUM / i
+  float log1p2[kE4Tab];         // log2f(1 + i)
+};
+
+// a group's batch
+struct alignas(16) SpecialBatch {
+  float inT[64][kE4Row];        // the channel's inputs: [position][slot]
+  float dqT[63][kE4Row];        // dequantised values: [coefficient][slot]
+  float part[4][kE4Batch][16];  // err, last, bits, count by column group
+  float tot[kE4Batch][12];      // err X Y B ... as the old kernel's v[]
+  int16_t qv[kE4Batch][64];     // the channel's values, to be written out
+  float inv[kE4Batch], f[3][kE4Batch], dcb[3][kE4Batch];
+  int blk[kE4Batch];            // the slot's 8x8 block, -1 past the batch
+  int ring[kE4Ring];
+  int head, count;
+};
+
+// a thread's registers across a batch's phases
+struct E4Thread {
+  float tc[kE4Slots][4];     // the channel's tc at the tile's slots
+  float recY[kE4Slots][4];   // Y's reconstruction there
+};
+
+// thread t's tile: slots b0 .. b0 + kE4Slots - 1, columns c0 .. c0 + 3
+JXL_EHD void e4_tile(int t, int& b0, int& c0) {
+  const int lane = t & 31, warp = t >> 5;
+  b0 = kE4Slots * (2 * warp + (lane >> 4));
+  c0 = 4 * (lane & 15);
+}
+
+// four floats; on the card one 16-byte store (p 16-byte aligned)
+JXL_EHD void store4(float* p, float x, float y, float z, float w) {
+#if defined(__CUDA_ARCH__)
+  *reinterpret_cast<float4*>(p) = make_float4(x, y, z, w);
+#else
+  p[0] = x;
+  p[1] = y;
+  p[2] = z;
+  p[3] = w;
+#endif
+}
+
+// a column of a thread's tile, its slots' values, to row[b0 ...]
+JXL_EHD void store_slots(float* row, const float (&v)[kE4Slots][4], int jj) {
+  JXL_UNROLL(unroll)
+  for (int i = 0; i < kE4Slots; i += 4)
+    store4(row + i, v[i][jj], v[i + 1][jj], v[i + 2][jj], v[i + 3][jj]);
+}
+
+// adjust(q, b) of an integer q with |q| < kE4Tab, QUANT_BIAS_NUM / q
+// from the table (qbn / -i is -(qbn / i) exactly); no branch
+JXL_EHD float adjust_fast(float q, Bias b, const SpecialMats& m) {
+  const float aq = fabsf(q);
+  const float d = m.qbn_over[aq < (float)kE4Tab ? (int)aq : 0];
+  return aq > 1.0f ? q - (q < 0.0f ? -d : d) : q * b.qb;
+}
+
+// quantize(r, b, dz) for |r| < kE4Tab - 2, where every candidate is in the
+// table: the same candidates in the same order, the same bits
+JXL_EHD float quantize_fast(float r, Bias b, float dz, const SpecialMats& m) {
+  const float q0 = rintf(r);
+  float bq = q0, be = fabsf(adjust_fast(q0, b, m) - r);
+  for (int d = -1; d <= 1; d += 2) {
+    const float q = q0 + (float)d;
+    const float e = fabsf(adjust_fast(q, b, m) - r);
+    bq = e < be ? q : bq;
+    be = e < be ? e : be;
+  }
+  return fabsf(r) < dz ? 0.0f : bq;
+}
+
+// the quantiser's tables (qbn: QUANT_BIAS_NUM)
+JXL_EHD void e4_tables(int t, int nthreads, float qbn, SpecialMats& m) {
+  for (int i = t; i < kE4Tab; i += nthreads) {
+    m.qbn_over[i] = i > 1 ? qbn / (float)i : 0.0f;
+    m.log1p2[i] = log2f(1.0f + (float)i);
+  }
+}
+
+JXL_EHD void e4_load(int t, int nthreads, const SpecialArgs& a,
+                     SpecialMats& m) {
+  for (int i = t; i < 3 * 64 * 64; i += nthreads) {
+    const int c = i >> 12, k = (i >> 6) & 63, j = i & 63;
+    m.A[c][k][j] = j < 63 ? a.A[(c * 64 + k) * 63 + j] : 0.0f;
+  }
+  for (int i = t; i < 3 * 63 * 64; i += nthreads)
+    (&m.R1[0][0][0])[i] = a.R1[i];
+  for (int i = t; i < 3 * 64; i += nthreads) (&m.r0[0][0])[i] = a.r0[i];
+  e4_tables(t, nthreads, a.k.bias[0].qbn, m);
+}
+
+// walker w's i-th 8x8 block of W walkers
+JXL_EHD long long e4_block(int w, int nw, long long i) {
+  return w + (long long)nw * i;
+}
+
+// round r's ineligible blocks of walker w: zero values and cost 1e30, a
+// warp a block, its lanes along the values
+JXL_EHD void e4_clear(int t, int w, int nw, int r, const SpecialArgs& a) {
+  const long long nb = (long long)a.ys_b * a.xs_b;
+  const int warp = t >> 5, lane = t & 31;
+  for (int i = warp; i < kE4Seg; i += kE4Threads / 32) {
+    const long long n = e4_block(w, nw, (long long)r * kE4Seg + i);
+    if (n >= nb) break;
+    if (a.elig[n]) continue;
+    for (int v = lane; v < kE4Vals; v += 32) a.vals[n * kE4Vals + v] = 0;
+    if (lane == 0) a.cost[n] = 1e30f;
+  }
+}
+
+// the batch's first nbat pending blocks into the slots
+JXL_EHD void e4_slot(int t, int nbat, const SpecialArgs& a,
+                     SpecialBatch& s) {
+  if (t >= kE4Batch) return;
+  if (t >= nbat) {   // an empty slot: zero inputs, finite ratios
+    s.blk[t] = -1;
+    s.inv[t] = 1.0f;
+    for (int c = 0; c < 3; ++c) s.f[c][t] = s.dcb[c][t] = 0.0f;
+    return;
+  }
+  const int n = s.ring[(s.head + t) & (kE4Ring - 1)];
+  const long long nb = (long long)a.ys_b * a.xs_b;
+  s.blk[t] = n;
+  s.inv[t] = 1.0f / ((float)a.qf[n] / a.k.igs);
+  s.f[0][t] = a.fx[n];
+  s.f[1][t] = 0.0f;
+  s.f[2][t] = a.fb[n];
+  for (int c = 0; c < 3; ++c) s.dcb[c][t] = a.dqdc[c * nb + n];
+}
+
+JXL_EHD void e4_input(int t, int c, const SpecialArgs& a,
+                      const SpecialMats& m, SpecialBatch& s, E4Thread& st) {
+  int b0, p0;
+  e4_tile(t, b0, p0);
+  const long long pw = 8ll * a.xs_b, plane = 8ll * a.ys_b * pw;
+  float in[kE4Slots][4];
+  JXL_UNROLL(unroll)
+  for (int i = 0; i < kE4Slots; ++i) {
+    const int n = s.blk[b0 + i];
+    float px[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (n >= 0)
+      load_run<4>(a.planes + c * plane +
+                      (8ll * (n / a.xs_b) + (p0 >> 3)) * pw +
+                      8 * (n % a.xs_b) + (p0 & 7),
+                  px);
+    JXL_UNROLL(unroll)
+    for (int jj = 0; jj < 4; ++jj) {
+      const float tc =
+          n >= 0 ? px[jj] - s.dcb[c][b0 + i] * m.r0[c][p0 + jj] : 0.0f;
+      st.tc[i][jj] = tc;
+      in[i][jj] = c == 1 || n < 0
+                      ? tc
+                      : tc - s.f[c][b0 + i] * st.recY[i][jj];
+    }
+  }
+  JXL_UNROLL(unroll)
+  for (int jj = 0; jj < 4; ++jj) store_slots(&s.inT[p0 + jj][b0], in, jj);
+}
+
+JXL_EHD void e4_quant(int t, int c, const SpecialArgs& a,
+                      const SpecialMats& m, SpecialBatch& s) {
+  int b0, j0;
+  e4_tile(t, b0, j0);
+  float g[kE4Slots][4], dq[kE4Slots][4];
+  tile_product<64, kE4Slots, 4>(&s.inT[0][b0], kE4Row, &m.A[c][0][j0], 64,
+                                g);
+  const Bias bias = a.k.bias[c];
+  // the tile's ratios; a thread with one past the tables takes quantize
+  float q[kE4Slots][4], lb[kE4Slots][4];
+  bool fast = true;
+  JXL_UNROLL(unroll)
+  for (int i = 0; i < kE4Slots; ++i)
+    JXL_UNROLL(unroll)
+    for (int jj = 0; jj < 4; ++jj) {
+      q[i][jj] = g[i][jj] / s.inv[b0 + i];
+      fast = fast && fabsf(q[i][jj]) < (float)(kE4Tab - 2);
+    }
+  if (fast) {
+    JXL_UNROLL(unroll)
+    for (int i = 0; i < kE4Slots; ++i)
+      JXL_UNROLL(unroll)
+      for (int jj = 0; jj < 4; ++jj) {
+        q[i][jj] = quantize_fast(q[i][jj], bias, a.k.dz, m);
+        dq[i][jj] = adjust_fast(q[i][jj], bias, m) * s.inv[b0 + i];
+        lb[i][jj] = m.log1p2[(int)fabsf(q[i][jj])];
+      }
+  } else {
+    JXL_UNROLL(unroll)
+    for (int i = 0; i < kE4Slots; ++i)
+      JXL_UNROLL(unroll)
+      for (int jj = 0; jj < 4; ++jj) {
+        q[i][jj] = quantize(q[i][jj], bias, a.k.dz);
+        dq[i][jj] = adjust(q[i][jj], bias) * s.inv[b0 + i];
+        lb[i][jj] = log2f(1.0f + fabsf(q[i][jj]));
+      }
+  }
+  JXL_UNROLL(unroll)
+  for (int i = 0; i < kE4Slots; ++i) {
+    const int b = b0 + i, n = s.blk[b];
+    float last = 0.0f, bits = 0.0f, cnt = 0.0f;
+    JXL_UNROLL(unroll)
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = j0 + jj;
+      const bool live = n >= 0 && j < 63, nz = live && q[i][jj] != 0.0f;
+      s.qv[b][j] = (int16_t)(int)q[i][jj];
+      dq[i][jj] = live ? dq[i][jj] : 0.0f;
+      last = nz ? (float)(j + 1) : last;
+      bits = bits + (nz ? lb[i][jj] : 0.0f);   // + 0 keeps bits' bits
+      cnt = cnt + (nz ? 1.0f : 0.0f);
+    }
+    s.part[1][b][j0 >> 2] = last;
+    s.part[2][b][j0 >> 2] = bits;
+    s.part[3][b][j0 >> 2] = cnt;
+  }
+  JXL_UNROLL(unroll)
+  for (int jj = 0; jj < 4; ++jj)
+    if (j0 + jj < 63) store_slots(&s.dqT[j0 + jj][b0], dq, jj);
+}
+
+JXL_EHD void e4_recon(int t, int c, const SpecialArgs& a,
+                      const SpecialMats& m, SpecialBatch& s, E4Thread& st) {
+  const int lane = t & 31;
+  for (int b = t >> 5; b < kE4Batch; b += kE4Threads / 32) {
+    const int n = s.blk[b];
+    if (n < 0) break;
+    int16_t* out = a.vals + (long long)n * kE4Vals + c * 63;
+    out[lane] = s.qv[b][lane];
+    if (lane < 31) out[32 + lane] = s.qv[b][32 + lane];
+  }
+  int b0, p0;
+  e4_tile(t, b0, p0);
+  float rec[kE4Slots][4];
+  tile_product<63, kE4Slots, 4>(&s.dqT[0][b0], kE4Row, &m.R1[c][0][p0], 64,
+                                rec);
+  JXL_UNROLL(unroll)
+  for (int i = 0; i < kE4Slots; ++i) {
+    float err = 0.0f;
+    JXL_UNROLL(unroll)
+    for (int jj = 0; jj < 4; ++jj) {
+      float r = rec[i][jj];
+      if (c == 1)
+        st.recY[i][jj] = r;
+      else
+        r = r + s.f[c][b0 + i] * st.recY[i][jj];
+      const float d = r - st.tc[i][jj];
+      err = err + d * d;
+    }
+    s.part[0][b0 + i][p0 >> 2] = err;
+  }
+}
+
+// channel c's partials: quantity u % 4 of slot u / 4 for u = t, t +
+// kE4Threads, ...
+JXL_EHD void e4_reduce(int t, int c, SpecialBatch& s) {
+  for (int u = t; u < 4 * kE4Batch; u += kE4Threads) {
+    const int b = u >> 2, q = u & 3;
+    float v = s.part[q][b][0];
+    for (int g = 1; g < 16; ++g)
+      v = q == 1 ? fmaxf(v, s.part[q][b][g]) : v + s.part[q][b][g];
+    s.tot[b][q == 0 ? (c == 1 ? 0 : (c == 0 ? 1 : 2)) : 3 * c + q + 2] = v;
+  }
+}
+
+JXL_EHD void e4_cost(int t, int nbat, const SpecialArgs& a,
+                     const SpecialBatch& s) {
+  if (t >= nbat) return;
+  const float* r = s.tot[t];
+  float dist = a.k.area_w[1] * r[0];
+  dist = dist + a.k.area_w[0] * r[1];
+  dist = dist + a.k.area_w[2] * r[2];
+  float rate = 0.0f;
+  for (int c = 0; c < 3; ++c)
+    rate = rate + token_cost((int)r[3 + 3 * c], r[4 + 3 * c],
+                             (int)r[5 + 3 * c]);
+  a.cost[s.blk[t]] = rate + a.k.lam * dist;
+}
 
 }  // namespace jxl_enc

@@ -20,20 +20,25 @@
 //      where the JAX route composes mul / add first (about 1 ulp apart).
 //      Bound by bytes: the patch pixels' source read, plane read and
 //      plane write, 3 x 12 B a pixel.
-//   A9 splines_kernel: per listed point (centre, |sigma|, intensity,
-//      colour, box), the erf differences of the tile's 64 columns and 16
-//      rows go to shared memory (Splines.render's ex / ey, computed
-//      once a column or row), then each pixel in the box adds
-//      colour * (0.25 |sigma| intensity * (ey * ex)) into an fp64 sum, in
-//      list order, and the plane gets the f32 of the sum.  The
-//      Abramowitz-Stegun erf of splines.py in fp64, not CUDA's erf; CUDA's
-//      exp may differ from the host's in the last bit.  Bound by bytes at
-//      the streams' sizes (the touched pixels' planes read and written),
-//      with the fp64 operations beside it (chip_smoke.py SPLINE_OPS).
+//   A9 splines_kernel: the tile's listed points (centre, |sigma|,
+//      intensity, colour, box) 32 at a time (overlay.cuh's walk): warp 0
+//      stages a chunk's records in shared memory, copying the next chunk's
+//      by cp.async while the block accumulates; all threads compute the
+//      chunk's boundary erfs of box and tile, each boundary once
+//      (Splines.render's ex / ey are differences of adjacent ones), and
+//      a warp takes 8 columns of the tile; then each pixel in a box
+//      adds colour * (0.25 |sigma| intensity * (ey * ex)) into an fp64
+//      sum, in list order, and the plane gets the f32 of the sum.  Two
+//      barriers a chunk.  The Abramowitz-Stegun erf of splines.py in fp64,
+//      not CUDA's erf; CUDA's exp may differ from the host's in the last
+//      bit.  Bound by its fp64 operations (chip_smoke.py SPLINE_OPS), with
+//      the touched pixels' planes read and written beside them.
 // -fmad=false: every operation rounds once, in the twins' order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "overlay.cuh"
 
 namespace {
 
@@ -111,82 +116,73 @@ __global__ void __launch_bounds__(TW * TY)
   }
 }
 
-// splines.py _erf: Abramowitz-Stegun 7.1.26, sign(x) * y
-__device__ __forceinline__ double erf_as(double x) {
-  const double sign = x > 0.0 ? 1.0 : (x < 0.0 ? -1.0 : 0.0);
-  const double ax = fabs(x);
-  const double tt = 1.0 / (1.0 + 0.3275911 * ax);
-  const double y =
-      1.0 - (((((1.061405429 * tt - 1.453152027) * tt) + 1.421413741) * tt -
-              0.284496736) * tt + 0.254829592) * tt * exp(-ax * ax);
-  return sign * y;
-}
+using jxl_ov::PixelSums;
+using jxl_ov::PointLoad;
+using jxl_ov::SplineArgs;
+using jxl_ov::SplineShared;
+using jxl_ov::kChunk;
 
-// erf((i + 0.5 - c) * inv) - erf((i - 0.5 - c) * inv), as draw_points
-__device__ __forceinline__ double erf_diff(int i, double c, double inv) {
-  const double d = (double)i;
-  return erf_as((d + 0.5 - c) * inv) - erf_as((d - 0.5 - c) * inv);
-}
-
-// points: (M, 7) f64 (cx, cy, |sigma|, intensity, colour X, Y, B);
-// boxes: (M, 4) int32 inclusive (x0, x1, y0, y1), inside the frame
-__global__ void __launch_bounds__(TW * TY)
-    splines_kernel(float* __restrict__ xyb, long long plane, int H, int W,
-                   const double* __restrict__ points,
-                   const int* __restrict__ boxes,
-                   const int* __restrict__ tiles,
-                   const int* __restrict__ offs,
-                   const int* __restrict__ items, int tiles_x) {
-  __shared__ double s_ex[TW], s_ey[TH], s_pt[7];
-  __shared__ int s_box[4];
-  const int t = tiles[blockIdx.x];
-  const int tx0 = (t % tiles_x) * TW, ty0 = (t / tiles_x) * TH;
-  const int tid = threadIdx.y * TW + threadIdx.x;
-  const int x = tx0 + threadIdx.x;
-  const int begin = offs[blockIdx.x], end = offs[blockIdx.x + 1];
-  double acc[TH / TY][3];
-  bool touched[TH / TY];
+// lane k of warp 0 stages point k of a chunk from its copied record
+// (valid: k is one of the chunk's points): the clipped box, the boundary
+// offsets by a prefix sum over the lanes, the record
+__device__ __forceinline__ void stage_chunk(bool valid, int lane, int buf,
+                                            int tx0, int ty0,
+                                            SplineShared& s) {
+  jxl_ov::Box cl;
+  jxl_ov::copy_wait();
+  const PointLoad& p = s.raw[lane];
+  const int cnt = valid ? jxl_ov::clip_point(p, tx0, ty0, cl) : 0;
+  int inc = cnt;
 #pragma unroll
-  for (int r = 0; r < TH / TY; ++r) {
-    acc[r][0] = acc[r][1] = acc[r][2] = 0.0;
-    touched[r] = false;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += v;
   }
-  for (int k = begin; k < end; ++k) {
-    const int j = items[k];
-    __syncthreads();  // the last point's shared values are read
-    if (tid < 7) s_pt[tid] = points[7LL * j + tid];
-    if (tid >= 32 && tid < 36) s_box[tid - 32] = boxes[4LL * j + tid - 32];
-    __syncthreads();
-    const double inv = 1.0 / (s_pt[2] * 1.4142135623730951);
-    if (tid < TW)
-      s_ex[tid] = erf_diff(tx0 + tid, s_pt[0], inv);
-    else if (tid < TW + TH)
-      s_ey[tid - TW] = erf_diff(ty0 + tid - TW, s_pt[1], inv);
-    __syncthreads();
-    if (x < s_box[0] || x > s_box[1]) continue;
-    const double scale = 0.25 * s_pt[2] * s_pt[3];
+  if (valid) jxl_ov::stage_point(p, cl, inc - cnt, cnt, lane, buf, s);
+  s.off[buf][lane] = inc - cnt;
+  if (lane == 31) s.off[buf][kChunk] = inc;
+}
+
+__global__ void __launch_bounds__(jxl_ov::kThreads, 4)
+    splines_kernel(SplineArgs a) {
+  __shared__ SplineShared s;
+  const int tid = threadIdx.x;
+  const bool stager = tid < 32;
+  int tx, ty, tx0, ty0;
+  jxl_ov::pixel_of(tid, tx, ty);
+  jxl_ov::tile_origin(a, blockIdx.x, tx0, ty0);
+  const int begin = a.offs[blockIdx.x], end = a.offs[blockIdx.x + 1];
+  const int nch = (end - begin + kChunk - 1) / kChunk;
+  PixelSums ps;
 #pragma unroll
-    for (int r = 0; r < TH / TY; ++r) {
-      const int ry = threadIdx.y + r * TY;
-      const int y = ty0 + ry;
-      if (y < s_box[2] || y > s_box[3]) continue;
-      const double blob = scale * (s_ey[ry] * s_ex[threadIdx.x]);
-      acc[r][0] += s_pt[4] * blob;
-      acc[r][1] += s_pt[5] * blob;
-      acc[r][2] += s_pt[6] * blob;
-      touched[r] = true;
+  for (int r = 0; r < jxl_ov::kRows; ++r) {
+    ps.acc[r][0] = ps.acc[r][1] = ps.acc[r][2] = 0.0;
+    ps.touched[r] = false;
+  }
+  int j_next = -1;   // a stager's point of the next chunk
+  if (stager) {
+    const int k0 = begin + tid, k1 = k0 + kChunk;
+    if (k0 < end) jxl_ov::copy_point(a, a.items[k0], s.raw[tid]);
+    if (k1 < end) j_next = a.items[k1];
+    stage_chunk(k0 < end, tid, 0, tx0, ty0, s);
+  }
+  __syncthreads();
+  for (int ch = 0; ch < nch; ++ch) {
+    const int buf = ch & 1;
+    const int nk = min(kChunk, end - begin - ch * kChunk);
+    jxl_ov::chunk_erfs(tid, buf, s);
+    __syncthreads();
+    const bool more = ch + 1 < nch, valid = j_next >= 0;
+    if (valid) {
+      jxl_ov::copy_point(a, j_next, s.raw[tid]);
+      const int k2 = begin + (ch + 2) * kChunk + tid;
+      j_next = k2 < end ? a.items[k2] : -1;
     }
+    jxl_ov::chunk_accumulate(tx, ty, tx0, ty0, buf, nk, s, ps);
+    if (stager && more) stage_chunk(valid, tid, buf ^ 1, tx0, ty0, s);
+    __syncthreads();
   }
-  if (x >= W) return;
-#pragma unroll
-  for (int r = 0; r < TH / TY; ++r) {
-    const int y = ty0 + threadIdx.y + r * TY;
-    if (!touched[r] || y >= H) continue;
-    const long long i = (long long)y * W + x;
-    xyb[i] = xyb[i] + (float)acc[r][0];
-    xyb[plane + i] = xyb[plane + i] + (float)acc[r][1];
-    xyb[2 * plane + i] = xyb[2 * plane + i] + (float)acc[r][2];
-  }
+  jxl_ov::write_pixels(tx, ty, tx0, ty0, a, ps);
 }
 
 }  // namespace
@@ -216,8 +212,9 @@ int jxl_draw_splines(float* xyb, long long plane, int H, int W,
                      const double* points, const int* boxes,
                      const int* tiles, const int* offs, const int* items,
                      int ntiles, int tiles_x, cudaStream_t stream) {
-  splines_kernel<<<ntiles, dim3(TW, TY), 0, stream>>>(
-      xyb, plane, H, W, points, boxes, tiles, offs, items, tiles_x);
+  const SplineArgs a{xyb, plane, H, W, points, boxes, tiles, offs, items,
+                     tiles_x};
+  splines_kernel<<<ntiles, jxl_ov::kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

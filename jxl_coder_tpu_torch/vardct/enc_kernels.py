@@ -522,9 +522,7 @@ def dct_costs(src: torch.Tensor, qf: torch.Tensor, fx: torch.Tensor,
     if dev.type == "cpu":
         return dct_costs_plain(src, qf, fx, fb, dq_dc, igs, lam, sid, cy,
                                cx, deadzone, cost_out)
-    if src.data_ptr() % 16:
-        raise ValueError("src: the kernel reads it in 16-byte loads; "
-                         "expected a 16-byte aligned tensor")
+    _build.check_aligned(src, "src")
     t = _tables(dev, ("shape", sid, cy, cx))
     tail = STRATEGIES[sid].num_coeffs - STRATEGIES[sid].covered
     vals = torch.empty((nyc, nxc, 3, tail), dtype=torch.int16, device=dev)
@@ -620,6 +618,7 @@ def special_costs(planes: torch.Tensor, qf: torch.Tensor, fx: torch.Tensor,
     if dev.type == "cpu":
         return special_costs_plain(planes, qf, fx, fb, dq_dc, igs, lam,
                                    elig, sid, deadzone, cost_out)
+    _build.check_aligned(planes, "planes")
     r0, R1, A = _tables(dev, ("special", sid))
     vals = torch.empty((ys_b, xs_b, 3, 63), dtype=torch.int16, device=dev)
     mats = np.asarray([r0.data_ptr(), R1.data_ptr(), A.data_ptr()],

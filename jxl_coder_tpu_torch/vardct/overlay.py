@@ -70,12 +70,25 @@ def tile_lists(x0, x1, y0, y1, h: int, w: int):
             item.astype(np.int32))
 
 
+def longest_first(tiles, offs, items):
+    """tile_lists' lists with the longest first (ties in tile order):
+    A9's thread blocks take the tiles with the most points first, so that
+    none of them starts last."""
+    n = np.diff(offs)
+    order = np.argsort(-n, kind="stable")
+    new_offs = np.append(0, np.cumsum(n[order])).astype(np.int32)
+    idx = np.repeat(offs[order], n[order]) + np.arange(
+        int(new_offs[-1])) - np.repeat(new_offs[:-1], n[order])
+    return tiles[order], new_offs, items[idx]
+
+
 @dataclasses.dataclass(frozen=True)
 class Overlay:
     """A frame's overlay, built by the host half (numpy): its patches as
     (P, 8) int32 rows (x, y, w, h, slot, x0, y0, mode | clamp << 8) in
     dictionary order (drawn: those whose mode is not NONE), and its spline
-    points as Splines.points gives them, each with its tile lists."""
+    points as Splines.points gives them, each with its tile lists (the
+    points' longest first)."""
     patches: Optional[np.ndarray] = None
     drawn: Optional[np.ndarray] = None
     patch_tiles: Optional[tuple] = None
@@ -111,8 +124,8 @@ class Overlay:
                 base_cb=lf.cfl_base_b + lf.cfl_ytob_dc * cf)
             kw["points"] = pts
             kw["boxes"] = boxes.astype(np.int32)
-            kw["point_tiles"] = tile_lists(boxes[:, 0], boxes[:, 1],
-                                           boxes[:, 2], boxes[:, 3], h, w)
+            kw["point_tiles"] = longest_first(*tile_lists(
+                boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3], h, w))
         return Overlay(**kw)
 
     def check_sources(self, ref_sizes: Dict[int, Tuple[int, int]]) -> None:
@@ -348,6 +361,7 @@ def draw_splines(xyb: torch.Tensor, points: torch.Tensor,
                        ("tiles", tiles, torch.int32),
                        ("offs", offs, torch.int32),
                        ("items", items, torch.int32)))
+    _build.check_aligned(boxes, "boxes")
     _, h, w = xyb.shape
     if tiles.numel():
         _build.launch(_kernels()[1], xyb.device, xyb.data_ptr(), h * w, h, w,

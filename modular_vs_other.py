@@ -1,8 +1,10 @@
 """Time the unsqueeze kernel (csrc/modular.cu), the banded resample S3
-(csrc/sample.cu) and the composition A10 (csrc/compose.cu) against other
-trees' on one CUDA card, in turns.
+(csrc/sample.cu), the composition A10 (csrc/compose.cu) and the spline
+overlay A9 (csrc/overlay.cu) against other trees' on one CUDA card, in
+turns.
 
-    python3 modular_vs_other.py OTHER_CSRC [OTHER_CSRC ...] [--only=a2|s3|a10]
+    python3 modular_vs_other.py OTHER_CSRC [OTHER_CSRC ...]
+        [--only=a2|s3|a10|a9]
 
 Each OTHER_CSRC is another tree's jxl_coder_tpu_torch/csrc, for a commit:
 
@@ -10,8 +12,8 @@ Each OTHER_CSRC is another tree's jxl_coder_tpu_torch/csrc, for a commit:
     git archive <commit> jxl_coder_tpu_torch/csrc | tar -x -C build/parent
     python3 modular_vs_other.py build/parent/jxl_coder_tpu_torch/csrc
 
-It builds each other modular.cu, sample.cu and compose.cu with this tree's
-nvcc flags into build/ and times, by replaying a CUDA graph of 50 calls,
+It builds each other modular.cu, sample.cu, compose.cu and overlay.cu with
+this tree's nvcc flags into build/ and times, by replaying a CUDA graph of 50 calls,
 each build's in the order other(s), this, this, other(s) reversed:
 - jxl_unsqueeze on chip_smoke.py's 4K planes (the first horizontal and
   the first vertical squeeze of a 3840x2160 plane);
@@ -23,12 +25,20 @@ each build's in the order other(s), this, this, other(s) reversed:
   phase 16 (RGB + alpha + depth, the sprite animation's last frame's
   blending), on a seeded canvas and frame (chip_smoke.compose_case), u8
   and u16, and the same window with every channel REPLACE (the staging
-  and the stores alone).
+  and the stores alone);
+- jxl_draw_splines on the 4K splines stream's inputs (chip_smoke.py's
+  "4k_splines": 64 seeded splines on the 4K d1.0 e7 stream; the stream
+  cached in the temp directory by chip_smoke.py, else encoded here), on
+  the planes kernel 2 gives that frame, with the ptxas report of every
+  build's splines_kernel; first, untimed, on seeded planes and splines at
+  three more sizes (A9_SEEDED).
 Every build's output is checked equal to this tree's first (0 codes or
-values).  The other builds must export jxl_unsqueeze, jxl_resample and
-jxl_compose with this tree's arguments; another tree's jxl_resample is
-handed its float32 scratch (rows x W x C), this tree's gets null.  Each
-line carries the card's name and power limit.
+values; A9's planes to the bit, against the first build's).  The other
+builds must export jxl_unsqueeze, jxl_resample, jxl_compose and
+jxl_draw_splines with this tree's arguments (a build without
+jxl_draw_splines is named and left out of A9's turns); another tree's
+jxl_resample is handed its float32 scratch (rows x W x C), this tree's
+gets null.  Each line carries the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from jxl_coder_tpu_torch.host.modular import transform as MT
 from jxl_coder_tpu_torch.modular import device as MDEV
 from jxl_coder_tpu_torch.ops import compose as COMPOSE
 from jxl_coder_tpu_torch.ops import resize as RESIZE
+from jxl_coder_tpu_torch.vardct import overlay as OV
 
 # label: (source (h, w, C), target (w, h), scale mode, filter)
 S3_CASES = {
@@ -184,6 +195,78 @@ def time_a10(others, this, dev, card) -> None:
         COMPOSE._kernel = orig
 
 
+# seeded spline sets beside the stream: (h, w, splines, seed), frames that
+# are not a multiple of the 64 x 16 tile among them
+A9_SEEDED = ((1080, 1920, 32, 7), (613, 997, 24, 8), (70, 150, 6, 5))
+
+
+def a9_seeded_equal(builds, dev, card) -> None:
+    """Each build's draw_splines on seeded planes and splines
+    (port_fixtures.seeded_splines, Splines.points, tile_lists) equal to
+    the first build's to the bit."""
+    orig = OV._kernels
+    try:
+        for h, w, n, seed in A9_SEEDED:
+            pts, boxes = cs.seeded_splines(h, w, n, seed).points(h, w)
+            boxes = np.ascontiguousarray(boxes, np.int32)
+            lists = [torch.from_numpy(a).to(dev) for a in OV.longest_first(
+                *OV.tile_lists(boxes[:, 0], boxes[:, 1], boxes[:, 2],
+                               boxes[:, 3], h, w))]
+            pts_d = torch.from_numpy(np.ascontiguousarray(pts)).to(dev)
+            boxes_d = torch.from_numpy(boxes).to(dev)
+            g = torch.Generator(device=dev).manual_seed(seed)
+            xyb = torch.randn((3, h, w), generator=g, device=dev)
+            want = None
+            for tag, fn in builds:
+                OV._kernels = lambda fn=fn: (orig()[0], fn)
+                got = OV.draw_splines(xyb.clone(), pts_d, boxes_d, *lists)
+                torch.cuda.synchronize()
+                want = got if want is None else want
+                diff = int((got.view(torch.int32) !=
+                            want.view(torch.int32)).sum())
+                if diff:
+                    raise AssertionError(f"{tag}: draw_splines on seeded "
+                                         f"{w}x{h} differs in {diff} values")
+            print(f"splines seeded {w}x{h} ({len(pts)} points, "
+                  f"{lists[0].numel()} tiles): {len(builds)} builds, 0 "
+                  f"values differ from the first build's [{card}]",
+                  flush=True)
+    finally:
+        OV._kernels = orig
+
+
+def time_a9(others, this, dev, card) -> None:
+    """draw_splines on the 4K splines stream's planes with each build."""
+    a9_seeded_equal(others + [("this", this)], dev, card)
+    _cfg, inp, xyb = cs.overlay_inputs(cs.overlay_data("4k_splines"), dev)
+    ov = inp.overlay
+    order = others + [("this", this)] * 2 + others[::-1]
+    orig = OV._kernels
+    want = None
+    try:
+        for tag, fn in order:
+            OV._kernels = lambda fn=fn: (orig()[0], fn)
+            got = OV.draw_splines(xyb.clone(), ov.points, ov.boxes,
+                                  *ov.point_tiles)
+            torch.cuda.synchronize()
+            want = got if want is None else want
+            diff = int((got.view(torch.int32) != want.view(torch.int32))
+                       .sum())
+            if diff:
+                raise AssertionError(f"{tag}: draw_splines differs from the "
+                                     f"first build's in {diff} values")
+            planes = xyb.clone()
+            ms = cs.graph_ms(lambda: OV.draw_splines(planes, ov.points,
+                                                     ov.boxes,
+                                                     *ov.point_tiles))
+            print(f"splines 4k ({ov.points.shape[0]} points, "
+                  f"{ov.point_tiles[0].numel()} tiles), {tag} tree's "
+                  f"overlay.cu: graph {ms:.4f} ms, 0 values differ from the "
+                  f"first build's [{card}]", flush=True)
+    finally:
+        OV._kernels = orig
+
+
 def main() -> int:
     args = [a for a in sys.argv[1:] if not a.startswith("--only")]
     only = next((a.split("=", 1)[1] for a in sys.argv[1:]
@@ -200,7 +283,8 @@ def main() -> int:
     this_a2 = MDEV._kernels()
     this_s3 = RESIZE._kernel()
     this_a10 = COMPOSE._kernel()
-    a2, s3, a10 = [], [], []
+    this_a9 = OV._kernels()[1]
+    a2, s3, a10, a9 = [], [], [], []
     for n, arg in enumerate(args):
         src = Path(arg).resolve()
         if only in (None, "a2"):
@@ -212,6 +296,13 @@ def main() -> int:
         if only in (None, "a10"):
             a10.append((arg, build(src, "compose", n, "jxl_compose",
                                    this_a10.argtypes[:-1])))
+        if only in (None, "a9"):
+            try:
+                a9.append((arg, build(src, "overlay", n, "jxl_draw_splines",
+                                      this_a9.argtypes[:-1])))
+            except AttributeError as e:
+                print(f"A9: cannot bind {arg}'s jxl_draw_splines: {e}",
+                      flush=True)
     if only in (None, "a2"):
         time_a2(a2, this_a2, dev, card)
     if only in (None, "s3"):
@@ -222,6 +313,13 @@ def main() -> int:
             cs.ptxas_report("compose", _build.BUILD_DIR /
                             f"libcompose-other{n}.log", f"{arg} ")
         time_a10(a10, this_a10, dev, card)
+    if only in (None, "a9"):
+        cs.ptxas_report("overlay", only="splines_kernel")
+        for n, arg in enumerate(args):
+            cs.ptxas_report("overlay", _build.BUILD_DIR /
+                            f"liboverlay-other{n}.log", f"{arg} ",
+                            only="splines_kernel")
+        time_a9(a9, this_a9, dev, card)
     return 0
 
 

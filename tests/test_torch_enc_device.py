@@ -286,6 +286,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                          torch.zeros(4))
 
 
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_unaligned_views_are_refused_before_a_launch(offset):
+    """E3's, E4's and A9's wrappers refuse a source that does not start
+    on a 16-byte boundary (their kernels read it in 16-byte loads) with
+    _build.check_aligned, before any launch; a view 16 bytes in passes."""
+    from jxl_coder_tpu_torch import _build
+    base = torch.zeros(64)
+    assert base.data_ptr() % 16 == 0
+    _build.check_aligned(base[4:], "planes")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _build.check_aligned(base[offset:], "planes")
+    with pytest.raises(ValueError, match="boxes"):
+        _build.check_aligned(torch.zeros(68, dtype=torch.int32)[
+            offset:offset + 64].view(16, 4), "boxes")
+
+
 def test_a_cuda_front_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
@@ -535,6 +551,90 @@ extern "C" void enc_dct_costs(
     cost[blk] = rate + lam * dist;
   }
 }
+
+// E4 (encode.cu special_costs_kernel) as `walkers` groups one after
+// another, each the kernel's walk: its rounds of blocks in the kernel's
+// order, the ring appended in block order (the kernel's ballot), every
+// phase run for the group's threads one after another between the
+// kernel's barriers
+extern "C" void enc_special_costs(
+    const float* planes, const int* qf, const float* fx, const float* fb,
+    const float* dqdc, const uint8_t* elig, const float* r0, const float* R1,
+    const float* A, int ys_b, int xs_b, float igs, float lam, float dz,
+    const float* qk, int walkers, int16_t* vals, float* cost) {
+  SpecialArgs a{planes, qf, fx, fb, dqdc, elig, r0, R1, A, vals, cost,
+                ys_b, xs_b, {}};
+  for (int c = 0; c < 3; ++c) {
+    a.k.bias[c] = Bias{qk[c], qk[3]};
+    a.k.area_w[c] = qk[4 + c];
+  }
+  a.k.dz = dz;
+  a.k.igs = igs;
+  a.k.lam = lam;
+  std::vector<SpecialMats> mv(1);
+  std::vector<SpecialBatch> sv(1);
+  SpecialMats& m = mv[0];
+  SpecialBatch& s = sv[0];
+  std::vector<E4Thread> st(kE4Threads);
+  const long long nb = 1ll * ys_b * xs_b;
+  const int order[3] = {1, 0, 2};
+  for (int t = 0; t < kE4Threads; ++t) e4_load(t, kE4Threads, a, m);
+  for (int w = 0; w < walkers; ++w) {
+    s.head = s.count = 0;
+    for (int r = 0;; ++r) {
+      const bool done = e4_block(w, walkers, 1ll * r * kE4Seg) >= nb;
+      if (!done) {
+        for (int i = 0; i < kE4Seg; ++i) {
+          const long long n = e4_block(w, walkers, 1ll * r * kE4Seg + i);
+          if (n < nb && elig[n])
+            s.ring[(s.head + s.count++) & (kE4Ring - 1)] = (int)n;
+        }
+        for (int t = 0; t < kE4Threads; ++t) e4_clear(t, w, walkers, r, a);
+      }
+      for (;;) {
+        const int count = s.count;
+        if (count < kE4Batch && !(done && count > 0)) break;
+        const int nbat = std::min(count, kE4Batch);
+        for (int t = 0; t < kE4Threads; ++t) e4_slot(t, nbat, a, s);
+        for (int oi = 0; oi < 3; ++oi) {
+          const int c = order[oi];
+          for (int t = 0; t < kE4Threads; ++t) {
+            e4_input(t, c, a, m, s, st[t]);
+            if (oi) e4_reduce(t, order[oi - 1], s);
+          }
+          for (int t = 0; t < kE4Threads; ++t) e4_quant(t, c, a, m, s);
+          for (int t = 0; t < kE4Threads; ++t)
+            e4_recon(t, c, a, m, s, st[t]);
+        }
+        for (int t = 0; t < kE4Threads; ++t) e4_reduce(t, 2, s);
+        for (int t = 0; t < kE4Threads; ++t) e4_cost(t, nbat, a, s);
+        s.head += nbat;
+        s.count = count - nbat;
+      }
+      if (done) break;
+    }
+  }
+}
+
+// E4's quantiser from its tables against quantize, on ratios inside them
+extern "C" int enc_quantize_tab(const float* r, int n, const float* qk,
+                                float dz) {
+  std::vector<SpecialMats> mv(1);
+  e4_tables(0, 1, qk[3], mv[0]);
+  int bad = 0;
+  for (int c = 0; c < 3; ++c) {
+    const Bias b{qk[c], qk[3]};
+    for (int i = 0; i < n; ++i) {
+      if (!(fabsf(r[i]) < (float)(kE4Tab - 2))) continue;
+      const float q = quantize_fast(r[i], b, dz, mv[0]);
+      bad += q != quantize(r[i], b, dz);
+      bad += adjust_fast(q, b, mv[0]) != adjust(q, b);
+    }
+  }
+  for (int i = 0; i < kE4Tab; ++i)
+    bad += mv[0].log1p2[i] != log2f(1.0f + fabsf((float)i));
+  return bad;
+}
 """
 
 
@@ -563,6 +663,9 @@ def enc_host(tmp_path_factory):
     lib.enc_dct_costs.argtypes = [p] * 13 + [i] * 4 + [f] * 3 + [p, i, i,
                                                                  p, p]
     lib.enc_front_walk.argtypes = [p, i, p, i, i, i, p]
+    lib.enc_special_costs.argtypes = [p] * 9 + [i, i, f, f, f, p, i, p,
+                                                 p]
+    lib.enc_quantize_tab.argtypes = [p, i, p, f]
     return lib
 
 
@@ -699,3 +802,101 @@ def test_kernel_dct_costs_arithmetic_meets_the_tie_rule(sid, cy, cx,
     rows = ~diff.flatten(2).any(-1).reshape(-1).numpy()
     rel = np.abs(cost - cost_ref.numpy()) / np.abs(cost_ref.numpy())
     assert rows.any() and rel[rows].max() <= 1e-4, rel[rows].max()
+
+
+@pytest.mark.parametrize("sid", PR._SPECIAL_CANDS)
+def test_kernel_special_costs_walk_meets_the_tie_rule(sid, enc_host):
+    """E4's batch walk (encode.cuh's e4_* phases in the kernel's tiles,
+    rounds and batches), built with g++, against special_costs_plain on a
+    seeded 19 x 23-block frame (437 blocks: 3 rounds and a part for one
+    walker) with ~40% of its blocks ineligible: zero values and cost 1e30
+    there; the values equal but at quantisation ties (tie_faults with
+    block_dep) and the costs within 1e-4 where a block's values agree (the
+    card's rule, chip_smoke.enc_check_quant).  24 blocks have every ratio
+    at a decision boundary of the quantiser (pixels made through R1 from
+    the midpoints of adjacent dequantised values), so ties occur; 8 have
+    ratios past the quantiser's tables; no batch is full at the end of a
+    walk; one and three walkers give the same bits."""
+    ys_b, xs_b = 19, 23
+    nb = ys_b * xs_b
+    planes = EK.front_planes_plain(torch.from_numpy(
+        _image(8 * ys_b, 8 * xs_b, seed=sid)), 4).numpy().copy()
+    co, _small = EK.front_blocks_plain(torch.from_numpy(planes))
+    dq = np.ascontiguousarray(co[:, :, :, 0, 0].numpy())
+    rng = np.random.default_rng(sid)
+    qf = rng.integers(2, 16, (ys_b, xs_b)).astype(np.int32)
+    fx, fb = (rng.normal(0, 0.1, (ys_b, xs_b)).astype(np.float32)
+              for _ in range(2))
+    elig = rng.random((ys_b, xs_b)) < 0.6
+    igs, lam = 10.92, 0.05
+    r0, R1, A = EK._special_host(sid)
+    tied = np.flatnonzero(elig)[:24]
+    for n in tied:
+        by, bx = divmod(int(n), xs_b)
+        fx[by, bx] = fb[by, bx] = 0.0
+        inv = np.float32(1.0) / (np.float32(qf[by, bx]) / np.float32(igs))
+        for c in range(3):
+            q = torch.from_numpy(rng.integers(-3, 3, 63).astype(np.float32))
+            mid = (EK._adjust(q, c).double() + EK._adjust(q + 1, c).double()
+                   ) / 2
+            px = (mid.numpy() * float(inv)) @ R1[c].astype(np.float64) \
+                + float(dq[c, by, bx]) * r0[c].astype(np.float64)
+            planes[c, 8 * by:8 * by + 8, 8 * bx:8 * bx + 8] = \
+                px.reshape(8, 8)
+    big = np.flatnonzero(elig)[24:32]   # ratios past the quantiser's tables
+    for n in big:
+        by, bx = divmod(int(n), xs_b)
+        planes[:, 8 * by:8 * by + 8, 8 * bx:8 * bx + 8] *= 3000.0
+    t = torch.from_numpy
+    cost_ref = torch.empty(nb)
+    ref, ratios = EK.special_costs_plain(
+        t(planes), t(qf), t(fx), t(fb), t(dq), igs, lam, t(elig), sid,
+        PR.AC_DEADZONE, cost_ref, return_ratios=True)
+    qk = EK._quant_consts([float(np.float32(d)) for d in EK.D_WEIGHTS])
+    outs = []
+    for walkers in (1, 3):
+        vals = np.full((ys_b, xs_b, 3, 63), 7, np.int16)
+        cost = np.full(nb, np.nan, np.float32)
+        arrs = [planes, qf, fx, fb, dq, elig.astype(np.uint8), r0, R1, A]
+        enc_host.enc_special_costs(*[_ptr(x) for x in arrs], ys_b, xs_b,
+                                   float(np.float32(igs)),
+                                   float(np.float32(lam)),
+                                   float(np.float32(PR.AC_DEADZONE)),
+                                   _ptr(qk), walkers, _ptr(vals),
+                                   _ptr(cost))
+        outs.append((vals, cost))
+    assert np.array_equal(outs[0][0], outs[1][0])
+    assert np.array_equal(outs[0][1].view(np.int32), outs[1][1].view(np.int32))
+    vals, cost = outs[1]
+    flat = elig.reshape(-1)
+    assert int(flat.sum()) % 64 and (nb % 128)
+    assert not vals[~elig].any() and np.all(cost[~flat] == np.float32(1e30))
+    diff = torch.from_numpy(vals) != ref
+    assert not EK.tie_faults(diff, ratios, PR.AC_DEADZONE,
+                             block_dep=True).any()
+    assert EK.ties(ratios, PR.AC_DEADZONE).reshape(nb, 3, 63)[tied].any()
+    assert float(ratios.reshape(nb, -1)[big].abs().max()) > 2 * 512
+    natural = flat.copy()
+    natural[tied] = False
+    assert float(diff.reshape(nb, -1)[natural].float().mean()) <= 1e-5
+    rows = ~diff.reshape(nb, -1).any(-1).numpy() & flat
+    rel = np.abs(cost - cost_ref.numpy()) / np.abs(cost_ref.numpy())
+    assert rows.any() and rel[rows].max() <= 1e-4, rel[rows].max()
+
+
+def test_kernel_e4_quantiser_tables_are_quantize(enc_host):
+    """E4's quantiser (encode.cuh quantize_fast, adjust_fast:
+    QUANT_BIAS_NUM / q and log2(1 + |q|) from tables) against quantize and
+    adjust, for each channel's bias, on every ratio inside the tables up
+    to their edge, at the half-way ties, the deadzone and signed zero: 0
+    differences (past the edge the kernel takes quantize itself)."""
+    rng = np.random.default_rng(22)
+    r = np.concatenate([rng.normal(0, 6, 100_000),
+                        rng.normal(0, 2000, 20_000),
+                        np.arange(-600, 600) + 0.5,
+                        np.linspace(-1.5, 1.5, 3001),
+                        [0.0, -0.0, 253.49, 253.5, -253.5, 1e9, -1e9]]
+                       ).astype(np.float32)
+    qk = EK._quant_consts([float(np.float32(d)) for d in EK.D_WEIGHTS])
+    assert enc_host.enc_quantize_tab(_ptr(r), len(r), _ptr(qk),
+                                     float(np.float32(PR.AC_DEADZONE))) == 0

@@ -326,6 +326,196 @@ def test_draw_splines_twin_against_render(seed):
     assert np.all(np.abs(got - want) <= np.spacing(np.abs(want)))
 
 
+
+def test_longest_first_keeps_each_tiles_list():
+    """longest_first reorders tile_lists' tiles by list length, longest
+    first and ties in tile order, each tile keeping its items in order."""
+    rng = np.random.default_rng(3)
+    h, w = 150, 333
+    x0 = rng.integers(0, w, 60)
+    y0 = rng.integers(0, h, 60)
+    x1 = np.minimum(x0 + rng.integers(0, 90, 60), w - 1)
+    y1 = np.minimum(y0 + rng.integers(0, 40, 60), h - 1)
+    tiles, offs, items = OV.tile_lists(x0, x1, y0, y1, h, w)
+    lt, lo, li = OV.longest_first(tiles, offs, items)
+    n = np.diff(lo)
+    assert sorted(lt.tolist()) == tiles.tolist() and n[0] > n[-1]
+    assert np.all(n[:-1] >= n[1:])
+    for k, t in enumerate(lt):
+        i = int(np.flatnonzero(tiles == t)[0])
+        assert np.array_equal(li[lo[k]:lo[k + 1]], items[offs[i]:offs[i + 1]])
+        if k and n[k] == n[k - 1]:
+            assert lt[k - 1] < t
+    assert lo.dtype == np.int32 and li.dtype == np.int32
+
+
+# ---- csrc/overlay.cuh, A9's walk, built with g++ ----
+
+_OVERLAY_RUN = r"""
+#include <algorithm>
+#include <vector>
+#include "overlay.cuh"
+using namespace jxl_ov;
+
+// A9 (overlay.cu splines_kernel) tile after tile: warp 0's staging lane by
+// lane (the prefix sum in lane order), then each chunk's phases for the
+// block's threads one after another, as between the kernel's barriers
+extern "C" void spl_chunked(float* xyb, long long plane, int H, int W,
+                            const double* points, const int* boxes,
+                            const int* tiles, const int* offs,
+                            const int* items, int ntiles, int tiles_x) {
+  const SplineArgs a{xyb, plane, H, W, points, boxes, tiles, offs, items,
+                     tiles_x};
+  std::vector<SplineShared> sv(1);
+  SplineShared& s = sv[0];
+  std::vector<PixelSums> ps(kThreads);
+  for (int blk = 0; blk < ntiles; ++blk) {
+    int tx0, ty0;
+    tile_origin(a, blk, tx0, ty0);
+    const int begin = offs[blk], end = offs[blk + 1];
+    const int nch = (end - begin + kChunk - 1) / kChunk;
+    for (PixelSums& q : ps) q = PixelSums{};
+    auto stage = [&](int ch, int buf) {
+      int off = 0;
+      for (int k = 0; k < kChunk; ++k) {
+        const int idx = begin + ch * kChunk + k;
+        s.off[buf][k] = off;
+        if (idx >= end) continue;
+        PointLoad p;
+        load_point(a, items[idx], p);
+        Box cl;
+        const int cnt = clip_point(p, tx0, ty0, cl);
+        stage_point(p, cl, off, cnt, k, buf, s);
+        off += cnt;
+      }
+      s.off[buf][kChunk] = off;
+    };
+    stage(0, 0);
+    for (int ch = 0; ch < nch; ++ch) {
+      const int buf = ch & 1;
+      const int nk = std::min(kChunk, end - begin - ch * kChunk);
+      for (int t = 0; t < kThreads; ++t) chunk_erfs(t, buf, s);
+      for (int t = 0; t < kThreads; ++t) {
+        int tx, ty;
+        pixel_of(t, tx, ty);
+        chunk_accumulate(tx, ty, tx0, ty0, buf, nk, s, ps[t]);
+      }
+      if (ch + 1 < nch) stage(ch + 1, buf ^ 1);
+    }
+    for (int t = 0; t < kThreads; ++t) {
+      int tx, ty;
+      pixel_of(t, tx, ty);
+      write_pixels(tx, ty, tx0, ty0, a, ps[t]);
+    }
+  }
+}
+
+extern "C" void spl_by_points(float* xyb, long long plane, int H, int W,
+                              const double* points, const int* boxes,
+                              const int* tiles, const int* offs,
+                              const int* items, int ntiles, int tiles_x) {
+  const SplineArgs a{xyb, plane, H, W, points, boxes, tiles, offs, items,
+                     tiles_x};
+  for (int blk = 0; blk < ntiles; ++blk) tile_by_points(a, blk);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def overlay_host(tmp_path_factory):
+    """csrc/overlay.cuh built for the host with g++ (no FMA contraction,
+    as the kernel's -fmad=false)."""
+    import ctypes
+    import shutil
+    import subprocess
+    from jxl_coder_tpu_torch import _build
+    gxx = shutil.which("g++")
+    assert gxx, "g++ builds the port's host codec; it is needed here too"
+    tmp = tmp_path_factory.mktemp("overlay")
+    cpp, so = tmp / "run.cpp", tmp / "librun.so"
+    cpp.write_text(_OVERLAY_RUN)
+    subprocess.run([gxx, "-O2", "-std=c++17", "-Wall", "-Werror",
+                    "-ffp-contract=off", "-shared", "-fPIC", "-I",
+                    str(_build.CSRC), "-o", str(so), str(cpp)], check=True)
+    lib = ctypes.CDLL(str(so))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn in (lib.spl_chunked, lib.spl_by_points):
+        fn.argtypes = [p, ll, i, i] + [p] * 5 + [i, i]
+    return lib
+
+
+# frames that are not a multiple of the 64 x 16 tile, with tiles that list
+# several chunks (32 points) of points and boxes that the tiles cut
+@pytest.mark.parametrize("h,w,n,seed", [(70, 150, 6, 5), (45, 203, 8, 6),
+                                        (96, 128, 12, 7)])
+def test_kernel_spline_chunks_equal_the_point_walk(overlay_host, h, w, n,
+                                                   seed):
+    """A9's chunked walk (overlay.cuh: staging, each boundary erf once, the
+    pixels' sums in list order) against the point-by-point walk of the
+    kernel it replaced (each point's 64 + 16 erf differences of its tile),
+    both built with g++: the planes equal to the bit; and within 1e-6 of
+    draw_splines_plain (glibc's exp against torch's)."""
+    spl = F.seeded_splines(h, w, n, seed)
+    pts, boxes = spl.points(h, w)
+    pts = np.ascontiguousarray(pts, np.float64)
+    boxes = np.ascontiguousarray(boxes, np.int32)
+    tiles, offs, items = OV.longest_first(*OV.tile_lists(
+        boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3], h, w))
+    assert np.diff(offs).max() > 2 * 32
+    tx, ty = tiles % -(-w // OV.TILE_W), tiles // -(-w // OV.TILE_W)
+    per = np.repeat(np.arange(len(tiles)), np.diff(offs))
+    cut = ((boxes[items, 0] < tx[per] * OV.TILE_W) |
+           (boxes[items, 3] >= (ty[per] + 1) * OV.TILE_H))
+    assert cut.any() and not cut.all()
+    rng = np.random.default_rng(seed)
+    xyb = rng.normal(0.2, 0.5, (3, h, w)).astype(np.float32)
+    got, walk = xyb.copy(), xyb.copy()
+    lists = [pts, boxes, tiles, offs, items]
+    for fn, out in ((overlay_host.spl_chunked, got),
+                    (overlay_host.spl_by_points, walk)):
+        fn(out.ctypes.data, h * w, h, w, *[a.ctypes.data for a in lists],
+           len(tiles), -(-w // OV.TILE_W))
+    assert np.array_equal(got.view(np.int32), walk.view(np.int32))
+    assert (got != xyb).any()
+    want = OV.draw_splines_plain(torch.from_numpy(xyb.copy()),
+                                 torch.from_numpy(pts),
+                                 torch.from_numpy(boxes)).numpy()
+    assert np.abs(got - want).max() <= 1e-6
+
+@pytest.mark.parametrize("h,w,n,seed", [(70, 150, 6, 5), (45, 203, 8, 6)])
+def test_kernel_spline_chunks_skip_listed_points_that_miss_the_tile(
+        overlay_host, h, w, n, seed):
+    """Tile lists that name every point in every tile, most of them with a
+    box that misses the tile: A9's chunked walk gives such a point no
+    boundaries and no pixels, as the point-by-point walk skips it, so the
+    planes equal the exact lists' to the bit."""
+    spl = F.seeded_splines(h, w, n, seed)
+    pts, boxes = spl.points(h, w)
+    pts = np.ascontiguousarray(pts, np.float64)
+    boxes = np.ascontiguousarray(boxes, np.int32)
+    tiles, offs, items = OV.tile_lists(
+        boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3], h, w)
+    nt = -(-h // OV.TILE_H) * -(-w // OV.TILE_W)
+    every = (np.arange(nt, dtype=np.int32),
+             np.arange(0, nt + 1, dtype=np.int32) * len(pts),
+             np.tile(np.arange(len(pts), dtype=np.int32), nt))
+    assert len(every[2]) > 2 * len(items)
+    xyb = np.random.default_rng(seed).normal(
+        0.2, 0.5, (3, h, w)).astype(np.float32)
+    outs = []
+    for fn, lists in ((overlay_host.spl_chunked, every),
+                      (overlay_host.spl_by_points, every),
+                      (overlay_host.spl_chunked, (tiles, offs, items))):
+        out = xyb.copy()
+        args = [pts, boxes, *lists]
+        fn(out.ctypes.data, h * w, h, w, *[a.ctypes.data for a in args],
+           len(lists[0]), -(-w // OV.TILE_W))
+        outs.append(out.view(np.int32))
+    assert np.array_equal(outs[0], outs[1])
+    assert np.array_equal(outs[0], outs[2])
+    assert (outs[0] != xyb.view(np.int32)).any()
+
+
 # ---- decodes ----
 
 @pytest.mark.parametrize("hw", SIZES)
