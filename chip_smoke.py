@@ -2447,13 +2447,57 @@ POST_WRITER = [sys.modules[m].__file__ for m in (
 #     and interpolation (6 each), red and green (3 each), X / Y / B (2 each;
 #     the sum red + green shared, 1): 12 + 6 + 12 + 6 + 7 = 43;
 #   upsampling, per output sample: 25 FMAs (50) and the clamp (2), the
-#     window's min and max (48 a source sample) shared by n^2 outputs;
-#   the output encoding (PQ, BT.2100 gamut), per pixel: the cubes and
-#     biases (9), the opsin and gamut mixes (2 x 15), per channel |v|, the
-#     scale, two powf (each log2, exp2 and a multiply: 3 on the special
-#     function units), the rational (4), the sign (1) and the code (4):
-#     39 + 3 x 17 = 90
-POST_OPS = {"add_noise": 43, "upsample": 52, "encode_output": 90}
+#     window's min and max (48 a source sample) shared by n^2 outputs
+POST_OPS = {"add_noise": 43, "upsample": 52}
+# A7 counted in SASS instructions (the instruction slots a lane spends;
+# the card runs 132 SMs x 128 lanes of them a cycle at its highest SM clock,
+# 1,980 MHz), each powf, logf, sqrtf and IEEE division at the instructions
+# read off cuobjdump -sass of post.cu's encode_output_kernel<4, uint16_t,
+# K_ENC, T_PQ, true> (powf, division) and <4, uint16_t, K_ENC, T_HLG, true>
+# (logf, sqrtf) on sm_90a, nvcc -fmad=false (modular_vs_other.py
+# --only=a7 --sass=DIR writes it).  SASS_NEEDED, which sets the bound, is
+# the work each call needs for a finite positive argument and a normal
+# result: powf's reduction, logarithm, exponential and scaling (56), the
+# division's reciprocal and its five-step refinement (6), sqrtf's
+# reciprocal square root and its refinement (5), logf's reduction and
+# polynomial (21).  SASS_COMMON is what the kernel issues on that path, an
+# issue-rate figure printed beside the bound: it adds the convergence
+# barriers and the tests, selects and branches over special cases (a base
+# of 1, an exponent of 0, overflow, NaN, infinities, a negative base or an
+# integer exponent: powf 86), the division's FCHK and the branch past its
+# slow path (10), sqrtf's range test (10) and logf's zero and infinity
+# selects (26).  The other operations count one instruction each: the
+# linear values (the cubes and biases 14, the opsin mix 15), the gamut
+# mix (15), and per channel the transfer function's own operations, the
+# sign (3) and the code (5)
+SASS_NEEDED = {"powf": 56, "logf": 21, "sqrtf": 5, "div": 6}
+SASS_COMMON = {"powf": 86, "logf": 26, "sqrtf": 10, "div": 10}
+SASS_PER_S = 132 * 128 * 1.98e9
+
+
+def a7_instructions(spec: tuple, k: dict = SASS_NEEDED) -> int:
+    """A7's SASS instructions a pixel for an output spec, with each call
+    counted at k (SASS_NEEDED: the bound's; SASS_COMMON: what the kernel
+    issues): the arithmetic above; HLG's values at or below 1/12 take the
+    square root, the others the logarithm, so a pixel counts the cheaper
+    branch."""
+    if spec[0] == "srgb":
+        return OPS_PX["srgb"]
+    if spec[0] == "ycbcr":
+        return 9 + 3 * 5
+    base = 14 + 15
+    if spec[0] == "gamma":
+        return base + 3 * (1 + k["powf"] + 5)
+    trc, gm = spec[1], spec[2] is not None
+    per = {8: 1, 1: 4 + k["powf"], 17: k["powf"],
+           16: 1 + 4 + 2 * k["powf"] + k["div"],
+           18: 3 + min(1 + k["sqrtf"], 5 + k["logf"])}.get(
+               trc, 4 + k["powf"])
+    # HLG's display values (3), their luma (5) and its power (3 + powf)
+    extra = 3 + 5 + 3 + k["powf"] if trc == 18 else 0
+    return base + 15 * gm + extra + 3 * (per + 3 + 5)
+
+
 # PQ codes: mean, 99.9th percentile, and the share of values beyond 64
 # codes.  Near black PQ is steep enough that a float32 difference of ~1e-5
 # in an XYB value moves a 16-bit code by a hundred or more, and no float32
@@ -2623,8 +2667,13 @@ def kernel2_outs(outs: list):
 
 
 def note_post(name: str, got: torch.Tensor, ref: torch.Tensor,
-              what: str, pq: bool = False) -> None:
-    """f32 planes within 1e-6; codes within 2, or PQ's limits."""
+              what: str, pq: bool = False, spec_key: str = None) -> None:
+    """f32 planes within 1e-6; codes equal, or within PQ's limits; spec_key:
+    A7's largest difference kept by output spec (A7_MAX).  The codes'
+    rule is 0 for every spec but PQ: the kernel this one replaced gave 0
+    on every check of phase 12 and on the 4K planes of
+    modular_vs_other.py --only=a7 at 8 and 16 bits (NVIDIA H100 80GB
+    HBM3)."""
     if got.shape != ref.shape or got.dtype != ref.dtype:
         raise AssertionError(f"{name} {what}: {tuple(got.shape)} "
                              f"{got.dtype} vs {tuple(ref.shape)} {ref.dtype}")
@@ -2632,6 +2681,8 @@ def note_post(name: str, got: torch.Tensor, ref: torch.Tensor,
         note_err(name, (got - ref).abs().max().item(), 1e-6, what)
         return
     d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+    if spec_key is not None:
+        A7_MAX[spec_key] = max(A7_MAX.get(spec_key, 0), int(d.max()))
     if pq:
         codes = pq_codes(got.cpu().numpy(), ref.cpu().numpy())
         ERR[name] = max(ERR[name], float(codes[2]))
@@ -2639,7 +2690,7 @@ def note_post(name: str, got: torch.Tensor, ref: torch.Tensor,
         if not pq_within(codes):
             raise AssertionError(f"{name} {what}: PQ codes outside limits")
     else:
-        note_err(name, d.max().item(), 2, what)
+        note_err(name, d.max().item(), 0, what)
 
 
 POST_SPECS = {"srgb": ("srgb",), "gamma": ("gamma", 1 / 2.2),
@@ -2649,6 +2700,18 @@ POST_SPECS = {"srgb": ("srgb",), "gamma": ("gamma", 1 / 2.2),
               "bt709": ("enc", 1, None, 255.0),
               "linear": ("enc", 8, None, 255.0),
               "dci": ("enc", 17, None, 255.0)}
+
+
+# A7's largest code difference from its twin seen by output spec
+# (printed in phase 12)
+A7_MAX = {}
+
+
+def note_a7(got: torch.Tensor, ref: torch.Tensor, key: str,
+            what: str) -> None:
+    """A7's codes against the twin's (note_post's rule)."""
+    note_post("encode_output", got, ref, f"{what} {key}",
+              pq=key.startswith("pq"), spec_key=key)
 
 
 def post_spec(key: str) -> tuple:
@@ -2701,10 +2764,9 @@ def check_post_seeded(dev) -> None:
             spec = post_spec(key)
             for bits in (8, 16):
                 src = hx if spec[0] == "enc" else x
-                note_post("encode_output", post.encode_output(src, spec, bits),
-                          post.encode_output_plain(src, spec, bits),
-                          f"seeded {h}x{w} {key} {bits}-bit",
-                          pq=key.startswith("pq"))
+                note_a7(post.encode_output(src, spec, bits),
+                        post.encode_output_plain(src, spec, bits), key,
+                        f"seeded {h}x{w} {bits}-bit")
 
 
 # the layers of a post-stage api.decode: layer -> the functions it wraps;
@@ -2883,6 +2945,60 @@ def post_layers(label: str, data: bytes, mp: float, card: str,
     return dict(m, total=t_unsplit, first_build=first_build)
 
 
+@contextlib.contextmanager
+def a7_recorded(calls: list, current: list):
+    """Record each encode_output call: (the stream's label current[0], the
+    planes, spec, bits).  The planes are kept, not copied: nothing writes
+    them after the call."""
+    orig = post.encode_output
+
+    @functools.wraps(orig)
+    def call(xyb, spec, bits):
+        before = call.launches
+        out = orig(xyb, spec, bits)
+        # orig counts through its module's name, now this wrapper's
+        orig.launches += call.launches - before
+        calls.append((current[0], xyb, spec, bits))
+        return out
+
+    post.encode_output = call
+    try:
+        yield
+    finally:
+        post.encode_output = orig
+
+
+def a7_bound(px: int, out_bytes: int, spec: tuple) -> tuple:
+    """(bound ms, "bytes" | "operations", the byte term, the instruction
+    term, the issue figure): 12 B of planes read a pixel and the codes
+    written, against a7_instructions at SASS_PER_S (SASS_NEEDED; the issue
+    figure SASS_COMMON's)."""
+    b = (12 * px + out_bytes) / HBM_BYTES_PER_S * 1e3
+    o = px * a7_instructions(spec) / SASS_PER_S * 1e3
+    i = px * a7_instructions(spec, SASS_COMMON) / SASS_PER_S * 1e3
+    return (max(b, o), "bytes" if b >= o else "operations", b, o, i)
+
+
+def a7_launch_timings(calls: list, launches: int, card: str) -> None:
+    """Each A7 launch of the counted main path at its own size and spec, by
+    CUDA graph, beside its bound (bytes, and the SASS instructions it
+    needs) and the instructions it issues."""
+    if len(calls) != launches:
+        raise AssertionError(f"encode_output: {len(calls)} calls recorded, "
+                             f"{launches} launches counted")
+    for k, (label, xyb, spec, bits) in enumerate(calls):
+        out = post.encode_output(xyb, spec, bits)
+        t = graph_ms(lambda: post.encode_output(xyb, spec, bits))
+        bound, by, b, o, i = a7_bound(xyb[0].numel(), nbytes(out), spec)
+        print(f"kernel encode_output launch {k + 1}/{len(calls)} ({label}): "
+              f"{tuple(xyb.shape)} -> {tuple(out.shape)} {spec[:2]} "
+              f"{bits}-bit: {t:.4f} ms (CUDA graph), bound {bound:.4f} ms "
+              f"({by}; bytes {b:.4f}, {a7_instructions(spec)} SASS "
+              f"instructions a pixel needed {o:.4f}); issued "
+              f"{a7_instructions(spec, SASS_COMMON)} a pixel {i:.4f} "
+              f"[{card}]", flush=True)
+
+
 def post_timings(inputs: dict, card: str, ms: dict) -> None:
     """Each post kernel at 4K by CUDA graph against its twin (CUDA events)
     and its bound, on the inputs the main path gave it."""
@@ -2903,7 +3019,12 @@ def post_timings(inputs: dict, card: str, ms: dict) -> None:
     src, spec, bits = inputs["encode_output"]
     px = src[0].numel()
     note_bound("encode_output", 12 * px + 3 * px * (2 if bits > 8 else 1),
-               px * POST_OPS["encode_output"])
+               px * a7_instructions(spec), SASS_PER_S, "SASS instruction")
+    issued = a7_instructions(spec, SASS_COMMON)
+    print(f"issue encode_output: {issued} SASS instructions a pixel issued "
+          f"(powf's and the division's tests and branches included), "
+          f"{px * issued / SASS_PER_S * 1e3:.4f} ms at {SASS_PER_S:.4g} a "
+          f"second", flush=True)
     ms["encode_output"] = (
         graph_ms(lambda: post.encode_output(src, spec, bits)),
         device_ms(lambda: post.encode_output_plain(src, spec, bits)))
@@ -2934,12 +3055,15 @@ def post_phase(jobs: dict, dev, card: str, ms: dict) -> dict:
               f"{seconds:.1f} s (a worker process)", flush=True)
     path_kernels = POST_KERNELS + ("restore_and_output",)
     outs2 = []
+    a7_calls, current = [], [None]
 
     def main_path():
         got, per_stream = {}, {}
+        del a7_calls[:]
         for label, (data, _ref) in streams.items():
             before = {k: KERNELS[k]["fn"].launches for k in path_kernels}
             del outs2[:]
+            current[0] = label
             got[label] = api.decode(data, device="cuda")[0]
             per_stream[label] = ({k: KERNELS[k]["fn"].launches - before[k]
                                   for k in path_kernels}, list(outs2))
@@ -2947,6 +3071,7 @@ def post_phase(jobs: dict, dev, card: str, ms: dict) -> dict:
 
     with contextlib.ExitStack() as stack:
         stack.enter_context(kernel2_outs(outs2))
+        stack.enter_context(a7_recorded(a7_calls, current))
         for module, names in POST_TWINS:
             stack.enter_context(forbidden(module, names))
         (got, per_stream), counts = drive(
@@ -2972,14 +3097,26 @@ def post_phase(jobs: dict, dev, card: str, ms: dict) -> dict:
               "4k rgba16 noise pq stream")
     noised = post.add_noise(xyb.clone(), rnd, lut)
     spec = cfg.post.out
-    note_post("encode_output", post.encode_output(noised, spec, 16),
-              post.encode_output_plain(noised, spec, 16),
-              "4k rgba16 noise pq stream", pq=True)
-    for key in ("srgb", "gamma", "hlg_2100", "bt709"):
+    note_a7(post.encode_output(noised, spec, 16),
+            post.encode_output_plain(noised, spec, 16), "pq_2100",
+            "4k rgba16 noise pq stream")
+    for key in POST_SPECS:
         for bits in (8, 16):
-            note_post("encode_output", post.encode_output(
-                noised, post_spec(key), bits), post.encode_output_plain(
-                noised, post_spec(key), bits), f"4k planes {key} {bits}-bit")
+            note_a7(post.encode_output(noised, post_spec(key), bits),
+                    post.encode_output_plain(noised, post_spec(key), bits),
+                    key, f"4k planes {bits}-bit")
+    # views of the 4K planes that take 4 pixels a thread off the vector
+    # paths: an odd base and a ragged row (scalar loads and stores), an
+    # aligned base and a ragged row (16-byte loads, scalar stores)
+    for view, what in ((noised[:, 1:2159, 3:3838], "cropped 3835x2158"),
+                       (noised[:, :, :3837], "3837 of 3840 columns")):
+        for key in ("srgb", "pq_2100"):
+            note_a7(post.encode_output(view, post_spec(key), 16),
+                    post.encode_output_plain(view, post_spec(key), 16), key,
+                    f"4k planes, {what}, 16-bit")
+    print("parity encode_output by spec, the largest code difference from "
+          "the twin (rule 0; PQ by its limits): " + ", ".join(
+              f"{k} {A7_MAX[k]}" for k in POST_SPECS), flush=True)
     ucfg, uinp = prepared(streams["4k_from_fhd_up2"][0], dev)
     planes = VarDCTFrame(ucfg).reconstruct(uinp, "f32")
     ker = post.kernels_for(2, ucfg.post.up_weights, dev)
@@ -2995,6 +3132,7 @@ def post_phase(jobs: dict, dev, card: str, ms: dict) -> dict:
               for label in ("4k_rgba16_noise_pq", "4k_from_fhd_up2")}
     post_timings({"add_noise": (xyb, rnd, lut), "upsample": (planes, ker),
                   "encode_output": (noised, spec, 16)}, card, ms)
+    a7_launch_timings(a7_calls, counts["encode_output"], card)
     print(f"phase 12 (post stages) took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return dict(counts, layers=layers,
@@ -3964,6 +4102,20 @@ def s3_case(img: torch.Tensor, tw: int, th: int, mode: int, fid: int,
     return t
 
 
+def tone_instructions(fmt: int, k: dict = SASS_NEEDED) -> int:
+    """S4's SASS instructions a pixel with the PQ tone map (pixel_ops.cu
+    tone_to_sdr), each call counted at k as in a7_instructions: the codes
+    to [0, 1] (3 divisions), per channel PQ's inverse (two powf, a division
+    and 6 more), the BT.2408 scale (the luma 5, a division and 3), the
+    clamps (6), the primaries' mix (15), per channel the sRGB step (a powf
+    and 6) and its code (4); a packed format (fmt > 0) divides the four
+    values by the code maximum again and packs them (4 divisions and 4 x
+    4)."""
+    n = (3 * k["div"] + 3 * (2 * k["powf"] + k["div"] + 6) + 5 + k["div"] + 3
+         + 6 + 15 + 3 * (k["powf"] + 6 + 4))
+    return n + (4 * k["div"] + 16 if fmt else 0)
+
+
 def sampled_timings(calls: dict, card: str, ms: dict) -> None:
     """S1-S4 at the main path's 4K shapes by CUDA graph against their twins
     (CUDA events) and bounds; S3 beside the dense float32 matrix pair."""
@@ -4039,10 +4191,17 @@ def sampled_timings(calls: dict, card: str, ms: dict) -> None:
     targs, tkw, tout = calls["convert", "4k_rgba16_noise_pq", fhd, 2]
     t_tone = graph_ms(lambda: PACK.convert(*targs, **tkw))
     t_tone_plain = device_ms(lambda: PACK.convert_plain(*targs, **tkw))
+    tpx = targs[0].numel() // targs[0].shape[-1]
+    tb = nbytes(targs[0], tout) / HBM_BYTES_PER_S * 1e3
+    ti = tpx * tone_instructions(targs[1]) / SASS_PER_S * 1e3
+    tissue = tone_instructions(targs[1], SASS_COMMON)
     print(f"kernel convert with the PQ tone map, {tuple(targs[0].shape)} "
           f"{targs[0].dtype} -> {tuple(tout.shape)} {tout.dtype}: device "
-          f"{t_tone:.4f} ms (CUDA graph), plain twin {t_tone_plain:.4f} ms "
-          f"[{card}]", flush=True)
+          f"{t_tone:.4f} ms (CUDA graph), plain twin {t_tone_plain:.4f} ms, "
+          f"bound {max(tb, ti):.4f} ms ({'bytes' if tb >= ti else 'operations'}"
+          f"; bytes {tb:.4f}, {tone_instructions(targs[1])} SASS "
+          f"instructions a pixel needed {ti:.4f}); issued {tissue} a pixel "
+          f"{tpx * tissue / SASS_PER_S * 1e3:.4f} [{card}]", flush=True)
     for k in SAMPLED_KERNELS:
         lib = LIBRARY_MS[k]
         print(f"kernel {k} at {shapes[k]}: device {ms[k][0]:.4f} ms (CUDA "

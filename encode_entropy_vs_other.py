@@ -1,10 +1,10 @@
-"""Time E1, E3 and E4 (csrc/encode.cu front_planes_kernel,
-dct_costs_kernel, special_costs_kernel) and the AC entropy decode A1
-(csrc/entropy.cu groups_kernel) against other trees' encode.cu and
-entropy.cu on one CUDA card, in turns, and count the entropy kernel's SASS
-of every build.
+"""Time E1, E3, E4 and the winners' gather G (csrc/encode.cu
+front_planes_kernel, dct_costs_kernel, special_costs_kernel, gather_kernel)
+and the AC entropy decode A1 (csrc/entropy.cu groups_kernel) against other
+trees' encode.cu and entropy.cu on one CUDA card, in turns, and count the
+entropy kernel's SASS of every build.
 
-    python3 encode_entropy_vs_other.py [--only e1|e3|e4|a1] [--sass DIR]
+    python3 encode_entropy_vs_other.py [--only e1|e3|e4|g|a1] [--sass DIR]
         [--stream FILE] OTHER_CSRC [OTHER_CSRC ...]
 
 OTHER_CSRC is another tree's jxl_coder_tpu_torch/csrc: a parent commit's,
@@ -34,6 +34,14 @@ here), then, in the order others, this, this, others reversed:
   calls, the five summed, beside the twin's fp32 torch.matmul products on
   the eligible blocks (TF32 off); every build's values and costs held to
   the twin by the tie rule (block_dep: X and B subtract Y's whole block);
+- G: the main path's gather_rows call (the 4K encode's winners) by
+  replaying a CUDA graph of 50 calls, and one index_select per source on
+  the same rows beside it (a PyTorch call that computes the same rows,
+  not concatenated); every build's rows held to the twin's (0
+  differences), and then on seeded sources (G_SEEDED: 1-16 sources, empty
+  and one-row sources, indices past both ends, row lengths 3 to 3024);
+  a build whose jxl_enc_gather_rows still takes max_rows (the C
+  interface of the per-source grid this walk replaced) is handed it;
 - A1: CUDA events around 10 launches (chip_smoke.py's method), both
   instantiations (tables staged in shared memory, and in global memory),
   with ns per token of the longest group; every build's output held to
@@ -41,8 +49,8 @@ here), then, in the order others, this, this, others reversed:
 Then cuobjdump -sass of every entropy library into DIR (default
 build/sass) and, per build, groups_kernel<true>'s instructions counted by
 opcode.  The other builds must export jxl_enc_front_planes,
-jxl_enc_dct_costs, jxl_enc_special_costs and jxl_entropy_groups with this
-tree's arguments; a build that lacks one is named, with the reason, and
+jxl_enc_dct_costs, jxl_enc_special_costs, jxl_enc_gather_rows and
+jxl_entropy_groups with this tree's arguments (but G's max_rows); a build that lacks one is named, with the reason, and
 left out of those turns.  Each line carries the card's name and power
 limit; ptxas's report of every encode.cu build (stack and spills) is
 printed first.
@@ -59,6 +67,7 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
@@ -206,6 +215,83 @@ def e4_turns(calls: list, kernels: dict, card: str) -> None:
             f"on the eligible blocks {lib:.4f} ms [{card}]", flush=True)
 
 
+# seeded gathers: (sources as (ny, nx, tail, rows taken), seed)
+G_SEEDED = (([(5, 7, 63, 40)], 1), ([(1, 1, 63, 1)], 2),
+            ([(4, 4, 1008, 9), (3, 3, 63, 0), (1, 1, 63, 3)], 3),
+            ([(2, 3, 1, 17), (1, 2, 2, 11), (3, 1, 4, 13)], 4),
+            ([(3, 4, 63, 50)] * 16, 5), ([(6, 5, 252, 25), (2, 2, 1008, 7),
+                                          (9, 9, 63, 70)], 6))
+
+
+def gather_fn(fn, old_abi: bool):
+    """A build's gather as this tree's binding: an old build's entry also
+    takes the longest source's rows."""
+    if not old_abi:
+        return fn
+
+    def call(desc, n, out, stream):
+        d = np.ctypeslib.as_array(ctypes.cast(desc, ctypes.POINTER(
+            ctypes.c_longlong)), (n * 6,)).reshape(n, 6)
+        return fn(desc, n, out, int(d[:, 2].max()), stream)
+    call.__name__ = fn.__name__
+    return call
+
+
+def seeded_gather(spec, seed, dev):
+    rng = np.random.default_rng(seed)
+    srcs, idxs = [], []
+    for ny, nx, tail, m in spec:
+        srcs.append(torch.from_numpy(rng.integers(
+            -32768, 32767, (ny, nx, 3, tail)).astype(np.int16)).to(dev))
+        idxs.append(torch.from_numpy(rng.integers(
+            -3, ny * nx + 3, m).astype(np.int32)).to(dev))
+    return srcs, idxs
+
+
+def g_turns(call, kernels: dict, card: str) -> None:
+    """The main path's gather with each build, in turns, beside
+    index_select; then every build on G_SEEDED."""
+    srcs, idxs = call[1]
+    dev = srcs[0].device
+    want = EK.gather_rows_plain(srcs, idxs)
+    orig = EK._kernels
+    times = collections.defaultdict(list)
+    rows = sum(int(i.numel()) for i in idxs)
+    try:
+        for tag in turns(list(kernels)):
+            fn = kernels[tag]
+            EK._kernels = lambda fn=fn: {**orig(), "gather_rows": fn}
+            got = EK.gather_rows(srcs, idxs)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"G {tag}: rows differ from the twin")
+            t = cs.graph_ms(lambda: EK.gather_rows(srcs, idxs))
+            times[tag].append(t)
+            print(f"G {tag} at 4k ({len(srcs)} sources, {rows} rows, "
+                  f"{want.numel() * 2 / 1e6:.1f} MB): {t:.4f} ms, 0 values "
+                  f"differ from the twin [{card}]", flush=True)
+        flat = [s.reshape(-1, s.shape[2] * s.shape[3]) for s in srcs]
+        lib = cs.graph_ms(lambda: [r.index_select(0, i)
+                                   for r, i in zip(flat, idxs)])
+        for tag in kernels:
+            EK._kernels = lambda fn=kernels[tag]: {**orig(),
+                                                   "gather_rows": fn}
+            for spec, seed in G_SEEDED:
+                s_, i_ = seeded_gather(spec, seed, dev)
+                if not torch.equal(EK.gather_rows(s_, i_),
+                                   EK.gather_rows_plain(s_, i_)):
+                    raise AssertionError(f"G {tag}: seeded case {seed} "
+                                         f"differs from the twin")
+            print(f"G {tag}: {len(G_SEEDED)} seeded cases equal to the twin "
+                  f"[{card}]", flush=True)
+    finally:
+        EK._kernels = orig
+    for tag, v in times.items():
+        print(f"G at 4k, {tag}: " + " / ".join(f"{x:.4f}" for x in v) +
+              f" ms; index_select per source {lib:.4f} ms [{card}]",
+              flush=True)
+
+
 def a1_turns(tables, kernels: dict, card: str) -> None:
     """decode_pass_groups on the 4K tables with each build, in turns."""
     orig = ENT._kernel
@@ -267,7 +353,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(
         description="E3 and A1 against other trees' sources, in turns")
     ap.add_argument("others", nargs="+", type=Path)
-    ap.add_argument("--only", choices=("e1", "e3", "e4", "a1"))
+    ap.add_argument("--only", choices=("e1", "e3", "e4", "g", "a1"))
     ap.add_argument("--sass", type=Path, default=Path("build/sass"))
     ap.add_argument("--stream", type=Path)
     opts = ap.parse_args()
@@ -278,7 +364,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = cs.smi()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    names = [n for n, k in (("encode", ("e1", "e3", "e4")),
+    names = [n for n, k in (("encode", ("e1", "e3", "e4", "g")),
                             ("entropy", ("a1",)))
              if opts.only is None or opts.only in k]
     srcs = {label_of(p.resolve()): p.resolve() for p in opts.others}
@@ -293,7 +379,7 @@ def main() -> int:
             cs.ptxas_report("encode", _build.BUILD_DIR /
                             f"libencode-{tag}.log", f"{tag} ")
         calls, text_calls = [], []
-        if opts.only in (None, "e1", "e3"):
+        if opts.only in (None, "e1", "e3", "g"):
             with cs.enc_recorded(calls):
                 api.encode(cs.bench_frame(2160, 3840), lossless=False,
                            quality=90, effort=7, device="cuda")
@@ -308,14 +394,20 @@ def main() -> int:
         for kind, key, fn in (("e1", "front_planes", "jxl_enc_front_planes"),
                               ("e3", "dct_costs", "jxl_enc_dct_costs"),
                               ("e4", "special_costs",
-                               "jxl_enc_special_costs")):
+                               "jxl_enc_special_costs"),
+                              ("g", "gather_rows", "jxl_enc_gather_rows")):
             if opts.only not in (None, kind):
                 continue
             builds = {}
             for tag in srcs:
                 try:
-                    builds[tag] = _build.bind(libs[(tag, "encode")], fn,
-                                              this[key].argtypes[:-1])
+                    argtypes = this[key].argtypes[:-1]
+                    old = kind == "g" and "int max_rows" in (
+                        srcs[tag] / "encode.cu").read_text()
+                    if old:
+                        argtypes = argtypes + [ctypes.c_int]
+                    builds[tag] = gather_fn(_build.bind(
+                        libs[(tag, "encode")], fn, argtypes), old)
                 except AttributeError as e:
                     print(f"{kind.upper()}: cannot bind {tag}'s {fn}: {e}",
                           flush=True)
@@ -324,6 +416,8 @@ def main() -> int:
                 e1_turns(next(c for c in calls if c[0] == key), builds, card)
             elif kind == "e3":
                 e3_turns([c for c in calls if c[0] == key], builds, card)
+            elif kind == "g":
+                g_turns(next(c for c in calls if c[0] == key), builds, card)
             else:
                 e4_turns([c for c in text_calls if c[0] == key], builds,
                          card)

@@ -75,7 +75,12 @@
 //      operations.
 //   gather_kernel (_sel_gather_jit, :424-436): the winners' rows of every
 //      source back to back, int16; rows past a source clip to its last
-//      (jnp.take's mode="clip").  Bound by bytes.
+//      (jnp.take's mode="clip").  Bound by bytes (each output byte read
+//      once and written once).  One flat walk over the output of all
+//      sources (encode.cuh gather_vector): the grid covers the output's
+//      16-byte vectors exactly, a thread one of them, read as the aligned
+//      16-byte chunks of its source rows (2-byte aligned) and stored
+//      whole.
 // -fmad=false: each f32 operation rounds once, in the twins' order (E3's
 // products are explicit fused multiply-adds); the sums of E2-E4 run in
 // another order than torch's, so those kernels agree with their twins
@@ -655,32 +660,17 @@ __global__ void __launch_bounds__(kE4Threads * kE4Groups, 1)
 // ---------------------------------------------------------------------------
 // The winners' gather
 
-constexpr int MAX_SOURCES = 16;
-constexpr int G_ROWS = 8;         // rows a thread block
-
-struct GatherSource {
-  const int16_t* src;
-  const int* idx;
-  long long rows, row_len, src_rows, out;
-};
-
-struct GatherParams {
-  GatherSource s[MAX_SOURCES];
-};
-
-__global__ void __launch_bounds__(256)
-    gather_kernel(GatherParams p, int16_t* __restrict__ out) {
-  const GatherSource g = p.s[blockIdx.y];
-  const long long r0 = (long long)blockIdx.x * G_ROWS;
-  for (int r = 0; r < G_ROWS; ++r) {
-    const long long row = r0 + r;
-    if (row >= g.rows) return;
-    long long i = g.idx[row];
-    i = i < 0 ? 0 : (i >= g.src_rows ? g.src_rows - 1 : i);
-    const int16_t* s = g.src + i * g.row_len;
-    int16_t* d = out + g.out + row * g.row_len;
-    for (long long e = threadIdx.x; e < g.row_len; e += blockDim.x) d[e] = s[e];
-  }
+// 8 blocks an SM (at most 32 registers): every warp slot of the SM holds a
+// vector's loads in flight
+__global__ void __launch_bounds__(jxl_enc::kGatherThreads, 8)
+    gather_kernel(jxl_enc::GatherPlan p, int16_t* __restrict__ out) {
+  // the plan in shared memory: its per-source arrays are read at run-time
+  // indices, which in the parameters would put them on the stack
+  __shared__ jxl_enc::GatherPlan s;
+  if (threadIdx.x == 0) s = p;
+  __syncthreads();
+  jxl_enc::gather_vector(s, blockIdx.x * jxl_enc::kGatherThreads + threadIdx.x,
+                         out);
 }
 
 // qk: 1 - QUANT_BIAS[c] (3), QUANT_BIAS_NUM, the distortion weights (3);
@@ -850,22 +840,15 @@ int jxl_enc_special_costs(const float* planes, const int* qf, const float* fx,
 }
 
 // desc: per source (src, idx, rows, row length, rows in the source, output
-// offset), int64 (host array)
+// offset), int64 (host array); out: 16-byte aligned
 int jxl_enc_gather_rows(const long long* desc, int n, int16_t* out,
-                        int max_rows, cudaStream_t stream) {
-  if (n < 1 || n > MAX_SOURCES) return (int)cudaErrorInvalidValue;
-  GatherParams p;
-  for (int k = 0; k < n; ++k) {
-    p.s[k].src = (const int16_t*)desc[6 * k];
-    p.s[k].idx = (const int*)desc[6 * k + 1];
-    p.s[k].rows = desc[6 * k + 2];
-    p.s[k].row_len = desc[6 * k + 3];
-    p.s[k].src_rows = desc[6 * k + 4];
-    p.s[k].out = desc[6 * k + 5];
-  }
-  if (max_rows == 0) return 0;
-  const dim3 grid(cdiv(max_rows, G_ROWS), n);
-  gather_kernel<<<grid, 256, 0, stream>>>(p, out);
+                        cudaStream_t stream) {
+  jxl_enc::GatherPlan p;
+  if (jxl_enc::gather_plan(desc, n, p) != 0 || (uintptr_t)out % 16)
+    return (int)cudaErrorInvalidValue;
+  if (p.total == 0) return 0;
+  gather_kernel<<<jxl_enc::gather_blocks(p), jxl_enc::kGatherThreads, 0,
+                  stream>>>(p, out);
   return (int)cudaGetLastError();
 }
 

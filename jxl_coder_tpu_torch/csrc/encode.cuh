@@ -877,4 +877,199 @@ JXL_EHD void e4_cost(int t, int nbat, const SpecialArgs& a,
   a.cost[s.blk[t]] = rate + a.k.lam * dist;
 }
 
+// ---------------------------------------------------------------------------
+// The winners' gather G (encode.cu gather_kernel): every source's selected
+// rows back to back in one flat int16 output, a row index past a source
+// clipped to it (jnp.take's mode="clip").
+//
+// One flat walk over the output: a thread owns one 16-byte output vector
+// (8 elements; a warp's stores are 512 contiguous bytes) and stores it
+// whole (the output starts on a 16-byte boundary; the final partial vector
+// element by element).  A vector is one or more segments, each a run of
+// one source row: the element's source (the prefix of output elements in
+// the plan), its row and column, the row's clipped index.  Rows are only
+// 2-byte aligned (3 x 63 int16 is 378 bytes), so a segment is read as the
+// one or two aligned 16-byte chunks that hold it and shifted into place
+// (gather_window): two loads for a vector inside a row, which neighbouring
+// threads share through L1, and no load of a chunk that holds none of its
+// bytes.  The first two segments' index and chunk loads are in flight
+// before any is used; a third and later (rows shorter than a vector)
+// take a loop.
+
+constexpr int kGatherMax = 16;       // sources a launch
+constexpr int kGatherThreads = 256;  // a block, a 16-byte vector a thread
+
+// the launch's parameters; host-side from the wrapper's descriptors
+struct GatherPlan {
+  const int16_t* src[kGatherMax];   // (rows in the source, row_len)
+  const int32_t* idx[kGatherMax];   // the selected rows, one per output row
+  uint32_t row_len[kGatherMax];     // elements a row
+  uint32_t last[kGatherMax];        // rows in the source - 1
+  uint32_t pre[kGatherMax];         // output elements before the source
+  uint32_t total;                   // output elements
+  int n;                            // sources
+};
+
+// desc: per source (src, idx, rows, row length, rows in the source, output
+// offset) int64, as the wrapper lays it out.  -1 where the walk cannot
+// take it: no source or more than kGatherMax, an output offset that is not
+// the sources' prefix, an output of 2^31 elements or more, or rows taken
+// from a source without rows.
+JXL_EHD int gather_plan(const long long* desc, int n, GatherPlan& p) {
+  if (n < 1 || n > kGatherMax) return -1;
+  long long off = 0;
+  for (int k = 0; k < kGatherMax; ++k) {
+    const long long* d = desc + 6 * (k < n ? k : 0);
+    const long long rows = k < n ? d[2] : 0;
+    if (rows < 0 || d[3] < 0 || (k < n && d[5] != off)) return -1;
+    if (rows > 0 && d[4] < 1) return -1;
+    p.src[k] = (const int16_t*)(uintptr_t)d[0];
+    p.idx[k] = (const int32_t*)(uintptr_t)d[1];
+    p.row_len[k] = (uint32_t)d[3];
+    p.last[k] = rows > 0 ? (uint32_t)(d[4] - 1) : 0u;
+    p.pre[k] = (uint32_t)off;
+    off += rows * d[3];
+    if (off >= (1ll << 31)) return -1;
+  }
+  p.total = (uint32_t)off;
+  p.n = n;
+  return 0;
+}
+
+// the grid: blocks of kGatherThreads threads, a vector a thread
+JXL_EHD uint32_t gather_blocks(const GatherPlan& p) {
+  const uint32_t vecs = (p.total + 7) / 8;
+  return (vecs + kGatherThreads - 1) / kGatherThreads;
+}
+
+// one segment: output elements [lo, hi) of a vector from the source
+// elements at `first` on
+struct GatherSeg {
+  uintptr_t chunk;   // the 16-byte chunk where the window starts
+  uint32_t shift;    // bytes into it
+  uint32_t lo, hi;
+  bool c0, c1;       // chunk / chunk + 16 hold bytes of the segment
+};
+
+// the segment that starts at output element e, position pos of its
+// vector, and ends at the vector's end `end` or its row's
+JXL_EHD GatherSeg gather_seg(const GatherPlan& p, uint32_t e, uint32_t pos,
+                             uint32_t end) {
+  int k = 0;
+  for (int j = 1; j < kGatherMax; ++j) k += j < p.n && p.pre[j] <= e;
+  const uint32_t len = p.row_len[k];
+  const uint32_t local = e - p.pre[k];
+  const uint32_t row = local / len;
+  const uint32_t col = local - row * len;
+  const int32_t i = p.idx[k][row];
+  const uint32_t r = i < 0 ? 0u : ((uint32_t)i > p.last[k] ? p.last[k]
+                                                            : (uint32_t)i);
+  const uint32_t n = (end - e < len - col) ? end - e : len - col;
+  const uintptr_t first = (uintptr_t)(p.src[k] + (size_t)r * len + col);
+  // the window's start: the bytes of output element 0 of the vector
+  const uintptr_t win = first - 2 * pos;
+  GatherSeg s;
+  s.chunk = win & ~(uintptr_t)15;
+  s.shift = (uint32_t)(win - s.chunk);
+  s.lo = pos;
+  s.hi = pos + n;
+  s.c0 = s.chunk + 16 > first;
+  s.c1 = s.chunk + 16 < first + 2 * n;
+  return s;
+}
+
+#if !defined(JXL_GATHER_LOAD16)
+#if defined(__CUDA_ARCH__)
+#define JXL_GATHER_LOAD16(dst, addr)                                     \
+  do {                                                                   \
+    const uint4 v_ = __ldg(reinterpret_cast<const uint4*>(addr));        \
+    (dst)[0] = v_.x;                                                     \
+    (dst)[1] = v_.y;                                                     \
+    (dst)[2] = v_.z;                                                     \
+    (dst)[3] = v_.w;                                                     \
+  } while (0)
+#else
+#define JXL_GATHER_LOAD16(dst, addr) memcpy((dst), (const void*)(addr), 16)
+#endif
+#endif
+
+// the segment's chunks: c[0..3] and c[4..7], zero where not loaded
+JXL_EHD void gather_load(const GatherSeg& s, uint32_t (&c)[8]) {
+  for (int i = 0; i < 8; ++i) c[i] = 0;
+  if (s.c0) JXL_GATHER_LOAD16(c, s.chunk);
+  if (s.c1) JXL_GATHER_LOAD16(c + 4, s.chunk + 16);
+}
+
+JXL_EHD uint32_t funnel16(uint32_t lo, uint32_t hi) {
+#if defined(__CUDA_ARCH__)
+  return __funnelshift_r(lo, hi, 16);
+#else
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> 16);
+#endif
+}
+
+// the 16 bytes at `shift` (even) of the chunks c, merged into the output
+// words w where the segment's elements [lo, hi) fall
+JXL_EHD void gather_window(const GatherSeg& s, const uint32_t (&c)[8],
+                           uint32_t (&w)[4]) {
+  const uint32_t q = s.shift >> 2;
+  uint32_t d[5];
+  JXL_UNROLL(unroll)
+  for (int i = 0; i < 5; ++i) {
+    const uint32_t a = q & 2 ? c[i + 2] : c[i];
+    const uint32_t b = q & 2 ? c[i + 3] : c[i + 1];
+    d[i] = q & 1 ? b : a;
+  }
+  JXL_UNROLL(unroll)
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t v = s.shift & 2 ? funnel16(d[i], d[i + 1]) : d[i];
+    const uint32_t e0 = 2 * i, e1 = 2 * i + 1;
+    const uint32_t m = (e0 >= s.lo && e0 < s.hi ? 0xffffu : 0u) |
+                       (e1 >= s.lo && e1 < s.hi ? 0xffff0000u : 0u);
+    w[i] = (w[i] & ~m) | (v & m);
+  }
+}
+
+// output vector v (elements 8 v ... up to the total)
+JXL_EHD void gather_vector(const GatherPlan& p, uint32_t v, int16_t* out) {
+  const uint32_t e = v * 8;
+  if (e >= p.total) return;
+  const uint32_t end = p.total - e < 8 ? p.total : e + 8;
+  // the first two segments' index and chunk loads before any is used
+  const GatherSeg a = gather_seg(p, e, 0, end);
+  const bool two = e + a.hi < end;
+  GatherSeg b = a;
+  if (two) b = gather_seg(p, e + a.hi, a.hi, end);
+  uint32_t ca[8], cb[8];
+  gather_load(a, ca);
+  if (two) gather_load(b, cb);
+  uint32_t w[4] = {0, 0, 0, 0};
+  gather_window(a, ca, w);
+  if (two) {
+    gather_window(b, cb, w);
+    // rows shorter than what is left of the vector
+    for (uint32_t pos = b.hi; e + pos < end;) {
+      const GatherSeg s = gather_seg(p, e + pos, pos, end);
+      uint32_t c[8];
+      gather_load(s, c);
+      gather_window(s, c, w);
+      pos = s.hi;
+    }
+  }
+  int16_t* dst = out + e;
+  if (end - e == 8) {
+#if defined(__CUDA_ARCH__)
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+#else
+    memcpy(dst, w, 16);
+#endif
+  } else {
+    // the output's last, partial vector (fixed indices: w stays in
+    // registers)
+    JXL_UNROLL(unroll)
+    for (uint32_t i = 0; i < 8; ++i)
+      if (i < end - e) dst[i] = (int16_t)(w[i >> 1] >> (16 * (i & 1)));
+  }
+}
+
 }  // namespace jxl_enc

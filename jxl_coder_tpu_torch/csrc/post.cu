@@ -22,38 +22,53 @@
 //      so the three colour planes (or the extra channels) take one launch.
 //      Bound by bytes at every N (4 + 4 N^2 B against ~52 N^2 operations
 //      a source pixel).
-//   A7 encode_output_kernel<OutT, false>: _encode_output_device (:676) with
-//      _xyb_to_linear_device (:649) and _quantize_device (:669).  A pixel
-//      a thread: XYB -> linear -> [3x3 gamut] -> sRGB (xyb_to_srgb_codes of
+//   A7 encode_output_kernel<OutT, KIND, TRC, GM>: _encode_output_device
+//      (:676) with _xyb_to_linear_device (:649) and _quantize_device
+//      (:669): XYB -> linear -> [3x3 gamut] -> sRGB (xyb_to_srgb_codes of
 //      common.cuh, kernel 2's own output step), gamma, PQ, HLG with the
 //      inverse OOTF, or a named transfer function -> floor(v * max + 0.5)
-//      clipped.  Its byte bound is 12 B in and 3 or 6 B out a pixel; the
-//      PQ and HLG cases' powf / logf calls make it issue-bound in practice.
-//      Its YCbCr case (kind 3, a JPEG recompression frame; _encode_output_
-//      device's "ycbcr", tpu_full.py:685-690): the planes are (Cb, Y, Cr),
-//      Y + 128/255, then BT.601 in f32 in the reference's order, then the
-//      same codes; no transfer function.
-//   S1 encode_output_kernel<OutT, true>: the `down` stage of fn_post
-//      (tpu_full.py:862-876) read by A7.  Each output pixel first averages
-//      its down x down cell of the XYB planes (rows and columns past the
-//      edge repeat the last one, as the reference's edge padding), summed
-//      row by row, then encodes the means as A7 does.  The quarter-scale
-//      decode's planes are read once and 1/16 of the codes written: bound
-//      by bytes (12 B read a source pixel).  The pool needs no shared
-//      memory: a thread's 4 x 4 cell is 4 rows of 16 contiguous bytes a
-//      plane, and a warp's cells are neighbours.  down 1 is the plain A7
-//      instantiation, unchanged.
+//      clipped; its YCbCr kind (a JPEG recompression frame; "ycbcr",
+//      tpu_full.py:685-690): the planes are (Cb, Y, Cr), Y + 128/255, then
+//      BT.601 in f32 in the reference's order, then the same codes.  Its
+//      byte bound is 12 B in and 3 or 6 B out a pixel; the powf / logf /
+//      IEEE divisions of PQ, HLG, gamma, BT.709 and DCI make those
+//      bound by instruction throughput (PQ: six powf and three divisions
+//      a pixel).  So each
+//      spec is an instantiation of its own (post.cuh dispatch: straight-
+//      line code, constants at fixed parameter offsets, the sRGB
+//      multipliers in shared memory, no identity gamut product).  On a
+//      frame that fills the card's threads at 4 pixels a thread, a thread
+//      encodes kPix = 4 adjacent pixels, whose independent chains the compiler
+//      interleaves: 16-byte loads from each plane where the planes' base
+//      and strides allow, and its 12 (u8) or 24 (u16) bytes of codes
+//      stored as 3 words where the width is a multiple of 4; on a smaller
+//      one a pixel a thread, so that more threads hide the latency
+//      (post.cuh encode_group, pixels_a_thread; a scalar path for the
+//      rest).
+//   S1 pool_output_kernel<OutT, KIND, TRC, GM>: the `down` stage of
+//      fn_post (tpu_full.py:862-876) read by A7.  Each output pixel first
+//      averages its down x down cell of the XYB planes (rows and columns
+//      past the edge repeat the last one, as the reference's edge
+//      padding), summed row by row, then encodes the means as A7 does.
+//      The quarter-scale decode's planes are read once and 1/16 of the
+//      codes written: bound by bytes (12 B read a source pixel).  The pool
+//      needs no shared memory: a thread's 4 x 4 cell is 4 rows of 16
+//      contiguous bytes a plane, and a warp's cells are neighbours.
 // Full-precision powf / logf / expf / sqrtf (no --use_fast_math), and
 // -fmad=false, so each operation rounds once, in the twins' order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "common.cuh"
+#include "post.cuh"
 
 namespace {
 
 using namespace jxl;
+using namespace jxl_post;
 
 constexpr int TW = 32;   // tile width (a warp)
 constexpr int TH = 8;    // tile height
@@ -165,154 +180,105 @@ __global__ void __launch_bounds__(TW * TH)
   }
 }
 
-// ---- A7 ----
+// ---- A7 and S1 (their arithmetic and walks in post.cuh) ----
 
-// prm, as vardct/post.py _output_params lays it out
-enum {
-  P_EXP = 0,     // gamma, or the HLG inverse OOTF's exponent (1 - g) / g
-  P_DISP = 1,    // 255 / intensity_target
-  P_GM = 2,      // the 3x3 gamut matrix, row-major (identity when none)
-  P_LUMA = 11,   // the luma weights of the signalled primaries
-  P_HLG = 14,    // HLG a, b, c
-  P_PQ = 17,     // PQ m1, m2, c1, c2, c3
-  P_SRGB_E = 22, P_BT709_E = 23, P_DCI_E = 24, P_TWELFTH = 25,
-  P_PQ_SCALE = 26,  // 255 / 10000
-  N_PRM = 27
-};
-
-struct OutParams {
-  int kind;      // 0 sRGB, 1 gamma, 2 a signalled encoding, 3 YCbCr
-  int trc;       // its transfer function (headers.TransferFunction)
-  float maxv;    // 2^bits - 1
-  float prm[N_PRM];
-  SrgbParams srgb;
-};
-
-__device__ __forceinline__ float sgn(float v) {
-  return (float)((v > 0.0f) - (v < 0.0f));
-}
-
-// LINEAR_TO_TRC.get(trc, linear_to_srgb) of ops/color.py on v >= 0
-__device__ __forceinline__ float linear_to_trc(float v, int trc,
-                                               const float* p) {
-  switch (trc) {
-    case 8:
-      return v;
-    case 1:
-      return v < 0.018f ? v * 4.5f : 1.099f * powf(v, p[P_BT709_E]) - 0.099f;
-    case 16: {
-      const float q = powf(v, p[P_PQ]);
-      return powf((p[P_PQ + 2] + p[P_PQ + 3] * q) / (1.0f + p[P_PQ + 4] * q),
-                  p[P_PQ + 1]);
-    }
-    case 17:
-      return powf(v, p[P_DCI_E]);
-    case 18:
-      return v <= p[P_TWELFTH]
-                 ? sqrtf(3.0f * v)
-                 : p[P_HLG] * logf(fmaxf(12.0f * v - p[P_HLG + 1], 1e-12f)) +
-                       p[P_HLG + 2];
-    default:
-      return v <= 0.0031308f ? v * 12.92f
-                             : 1.055f * powf(v, p[P_SRGB_E]) - 0.055f;
+// the sRGB kind's 16 multipliers from the parameters into shared memory,
+// at fixed offsets (a run-time index into the parameters would put them
+// on the stack)
+__device__ __forceinline__ void stage_mul(const OutParams& p,
+                                          uint32_t* s_mul) {
+  const int t = threadIdx.y * blockDim.x + threadIdx.x;
+  if (t < 16) {
+    uint32_t m = 0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (t == i) m = p.srgb.mul[i];
+    s_mul[t] = m;
   }
+  __syncthreads();
 }
 
-// H, W: the planes' size; without POOL the output's too, with POOL the
-// output is (ceil(H / down), ceil(W / down)).
-template <typename OutT, bool POOL>
-__global__ void __launch_bounds__(TW * TH)
+// A7: a thread PIX adjacent pixels of a row, a block kGX x kGY threads
+template <int PIX, typename OutT, int KIND, int TRC, bool GM>
+__global__ void __launch_bounds__(kGX * kGY)
     encode_output_kernel(const float* __restrict__ in, long long plane,
                          long long row, OutT* __restrict__ out, int H, int W,
-                         int down, OutParams p) {
-  const int x = blockIdx.x * TW + threadIdx.x;
-  const int y = blockIdx.y * TH + threadIdx.y;
-  const int Wo = POOL ? (W + down - 1) / down : W;
-  const int Ho = POOL ? (H + down - 1) / down : H;
-  if (x >= Wo || y >= Ho) return;
-  float X, Y, B;
-  if (POOL) {
-    float sx = 0.0f, sy = 0.0f, sb = 0.0f;
-    for (int dy = 0; dy < down; ++dy) {
-      const long long r = (long long)min(y * down + dy, H - 1) * row;
-      for (int dx = 0; dx < down; ++dx) {
-        const long long o = r + min(x * down + dx, W - 1);
-        sx = sx + in[o];
-        sy = sy + in[plane + o];
-        sb = sb + in[2 * plane + o];
-      }
-    }
-    const float n = (float)(down * down);
-    X = sx / n;
-    Y = sy / n;
-    B = sb / n;
-  } else {
-    const long long o = (long long)y * row + x;
-    X = in[o];
-    Y = in[plane + o];
-    B = in[2 * plane + o];
+                         int vin, int vout, OutParams p) {
+  __shared__ uint32_t s_mul[16];
+  if (KIND == K_SRGB) stage_mul(p, s_mul);
+  const int g = blockIdx.x * kGX + threadIdx.x;
+  const int y = blockIdx.y * kGY + threadIdx.y;
+  if (y >= H || g * PIX >= W) return;
+  encode_group<PIX, OutT, KIND, TRC, GM>(in, plane, row, out, W, y, g,
+                                         vin != 0, vout != 0, p, s_mul);
+}
+
+// S1: a thread an output pixel
+template <typename OutT, int KIND, int TRC, bool GM>
+__global__ void __launch_bounds__(kGX * kGY)
+    pool_output_kernel(const float* __restrict__ in, long long plane,
+                       long long row, OutT* __restrict__ out, int H, int W,
+                       int down, OutParams p) {
+  __shared__ uint32_t s_mul[16];
+  if (KIND == K_SRGB) stage_mul(p, s_mul);
+  const int x = blockIdx.x * kGX + threadIdx.x;
+  const int y = blockIdx.y * kGY + threadIdx.y;
+  if (x >= (W + down - 1) / down || y >= (H + down - 1) / down) return;
+  encode_pooled<OutT, KIND, TRC, GM>(in, plane, row, out, H, W, down, x, y,
+                                     p, s_mul);
+}
+
+// launches the spec's kernel (dispatch picks the instantiation)
+struct OutputLaunch {
+  const float* in;
+  long long plane, row;
+  void* out;
+  int H, W, down, pix;
+  const OutParams& p;
+  cudaStream_t s;
+
+  template <int PIX, typename OutT, int KIND, int TRC, bool GM>
+  void encode(OutT* o) {
+    const dim3 grid(cdiv(cdiv(W, PIX), kGX), cdiv(H, kGY));
+    encode_output_kernel<PIX, OutT, KIND, TRC, GM><<<grid, dim3(kGX, kGY), 0,
+                                                     s>>>(
+        in, plane, row, o, H, W, vector_loads(in, plane, row),
+        vector_stores(out, W), p);
   }
-  OutT* dst = out + ((long long)y * Wo + x) * 3;
-  float q[3];
-  if (p.kind == 0) {
-    xyb_to_srgb_codes(X, Y, B, p.srgb, p.srgb.mul, q);
-  } else if (p.kind == 3) {
-    // (Cb, Y, Cr): the f32 values of 128 / 255 and of BT.601's constants
-    const float yp = Y + 0.501960814f;
-    const float enc[3] = {yp + 1.40199995f * B,
-                          (yp - 0.344136f * X) - 0.714136004f * B,
-                          yp + 1.77199996f * X};
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      q[c] = fminf(fmaxf(floorf(enc[c] * p.maxv + 0.5f), 0.0f), p.maxv);
-  } else {
-    const SrgbParams& s = p.srgb;
-    const float gr = Y + X + s.cbrt_bias;
-    const float gg = Y - X + s.cbrt_bias;
-    const float gb = B + s.cbrt_bias;
-    const float ml = gr * gr * gr - s.bias;
-    const float mm = gg * gg * gg - s.bias;
-    const float ms = gb * gb * gb - s.bias;
-    float lin[3], enc[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      lin[c] = s.m[3 * c] * ml + s.m[3 * c + 1] * mm + s.m[3 * c + 2] * ms;
-    if (p.kind == 1) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        enc[c] = powf(fmaxf(lin[c], 0.0f), p.prm[P_EXP]);
+
+  template <typename OutT, int KIND, int TRC, bool GM>
+  int run() {
+    OutT* o = static_cast<OutT*>(out);
+    if (down == 1) {
+      if (pix == kPix)
+        encode<kPix, OutT, KIND, TRC, GM>(o);
+      else
+        encode<1, OutT, KIND, TRC, GM>(o);
     } else {
-      const float* g = p.prm + P_GM;
-      float l[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        l[c] = g[3 * c] * lin[0] + g[3 * c + 1] * lin[1] +
-               g[3 * c + 2] * lin[2];
-      if (p.trc == 18) {
-        float d[3];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) d[c] = l[c] * p.prm[P_DISP];
-        const float* lw = p.prm + P_LUMA;
-        const float yd = lw[0] * d[0] + lw[1] * d[1] + lw[2] * d[2];
-        const float f = yd > 1e-9f ? powf(fabsf(yd), p.prm[P_EXP]) : 0.0f;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float sc = d[c] * f;
-          enc[c] = sgn(sc) * linear_to_trc(fminf(fabsf(sc), 1.0f), 18, p.prm);
-        }
-      } else {
-        const float scale = p.trc == 16 ? p.prm[P_PQ_SCALE] : 1.0f;
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          enc[c] = sgn(l[c]) * linear_to_trc(fabsf(l[c]) * scale, p.trc, p.prm);
-      }
+      const dim3 grid(cdiv(cdiv(W, down), kGX), cdiv(cdiv(H, down), kGY));
+      pool_output_kernel<OutT, KIND, TRC, GM><<<grid, dim3(kGX, kGY), 0, s>>>(
+          in, plane, row, o, H, W, down, p);
     }
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      q[c] = fminf(fmaxf(floorf(enc[c] * p.maxv + 0.5f), 0.0f), p.maxv);
+    return 0;
   }
-#pragma unroll
-  for (int c = 0; c < 3; ++c) dst[c] = (OutT)q[c];
+};
+
+constexpr int kMaxDevices = 64;
+
+// the current device's SM count, read once a device
+cudaError_t sm_count(int& sms) {
+  static std::atomic<int> cache[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  sms = cache[dev].load();
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    cache[dev].store(sms);
+  }
+  return cudaSuccess;
 }
 
 template <int N>
@@ -357,20 +323,6 @@ extern "C" int jxl_upsample(const float* in, long long in_plane,
   }
 }
 
-template <typename OutT>
-void launch_encode_output(const float* in, long long plane, long long row,
-                          void* out, int H, int W, int down,
-                          const OutParams& p, cudaStream_t s) {
-  const int Ho = (H + down - 1) / down, Wo = (W + down - 1) / down;
-  const dim3 grid(cdiv(Wo, TW), cdiv(Ho, TH));
-  if (down == 1)
-    encode_output_kernel<OutT, false><<<grid, dim3(TW, TH), 0, s>>>(
-        in, plane, row, static_cast<OutT*>(out), H, W, 1, p);
-  else
-    encode_output_kernel<OutT, true><<<grid, dim3(TW, TH), 0, s>>>(
-        in, plane, row, static_cast<OutT*>(out), H, W, down, p);
-}
-
 // in: (3, H, W) XYB with the given plane and row strides; out: (ceil(H /
 // down), ceil(W / down), 3) uint8 (bits <= 8) or uint16, each pixel the
 // encoding of its down x down cell's mean (down 1: of the pixel); kind 0
@@ -386,20 +338,14 @@ extern "C" int jxl_encode_output(const float* in, long long plane,
   if (H <= 0 || W <= 0) return cudaSuccess;
   if (kind < 0 || kind > 3 || bits < 1 || bits > 16 || down < 1)
     return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = sm_count(sms);
+  if (err != cudaSuccess) return err;
   OutParams p;
-  p.kind = kind;
-  p.trc = trc;
-  p.maxv = (float)((1 << bits) - 1);
-  for (int i = 0; i < N_PRM; ++i) p.prm[i] = prm[i];
-  for (int i = 0; i < 9; ++i) p.srgb.m[i] = srgb[i];
-  p.srgb.cbrt_bias = srgb[9];
-  p.srgb.bias = srgb[10];
-  p.srgb.scale = p.maxv;
-  for (int i = 0; i < 16; ++i) p.srgb.mul[i] = mul[i];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bits <= 8)
-    launch_encode_output<uint8_t>(in, plane, row, out, H, W, down, p, s);
-  else
-    launch_encode_output<uint16_t>(in, plane, row, out, H, W, down, p, s);
+  const bool gm = out_params(bits, prm, srgb, mul, p);
+  OutputLaunch launch{in, plane, row, out, H, W, down,
+                      pixels_a_thread(H, W, sms), p,
+                      static_cast<cudaStream_t>(stream)};
+  if (dispatch(kind, trc, gm, bits, launch) != 0) return cudaErrorInvalidValue;
   return cudaGetLastError();
 }

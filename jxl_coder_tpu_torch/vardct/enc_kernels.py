@@ -24,7 +24,8 @@ hand-written kernel with a plain twin), in ``csrc/encode.cu``:
   and zero values elsewhere; the reference computes the values there too,
   but no winner ever takes them);
 - ``gather_rows`` (``_sel_gather_jit``, ``:424-436``): the winners' rows
-  of every source, back to back, int16.
+  of every source, back to back, int16, in one launch whose grid covers
+  the output exactly.
 
 Each wrapper counts its launches in ``.launches``; on a CPU tensor it runs
 its twin (``*_plain``), on a CUDA tensor it launches its kernel or raises.
@@ -84,8 +85,7 @@ def _kernels():
         "special_costs": _build.bind(lib, "jxl_enc_special_costs",
                                      [p, p, p, p, p, p, p, i, i, f, f, f,
                                       p, p, p]),
-        "gather_rows": _build.bind(lib, "jxl_enc_gather_rows",
-                                   [p, i, p, i]),
+        "gather_rows": _build.bind(lib, "jxl_enc_gather_rows", [p, i, p]),
     }
 
 
@@ -655,7 +655,9 @@ def gather_rows(sources: Sequence[torch.Tensor],
     """sources[k] (ny, nx, 3, tail_k) int16, idxs[k] int32 row indices
     (row = y * nx + x; clipped into the source, jnp.take's mode="clip")
     on the same device -> every source's selected rows, in order, back to
-    back (flat int16)."""
+    back (flat int16).  Raises ValueError for rows taken from a source
+    without rows; on the card also for an output of 2^31 elements or more
+    (the kernel's flat walk counts elements in 32 bits)."""
     if len(sources) != len(idxs) or len(sources) > MAX_SOURCES:
         raise ValueError(f"{len(sources)} sources, {len(idxs)} index "
                          f"lists: expected equal counts up to {MAX_SOURCES}")
@@ -668,12 +670,19 @@ def gather_rows(sources: Sequence[torch.Tensor],
         if ix.dtype != torch.int32 or ix.dim() != 1 or ix.device != dev:
             raise ValueError("idxs: expected 1-D int32 on the sources' "
                              "device")
+        if ix.numel() and s.shape[0] * s.shape[1] == 0:
+            raise ValueError("idxs: rows taken from a source without rows")
     if dev.type == "cpu":
         return gather_rows_plain(sources, idxs)
     lens = [int(ix.numel()) * 3 * int(s.shape[3])
             for s, ix in zip(sources, idxs)]
+    if sum(lens) >= 1 << 31:
+        raise ValueError(f"an output of {sum(lens)} elements: the kernel "
+                         f"takes fewer than 2^31")
     out = torch.empty(sum(lens), dtype=torch.int16, device=dev)
     if sum(lens):
+        # the kernel stores whole 16-byte vectors
+        _build.check_aligned(out, "out")
         # per source: src, idx, rows, row length, rows in the source, out
         desc = np.zeros((len(sources), 6), np.int64)
         off = 0
@@ -682,8 +691,7 @@ def gather_rows(sources: Sequence[torch.Tensor],
                        3 * s.shape[3], s.shape[0] * s.shape[1], off)
             off += lens[k]
         _build.launch(_kernels()["gather_rows"], dev, desc.ctypes.data,
-                      len(sources), out.data_ptr(),
-                      max(int(ix.numel()) for ix in idxs))
+                      len(sources), out.data_ptr())
         gather_rows.launches += 1
     return out
 

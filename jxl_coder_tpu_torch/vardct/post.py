@@ -32,9 +32,9 @@ tensor never takes a twin):
   recompression frame, ``tpu_full.py:685-690``) is BT.601 of the (Cb, Y,
   Cr) planes, Y + 128 / 255, in f32;
 - ``encode_output_down`` (S1; the ``down`` stage of ``fn_post``,
-  ``tpu_full.py:862-876``, then A7): A7's kernel with each down x down
-  cell of the planes averaged first (edge-padded), so a quarter-scale
-  decode writes 1/16 of the codes.
+  ``tpu_full.py:862-876``, then A7): A7's arithmetic with each down x
+  down cell of the planes averaged first (edge-padded), so a
+  quarter-scale decode writes 1/16 of the codes.
 Each wrapper counts its launches in ``.launches``.
 
 The f32 twins keep the kernels' operation order (sums in order, one
@@ -481,6 +481,8 @@ def _launch_output(xyb: torch.Tensor, spec: tuple, bits: int,
     out = torch.empty((-(-H // down), -(-W // down), 3), device=xyb.device,
                       dtype=torch.uint8 if bits <= 8 else torch.uint16)
     if H and W:
+        # the kernel stores a row's codes as whole words
+        _build.check_aligned(out, "out")
         trc = spec[1] if spec[0] == "enc" else 0
         prm = _output_params(spec)
         # the constants are host arrays, copied into the launch parameters

@@ -1,10 +1,10 @@
 """Time the unsqueeze kernel (csrc/modular.cu), the banded resample S3
-(csrc/sample.cu), the composition A10 (csrc/compose.cu) and the spline
-overlay A9 (csrc/overlay.cu) against other trees' on one CUDA card, in
-turns.
+(csrc/sample.cu), the composition A10 (csrc/compose.cu), the spline
+overlay A9 (csrc/overlay.cu) and the output encoding A7 (csrc/post.cu,
+with S1 and A7y) against other trees' on one CUDA card, in turns.
 
     python3 modular_vs_other.py OTHER_CSRC [OTHER_CSRC ...]
-        [--only=a2|s3|a10|a9]
+        [--only=a2|s3|a10|a9|a7] [--sass=DIR]
 
 Each OTHER_CSRC is another tree's jxl_coder_tpu_torch/csrc, for a commit:
 
@@ -31,14 +31,29 @@ each build's in the order other(s), this, this, other(s) reversed:
   cached in the temp directory by chip_smoke.py, else encoded here), on
   the planes kernel 2 gives that frame, with the ptxas report of every
   build's splines_kernel; first, untimed, on seeded planes and splines at
-  three more sizes (A9_SEEDED).
+  three more sizes (A9_SEEDED);
+- jxl_encode_output on the main path's counted A7 launches of
+  chip_smoke.py's phase 12 (its POST_STREAMS decoded by api.decode, each
+  launch recorded with its planes: the 4K RGBA16 noise + PQ stream, the 4K
+  frame from FHD, the three 720x480 streams, the 4x and 8x upsampled
+  1284x964 frames; the streams cached in the temp directory by
+  chip_smoke.py, else encoded here), then every POST_SPECS entry at 8 and
+  16 bits and YCbCr (A7y) on the 4K PQ stream's planes, sRGB u8 on seeded
+  5136x3856 and 10272x7712 planes, sRGB u8, BT.709 u8 and PQ u16 on
+  seeded 960x540 and 1280x720 planes (where A7 takes a pixel a thread),
+  and S1's 4K quarter call (sRGB u8, down 4, the 4K frame's planes);
+  untimed first, on
+  seeded planes of A7_SEEDED's sizes (a cropped view among them), every
+  spec at 8 and 16 bits and the quarter pool.  Each A7 line gives every
+  build's largest code difference from the plain twin; --sass=DIR writes
+  cuobjdump -sass of each post.cu build there.
 Every build's output is checked equal to this tree's first (0 codes or
 values; A9's planes to the bit, against the first build's).  The other
-builds must export jxl_unsqueeze, jxl_resample, jxl_compose and
-jxl_draw_splines with this tree's arguments (a build without
-jxl_draw_splines is named and left out of A9's turns); another tree's
-jxl_resample is handed its float32 scratch (rows x W x C), this tree's
-gets null.  Each line carries the card's name and power limit.
+builds must export jxl_unsqueeze, jxl_resample, jxl_compose,
+jxl_draw_splines and jxl_encode_output with this tree's arguments (a
+build without jxl_draw_splines is named and left out of A9's turns);
+another tree's jxl_resample is handed its float32 scratch (rows x W x C),
+this tree's gets null.  Each line carries the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -57,7 +72,9 @@ from jxl_coder_tpu_torch.host.modular import transform as MT
 from jxl_coder_tpu_torch.modular import device as MDEV
 from jxl_coder_tpu_torch.ops import compose as COMPOSE
 from jxl_coder_tpu_torch.ops import resize as RESIZE
+from jxl_coder_tpu_torch import api
 from jxl_coder_tpu_torch.vardct import overlay as OV
+from jxl_coder_tpu_torch.vardct import post as POST
 
 # label: (source (h, w, C), target (w, h), scale mode, filter)
 S3_CASES = {
@@ -267,10 +284,157 @@ def time_a9(others, this, dev, card) -> None:
         OV._kernels = orig
 
 
+# seeded planes for A7's untimed check: (h, w, crop): ragged widths, and a
+# view cropped out of wider planes (row stride past W, an odd base)
+A7_SEEDED = ((1, 1, False), (3, 7, False), (17, 33, False), (70, 131, False),
+             (64, 128, False), (48, 96, True))
+
+
+def a7_calls(dev) -> list:
+    """The main path's encode_output calls on phase 12's streams: (label,
+    planes, spec, bits), recorded from api.decode(data, "cuda")."""
+    calls, current = [], [None]
+    with cs.a7_recorded(calls, current):
+        for label, (make, opts) in cs.POST_STREAMS.items():
+            if "modular" in opts:
+                continue
+            current[0] = label
+            img = make()
+            data = cs.cached(img, f"post {label} {sorted(opts.items())}",
+                             cs.POST_WRITER,
+                             lambda: cs.write_post(img, opts))
+            api.decode(data, device="cuda")
+    return calls
+
+
+def a7_turns(builds, cases, card) -> None:
+    """Each case ((label, fn(build) -> codes, fn() -> the twin's codes)) with
+    every build, in turns: equal to the first build's, the largest
+    difference from the twin, the time by CUDA graph."""
+    order = builds + builds[-1:] + builds[:-1][::-1]
+    orig = POST._kernels
+    try:
+        for label, call, twin in cases:
+            ref = twin() if twin is not None else None
+            want = None
+            for tag, fn in order:
+                POST._kernels = lambda fn=fn: orig()[:2] + (fn,)
+                got = call()
+                torch.cuda.synchronize()
+                want = got if want is None else want
+                if not torch.equal(got, want):
+                    d = (got.int() - want.int()).abs().max().item()
+                    raise AssertionError(f"{tag}: A7 {label} differs from "
+                                         f"the first build's by {d}")
+                dt = ("" if ref is None else
+                      f", twin max {(got.int() - ref.int()).abs().max().item()}")
+                ms = cs.graph_ms(call)
+                print(f"A7 {label}, {tag} tree's post.cu: graph {ms:.4f} ms, "
+                      f"0 codes differ from the first build's{dt} [{card}]",
+                      flush=True)
+    finally:
+        POST._kernels = orig
+
+
+def a7_seeded_equal(builds, dev, card) -> None:
+    """Each build's codes on seeded planes (every spec at 8 and 16 bits,
+    YCbCr, the quarter pool) equal to the first build's."""
+    orig = POST._kernels
+    rng = np.random.default_rng(23)
+    specs = [cs.post_spec(k) for k in cs.POST_SPECS] + [("ycbcr",)]
+    try:
+        for h, w, crop in A7_SEEDED:
+            big = cs.seeded_xyb(h + 3, w + 5, rng, 1.6).to(dev)
+            x = big[:, 1:h + 1, 1:w + 1] if crop else big[:, :h, :w] \
+                .contiguous()
+            n = 0
+            for spec in specs:
+                for bits in (8, 16):
+                    for down in (1, 4):
+                        want = None
+                        for tag, fn in builds:
+                            POST._kernels = lambda fn=fn: orig()[:2] + (fn,)
+                            got = (POST.encode_output(x, spec, bits)
+                                   if down == 1 else
+                                   POST.encode_output_down(x, spec, bits, 4))
+                            want = got if want is None else want
+                            if not torch.equal(got, want):
+                                raise AssertionError(
+                                    f"{tag}: A7 seeded {w}x{h} {spec[:2]} "
+                                    f"{bits}-bit down {down} differs")
+                        n += 1
+            print(f"A7 seeded {w}x{h}{' (a cropped view)' if crop else ''}: "
+                  f"{n} spec / depth / pool cases, {len(builds)} builds, 0 "
+                  f"codes differ from the first build's [{card}]", flush=True)
+    finally:
+        POST._kernels = orig
+
+
+def sass_of(so: Path, out: Path) -> None:
+    """cuobjdump -sass of a library into `out`."""
+    text = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"),
+                           "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    out.write_text(text)
+
+
+def time_a7(others, this, dev, card) -> None:
+    builds = others + [("this", this)]
+    a7_seeded_equal(builds, dev, card)
+    calls = a7_calls(dev)
+    cases = []
+    for label, xyb, spec, bits in calls:
+        cases.append((f"main path {label} {tuple(xyb.shape)} {spec[:2]} "
+                      f"{bits}-bit",
+                      lambda x=xyb, s=spec, b=bits: POST.encode_output(x, s, b),
+                      lambda x=xyb, s=spec, b=bits:
+                      POST.encode_output_plain(x, s, b)))
+    pq = next(c for c in calls if c[0] == "4k_rgba16_noise_pq")[1]
+    for key in cs.POST_SPECS:
+        spec = cs.post_spec(key)
+        for bits in (8, 16):
+            cases.append((f"4k PQ planes {key} {bits}-bit",
+                          lambda s=spec, b=bits: POST.encode_output(pq, s, b),
+                          lambda s=spec, b=bits:
+                          POST.encode_output_plain(pq, s, b)))
+    cases.append(("4k PQ planes ycbcr 8-bit (A7y)",
+                  lambda: POST.encode_output(pq, ("ycbcr",), 8),
+                  lambda: POST.encode_output_plain(pq, ("ycbcr",), 8)))
+    # large sRGB frames, seeded (an upsampled frame's output at 5136x3856
+    # and 10272x7712; the main path's 4x and 8x streams are 1284x964)
+    rng = np.random.default_rng(29)
+    for h, w in ((3856, 5136), (7712, 10272)):
+        big = cs.seeded_xyb(h, w, rng).to(dev)
+        cases.append((f"seeded {w}x{h} srgb 8-bit",
+                      lambda x=big: POST.encode_output(x, ("srgb",), 8),
+                      lambda x=big: POST.encode_output_plain(x, ("srgb",),
+                                                             8)))
+    # seeded frames between the 720x480 and 1284x964 ones, where
+    # pixels_a_thread changes side (one pixel a thread below 1.08 MP on
+    # 132 SMs)
+    for h, w in ((540, 960), (720, 1280)):
+        mid = cs.seeded_xyb(h, w, rng).to(dev)
+        for key, bits in (("srgb", 8), ("bt709", 8), ("pq_2100", 16)):
+            spec = cs.post_spec(key)
+            cases.append((f"seeded {w}x{h} {key} {bits}-bit",
+                          lambda x=mid, s=spec, b=bits:
+                          POST.encode_output(x, s, b),
+                          lambda x=mid, s=spec, b=bits:
+                          POST.encode_output_plain(x, s, b)))
+    up2 = next(c for c in calls if c[0] == "4k_from_fhd_up2")[1]
+    cases.append(("S1 4k quarter srgb 8-bit",
+                  lambda: POST.encode_output_down(up2, ("srgb",), 8, 4),
+                  lambda: POST.encode_output_down_plain(up2, ("srgb",), 8,
+                                                        4)))
+    a7_turns(builds, cases, card)
+
+
 def main() -> int:
-    args = [a for a in sys.argv[1:] if not a.startswith("--only")]
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
     only = next((a.split("=", 1)[1] for a in sys.argv[1:]
                  if a.startswith("--only=")), None)
+    sass = next((Path(a.split("=", 1)[1]) for a in sys.argv[1:]
+                 if a.startswith("--sass=")), None)
     if not args:
         print(__doc__, file=sys.stderr)
         return 2
@@ -284,7 +448,8 @@ def main() -> int:
     this_s3 = RESIZE._kernel()
     this_a10 = COMPOSE._kernel()
     this_a9 = OV._kernels()[1]
-    a2, s3, a10, a9 = [], [], [], []
+    this_a7 = POST._kernels()[2]
+    a2, s3, a10, a9, a7 = [], [], [], [], []
     for n, arg in enumerate(args):
         src = Path(arg).resolve()
         if only in (None, "a2"):
@@ -303,6 +468,9 @@ def main() -> int:
             except AttributeError as e:
                 print(f"A9: cannot bind {arg}'s jxl_draw_splines: {e}",
                       flush=True)
+        if only in (None, "a7"):
+            a7.append((arg, build(src, "post", n, "jxl_encode_output",
+                                  this_a7.argtypes[:-1])))
     if only in (None, "a2"):
         time_a2(a2, this_a2, dev, card)
     if only in (None, "s3"):
@@ -320,6 +488,18 @@ def main() -> int:
                             f"liboverlay-other{n}.log", f"{arg} ",
                             only="splines_kernel")
         time_a9(a9, this_a9, dev, card)
+    if only in (None, "a7"):
+        cs.ptxas_report("post")
+        for n, arg in enumerate(args):
+            cs.ptxas_report("post", _build.BUILD_DIR /
+                            f"libpost-other{n}.log", f"{arg} ")
+        if sass is not None:
+            sass.mkdir(parents=True, exist_ok=True)
+            sass_of(_build.library_path("post"), sass / "post_this.sass")
+            for n in range(len(args)):
+                sass_of(_build.BUILD_DIR / f"libpost-other{n}.so",
+                        sass / f"post_other{n}.sass")
+        time_a7(a7, this_a7, dev, card)
     return 0
 
 

@@ -900,3 +900,165 @@ def test_kernel_e4_quantiser_tables_are_quantize(enc_host):
     qk = EK._quant_consts([float(np.float32(d)) for d in EK.D_WEIGHTS])
     assert enc_host.enc_quantize_tab(_ptr(r), len(r), _ptr(qk),
                                      float(np.float32(PR.AC_DEADZONE))) == 0
+
+
+# --------------------------------------------------------------------------
+# csrc/encode.cuh, the winners' gather walk, built with g++
+
+_GATHER_RUN = r"""
+#include <stdint.h>
+#include <string.h>
+#include <vector>
+// every 16-byte chunk the walk loads, in order
+static std::vector<uintptr_t> g_loads;
+#define JXL_GATHER_LOAD16(w, a)                   \
+  do {                                            \
+    g_loads.push_back((uintptr_t)(a));            \
+    memcpy((w), (const void*)(uintptr_t)(a), 16); \
+  } while (0)
+#include "encode.cuh"
+using namespace jxl_enc;
+
+// the kernel's grid (gather_plan, gather_blocks) run block by block,
+// thread by thread; loads: the chunks' addresses (up to cap), n_loads
+// their count
+extern "C" int gather_run(const long long* desc, int n, int16_t* out,
+                          uint64_t* loads, long long cap, long long* n_loads,
+                          long long* blocks) {
+  GatherPlan p;
+  if (gather_plan(desc, n, p) != 0) return -1;
+  g_loads.clear();
+  const uint32_t nb = gather_blocks(p);
+  for (uint32_t b = 0; b < nb; ++b)
+    for (int t = 0; t < kGatherThreads; ++t)
+      gather_vector(p, b * kGatherThreads + t, out);
+  *blocks = nb;
+  *n_loads = (long long)g_loads.size();
+  for (size_t i = 0; i < g_loads.size() && (long long)i < cap; ++i)
+    loads[i] = g_loads[i];
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def gather_host(tmp_path_factory):
+    """encode.cuh's gather walk built for the host with g++, its chunk
+    loads recorded."""
+    import ctypes
+    import shutil
+    import subprocess
+    from jxl_coder_tpu_torch import _build
+    gxx = shutil.which("g++")
+    assert gxx, "g++ builds the port's host codec; it is needed here too"
+    tmp = tmp_path_factory.mktemp("gather")
+    cpp, so = tmp / "run.cpp", tmp / "librun.so"
+    cpp.write_text(_GATHER_RUN)
+    subprocess.run([gxx, "-O2", "-std=c++17", "-Wall", "-Werror",
+                    "-shared", "-fPIC", "-I", str(_build.CSRC), "-o",
+                    str(so), str(cpp)], check=True)
+    fn = ctypes.CDLL(str(so)).gather_run
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, i, p, p, ll, p, p]
+    return fn
+
+
+def _gather_walk(fn, shapes, seed, below=3, past=3):
+    """Sources (ny, nx, tail, rows taken) at 2-byte offsets 0-7 elements
+    past a 16-byte boundary in one arena, row indices drawn from [-below,
+    rows + past), through the host build -> (output, the twin's output,
+    the sentinels past the end, the chunk addresses, each source's chunk
+    range, the blocks)."""
+    import ctypes
+    rng = np.random.default_rng(seed)
+    arena = np.zeros(64 + sum(ny * nx * 3 * t + 16
+                              for ny, nx, t, _ in shapes), np.int16)
+    off = (-arena.ctypes.data % 16) // 2
+    views, idxs, extents = [], [], []
+    for k, (ny, nx, t, m) in enumerate(shapes):
+        off += k % 8
+        n = ny * nx * 3 * t
+        v = arena[off:off + n]
+        v[:] = rng.integers(-32768, 32767, n)
+        a0 = v.ctypes.data
+        if n:
+            extents.append((a0 & ~15, (a0 + 2 * n - 1) & ~15))
+        off += n + 8
+        views.append(v.reshape(ny, nx, 3, t))
+        idxs.append(rng.integers(-below, ny * nx + past, m).astype(np.int32))
+    desc = np.zeros((len(shapes), 6), np.int64)
+    total = 0
+    for k, (v, ix) in enumerate(zip(views, idxs)):
+        desc[k] = (v.ctypes.data, ix.ctypes.data, len(ix), 3 * v.shape[3],
+                   v.shape[0] * v.shape[1], total)
+        total += len(ix) * 3 * v.shape[3]
+    buf = np.full(total + 64, 12345, np.int16)
+    out = buf[(-buf.ctypes.data % 16) // 2:][:total + 40]
+    cap = 1 << 20
+    loads = np.zeros(cap, np.uint64)
+    n_loads, blocks = ctypes.c_longlong(), ctypes.c_longlong()
+    assert fn(desc.ctypes.data, len(shapes), out.ctypes.data,
+              loads.ctypes.data, cap, ctypes.byref(n_loads),
+              ctypes.byref(blocks)) == 0
+    assert n_loads.value <= cap
+    ref = EK.gather_rows_plain([torch.from_numpy(v.copy()) for v in views],
+                               [torch.from_numpy(ix) for ix in idxs]).numpy()
+    return (out[:total], ref, out[total:], loads[:n_loads.value], extents,
+            blocks.value)
+
+
+# (sources as (ny, nx, tail, rows taken)): a source no row is taken from, a
+# one-row source, row lengths 189 (DCT8 and the specials) and 3024 (32x32),
+# rows shorter than a 16-byte vector (3 to 15 elements), and 1-16 sources
+GATHER_CASES = [
+    [(5, 7, 63, 40)],
+    [(1, 1, 63, 1)],
+    [(4, 4, 1008, 9), (3, 3, 63, 0), (1, 1, 63, 3)],
+    [(3, 3, 63, 0), (2, 2, 63, 5), (2, 2, 63, 0)],
+    [(2, 3, 1, 17), (1, 2, 2, 11), (3, 1, 4, 13), (1, 1, 5, 2)],
+] + [[(1 + (k * j) % 4, 1 + (k + j) % 5, (1, 2, 5, 63, 252, 1008)[
+    (k + 2 * j) % 6], (3 * k + 7 * j) % 31) for j in range(k)]
+    for k in range(1, 17)]
+
+
+@pytest.mark.parametrize("case", range(len(GATHER_CASES)))
+def test_gather_walk_equals_the_twin(gather_host, case):
+    """The gather's flat walk (encode.cuh gather_plan, gather_blocks,
+    gather_vector), built with g++, on sources at every 2-byte offset
+    from a 16-byte boundary, indices below 0 and past the end: its output
+    equals gather_rows_plain (0 differences), nothing is written past it,
+    the grid has no block without output, and every chunk it loads is
+    16-byte aligned and holds bytes of a source."""
+    out, ref, after, loads, extents, blocks = _gather_walk(
+        gather_host, GATHER_CASES[case], seed=case)
+    assert np.array_equal(out, ref)
+    assert (after == 12345).all()
+    assert blocks == -(-len(ref) // (256 * 8))
+    assert (loads % 16 == 0).all()
+    inside = np.zeros(len(loads), bool)
+    for lo, hi in extents:
+        inside |= (loads >= lo) & (loads <= hi)
+    assert inside.all()
+
+
+def test_gather_walk_reads_a_vector_inside_a_row_in_two_chunks(gather_host):
+    """A vector inside one row of 189 elements loads the one or two
+    chunks that hold it, no more: on 40 rows, fewer than 2.1 chunk loads
+    a vector."""
+    out, ref, _, loads, _, _ = _gather_walk(gather_host, [(8, 8, 63, 40)],
+                                            seed=3)
+    assert np.array_equal(out, ref)
+    assert len(loads) < 2.1 * (len(ref) / 8)
+
+
+def test_gather_plan_refuses_what_the_walk_cannot_take(gather_host):
+    """gather_plan returns -1 (the C entry: cudaErrorInvalidValue) for
+    rows taken from a source without rows; the wrapper raises first."""
+    import ctypes
+    desc = np.asarray([[16, 32, 4, 189, 0, 0]], np.int64)
+    z = ctypes.c_longlong()
+    assert gather_host(desc.ctypes.data, 1, None, None, 0, ctypes.byref(z),
+                       ctypes.byref(z)) == -1
+    with pytest.raises(ValueError, match="without rows"):
+        EK.gather_rows([torch.zeros((0, 3, 3, 63), dtype=torch.int16)],
+                       [torch.zeros(2, dtype=torch.int32)])

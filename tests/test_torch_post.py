@@ -331,3 +331,214 @@ def test_post_config_of_a_plain_frame_is_empty():
     cfg, _inputs, _hdr = api.prepare(data, "cpu")
     assert cfg.post.colour_empty and cfg.post.ec == ()
     assert dataclasses.replace(cfg.post) == cfg.post
+
+
+# ---- csrc/post.cuh, A7's and S1's walks, built with g++ ----
+
+_POST_RUN = r"""
+#include <stdint.h>
+#include "post.cuh"
+using namespace jxl_post;
+
+// the kernels' threads one after another: A7's groups of kPix pixels, or
+// S1's output pixels
+struct HostRun {
+  const float* in;
+  long long plane, row;
+  void* out;
+  int H, W, down, pix;
+  bool vin, vout;
+  const OutParams& p;
+
+  template <int PIX, class OutT, int KIND, int TRC, bool GM>
+  void encode(OutT* o) {
+    for (int y = 0; y < H; ++y)
+      for (int g = 0; g * PIX < W; ++g)
+        encode_group<PIX, OutT, KIND, TRC, GM>(in, plane, row, o, W, y, g,
+                                               vin, vout, p, p.srgb.mul);
+  }
+
+  template <class OutT, int KIND, int TRC, bool GM>
+  int run() {
+    OutT* o = static_cast<OutT*>(out);
+    if (down == 1) {
+      if (pix == kPix)
+        encode<kPix, OutT, KIND, TRC, GM>(o);
+      else
+        encode<1, OutT, KIND, TRC, GM>(o);
+    } else {
+      for (int y = 0; y < (H + down - 1) / down; ++y)
+        for (int x = 0; x < (W + down - 1) / down; ++x)
+          encode_pooled<OutT, KIND, TRC, GM>(in, plane, row, o, H, W, down,
+                                             x, y, p, p.srgb.mul);
+    }
+    return 0;
+  }
+};
+
+// jxl_encode_output's plan and dispatch on the host, pix pixels a thread
+// (kPix or 1); scalar: no vector loads or stores.  Returns the paths
+// taken (1: 16-byte loads, 2: word stores), or -1.
+extern "C" int post_run(const float* in, long long plane, long long row,
+                        void* out, int H, int W, int down, int kind, int trc,
+                        int bits, const float* prm, const float* srgb,
+                        const uint32_t* mul, int scalar, int pix) {
+  OutParams p;
+  const bool gm = out_params(bits, prm, srgb, mul, p);
+  const bool vin = !scalar && vector_loads(in, plane, row);
+  const bool vout = !scalar && vector_stores(out, W);
+  HostRun r{in, plane, row, out, H, W, down, pix, vin, vout, p};
+  if (dispatch(kind, trc, gm, bits, r) != 0) return -1;
+  return (int)vin | (int)vout << 1;
+}
+
+extern "C" int post_pixels(int H, int W, int sms) {
+  return pixels_a_thread(H, W, sms);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def post_host(tmp_path_factory):
+    """csrc/post.cuh built for the host with g++ (no FMA contraction, as
+    the kernels' -fmad=false; glibc's powf / logf / sqrtf)."""
+    import ctypes
+    import shutil
+    import subprocess
+    from jxl_coder_tpu_torch import _build
+    gxx = shutil.which("g++")
+    assert gxx, "g++ builds the port's host codec; it is needed here too"
+    tmp = tmp_path_factory.mktemp("post")
+    cpp, so = tmp / "run.cpp", tmp / "librun.so"
+    cpp.write_text(_POST_RUN)
+    subprocess.run([gxx, "-O2", "-std=c++17", "-Wall", "-Werror",
+                    "-ffp-contract=off", "-shared", "-fPIC", "-I",
+                    str(_build.CSRC), "-o", str(so), str(cpp)], check=True)
+    lib = ctypes.CDLL(str(so))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.post_run.argtypes = [p, ll, ll, p, i, i, i, i, i, i, p, p, p, i, i]
+    lib.post_pixels.argtypes = [i, i, i]
+    return lib
+
+
+def _aligned(shape, dtype, extra=0):
+    """An array of `shape` starting on a 16-byte boundary (and `extra`
+    elements in)."""
+    n = int(np.prod(shape))
+    size = np.dtype(dtype).itemsize
+    buf = np.zeros(n + extra + 16, dtype)
+    k = (-buf.ctypes.data % 16) // size
+    return buf[k + extra:k + extra + n].reshape(shape)
+
+
+def _host_codes(lib, x, spec, bits, down=1, scalar=False, pix=4):
+    """post.cuh's walk on the (3, H, W) float32 view x, pix pixels a thread
+    -> (codes, paths)."""
+    from jxl_coder_tpu_torch.vardct import color
+    _, h, w = x.shape
+    out = _aligned((-(-h // down), -(-w // down), 3),
+                   np.uint8 if bits <= 8 else np.uint16)
+    prm = post._output_params(spec)
+    trc = spec[1] if spec[0] == "enc" else 0
+    paths = lib.post_run(x.ctypes.data, x.strides[0] // 4, x.strides[1] // 4,
+                         out.ctypes.data, h, w, down, post.KIND[spec[0]],
+                         trc, bits, prm.ctypes.data,
+                         color._CONSTS.ctypes.data, color._MUL.ctypes.data,
+                         int(scalar), pix)
+    assert paths >= 0
+    return out, paths
+
+
+def _host_cases():
+    """Seeded planes: widths 1-9 (ragged groups of 4), 70x131 and 64x128,
+    each contiguous on a 16-byte boundary, and a view cropped out of wider
+    planes one row and one column in (row stride past W, base off the
+    boundary)."""
+    for h, w in [(3, k) for k in range(1, 10)] + [(70, 131), (64, 128)]:
+        for crop in (False, True):
+            big = _xyb(h + 2, w + 5, h * 131 + w, hdr=True)
+            if crop:
+                x = _aligned(big.shape, np.float32)
+                x[...] = big
+                yield f"{w}x{h} cropped", x[:, 1:h + 1, 1:w + 1]
+            else:
+                x = _aligned((3, h, w), np.float32)
+                x[...] = big[:, :h, :w]
+                yield f"{w}x{h}", x
+
+
+# the specs whose codes involve no pow, log or sqrt
+_EXACT = ("srgb", "ycbcr", "linear")
+_HOST_SPECS = dict(SPECS, ycbcr=("ycbcr",))
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("key", list(_HOST_SPECS))
+def test_kernel_walk_equals_the_twin_on_glibc_pow(post_host, key, bits,
+                                                  monkeypatch):
+    """A7's walk (post.cuh encode_group, 4 pixels a thread and 1) and
+    S1's (encode_pooled, down 4), built with g++, through the launch's own
+    plan and dispatch, on both the vector path (16-byte loads, word
+    stores) and the scalar path, against encode_output_plain /
+    encode_output_down_plain with the twin's pow made glibc's powf
+    (ops/fp.py powf, the host build's): 0 codes differ, for every spec at
+    8 and 16 bits."""
+    from jxl_coder_tpu_torch.ops import fp
+    spec = _HOST_SPECS[key] if key == "ycbcr" else _spec(key)
+    monkeypatch.setattr(post, "_pow",
+                        lambda v, e: fp.powf(v, float(np.float32(e))))
+    seen = set()
+    for what, x in _host_cases():
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        ref = post.encode_output_plain(t, spec, bits).numpy()
+        for scalar in (False, True):
+            got, paths = _host_codes(post_host, x, spec, bits, scalar=scalar)
+            seen.add(paths)
+            assert np.array_equal(got, ref), (what, scalar)
+        got, _ = _host_codes(post_host, x, spec, bits, pix=1)
+        assert np.array_equal(got, ref), (what, "a pixel a thread")
+        got, _ = _host_codes(post_host, x, spec, bits, down=4)
+        assert np.array_equal(
+            got, post.encode_output_down_plain(t, spec, bits, 4).numpy()), what
+    # contiguous planes of a width that is a multiple of 4 take both vector
+    # paths, a cropped view of one word stores alone (it loads one value at
+    # a time), the other widths neither
+    assert seen == {0, 2, 3}
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("key", list(_HOST_SPECS))
+def test_kernel_walk_against_the_twin(post_host, key, bits):
+    """The same walk against the twin as it is (torch's CPU pow, log and
+    sqrt): the specs without them (sRGB, YCbCr, linear) equal; the others
+    within 1 code on at most 0.1% of codes, PQ at 16 bits on at most 0.2%
+    (0.18% and 0.14% of these codes differ by 1 with sRGB and BT.2100
+    primaries; every other spec 0.004% or less).  That bound is glibc's
+    powf against torch's pow: the previous test shows the walk equal to
+    the twin once the twin takes glibc's powf."""
+    spec = _HOST_SPECS[key] if key == "ycbcr" else _spec(key)
+    diffs, n = [], 0
+    for what, x in _host_cases():
+        got, _ = _host_codes(post_host, x, spec, bits)
+        ref = post.encode_output_plain(
+            torch.from_numpy(np.ascontiguousarray(x)), spec, bits).numpy()
+        d = np.abs(got.astype(np.int64) - ref.astype(np.int64))
+        diffs.append(d.reshape(-1))
+    d = np.concatenate(diffs)
+    if key in _EXACT:
+        assert d.max() == 0
+    else:
+        share = 0.002 if key.startswith("pq") and bits == 16 else 0.001
+        assert d.max() <= 1 and (d > 0).mean() <= share, (
+            d.max(), (d > 0).mean())
+
+
+def test_a_small_frame_takes_a_pixel_a_thread(post_host):
+    """pixels_a_thread: 4 pixels a thread where the frame fills the card's
+    resident threads at 4 a thread (on 132 SMs: 4K, FHD, the 1284x964
+    frames of the upsampled post streams), else 1 (their 720x480 frames)."""
+    for h, w in ((2160, 3840), (1080, 1920), (964, 1284)):
+        assert post_host.post_pixels(h, w, 132) == 4
+    for h, w in ((480, 720), (1, 1)):
+        assert post_host.post_pixels(h, w, 132) == 1
+    assert post_host.post_pixels(964, 1284, 160) == 1
